@@ -1,0 +1,62 @@
+"""Objective function interface.
+
+Counterpart of ``lightgbm_tpu/objective/base.py`` (the reference
+``ObjectiveFunction``, include/LightGBM/objective_function.h): gradients and
+hessians from scores, boost-from-score, raw-score -> output conversion.
+Gradients are computed on the objective's device with torch.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+from ..io.metadata import Metadata
+
+
+class ObjectiveFunction:
+    name: str = "custom"
+    num_model_per_iteration: int = 1
+
+    def __init__(self, config, device: DeviceLike = None) -> None:
+        self.config = config
+        self.device = resolve_device(device)
+        self.num_data = 0
+        self.label: Optional[torch.Tensor] = None
+        self.weights: Optional[torch.Tensor] = None
+        self.label_np: Optional[np.ndarray] = None
+        self.weights_np: Optional[np.ndarray] = None
+
+    def init(self, metadata: Metadata, num_data: int) -> None:
+        self.num_data = num_data
+        self.label_np = np.asarray(metadata.label, dtype=np.float32)
+        self.label = torch.as_tensor(self.label_np, device=self.device)
+        if metadata.weights is not None:
+            self.weights_np = np.asarray(metadata.weights, dtype=np.float32)
+            self.weights = torch.as_tensor(self.weights_np, device=self.device)
+        else:
+            self.weights_np = None
+            self.weights = None
+        self.metadata = metadata
+
+    def get_gradients(self, score: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """score: [N] raw scores -> (grad, hess) [N] f32."""
+        raise NotImplementedError
+
+    def boost_from_score(self, class_id: int = 0) -> float:
+        return 0.0
+
+    def convert_output(self, scores: np.ndarray) -> np.ndarray:
+        """Raw score -> prediction output (identity by default)."""
+        return scores
+
+    def _apply_weights(self, grad, hess):
+        if self.weights is not None:
+            return grad * self.weights, hess * self.weights
+        return grad, hess
+
+    def to_string(self) -> str:
+        return self.name

@@ -1,0 +1,134 @@
+"""The port stands alone and keeps its device rule.
+
+Each check runs in a fresh interpreter, so that what the test process itself
+imported (JAX, the JAX package) cannot hide an import of the port:
+
+- importing every module of ``lightgbm_tpu_torch`` leaves neither ``jax`` nor
+  ``lightgbm_tpu`` in ``sys.modules``, and ``chip_smoke.py`` imports neither;
+- with CUDA unavailable, an entry point called without ``device=`` raises
+  instead of running on the CPU, and ``device="cpu"`` is honoured;
+- ``chip_smoke.py`` exits nonzero and prints no result without CUDA.
+"""
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# run first in every child: CUDA is unavailable there, whatever the machine
+NO_CUDA = "import torch; torch.cuda.is_available = lambda: False\n"
+
+
+def run_python(code, cwd=REPO, args=()):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.run([sys.executable, "-c", textwrap.dedent(code)]
+                          + list(args), cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=120)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    out = run_python("""
+        import importlib, pkgutil, sys
+        import lightgbm_tpu_torch as pkg
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                       pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "lightgbm_tpu" or m.startswith("lightgbm_tpu."))
+        print(len(names), bad)
+    """)
+    assert out.returncode == 0, out.stderr
+    count, bad = out.stdout.split(" ", 1)
+    assert int(count) >= 20
+    assert bad.strip() == "[]"
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    with open(os.path.join(REPO, "chip_smoke.py")) as fh:
+        tree = ast.parse(fh.read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert "lightgbm_tpu_torch" in roots
+    assert not roots & {"jax", "jaxlib", "lightgbm_tpu"}
+
+
+ENTRY_POINTS = {
+    "resolve_device": """
+        from lightgbm_tpu_torch.device import resolve_device
+        resolve_device()
+    """,
+    "objective": """
+        from lightgbm_tpu_torch import Config, create_objective
+        create_objective("binary", Config(objective="binary"))
+    """,
+    "gbdt": """
+        import numpy as np
+        from lightgbm_tpu_torch import BinnedDataset, Config, GBDT
+        X = np.random.RandomState(0).normal(size=(200, 3))
+        ds = BinnedDataset.from_matrix(X, label=(X[:, 0] > 0) * 1.0)
+        GBDT(Config(objective="binary"), ds)
+    """,
+    "learner": """
+        import numpy as np
+        from lightgbm_tpu_torch import BinnedDataset, Config
+        from lightgbm_tpu_torch.core.tree_learner import SerialTreeLearner
+        X = np.random.RandomState(0).normal(size=(200, 3))
+        ds = BinnedDataset.from_matrix(X, label=(X[:, 0] > 0) * 1.0)
+        SerialTreeLearner(ds, Config(objective="binary"))
+    """,
+    "load_model": """
+        from lightgbm_tpu_torch.convert import gbdt_from_model_string
+        gbdt_from_model_string("tree\\nversion=v3\\n")
+    """,
+}
+
+
+@pytest.mark.parametrize("entry", list(ENTRY_POINTS))
+def test_entry_point_without_device_raises_without_cuda(entry):
+    out = run_python(NO_CUDA + textwrap.dedent(ENTRY_POINTS[entry]))
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr, out.stderr
+
+
+def test_entry_point_runs_on_cpu_when_asked():
+    out = run_python(NO_CUDA + textwrap.dedent("""
+        import numpy as np
+        from lightgbm_tpu_torch import BinnedDataset, Config, GBDT
+        from lightgbm_tpu_torch import create_objective
+        X = np.random.RandomState(0).normal(size=(300, 3))
+        ds = BinnedDataset.from_matrix(X, label=(X[:, 0] > 0) * 1.0)
+        cfg = Config(objective="binary", num_leaves=4, verbosity=-1)
+        b = GBDT(cfg, ds, create_objective("binary", cfg, device="cpu"),
+                 device="cpu")
+        b.train_one_iter()
+        print(b.train_score.device, len(b.models))
+    """))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines()[-1].split() == ["cpu", "1"]
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_cuda(where, tmp_path):
+    script = os.path.join(REPO, "chip_smoke.py")
+    if where == "alone":
+        with open(script) as fh:
+            (tmp_path / "chip_smoke.py").write_text(fh.read())
+        script, cwd = str(tmp_path / "chip_smoke.py"), str(tmp_path)
+    else:
+        cwd = REPO
+    out = run_python(NO_CUDA + "import runpy, sys\n"
+                     "sys.argv = [%r]\n" % script
+                     + "runpy.run_path(%r, run_name='__main__')\n" % script,
+                     cwd=cwd)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
