@@ -133,7 +133,8 @@ class GBDT:
         new_tree = Tree(1)
         trained = False
         if self.class_need_train and self.train_data.num_features > 0:
-            arrays = self.learner.train(grad, hess, self.num_data)
+            arrays = self.learner.train(grad, hess, self.num_data,
+                                        iteration=self.iter_)
             if arrays.num_leaves > 1:
                 trained = True
                 # leaf values scaled by the learning rate in f32, as the

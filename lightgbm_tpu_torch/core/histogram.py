@@ -14,6 +14,12 @@ Two versions of the one function live here:
 - :func:`histogram_rows_cuda`, the wrapper of the hand-written kernel in
   ``csrc/histogram.cu`` (see ``csrc/hist_common.cuh`` for its design).
 
+With ``quantized=True`` (``hist_precision=quantized``) the g/h bytes of the
+row store hold integer-valued f32 (``core/quant.py``) and the result is their
+exact integer sums, rounded to f32 once: the plain version sums in int64
+(:func:`histogram_plain_int`), a CUDA tensor goes through the integer kernel
+``csrc/histogram_int.cu`` (design in ``csrc/hist_int.cuh``).
+
 :func:`histogram_rows` takes the plain version only for a tensor on the CPU;
 for a CUDA tensor it launches the kernel or raises.  The TPU's one-hot MXU
 contraction, bf16 hi/lo split and factored accumulator layout are TPU-only and
@@ -68,36 +74,65 @@ def rows_split(rows: torch.Tensor, num_features: int, voff: int, bpc: int = 1,
     return bins.long(), values
 
 
-def histogram_plain(bins: torch.Tensor, values: torch.Tensor,
-                    num_bins: int) -> torch.Tensor:
-    """[F, 2, B] sums of ``values`` [2, N] by ``bins`` [N, F] (one index_add_
-    over flattened (feature, bin) ids; out-of-range bins are dropped like a
-    segment sum drops them).  Summed in f64 and rounded to f32 once, as the
-    kernel does, so the two agree to the last bit or two."""
+def _index_add_hist(bins: torch.Tensor, vals: torch.Tensor, num_bins: int,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """[F, 2, B] sums of ``vals`` [N, 2] by ``bins`` [N, F] in ``dtype``,
+    rounded to f32 once (one index_add_ over flattened (feature, bin) ids;
+    out-of-range bins are dropped like a segment sum drops them)."""
     n, f = bins.shape
     ids = bins + torch.arange(f, device=bins.device)[None, :] * num_bins
     keep = (bins >= 0) & (bins < num_bins)
     ids = torch.where(keep, ids, f * num_bins)           # overflow slot
-    vals = values.t().double()[:, None, :].expand(n, f, 2).reshape(n * f, 2)
-    out = torch.zeros((f * num_bins + 1, 2), dtype=torch.float64,
-                      device=bins.device)
+    vals = vals.to(dtype)[:, None, :].expand(n, f, 2).reshape(n * f, 2)
+    out = torch.zeros((f * num_bins + 1, 2), dtype=dtype, device=bins.device)
     out.index_add_(0, ids.reshape(-1), vals)
     return out[:-1].reshape(f, num_bins, 2).permute(0, 2, 1).float() \
         .contiguous()
 
 
+def histogram_plain(bins: torch.Tensor, values: torch.Tensor,
+                    num_bins: int) -> torch.Tensor:
+    """[F, 2, B] sums of ``values`` [2, N] by ``bins`` [N, F], summed in f64
+    and rounded to f32 once, as the kernel does, so the two agree to the last
+    bit or two."""
+    return _index_add_hist(bins, values.t(), num_bins, torch.float64)
+
+
+def histogram_plain_int(bins: torch.Tensor, values: torch.Tensor,
+                        num_bins: int) -> torch.Tensor:
+    """[F, 2, B] exact sums of integer-valued ``values`` [2, N] by ``bins``
+    [N, F]: summed in int64, converted to f32 once."""
+    return _index_add_hist(bins, values.t().round(), num_bins, torch.int64)
+
+
 def histogram_rows_plain(rows: torch.Tensor, num_bins: int, start: int,
                          count: int, *, num_features: int, voff: int,
                          bpc: int = 1, packed: bool = False,
-                         f_begin: int = 0) -> torch.Tensor:
+                         f_begin: int = 0,
+                         quantized: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the row-store histogram."""
     window = rows[start:start + count]
     bins, values = rows_split(window, num_features, voff, bpc, packed, f_begin)
+    if quantized:
+        return histogram_plain_int(bins, values, num_bins)
     return histogram_plain(bins, values, num_bins)
 
 
 def _segments(count: int) -> int:
     return max(1, min(_MAX_SEGMENTS, -(-count // _SEG_ROWS)))
+
+
+# int32 block partials of the integer kernel: a segment's |sum| <= rows * 255
+_INT_SEGMENT_ROWS = (2 ** 31 - 1) // 255
+
+
+def check_int_segments(count: int, nseg: int) -> None:
+    """Refuse a window whose segments could overflow the integer kernel's
+    int32 block partials."""
+    if -(-count // nseg) > _INT_SEGMENT_ROWS:
+        raise ValueError("%d rows in %d segments overflow the int32 partials "
+                         "(at most %d rows per segment)"
+                         % (count, nseg, _INT_SEGMENT_ROWS))
 
 
 def check_hist_shape(num_features: int, num_bins: int) -> None:
@@ -112,8 +147,10 @@ def check_hist_shape(num_features: int, num_bins: int) -> None:
 def histogram_rows_cuda(rows: torch.Tensor, num_bins: int, start: int,
                         count: int, *, num_features: int, voff: int,
                         bpc: int = 1, packed: bool = False,
-                        f_begin: int = 0) -> torch.Tensor:
-    """Launch the hand-written histogram kernel (``csrc/histogram.cu``)."""
+                        f_begin: int = 0,
+                        quantized: bool = False) -> torch.Tensor:
+    """Launch the hand-written histogram kernel (``csrc/histogram.cu``), or
+    the integer one (``csrc/histogram_int.cu``) when ``quantized``."""
     from .. import kernels
     check_tensor(rows, "rows", torch.uint8, ndim=2)
     n, W = rows.shape
@@ -131,21 +168,27 @@ def histogram_rows_cuda(rows: torch.Tensor, num_bins: int, start: int,
     out = torch.empty((num_features, 2, num_bins), dtype=torch.float32,
                       device=rows.device)
     nseg = _segments(count)
+    if quantized:
+        check_int_segments(count, nseg)
+        name, fn = "histogram_int", "lgbt_hist_rows_int"
+    else:
+        name, fn = "histogram", "lgbt_hist_rows"
     partial = torch.empty((nseg, num_features, 2, num_bins),
-                          dtype=torch.float64, device=rows.device)
-    lib = kernels.library("histogram")
-    err = lib.lgbt_hist_rows(rows.data_ptr(), W, voff, bpc, int(packed),
-                             num_features, num_bins, f_begin, start, count,
-                             nseg, partial.data_ptr(), out.data_ptr(),
-                             cuda_stream_ptr(rows))
-    count_launch("histogram")
-    kernels.check(err, "histogram kernel")
+                          dtype=torch.int32 if quantized else torch.float64,
+                          device=rows.device)
+    launch = getattr(kernels.library(name), fn)
+    err = launch(rows.data_ptr(), W, voff, bpc, int(packed), num_features,
+                 num_bins, f_begin, start, count, nseg, partial.data_ptr(),
+                 out.data_ptr(), cuda_stream_ptr(rows))
+    count_launch(name)
+    kernels.check(err, "%s kernel" % name)
     return out
 
 
 def histogram_rows(rows: torch.Tensor, num_bins: int, start: int, count: int,
                    *, num_features: int, voff: int, bpc: int = 1,
-                   packed: bool = False, f_begin: int = 0) -> torch.Tensor:
+                   packed: bool = False, f_begin: int = 0,
+                   quantized: bool = False) -> torch.Tensor:
     """Histogram of rows ``[start, start + count)`` -> [F, 2, B] f32.
 
     A CUDA tensor goes through the kernel (or raises); a CPU tensor through
@@ -153,4 +196,4 @@ def histogram_rows(rows: torch.Tensor, num_bins: int, start: int, count: int,
     fn = histogram_rows_cuda if rows.is_cuda else histogram_rows_plain
     return fn(rows, num_bins, int(start), int(count),
               num_features=num_features, voff=voff, bpc=bpc, packed=packed,
-              f_begin=f_begin)
+              f_begin=f_begin, quantized=quantized)

@@ -28,18 +28,38 @@ Two versions of the one function:
   never written.
 
 :func:`partition_hist` takes the plain version only for a CPU tensor; for a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches the kernel or raises.  With ``quantized=True``
+(``hist_precision=quantized``) the child histogram is the exact integer sum of
+the integer-valued g/h (``histogram.histogram_plain_int``, or the integer
+kernel ``csrc/hist_int.cuh`` on the card).
+
+The level-batched pass, the counterpart of ``partition_hist_level_pallas``
+(partition.py:1191-1218), runs the same function over every window of a tree
+level at once::
+
+    partition_hist_level(rows, scals[G, S], ...) -> (rows, hist [G, F, 2, B],
+                                                     nl [G])
+
+The windows must be pairwise disjoint; a slot with ``wc = 0`` is an identity
+with a zero histogram and ``nl = 0``; the result equals G sequential
+:func:`partition_hist` calls bit for bit.  Its plain version is those G plain
+calls; :func:`partition_hist_level_cuda` is the wrapper of
+``csrc/partition_level.cu``, one call per level whatever the window sizes.
+The TPU's per-level bucket classes (``level_plan``/``fused_bucket_plan``) and
+the per-class window masking (tree_learner.py:1176-1202) were a TPU cost
+model and have no counterpart here.
 """
 from __future__ import annotations
 
 from typing import Sequence, Union
 
+import numpy as np
 import torch
 
 from ..device import check_tensor, count_launch, cuda_stream_ptr
 from ..io.binning import MissingType
-from .histogram import (_segments, check_hist_shape, histogram_plain,
-                        rows_split)
+from .histogram import (_segments, check_hist_shape, check_int_segments,
+                        histogram_plain, histogram_plain_int, rows_split)
 
 SCAL_HEAD = 12
 _PART_TILE = 2048        # rows per block of the count/scatter kernels
@@ -101,7 +121,8 @@ def route_left(col: torch.Tensor, scal: torch.Tensor,
 
 def partition_hist_plain(rows: torch.Tensor, scal: ScalLike, *,
                          num_features: int, num_bins: int, voff: int,
-                         bpc: int = 1, packed: bool = False):
+                         bpc: int = 1, packed: bool = False,
+                         quantized: bool = False):
     """Plain PyTorch version (the ``partition_hist_xla`` contract)."""
     s = _scal_host(scal, num_bins)
     wb, wc, gcol, hist_left = int(s[0]), int(s[1]), int(s[2]), int(s[9])
@@ -121,27 +142,34 @@ def partition_hist_plain(rows: torch.Tensor, scal: ScalLike, *,
     rows_new[dest] = rows
     side = sel_l if hist_left == 1 else sel_r
     bins, values = rows_split(rows, num_features, voff, bpc, packed)
-    hist = histogram_plain(bins, values * side.to(torch.float32)[None],
-                           num_bins)
+    hist_fn = histogram_plain_int if quantized else histogram_plain
+    hist = hist_fn(bins, values * side.to(torch.float32)[None], num_bins)
     return rows_new, hist, torch.tensor([nl], dtype=torch.int32, device=dev)
+
+
+def _check_store(rows: torch.Tensor, voff: int, num_features: int,
+                 num_bins: int) -> None:
+    check_tensor(rows, "rows", torch.uint8, ndim=2)
+    W = rows.shape[1]
+    if W % 16 or voff % 4 or voff + 8 > W:
+        raise ValueError("row width %d must be a multiple of 16 with the "
+                         "values 4-aligned inside it (voff %d)" % (W, voff))
+    check_hist_shape(num_features, num_bins)
 
 
 def partition_hist_cuda(rows: torch.Tensor, scal: ScalLike, *,
                         num_features: int, num_bins: int, voff: int,
-                        bpc: int = 1, packed: bool = False):
+                        bpc: int = 1, packed: bool = False,
+                        quantized: bool = False):
     """Launch the hand-written fused split pass (``csrc/partition.cu``);
     partitions ``rows`` in place and returns it."""
     from .. import kernels
-    check_tensor(rows, "rows", torch.uint8, ndim=2)
+    _check_store(rows, voff, num_features, num_bins)
     s = _scal_host(scal, num_bins)
     n, W = rows.shape
     wb, wc = int(s[0]), int(s[1])
     if not 0 <= wb <= wb + wc <= n:
         raise ValueError("window [%d, %d) outside %d rows" % (wb, wb + wc, n))
-    if W % 16 or voff % 4 or voff + 8 > W:
-        raise ValueError("row width %d must be a multiple of 16 with the "
-                         "values 4-aligned inside it (voff %d)" % (W, voff))
-    check_hist_shape(num_features, num_bins)
     dev = rows.device
     hist = torch.empty((num_features, 2, num_bins), dtype=torch.float32,
                        device=dev)
@@ -157,13 +185,16 @@ def partition_hist_cuda(rows: torch.Tensor, scal: ScalLike, *,
     blk = torch.empty((nblk,), dtype=torch.int32, device=dev)
     win = torch.empty((2,), dtype=torch.int32, device=dev)
     nseg = _segments(wc)
+    if quantized:
+        check_int_segments(wc, nseg)
     partial = torch.empty((nseg, num_features, 2, num_bins),
-                          dtype=torch.float64, device=dev)
+                          dtype=torch.int32 if quantized else torch.float64,
+                          device=dev)
     lib = kernels.library("partition")
     err = lib.lgbt_partition_hist(
         rows.data_ptr(), scratch.data_ptr(), W, scal_dev.data_ptr(), wb, wc,
         bpc, int(packed), num_bins // 32, num_features, num_bins, voff, nblk,
-        blk.data_ptr(), win.data_ptr(), nl.data_ptr(), nseg,
+        blk.data_ptr(), win.data_ptr(), nl.data_ptr(), nseg, int(quantized),
         partial.data_ptr(), hist.data_ptr(), cuda_stream_ptr(rows))
     count_launch("partition")
     kernels.check(err, "partition kernel")
@@ -172,11 +203,146 @@ def partition_hist_cuda(rows: torch.Tensor, scal: ScalLike, *,
 
 def partition_hist(rows: torch.Tensor, scal: ScalLike, *, num_features: int,
                    num_bins: int, voff: int, bpc: int = 1,
-                   packed: bool = False):
+                   packed: bool = False, quantized: bool = False):
     """Fused split pass -> (rows_new, hist [F, 2, B] f32, nl [1] i32).
 
     A CUDA tensor goes through the kernel (in place) or raises; a CPU tensor
     through the plain version."""
     fn = partition_hist_cuda if rows.is_cuda else partition_hist_plain
     return fn(rows, scal, num_features=num_features, num_bins=num_bins,
-              voff=voff, bpc=bpc, packed=packed)
+              voff=voff, bpc=bpc, packed=packed, quantized=quantized)
+
+
+# ---- level-batched pass ----
+
+_MAX_GRID_Y = 65535     # grid rows of the histogram and reduce launches
+
+
+def _scals_host(scals, num_bins: int) -> np.ndarray:
+    """[G, S] scal rows as host int32, checked for width."""
+    if isinstance(scals, torch.Tensor):
+        scals = scals.cpu().numpy()
+    s = np.asarray(scals, dtype=np.int64).reshape(-1, SCAL_HEAD + num_bins
+                                                  // 32)
+    if s.size and (s.min() < -2 ** 31 or s.max() >= 2 ** 31):
+        raise ValueError("scal rows must fit int32")
+    return s.astype(np.int32)
+
+
+def check_windows(wb: np.ndarray, wc: np.ndarray, n: int) -> None:
+    """Refuse windows that leave ``[0, n)`` or overlap (``wc = 0`` slots are
+    ignored)."""
+    live = wc > 0
+    b = wb[live].astype(np.int64)
+    e = b + wc[live]
+    if (wc < 0).any() or (b < 0).any() or (e > n).any():
+        raise ValueError("a window lies outside the %d rows of the store" % n)
+    order = np.argsort(b, kind="stable")
+    if (e[order][:-1] > b[order][1:]).any():
+        raise ValueError("the windows of a level must be disjoint")
+
+
+def partition_hist_level_plain(rows: torch.Tensor, scals, *,
+                               num_features: int, num_bins: int, voff: int,
+                               bpc: int = 1, packed: bool = False,
+                               quantized: bool = False):
+    """Plain version: G sequential plain single-window calls."""
+    s = _scals_host(scals, num_bins)
+    check_windows(s[:, 0], s[:, 1], rows.shape[0])
+    hists, nls = [], []
+    for row in s:
+        rows, h, nl = partition_hist_plain(
+            rows, row.tolist(), num_features=num_features, num_bins=num_bins,
+            voff=voff, bpc=bpc, packed=packed, quantized=quantized)
+        hists.append(h)
+        nls.append(nl)
+    if not hists:
+        return (rows, torch.zeros((0, num_features, 2, num_bins),
+                                  device=rows.device),
+                torch.zeros((0,), dtype=torch.int32, device=rows.device))
+    return rows, torch.stack(hists), torch.cat(nls)
+
+
+def level_meta(s: np.ndarray):
+    """The host-built block and segment maps of ``csrc/partition_level.cu``
+    for scal rows ``s`` [G, S]: (meta int32, NB, NS, scratch rows, the
+    largest rows per histogram segment)."""
+    G = s.shape[0]
+    wc = s[:, 1].astype(np.int64)
+    nblk = -(-wc // _PART_TILE)
+    # each window keeps its single-window call's segmentation
+    nseg = np.asarray([_segments(int(c)) if c > 0 else 0 for c in wc],
+                      dtype=np.int64)
+    blk_off = np.cumsum(nblk) - nblk
+    soff = np.cumsum(wc) - wc
+    poff = np.cumsum(nseg) - nseg
+    NB, NS = int(nblk.sum()), int(nseg.sum())
+    gb = np.repeat(np.arange(G), nblk)
+    blkmap = np.stack([gb, np.arange(NB) - blk_off[gb]], 1)
+    gs = np.repeat(np.arange(G), nseg)
+    segmap = np.stack([gs, np.arange(NS) - poff[gs]], 1)
+    # the window rows of csrc/partition_level.cu (kWinMeta = 4 columns)
+    wmeta = np.stack([blk_off, nblk, soff, np.zeros(G, np.int64)], 1)
+    meta = np.concatenate([s.reshape(-1), wmeta.reshape(-1),
+                           np.stack([nseg, poff], 1).reshape(-1),
+                           blkmap.reshape(-1), segmap.reshape(-1)])
+    if int(wc.sum()) >= 2 ** 31:
+        raise ValueError("a level's windows hold 2**31 rows or more")
+    seg_rows = int(np.max(-(-wc // np.maximum(nseg, 1)))) if G else 0
+    return meta.astype(np.int32), NB, NS, int(wc.sum()), seg_rows
+
+
+def partition_hist_level_cuda(rows: torch.Tensor, scals, *,
+                              num_features: int, num_bins: int, voff: int,
+                              bpc: int = 1, packed: bool = False,
+                              quantized: bool = False):
+    """Launch the hand-written level pass (``csrc/partition_level.cu``) over
+    every window of ``scals``; partitions ``rows`` in place."""
+    from .. import kernels
+    _check_store(rows, voff, num_features, num_bins)
+    s = _scals_host(scals, num_bins)
+    G, S = s.shape
+    n, W = rows.shape
+    check_windows(s[:, 0], s[:, 1], n)
+    dev = rows.device
+    hist = torch.empty((G, num_features, 2, num_bins), dtype=torch.float32,
+                       device=dev)
+    if G == 0:
+        return rows, hist, torch.zeros((0,), dtype=torch.int32, device=dev)
+    meta, NB, NS, srows, seg_rows = level_meta(s)
+    if NS > _MAX_GRID_Y or G > _MAX_GRID_Y:
+        raise ValueError("%d windows in %d histogram segments exceed the "
+                         "grid's %d rows" % (G, NS, _MAX_GRID_Y))
+    if quantized:
+        check_int_segments(seg_rows, 1)
+    # the one host->device copy, from pinned memory so that it does not
+    # wait for the stream's earlier work
+    meta_dev = torch.from_numpy(meta).pin_memory().to(dev, non_blocking=True)
+    scratch = torch.empty((max(srows, 1), W), dtype=torch.uint8, device=dev)
+    work = torch.empty((NB + 3 * G,), dtype=torch.int32, device=dev)
+    partial = torch.empty((max(NS, 1), num_features, 2, num_bins),
+                          dtype=torch.int32 if quantized else torch.float64,
+                          device=dev)
+    lib = kernels.library("partition_level")
+    err = lib.lgbt_partition_level(
+        rows.data_ptr(), scratch.data_ptr(), W, meta_dev.data_ptr(), G, S,
+        NB, NS, bpc, int(packed), num_bins // 32, num_features, num_bins,
+        voff, int(quantized), work.data_ptr(), partial.data_ptr(),
+        hist.data_ptr(), cuda_stream_ptr(rows))
+    count_launch("partition_level")
+    kernels.check(err, "partition_level kernel")
+    return rows, hist, work[NB:NB + G]
+
+
+def partition_hist_level(rows: torch.Tensor, scals, *, num_features: int,
+                         num_bins: int, voff: int, bpc: int = 1,
+                         packed: bool = False, quantized: bool = False):
+    """Level-batched split pass -> (rows_new, hist [G, F, 2, B] f32,
+    nl [G] i32) over the disjoint windows of ``scals`` [G, S].
+
+    A CUDA tensor goes through the kernel (one call, in place) or raises; a
+    CPU tensor through the plain version."""
+    fn = (partition_hist_level_cuda if rows.is_cuda
+          else partition_hist_level_plain)
+    return fn(rows, scals, num_features=num_features, num_bins=num_bins,
+              voff=voff, bpc=bpc, packed=packed, quantized=quantized)

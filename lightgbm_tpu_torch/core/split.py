@@ -5,7 +5,8 @@ Counterpart of ``lightgbm_tpu/core/split.py`` (the reference
 every (feature, threshold, direction) candidate of a leaf is evaluated at once
 with prefix sums over the bin axis.  Ported: ``SplitParams``, ``FeatureInfo``,
 ``BestSplit``, ``FeatureBest``, ``calculate_leaf_output``, ``leaf_split_gain*``,
-``per_feature_best``, ``reduce_feature_best`` and ``best_split_numerical``.
+``per_feature_best``, ``reduce_feature_best``, ``best_split_numerical`` and
+``dequantize_hist``.
 Categorical scans, monotone constraints and extra-trees are not ported yet.
 
 Semantics kept from the reference (see its module docstring): two directions
@@ -33,6 +34,13 @@ from ..io.binning import MissingType
 
 K_EPSILON = 1e-15  # meta.h:51
 K_MIN_SCORE = -math.inf
+
+
+def dequantize_hist(hist: torch.Tensor, qscale: torch.Tensor) -> torch.Tensor:
+    """Integer-valued quantized histogram ``[..., 2, B]`` -> real sums: the
+    grad channel times ``qscale[0]``, the hess channel times ``qscale[1]``
+    (split.py:42-53)."""
+    return hist * qscale.reshape((1,) * (hist.ndim - 2) + (2, 1))
 
 
 class SplitParams(NamedTuple):

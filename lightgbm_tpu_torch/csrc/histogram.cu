@@ -15,20 +15,9 @@ extern "C" int lgbt_hist_rows(const void* rows, int W, int voff, int bpc,
                               int packed, int F, int B, int f_begin,
                               long long start, long long count, int nseg,
                               void* partial, void* out, void* stream) {
-  lgbt::HistArgs a;
-  a.rows = static_cast<const uint8_t*>(rows);
-  a.W = W;
-  a.voff = voff;
-  a.bpc = bpc;
-  a.packed = packed;
-  a.F = F;
-  a.B = B;
-  a.f_begin = f_begin;
-  a.start = start;
-  a.count = count;
-  a.win = nullptr;
-  a.nseg = nseg;
-  a.ft = 0;
+  lgbt::HistArgs a = lgbt::hist_args_one(
+      static_cast<const uint8_t*>(rows), W, voff, bpc, packed, F, B, f_begin,
+      start, count, nullptr, nseg);
   a.partial = static_cast<double*>(partial);
   return (int)lgbt::launch_hist(a, static_cast<float*>(out),
                                 static_cast<cudaStream_t>(stream));

@@ -19,7 +19,7 @@ import torch
 
 DeviceLike = Union[str, torch.device, None]
 
-KERNELS = ("histogram", "partition")
+KERNELS = ("histogram", "partition", "histogram_int", "partition_level")
 
 _LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 

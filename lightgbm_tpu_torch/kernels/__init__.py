@@ -20,7 +20,7 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("histogram", "partition")
+SOURCES = ("histogram", "partition", "histogram_int", "partition_level")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -33,8 +33,13 @@ SIGNATURES = {
     "histogram": {"lgbt_hist_rows": [_P, _I, _I, _I, _I, _I, _I, _I, _LL, _LL,
                                      _I, _P, _P, _P]},
     "partition": {"lgbt_partition_hist": [_P, _P, _I, _P, _LL, _LL, _I, _I, _I,
-                                          _I, _I, _I, _I, _P, _P, _P, _I, _P,
-                                          _P, _P]},
+                                          _I, _I, _I, _I, _P, _P, _P, _I, _I,
+                                          _P, _P, _P]},
+    "histogram_int": {"lgbt_hist_rows_int": [_P, _I, _I, _I, _I, _I, _I, _I,
+                                             _LL, _LL, _I, _P, _P, _P]},
+    "partition_level": {"lgbt_partition_level": [_P, _P, _I, _P, _I, _I, _I,
+                                                 _I, _I, _I, _I, _I, _I, _I,
+                                                 _I, _P, _P, _P, _P]},
 }
 
 
