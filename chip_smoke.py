@@ -3,7 +3,8 @@
 
 Run from the repository root on a machine with an NVIDIA H100::
 
-    python3 chip_smoke.py [--rows 1048576] [--iters 5] [--profile]
+    python3 chip_smoke.py [--rows 1048576] [--iters 5] [--widef-rows 400000]
+                          [--widef-test-rows 100000] [--profile]
 
 It builds the hand-written CUDA kernels from ``lightgbm_tpu_torch/csrc`` into
 ``build/kernels`` (``nvcc``, ``sm_90a``, one process per source, all started
@@ -11,28 +12,47 @@ together) and runs these phases, each of which raises on failure:
 
 1. environment: the card's name and power limit, torch/CUDA versions, the
    kernels' build time and ``ptxas`` resource lines;
-2. the histogram kernel against its plain PyTorch version on the card, at the
-   main path's shapes (W=128, F=28, B=256 and 64; full, mid and 100-row
-   windows) and at u16 (bpc=2), nibble-packed and feature-window shapes;
-   then the integer histogram kernel (quantized gradients) at the same
-   shapes and on a window of more than 8.4M rows of hess 255 in one bin,
-   whose sum needs the kernel's int64 reduction;
+2. the histogram kernels against their plain PyTorch versions on the card:
+   the row-store kernel at the Higgs shapes (W=128, F=28, B=256 and 64;
+   full, mid, 100-row and empty windows) and at u16 (bpc=2), nibble-packed
+   and feature-window shapes; the integer kernel (quantized gradients) at
+   the same shapes and on a window of more than 8.4M rows of hess 255 in one
+   bin, whose sum needs its int64 reduction; both again at the wide
+   Epsilon shape (TPU kernel #2: F=2000, W=2048, B=256 and 64, bpc 1 and 2,
+   nibble-packed at B=32, full, mid, 100-row and empty windows); and the
+   masked bins/values kernel (TPU kernel #5) at 1,048,576 rows, F=28,
+   B=64, 128 and 256, with u8, i16, i32 and nibble-packed bins, full and
+   mid windows;
 3. the fused split kernel against its plain version on the card, over window
    sizes (<= 992 rows, ~10k, >= 500k, empty) and routes (numerical, NaN missing
    with default left and right, zero missing, categorical bitset, EFB unfold);
-   then the level-batched split kernel against G single-window kernel calls
-   and against its plain version, exact and quantized, over frontiers: one
+   the level-batched split kernel against G single-window kernel calls and
+   against its plain version, exact and quantized, over frontiers: one
    whole-store window, a full level-7 frontier of 127 adjacent windows, a
-   mix of small, ~10k-row and empty windows, and the route matrix;
-4. the main paths: the Higgs-shaped binary GBDT of ``bench.py`` (seed 0, 28
-   features, max_bin=255, num_leaves=255, learning_rate=0.1) trained on the
-   card through ``BinnedDataset.from_matrix`` -> ``Config`` -> ``GBDT`` ->
-   ``train_one_iter`` -> ``predict``, three ways in one call: (A) leaf-wise,
-   exact; (B) ``tree_grow_mode=level``, exact; (C) ``tree_grow_mode=level``
-   with ``hist_precision=quantized``.  The kernels' launch counts are set to
-   0 just before each path and read just after it; each path's predictions
-   are held against the host trees' ``Tree.predict`` and its train scores,
-   and its tree 0 is rebuilt with the plain versions as a check;
+   mix of small, ~10k-row and empty windows, and the route matrix; both
+   split kernels again at F=2000 (the single-window one over five windows
+   and two routes, the level one over one window and a level-7 frontier),
+   exact and quantized; and the batched split scan of a level of 256
+   children x 2000 features x 256 bins in one call, with its peak memory;
+4. the main paths, with the kernels' launch counts set to 0 just before each
+   and read just after it: the Higgs-shaped binary GBDT of ``bench.py``
+   (seed 0, 28 features, max_bin=255, num_leaves=255, learning_rate=0.1)
+   trained through ``BinnedDataset.from_matrix`` -> ``Config`` -> ``GBDT`` ->
+   ``train_one_iter`` -> ``predict`` three ways: (A) leaf-wise, exact; (B)
+   ``tree_grow_mode=level``, exact; (C) ``tree_grow_mode=level`` with
+   ``hist_precision=quantized``; each path's predictions are held against
+   the host trees' ``Tree.predict`` and its train scores, and its tree 0 is
+   rebuilt with the plain versions as a check; (D) the Epsilon-shaped
+   binary GBDT (400,000 training and 100,000 held-out rows of 2000 dense
+   features made from a seed; the reference's published GPU settings:
+   max_bin=255, num_leaves=255, learning_rate=0.1, min_data_in_leaf=1,
+   min_sum_hessian_in_leaf=100, metric=auc, leaf-wise, exact) trained
+   through ``lightgbm_tpu_torch.train`` with the held-out set as a
+   validation set: 1 root histogram and 1 split pass per split, log loss
+   falling every iteration, the held-out AUC of every iteration, the
+   validation scores of training equal to ``Booster.predict``, tree 0 equal
+   to its plain rebuild; (E) ``build_histogram`` (kernel #5's caller) over
+   1,048,576 rows x 28 features;
 5. times of each kernel at the main paths' shapes beside its bound, its
    plain version and one PyTorch library call.
 
@@ -46,7 +66,7 @@ The line before the last is the card's name and power limit as ``nvidia-smi``
 reports them, the one before that a JSON object with every kernel's numbers,
 and the last line ``{"ok": true, "device": {...}}``.  Without CUDA the script
 exits with code 2 and prints no result.  ``--profile`` adds a
-``torch.profiler`` table of one training iteration.
+``torch.profiler`` table of one training iteration of each path.
 """
 from __future__ import annotations
 
@@ -67,6 +87,8 @@ HIST_RTOL = 1e-5              # of max|bin sum|: summation order only
 SPLIT_GAIN_TIE_RTOL = 1e-6    # top-two gains closer than this are a tie
 PREDICT_ATOL = 1e-9           # f64 sums of the same leaf values, any order
 TRAIN_SCORE_ATOL = 1e-5       # f32 running sum of 6 terms of magnitude < 4
+VALID_SCORE_ATOL = 1e-5       # the same for the validation scores
+WIDE_F = 2000                 # Epsilon's dense feature count
 
 
 def log(*args) -> None:
@@ -95,7 +117,8 @@ def make_store(n: int, F: int, B: int, *, bpc: int = 1, packed: bool = False,
     total = n + CHUNK
     rows = torch.zeros((total, lay.W), dtype=torch.uint8, device=device)
     hi = min(B, 16) if packed else B
-    bins = torch.randint(0, hi, (total, F), generator=g, device=device)
+    bins = torch.randint(0, hi, (total, F), generator=g, device=device,
+                         dtype=torch.int32)
     if packed:
         if F % 2:
             bins = torch.cat([bins, torch.zeros_like(bins[:, :1])], 1)
@@ -270,9 +293,10 @@ def scal_row(wb, wc, route, words, hist_left) -> list:
 
 
 def check_split(rows, scal, *, F, B, voff, bpc=1, packed=False,
-                what="") -> float:
+                quantized=False, what="") -> float:
     from lightgbm_tpu_torch.core import partition as P
-    kw = dict(num_features=F, num_bins=B, voff=voff, bpc=bpc, packed=packed)
+    kw = dict(num_features=F, num_bins=B, voff=voff, bpc=bpc, packed=packed,
+              quantized=quantized)
     wb, wc = scal[0], scal[1]
     r_plain, h_plain, nl_plain = P.partition_hist_plain(rows, scal, **kw)
     r1, h1, nl1 = P.partition_hist(rows.clone(), scal, **kw)
@@ -285,7 +309,13 @@ def check_split(rows, scal, *, F, B, voff, bpc=1, packed=False,
     if int(nl1[0]) != int(nl_plain[0]):
         raise AssertionError("%s: nl %d != plain %d"
                              % (what, int(nl1[0]), int(nl_plain[0])))
-    err = hist_err(h1, h_plain, what)
+    if quantized:
+        if not torch.equal(h1, h_plain):
+            raise AssertionError(what + ": integer histogram differs from "
+                                 "the plain version")
+        err = 0.0
+    else:
+        err = hist_err(h1, h_plain, what)
     if not (torch.equal(r1, r2) and torch.equal(h1, h2)
             and torch.equal(nl1, nl2)):
         raise AssertionError(what + ": two runs differ")
@@ -357,11 +387,52 @@ def level_frontiers(n: int, B: int, rng: np.random.RandomState) -> dict:
     return {k: np.asarray(v, dtype=np.int64) for k, v in out.items()}
 
 
+def check_level(rows, scals, what, **kw) -> float:
+    """The level-batched split kernel on ``scals`` against G single-window
+    kernel calls (bit for bit) and its plain version (bit for bit when
+    quantized, else within HIST_RTOL); two runs give the same bits."""
+    from lightgbm_tpu_torch.core import partition as P
+    device = rows.device
+    r1, h1, nl1 = P.partition_hist_level(rows.clone(), scals, **kw)
+    r2, h2, nl2 = P.partition_hist_level(rows.clone(), scals, **kw)
+    r_seq = rows.clone()
+    h_seq, nl_seq = [], []
+    for sc in scals:
+        r_seq, h, nl = P.partition_hist(r_seq, sc.tolist(), **kw)
+        h_seq.append(h.clone())
+        nl_seq.append(nl.clone())
+    r_p, h_p, nl_p = P.partition_hist_level_plain(rows, scals, **kw)
+    if not (torch.equal(r1, r_seq) and torch.equal(r1, r_p)):
+        raise AssertionError(what + ": rows_new differs")
+    inside = torch.zeros(rows.shape[0], dtype=torch.bool, device=device)
+    for wb, wc in scals[:, :2]:
+        inside[int(wb):int(wb + wc)] = True
+    if not torch.equal(r1[~inside], rows[~inside]):
+        raise AssertionError(what + ": rows outside the windows changed")
+    if not (torch.equal(nl1, torch.cat(nl_seq)) and torch.equal(nl1, nl_p)):
+        raise AssertionError(what + ": nl differs")
+    if not torch.equal(h1, torch.stack(h_seq)):
+        raise AssertionError(what + ": histograms differ from the "
+                             "single-window kernel calls")
+    if kw.get("quantized"):
+        if not torch.equal(h1, h_p):
+            raise AssertionError(what + ": histograms differ from the plain "
+                                 "version")
+        err = 0.0
+    else:
+        err = hist_err(h1, h_p, what)
+    if not (torch.equal(r1, r2) and torch.equal(h1, h2)
+            and torch.equal(nl1, nl2)):
+        raise AssertionError(what + ": two runs differ")
+    log("  %-46s nl sum %8d  = %d single-window calls bit for bit; "
+        "vs plain max|diff| %.3g" % (what, int(nl1.sum()), len(scals), err))
+    return err
+
+
 def phase_level_split(device, n: int) -> float:
     """Phase 3, second part: the level-batched split kernel against G
     single-window kernel calls (bit for bit) and against its plain version,
     exact and quantized."""
-    from lightgbm_tpu_torch.core import partition as P
     rng = np.random.RandomState(8)
     F, B = 28, 256
     worst = 0.0
@@ -373,45 +444,178 @@ def phase_level_split(device, n: int) -> float:
         for name, scals in frontiers.items():
             what = "level %s %s, %d windows" % (
                 "quantized" if quantized else "exact", name, len(scals))
-            r1, h1, nl1 = P.partition_hist_level(rows.clone(), scals, **kw)
-            r2, h2, nl2 = P.partition_hist_level(rows.clone(), scals, **kw)
-            r_seq = rows.clone()
-            h_seq, nl_seq = [], []
-            for sc in scals:
-                r_seq, h, nl = P.partition_hist(r_seq, sc.tolist(), **kw)
-                h_seq.append(h.clone())
-                nl_seq.append(nl.clone())
-            r_p, h_p, nl_p = P.partition_hist_level_plain(rows, scals, **kw)
-            if not (torch.equal(r1, r_seq) and torch.equal(r1, r_p)):
-                raise AssertionError(what + ": rows_new differs")
-            inside = torch.zeros(rows.shape[0], dtype=torch.bool,
-                                 device=device)
-            for wb, wc in scals[:, :2]:
-                inside[int(wb):int(wb + wc)] = True
-            if not torch.equal(r1[~inside], rows[~inside]):
-                raise AssertionError(what + ": rows outside the windows "
-                                     "changed")
-            if not (torch.equal(nl1, torch.cat(nl_seq))
-                    and torch.equal(nl1, nl_p)):
-                raise AssertionError(what + ": nl differs")
-            if not torch.equal(h1, torch.stack(h_seq)):
-                raise AssertionError(what + ": histograms differ from the "
-                                     "single-window kernel calls")
-            if quantized:
-                if not torch.equal(h1, h_p):
-                    raise AssertionError(what + ": histograms differ from "
-                                         "the plain version")
-                err = 0.0
-            else:
-                err = hist_err(h1, h_p, what)
-            if not (torch.equal(r1, r2) and torch.equal(h1, h2)
-                    and torch.equal(nl1, nl2)):
-                raise AssertionError(what + ": two runs differ")
-            worst = max(worst, err)
-            log("  %-46s nl sum %8d  = %d single-window calls bit for bit; "
-                "vs plain max|diff| %.3g" % (what, int(nl1.sum()), len(scals),
-                                              err))
+            worst = max(worst, check_level(rows, scals, what, **kw))
         del rows
+    return worst
+
+
+# ------------------------------------------------------------- wide F ----
+
+def check_hist(rows, B, start, count, what, **kw) -> float:
+    """The row-store histogram kernel against its plain version: bit-equal
+    when ``quantized``, else within HIST_RTOL; two launches, same bits."""
+    from lightgbm_tpu_torch.core import histogram as H
+    a = H.histogram_rows(rows, B, start, count, **kw)
+    a2 = H.histogram_rows(rows, B, start, count, **kw)
+    b = H.histogram_rows_plain(rows, B, start, count, **kw)
+    if kw.get("quantized"):
+        if not torch.equal(a, b):
+            raise AssertionError("%s: differs from the plain version, "
+                                 "max|diff| %.3g"
+                                 % (what, float((a - b).abs().max())))
+        err = 0.0
+    else:
+        err = hist_err(a, b, what)
+    if not torch.equal(a, a2):
+        raise AssertionError(what + ": two launches differ")
+    log("  %-46s max|diff| %.3g  bitwise-repeatable" % (what, err))
+    return err
+
+
+def phase_widef_hist(device, n: int) -> float:
+    """Phase 2, wide F (TPU kernel #2, the classic layout): the histogram
+    kernels at F = 2000, B = 256 and 64, bpc 1 and 2, full, mid, 100-row and
+    empty windows, exact and integer, and nibble-packed at B = 32."""
+    from lightgbm_tpu_torch.core import histogram as H
+    F = WIDE_F
+    nseg = H._segments(n, F, 256)
+    log("  f64 partials of a root histogram at F=%d, B=256, %d rows: %d "
+        "segments, %.1f MB (uncapped: %d segments, %.1f MB)"
+        % (F, n, nseg, nseg * F * 2 * 256 * 8 / 1e6, -(-n // H._SEG_ROWS),
+           -(-n // H._SEG_ROWS) * F * 2 * 256 * 8 / 1e6))
+    worst = 0.0
+    for quantized in (False, True):
+        for B, bpc, packed in ((256, 1, False), (64, 1, False),
+                               (256, 2, False), (64, 2, False),
+                               (32, 1, True)):
+            rows, voff = make_store(n, F, B, bpc=bpc, packed=packed,
+                                    quantized=quantized, device=device,
+                                    seed=21)
+            windows = ([(0, n), (n // 3, n // 3)] if packed else
+                       [(0, n), (n // 3, n // 3), (777, 100), (5, 0)])
+            for start, count in windows:
+                what = "%s hist F=%d B=%d bpc=%d%s [%d, +%d)" % (
+                    "int" if quantized else "exact", F, B, bpc,
+                    " packed" if packed else "", start, count)
+                worst = max(worst, check_hist(
+                    rows, B, start, count, what, num_features=F, voff=voff,
+                    bpc=bpc, packed=packed, quantized=quantized))
+            del rows
+            torch.cuda.empty_cache()
+    return worst
+
+
+def phase_widef_split(device, n: int) -> float:
+    """Phase 3, wide F: the single-window and level split kernels at
+    F = 2000, B = 256 against their plain versions, exact and quantized, and
+    the level pass over a level-7 frontier against G single-window calls."""
+    from lightgbm_tpu_torch.core import partition as P
+    rng = np.random.RandomState(23)
+    F, B = WIDE_F, 256
+    worst = 0.0
+    routes = split_routes(B, rng)
+    windows = [(100, 900), (3001, 10000), (4096, n // 2 + 7500), (50, 0),
+               (0, n)]
+    frontiers = level_frontiers(n, B, rng)
+    for quantized in (False, True):
+        rows, voff = make_store(n, F, B, quantized=quantized, device=device,
+                                seed=24)
+        for wi, (wb, wc) in enumerate(windows):
+            for name in ("numerical", "nan_left"):
+                route, words = routes[name]
+                scal = scal_row(wb, wc, route, words, (wi + len(name)) % 2)
+                what = "%s split F=%d %s [%d, +%d)" % (
+                    "int" if quantized else "exact", F, name, wb, wc)
+                worst = max(worst, check_split(rows, scal, F=F, B=B,
+                                               voff=voff, quantized=quantized,
+                                               what=what))
+        kw = dict(num_features=F, num_bins=B, voff=voff, quantized=quantized)
+        for name in ("one window", "level-7 frontier"):
+            scals = frontiers[name]
+            if not quantized:
+                ns = P.level_meta(scals, F, B)[2]
+                log("  f64 partials of the level pass over the %s (%d "
+                    "windows, %d rows): %d segments, %.1f MB"
+                    % (name, len(scals), int(scals[:, 1].sum()), ns,
+                       ns * F * 2 * B * 8 / 1e6))
+            what = "level %s F=%d %s, %d windows" % (
+                "quantized" if quantized else "exact", F, name, len(scals))
+            worst = max(worst, check_level(rows, scals, what, **kw))
+        del rows
+        torch.cuda.empty_cache()
+    return worst
+
+
+def phase_scan_level(device) -> None:
+    """Phase 3, the batched split scan of a level of 128 leaves (256
+    children) at F = 2000, B = 256, in one call: it must fit the card."""
+    from lightgbm_tpu_torch.core.split import (FeatureInfo, SplitParams,
+                                               best_split_numerical)
+    G, F, B = 256, WIDE_F, 256
+    g = torch.Generator(device=device).manual_seed(31)
+    hist = torch.empty((G, F, 2, B), device=device)
+    hist[:, :, 0] = torch.randn((G, F, B), generator=g, device=device)
+    hist[:, :, 1] = torch.rand((G, F, B), generator=g, device=device) * 2
+    totals = hist[:, 0].sum(-1)
+    feat = FeatureInfo(
+        num_bin=torch.full((F,), 255, device=device),
+        missing_type=torch.zeros(F, dtype=torch.int64, device=device),
+        default_bin=torch.zeros(F, dtype=torch.int64, device=device),
+        is_categorical=torch.zeros(F, dtype=torch.bool, device=device))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    best = best_split_numerical(
+        hist, feat, torch.ones(F, dtype=torch.bool, device=device),
+        totals[:, 0], totals[:, 1], torch.full((G,), 1e4, device=device),
+        SplitParams(min_data_in_leaf=1, min_sum_hessian_in_leaf=1.0))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() - base
+    found = int((best.gain > 0).sum())
+    if found == 0 or not bool(torch.isfinite(best.gain[best.gain > 0]).all()):
+        raise AssertionError("level split scan found no finite split")
+    log("  split scan of %d children x %d features x %d bins in one call: "
+        "%.3f s, peak %.2f GB above its %.2f GB input; %d children with a "
+        "split" % (G, F, B, dt, peak / 1e9, hist.numel() * 4 / 1e9, found))
+    del hist, best
+    torch.cuda.empty_cache()
+
+
+def phase_masked_hist(device, R: int) -> float:
+    """Phase 2, TPU kernel #5: the masked bins/values histogram against its
+    plain version at R rows, F = 28, B = 64, 128 and 256 (u8 bins), i16 and
+    i32 bins, nibble-packed bins, full and mid windows."""
+    from lightgbm_tpu_torch.core import histogram as H
+    F = 28
+    g = torch.Generator(device=device).manual_seed(41)
+    vals = torch.randn((2, R), generator=g, device=device)
+    worst = 0.0
+    cases = [("u8", B, torch.uint8, 0) for B in (64, 128, 256)]
+    cases += [("i16", 256, torch.int16, 0), ("i32", 256, torch.int32, 0),
+              ("packed", 32, torch.uint8, F)]
+    for name, B, dtype, num_cols in cases:
+        codes = torch.randint(0, 16 if num_cols else B, (R, F), generator=g,
+                              device=device, dtype=torch.int32)
+        if num_cols:
+            codes = (codes[:, 0::2] | (codes[:, 1::2] << 4))
+        bins = codes.to(dtype).contiguous()
+        for start, count in ((0, R), (12345, R // 3)):
+            a = H.histogram_masked(bins, vals, B, start, count,
+                                   num_cols=num_cols)
+            a2 = H.histogram_masked(bins, vals, B, start, count,
+                                    num_cols=num_cols)
+            b = H.histogram_masked_plain(bins, vals, B, start, count,
+                                         num_cols=num_cols)
+            what = "masked hist %s F=%d B=%d [%d, +%d)" % (name, F, B, start,
+                                                          count)
+            err = hist_err(a, b, what)
+            worst = max(worst, err)
+            if not torch.equal(a, a2):
+                raise AssertionError(what + ": two launches differ")
+            log("  %-46s max|diff| %.3g  bitwise-repeatable" % (what, err))
+        del bins, codes
     return worst
 
 
@@ -607,6 +811,165 @@ def split_sequence(feature, threshold, left, right, gain, num_leaves):
             for i in range(m)]
 
 
+def epsilon_task(n: int, n_test: int, device, f: int = WIDE_F,
+                 seed: int = 0):
+    """Epsilon-shaped binary data (the reference's GPU benchmark: 400,000
+    training and 100,000 test rows of 2000 dense features), made on
+    ``device`` from ``seed`` and returned as host numpy: standard normal f32
+    features, and labels drawn from a logistic model on 40 features plus 5
+    products of pairs."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    X = torch.randn((n + n_test, f), generator=g, device=device)
+    cols = torch.randperm(f, generator=g, device=device)[:50].tolist()
+    w = torch.randn(40, generator=g, device=device, dtype=torch.float64)
+    logit = X[:, cols[:40]].double() @ (w * 1.5 / np.sqrt(40))
+    for a, b in zip(cols[40::2], cols[41::2]):
+        logit += 0.5 * X[:, a].double() * X[:, b].double()
+    u = torch.rand(n + n_test, generator=g, device=device, dtype=torch.float64)
+    y = (u < torch.sigmoid(logit)).double().cpu().numpy()
+    X = X.cpu().numpy()
+    return X[:n], y[:n], X[n:], y[n:]
+
+
+EPSILON_PARAMS = dict(objective="binary", max_bin=255, num_leaves=255,
+                      learning_rate=0.1, min_data_in_leaf=1,
+                      min_sum_hessian_in_leaf=100, metric="auc",
+                      verbosity=-1)
+
+
+class IterationRecorder:
+    """A ``train`` callback: each iteration's wall time (update and
+    evaluation, from its ``start`` callback to a device synchronise), the
+    train log loss and the device->host fetches of its tree."""
+    order = 5
+    before_iteration = False
+
+    def __init__(self, label: torch.Tensor) -> None:
+        self.label = label
+        self.iter_s, self.losses, self.fetches = [], [], []
+        self.t = 0.0
+        rec = self
+
+        class Start:
+            order = 0
+            before_iteration = True
+
+            def __call__(self, env) -> None:
+                torch.cuda.synchronize()
+                rec.t = time.perf_counter()
+        self.start = Start()
+
+    def __call__(self, env) -> None:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        self.iter_s.append(t - self.t)
+        gbdt = env.model._booster
+        self.losses.append(logloss(gbdt.train_score[0], self.label))
+        self.fetches.append(gbdt.last_arrays.host_fetches)
+
+
+def phase_epsilon(device, n: int, n_test: int, iters: int,
+                  profile: bool) -> dict:
+    """Path (D): the Epsilon-shaped binary GBDT trained on the card through
+    ``lightgbm_tpu_torch.train`` with a held-out validation set, at the
+    reference's published GPU settings (2000 features, 255 bins, 255 leaves,
+    leaf-wise, exact), with the launch counts read around the call."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch import device as D
+    t0 = time.perf_counter()
+    X, y, X_test, y_test = epsilon_task(n, n_test, device)
+    t1 = time.perf_counter()
+    train = lgb.Dataset(X, y).construct()
+    valid = lgb.Dataset(X_test, y_test, reference=train).construct()
+    t2 = time.perf_counter()
+    log("  set-up: data %.2f s, binning %.2f s (%d + %d rows x %d features)"
+        % (t1 - t0, t2 - t1, n, n_test, X.shape[1]))
+    if train.handle.is_bundled or valid.handle.is_bundled:
+        raise AssertionError("the Epsilon-shaped dataset came out bundled")
+    label = torch.as_tensor(y, device=device)
+    rec = IterationRecorder(label)
+    evals = {}
+    D.reset_launches()
+    booster = lgb.train(EPSILON_PARAMS, train, num_boost_round=iters,
+                        valid_sets=[valid], valid_names=["test"],
+                        evals_result=evals, early_stopping_rounds=iters,
+                        verbose_eval=False,
+                        callbacks=[rec, rec.start])
+    counts = D.launches()
+    gbdt = booster._booster
+    trees = len(gbdt.models)
+    splits = sum(t.num_leaves - 1 for t in gbdt.models)
+    aucs = evals["test"]["auc"]
+    med = float(np.median(rec.iter_s))
+    log("  iterations %d, seconds per iteration (train() update and "
+        "evaluation) %s (median %.4f)"
+        % (len(rec.iter_s), ["%.4f" % v for v in rec.iter_s], med))
+    log("  row-trees/s %.1f (median iteration)" % (n / med))
+    log("  train logloss per iteration %s" % ["%.6f" % v for v in rec.losses])
+    log("  held-out AUC per iteration %s over %d rows"
+        % (["%.6f" % v for v in aucs], n_test))
+    log("  best iteration %d, leaves per tree %s, splits %d"
+        % (booster.best_iteration, [t.num_leaves for t in gbdt.models],
+           splits))
+    log("  device->host fetches per tree %s" % rec.fetches)
+    log("  launches on path (D) %s" % counts)
+    start = logloss(torch.full_like(label, gbdt.objective.boost_from_score(0)),
+                    label)
+    if not all(b < a for a, b in zip([start] + rec.losses, rec.losses)):
+        raise AssertionError("train logloss did not fall every iteration "
+                             "(from %.6f at the initial score)" % start)
+    if len(aucs) != trees or not aucs[-1] > 0.6:
+        raise AssertionError("held-out AUC per iteration %s" % aucs)
+    # every tree (predict's default stops at best_iteration)
+    raw = booster.predict(X_test, raw_score=True,
+                          num_iteration=booster.current_iteration())
+    vscore = gbdt.valid_sets[0]["score"][0].double().cpu().numpy()
+    err_v = float(np.abs(raw - vscore).max())
+    if not (raw.shape == (n_test,) and np.isfinite(raw).all()
+            and err_v <= VALID_SCORE_ATOL):
+        raise AssertionError("validation scores vs predict: max|diff| %.3g "
+                             "> %.0e" % (err_v, VALID_SCORE_ATOL))
+    log("  validation scores accumulated in training vs predict on %d rows: "
+        "max|diff| %.3g" % (n_test, err_v))
+    check_predictions(gbdt, X, X_test, raw)
+    check_tree0(gbdt, n, strict=False)
+    busy_ms = None
+    if profile:
+        busy_ms = profile_iteration(gbdt)
+        log("  device busy %.1f%% and idle %.1f%% of the median unprofiled "
+            "iteration (%.4f s)" % (busy_ms / med / 10,
+                                    100 - busy_ms / med / 10, med))
+    # one root histogram per tree and one split pass per split, nothing else
+    want = {"histogram": trees, "partition": splits}
+    if counts != {k: want.get(k, 0) for k in counts}:
+        raise AssertionError("path (D): launches %s, want %s" % (counts,
+                                                                 want))
+    return {"launches": counts, "iter_s": rec.iter_s, "auc": aucs,
+            "trees": trees, "splits": splits, "busy_ms": busy_ms}
+
+
+def phase_build_histogram(device, R: int) -> dict:
+    """Path (E): the entry point ``build_histogram`` (TPU kernel #5's own
+    caller) on R rows x 28 u8 bins at B = 256, with the launch counts read
+    around the call, against the plain version."""
+    from lightgbm_tpu_torch import device as D
+    from lightgbm_tpu_torch.core import histogram as H
+    g = torch.Generator(device=device).manual_seed(43)
+    bins = torch.randint(0, 256, (R, 28), generator=g, device=device,
+                         dtype=torch.int32).to(torch.uint8)
+    vals = torch.randn((2, R), generator=g, device=device)
+    D.reset_launches()
+    h = H.build_histogram(bins, vals, 256)
+    counts = D.launches()
+    err = hist_err(h, H.histogram_masked_plain(bins, vals, 256, 0, R),
+                   "build_histogram")
+    log("  build_histogram %d rows x 28 features: launches %s, vs plain "
+        "max|diff| %.3g" % (R, counts, err))
+    if counts != {k: int(k == "histogram_masked") for k in counts}:
+        raise AssertionError("path (E): launches %s" % counts)
+    return {"launches": counts, "trees": 1}
+
+
 def profile_iteration(booster) -> None:
     """One more training iteration under ``torch.profiler``: the kernels by
     device time, and the device's busy share of the iteration's wall time."""
@@ -654,6 +1017,92 @@ def bound(bytes_moved: float, ops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def row_bytes(F: int, bpc: int = 1) -> int:
+    """Bytes a histogram must read per row-store row: the 32-byte sectors
+    of its bin bytes and the one of its f32 grad/hess."""
+    return 32 * -(-F * bpc // 32) + 32
+
+
+def times_widef(device, n: int) -> dict:
+    """Phase 5, wide F: the root histogram (exact and integer) and one
+    split pass on the root window of an n-row, 2000-feature, 256-bin store,
+    beside their bounds, plain versions and index_add_."""
+    from lightgbm_tpu_torch.core import histogram as H
+    from lightgbm_tpu_torch.core import partition as P
+    F, B = WIDE_F, 256
+    out = {}
+    for quantized in (False, True):
+        rows, voff = make_store(n, F, B, quantized=quantized, device=device,
+                                seed=51)
+        kw = dict(num_features=F, voff=voff, quantized=quantized)
+        ms = cuda_ms(lambda: H.histogram_rows(rows, B, 0, n, **kw), reps=10)
+        plain = cuda_ms(lambda: H.histogram_rows_plain(rows, B, 0, n, **kw),
+                        reps=3, warmup=1)
+        bins, vals = H.rows_split(rows[:n], F, voff)
+        ids = (bins + torch.arange(F, device=device)[None, :] * B).reshape(-1)
+        del bins
+        dt = torch.int64 if quantized else torch.float32
+        v = vals.t().to(dt)[:, None, :].expand(n, F, 2).reshape(-1, 2)
+        acc = torch.zeros((F * B, 2), dtype=dt, device=device)
+        lib = cuda_ms(lambda: acc.index_add_(0, ids, v), reps=3, warmup=1)
+        del ids, v, vals, acc
+        torch.cuda.empty_cache()
+        b_ms, b_by = bound(n * row_bytes(F) + F * 2 * B * 4, 2.0 * n * F)
+        log("  %s histogram F=%d %8d rows: kernel %.4f ms, bound %.4f ms "
+            "(%s), plain %.4f ms, index_add_ (%s) %.4f ms"
+            % ("int" if quantized else "exact", F, n, ms, b_ms, b_by, plain,
+               "int64" if quantized else "f32", lib))
+        key = "histogram_widef_q" if quantized else "histogram_widef"
+        out[key] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=lib)
+        if not quantized:
+            rng = np.random.RandomState(52)
+            route, words = split_routes(B, rng)["numerical"]
+            scal = scal_row(0, n, route, words, 1)
+            skw = dict(num_features=F, num_bins=B, voff=voff)
+            work = rows.clone()
+            ms = cuda_ms(lambda: P.partition_hist(work, scal, **skw), reps=10)
+            plain = cuda_ms(lambda: P.partition_hist_plain(rows, scal, **skw),
+                            reps=3, warmup=1)
+            b_ms, b_by = bound(2.0 * n * rows.shape[1], 2.0 * (n / 2) * F)
+            log("  split pass F=%d %8d rows: kernel %.4f ms, bound %.4f ms "
+                "(%s), plain %.4f ms, no single library call"
+                % (F, n, ms, b_ms, b_by, plain))
+            out["partition_widef"] = dict(ms=ms, plain_ms=plain,
+                                          bound_ms=b_ms, bound_by=b_by,
+                                          library_ms=None)
+            del work
+        del rows
+        torch.cuda.empty_cache()
+    return out
+
+
+def times_masked(device, R: int) -> dict:
+    """Phase 5: the masked histogram (kernel #5) over R rows x 28 u8 bins
+    at B = 256, beside its bound, plain version and index_add_."""
+    from lightgbm_tpu_torch.core import histogram as H
+    F, B = 28, 256
+    g = torch.Generator(device=device).manual_seed(53)
+    bins = torch.randint(0, B, (R, F), generator=g, device=device,
+                         dtype=torch.int32).to(torch.uint8)
+    vals = torch.randn((2, R), generator=g, device=device)
+    ms = cuda_ms(lambda: H.histogram_masked(bins, vals, B, 0, R))
+    plain = cuda_ms(lambda: H.histogram_masked_plain(bins, vals, B, 0, R),
+                    reps=10)
+    ids = (bins.long() + torch.arange(F, device=device)[None, :] * B
+           ).reshape(-1)
+    v = vals.t()[:, None, :].expand(R, F, 2).reshape(-1, 2)
+    acc = torch.zeros((F * B, 2), dtype=torch.float32, device=device)
+    lib = cuda_ms(lambda: acc.index_add_(0, ids, v), reps=10)
+    # each row's F bin bytes and its two f32 values
+    b_ms, b_by = bound(R * (F + 8) + F * 2 * B * 4, 2.0 * R * F)
+    log("  masked histogram %d rows x %d u8 bins: kernel %.4f ms, bound "
+        "%.4f ms (%s), plain %.4f ms, index_add_ %.4f ms"
+        % (R, F, ms, b_ms, b_by, plain, lib))
+    return {"histogram_masked": dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
+                                     bound_by=b_by, library_ms=lib)}
+
+
 def phase_times(device, n: int) -> dict:
     """Phase 5: kernel, bound, plain and library times at the main path's
     shapes: the root histogram and the root split's window of an n-row,
@@ -674,9 +1123,10 @@ def phase_times(device, n: int) -> dict:
         v = vals.t()[:, None, :].expand(count, F, 2).reshape(-1, 2)
         acc = torch.zeros((F * B, 2), dtype=torch.float32, device=device)
         lib = cuda_ms(lambda: acc.index_add_(0, ids, v), reps=20)
-        # bins and g/h sit in two 32-byte sectors of each 128-byte row; two
-        # adds per (row, feature)
-        b_ms, b_by = bound(count * 64 + F * 2 * B * 4, 2.0 * count * F)
+        # the bins' and the g/h's 32-byte sectors of each row; two adds per
+        # (row, feature)
+        b_ms, b_by = bound(count * row_bytes(F) + F * 2 * B * 4,
+                           2.0 * count * F)
         log("  histogram %8d rows: kernel %.4f ms, bound %.4f ms (%s), plain "
             "%.4f ms, index_add_ %.4f ms" % (count, ms, b_ms, b_by, plain, lib))
         if count == n:
@@ -708,8 +1158,9 @@ def phase_times(device, n: int) -> dict:
 
 
 def times_quantized_and_level(device, n: int) -> dict:
-    """Phase 5, second part: the integer histogram kernel (quantized store)
-    and the level-batched split kernel over one level-0 window and a full
+    """Phase 5, second part: the integer histogram kernel (quantized store),
+    the single-window split pass with its integer child histogram, and the
+    level-batched split kernel over one level-0 window and a full
     level-7 frontier of 127 windows, beside the same frontier as G
     single-window calls."""
     from lightgbm_tpu_torch.core import histogram as H
@@ -727,9 +1178,10 @@ def times_quantized_and_level(device, n: int) -> dict:
         v = vals.t().long()[:, None, :].expand(count, F, 2).reshape(-1, 2)
         acc = torch.zeros((F * B, 2), dtype=torch.int64, device=device)
         lib = cuda_ms(lambda: acc.index_add_(0, ids, v), reps=20)
-        # the two 32-byte sectors of bins and g/h per row; two integer adds
-        # per (row, feature)
-        b_ms, b_by = bound(count * 64 + F * 2 * B * 4, 2.0 * count * F)
+        # the 32-byte sectors of bins and g/h per row; two integer adds per
+        # (row, feature)
+        b_ms, b_by = bound(count * row_bytes(F) + F * 2 * B * 4,
+                           2.0 * count * F)
         log("  int histogram %8d rows: kernel %.4f ms, bound %.4f ms (%s), "
             "plain %.4f ms, index_add_ (int64) %.4f ms"
             % (count, ms, b_ms, b_by, plain, lib))
@@ -737,7 +1189,21 @@ def times_quantized_and_level(device, n: int) -> dict:
             out["histogram_int"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
                                         bound_by=b_by, library_ms=lib)
         del bins, vals, ids, v
-    del rows
+    # the single-window split pass with the integer child histogram, on the
+    # root window (no path grows quantized trees leaf-wise)
+    route, words = split_routes(B, np.random.RandomState(7))["numerical"]
+    scal = scal_row(0, n, route, words, 1)
+    skw = dict(num_features=F, num_bins=B, voff=voff, quantized=True)
+    work = rows.clone()
+    ms = cuda_ms(lambda: P.partition_hist(work, scal, **skw))
+    plain = cuda_ms(lambda: P.partition_hist_plain(rows, scal, **skw),
+                    reps=20)
+    b_ms, b_by = bound(2.0 * n * rows.shape[1], 2.0 * (n / 2) * F)
+    log("  quantized split pass %8d rows: kernel %.4f ms, bound %.4f ms "
+        "(%s), plain %.4f ms, no single library call"
+        % (n, ms, b_ms, b_by, plain))
+    out["partition_q"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms)
+    del rows, work
     rng = np.random.RandomState(14)
     fr = level_frontiers(n, B, rng)
     for quantized in (False, True):
@@ -781,9 +1247,15 @@ def times_quantized_and_level(device, n: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=1 << 20,
-                    help="training rows of the main paths (10500000 is the "
-                         "published Higgs size)")
+                    help="training rows of the main paths (A)-(C) (10500000 "
+                         "is the published Higgs size)")
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--widef-rows", type=int, default=400_000,
+                    help="training rows of path (D) and of the wide-F "
+                         "kernel phases (400000 is the published Epsilon "
+                         "size)")
+    ap.add_argument("--widef-test-rows", type=int, default=100_000,
+                    help="held-out rows of path (D)")
     ap.add_argument("--profile", action="store_true",
                     help="print a torch.profiler table of one iteration of "
                          "each main path")
@@ -800,6 +1272,7 @@ def main(argv=None) -> int:
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     card = gpu_name_and_power()
+    t_start = time.perf_counter()
     log("[1] environment")
     log("  %s" % card)
     log("  python %s, torch %s, CUDA %s, %s x%d"
@@ -813,12 +1286,17 @@ def main(argv=None) -> int:
                 log("  %s: %s" % (name, line.strip()))
 
     t = time.perf_counter()
+    nw = args.widef_rows
     log("[2] histogram kernels vs plain versions")
     hist_err_max = phase_histogram(device, args.rows)
     hist_int_err = phase_histogram_int(device, args.rows)
+    widef_err = phase_widef_hist(device, nw)
+    masked_err = phase_masked_hist(device, 1 << 20)
     log("[3] split kernels vs plain versions")
     split_err_max = phase_split(device, args.rows)
     level_err_max = phase_level_split(device, args.rows)
+    widef_split_err = phase_widef_split(device, nw)
+    phase_scan_level(device)
     reset_launches()
     log("  phases 2-3 took %.1f s" % (time.perf_counter() - t))
 
@@ -834,16 +1312,28 @@ def main(argv=None) -> int:
         paths[path] = phase_main_path(device, data, ds, path, args.iters,
                                       args.profile)
         torch.cuda.empty_cache()
+    del data, ds
+    log("  (D) Epsilon-shaped, lightgbm_tpu_torch.train with a validation "
+        "set: %d + %d rows x %d features, max_bin=255, num_leaves=255, %d "
+        "iterations" % (nw, args.widef_test_rows, WIDE_F, args.iters))
+    paths["D"] = phase_epsilon(device, nw, args.widef_test_rows, args.iters,
+                               args.profile)
+    torch.cuda.empty_cache()
+    log("  (E) build_histogram")
+    paths["E"] = phase_build_histogram(device, 1 << 20)
     log("  median seconds per iteration: %s" % ", ".join(
         "(%s) %.4f" % (p, float(np.median(r["iter_s"])))
-        for p, r in paths.items()))
+        for p, r in paths.items() if "iter_s" in r))
 
     log("[5] times (CUDA events, median)")
     times = phase_times(device, args.rows)
+    times.update(times_widef(device, nw))
+    times.update(times_masked(device, 1 << 20))
+    reset_launches()
 
-    def launches(kernel):
+    def launches(kernel, only=None):
         by_path = {p: r["launches"][kernel] for p, r in paths.items()
-                   if r["launches"][kernel]}
+                   if r["launches"][kernel] and (only is None or p in only)}
         per_tree = {p: v / paths[p]["trees"] for p, v in by_path.items()}
         return dict(launches=sum(by_path.values()), launches_by_path=by_path,
                     launches_per_tree=per_tree)
@@ -852,13 +1342,15 @@ def main(argv=None) -> int:
         dict(name="histogram", route="cuda",
              source="lightgbm_tpu_torch/csrc/histogram.cu",
              replaces="lightgbm_tpu/core/histogram.py:743",
-             max_abs_err=hist_err_max, **launches("histogram"),
+             max_abs_err=hist_err_max, **launches("histogram", "ABC"),
              **times["histogram"]),
         dict(name="partition", route="cuda",
              source="lightgbm_tpu_torch/csrc/partition.cu",
              replaces="lightgbm_tpu/core/partition.py:1090",
              also_replaces="lightgbm_tpu/core/partition.py:1130",
-             max_abs_err=split_err_max, **launches("partition"),
+             max_abs_err=split_err_max, **launches("partition", "ABC"),
+             quantized_ms=times["partition_q"]["ms"],
+             quantized_plain_ms=times["partition_q"]["plain_ms"],
              **times["partition"]),
         dict(name="histogram_int", route="cuda",
              source="lightgbm_tpu_torch/csrc/histogram_int.cu",
@@ -872,11 +1364,30 @@ def main(argv=None) -> int:
              max_abs_err=level_err_max, **launches("partition_level"),
              quantized_ms=times["partition_level_q"]["ms"],
              **times["partition_level"]),
+        dict(name="histogram_widef", route="cuda",
+             source="lightgbm_tpu_torch/csrc/histogram.cu",
+             replaces="lightgbm_tpu/core/histogram.py:774",
+             max_abs_err=widef_err, **launches("histogram", "D"),
+             quantized_ms=times["histogram_widef_q"]["ms"],
+             quantized_bound_ms=times["histogram_widef_q"]["bound_ms"],
+             **times["histogram_widef"]),
+        dict(name="partition_widef", route="cuda",
+             source="lightgbm_tpu_torch/csrc/partition.cu",
+             replaces="lightgbm_tpu/core/partition.py:1090",
+             also_replaces="lightgbm_tpu/core/partition.py:281",
+             max_abs_err=widef_split_err, **launches("partition", "D"),
+             **times["partition_widef"]),
+        dict(name="histogram_masked", route="cuda",
+             source="lightgbm_tpu_torch/csrc/histogram_masked.cu",
+             replaces="lightgbm_tpu/core/histogram.py:303",
+             max_abs_err=masked_err, **launches("histogram_masked"),
+             **times["histogram_masked"]),
     ]}
     for k in kernels_line["kernels"]:
         if k["launches"] == 0:
             raise AssertionError("%s was not launched on a main path"
                                  % k["name"])
+    log("  whole script %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

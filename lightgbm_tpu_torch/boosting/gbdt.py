@@ -3,21 +3,28 @@
 Counterpart of ``lightgbm_tpu/boosting/gbdt.py`` (the reference ``GBDT``,
 src/boosting/gbdt.cpp, gbdt.h), as much as the binary main path needs:
 ``__init__``, ``_boost_from_average``, ``train_one_iter`` (synchronous: one
-host tree per iteration), ``train_score``, ``predict`` and the
-reference-compatible text model (``save_model_to_string`` /
-``load_model_from_string``, gbdt_model_text.cpp:271,375).
+host tree per iteration), ``train_score``, validation sets
+(``add_valid_data``, ``_add_tree_score_valid``), metrics and early stopping
+(``eval_train``, ``eval_valid``, ``eval_and_check_early_stopping``), the host
+loop ``train``, the replay of a loaded model (``replay_train_score``),
+``predict``, ``feature_importance`` and the reference-compatible text model
+(``save_model_to_string`` / ``load_model_from_string``,
+gbdt_model_text.cpp:271,375).
 
-Scores live on the device as ``train_score`` [1, N] f32.  Each iteration:
-boost-from-average (first iteration), objective gradients on the device, one
+Scores live on the device: ``train_score`` [1, N] f32 and one [1, N_v] f32
+score per validation set.  Each iteration: boost-from-average (first
+iteration, added to every score), objective gradients on the device, one
 tree from :class:`SerialTreeLearner`, the tree's leaf values scaled by the
-learning rate in f32, and the train score updated through the tree's
-``row_leaf``.  The fused multi-iteration scan, bagging, feature sampling,
-validation sets, early stopping, checkpoints, DART/GOSS/RF and multiclass are
-not ported yet (ROADMAP queue 1).
+learning rate in f32, the train score updated through the tree's
+``row_leaf`` and each validation score by routing the set's bins on the
+device (``route_binned``).  The fused multi-iteration scan, snapshots,
+bagging, feature sampling, checkpoints, DART/GOSS/RF and multiclass are not
+ported yet (ROADMAP queue 1).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,10 +32,14 @@ import torch
 from ..config import Config
 from ..core.predict import StackedTrees
 from ..core.tree import Tree
-from ..core.tree_learner import SerialTreeLearner, TreeArrays, tree_from_arrays
+from ..core.tree_learner import (SerialTreeLearner, TreeArrays,
+                                 arrays_from_tree, route_binned,
+                                 tree_from_arrays)
 from ..device import DeviceLike, resolve_device
 from ..io.dataset import BinnedDataset
+from ..metric.metric import Metric, create_metrics
 from ..objective import ObjectiveFunction, create_objective
+from ..utils.file_io import atomic_write
 from ..utils.log import LightGBMError, Log
 
 K_EPSILON = 1e-15
@@ -63,6 +74,12 @@ class GBDT:
         self.label_idx = 0
         self.last_arrays: Optional[TreeArrays] = None
         self._predictor = None
+        self.valid_sets: List[dict] = []
+        self.train_metrics: List[Metric] = []
+        # iteration of the best validation score when early stopping ended
+        # training (0: it did not)
+        self.best_iteration = 0
+        self._es_state: Dict = {}
         if train_data is not None:
             self.reset_training_data(train_data, objective)
 
@@ -106,6 +123,58 @@ class GBDT:
         if self.objective is not None:
             self.objective.init(train_data.metadata, self.num_data)
             self.class_need_train = self.objective.class_need_train(0)
+        self.train_metrics = []
+        self._es_state = {}
+
+    def add_train_metrics(self, metrics: Sequence[Metric]) -> None:
+        self.train_metrics = list(metrics)
+        for m in self.train_metrics:
+            m.init(self.train_data.metadata, self.num_data)
+
+    def add_valid_data(self, valid_data: BinnedDataset, name: str,
+                       metrics: Optional[Sequence[Metric]] = None) -> None:
+        """Attach a validation set (binned with the training set's mappers):
+        its bins go to the device, its score starts at its init_score (or 0)
+        plus the trees already in the model, replayed in f32 one tree at a
+        time as training would have added them."""
+        if metrics is None:
+            metrics = create_metrics(self.config.metric, self.config)
+        for m in metrics:
+            m.init(valid_data.metadata, valid_data.num_data)
+        score = torch.zeros((1, valid_data.num_data), dtype=torch.float32,
+                            device=self.device)
+        if valid_data.metadata.init_score is not None:
+            init = np.asarray(valid_data.metadata.init_score, np.float32)
+            score[0] = torch.as_tensor(init.reshape(valid_data.num_data),
+                                       device=self.device)
+        vs = {"name": name, "data": valid_data,
+              "bins": self.learner.valid_bins(valid_data),
+              "metrics": list(metrics), "score": score}
+        for tree in self.models:
+            self._add_tree_score_valid(tree, vs)
+        self.valid_sets.append(vs)
+
+    def _add_tree_score_valid(self, tree: Tree, vs: dict) -> None:
+        """score += the tree's leaf values (f32) over the set's binned rows."""
+        self._add_tree_score(tree, vs["bins"], vs["score"])
+
+    def _add_tree_score(self, tree: Tree, bins: torch.Tensor,
+                        score: torch.Tensor) -> None:
+        if tree.num_leaves <= 1:
+            score[0] += np.float32(tree.leaf_value[0])
+            return
+        arrays = arrays_from_tree(tree, self.train_data)
+        lv = torch.as_tensor(arrays.leaf_value, device=self.device)
+        score[0] += lv[route_binned(bins, arrays, self.learner.feat_host)]
+
+    def replay_train_score(self) -> None:
+        """train_score += every tree of a loaded model, in f32, one tree at a
+        time (the loaded-model replay of ``engine.train(init_model=...)``)."""
+        if not self.models or self.train_data is None:
+            return
+        bins = self.learner.valid_bins(self.train_data)
+        for tree in self.models:
+            self._add_tree_score(tree, bins, self.train_score)
 
     # ---- boosting (gbdt.cpp:143-158, 322-368) ----
 
@@ -117,6 +186,8 @@ class GBDT:
                 init_score = self.objective.boost_from_score(class_id)
                 if abs(init_score) > K_EPSILON:
                     self.train_score[class_id] += init_score
+                    for vs in self.valid_sets:
+                        vs["score"][class_id] += init_score
                     Log.info("Start training from score %f", init_score)
                     return init_score
         return 0.0
@@ -145,6 +216,9 @@ class GBDT:
                     internal_value=arrays.internal_value * rate)
                 lv = torch.as_tensor(scaled.leaf_value, device=self.device)
                 self.train_score[0] += lv[arrays.row_leaf]
+                for vs in self.valid_sets:
+                    vs["score"][0] += lv[route_binned(
+                        vs["bins"], scaled, self.learner.feat_host)]
                 new_tree = tree_from_arrays(scaled, self.train_data, 1.0)
                 if abs(init_score) > K_EPSILON:
                     new_tree.add_bias(init_score)
@@ -165,6 +239,78 @@ class GBDT:
         self._predictor = None
         self.iter_ += 1
         return False
+
+    # ---- the training loop (gbdt.py:1843, without fused chunks) ----
+
+    def train(self) -> None:
+        """Train ``num_iterations`` iterations (counting from this booster's
+        first), evaluating every ``metric_freq`` iterations and stopping
+        early when ``eval_and_check_early_stopping`` says so."""
+        t_start = time.perf_counter()
+        total = int(self.config.num_iterations)
+        has_eval = bool(self.train_metrics) or bool(self.valid_sets)
+        mf = int(self.config.metric_freq)
+        while self.iter_ < total:
+            finished = self.train_one_iter()
+            Log.info("%f seconds elapsed, finished iteration %d",
+                     time.perf_counter() - t_start, self.iter_)
+            if not finished and has_eval and mf > 0 and self.iter_ % mf == 0:
+                finished = self.eval_and_check_early_stopping()
+            if finished:
+                break
+
+    @property
+    def num_trees(self) -> int:
+        return len(self.models)
+
+    @property
+    def current_iteration(self) -> int:
+        return len(self.models) // max(self.num_tree_per_iteration, 1)
+
+    # ---- evaluation (gbdt.py:1952-1994) ----
+
+    def _eval(self, name: str, score: torch.Tensor, metrics):
+        """[(data name, metric name, value, bigger is better)] of one set."""
+        host = score.cpu().numpy()
+        return [(name, mname, val, m.factor_to_bigger_better > 0)
+                for m in metrics
+                for mname, val in zip(m.names, m.eval(host, self.objective))]
+
+    def eval_train(self) -> List[Tuple[str, str, float, bool]]:
+        return self._eval("training", self.train_score, self.train_metrics)
+
+    def eval_valid(self) -> List[Tuple[str, str, float, bool]]:
+        return [r for vs in self.valid_sets
+                for r in self._eval(vs["name"], vs["score"], vs["metrics"])]
+
+    def eval_and_check_early_stopping(self) -> bool:
+        """Log the metrics; True when a validation metric has not improved
+        for ``early_stopping_round`` evaluations' worth of iterations (with
+        ``first_metric_only``, only the first metric of each set counts,
+        gbdt.cpp OutputMetric).  Records ``best_iteration`` when it stops."""
+        for ds, name, val, _ in self.eval_train():
+            Log.info("Iteration:%d, %s %s : %g", self.iter_, ds, name, val)
+        rounds = int(self.config.early_stopping_round)
+        first_only = bool(self.config.first_metric_only)
+        stop = False
+        for vs in self.valid_sets:
+            first = None
+            for ds, name, val, bigger_better in self._eval(
+                    vs["name"], vs["score"], vs["metrics"]):
+                Log.info("Iteration:%d, %s %s : %g", self.iter_, ds, name, val)
+                first = name if first is None else first
+                if rounds <= 0 or (first_only and name != first):
+                    continue
+                cur = val if bigger_better else -val
+                best = self._es_state.get((ds, name))
+                if best is None or cur > best[0]:
+                    self._es_state[(ds, name)] = (cur, self.iter_)
+                elif self.iter_ - best[1] >= rounds:
+                    Log.info("Early stopping at iteration %d, the best "
+                             "iteration round is %d", self.iter_, best[1])
+                    self.best_iteration = best[1]
+                    stop = True
+        return stop
 
     # ---- prediction ----
 
@@ -196,14 +342,21 @@ class GBDT:
     def sub_model_name(self) -> str:
         return "tree"
 
-    def _split_importance(self, num_iteration: int = -1) -> np.ndarray:
-        """Splits per feature over the first ``num_iteration`` trees (the
-        model text's "feature importances" block)."""
-        end = len(self.models) if num_iteration <= 0 else num_iteration
+    def feature_importance(self, importance_type: str = "split",
+                           num_iteration: int = -1) -> np.ndarray:
+        """Splits (or summed gains) per original feature over the first
+        ``num_iteration`` iterations (c_api.cpp:1573 semantics)."""
+        end = len(self.models) if num_iteration <= 0 else min(
+            len(self.models), num_iteration)
         out = np.zeros(self.max_feature_idx + 1, dtype=np.float64)
         for t in self.models[:end]:
-            for f in t.splits_by_feature():
-                out[f] += 1
+            if importance_type == "split":
+                for f in t.splits_by_feature():
+                    out[f] += 1
+            else:
+                feats, gains = t.gains_by_feature()
+                for f, g in zip(feats, gains):
+                    out[f] += g
         return out
 
     def save_model_to_string(self, start_iteration: int = 0,
@@ -230,7 +383,7 @@ class GBDT:
         lines.append("tree_sizes=" + " ".join(str(len(s)) for s in tree_strs))
         lines.append("")
         body = "\n".join(lines) + "\n" + "".join(tree_strs) + "end of trees\n"
-        imps = self._split_importance(num_iteration)
+        imps = self.feature_importance("split", num_iteration)
         pairs = sorted([(int(v), self.feature_names[i])
                         for i, v in enumerate(imps) if v > 0],
                        key=lambda p: -p[0])
@@ -241,6 +394,12 @@ class GBDT:
             body += "[%s: %s]\n" % (k, v)
         body += "end of parameters\n"
         return body
+
+    def save_model(self, filename: str, start_iteration: int = 0,
+                   num_iteration: int = -1) -> None:
+        atomic_write(filename,
+                     self.save_model_to_string(start_iteration, num_iteration))
+        Log.info("Finished writing model to file %s", filename)
 
     def load_model_from_string(self, text: str) -> None:
         """Parse the text model format; malformed or truncated input raises a

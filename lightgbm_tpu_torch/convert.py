@@ -11,7 +11,9 @@ the caller extracts the numpy state):
   (optionally) its bin mappers as ``BinMapper.to_dict()`` dicts, which carry
   the real-valued thresholds of the model text.
 - :func:`gbdt_from_model_string` loads a reference model string into the
-  port's :class:`GBDT`.
+  port's :class:`GBDT`, and :func:`booster_from_model_string` a reference
+  ``Booster``'s model string and params into the port's :class:`Booster`
+  (which ``engine.train(init_model=...)`` can continue).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from .basic import Booster
 from .boosting.gbdt import GBDT
 from .config import Config
 from .device import DeviceLike
@@ -107,3 +110,10 @@ def gbdt_from_model_string(text: str, config: Optional[Config] = None,
     booster = GBDT(config or Config(), device=device)
     booster.load_model_from_string(text)
     return booster
+
+
+def booster_from_model_string(text: str, params: Optional[dict] = None,
+                              device: DeviceLike = None) -> Booster:
+    """The port's :class:`Booster` of a reference booster's
+    ``model_to_string()`` and params."""
+    return Booster(params=params, model_str=text, device=device)

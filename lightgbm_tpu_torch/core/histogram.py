@@ -1,16 +1,19 @@
-"""Feature histograms over the combined row store.
+"""Feature histograms over the combined row store, and over separate bins
+and values.
 
 Counterpart of ``lightgbm_tpu/core/histogram.py`` ``histogram_rows``: per
 (feature, bin) sums of grad and hess over rows ``[start, start + count)`` of the
 u8 row store (bin bytes at column 0, f32 grad/hess at ``voff``), returned as
-``[F, 2, B]`` f32.
+``[F, 2, B]`` f32.  The TPU runs this function through two kernels, the
+factored one and, past its accumulator gate (wide F such as 2000 features at
+256 bins), the classic packed-tile one; here one kernel serves every F.
 
 Two versions of the one function live here:
 
 - :func:`histogram_rows_plain`, plain PyTorch: the row store is split into
   bins and values (``rows_split``, the counterpart of ``rows_split_xla``) and
-  summed with one flattened-id ``index_add_`` (the counterpart of
-  ``histogram_xla_masked``).
+  summed with flattened-id ``index_add_`` calls over row chunks (the
+  counterpart of ``histogram_xla_masked``).
 - :func:`histogram_rows_cuda`, the wrapper of the hand-written kernel in
   ``csrc/histogram.cu`` (see ``csrc/hist_common.cuh`` for its design).
 
@@ -20,8 +23,13 @@ exact integer sums, rounded to f32 once: the plain version sums in int64
 (:func:`histogram_plain_int`), a CUDA tensor goes through the integer kernel
 ``csrc/histogram_int.cu`` (design in ``csrc/hist_int.cuh``).
 
-:func:`histogram_rows` takes the plain version only for a tensor on the CPU;
-for a CUDA tensor it launches the kernel or raises.  The TPU's one-hot MXU
+:func:`histogram_masked` is the counterpart of ``histogram_pallas_masked`` /
+``histogram_xla_masked`` over separate ``bins`` [R, F] (or nibble-packed) and
+channel-major ``values`` [2, R], with the kernel ``csrc/histogram_masked.cu``;
+:func:`build_histogram` (over all rows) is its entry point.
+
+Each dispatcher takes the plain version only for a tensor on the CPU; for a
+CUDA tensor it launches the kernel or raises.  The TPU's one-hot MXU
 contraction, bf16 hi/lo split and factored accumulator layout are TPU-only and
 are not carried over.
 """
@@ -31,9 +39,16 @@ import torch
 
 from ..device import check_tensor, count_launch, cuda_stream_ptr
 
-# row segments per kernel launch: about 2048 rows each, at most this many
+from ..device import DeviceLike, resolve_device
+
+# row segments per kernel launch: about 2048 rows each, at most this many,
+# and at most as many as keep the f64 partials [nseg, F, 2, B] within the
+# budget (32 segments at F = 2000, B = 256; no cap below 2,340 at F = 28)
 _SEG_ROWS = 2048
 _MAX_SEGMENTS = 528
+_PARTIAL_BUDGET = 256 << 20     # bytes
+# rows x features per index_add_ call of the plain versions
+_PLAIN_CHUNK = 1 << 24
 
 
 def pad_bins_pow2(num_bins: int) -> int:
@@ -74,18 +89,31 @@ def rows_split(rows: torch.Tensor, num_features: int, voff: int, bpc: int = 1,
     return bins.long(), values
 
 
-def _index_add_hist(bins: torch.Tensor, vals: torch.Tensor, num_bins: int,
-                    dtype: torch.dtype) -> torch.Tensor:
-    """[F, 2, B] sums of ``vals`` [N, 2] by ``bins`` [N, F] in ``dtype``,
-    rounded to f32 once (one index_add_ over flattened (feature, bin) ids;
-    out-of-range bins are dropped like a segment sum drops them)."""
-    n, f = bins.shape
-    ids = bins + torch.arange(f, device=bins.device)[None, :] * num_bins
-    keep = (bins >= 0) & (bins < num_bins)
-    ids = torch.where(keep, ids, f * num_bins)           # overflow slot
-    vals = vals.to(dtype)[:, None, :].expand(n, f, 2).reshape(n * f, 2)
-    out = torch.zeros((f * num_bins + 1, 2), dtype=dtype, device=bins.device)
-    out.index_add_(0, ids.reshape(-1), vals)
+def _row_chunks(n: int, num_features: int):
+    """Row ranges of at most ``_PLAIN_CHUNK`` (row, feature) pairs."""
+    step = max(1, _PLAIN_CHUNK // max(num_features, 1))
+    return [(r, min(r + step, n)) for r in range(0, n, step)]
+
+
+def _hist_sums(chunks, num_features: int, num_bins: int, quantized: bool,
+               device) -> torch.Tensor:
+    """[F, 2, B] sums of ``values`` [2, n] by ``bins`` [n, F] over the
+    (bins, values) ``chunks`` in row order: f64 (or int64 of the rounded
+    values when ``quantized``), rounded to f32 once.  One index_add_ per
+    chunk over flattened (feature, bin) ids; out-of-range bins are dropped
+    like a segment sum drops them."""
+    f = num_features
+    dtype = torch.int64 if quantized else torch.float64
+    out = torch.zeros((f * num_bins + 1, 2), dtype=dtype, device=device)
+    offs = torch.arange(f, device=device)[None, :] * num_bins
+    for bins, values in chunks:
+        n = bins.shape[0]
+        b = bins.long()
+        ids = torch.where((b >= 0) & (b < num_bins), b + offs, f * num_bins)
+        vals = values.t().round() if quantized else values.t()
+        out.index_add_(0, ids.reshape(-1),
+                       vals.to(dtype)[:, None, :].expand(n, f, 2)
+                       .reshape(n * f, 2))
     return out[:-1].reshape(f, num_bins, 2).permute(0, 2, 1).float() \
         .contiguous()
 
@@ -95,31 +123,48 @@ def histogram_plain(bins: torch.Tensor, values: torch.Tensor,
     """[F, 2, B] sums of ``values`` [2, N] by ``bins`` [N, F], summed in f64
     and rounded to f32 once, as the kernel does, so the two agree to the last
     bit or two."""
-    return _index_add_hist(bins, values.t(), num_bins, torch.float64)
+    f = bins.shape[1]
+    return _hist_sums(((bins[a:b], values[:, a:b])
+                       for a, b in _row_chunks(bins.shape[0], f)),
+                      f, num_bins, False, bins.device)
 
 
 def histogram_plain_int(bins: torch.Tensor, values: torch.Tensor,
                         num_bins: int) -> torch.Tensor:
     """[F, 2, B] exact sums of integer-valued ``values`` [2, N] by ``bins``
     [N, F]: summed in int64, converted to f32 once."""
-    return _index_add_hist(bins, values.t().round(), num_bins, torch.int64)
+    f = bins.shape[1]
+    return _hist_sums(((bins[a:b], values[:, a:b])
+                       for a, b in _row_chunks(bins.shape[0], f)),
+                      f, num_bins, True, bins.device)
 
 
 def histogram_rows_plain(rows: torch.Tensor, num_bins: int, start: int,
                          count: int, *, num_features: int, voff: int,
                          bpc: int = 1, packed: bool = False,
-                         f_begin: int = 0,
-                         quantized: bool = False) -> torch.Tensor:
-    """Plain PyTorch version of the row-store histogram."""
+                         f_begin: int = 0, quantized: bool = False,
+                         weight: torch.Tensor = None) -> torch.Tensor:
+    """Plain PyTorch version of the row-store histogram.  ``weight`` [count]
+    (optional) multiplies each window row's values (a 0/1 side mask)."""
     window = rows[start:start + count]
-    bins, values = rows_split(window, num_features, voff, bpc, packed, f_begin)
-    if quantized:
-        return histogram_plain_int(bins, values, num_bins)
-    return histogram_plain(bins, values, num_bins)
+
+    def chunks():
+        for a, b in _row_chunks(count, num_features):
+            bins, values = rows_split(window[a:b], num_features, voff, bpc,
+                                      packed, f_begin)
+            if weight is not None:
+                values = values * weight[a:b][None]
+            yield bins, values
+    return _hist_sums(chunks(), num_features, num_bins, quantized,
+                      rows.device)
 
 
-def _segments(count: int) -> int:
-    return max(1, min(_MAX_SEGMENTS, -(-count // _SEG_ROWS)))
+def _segments(count: int, num_features: int, num_bins: int) -> int:
+    """Row segments of a kernel launch over ``count`` rows: a function of
+    (count, F, B) only, so every launch of a window sums in the same order."""
+    cap = _PARTIAL_BUDGET // (num_features * 2 * num_bins * 8)
+    cap = max(1, min(_MAX_SEGMENTS, cap))
+    return max(1, min(cap, -(-count // _SEG_ROWS)))
 
 
 # int32 block partials of the integer kernel: a segment's |sum| <= rows * 255
@@ -167,7 +212,7 @@ def histogram_rows_cuda(rows: torch.Tensor, num_bins: int, start: int,
     check_hist_shape(num_features, num_bins)
     out = torch.empty((num_features, 2, num_bins), dtype=torch.float32,
                       device=rows.device)
-    nseg = _segments(count)
+    nseg = _segments(count, num_features, num_bins)
     if quantized:
         check_int_segments(count, nseg)
         name, fn = "histogram_int", "lgbt_hist_rows_int"
@@ -197,3 +242,114 @@ def histogram_rows(rows: torch.Tensor, num_bins: int, start: int, count: int,
     return fn(rows, num_bins, int(start), int(count),
               num_features=num_features, voff=voff, bpc=bpc, packed=packed,
               f_begin=f_begin, quantized=quantized)
+
+
+# ---- separate bins and values (``histogram_pallas_masked``) ----
+
+_BIN_BYTES = {torch.uint8: 1, torch.int16: 2, torch.int32: 4}
+
+
+def _check_masked(bins: torch.Tensor, values: torch.Tensor, num_bins: int,
+                  start: int, count: int, num_cols: int) -> int:
+    """The JAX entry's shape rules; returns the feature count."""
+    if bins.dim() != 2:
+        raise ValueError("bins must be [R, F], got shape %s"
+                         % (tuple(bins.shape),))
+    n, width = bins.shape
+    if tuple(values.shape) != (2, n):
+        raise ValueError("values must be [2, %d], got shape %s"
+                         % (n, tuple(values.shape)))
+    if not (128 % num_bins == 0 or num_bins % 128 == 0):
+        raise ValueError("num_bins must divide or be a multiple of 128 (use "
+                         "pad_bins_pow2); got %d" % num_bins)
+    if not 0 <= start <= start + count <= n:
+        raise ValueError("window [%d, %d) outside %d rows"
+                         % (start, start + count, n))
+    if num_cols and (num_cols + 1) // 2 != width:
+        raise ValueError("nibble-packed bins of %d columns need %d bytes a "
+                         "row, got %d" % (num_cols, (num_cols + 1) // 2,
+                                          width))
+    return num_cols or width
+
+
+def histogram_masked_plain(bins: torch.Tensor, values: torch.Tensor,
+                           num_bins: int, start: int, count: int,
+                           num_cols: int = 0) -> torch.Tensor:
+    """Plain version (``histogram_xla_masked``): [F, 2, B] sums over rows
+    ``[start, start + count)``, summed in f64 and rounded to f32 once."""
+    f = _check_masked(bins, values, num_bins, start, count, num_cols)
+    window = bins[start:start + count]
+    vals = values[:, start:start + count]
+
+    def chunks():
+        for a, b in _row_chunks(count, f):
+            part = window[a:b]
+            yield (unpack_nibbles(part, num_cols) if num_cols else part,
+                   vals[:, a:b])
+    return _hist_sums(chunks(), f, num_bins, False, bins.device)
+
+
+def histogram_masked_cuda(bins: torch.Tensor, values: torch.Tensor,
+                          num_bins: int, start: int, count: int,
+                          num_cols: int = 0) -> torch.Tensor:
+    """Launch the hand-written masked histogram
+    (``csrc/histogram_masked.cu``)."""
+    from .. import kernels
+    f = _check_masked(bins, values, num_bins, start, count, num_cols)
+    if not bins.is_cuda or bins.dtype not in _BIN_BYTES:
+        raise TypeError("bins must be a CUDA u8, i16 or i32 tensor, got %s on "
+                        "%s" % (bins.dtype, bins.device))
+    if num_cols and bins.dtype != torch.uint8:
+        raise TypeError("nibble-packed bins must be u8")
+    check_tensor(bins, "bins", bins.dtype, ndim=2)
+    check_tensor(values, "values", torch.float32, ndim=2)
+    if values.device != bins.device:
+        raise ValueError("bins on %s, values on %s"
+                         % (bins.device, values.device))
+    check_hist_shape(f, num_bins)
+    n, width = bins.shape
+    out = torch.empty((f, 2, num_bins), dtype=torch.float32,
+                      device=bins.device)
+    nseg = _segments(count, f, num_bins)
+    partial = torch.empty((nseg, f, 2, num_bins), dtype=torch.float64,
+                          device=bins.device)
+    bpc = _BIN_BYTES[bins.dtype]
+    err = kernels.library("histogram_masked").lgbt_hist_masked(
+        bins.data_ptr(), width * bpc, bpc, int(bool(num_cols)),
+        values.data_ptr(), n, f, num_bins, start, count, nseg,
+        partial.data_ptr(), out.data_ptr(), cuda_stream_ptr(bins))
+    count_launch("histogram_masked")
+    kernels.check(err, "histogram_masked kernel")
+    return out
+
+
+def histogram_masked(bins: torch.Tensor, values: torch.Tensor, num_bins: int,
+                     start: int, count: int,
+                     num_cols: int = 0) -> torch.Tensor:
+    """Histogram over rows ``[start, start + count)`` of ``bins`` [R, F]
+    (u8/i16/i32, or nibble-packed u8 [R, ceil(F/2)] with ``num_cols`` = F)
+    weighted by ``values`` [2, R] f32 (channel-major, not pre-masked) ->
+    [F, 2, B] f32.
+
+    A CUDA tensor goes through the kernel (or raises); a CPU tensor through
+    the plain version."""
+    fn = histogram_masked_cuda if bins.is_cuda else histogram_masked_plain
+    return fn(bins, values, num_bins, int(start), int(count),
+              num_cols=num_cols)
+
+
+def build_histogram(bins, values, num_bins: int, *,
+                    device: DeviceLike = None) -> torch.Tensor:
+    """[F, 2, B] f32 histogram of every row of ``bins`` [N, F] (values
+    [2, N] pre-masked): the counterpart of ``build_histogram`` /
+    ``histogram_pallas``.
+
+    ``bins`` and ``values`` (tensors or arrays) are moved to ``device``,
+    ``cuda`` unless the caller passes ``"cpu"``."""
+    dev = resolve_device(device)
+    bins = torch.as_tensor(bins).to(dev)
+    values = torch.as_tensor(values, dtype=torch.float32).to(dev)
+    if bins.dtype == torch.int64:
+        bins = bins.to(torch.int32)
+    return histogram_masked(bins.contiguous(), values.contiguous(), num_bins,
+                            0, bins.shape[0])

@@ -59,7 +59,7 @@ import torch
 from ..device import check_tensor, count_launch, cuda_stream_ptr
 from ..io.binning import MissingType
 from .histogram import (_segments, check_hist_shape, check_int_segments,
-                        histogram_plain, histogram_plain_int, rows_split)
+                        histogram_rows_plain)
 
 SCAL_HEAD = 12
 _PART_TILE = 2048        # rows per block of the count/scatter kernels
@@ -141,9 +141,10 @@ def partition_hist_plain(rows: torch.Tensor, scal: ScalLike, *,
     rows_new = torch.empty_like(rows)
     rows_new[dest] = rows
     side = sel_l if hist_left == 1 else sel_r
-    bins, values = rows_split(rows, num_features, voff, bpc, packed)
-    hist_fn = histogram_plain_int if quantized else histogram_plain
-    hist = hist_fn(bins, values * side.to(torch.float32)[None], num_bins)
+    hist = histogram_rows_plain(
+        rows, num_bins, wb, wc, num_features=num_features, voff=voff,
+        bpc=bpc, packed=packed, quantized=quantized,
+        weight=side[wb:wb + wc].to(torch.float32))
     return rows_new, hist, torch.tensor([nl], dtype=torch.int32, device=dev)
 
 
@@ -184,7 +185,7 @@ def partition_hist_cuda(rows: torch.Tensor, scal: ScalLike, *,
     nblk = -(-wc // _PART_TILE)
     blk = torch.empty((nblk,), dtype=torch.int32, device=dev)
     win = torch.empty((2,), dtype=torch.int32, device=dev)
-    nseg = _segments(wc)
+    nseg = _segments(wc, num_features, num_bins)
     if quantized:
         check_int_segments(wc, nseg)
     partial = torch.empty((nseg, num_features, 2, num_bins),
@@ -263,15 +264,17 @@ def partition_hist_level_plain(rows: torch.Tensor, scals, *,
     return rows, torch.stack(hists), torch.cat(nls)
 
 
-def level_meta(s: np.ndarray):
+def level_meta(s: np.ndarray, num_features: int, num_bins: int):
     """The host-built block and segment maps of ``csrc/partition_level.cu``
-    for scal rows ``s`` [G, S]: (meta int32, NB, NS, scratch rows, the
-    largest rows per histogram segment)."""
+    for scal rows ``s`` [G, S] of an F-feature, B-bin store: (meta int32,
+    NB, NS, rows the partition stages, the largest rows per histogram
+    segment)."""
     G = s.shape[0]
     wc = s[:, 1].astype(np.int64)
     nblk = -(-wc // _PART_TILE)
     # each window keeps its single-window call's segmentation
-    nseg = np.asarray([_segments(int(c)) if c > 0 else 0 for c in wc],
+    nseg = np.asarray([_segments(int(c), num_features, num_bins)
+                       if c > 0 else 0 for c in wc],
                       dtype=np.int64)
     blk_off = np.cumsum(nblk) - nblk
     soff = np.cumsum(wc) - wc
@@ -309,7 +312,7 @@ def partition_hist_level_cuda(rows: torch.Tensor, scals, *,
                        device=dev)
     if G == 0:
         return rows, hist, torch.zeros((0,), dtype=torch.int32, device=dev)
-    meta, NB, NS, srows, seg_rows = level_meta(s)
+    meta, NB, NS, srows, seg_rows = level_meta(s, num_features, num_bins)
     if NS > _MAX_GRID_Y or G > _MAX_GRID_Y:
         raise ValueError("%d windows in %d histogram segments exceed the "
                          "grid's %d rows" % (G, NS, _MAX_GRID_Y))

@@ -471,6 +471,42 @@ def tree_output_binned(bins: torch.Tensor, tree: TreeArrays,
     return lv[route_binned(bins, tree, feat_host)]
 
 
+def arrays_from_tree(tree: Tree, dataset: BinnedDataset) -> TreeArrays:
+    """A host tree as routable TreeArrays over ``dataset``'s bins (the
+    counterpart of ``GBDT._tree_to_device``): bin thresholds recomputed from
+    the real thresholds (a parsed model text carries only those), so a
+    loaded tree routes the binned rows as its trained form did.  Numerical
+    splits only; leaf values in f32."""
+    nl = int(tree.num_leaves)
+    ni = max(nl - 1, 0)
+    inner = np.zeros(ni, np.int32)
+    thr = np.zeros(ni, np.int32)
+    for node in range(ni):
+        if int(tree.decision_type[node]) & 1:
+            raise NotImplementedError("categorical splits are not ported yet "
+                                      "(ROADMAP queue 1 item 3)")
+        f = int(tree.split_feature[node])
+        inner[node] = dataset.inner_feature_map[f]
+        thr[node] = dataset.bin_mappers[f].value_to_bin(
+            float(tree.threshold[node]))
+    f32 = np.float32
+    return TreeArrays(
+        split_feature=inner, threshold_bin=thr,
+        split_gain=np.asarray(tree.split_gain[:ni], f32),
+        default_left=(np.asarray(tree.decision_type[:ni]) & 2) > 0,
+        left_child=np.asarray(tree.left_child[:ni], np.int32),
+        right_child=np.asarray(tree.right_child[:ni], np.int32),
+        internal_value=np.asarray(tree.internal_value[:ni], f32),
+        internal_weight=np.asarray(tree.internal_weight[:ni], f32),
+        internal_count=np.asarray(tree.internal_count[:ni], f32),
+        leaf_value=np.asarray(tree.leaf_value[:nl], f32),
+        leaf_weight=np.asarray(tree.leaf_weight[:nl], f32),
+        leaf_count=np.asarray(tree.leaf_count[:nl], f32),
+        leaf_parent=np.asarray(tree.leaf_parent[:nl], np.int32),
+        leaf_depth=np.asarray(tree.leaf_depth[:nl], np.int32),
+        num_leaves=nl, row_leaf=None)
+
+
 def tree_from_arrays(arrays: TreeArrays, dataset: BinnedDataset,
                      shrinkage: float = 1.0) -> Tree:
     """Convert tree arrays to a host :class:`Tree` with real thresholds
@@ -594,6 +630,21 @@ class SerialTreeLearner:
             _refuse("extra_trees", "queue 1 item 3")
         if str(getattr(config, "tree_learner", "serial") or "serial") != "serial":
             _refuse("parallel tree learners", "queue 1 item 13")
+
+    def valid_bins(self, dataset: BinnedDataset) -> torch.Tensor:
+        """Binned matrix [N, F] of a validation set (binned with the training
+        set's mappers, ``reference=``) on the learner's device, for
+        :func:`route_binned` (the JAX learner's ``valid_bins``)."""
+        if dataset.is_bundled:
+            _refuse("EFB-bundled datasets (enable_bundle)", "queue 1 item 4")
+        if dataset.binned.shape[1] != self.num_columns:
+            raise ValueError("validation set has %d bin columns, the training "
+                             "set %d: bin it with reference= the training set"
+                             % (dataset.binned.shape[1], self.num_columns))
+        bins = np.ascontiguousarray(dataset.binned)
+        if bins.dtype == np.uint16:
+            bins = bins.astype(np.int32)
+        return torch.from_numpy(bins).to(self.device)
 
     def level_count(self) -> int:
         """Level steps of a tree_grow_mode=level build (its schedule)."""

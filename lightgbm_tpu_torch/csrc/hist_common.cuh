@@ -1,18 +1,24 @@
-// Row-store histogram kernels shared by histogram.cu (root histograms) and
-// partition.cu (the smaller child's histogram after a split's partition).
+// Histogram kernels shared by histogram.cu (root histograms), partition.cu
+// and partition_level.cu (the smaller child's histogram after a split's
+// partition) and histogram_masked.cu (separate bins and values).
 //
 // Replaces lightgbm_tpu/core/histogram.py `histogram_pallas_rows`: the
 // factored kernel `_hist_kernel_rows_fac` (pallas_call at histogram.py:743)
-// and, as the same function, the classic `_hist_kernel_rows`
-// (histogram.py:774).  The TPU built the histogram as a one-hot contraction
-// on the MXU with a bf16 hi/lo split of the values because it has no fast
-// scatter; Hopper does, so this is a plain f32 scatter-add into shared memory.
+// and the classic `_hist_kernel_rows` (histogram.py:774), which the TPU takes
+// past its 4 MiB accumulator gate (wide F, e.g. F = 2000 at B = 256), and the
+// classic `_hist_tile` branch of the fused split kernels (partition.py:281).
+// The two TPU layouts compute one function; here one kernel serves both.
+// Through the bins/values addressing of HistArgs it also replaces
+// `_hist_kernel_mxu` (pallas_call at histogram.py:303, histogram_masked.cu).
+// The TPU built the histogram as a one-hot contraction on the MXU with a
+// bf16 hi/lo split of the values because it has no fast scatter; Hopper
+// does, so this is a plain scatter-add into shared memory.
 //
 // What bounds it on the card: device-memory bytes.  Each row contributes the
-// 32-byte sector that holds its bin bytes and the one that holds its f32
-// grad/hess (row-store layout: bins at byte 0, g/h at `voff`), so a window of
-// `count` rows needs count * 64 bytes, about 20 us per million rows at
-// 3.35 TB/s.  The output [F, 2, B] f32 is tiny next to that.
+// 32-byte sectors that hold its bin bytes (ceil(F * bpc / 32) of them) and
+// the one that holds its f32 grad/hess (row-store layout: bins at byte 0,
+// g/h at `voff`): 64 B per row at F = 28, 2,048 B at F = 2000.  The output
+// [F, 2, B] f32 is small next to that.
 //
 // Design, and what it does about that bound, determinism and accuracy:
 // - The reference's contract is that the same input gives the same bits on
@@ -23,7 +29,10 @@
 //   each bin's sum has a fixed order.  The block writes its partial
 //   [tile, 2, B] to device memory; pass 2 sums the partials over segments in
 //   segment order, one thread per output element.  The segmentation depends
-//   only on the row count, so the result is bitwise reproducible.
+//   only on (row count, F, B) (core/histogram.py `_segments`: about 2048 rows
+//   a segment, at most 528 segments, and at most 256 MiB of f64 partials, so
+//   a root histogram at F = 2000, B = 256 takes 32 segments), so the result
+//   is bitwise reproducible.
 // - Sums are kept in f64 (shared-memory accumulators, partials and pass 2)
 //   and rounded to f32 once, so the histogram is the correctly rounded sum
 //   up to f64 error whatever the segmentation.  An f32 running sum over a
@@ -31,11 +40,13 @@
 //   gains between this kernel and the plain version (which also sums in f64).
 // - Feature tiles are balanced (equal features per tile) and the tile is
 //   the fast grid axis, so the tiles of one segment run together and the
-//   second tile reads the segment's rows from L2.
-// - Rows are read 4 at a time per thread before the 4 shared-memory updates,
-//   so the loads of a batch are in flight together.
+//   later tiles read the segment's rows from L2.
+// - Rows are read kRowBatch at a time per thread before the shared-memory
+//   updates, so the loads of a batch are in flight together.
 // - Known limit (later work): one thread per (feature, channel) gives a block
-//   only 2 * tile threads, so occupancy, not bandwidth, bounds it today.
+//   only 2 * tile threads (48 at F = 2000, B = 256: 24 features of 4 KB of
+//   f64 accumulators fill the 96 KB budget), so occupancy and load latency,
+//   not bandwidth, bound it.
 // - A window axis (HistArgs::seg_map) lets one launch cover many windows
 //   (the level pass, partition_level.cu).  Each window keeps the segment
 //   count its single-window call would use, so its sums are those of that
@@ -49,7 +60,10 @@ namespace lgbt {
 
 // Shared memory one block may hold for its feature tile's f64 histogram.
 constexpr int kHistSmemBudget = 96 * 1024;
+constexpr int kRowBatch = 8;
 
+// Bin code of column `col` of one row's bin bytes: nibble-packed, or `bpc`
+// little-endian bytes (1: u8, 2: u16/i16, 4: i32).
 __device__ __forceinline__ int decode_bin(const uint8_t* __restrict__ row,
                                           int col, int bpc, int packed) {
   if (packed) {
@@ -57,12 +71,29 @@ __device__ __forceinline__ int decode_bin(const uint8_t* __restrict__ row,
     return (byte >> ((col & 1) * 4)) & 15;
   }
   if (bpc == 2) return row[2 * col] | (row[2 * col + 1] << 8);
+  if (bpc == 4)
+    return (int)((unsigned)row[4 * col] | ((unsigned)row[4 * col + 1] << 8) |
+                 ((unsigned)row[4 * col + 2] << 16) |
+                 ((unsigned)row[4 * col + 3] << 24));
   return row[col];
 }
 
+// A bin code outside [0, B) adds nothing (a segment sum drops it).
+__device__ __forceinline__ bool bin_ok(int bn, int B) {
+  return (unsigned)bn < (unsigned)B;
+}
+
 struct HistArgs {
-  const uint8_t* rows;   // [R, W] u8 row store
-  int W, voff, bpc, packed;
+  // Row r's bin bytes start at bins + r * bstride; its f32 grad at
+  // vals + r * vstride and its hess `vchan` bytes further.  The row store
+  // [R, W] is bins = rows, bstride = W, vals = rows + voff, vstride = W,
+  // vchan = 4; separate bins [R, F] and values [2, R] are bstride = F * bpc,
+  // vstride = 4, vchan = 4 * R.
+  const uint8_t* bins;
+  long long bstride;
+  const uint8_t* vals;
+  long long vstride, vchan;
+  int bpc, packed;
   int F, B, f_begin;     // histogram features [f_begin, f_begin + F)
   long long start, count;
   const int* win;        // optional device {start, count} per window ([G, 2]);
@@ -107,6 +138,12 @@ __device__ __forceinline__ SegPos seg_pos(const HistArgs& a) {
   return p;
 }
 
+__device__ __forceinline__ float row_value(const HistArgs& a, long long r,
+                                           int c) {
+  return *reinterpret_cast<const float*>(a.vals + (size_t)c * a.vchan +
+                                         (size_t)r * a.vstride);
+}
+
 __global__ void hist_seg_kernel(HistArgs a) {
   extern __shared__ double sh[];  // [nf, 2, B]
   const SegPos p = seg_pos(a);
@@ -126,26 +163,25 @@ __global__ void hist_seg_kernel(HistArgs a) {
     const int c = t / nf;
     const int col = a.f_begin + f0 + f;
     double* h = sh + (f * 2 + c) * B;
-    const uint8_t* base = a.rows + (size_t)a.voff + 4 * c;
     long long r = r0;
-    for (; r + 4 <= r1; r += 4) {
-      int bn[4];
-      float v[4];
+    for (; r + kRowBatch <= r1; r += kRowBatch) {
+      int bn[kRowBatch];
+      float v[kRowBatch];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint8_t* row = a.rows + (size_t)(r + j) * a.W;
-        bn[j] = decode_bin(row, col, a.bpc, a.packed);
-        v[j] = *reinterpret_cast<const float*>(base + (size_t)(r + j) * a.W);
+      for (int j = 0; j < kRowBatch; ++j) {
+        bn[j] = decode_bin(a.bins + (size_t)(r + j) * a.bstride, col, a.bpc,
+                           a.packed);
+        v[j] = row_value(a, r + j, c);
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (bn[j] < B) h[bn[j]] += v[j];
+      for (int j = 0; j < kRowBatch; ++j)
+        if (bin_ok(bn[j], B)) h[bn[j]] += v[j];
     }
     for (; r < r1; ++r) {
-      const uint8_t* row = a.rows + (size_t)r * a.W;
-      int bn = decode_bin(row, col, a.bpc, a.packed);
-      float v = *reinterpret_cast<const float*>(base + (size_t)r * a.W);
-      if (bn < B) h[bn] += v;
+      const int bn = decode_bin(a.bins + (size_t)r * a.bstride, col, a.bpc,
+                                a.packed);
+      const float v = row_value(a, r, c);
+      if (bin_ok(bn, B)) h[bn] += v;
     }
   }
   __syncthreads();
@@ -216,16 +252,17 @@ inline cudaError_t launch_hist(HistArgs a, float* out, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// HistArgs for one window [start, start + count) of `rows` (or the window
+// HistArgs with no rows, one window [start, start + count) (or the window
 // that `win` holds on the device) in `nseg` segments.
-inline HistArgs hist_args_one(const uint8_t* rows, int W, int voff, int bpc,
-                              int packed, int F, int B, int f_begin,
-                              long long start, long long count,
-                              const int* win, int nseg) {
+inline HistArgs hist_args_window(int bpc, int packed, int F, int B,
+                                 int f_begin, long long start,
+                                 long long count, const int* win, int nseg) {
   HistArgs a;
-  a.rows = rows;
-  a.W = W;
-  a.voff = voff;
+  a.bins = nullptr;
+  a.bstride = 0;
+  a.vals = nullptr;
+  a.vstride = 0;
+  a.vchan = 0;
   a.bpc = bpc;
   a.packed = packed;
   a.F = F;
@@ -242,6 +279,21 @@ inline HistArgs hist_args_one(const uint8_t* rows, int W, int voff, int bpc,
   a.nwin = 1;
   a.partial = nullptr;
   a.ipartial = nullptr;
+  return a;
+}
+
+// The same over the row store [R, W] (bins at byte 0, f32 g/h at `voff`).
+inline HistArgs hist_args_one(const uint8_t* rows, int W, int voff, int bpc,
+                              int packed, int F, int B, int f_begin,
+                              long long start, long long count,
+                              const int* win, int nseg) {
+  HistArgs a = hist_args_window(bpc, packed, F, B, f_begin, start, count,
+                                win, nseg);
+  a.bins = rows;
+  a.bstride = W;
+  a.vals = rows + voff;
+  a.vstride = W;
+  a.vchan = 4;
   return a;
 }
 

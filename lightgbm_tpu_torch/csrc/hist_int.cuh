@@ -11,9 +11,9 @@
 // q_g in [-127, 127], q_h in [0, 255] (core/quant.py).
 //
 // What bounds it on the card: device-memory bytes, as for the exact kernel:
-// the 32-byte sector of a row's bins and the one of its g/h, count * 64
-// bytes for a window of `count` rows (about 20 us per million rows at
-// 3.35 TB/s).
+// the 32-byte sectors of a row's bins and the one of its g/h, 64 bytes a
+// row at F = 28 (about 20 us per million rows at 3.35 TB/s), 2,048 at
+// F = 2000.
 //
 // Design, and what it does about that bound:
 // - Integer addition is exact and associative, so shared-memory atomicAdd on
@@ -22,13 +22,15 @@
 //   every feature of its tile into the block's [tile, 2, B] int32
 //   histogram; this lifts the exact kernel's limit of one thread per
 //   (feature, channel).
-// - For one-byte, unpacked bins within the row's first 32 bytes (the main
-//   path: 28 features), a thread reads those 32 bytes as two 16-byte vectors
-//   and takes each bin from registers, so a row costs two loads of its bin
-//   sector instead of one load per feature.  Other layouts decode each bin
-//   from memory (decode_bin).
+// - For one-byte, unpacked bins with 16-byte aligned rows (the row store),
+//   a thread reads each 32-byte window of the tile's columns as two 16-byte
+//   vectors and takes each bin from registers, so a row costs two loads per
+//   bin sector instead of one load per feature: one window at 28 features,
+//   two or three for a 48-feature tile at F = 2000.  Other layouts decode
+//   each bin from memory (decode_bin).
 // - Overflow: a block's partial is int32, so a segment of at most
-//   (2^31 - 1) / 255 rows (the wrapper checks it; segments are ~2048 rows).
+//   (2^31 - 1) / 255 rows (the wrapper checks it; segments are ~2048 rows,
+//   longer where the partial budget caps their count at wide F).
 //   Pass 2 sums the partials of a window in int64 and converts to f32 once:
 //   a root hess bin of 10.5M rows can reach 255 * 10.5M > 2^31.
 // - The segmentation and window axis are the exact kernel's (HistArgs in
@@ -43,7 +45,7 @@ constexpr int kHistIntThreads = 256;
 
 __device__ __forceinline__ void add_row(int* __restrict__ h, int B, int f,
                                         int bn, int qg, int qh) {
-  if (bn < B) {
+  if (bin_ok(bn, B)) {
     if (qg != 0) atomicAdd(h + (2 * f) * B + bn, qg);
     if (qh != 0) atomicAdd(h + (2 * f + 1) * B + bn, qh);
   }
@@ -62,21 +64,29 @@ __global__ void hist_int_seg_kernel(HistArgs a) {
   const long long r0 = p.start + (long long)p.seg * seglen;
   const long long r1 = min(r0 + seglen, p.start + p.count);
   const int c0 = a.f_begin + f0;
-  const bool vec = !a.packed && a.bpc == 1 && a.W >= 32 && c0 + nf <= 32;
+  // the 32-byte windows [w0, w1) covering the tile's columns lie in the row
+  const int w0 = c0 & ~31;
+  const int w1 = (c0 + nf + 31) & ~31;
+  const bool vec = !a.packed && a.bpc == 1 && a.bstride % 16 == 0 &&
+                   w1 <= a.bstride &&
+                   reinterpret_cast<uintptr_t>(a.bins) % 16 == 0;
   for (long long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
-    const uint8_t* row = a.rows + (size_t)r * a.W;
-    const int qg = __float2int_rn(
-        *reinterpret_cast<const float*>(row + a.voff));
-    const int qh = __float2int_rn(
-        *reinterpret_cast<const float*>(row + a.voff + 4));
+    const uint8_t* row = a.bins + (size_t)r * a.bstride;
+    const int qg = __float2int_rn(row_value(a, r, 0));
+    const int qh = __float2int_rn(row_value(a, r, 1));
     if (vec) {
-      const uint4 v0 = reinterpret_cast<const uint4*>(row)[0];
-      const uint4 v1 = reinterpret_cast<const uint4*>(row)[1];
-      const unsigned w[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+      for (int base = w0; base < w1; base += 32) {
+        const uint4 v0 = reinterpret_cast<const uint4*>(row + base)[0];
+        const uint4 v1 = reinterpret_cast<const uint4*>(row + base)[1];
+        const unsigned w[8] = {v0.x, v0.y, v0.z, v0.w,
+                               v1.x, v1.y, v1.z, v1.w};
 #pragma unroll
-      for (int c = 0; c < 32; ++c) {
-        if (c >= c0 && c < c0 + nf)
-          add_row(shi, B, c - c0, (w[c >> 2] >> ((c & 3) * 8)) & 255, qg, qh);
+        for (int c = 0; c < 32; ++c) {
+          const int col = base + c;
+          if (col >= c0 && col < c0 + nf)
+            add_row(shi, B, col - c0, (w[c >> 2] >> ((c & 3) * 8)) & 255, qg,
+                    qh);
+        }
       }
     } else {
       for (int f = 0; f < nf; ++f)

@@ -2,10 +2,12 @@
 //
 // Replaces lightgbm_tpu/core/histogram.py `histogram_pallas_rows` — the
 // factored `_hist_kernel_rows_fac` (pallas_call at histogram.py:743) and the
-// classic `_hist_kernel_rows` (histogram.py:774), which compute the same
-// function in two TPU layouts.  The kernels, what bounds them on the card
-// (device-memory bytes: 64 B per row) and the design against that bound are
-// described in hist_common.cuh, which partition.cu shares.
+// classic `_hist_kernel_rows` (histogram.py:774, the TPU's wide-F layout),
+// which compute the same function in two TPU layouts.  The kernels, what
+// bounds them on the card (device-memory bytes: the bin sectors and the g/h
+// sector of each row, 64 B at F = 28 and 2,048 B at F = 2000) and the design
+// against that bound are described in hist_common.cuh, which partition.cu
+// shares.
 //
 // Plain C interface for ctypes: pointers and the stream as void*, the CUDA
 // error of the launches returned as an int.

@@ -2,9 +2,10 @@
 // exact integer sums of the integer-valued f32 grad/hess at `voff`.
 //
 // Replaces the quantized form of lightgbm_tpu/core/histogram.py
-// `histogram_pallas_rows` (pallas_call at histogram.py:743 with
-// quantized=True).  The kernels, what bounds them on the card (device-memory
-// bytes: 64 B per row) and the design against that bound are described in
+// `histogram_pallas_rows` with quantized=True: the factored pallas_call at
+// histogram.py:743 and the classic one at :774).  The kernels, what
+// bounds them on the card (device-memory bytes: the bin sectors and the g/h
+// sector of each row) and the design against that bound are described in
 // hist_int.cuh, which partition.cu and partition_level.cu share.
 //
 // Plain C interface for ctypes: pointers and the stream as void*, the CUDA

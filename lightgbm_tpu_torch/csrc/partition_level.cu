@@ -31,9 +31,9 @@
 //   f64 one, or the integer one when quantized) with a window axis: grid
 //   row y is (window, segment) from the segment map, and the kernel reads
 //   the child's window from `win` on the device.  Each window keeps the
-//   segment count of its single-window call (`_segments(wc)` of the parent
-//   window, core/histogram.py), so its histogram equals that call's bit for
-//   bit.
+//   segment count of its single-window call (`_segments(wc, F, B)` of the
+//   parent window, core/histogram.py), so its histogram equals that call's
+//   bit for bit.
 // - A window with wc = 0 gets no count, scatter, copy-back or histogram
 //   block: the scan writes nl = 0 for it and the reduction zeros.
 // - Windows must be disjoint and inside the store; the wrapper

@@ -19,7 +19,8 @@ import torch
 
 DeviceLike = Union[str, torch.device, None]
 
-KERNELS = ("histogram", "partition", "histogram_int", "partition_level")
+KERNELS = ("histogram", "partition", "histogram_int", "partition_level",
+           "histogram_masked")
 
 _LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 

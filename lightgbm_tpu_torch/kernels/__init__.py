@@ -20,7 +20,8 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("histogram", "partition", "histogram_int", "partition_level")
+SOURCES = ("histogram", "partition", "histogram_int", "partition_level",
+           "histogram_masked")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -40,6 +41,8 @@ SIGNATURES = {
     "partition_level": {"lgbt_partition_level": [_P, _P, _I, _P, _I, _I, _I,
                                                  _I, _I, _I, _I, _I, _I, _I,
                                                  _I, _P, _P, _P, _P]},
+    "histogram_masked": {"lgbt_hist_masked": [_P, _LL, _I, _I, _P, _LL, _I,
+                                              _I, _LL, _LL, _I, _P, _P, _P]},
 }
 
 

@@ -41,11 +41,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "lightgbm_tpu" or m.startswith("lightgbm_tpu."))
-        print(len(names), bad)
+        wanted = {"engine", "basic", "callback", "core.histogram"}
+        walked = wanted & {n.split(".", 1)[1] for n in names}
+        print(len(names), len(walked) == len(wanted), bad)
     """)
     assert out.returncode == 0, out.stderr
-    count, bad = out.stdout.split(" ", 1)
+    count, walked, bad = out.stdout.split(" ", 2)
     assert int(count) >= 20
+    assert walked == "True"
     assert bad.strip() == "[]"
 
 
@@ -90,6 +93,30 @@ ENTRY_POINTS = {
         from lightgbm_tpu_torch.convert import gbdt_from_model_string
         gbdt_from_model_string("tree\\nversion=v3\\n")
     """,
+    "train": """
+        import numpy as np
+        import lightgbm_tpu_torch as lgb
+        X = np.random.RandomState(0).normal(size=(200, 3))
+        lgb.train({"objective": "binary", "verbosity": -1},
+                  lgb.Dataset(X, (X[:, 0] > 0) * 1.0), num_boost_round=1)
+    """,
+    "booster": """
+        import numpy as np
+        import lightgbm_tpu_torch as lgb
+        X = np.random.RandomState(0).normal(size=(200, 3))
+        lgb.Booster({"objective": "binary"},
+                    lgb.Dataset(X, (X[:, 0] > 0) * 1.0))
+    """,
+    "booster_from_model_string": """
+        from lightgbm_tpu_torch.convert import booster_from_model_string
+        booster_from_model_string("tree\\nversion=v3\\n")
+    """,
+    "build_histogram": """
+        import numpy as np
+        from lightgbm_tpu_torch.core.histogram import build_histogram
+        build_histogram(np.zeros((8, 2), np.uint8),
+                        np.zeros((2, 8), np.float32), 32)
+    """,
 }
 
 
@@ -111,10 +138,20 @@ def test_entry_point_runs_on_cpu_when_asked():
         b = GBDT(cfg, ds, create_objective("binary", cfg, device="cpu"),
                  device="cpu")
         b.train_one_iter()
-        print(b.train_score.device, len(b.models))
+        import lightgbm_tpu_torch as lgb
+        from lightgbm_tpu_torch.core.histogram import build_histogram
+        bst = lgb.train({"objective": "binary", "num_leaves": 4,
+                         "verbosity": -1},
+                        lgb.Dataset(X, (X[:, 0] > 0) * 1.0),
+                        num_boost_round=2, verbose_eval=False, device="cpu")
+        h = build_histogram(np.zeros((8, 2), np.uint8),
+                            np.ones((2, 8), np.float32), 32, device="cpu")
+        print(b.train_score.device, len(b.models), bst.device,
+              bst.num_trees(), float(h[0, 0, 0]))
     """))
     assert out.returncode == 0, out.stderr
-    assert out.stdout.splitlines()[-1].split() == ["cpu", "1"]
+    assert out.stdout.splitlines()[-1].split() == ["cpu", "1", "cpu", "2",
+                                                   "8.0"]
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
