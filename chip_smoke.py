@@ -54,7 +54,13 @@ together) and runs these phases, each of which raises on failure:
    to its plain rebuild; (E) ``build_histogram`` (kernel #5's caller) over
    1,048,576 rows x 28 features;
 5. times of each kernel at the main paths' shapes beside its bound, its
-   plain version and one PyTorch library call.
+   plain version and one PyTorch library call (``index_add_``; for a split
+   pass, which has none, the window's device-to-device copy): the
+   histograms and split passes on the root window and on child-sized
+   windows of 20,000 and 1,000 rows.  Times are CUDA-event medians of one
+   call, the wrapper's host work included; each histogram and its
+   ``index_add_`` also get a queued time, the device time of one call when
+   25 calls are queued behind a sleeping kernel and run back to back.
 
 Tolerances: a histogram may differ from the plain version's only by float
 summation order, so ``max|diff| <= 1e-5 * max|bin sum|``; integer histograms
@@ -66,7 +72,9 @@ The line before the last is the card's name and power limit as ``nvidia-smi``
 reports them, the one before that a JSON object with every kernel's numbers,
 and the last line ``{"ok": true, "device": {...}}``.  Without CUDA the script
 exits with code 2 and prints no result.  ``--profile`` adds a
-``torch.profiler`` table of one training iteration of each path.
+``torch.profiler`` table of one training iteration of each path and, on the
+leaf-wise paths, the single-window split passes' ``part_scatter_kernel``
+time beside their own copy-backs' (the ``Memcpy DtoD`` after each).
 """
 from __future__ import annotations
 
@@ -533,7 +541,7 @@ def phase_widef_split(device, n: int) -> float:
         for name in ("one window", "level-7 frontier"):
             scals = frontiers[name]
             if not quantized:
-                ns = P.level_meta(scals, F, B)[2]
+                ns = P.level_meta(scals, F, B, rows.shape[1])[2]
                 log("  f64 partials of the level pass over the %s (%d "
                     "windows, %d rows): %d segments, %.1f MB"
                     % (name, len(scals), int(scals[:, 1].sum()), ns,
@@ -970,7 +978,7 @@ def phase_build_histogram(device, R: int) -> dict:
     return {"launches": counts, "trees": 1}
 
 
-def profile_iteration(booster) -> None:
+def profile_iteration(booster) -> float:
     """One more training iteration under ``torch.profiler``: the kernels by
     device time, and the device's busy share of the iteration's wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -983,11 +991,30 @@ def profile_iteration(booster) -> None:
     events = prof.key_averages()
     log(events.table(sort_by="self_cuda_time_total", row_limit=25))
     # device time = the kernels' own rows (the operators' rows repeat it)
-    busy_ms = sum(e.self_device_time_total for e in events
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)) / 1e3
+    device = {e.key: e.self_device_time_total / 1e3 for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)}
+    busy_ms = sum(device.values())
     log("  profiled iteration: wall %.3f ms (profiler overhead included), "
         "device busy %.3f ms" % (wall_ms, busy_ms))
+    # leaf-wise paths: each split pass's scatter against its own copy-back,
+    # the device-to-device copy that comes next on the device
+    # (csrc/partition.cu); the level pass copies back with a kernel
+    work = sorted((e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)),
+                  key=lambda e: e.time_range.start)
+    scatter, copy = [], []
+    for e, after in zip(work, work[1:]):
+        if "part_scatter_kernel" in e.name:
+            scatter.append(e.time_range.elapsed_us() / 1e3)
+            if "Memcpy DtoD" in after.name:
+                copy.append(after.time_range.elapsed_us() / 1e3)
+    if scatter:
+        log("  part_scatter_kernel %d launches %.3f ms, their copy-backs "
+            "(Memcpy DtoD) %d copies %.3f ms%s"
+            % (len(scatter), sum(scatter), len(copy), sum(copy),
+               ": ratio %.2f" % (sum(scatter) / sum(copy)) if copy else ""))
     return busy_ms
 
 
@@ -1011,6 +1038,33 @@ def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def queued_ms(fn, reps: int = 25, trials: int = 5) -> float:
+    """Device time of one ``fn()`` without the host's share: ``reps`` calls
+    queued behind a sleeping kernel, so that the card runs them back to back,
+    between two CUDA events; the median of ``trials`` such runs.  ``fn`` must
+    not wait for the device."""
+    fn()
+    torch.cuda.synchronize()
+    cycles, times = 1 << 21, []
+    while len(times) < trials:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        queued = not a.query()      # the card still sleeps: all were queued
+        b.synchronize()
+        if queued:
+            times.append(a.elapsed_time(b) / reps)
+        elif cycles >= 1 << 30:
+            raise AssertionError("calls outran a %d-cycle sleep" % cycles)
+        else:
+            cycles *= 4
+    return float(np.median(times))
+
+
 def bound(bytes_moved: float, ops: float) -> tuple:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -1023,134 +1077,174 @@ def row_bytes(F: int, bpc: int = 1) -> int:
     return 32 * -(-F * bpc // 32) + 32
 
 
-def times_widef(device, n: int) -> dict:
-    """Phase 5, wide F: the root histogram (exact and integer) and one
-    split pass on the root window of an n-row, 2000-feature, 256-bin store,
-    beside their bounds, plain versions and index_add_."""
-    from lightgbm_tpu_torch.core import histogram as H
+def split_pass_sizes(rows, voff, F, B, route, words, counts,
+                     reps: int) -> dict:
+    """Times of the single-window split pass on windows [0, wc) of ``rows``
+    for each wc of ``counts`` (the first one first), each beside its bound,
+    its plain version and the window's device-to-device copy of wc * W
+    bytes (2 * wc * W bytes read and written: the least data movement of a
+    partition, and the copy-back inside the pass); the first size's numbers,
+    with the others under ``sizes``."""
     from lightgbm_tpu_torch.core import partition as P
+    W = rows.shape[1]
+    out = []
+    for wc in counts:
+        scal = scal_row(0, wc, route, words, 1)
+        kw = dict(num_features=F, num_bins=B, voff=voff)
+        work = rows.clone()
+        ms = cuda_ms(lambda: P.partition_hist(work, scal, **kw), reps=reps)
+        del work
+        plain = cuda_ms(lambda: P.partition_hist_plain(rows, scal, **kw),
+                        reps=3 if F > 100 else 20, warmup=1)
+        dst = torch.empty((wc, W), dtype=torch.uint8, device=rows.device)
+        copy = cuda_ms(lambda: dst.copy_(rows[:wc]), reps=reps)
+        del dst
+        # each window row read once and written once; the child histogram's
+        # adds are two per (row, feature) of the smaller child
+        b_ms, b_by = bound(2.0 * wc * W, 2.0 * (wc / 2) * F)
+        log("  split pass F=%d %8d rows: kernel %.4f ms, bound %.4f ms (%s), "
+            "plain %.4f ms, copy of the window %.4f ms, no single library "
+            "call" % (F, wc, ms, b_ms, b_by, plain, copy))
+        out.append(dict(rows=wc, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=None, copy_ms=copy))
+        torch.cuda.empty_cache()
+    return dict(out[0], sizes=out[1:])
+
+
+def hist_index_add_ms(rows, voff, F, B, count, quantized=False) -> tuple:
+    """One ``index_add_`` (f32, or int64 when ``quantized``) computing the
+    histogram of rows [0, count) of the row store, over flattened
+    (feature, bin) ids: its event time and its queued device time."""
+    from lightgbm_tpu_torch.core import histogram as H
+    bins, vals = H.rows_split(rows[:count], F, voff)
+    ids = (bins + torch.arange(F, device=rows.device)[None, :] * B
+           ).reshape(-1)
+    del bins
+    dt = torch.int64 if quantized else torch.float32
+    v = vals.t().to(dt)[:, None, :].expand(count, F, 2).reshape(-1, 2)
+    acc = torch.zeros((F * B, 2), dtype=dt, device=rows.device)
+    lib = cuda_ms(lambda: acc.index_add_(0, ids, v), reps=3 if F > 100
+                  else 20, warmup=1)
+    lib_queued = queued_ms(lambda: acc.index_add_(0, ids, v),
+                           reps=3 if count * F > 1e8 else 25)
+    del ids, v, vals, acc
+    torch.cuda.empty_cache()
+    return lib, lib_queued
+
+
+def times_widef(device, n: int) -> dict:
+    """Phase 5, wide F: the histograms (exact at n, 20,000 and 1,000 rows;
+    integer at n) and the split pass (at n, 20,000 and 1,000 rows) of an
+    n-row, 2000-feature, 256-bin store, beside their bounds, plain versions,
+    index_add_ and the window's copy."""
+    from lightgbm_tpu_torch.core import histogram as H
     F, B = WIDE_F, 256
     out = {}
     for quantized in (False, True):
         rows, voff = make_store(n, F, B, quantized=quantized, device=device,
                                 seed=51)
         kw = dict(num_features=F, voff=voff, quantized=quantized)
-        ms = cuda_ms(lambda: H.histogram_rows(rows, B, 0, n, **kw), reps=10)
-        plain = cuda_ms(lambda: H.histogram_rows_plain(rows, B, 0, n, **kw),
-                        reps=3, warmup=1)
-        bins, vals = H.rows_split(rows[:n], F, voff)
-        ids = (bins + torch.arange(F, device=device)[None, :] * B).reshape(-1)
-        del bins
-        dt = torch.int64 if quantized else torch.float32
-        v = vals.t().to(dt)[:, None, :].expand(n, F, 2).reshape(-1, 2)
-        acc = torch.zeros((F * B, 2), dtype=dt, device=device)
-        lib = cuda_ms(lambda: acc.index_add_(0, ids, v), reps=3, warmup=1)
-        del ids, v, vals, acc
-        torch.cuda.empty_cache()
-        b_ms, b_by = bound(n * row_bytes(F) + F * 2 * B * 4, 2.0 * n * F)
-        log("  %s histogram F=%d %8d rows: kernel %.4f ms, bound %.4f ms "
-            "(%s), plain %.4f ms, index_add_ (%s) %.4f ms"
-            % ("int" if quantized else "exact", F, n, ms, b_ms, b_by, plain,
-               "int64" if quantized else "f32", lib))
+        sizes = []
+        for count in ((n,) if quantized else (n, 20000, 1000)):
+            ms = cuda_ms(lambda: H.histogram_rows(rows, B, 0, count, **kw),
+                         reps=10 if count == n else 25)
+            dev = queued_ms(lambda: H.histogram_rows(rows, B, 0, count, **kw),
+                            reps=5 if count == n else 25)
+            plain = cuda_ms(lambda: H.histogram_rows_plain(rows, B, 0, count,
+                                                           **kw),
+                            reps=3, warmup=1)
+            lib, lib_dev = hist_index_add_ms(rows, voff, F, B, count,
+                                             quantized)
+            b_ms, b_by = bound(count * row_bytes(F) + F * 2 * B * 4,
+                               2.0 * count * F)
+            log("  %s histogram F=%d %8d rows: kernel %.4f ms (queued %.4f), "
+                "bound %.4f ms (%s), plain %.4f ms, index_add_ (%s) %.4f ms "
+                "(queued %.4f)"
+                % ("int" if quantized else "exact", F, count, ms, dev, b_ms,
+                   b_by, plain, "int64" if quantized else "f32", lib,
+                   lib_dev))
+            sizes.append(dict(rows=count, ms=ms, queued_ms=dev,
+                              plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                              library_ms=lib, library_queued_ms=lib_dev))
         key = "histogram_widef_q" if quantized else "histogram_widef"
-        out[key] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                        library_ms=lib)
+        out[key] = dict(sizes[0], sizes=sizes[1:])
         if not quantized:
             rng = np.random.RandomState(52)
             route, words = split_routes(B, rng)["numerical"]
-            scal = scal_row(0, n, route, words, 1)
-            skw = dict(num_features=F, num_bins=B, voff=voff)
-            work = rows.clone()
-            ms = cuda_ms(lambda: P.partition_hist(work, scal, **skw), reps=10)
-            plain = cuda_ms(lambda: P.partition_hist_plain(rows, scal, **skw),
-                            reps=3, warmup=1)
-            b_ms, b_by = bound(2.0 * n * rows.shape[1], 2.0 * (n / 2) * F)
-            log("  split pass F=%d %8d rows: kernel %.4f ms, bound %.4f ms "
-                "(%s), plain %.4f ms, no single library call"
-                % (F, n, ms, b_ms, b_by, plain))
-            out["partition_widef"] = dict(ms=ms, plain_ms=plain,
-                                          bound_ms=b_ms, bound_by=b_by,
-                                          library_ms=None)
-            del work
+            out["partition_widef"] = split_pass_sizes(
+                rows, voff, F, B, route, words, (n, 20000, 1000), reps=10)
         del rows
         torch.cuda.empty_cache()
     return out
 
 
 def times_masked(device, R: int) -> dict:
-    """Phase 5: the masked histogram (kernel #5) over R rows x 28 u8 bins
-    at B = 256, beside its bound, plain version and index_add_."""
+    """Phase 5: the masked histogram (kernel #5) over R, 20,000 and 1,000
+    rows x 28 u8 bins at B = 256, beside its bound, plain version and
+    index_add_."""
     from lightgbm_tpu_torch.core import histogram as H
     F, B = 28, 256
     g = torch.Generator(device=device).manual_seed(53)
     bins = torch.randint(0, B, (R, F), generator=g, device=device,
                          dtype=torch.int32).to(torch.uint8)
     vals = torch.randn((2, R), generator=g, device=device)
-    ms = cuda_ms(lambda: H.histogram_masked(bins, vals, B, 0, R))
-    plain = cuda_ms(lambda: H.histogram_masked_plain(bins, vals, B, 0, R),
-                    reps=10)
-    ids = (bins.long() + torch.arange(F, device=device)[None, :] * B
-           ).reshape(-1)
-    v = vals.t()[:, None, :].expand(R, F, 2).reshape(-1, 2)
-    acc = torch.zeros((F * B, 2), dtype=torch.float32, device=device)
-    lib = cuda_ms(lambda: acc.index_add_(0, ids, v), reps=10)
-    # each row's F bin bytes and its two f32 values
-    b_ms, b_by = bound(R * (F + 8) + F * 2 * B * 4, 2.0 * R * F)
-    log("  masked histogram %d rows x %d u8 bins: kernel %.4f ms, bound "
-        "%.4f ms (%s), plain %.4f ms, index_add_ %.4f ms"
-        % (R, F, ms, b_ms, b_by, plain, lib))
-    return {"histogram_masked": dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
-                                     bound_by=b_by, library_ms=lib)}
+    sizes = []
+    for count in (R, 20000, 1000):
+        ms = cuda_ms(lambda: H.histogram_masked(bins, vals, B, 0, count))
+        dev = queued_ms(lambda: H.histogram_masked(bins, vals, B, 0, count))
+        plain = cuda_ms(lambda: H.histogram_masked_plain(bins, vals, B, 0,
+                                                         count), reps=10)
+        ids = (bins[:count].long() + torch.arange(F, device=device)[None, :]
+               * B).reshape(-1)
+        v = vals[:, :count].t()[:, None, :].expand(count, F, 2).reshape(-1, 2)
+        acc = torch.zeros((F * B, 2), dtype=torch.float32, device=device)
+        lib = cuda_ms(lambda: acc.index_add_(0, ids, v), reps=10)
+        lib_dev = queued_ms(lambda: acc.index_add_(0, ids, v))
+        # each row's F bin bytes and its two f32 values
+        b_ms, b_by = bound(count * (F + 8) + F * 2 * B * 4, 2.0 * count * F)
+        log("  masked histogram %8d rows x %d u8 bins: kernel %.4f ms "
+            "(queued %.4f), bound %.4f ms (%s), plain %.4f ms, index_add_ "
+            "%.4f ms (queued %.4f)"
+            % (count, F, ms, dev, b_ms, b_by, plain, lib, lib_dev))
+        sizes.append(dict(rows=count, ms=ms, queued_ms=dev, plain_ms=plain,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                          library_queued_ms=lib_dev))
+        del ids, v, acc
+    return {"histogram_masked": dict(sizes[0], sizes=sizes[1:])}
 
 
 def phase_times(device, n: int) -> dict:
     """Phase 5: kernel, bound, plain and library times at the main path's
-    shapes: the root histogram and the root split's window of an n-row,
-    28-feature, 256-bin store."""
+    shapes: the histogram and the split pass over the root window of an
+    n-row, 28-feature, 256-bin store and over child-sized windows."""
     from lightgbm_tpu_torch.core import histogram as H
-    from lightgbm_tpu_torch.core import partition as P
     from lightgbm_tpu_torch.device import reset_launches
     F, B = 28, 256
     out = {}
     rows, voff = make_store(n, F, B, device=device, seed=6)
+    sizes = []
     for count in (n, 20000, 1000):
         kw = dict(num_features=F, voff=voff)
         ms = cuda_ms(lambda: H.histogram_rows(rows, B, 0, count, **kw))
+        dev = queued_ms(lambda: H.histogram_rows(rows, B, 0, count, **kw))
         plain = cuda_ms(lambda: H.histogram_rows_plain(rows, B, 0, count,
                                                        **kw), reps=20)
-        bins, vals = H.rows_split(rows[:count], F, voff)
-        ids = (bins + torch.arange(F, device=device)[None, :] * B).reshape(-1)
-        v = vals.t()[:, None, :].expand(count, F, 2).reshape(-1, 2)
-        acc = torch.zeros((F * B, 2), dtype=torch.float32, device=device)
-        lib = cuda_ms(lambda: acc.index_add_(0, ids, v), reps=20)
+        lib, lib_dev = hist_index_add_ms(rows, voff, F, B, count)
         # the bins' and the g/h's 32-byte sectors of each row; two adds per
         # (row, feature)
         b_ms, b_by = bound(count * row_bytes(F) + F * 2 * B * 4,
                            2.0 * count * F)
-        log("  histogram %8d rows: kernel %.4f ms, bound %.4f ms (%s), plain "
-            "%.4f ms, index_add_ %.4f ms" % (count, ms, b_ms, b_by, plain, lib))
-        if count == n:
-            out["histogram"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
-                                    bound_by=b_by, library_ms=lib)
-        del bins, vals, ids, v
+        log("  histogram %8d rows: kernel %.4f ms (queued %.4f), bound %.4f "
+            "ms (%s), plain %.4f ms, index_add_ %.4f ms (queued %.4f)"
+            % (count, ms, dev, b_ms, b_by, plain, lib, lib_dev))
+        sizes.append(dict(rows=count, ms=ms, queued_ms=dev, plain_ms=plain,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                          library_queued_ms=lib_dev))
+    out["histogram"] = dict(sizes[0], sizes=sizes[1:])
     rng = np.random.RandomState(7)
     route, words = split_routes(B, rng)["numerical"]
-    for wc in (n, 20000, 900):
-        scal = scal_row(0, wc, route, words, 1)
-        kw = dict(num_features=F, num_bins=B, voff=voff)
-        work = rows.clone()
-        ms = cuda_ms(lambda: P.partition_hist(work, scal, **kw))
-        plain = cuda_ms(lambda: P.partition_hist_plain(rows, scal, **kw),
-                        reps=20)
-        # each window row read once and written once; the child histogram's
-        # adds are two per (row, feature) of the smaller child
-        b_ms, b_by = bound(2.0 * wc * rows.shape[1], 2.0 * (wc / 2) * F)
-        log("  split pass %8d rows: kernel %.4f ms, bound %.4f ms (%s), plain "
-            "%.4f ms, no single library call" % (wc, ms, b_ms, b_by, plain))
-        if wc == n:
-            out["partition"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
-                                    bound_by=b_by, library_ms=None)
-        del work
+    out["partition"] = split_pass_sizes(rows, voff, F, B, route, words,
+                                        (n, 20000, 900), reps=25)
     del rows
     out.update(times_quantized_and_level(device, n))
     reset_launches()
@@ -1168,27 +1262,26 @@ def times_quantized_and_level(device, n: int) -> dict:
     F, B = 28, 256
     out = {}
     rows, voff = make_store(n, F, B, quantized=True, device=device, seed=13)
+    sizes = []
     for count in (n, 20000, 1000):
         kw = dict(num_features=F, voff=voff, quantized=True)
         ms = cuda_ms(lambda: H.histogram_rows(rows, B, 0, count, **kw))
+        dev = queued_ms(lambda: H.histogram_rows(rows, B, 0, count, **kw))
         plain = cuda_ms(lambda: H.histogram_rows_plain(rows, B, 0, count,
                                                        **kw), reps=20)
-        bins, vals = H.rows_split(rows[:count], F, voff)
-        ids = (bins + torch.arange(F, device=device)[None, :] * B).reshape(-1)
-        v = vals.t().long()[:, None, :].expand(count, F, 2).reshape(-1, 2)
-        acc = torch.zeros((F * B, 2), dtype=torch.int64, device=device)
-        lib = cuda_ms(lambda: acc.index_add_(0, ids, v), reps=20)
+        lib, lib_dev = hist_index_add_ms(rows, voff, F, B, count,
+                                         quantized=True)
         # the 32-byte sectors of bins and g/h per row; two integer adds per
         # (row, feature)
         b_ms, b_by = bound(count * row_bytes(F) + F * 2 * B * 4,
                            2.0 * count * F)
-        log("  int histogram %8d rows: kernel %.4f ms, bound %.4f ms (%s), "
-            "plain %.4f ms, index_add_ (int64) %.4f ms"
-            % (count, ms, b_ms, b_by, plain, lib))
-        if count == n:
-            out["histogram_int"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
-                                        bound_by=b_by, library_ms=lib)
-        del bins, vals, ids, v
+        log("  int histogram %8d rows: kernel %.4f ms (queued %.4f), bound "
+            "%.4f ms (%s), plain %.4f ms, index_add_ (int64) %.4f ms (queued "
+            "%.4f)" % (count, ms, dev, b_ms, b_by, plain, lib, lib_dev))
+        sizes.append(dict(rows=count, ms=ms, queued_ms=dev, plain_ms=plain,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                          library_queued_ms=lib_dev))
+    out["histogram_int"] = dict(sizes[0], sizes=sizes[1:])
     # the single-window split pass with the integer child histogram, on the
     # root window (no path grows quantized trees leaf-wise)
     route, words = split_routes(B, np.random.RandomState(7))["numerical"]

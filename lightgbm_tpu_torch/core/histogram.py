@@ -35,6 +35,8 @@ are not carried over.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..device import check_tensor, count_launch, cuda_stream_ptr
@@ -180,13 +182,34 @@ def check_int_segments(count: int, nseg: int) -> None:
                          % (count, nseg, _INT_SEGMENT_ROWS))
 
 
+# the most bins the exact kernel's block of one feature with 4-byte bins can
+# take: hist_block_smem(1, B, 4, 0) <= kHistSmemMax in csrc/hist_common.cuh,
+# whose launch_hist refuses a larger block
+_MAX_BINS = 10905
+
+
 def check_hist_shape(num_features: int, num_bins: int) -> None:
-    """Refuse what the kernel's shared-memory tiling cannot take: one
-    feature's f64 [2, B] accumulators must fit the 96 KB block budget."""
-    if num_features < 1 or not 1 <= num_bins <= 6144:
+    """Refuse what the kernels' shared-memory tiling cannot take: a block
+    of one feature, with 4-byte bins, must fit in one SM's shared memory
+    (up to _MAX_BINS bins)."""
+    if num_features < 1 or not 1 <= num_bins <= _MAX_BINS:
         raise ValueError("histogram kernel needs num_features >= 1 and "
-                         "1 <= num_bins <= 6144, got %d, %d"
-                         % (num_features, num_bins))
+                         "1 <= num_bins <= %d, got %d, %d"
+                         % (_MAX_BINS, num_features, num_bins))
+
+
+def exact_partials(nseg: int, num_features: int, num_bins: int,
+                   device) -> Optional[torch.Tensor]:
+    """The exact kernel's f64 segment partials [nseg, F, 2, B], or None for
+    one segment, whose histogram the kernel writes itself."""
+    if nseg == 1:
+        return None
+    return torch.empty((nseg, num_features, 2, num_bins),
+                       dtype=torch.float64, device=device)
+
+
+def data_ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def histogram_rows_cuda(rows: torch.Tensor, num_bins: int, start: int,
@@ -216,14 +239,14 @@ def histogram_rows_cuda(rows: torch.Tensor, num_bins: int, start: int,
     if quantized:
         check_int_segments(count, nseg)
         name, fn = "histogram_int", "lgbt_hist_rows_int"
+        partial = torch.empty((nseg, num_features, 2, num_bins),
+                              dtype=torch.int32, device=rows.device)
     else:
         name, fn = "histogram", "lgbt_hist_rows"
-    partial = torch.empty((nseg, num_features, 2, num_bins),
-                          dtype=torch.int32 if quantized else torch.float64,
-                          device=rows.device)
+        partial = exact_partials(nseg, num_features, num_bins, rows.device)
     launch = getattr(kernels.library(name), fn)
     err = launch(rows.data_ptr(), W, voff, bpc, int(packed), num_features,
-                 num_bins, f_begin, start, count, nseg, partial.data_ptr(),
+                 num_bins, f_begin, start, count, nseg, data_ptr(partial),
                  out.data_ptr(), cuda_stream_ptr(rows))
     count_launch(name)
     kernels.check(err, "%s kernel" % name)
@@ -311,13 +334,12 @@ def histogram_masked_cuda(bins: torch.Tensor, values: torch.Tensor,
     out = torch.empty((f, 2, num_bins), dtype=torch.float32,
                       device=bins.device)
     nseg = _segments(count, f, num_bins)
-    partial = torch.empty((nseg, f, 2, num_bins), dtype=torch.float64,
-                          device=bins.device)
+    partial = exact_partials(nseg, f, num_bins, bins.device)
     bpc = _BIN_BYTES[bins.dtype]
     err = kernels.library("histogram_masked").lgbt_hist_masked(
         bins.data_ptr(), width * bpc, bpc, int(bool(num_cols)),
         values.data_ptr(), n, f, num_bins, start, count, nseg,
-        partial.data_ptr(), out.data_ptr(), cuda_stream_ptr(bins))
+        data_ptr(partial), out.data_ptr(), cuda_stream_ptr(bins))
     count_launch("histogram_masked")
     kernels.check(err, "histogram_masked kernel")
     return out

@@ -59,10 +59,13 @@ import torch
 from ..device import check_tensor, count_launch, cuda_stream_ptr
 from ..io.binning import MissingType
 from .histogram import (_segments, check_hist_shape, check_int_segments,
-                        histogram_rows_plain)
+                        data_ptr, exact_partials, histogram_rows_plain)
 
 SCAL_HEAD = 12
-_PART_TILE = 2048        # rows per block of the count/scatter kernels
+# rows per block of the count/scatter kernels: about this many row bytes,
+# clamped to [32, 2048] (2048: kPartMaxTile, csrc/part_common.cuh)
+_PART_BLOCK_BYTES = 128 << 10
+_PART_TILE_MIN, _PART_TILE_MAX = 32, 2048
 
 ScalLike = Union[torch.Tensor, Sequence[int]]
 
@@ -74,6 +77,19 @@ def scal_missing_code(missing_type: int) -> int:
     """``MissingType`` (NONE 0, ZERO 1, NAN 2) -> the scal row's code."""
     return {int(MissingType.NAN): SCAL_MISSING_NAN,
             int(MissingType.ZERO): SCAL_MISSING_ZERO}.get(int(missing_type), 0)
+
+
+def part_tile_rows(row_width: int) -> int:
+    """Rows per block of the split pass's kernels for rows of
+    ``row_width`` bytes: 2048 at W = 64, 1024 at W = 128, 64 at W = 2048."""
+    return max(_PART_TILE_MIN, min(_PART_TILE_MAX,
+                                   _PART_BLOCK_BYTES // row_width))
+
+
+def part_blocks(count, row_width: int):
+    """Blocks of the split pass over a window of ``count`` rows (an int or
+    an int array)."""
+    return -(-count // part_tile_rows(row_width))
 
 
 def _scal_host(scal: ScalLike, num_bins: int) -> torch.Tensor:
@@ -182,21 +198,24 @@ def partition_hist_cuda(rows: torch.Tensor, scal: ScalLike, *,
         return rows, hist, nl
     scal_dev = s.to(dev)
     scratch = torch.empty((wc, W), dtype=torch.uint8, device=dev)
-    nblk = -(-wc // _PART_TILE)
+    tile = part_tile_rows(W)
+    nblk = part_blocks(wc, W)
     blk = torch.empty((nblk,), dtype=torch.int32, device=dev)
     win = torch.empty((2,), dtype=torch.int32, device=dev)
     nseg = _segments(wc, num_features, num_bins)
     if quantized:
         check_int_segments(wc, nseg)
-    partial = torch.empty((nseg, num_features, 2, num_bins),
-                          dtype=torch.int32 if quantized else torch.float64,
-                          device=dev)
+        partial = torch.empty((nseg, num_features, 2, num_bins),
+                              dtype=torch.int32, device=dev)
+    else:
+        partial = exact_partials(nseg, num_features, num_bins, dev)
     lib = kernels.library("partition")
     err = lib.lgbt_partition_hist(
         rows.data_ptr(), scratch.data_ptr(), W, scal_dev.data_ptr(), wb, wc,
         bpc, int(packed), num_bins // 32, num_features, num_bins, voff, nblk,
-        blk.data_ptr(), win.data_ptr(), nl.data_ptr(), nseg, int(quantized),
-        partial.data_ptr(), hist.data_ptr(), cuda_stream_ptr(rows))
+        tile, blk.data_ptr(), win.data_ptr(), nl.data_ptr(), nseg,
+        int(quantized), data_ptr(partial), hist.data_ptr(),
+        cuda_stream_ptr(rows))
     count_launch("partition")
     kernels.check(err, "partition kernel")
     return rows, hist, nl
@@ -264,14 +283,15 @@ def partition_hist_level_plain(rows: torch.Tensor, scals, *,
     return rows, torch.stack(hists), torch.cat(nls)
 
 
-def level_meta(s: np.ndarray, num_features: int, num_bins: int):
+def level_meta(s: np.ndarray, num_features: int, num_bins: int,
+               row_width: int):
     """The host-built block and segment maps of ``csrc/partition_level.cu``
-    for scal rows ``s`` [G, S] of an F-feature, B-bin store: (meta int32,
-    NB, NS, rows the partition stages, the largest rows per histogram
-    segment)."""
+    for scal rows ``s`` [G, S] of an F-feature, B-bin store of
+    ``row_width``-byte rows: (meta int32, NB, NS, rows the partition stages,
+    the largest rows per histogram segment)."""
     G = s.shape[0]
     wc = s[:, 1].astype(np.int64)
-    nblk = -(-wc // _PART_TILE)
+    nblk = part_blocks(wc, row_width)
     # each window keeps its single-window call's segmentation
     nseg = np.asarray([_segments(int(c), num_features, num_bins)
                        if c > 0 else 0 for c in wc],
@@ -312,7 +332,7 @@ def partition_hist_level_cuda(rows: torch.Tensor, scals, *,
                        device=dev)
     if G == 0:
         return rows, hist, torch.zeros((0,), dtype=torch.int32, device=dev)
-    meta, NB, NS, srows, seg_rows = level_meta(s, num_features, num_bins)
+    meta, NB, NS, srows, seg_rows = level_meta(s, num_features, num_bins, W)
     if NS > _MAX_GRID_Y or G > _MAX_GRID_Y:
         raise ValueError("%d windows in %d histogram segments exceed the "
                          "grid's %d rows" % (G, NS, _MAX_GRID_Y))
@@ -329,9 +349,9 @@ def partition_hist_level_cuda(rows: torch.Tensor, scals, *,
     lib = kernels.library("partition_level")
     err = lib.lgbt_partition_level(
         rows.data_ptr(), scratch.data_ptr(), W, meta_dev.data_ptr(), G, S,
-        NB, NS, bpc, int(packed), num_bins // 32, num_features, num_bins,
-        voff, int(quantized), work.data_ptr(), partial.data_ptr(),
-        hist.data_ptr(), cuda_stream_ptr(rows))
+        NB, NS, part_tile_rows(W), bpc, int(packed), num_bins // 32,
+        num_features, num_bins, voff, int(quantized), work.data_ptr(),
+        partial.data_ptr(), hist.data_ptr(), cuda_stream_ptr(rows))
     count_launch("partition_level")
     kernels.check(err, "partition_level kernel")
     return rows, hist, work[NB:NB + G]

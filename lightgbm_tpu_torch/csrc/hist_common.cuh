@@ -12,41 +12,57 @@
 // `_hist_kernel_mxu` (pallas_call at histogram.py:303, histogram_masked.cu).
 // The TPU built the histogram as a one-hot contraction on the MXU with a
 // bf16 hi/lo split of the values because it has no fast scatter; Hopper
-// does, so this is a plain scatter-add into shared memory.
+// does, so this is a scatter-add into shared memory.
 //
 // What bounds it on the card: device-memory bytes.  Each row contributes the
 // 32-byte sectors that hold its bin bytes (ceil(F * bpc / 32) of them) and
 // the one that holds its f32 grad/hess (row-store layout: bins at byte 0,
 // g/h at `voff`): 64 B per row at F = 28, 2,048 B at F = 2000.  The output
-// [F, 2, B] f32 is small next to that.
+// [F, 2, B] f32 is small next to that.  What keeps it from that bound is the
+// shared-memory work of adding each (row, feature) into an f64 accumulator
+// in a fixed order: about 20-25 shared-memory accesses (bank conflicts
+// included) per 32 (row, feature) pairs.
 //
 // Design, and what it does about that bound, determinism and accuracy:
 // - The reference's contract is that the same input gives the same bits on
 //   every run, so there are no floating-point atomics.  Pass 1 gives each
-//   block one contiguous segment of rows and one tile of features; inside
-//   the block each thread OWNS one (feature, channel) pair and walks the
-//   segment's rows in order, so no two threads ever write the same bin and
-//   each bin's sum has a fixed order.  The block writes its partial
-//   [tile, 2, B] to device memory; pass 2 sums the partials over segments in
-//   segment order, one thread per output element.  The segmentation depends
-//   only on (row count, F, B) (core/histogram.py `_segments`: about 2048 rows
-//   a segment, at most 528 segments, and at most 256 MiB of f64 partials, so
-//   a root histogram at F = 2000, B = 256 takes 32 segments), so the result
-//   is bitwise reproducible.
+//   block one contiguous segment of rows and one tile of features and sums
+//   the segment into the tile's f64 [nf, B] (grad, hess) accumulators in
+//   shared memory; the block writes its partial [tile, 2, B] to device
+//   memory, and pass 2 sums the partials over segments in segment order, one
+//   thread per output element.  The segmentation depends only on
+//   (row count, F, B) (core/histogram.py `_segments`: about 2048 rows a
+//   segment, at most 528 segments, and at most 256 MiB of f64 partials), so
+//   the result is bitwise reproducible.
+// - Rows are staged through shared memory: all threads of the block copy a
+//   chunk of rows (the 16-byte units that hold the tile's bin
+//   bytes, and each row's grad and hess) with cp.async into one of two
+//   buffers while the block sums the other, so device-memory latency is out
+//   of the add chain and every load is coalesced.
+// - Warps over rows, not threads over features: warp w owns features w,
+//   w + 8, ... of the tile, both channels, so no two warps touch one
+//   accumulator.  For each 32-row step of one feature, lane i takes row i's
+//   bin from shared memory; the lanes with equal bins find each other
+//   through lane masks in shared memory, and the group's lowest lane adds
+//   its peers' grad and hess (f32 widened to f64) to the bin's accumulator
+//   in ascending lane order, which is row order.  So each bin's sum within a
+//   segment is the same sequence of f64 additions as a serial walk over the
+//   segment's rows: the kernel's bits do not depend on its tiling, its block
+//   size or its chunking, and equal those of the one-thread-per-(feature,
+//   channel) kernel it replaced.
+// - Occupancy: the feature tile is sized so that its accumulators, its
+//   warps' lane masks and both staging buffers fit kHistSmemBudget, which
+//   lets two blocks (16 warps) share an SM: 22 features a tile at B = 256
+//   (91 tiles at F = 2000), or two balanced tiles of 14 at F = 28.  A grid
+//   of few segments (a child's window) gets narrower tiles, down to one
+//   feature a block, so that it still has kHistFillBlocks blocks.
 // - Sums are kept in f64 (shared-memory accumulators, partials and pass 2)
 //   and rounded to f32 once, so the histogram is the correctly rounded sum
 //   up to f64 error whatever the segmentation.  An f32 running sum over a
 //   million rows drifts by ~1e-5 relative, enough to flip near-equal leaf
 //   gains between this kernel and the plain version (which also sums in f64).
-// - Feature tiles are balanced (equal features per tile) and the tile is
-//   the fast grid axis, so the tiles of one segment run together and the
-//   later tiles read the segment's rows from L2.
-// - Rows are read kRowBatch at a time per thread before the shared-memory
-//   updates, so the loads of a batch are in flight together.
-// - Known limit (later work): one thread per (feature, channel) gives a block
-//   only 2 * tile threads (48 at F = 2000, B = 256: 24 features of 4 KB of
-//   f64 accumulators fill the 96 KB budget), so occupancy and load latency,
-//   not bandwidth, bound it.
+// - Feature tiles are the fast grid axis, so the tiles of one segment run
+//   together and the later tiles read the segment's rows from L2.
 // - A window axis (HistArgs::seg_map) lets one launch cover many windows
 //   (the level pass, partition_level.cu).  Each window keeps the segment
 //   count its single-window call would use, so its sums are those of that
@@ -58,24 +74,39 @@
 
 namespace lgbt {
 
-// Shared memory one block may hold for its feature tile's f64 histogram.
-constexpr int kHistSmemBudget = 96 * 1024;
-constexpr int kRowBatch = 8;
+constexpr unsigned kFull = 0xffffffffu;
 
-// Bin code of column `col` of one row's bin bytes: nibble-packed, or `bpc`
-// little-endian bytes (1: u8, 2: u16/i16, 4: i32).
+// Shared memory of one block of the exact kernel: its feature tile's f64
+// accumulators, its warps' lane masks and two staging buffers.  Two such
+// blocks share an SM (2 x (110 KB + 1 KB reserved) <= 228 KB).
+constexpr int kHistSmemBudget = 110 * 1024;
+// What one block may use at all: a single feature of many bins
+// (core/histogram.py `_MAX_BINS`) takes up to this, one block an SM.
+constexpr int kHistSmemMax = 227 * 1024;
+constexpr int kHistWarps = 8;    // warps per block at most: one a feature
+constexpr int kHistThreads = 32 * kHistWarps;
+// rows per staging buffer: at least kHistChunk (the tiling's reckoning),
+// grown into what the budget leaves, up to kHistMaxChunk
+constexpr int kHistChunk = 128;
+constexpr int kHistMaxChunk = 512;
+constexpr int kHistFillBlocks = 2 * 132;  // blocks that fill an H100
+
+// Bin code of column `col` of one row's bin bytes, whose byte `off` is at
+// `row`: nibble-packed, or `bpc` little-endian bytes (1: u8, 2: u16/i16,
+// 4: i32).
 __device__ __forceinline__ int decode_bin(const uint8_t* __restrict__ row,
-                                          int col, int bpc, int packed) {
+                                          int col, int bpc, int packed,
+                                          int off = 0) {
   if (packed) {
-    int byte = row[col >> 1];
+    int byte = row[(col >> 1) - off];
     return (byte >> ((col & 1) * 4)) & 15;
   }
-  if (bpc == 2) return row[2 * col] | (row[2 * col + 1] << 8);
+  const uint8_t* p = row + col * bpc - off;
+  if (bpc == 2) return p[0] | (p[1] << 8);
   if (bpc == 4)
-    return (int)((unsigned)row[4 * col] | ((unsigned)row[4 * col + 1] << 8) |
-                 ((unsigned)row[4 * col + 2] << 16) |
-                 ((unsigned)row[4 * col + 3] << 24));
-  return row[col];
+    return (int)((unsigned)p[0] | ((unsigned)p[1] << 8) |
+                  ((unsigned)p[2] << 16) | ((unsigned)p[3] << 24));
+  return p[0];
 }
 
 // A bin code outside [0, B) adds nothing (a segment sum drops it).
@@ -99,6 +130,10 @@ struct HistArgs {
   const int* win;        // optional device {start, count} per window ([G, 2]);
                          // overrides start/count
   int nseg, ft;          // row segments (one window), features per tile
+  int unit, sstride;     // exact kernel: bytes per staged copy (16, 4 or 1),
+  int chunk;             // bytes per staged row, rows per staging buffer
+  float* out;            // exact kernel, one segment of one window: the f32
+                         // histogram itself, written without pass 2
   // Window axis (the level pass): grid row y covers window seg_map[2y] and
   // its segment seg_map[2y + 1]; window g has seg_info[2g] segments whose
   // partials start at row seg_info[2g + 1].  nullptr: one window, grid row
@@ -144,49 +179,207 @@ __device__ __forceinline__ float row_value(const HistArgs& a, long long r,
                                          (size_t)r * a.vstride);
 }
 
-__global__ void hist_seg_kernel(HistArgs a) {
-  extern __shared__ double sh[];  // [nf, 2, B]
+// ---- asynchronous copies into shared memory (sm_80 and later) ----
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- the exact kernel ----
+
+// One staging buffer: [chunk][sstride] bin bytes, then [chunk] (grad,
+// hess) f32 pairs.
+__host__ __device__ __forceinline__ int hist_stage_bytes(int sstride,
+                                                         int chunk) {
+  return chunk * (sstride + 8);
+}
+
+// Bytes per staged row for a tile of `ft` features: the tile's bin bytes
+// plus the slack of aligning their start to 16, rounded to an odd multiple
+// of 16 so that the 32 rows a warp reads spread over eight banks.
+inline int hist_stage_stride(int ft, int bpc, int packed) {
+  const int bytes = packed ? (ft >> 1) + 1 : ft * bpc;
+  int s = (bytes + 30) & ~15;
+  if ((s >> 4) % 2 == 0) s += 16;
+  return s;
+}
+
+// A block's shared memory: the tile's accumulators [ft, B] (grad, hess)
+// f64, one warp's lane masks [B] for each of its min(ft, kHistWarps) warps,
+// then the two staging buffers.
+__host__ __device__ __forceinline__ int hist_stage_offset(int ft, int B) {
+  const int nw = ft < kHistWarps ? ft : kHistWarps;
+  return ft * B * (int)sizeof(double2) + ((nw * B * 4 + 15) & ~15);
+}
+
+inline int hist_block_smem(int ft, int B, int bpc, int packed) {
+  return hist_stage_offset(ft, B) +
+         2 * hist_stage_bytes(hist_stage_stride(ft, bpc, packed),
+                              kHistChunk);
+}
+
+// Start copying rows [rb, rb + nrows) into `buf`: `nunits` units of
+// a.unit bytes from byte b0 of each row's bins, and its grad and hess.
+__device__ __forceinline__ void stage_rows(const HistArgs& a, uint8_t* buf,
+                                           long long rb, int nrows, int b0,
+                                           int nunits) {
+  const int u = a.unit;
+  for (int i = threadIdx.x; i < nrows * nunits; i += blockDim.x) {
+    const int row = i / nunits, k = i - row * nunits;
+    const uint8_t* src = a.bins + (size_t)(rb + row) * a.bstride + b0 + k * u;
+    uint8_t* dst = buf + row * a.sstride + k * u;
+    if (u == 16)
+      cp_async16(dst, src);
+    else if (u == 4)
+      cp_async4(dst, src);
+    else
+      *dst = *src;
+  }
+  float* v = reinterpret_cast<float*>(buf + a.chunk * a.sstride);
+  for (int i = threadIdx.x; i < 2 * nrows; i += blockDim.x)
+    cp_async4(v + i, a.vals + (size_t)(i & 1) * a.vchan +
+                         (size_t)(rb + (i >> 1)) * a.vstride);
+  cp_async_commit();
+}
+
+// Add the `nrows` staged rows of `buf` to the tile's accumulators `acc`
+// [nf, B]: warp w of nw takes features w, w + nw, ...; for each 32 rows the
+// lanes with equal bins find each other through the warp's B lane masks in
+// shared memory (`mask`, all zero between steps: each lane ORs its bit into
+// its bin's mask and reads the mask back), and the lowest lane of each group
+// adds the group's values in lane (= row) order and clears the mask.  (It
+// finds the groups __match_any_sync finds, at about half the cost here.)
+// kU8: one byte a bin, unpacked (the row store's layout), read without
+// decode_bin's layout branches: 10% faster at 400,000 x 2000 (5.25 against
+// 5.77 ms on an H100, chip_smoke.py phase 5), no change seen at 28 features.
+template <bool kU8>
+__device__ __forceinline__ void add_staged(const HistArgs& a,
+                                           const uint8_t* buf, int nrows,
+                                           int c0, int nf, int b0,
+                                           double2* acc, unsigned* mask) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const unsigned me = 1u << lane;
+  const float2* vals =
+      reinterpret_cast<const float2*>(buf + a.chunk * a.sstride);
+  for (int rg = 0; rg < nrows; rg += 32) {
+    const int row = rg + lane;
+    const bool ok = row < nrows;
+    const float2 mine = vals[ok ? row : rg];
+    const uint8_t* srow = buf + row * a.sstride;
+    for (int f = warp; f < nf; f += nw) {
+      int bn = -1;
+      if (ok) {
+        bn = kU8 ? srow[c0 + f - b0]
+                 : decode_bin(srow, c0 + f, a.bpc, a.packed, b0);
+        if (!bin_ok(bn, a.B)) bn = -1;
+      }
+      if (bn >= 0) atomicOr(mask + bn, me);
+      __syncwarp();
+      const unsigned peers = bn >= 0 ? mask[bn] : 0u;
+      __syncwarp();
+      if ((peers & (me - 1u)) == 0u && bn >= 0) {
+        mask[bn] = 0u;
+        // the leader's own row first, then its peers' in lane order
+        double2* h = acc + f * a.B + bn;
+        double2 s = *h;
+        s.x += mine.x;
+        s.y += mine.y;
+        for (unsigned m = peers & (peers - 1u); m != 0u; m &= m - 1u) {
+          const float2 v = vals[rg + __ffs(m) - 1];
+          s.x += v.x;
+          s.y += v.y;
+        }
+        *h = s;
+      }
+      __syncwarp();
+    }
+  }
+}
+
+template <bool kU8>
+__global__ void __launch_bounds__(kHistThreads, 2)
+    hist_seg_kernel(HistArgs a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  double2* acc = reinterpret_cast<double2*>(smem);  // [nf, B] (grad, hess)
+  unsigned* masks = reinterpret_cast<unsigned*>(acc + a.ft * a.B);  // [nw, B]
+  uint8_t* stage = smem + hist_stage_offset(a.ft, a.B);
+  const int bufsz = hist_stage_bytes(a.sstride, a.chunk);
+  const long long chunk = a.chunk;
   const SegPos p = seg_pos(a);
   const int f0 = blockIdx.x * a.ft;
   const int nf = min(a.ft, a.F - f0);
   const int B = a.B;
-  for (int i = threadIdx.x; i < nf * 2 * B; i += blockDim.x) sh[i] = 0.0;
-  __syncthreads();
+  for (int i = threadIdx.x; i < nf * B; i += blockDim.x)
+    acc[i] = make_double2(0.0, 0.0);
+  for (int i = threadIdx.x; i < (int)(blockDim.x >> 5) * B; i += blockDim.x)
+    masks[i] = 0u;
 
   const long long seglen = (p.count + p.nseg - 1) / p.nseg;
   const long long r0 = p.start + (long long)p.seg * seglen;
   const long long r1 = min(r0 + seglen, p.start + p.count);
+  const int nchunks =
+      r1 > r0 ? (int)((r1 - r0 + chunk - 1) / chunk) : 0;
+  // the tile's bin bytes [b0, b1) of each row, b0 aligned to the copy unit
+  const int c0 = a.f_begin + f0;
+  const int b0 = (a.packed ? c0 >> 1 : c0 * a.bpc) & ~(a.unit - 1);
+  const int b1 = a.packed ? ((c0 + nf - 1) >> 1) + 1 : (c0 + nf) * a.bpc;
+  const int nunits = (b1 - b0 + a.unit - 1) / a.unit;
 
-  const int t = threadIdx.x;
-  if (t < 2 * nf) {
-    const int f = t % nf;
-    const int c = t / nf;
-    const int col = a.f_begin + f0 + f;
-    double* h = sh + (f * 2 + c) * B;
-    long long r = r0;
-    for (; r + kRowBatch <= r1; r += kRowBatch) {
-      int bn[kRowBatch];
-      float v[kRowBatch];
-#pragma unroll
-      for (int j = 0; j < kRowBatch; ++j) {
-        bn[j] = decode_bin(a.bins + (size_t)(r + j) * a.bstride, col, a.bpc,
-                           a.packed);
-        v[j] = row_value(a, r + j, c);
-      }
-#pragma unroll
-      for (int j = 0; j < kRowBatch; ++j)
-        if (bin_ok(bn[j], B)) h[bn[j]] += v[j];
+  if (nchunks > 0)
+    stage_rows(a, stage, r0, (int)min(chunk, r1 - r0), b0, nunits);
+  for (int c = 0; c < nchunks; ++c) {
+    const long long rb = r0 + c * chunk;
+    if (c + 1 < nchunks) {
+      const long long rn = rb + chunk;
+      stage_rows(a, stage + ((c + 1) & 1) * bufsz, rn,
+                 (int)min(chunk, r1 - rn), b0, nunits);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    for (; r < r1; ++r) {
-      const int bn = decode_bin(a.bins + (size_t)r * a.bstride, col, a.bpc,
-                                a.packed);
-      const float v = row_value(a, r, c);
-      if (bin_ok(bn, B)) h[bn] += v;
-    }
+    __syncthreads();
+    add_staged<kU8>(a, stage + (c & 1) * bufsz,
+                    (int)min(chunk, r1 - rb), c0, nf, b0,
+                    acc, masks + (threadIdx.x >> 5) * B);
+    __syncthreads();  // the buffer is refilled two chunks on
   }
   __syncthreads();
-  double* out = a.partial + (size_t)p.prow * a.F * 2 * B + (size_t)f0 * 2 * B;
-  for (int i = threadIdx.x; i < nf * 2 * B; i += blockDim.x) out[i] = sh[i];
+  // the partial [tile, 2, B], or with one segment the histogram itself
+  // (pass 2 would round 0.0 + the partial: the same f32)
+  double* part = a.partial + (size_t)p.prow * a.F * 2 * B + (size_t)f0 * 2 * B;
+  float* out = a.out + (size_t)f0 * 2 * B;
+  for (int i = threadIdx.x; i < nf * 2 * B; i += blockDim.x) {
+    const int f = i / (2 * B), c = (i / B) & 1, b = i % B;
+    const double2 v = acc[f * B + b];
+    if (a.out != nullptr)
+      out[i] = static_cast<float>(c ? v.y : v.x);
+    else
+      part[i] = c ? v.y : v.x;
+  }
 }
 
 // Segments of window g = blockIdx.y, and the row of its first partial.
@@ -216,36 +409,82 @@ __global__ void hist_reduce_kernel(const double* __restrict__ partial,
   out[(size_t)blockIdx.y * total + i] = static_cast<float>(s);
 }
 
-// Feature tiling shared by both histogram kernels: balanced tiles of at most
-// kHistSmemBudget / per_feature features; returns the tile count (0 when one
-// feature does not fit) and sets a->ft.
-inline int hist_tiles(HistArgs* a, int per_feature, int max_ft) {
-  int ft_max = kHistSmemBudget / per_feature;
-  if (ft_max < 1 || a->F < 1) return 0;
-  if (ft_max > max_ft) ft_max = max_ft;
-  const int ntiles = (a->F + ft_max - 1) / ft_max;
-  a->ft = (a->F + ntiles - 1) / ntiles;
-  return ntiles;
+// Let `kernel` take up to kHistSmemMax of shared memory.
+static inline cudaError_t hist_configure(void (*kernel)(HistArgs)) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kHistSmemMax);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
 }
 
 // Launch both passes on `stream`; `partial` holds grid_y * F * 2 * B
-// doubles and `out` nwin * F * 2 * B floats.
-inline cudaError_t launch_hist(HistArgs a, float* out, cudaStream_t stream) {
-  const int per_feature = 2 * a.B * (int)sizeof(double);
-  const int ntiles = hist_tiles(&a, per_feature, 512);  // 2 * ft threads
-  if (ntiles == 0) return cudaErrorInvalidValue;
-  const int smem = a.ft * per_feature;
-  const int threads = ((2 * a.ft + 31) / 32) * 32;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        hist_seg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
+// doubles (unused, and may be null, for one segment of one window) and `out`
+// nwin * F * 2 * B floats.  `static`: each library keeps
+// its own copy, and with it its own record of the devices whose kernel
+// attributes it has set (an inline function's static is one object across
+// the libraries a process loads).
+static inline cudaError_t launch_hist(HistArgs a, float* out,
+                                      cudaStream_t stream) {
+  if (a.F < 1 || a.B < 1 ||
+      hist_block_smem(1, a.B, a.bpc, a.packed) > kHistSmemMax)
+    return cudaErrorInvalidValue;
+  // the widest tile within the budget (one feature at least), then balanced
+  // tiles; a grid of few segments (a small window) gets narrower tiles,
+  // down to one feature a block, so that it still fills the card (a
+  // feature's sums do not depend on its tile)
+  int ft = kHistSmemBudget / (a.B * (int)sizeof(double2));
+  if (ft > a.F) ft = a.F;
+  while (ft > 1 && hist_block_smem(ft, a.B, a.bpc, a.packed) > kHistSmemBudget)
+    --ft;
+  int ntiles = (a.F + ft - 1) / ft;
+  if (a.grid_y > 0) {
+    const int fill = (kHistFillBlocks + a.grid_y - 1) / a.grid_y;
+    if (ntiles < fill) ntiles = fill < a.F ? fill : a.F;
+  }
+  a.ft = (a.F + ntiles - 1) / ntiles;
+  ntiles = (a.F + a.ft - 1) / a.ft;
+  // one warp per feature of the tile, at most kHistWarps
+  const int threads = 32 * (a.ft < kHistWarps ? a.ft : kHistWarps);
+  const bool u8 = a.bpc == 1 && !a.packed;
+  a.sstride = hist_stage_stride(a.ft, a.bpc, a.packed);
+  const uintptr_t base = reinterpret_cast<uintptr_t>(a.bins);
+  a.unit = (base % 16 == 0 && a.bstride % 16 == 0)  ? 16
+           : (base % 4 == 0 && a.bstride % 4 == 0) ? 4
+                                                   : 1;
+  // staging buffers grown into what the budget leaves (a small tile's
+  // segment then takes few round trips to device memory)
+  a.chunk = (kHistSmemBudget - hist_stage_offset(a.ft, a.B)) /
+            (2 * (a.sstride + 8)) / 32 * 32;
+  if (a.chunk < kHistChunk) a.chunk = kHistChunk;
+  if (a.chunk > kHistMaxChunk) a.chunk = kHistMaxChunk;
+  const int smem = hist_stage_offset(a.ft, a.B) +
+                   2 * hist_stage_bytes(a.sstride, a.chunk);
+  // one segment of one window: the kernel writes the histogram
+  const bool direct = a.nseg == 1 && a.seg_map == nullptr;
+  a.out = direct ? out : nullptr;
+  // once per device and process
+  static unsigned long long configured = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!(configured >> dev & 1ull)) {
+    if ((e = hist_configure(hist_seg_kernel<true>)) != cudaSuccess ||
+        (e = hist_configure(hist_seg_kernel<false>)) != cudaSuccess)
+      return e;
+    configured |= 1ull << dev;
   }
   if (a.grid_y > 0) {
-    hist_seg_kernel<<<dim3(ntiles, a.grid_y), threads, smem, stream>>>(a);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
+    const dim3 grid(ntiles, a.grid_y);
+    if (u8)
+      hist_seg_kernel<true><<<grid, threads, smem, stream>>>(a);
+    else
+      hist_seg_kernel<false><<<grid, threads, smem, stream>>>(a);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
+  if (direct) return cudaSuccess;
   const int total = a.F * 2 * a.B;
   hist_reduce_kernel<<<dim3((total + 255) / 256, a.nwin), 256, 0, stream>>>(
       a.partial, a.seg_info, a.nseg, total, out);
@@ -273,6 +512,10 @@ inline HistArgs hist_args_window(int bpc, int packed, int F, int B,
   a.win = win;
   a.nseg = nseg;
   a.ft = 0;
+  a.unit = 1;
+  a.sstride = 0;
+  a.chunk = kHistChunk;
+  a.out = nullptr;
   a.seg_map = nullptr;
   a.seg_info = nullptr;
   a.grid_y = nseg;

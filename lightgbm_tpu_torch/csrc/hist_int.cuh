@@ -20,8 +20,8 @@
 //   int32 gives the same bits whatever order the threads add in.  Every
 //   thread of a 256-thread block takes whole rows and adds both channels of
 //   every feature of its tile into the block's [tile, 2, B] int32
-//   histogram; this lifts the exact kernel's limit of one thread per
-//   (feature, channel).
+//   histogram, in whatever order the atomics land.  (The exact kernel of
+//   hist_common.cuh must keep one order per bin, and cannot do this.)
 // - For one-byte, unpacked bins with 16-byte aligned rows (the row store),
 //   a thread reads each 32-byte window of the tile's columns as two 16-byte
 //   vectors and takes each bin from registers, so a row costs two loads per
@@ -42,6 +42,18 @@
 namespace lgbt {
 
 constexpr int kHistIntThreads = 256;
+// Shared memory one block may hold for its feature tile's int32 histogram.
+constexpr int kHistIntSmemBudget = 96 * 1024;
+
+// Balanced tiles of at most kHistIntSmemBudget / per_feature features;
+// returns the tile count (0 when one feature does not fit) and sets a->ft.
+inline int hist_tiles(HistArgs* a, int per_feature) {
+  const int ft_max = kHistIntSmemBudget / per_feature;
+  if (ft_max < 1 || a->F < 1) return 0;
+  const int ntiles = (a->F + ft_max - 1) / ft_max;
+  a->ft = (a->F + ntiles - 1) / ntiles;
+  return ntiles;
+}
 
 __device__ __forceinline__ void add_row(int* __restrict__ h, int B, int f,
                                         int bn, int qg, int qh) {
@@ -119,7 +131,7 @@ __global__ void hist_int_reduce_kernel(const int* __restrict__ partial,
 inline cudaError_t launch_hist_int(HistArgs a, float* out,
                                    cudaStream_t stream) {
   const int per_feature = 2 * a.B * (int)sizeof(int);
-  const int ntiles = hist_tiles(&a, per_feature, 1 << 30);
+  const int ntiles = hist_tiles(&a, per_feature);
   if (ntiles == 0) return cudaErrorInvalidValue;
   const int smem = a.ft * per_feature;
   if (smem > 48 * 1024) {

@@ -14,11 +14,12 @@
 // Design: the row-store kernel of hist_common.cuh, addressed through
 // HistArgs' bins pointer and row stride and its separate value pointers
 // (bins = `bins`, stride F * bytes per bin; grad at `values`, hess R floats
-// further), so the two cannot drift apart: per-segment f64 shared-memory
-// sums with one thread per (feature, channel), partials reduced in segment
-// order, rounded to f32 once; no float atomics, so the same input gives the
-// same bits.  The TPU's window masking of whole row tiles (`in_w`) becomes
-// the segment bounds: rows outside the window are never read.
+// further), so the two cannot drift apart: rows staged through shared
+// memory, per-segment f64 shared-memory sums in row order (a warp per
+// feature, lanes over rows), partials reduced in segment order, rounded to
+// f32 once; no float atomics, so the same input gives the same bits.  The
+// TPU's window masking of whole row tiles (`in_w`) becomes the segment
+// bounds: rows outside the window are never read.
 //
 // Plain C interface for ctypes: pointers and the stream as void*, the CUDA
 // error of the launches returned as an int.

@@ -1,19 +1,25 @@
-// The split pass's three steps for one window, as device functions shared by
+// The split pass's steps for one window, as device functions shared by
 // partition.cu (one window per call) and partition_level.cu (every window of
-// a tree level in one call): routing, the left count of a 2048-row tile, the
-// scan of a window's tile counts, and the stable scatter of a tile into the
-// window's scratch rows.  What the pass replaces, what bounds it and why it
-// is built this way is described in partition.cu.
+// a tree level in one call): routing, the left count of a tile of rows, the
+// scan of a window's tile counts, the stable scatter of a tile into the
+// window's scratch rows, and the block-wide copy of contiguous rows.  What
+// the pass replaces, what bounds it and why it is built this way is
+// described in partition.cu.
+//
+// A tile is `tile` rows, a function of the row width W (core/partition.py
+// `part_tile_rows`: about 128 KB of row bytes a block, clamped to
+// [32, kPartMaxTile]), so a block moves about the same bytes at any W and a
+// leaf of 10,000 rows of 2 KB is 157 blocks, not 5.
 #pragma once
 
 #include "hist_common.cuh"
 
 namespace lgbt {
 
-constexpr int kPartTile = 2048;    // rows per block
+constexpr int kPartMaxTile = 2048;  // rows per block at most
 constexpr int kPartThreads = 256;
 constexpr int kScanThreads = 1024;
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kCopyUnroll = 8;      // 16-byte loads in flight per thread
 
 // scal: (window_begin, window_count, group_col, threshold_bin, default_left,
 // missing_type, num_bin_f, default_bin, is_cat, hist_left_side, use_unfold,
@@ -36,16 +42,16 @@ __device__ __forceinline__ int route_left(const uint8_t* __restrict__ row,
   return (is_cat == 1 ? cat_left : num_left) ? 1 : 0;
 }
 
-// Left rows among window rows [r0, r0 + kPartTile) of the window `scal`
-// names; the total is valid in thread 0.  kPartThreads threads.
+// Left rows among window rows [r0, r0 + tile) of the window `scal` names;
+// the total is valid in thread 0.  kPartThreads threads.
 __device__ __forceinline__ int count_tile(const uint8_t* __restrict__ rows,
                                           int W, const int* __restrict__ scal,
                                           int bpc, int packed, int nw,
-                                          long long r0) {
+                                          long long r0, int tile) {
   __shared__ int warp_sum[kPartThreads / 32];
   const long long wb = scal[0], wc = scal[1];
   int cnt = 0;
-  for (int i = threadIdx.x; i < kPartTile; i += blockDim.x) {
+  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
     const long long r = r0 + i;
     if (r < wc) cnt += route_left(rows + (size_t)(wb + r) * W, scal, bpc, packed, nw);
   }
@@ -100,27 +106,54 @@ __device__ __forceinline__ void scan_window(const int* __restrict__ scal,
   }
 }
 
-// Stable scatter of window rows [r0, r0 + kPartTile): left rows to
+// Block-wide copy of n16 16-byte vectors from src to dst, each thread with
+// kCopyUnroll loads in flight before its stores.
+__device__ __forceinline__ void copy_block16(uint4* __restrict__ dst,
+                                             const uint4* __restrict__ src,
+                                             int n16) {
+  for (int i0 = threadIdx.x; i0 < n16; i0 += kPartThreads * kCopyUnroll) {
+    uint4 v[kCopyUnroll];
+#pragma unroll
+    for (int k = 0; k < kCopyUnroll; ++k) {
+      const int i = i0 + k * kPartThreads;
+      if (i < n16) v[k] = src[i];
+    }
+#pragma unroll
+    for (int k = 0; k < kCopyUnroll; ++k) {
+      const int i = i0 + k * kPartThreads;
+      if (i < n16) dst[i] = v[k];
+    }
+  }
+}
+
+// Stable scatter of window rows [r0, r0 + tile): left rows to
 // scratch[loff + rank], right rows to scratch[nl + (r0 - loff) + rank], where
-// loff is the count of left rows before the tile.  kPartThreads threads.
+// loff is the count of left rows before the tile.  kPartThreads threads:
+// one thread per row routes and ranks (warp ballots and a shared-memory
+// prefix) and keeps the row's destination in shared memory; then every
+// thread of the block copies the tile's rows in 16-byte vectors, kCopyUnroll
+// loads in flight each (the tile's rows are contiguous in `rows`, so the
+// loads are one coalesced stream; each row lands as one contiguous run).
 __device__ __forceinline__ void scatter_tile(const uint8_t* __restrict__ rows,
                                              uint8_t* __restrict__ scratch,
                                              int W,
                                              const int* __restrict__ scal,
                                              int bpc, int packed, int nw,
-                                             long long r0, int loff, int nl) {
+                                             long long r0, int tile, int loff,
+                                             int nl) {
   __shared__ int s_l[kPartThreads / 32], s_r[kPartThreads / 32];
+  __shared__ int s_dest[kPartMaxTile];
   const long long wb = scal[0], wc = scal[1];
+  // rows of the tile in the window: > 0 for a launched tile
+  const int nr = (int)min((long long)tile, wc - r0);
   int roff = (int)r0 - loff;                  // right rows before this tile
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned below = (1u << lane) - 1u;
-  const int cpr = W / 16;                     // 16-byte chunks per row
-  for (int base = 0; base < kPartTile; base += kPartThreads) {
-    if (r0 + base >= wc) break;               // uniform across the block
-    const long long r = r0 + base + threadIdx.x;
-    const bool valid = r < wc;
-    const int gl = valid ? route_left(rows + (size_t)(wb + r) * W, scal, bpc,
-                                      packed, nw) : 0;
+  for (int base = 0; base < nr; base += kPartThreads) {
+    const int i = base + threadIdx.x;
+    const bool valid = i < nr;
+    const int gl = valid ? route_left(rows + (size_t)(wb + r0 + i) * W, scal,
+                                      bpc, packed, nw) : 0;
     const bool gr = valid && !gl;
     const unsigned ml = __ballot_sync(kFull, gl);
     const unsigned mr = __ballot_sync(kFull, gr);
@@ -138,22 +171,31 @@ __device__ __forceinline__ void scatter_tile(const uint8_t* __restrict__ rows,
       tl += s_l[w];
       tr += s_r[w];
     }
-    long long dest = -1;
-    if (gl) dest = loff + lp + __popc(ml & below);
-    else if (gr) dest = (long long)nl + roff + rp + __popc(mr & below);
+    if (gl) s_dest[i] = loff + lp + __popc(ml & below);
+    else if (gr) s_dest[i] = nl + roff + rp + __popc(mr & below);
     __syncthreads();                          // s_l/s_r are reused next round
     loff += tl;
     roff += tr;
-    // warp-cooperative copy of this warp's 32 rows
-    const long long wrow0 = r0 + base + warp * 32;
-    for (int c = lane; c < 32 * cpr; c += 32) {
-      const int j = c / cpr, part = c % cpr;
-      const long long d = __shfl_sync(kFull, dest, j);
-      if (d >= 0) {
-        const uint4* src = reinterpret_cast<const uint4*>(
-            rows + (size_t)(wb + wrow0 + j) * W) + part;
-        uint4* dst = reinterpret_cast<uint4*>(scratch + (size_t)d * W) + part;
-        *dst = *src;
+  }
+  const int cpr = W / 16;                     // 16-byte vectors per row
+  const int n16 = nr * cpr;
+  const uint4* src =
+      reinterpret_cast<const uint4*>(rows + (size_t)(wb + r0) * W);
+  for (int i0 = threadIdx.x; i0 < n16; i0 += kPartThreads * kCopyUnroll) {
+    uint4 v[kCopyUnroll];
+#pragma unroll
+    for (int k = 0; k < kCopyUnroll; ++k) {
+      const int i = i0 + k * kPartThreads;
+      if (i < n16) v[k] = src[i];
+    }
+#pragma unroll
+    for (int k = 0; k < kCopyUnroll; ++k) {
+      const int i = i0 + k * kPartThreads;
+      if (i < n16) {
+        const int row = i / cpr;
+        uint4* dst =
+            reinterpret_cast<uint4*>(scratch + (size_t)s_dest[row] * W);
+        dst[i - row * cpr] = v[k];
       }
     }
   }

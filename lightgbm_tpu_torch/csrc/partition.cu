@@ -17,18 +17,24 @@
 //
 // Design:
 // - Hopper blocks run in no order, so the TPU's in-order streaming compaction
-//   becomes count, scan, scatter.  (1) part_count_kernel routes the rows of
-//   each 2048-row block and writes the block's left count.  (2) One block
-//   scans the counts: exclusive prefixes, the left total `nl`, and the
-//   smaller child's window for the histogram.  (3) part_scatter_kernel
-//   routes again, ranks rows inside the block with warp ballots and a
-//   shared-memory prefix, and copies each row (W bytes in 16-byte vectors,
-//   one warp per 32 rows, W/16 lanes per row so each row is one coalesced
-//   burst) to scratch[left_off + rank] or scratch[nl + right_off + rank].
-//   The scratch window is then copied back over the window: the partition is
-//   in place in `rows` through a scratch window, as the TPU kernel aliased
-//   `rows` (input_output_aliases).  Rows outside the window are never
-//   written.
+//   becomes count, scan, scatter over tiles of `tile` rows, a function of
+//   the row width (core/partition.py `part_tile_rows`: about 128 KB of row
+//   bytes a block, so 1,024 rows at W = 128 and 64 at W = 2048).  (1)
+//   part_count_kernel routes the rows of each tile and writes its left
+//   count.  (2) One block scans the counts: exclusive prefixes, the left
+//   total `nl`, and the smaller child's window for the histogram.  (3)
+//   part_scatter_kernel routes again, ranks rows inside the tile with warp
+//   ballots and a shared-memory prefix, keeps each row's destination in
+//   shared memory, and then copies the tile with every thread of the block,
+//   eight 16-byte loads in flight per thread, to scratch[left_off + rank] or
+//   scratch[nl + right_off + rank].  Tiles sized by bytes keep every SM busy
+//   on a small leaf of wide rows (a 10,000-row leaf at W = 2048 is 157
+//   blocks; with a fixed 2,048-row tile it was 5 blocks on 132 SMs, and
+//   one 16-byte load in flight per lane left the copy latency-bound).
+//   The scratch window is then copied back over the window with
+//   cudaMemcpyAsync: the partition is in place in `rows` through a scratch
+//   window, as the TPU kernel aliased `rows` (input_output_aliases).  Rows
+//   outside the window are never written.
 // - The smaller child is one contiguous window after the partition, so its
 //   histogram is the shared row-store histogram kernel (hist_common.cuh) on
 //   that window, whose start and count it reads from device memory: the host
@@ -50,9 +56,10 @@ namespace lgbt {
 
 __global__ void part_count_kernel(const uint8_t* __restrict__ rows, int W,
                                   const int* __restrict__ scal, int bpc,
-                                  int packed, int nw, int* __restrict__ blk) {
+                                  int packed, int nw, int tile,
+                                  int* __restrict__ blk) {
   const int s = count_tile(rows, W, scal, bpc, packed, nw,
-                           (long long)blockIdx.x * kPartTile);
+                           (long long)blockIdx.x * tile, tile);
   if (threadIdx.x == 0) blk[blockIdx.x] = s;
 }
 
@@ -67,22 +74,24 @@ __global__ void part_scan_kernel(const int* __restrict__ scal, int nblk,
 __global__ void part_scatter_kernel(const uint8_t* __restrict__ rows,
                                     uint8_t* __restrict__ scratch, int W,
                                     const int* __restrict__ scal, int bpc,
-                                    int packed, int nw,
+                                    int packed, int nw, int tile,
                                     const int* __restrict__ blk,
                                     const int* __restrict__ nl_ptr) {
   scatter_tile(rows, scratch, W, scal, bpc, packed, nw,
-               (long long)blockIdx.x * kPartTile, blk[blockIdx.x], nl_ptr[0]);
+               (long long)blockIdx.x * tile, tile, blk[blockIdx.x], nl_ptr[0]);
 }
 
 }  // namespace lgbt
 
-// `partial` holds nseg * F * 2 * B doubles, or int32 when `quantized`.
+// `nblk` tiles of `tile` rows; `partial` holds nseg * F * 2 * B doubles (or
+// is null for one segment), or int32 when `quantized`.
 extern "C" int lgbt_partition_hist(void* rows, void* scratch, int W,
                                    const void* scal, long long wb,
                                    long long wc, int bpc, int packed, int nw,
                                    int F, int B, int voff, int nblk,
-                                   void* blk, void* win, void* nl, int nseg,
-                                   int quantized, void* partial, void* hist,
+                                   int tile, void* blk, void* win, void* nl,
+                                   int nseg, int quantized, void* partial,
+                                   void* hist,
                                    void* stream) {
   using namespace lgbt;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -92,13 +101,14 @@ extern "C" int lgbt_partition_hist(void* rows, void* scratch, int W,
   int* bk = static_cast<int*>(blk);
   int* wn = static_cast<int*>(win);
   int* nlp = static_cast<int*>(nl);
-  part_count_kernel<<<nblk, kPartThreads, 0, st>>>(r, W, sc, bpc, packed, nw, bk);
+  part_count_kernel<<<nblk, kPartThreads, 0, st>>>(r, W, sc, bpc, packed, nw,
+                                                   tile, bk);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   part_scan_kernel<<<1, kScanThreads, 0, st>>>(sc, nblk, bk, nlp, wn);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   part_scatter_kernel<<<nblk, kPartThreads, 0, st>>>(r, s, W, sc, bpc, packed,
-                                                     nw, bk, nlp);
+                                                     nw, tile, bk, nlp);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   e = cudaMemcpyAsync(r + (size_t)wb * W, s, (size_t)wc * W,
                       cudaMemcpyDeviceToDevice, st);

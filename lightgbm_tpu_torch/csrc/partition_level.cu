@@ -16,17 +16,19 @@
 //
 // Design:
 // - The host knows every window's (wb, wc) before the call, so it builds the
-//   block map (block -> (window, 2048-row tile), ceil(wc / 2048) blocks per
-//   window), each window's first block, block count and scratch offset, and
-//   the histogram's segment map, and sends them with the [G, S] scal rows in
-//   one host-to-device copy (`meta`).  One count kernel and one scatter
-//   kernel then cover every tile of every window, so a level of 127 windows
-//   of ~8k rows is four blocks each in one launch, not 127 launches.
+//   block map (block -> (window, tile), ceil(wc / tile) blocks per window,
+//   `tile` rows from the row width as in partition.cu), each window's first
+//   block, block count and scratch offset, and the histogram's segment map,
+//   and sends them with the [G, S] scal rows in one host-to-device copy
+//   (`meta`).  One count kernel and one scatter kernel then cover every tile
+//   of every window, so a level of 127 windows of ~8k rows at W = 128 is
+//   eight blocks each in one launch, not 127 launches.
 // - The scan runs one block per window: each window's tile counts become
 //   exclusive prefixes, `nl[g]` and the child's window `win[g]`.
 // - The scatter writes each window into its own stretch of one scratch
 //   buffer (sum(wc) rows); one copy-back kernel returns every window to its
-//   place in `rows`.  Rows outside the windows are never written.
+//   place in `rows`, a tile a block with eight 16-byte loads in flight per
+//   thread.  Rows outside the windows are never written.
 // - The children's histograms are one launch of the histogram kernel (the
 //   f64 one, or the integer one when quantized) with a window axis: grid
 //   row y is (window, segment) from the segment map, and the kernel reads
@@ -60,10 +62,10 @@ __device__ __forceinline__ const int* window_scal(const LevelMeta& m, int g) {
 
 __global__ void lvl_count_kernel(const uint8_t* __restrict__ rows, int W,
                                  LevelMeta m, int bpc, int packed, int nw,
-                                 int* __restrict__ blk) {
+                                 int tile, int* __restrict__ blk) {
   const int g = m.blkmap[2 * blockIdx.x], t = m.blkmap[2 * blockIdx.x + 1];
   const int s = count_tile(rows, W, window_scal(m, g), bpc, packed, nw,
-                           (long long)t * kPartTile);
+                           (long long)t * tile, tile);
   if (threadIdx.x == 0) blk[blockIdx.x] = s;
 }
 
@@ -77,29 +79,28 @@ __global__ void lvl_scan_kernel(LevelMeta m, int* __restrict__ blk,
 __global__ void lvl_scatter_kernel(const uint8_t* __restrict__ rows,
                                    uint8_t* __restrict__ scratch, int W,
                                    LevelMeta m, int bpc, int packed, int nw,
-                                   const int* __restrict__ blk,
+                                   int tile, const int* __restrict__ blk,
                                    const int* __restrict__ nl) {
   const int g = m.blkmap[2 * blockIdx.x], t = m.blkmap[2 * blockIdx.x + 1];
   const int* wm = m.wmeta + g * kWinMeta;
   scatter_tile(rows, scratch + (size_t)wm[2] * W, W, window_scal(m, g), bpc,
-               packed, nw, (long long)t * kPartTile, blk[blockIdx.x], nl[g]);
+               packed, nw, (long long)t * tile, tile, blk[blockIdx.x], nl[g]);
 }
 
-// Copy one tile of a window back from its scratch rows (16-byte vectors;
-// the tile's rows are contiguous on both sides).
+// Copy one tile of a window back from its scratch rows (the tile's rows are
+// contiguous on both sides).
 __global__ void lvl_copyback_kernel(uint8_t* __restrict__ rows,
                                     const uint8_t* __restrict__ scratch,
-                                    int W, LevelMeta m) {
+                                    int W, LevelMeta m, int tile) {
   const int g = m.blkmap[2 * blockIdx.x], t = m.blkmap[2 * blockIdx.x + 1];
   const int* sc = window_scal(m, g);
   const long long wb = sc[0], wc = sc[1];
-  const long long r0 = (long long)t * kPartTile;
-  const long long nr = min((long long)kPartTile, wc - r0);
-  const long long n16 = nr * (W / 16);
-  const uint4* src = reinterpret_cast<const uint4*>(
-      scratch + ((size_t)m.wmeta[g * kWinMeta + 2] + r0) * W);
-  uint4* dst = reinterpret_cast<uint4*>(rows + (size_t)(wb + r0) * W);
-  for (long long i = threadIdx.x; i < n16; i += blockDim.x) dst[i] = src[i];
+  const long long r0 = (long long)t * tile;
+  const int nr = (int)min((long long)tile, wc - r0);
+  copy_block16(reinterpret_cast<uint4*>(rows + (size_t)(wb + r0) * W),
+               reinterpret_cast<const uint4*>(
+                   scratch + ((size_t)m.wmeta[g * kWinMeta + 2] + r0) * W),
+               nr * (W / 16));
 }
 
 }  // namespace lgbt
@@ -110,8 +111,9 @@ __global__ void lvl_copyback_kernel(uint8_t* __restrict__ rows,
 // int32 when `quantized`; `hist` is [G, F, 2, B] f32.
 extern "C" int lgbt_partition_level(void* rows, void* scratch, int W,
                                     const void* meta, int G, int S, int NB,
-                                    int NS, int bpc, int packed, int nw,
-                                    int F, int B, int voff, int quantized,
+                                    int NS, int tile, int bpc, int packed,
+                                    int nw, int F, int B, int voff,
+                                    int quantized,
                                     void* work, void* partial, void* hist,
                                     void* stream) {
   using namespace lgbt;
@@ -131,16 +133,16 @@ extern "C" int lgbt_partition_level(void* rows, void* scratch, int W,
   cudaError_t e;
   if (NB > 0) {
     lvl_count_kernel<<<NB, kPartThreads, 0, st>>>(r, W, m, bpc, packed, nw,
-                                                  blk);
+                                                  tile, blk);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   lvl_scan_kernel<<<G, kScanThreads, 0, st>>>(m, blk, nl, win);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   if (NB > 0) {
     lvl_scatter_kernel<<<NB, kPartThreads, 0, st>>>(r, s, W, m, bpc, packed,
-                                                    nw, blk, nl);
+                                                    nw, tile, blk, nl);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    lvl_copyback_kernel<<<NB, kPartThreads, 0, st>>>(r, s, W, m);
+    lvl_copyback_kernel<<<NB, kPartThreads, 0, st>>>(r, s, W, m, tile);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   HistArgs a = hist_args_one(r, W, voff, bpc, packed, F, B, 0, 0, 0, win, 1);
