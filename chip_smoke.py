@@ -16,8 +16,10 @@ together) and runs these phases, each of which raises on failure:
    the row-store kernel at the Higgs shapes (W=128, F=28, B=256 and 64;
    full, mid, 100-row and empty windows) and at u16 (bpc=2), nibble-packed
    and feature-window shapes; the integer kernel (quantized gradients) at
-   the same shapes and on a window of more than 8.4M rows of hess 255 in one
-   bin, whose sum needs its int64 reduction; both again at the wide
+   the same shapes plus a 1,000-row window, on windows its blocks write
+   themselves and windows whose features several blocks share, and on a
+   window of more than 8.4M rows of hess 255 in one bin, whose sum needs
+   its int64 reduction; both again at the wide
    Epsilon shape (TPU kernel #2: F=2000, W=2048, B=256 and 64, bpc 1 and 2,
    nibble-packed at B=32, full, mid, 100-row and empty windows); and the
    masked bins/values kernel (TPU kernel #5) at 1,048,576 rows, F=28,
@@ -26,8 +28,10 @@ together) and runs these phases, each of which raises on failure:
 3. the fused split kernel against its plain version on the card, over window
    sizes (<= 992 rows, ~10k, >= 500k, empty) and routes (numerical, NaN missing
    with default left and right, zero missing, categorical bitset, EFB unfold);
-   the level-batched split kernel against G single-window kernel calls and
-   against its plain version, exact and quantized, over frontiers: one
+   the level-batched split kernel (from one row store into a second)
+   against G single-window kernel calls and against its plain version,
+   exact and quantized, with every row outside the windows untouched in
+   both stores, over frontiers: one
    whole-store window, a full level-7 frontier of 127 adjacent windows, a
    mix of small, ~10k-row and empty windows, and the route matrix; both
    split kernels again at F=2000 (the single-window one over five windows
@@ -58,9 +62,11 @@ together) and runs these phases, each of which raises on failure:
    pass, which has none, the window's device-to-device copy): the
    histograms and split passes on the root window and on child-sized
    windows of 20,000 and 1,000 rows.  Times are CUDA-event medians of one
-   call, the wrapper's host work included; each histogram and its
-   ``index_add_`` also get a queued time, the device time of one call when
-   25 calls are queued behind a sleeping kernel and run back to back.
+   call, the wrapper's host work included; each histogram, split pass and
+   their ``index_add_`` or copy also get a queued time, the device time of
+   one call when 25 calls are queued behind a sleeping kernel and run back
+   to back.  The level pass is also timed (queued) at each depth
+   0-7 of a tree over the whole store: 2**d equal windows.
 
 Tolerances: a histogram may differ from the plain version's only by float
 summation order, so ``max|diff| <= 1e-5 * max|bin sum|``; integer histograms
@@ -72,9 +78,11 @@ The line before the last is the card's name and power limit as ``nvidia-smi``
 reports them, the one before that a JSON object with every kernel's numbers,
 and the last line ``{"ok": true, "device": {...}}``.  Without CUDA the script
 exits with code 2 and prints no result.  ``--profile`` adds a
-``torch.profiler`` table of one training iteration of each path and, on the
+``torch.profiler`` table of one training iteration of each path; on the
 leaf-wise paths, the single-window split passes' ``part_scatter_kernel``
-time beside their own copy-backs' (the ``Memcpy DtoD`` after each).
+time beside their own copy-backs' (the ``Memcpy DtoD`` after each); on the
+level paths, the level pass's scatter time, and a failure if any
+``lvl_copyback_kernel`` ran.
 """
 from __future__ import annotations
 
@@ -222,10 +230,16 @@ def phase_histogram(device, n: int) -> float:
 
 def phase_histogram_int(device, n: int) -> float:
     """Phase 2, second part: the integer histogram kernel against its plain
-    version (int64 sums): bit-equal and bitwise repeatable."""
+    version (int64 sums): bit-equal and bitwise repeatable, on windows that
+    its blocks write themselves (one segment) and on windows whose features
+    several blocks share (partials and pass 2)."""
     from lightgbm_tpu_torch.core import histogram as H
+    grids = set()
 
     def check(rows, B, start, count, what, **kw):
+        ft, nseg = H.int_hist_grid(count, kw["num_features"], B)
+        grids.add(nseg > 1)
+        what += " %dx%d" % (-(-kw["num_features"] // ft), nseg)
         a = H.histogram_rows(rows, B, start, count, quantized=True, **kw)
         a2 = H.histogram_rows(rows, B, start, count, quantized=True, **kw)
         b = H.histogram_rows_plain(rows, B, start, count, quantized=True,
@@ -236,13 +250,15 @@ def phase_histogram_int(device, n: int) -> float:
                                      (a - b).abs().max())))
         if not torch.equal(a, a2):
             raise AssertionError(what + ": two launches differ")
-        log("  %-40s bit-equal, bitwise-repeatable" % what)
+        log("  %-48s bit-equal, bitwise-repeatable" % what)
         return a
 
+    log("  (tiles x segments of each window after its name)")
     for F, B in ((28, 256), (28, 64)):
         rows, voff = make_store(n, F, B, quantized=True, device=device,
                                 seed=11)
-        for start, count in [(0, n), (12345, 20000), (777, 100), (5, 0)]:
+        for start, count in [(0, n), (12345, 20000), (4321, 1000), (777, 100),
+                             (5, 0)]:
             check(rows, B, start, count, "int hist F=%d B=%d [%d, +%d)"
                   % (F, B, start, count), num_features=F, voff=voff)
         del rows
@@ -273,6 +289,9 @@ def phase_histogram_int(device, n: int) -> float:
         raise AssertionError("int64 reduction: bin sum %r, want %r"
                              % (float(h[0, 1, 0]), want))
     log("  hess sum of one bin %.0f = 255 x %d > 2**31" % (want, big))
+    if grids != {False, True}:
+        raise AssertionError("the integer kernel's windows were not both "
+                             "written directly and shared")
     return 0.0
 
 
@@ -396,26 +415,34 @@ def level_frontiers(n: int, B: int, rng: np.random.RandomState) -> dict:
 
 
 def check_level(rows, scals, what, **kw) -> float:
-    """The level-batched split kernel on ``scals`` against G single-window
-    kernel calls (bit for bit) and its plain version (bit for bit when
-    quantized, else within HIST_RTOL); two runs give the same bits."""
+    """The level-batched split kernel on ``scals``, from ``rows`` into a
+    second store, against G single-window kernel calls (bit for bit) and its
+    plain version (bit for bit when quantized, else within HIST_RTOL): the
+    windows of the destination equal the single-window calls' rows, and no
+    row outside the windows changes in either store; two runs give the same
+    bits."""
     from lightgbm_tpu_torch.core import partition as P
     device = rows.device
-    r1, h1, nl1 = P.partition_hist_level(rows.clone(), scals, **kw)
-    r2, h2, nl2 = P.partition_hist_level(rows.clone(), scals, **kw)
+    src = rows.clone()
+    dst0 = torch.full_like(rows, 0x5A)
+    r1, r2, r_p = dst0.clone(), dst0.clone(), dst0.clone()
+    h1, nl1 = P.partition_hist_level(src, r1, scals, **kw)
+    h2, nl2 = P.partition_hist_level(src, r2, scals, **kw)
     r_seq = rows.clone()
     h_seq, nl_seq = [], []
     for sc in scals:
         r_seq, h, nl = P.partition_hist(r_seq, sc.tolist(), **kw)
         h_seq.append(h.clone())
         nl_seq.append(nl.clone())
-    r_p, h_p, nl_p = P.partition_hist_level_plain(rows, scals, **kw)
-    if not (torch.equal(r1, r_seq) and torch.equal(r1, r_p)):
-        raise AssertionError(what + ": rows_new differs")
+    h_p, nl_p = P.partition_hist_level_plain(rows, r_p, scals, **kw)
     inside = torch.zeros(rows.shape[0], dtype=torch.bool, device=device)
     for wb, wc in scals[:, :2]:
         inside[int(wb):int(wb + wc)] = True
-    if not torch.equal(r1[~inside], rows[~inside]):
+    if not torch.equal(src, rows):
+        raise AssertionError(what + ": the source store changed")
+    if not (torch.equal(r1[inside], r_seq[inside]) and torch.equal(r1, r_p)):
+        raise AssertionError(what + ": the destination's windows differ")
+    if not torch.equal(r1[~inside], dst0[~inside]):
         raise AssertionError(what + ": rows outside the windows changed")
     if not (torch.equal(nl1, torch.cat(nl_seq)) and torch.equal(nl1, nl_p)):
         raise AssertionError(what + ": nl differs")
@@ -432,8 +459,9 @@ def check_level(rows, scals, what, **kw) -> float:
     if not (torch.equal(r1, r2) and torch.equal(h1, h2)
             and torch.equal(nl1, nl2)):
         raise AssertionError(what + ": two runs differ")
-    log("  %-46s nl sum %8d  = %d single-window calls bit for bit; "
-        "vs plain max|diff| %.3g" % (what, int(nl1.sum()), len(scals), err))
+    log("  %-46s nl sum %8d  = %d single-window calls bit for bit, rows "
+        "outside untouched in both stores; vs plain max|diff| %.3g"
+        % (what, int(nl1.sum()), len(scals), err))
     return err
 
 
@@ -541,7 +569,7 @@ def phase_widef_split(device, n: int) -> float:
         for name in ("one window", "level-7 frontier"):
             scals = frontiers[name]
             if not quantized:
-                ns = P.level_meta(scals, F, B, rows.shape[1])[2]
+                ns = P.level_meta(scals, F, B, rows.shape[1]).hist.nseg
                 log("  f64 partials of the level pass over the %s (%d "
                     "windows, %d rows): %d segments, %.1f MB"
                     % (name, len(scals), int(scals[:, 1].sum()), ns,
@@ -997,9 +1025,20 @@ def profile_iteration(booster) -> float:
     busy_ms = sum(device.values())
     log("  profiled iteration: wall %.3f ms (profiler overhead included), "
         "device busy %.3f ms" % (wall_ms, busy_ms))
+    if booster.learner.tree_grow_mode == "level":
+        # the level pass writes a second store and copies nothing back
+        back = [k for k in device if "copyback" in k]
+        if back:
+            raise AssertionError("level path ran %s" % back)
+        log("  level pass: %d lvl_scatter_kernel launches %.3f ms, no "
+            "lvl_copyback_kernel; integer histogram kernels %.3f ms"
+            % (sum(e.count for e in events if "lvl_scatter" in e.key
+                   and e.device_type == torch.autograd.DeviceType.CUDA),
+               sum(v for k, v in device.items() if "lvl_scatter" in k),
+               sum(v for k, v in device.items() if "hist_int" in k)))
     # leaf-wise paths: each split pass's scatter against its own copy-back,
     # the device-to-device copy that comes next on the device
-    # (csrc/partition.cu); the level pass copies back with a kernel
+    # (csrc/partition.cu)
     work = sorted((e for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False)),
@@ -1093,20 +1132,25 @@ def split_pass_sizes(rows, voff, F, B, route, words, counts,
         kw = dict(num_features=F, num_bins=B, voff=voff)
         work = rows.clone()
         ms = cuda_ms(lambda: P.partition_hist(work, scal, **kw), reps=reps)
+        dev = queued_ms(lambda: P.partition_hist(work, scal, **kw),
+                        reps=reps)
         del work
         plain = cuda_ms(lambda: P.partition_hist_plain(rows, scal, **kw),
                         reps=3 if F > 100 else 20, warmup=1)
         dst = torch.empty((wc, W), dtype=torch.uint8, device=rows.device)
         copy = cuda_ms(lambda: dst.copy_(rows[:wc]), reps=reps)
+        copy_dev = queued_ms(lambda: dst.copy_(rows[:wc]), reps=reps)
         del dst
         # each window row read once and written once; the child histogram's
         # adds are two per (row, feature) of the smaller child
         b_ms, b_by = bound(2.0 * wc * W, 2.0 * (wc / 2) * F)
-        log("  split pass F=%d %8d rows: kernel %.4f ms, bound %.4f ms (%s), "
-            "plain %.4f ms, copy of the window %.4f ms, no single library "
-            "call" % (F, wc, ms, b_ms, b_by, plain, copy))
-        out.append(dict(rows=wc, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=None, copy_ms=copy))
+        log("  split pass F=%d %8d rows: kernel %.4f ms (queued %.4f), bound "
+            "%.4f ms (%s), plain %.4f ms, copy of the window %.4f ms (queued "
+            "%.4f), no single library call"
+            % (F, wc, ms, dev, b_ms, b_by, plain, copy, copy_dev))
+        out.append(dict(rows=wc, ms=ms, queued_ms=dev, plain_ms=plain,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                        copy_ms=copy, copy_queued_ms=copy_dev))
         torch.cuda.empty_cache()
     return dict(out[0], sizes=out[1:])
 
@@ -1289,13 +1333,15 @@ def times_quantized_and_level(device, n: int) -> dict:
     skw = dict(num_features=F, num_bins=B, voff=voff, quantized=True)
     work = rows.clone()
     ms = cuda_ms(lambda: P.partition_hist(work, scal, **skw))
+    dev = queued_ms(lambda: P.partition_hist(work, scal, **skw))
     plain = cuda_ms(lambda: P.partition_hist_plain(rows, scal, **skw),
                     reps=20)
     b_ms, b_by = bound(2.0 * n * rows.shape[1], 2.0 * (n / 2) * F)
-    log("  quantized split pass %8d rows: kernel %.4f ms, bound %.4f ms "
-        "(%s), plain %.4f ms, no single library call"
-        % (n, ms, b_ms, b_by, plain))
-    out["partition_q"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms)
+    log("  quantized split pass %8d rows: kernel %.4f ms (queued %.4f), "
+        "bound %.4f ms (%s), plain %.4f ms, no single library call"
+        % (n, ms, dev, b_ms, b_by, plain))
+    out["partition_q"] = dict(ms=ms, queued_ms=dev, plain_ms=plain,
+                              bound_ms=b_ms)
     del rows, work
     rng = np.random.RandomState(14)
     fr = level_frontiers(n, B, rng)
@@ -1303,17 +1349,26 @@ def times_quantized_and_level(device, n: int) -> dict:
         rows, voff = make_store(n, F, B, quantized=quantized, device=device,
                                 seed=15)
         kw = dict(num_features=F, num_bins=B, voff=voff, quantized=quantized)
+        dst = torch.empty_like(rows)
         for name in ("one window", "level-7 frontier"):
             scals = fr[name]
+            ms = cuda_ms(lambda: P.partition_hist_level(rows, dst, scals,
+                                                        **kw))
+            dev = queued_ms(lambda: P.partition_hist_level(rows, dst, scals,
+                                                           **kw))
+            # the level's own copy: its windows' rows, device to device
+            lo = int(scals[:, 0].min())
+            hi = int((scals[:, 0] + scals[:, 1]).max())
+            copy = cuda_ms(lambda: dst[lo:hi].copy_(rows[lo:hi]))
+            copy_dev = queued_ms(lambda: dst[lo:hi].copy_(rows[lo:hi]))
             work = rows.clone()
-            ms = cuda_ms(lambda: P.partition_hist_level(work, scals, **kw))
 
             def sequential():
                 for sc in scals:
                     P.partition_hist(work, sc.tolist(), **kw)
             seq = cuda_ms(sequential, reps=5, warmup=1)
             plain = cuda_ms(lambda: P.partition_hist_level_plain(
-                rows, scals, **kw), reps=3, warmup=1)
+                rows, dst, scals, **kw), reps=3, warmup=1)
             # every window row read once and written once; two adds per
             # (row, feature) of the smaller children
             sum_wc = float(scals[:, 1].sum())
@@ -1321,18 +1376,44 @@ def times_quantized_and_level(device, n: int) -> dict:
                                2.0 * (sum_wc / 2) * F)
             what = "%s, %s" % ("quantized" if quantized else "exact", name)
             log("  level split pass %-30s (%d windows, %d rows): kernel "
-                "%.4f ms, bound %.4f ms (%s), %d single-window calls %.4f "
-                "ms, plain %.4f ms, no single library call"
-                % (what, len(scals), sum_wc, ms, b_ms, b_by, len(scals), seq,
-                   plain))
+                "%.4f ms (queued %.4f), bound %.4f ms (%s), %d single-window "
+                "calls %.4f ms, plain %.4f ms, copy of the windows %.4f ms "
+                "(queued %.4f), no single library call"
+                % (what, len(scals), sum_wc, ms, dev, b_ms, b_by, len(scals),
+                   seq, plain, copy, copy_dev))
             if name == "level-7 frontier":
                 key = "partition_level_q" if quantized else "partition_level"
-                out[key] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
-                                bound_by=b_by, library_ms=None,
+                out[key] = dict(ms=ms, queued_ms=dev, plain_ms=plain,
+                                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                                copy_ms=copy, copy_queued_ms=copy_dev,
                                 sequential_ms=seq, windows=len(scals))
             del work
-        del rows
+        out["depths_q" if quantized else "depths"] = level_depth_ms(
+            rows, dst, kw)
+        del rows, dst
     return out
+
+
+def level_depth_ms(rows, dst, kw) -> list:
+    """Queued device times of the level pass at each depth d = 0..7 of a
+    tree over every row of ``rows``: 2**d equal windows, random routes."""
+    from lightgbm_tpu_torch.core import partition as P
+    n = rows.shape[0] - 4096
+    F, B = kw["num_features"], kw["num_bins"]
+    rng = np.random.RandomState(16)
+    times = []
+    for d in range(8):
+        bounds = np.linspace(0, n, 2 ** d + 1).astype(np.int64)
+        scals = np.asarray([scal_row(
+            int(a), int(b - a), (int(rng.randint(F)), int(rng.randint(B)), 0,
+                                 0, B, 0, 0, 0, 0), [0] * (B // 32),
+            int(rng.randint(2))) for a, b in zip(bounds, bounds[1:])])
+        times.append(queued_ms(lambda: P.partition_hist_level(rows, dst,
+                                                              scals, **kw)))
+    log("  level pass %s at depths 0-7 of a %d-row tree (queued ms): %s; "
+        "sum %.4f" % ("quantized" if kw["quantized"] else "exact", n,
+                      " ".join("%.4f" % t for t in times), sum(times)))
+    return times
 
 
 # ----------------------------------------------------------------- main ----
@@ -1443,6 +1524,7 @@ def main(argv=None) -> int:
              also_replaces="lightgbm_tpu/core/partition.py:1130",
              max_abs_err=split_err_max, **launches("partition", "ABC"),
              quantized_ms=times["partition_q"]["ms"],
+             quantized_queued_ms=times["partition_q"]["queued_ms"],
              quantized_plain_ms=times["partition_q"]["plain_ms"],
              **times["partition"]),
         dict(name="histogram_int", route="cuda",
@@ -1456,6 +1538,9 @@ def main(argv=None) -> int:
              replaces="lightgbm_tpu/core/partition.py:1191",
              max_abs_err=level_err_max, **launches("partition_level"),
              quantized_ms=times["partition_level_q"]["ms"],
+             quantized_queued_ms=times["partition_level_q"]["queued_ms"],
+             depths_queued_ms=times["depths"],
+             quantized_depths_queued_ms=times["depths_q"],
              **times["partition_level"]),
         dict(name="histogram_widef", route="cuda",
              source="lightgbm_tpu_torch/csrc/histogram.cu",

@@ -21,7 +21,8 @@ With ``quantized=True`` (``hist_precision=quantized``) the g/h bytes of the
 row store hold integer-valued f32 (``core/quant.py``) and the result is their
 exact integer sums, rounded to f32 once: the plain version sums in int64
 (:func:`histogram_plain_int`), a CUDA tensor goes through the integer kernel
-``csrc/histogram_int.cu`` (design in ``csrc/hist_int.cuh``).
+``csrc/histogram_int.cu`` (design in ``csrc/hist_int.cuh``) on a grid of its
+own (:func:`int_hist_grid`).
 
 :func:`histogram_masked` is the counterpart of ``histogram_pallas_masked`` /
 ``histogram_xla_masked`` over separate ``bins`` [R, F] (or nibble-packed) and
@@ -35,8 +36,9 @@ are not carried over.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..device import check_tensor, count_launch, cuda_stream_ptr
@@ -169,17 +171,70 @@ def _segments(count: int, num_features: int, num_bins: int) -> int:
     return max(1, min(cap, -(-count // _SEG_ROWS)))
 
 
-# int32 block partials of the integer kernel: a segment's |sum| <= rows * 255
-_INT_SEGMENT_ROWS = (2 ** 31 - 1) // 255
+# rows one block of the integer kernel can sum: its int32 partial holds
+# |sum| <= rows * 255 (its packed shared-memory sums hold twice as many)
+_INT_BLOCK_ROWS = (2 ** 31 - 1) // 255
+# the integer kernel's grid (csrc/hist_int.cuh): blocks that fill an H100,
+# the shared memory of one copy of a tile's int32 sums (kIntHistSmem), the
+# fewest rows worth a segment of their own, the most rows of a window whose
+# feature tiles narrow before its rows split, and the most rows a block of
+# such a window stages in turn
+_INT_FILL_BLOCKS = 2 * 132
+_INT_HIST_SMEM = 64 << 10
+_INT_SEG_ROWS = 1024
+_INT_SMALL_ROWS = 1 << 16
+_INT_SMALL_SEG_ROWS = 4096
+
+
+def int_hist_grids(count: np.ndarray, num_features: int, num_bins: int,
+                   blocks: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The integer kernel's grid over windows of ``count`` rows, each aiming
+    at its entry of ``blocks`` blocks where its rows allow it: (features a
+    block, row segments), int64 arrays of one entry a window.
+
+    The widest tile is what one copy of its sums leaves in shared memory.  A
+    small window (at most ``_INT_SMALL_ROWS`` rows) narrows its tiles first,
+    since the blocks of a window of one segment write its histogram
+    themselves: down to one feature a block when its rows make one segment,
+    two when they make more (a block of two features stages each row once
+    for both).  Its rows still split into segments of at most
+    ``_INT_SMALL_SEG_ROWS``, since a block stages its rows in turn (a level
+    pass gives each window few blocks).  Then the rows split into segments
+    of at least ``_INT_SEG_ROWS`` rows up to the target, and into as many as
+    keep each block within ``_INT_BLOCK_ROWS``.  Integer sums are exact, so
+    the bits do not depend on the grid."""
+    count = np.asarray(count, dtype=np.int64)
+    blocks = np.asarray(blocks, dtype=np.int64)
+    f = num_features
+    ft_max = max(1, min(f, _INT_HIST_SMEM // (8 * num_bins)))
+    wide = -(-f // ft_max)
+    row_segs = -(-count // _INT_SEG_ROWS)
+    small = count <= _INT_SMALL_ROWS
+    need = np.where(small, np.maximum(1, -(-count // _INT_SMALL_SEG_ROWS)), 1)
+    narrowest = np.where(row_segs <= 1, f, -(-f // 2))
+    narrow = np.maximum(wide, np.minimum(narrowest, -(-blocks // need)))
+    ntiles = np.where(small, narrow, wide)
+    nseg = np.maximum(np.maximum(np.minimum(row_segs, blocks // ntiles), need),
+                      -(-count // _INT_BLOCK_ROWS))
+    return -(-f // ntiles), nseg
+
+
+def int_hist_grid(count: int, num_features: int, num_bins: int,
+                  blocks: int = _INT_FILL_BLOCKS) -> Tuple[int, int]:
+    """:func:`int_hist_grids` of one window of ``count`` rows: (features a
+    block, row segments), aiming at ``blocks`` blocks."""
+    ft, nseg = int_hist_grids(np.array([count]), num_features, num_bins,
+                              np.array([blocks]))
+    return int(ft[0]), int(nseg[0])
 
 
 def check_int_segments(count: int, nseg: int) -> None:
-    """Refuse a window whose segments could overflow the integer kernel's
-    int32 block partials."""
-    if -(-count // nseg) > _INT_SEGMENT_ROWS:
+    """Refuse a window whose blocks (``nseg`` segments of it) could hold
+    more rows than one block of the integer kernel can sum."""
+    if -(-count // nseg) > _INT_BLOCK_ROWS:
         raise ValueError("%d rows in %d segments overflow the int32 partials "
-                         "(at most %d rows per segment)"
-                         % (count, nseg, _INT_SEGMENT_ROWS))
+                         "(at most %d rows a block)"
+                         % (count, nseg, _INT_BLOCK_ROWS))
 
 
 # the most bins the exact kernel's block of one feature with 4-byte bins can
@@ -206,6 +261,17 @@ def exact_partials(nseg: int, num_features: int, num_bins: int,
         return None
     return torch.empty((nseg, num_features, 2, num_bins),
                        dtype=torch.float64, device=device)
+
+
+def int_accumulator(nseg: int, num_features: int, num_bins: int,
+                    device) -> Optional[torch.Tensor]:
+    """The integer kernel's int64 accumulator [1, F, 2, B] of a window of
+    ``nseg`` segments (the launch zeroes it), or None for one segment, whose
+    histogram its blocks write themselves."""
+    if nseg == 1:
+        return None
+    return torch.empty((1, num_features, 2, num_bins), dtype=torch.int64,
+                       device=device)
 
 
 def data_ptr(t: Optional[torch.Tensor]) -> int:
@@ -235,19 +301,23 @@ def histogram_rows_cuda(rows: torch.Tensor, num_bins: int, start: int,
     check_hist_shape(num_features, num_bins)
     out = torch.empty((num_features, 2, num_bins), dtype=torch.float32,
                       device=rows.device)
-    nseg = _segments(count, num_features, num_bins)
+    args = (rows.data_ptr(), W, voff, bpc, int(packed), num_features,
+            num_bins, f_begin, start, count)
     if quantized:
+        name = "histogram_int"
+        ft, nseg = int_hist_grid(count, num_features, num_bins)
         check_int_segments(count, nseg)
-        name, fn = "histogram_int", "lgbt_hist_rows_int"
-        partial = torch.empty((nseg, num_features, 2, num_bins),
-                              dtype=torch.int32, device=rows.device)
+        acc = int_accumulator(nseg, num_features, num_bins, rows.device)
+        err = kernels.library(name).lgbt_hist_rows_int(
+            *args, nseg, ft, data_ptr(acc), out.data_ptr(),
+            cuda_stream_ptr(rows))
     else:
-        name, fn = "histogram", "lgbt_hist_rows"
+        name = "histogram"
+        nseg = _segments(count, num_features, num_bins)
         partial = exact_partials(nseg, num_features, num_bins, rows.device)
-    launch = getattr(kernels.library(name), fn)
-    err = launch(rows.data_ptr(), W, voff, bpc, int(packed), num_features,
-                 num_bins, f_begin, start, count, nseg, data_ptr(partial),
-                 out.data_ptr(), cuda_stream_ptr(rows))
+        err = kernels.library(name).lgbt_hist_rows(
+            *args, nseg, data_ptr(partial), out.data_ptr(),
+            cuda_stream_ptr(rows))
     count_launch(name)
     kernels.check(err, "%s kernel" % name)
     return out

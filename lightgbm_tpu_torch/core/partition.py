@@ -35,15 +35,19 @@ kernel ``csrc/hist_int.cuh`` on the card).
 
 The level-batched pass, the counterpart of ``partition_hist_level_pallas``
 (partition.py:1191-1218), runs the same function over every window of a tree
-level at once::
+level at once, from one row store into another::
 
-    partition_hist_level(rows, scals[G, S], ...) -> (rows, hist [G, F, 2, B],
-                                                     nl [G])
+    partition_hist_level(src, dst, scals[G, S], ...) -> (hist [G, F, 2, B],
+                                                         nl [G])
 
-The windows must be pairwise disjoint; a slot with ``wc = 0`` is an identity
-with a zero histogram and ``nl = 0``; the result equals G sequential
-:func:`partition_hist` calls bit for bit.  Its plain version is those G plain
-calls; :func:`partition_hist_level_cuda` is the wrapper of
+Each window ``[wb, wb + wc)`` of ``src`` is stably partitioned into the same
+rows of ``dst``; no other row of either store is written, and nothing is
+copied back (the learner alternates the two stores by depth,
+``core/tree_learner.py``).  The windows must be pairwise disjoint; a slot
+with ``wc = 0`` writes nothing and has a zero histogram and ``nl = 0``; the
+windows of ``dst`` equal G sequential :func:`partition_hist` calls on
+``src`` bit for bit.  Its plain version is those G plain calls, one window
+each; :func:`partition_hist_level_cuda` is the wrapper of
 ``csrc/partition_level.cu``, one call per level whatever the window sizes.
 The TPU's per-level bucket classes (``level_plan``/``fused_bucket_plan``) and
 the per-class window masking (tree_learner.py:1176-1202) were a TPU cost
@@ -51,15 +55,17 @@ model and have no counterpart here.
 """
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import NamedTuple, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..device import check_tensor, count_launch, cuda_stream_ptr
 from ..io.binning import MissingType
-from .histogram import (_segments, check_hist_shape, check_int_segments,
-                        data_ptr, exact_partials, histogram_rows_plain)
+from .histogram import (_INT_FILL_BLOCKS, _segments, check_hist_shape,
+                        check_int_segments, data_ptr, exact_partials,
+                        histogram_rows_plain, int_accumulator, int_hist_grid,
+                        int_hist_grids)
 
 SCAL_HEAD = 12
 # rows per block of the count/scatter kernels: about this many row bytes,
@@ -196,24 +202,25 @@ def partition_hist_cuda(rows: torch.Tensor, scal: ScalLike, *,
         hist.zero_()
         nl.zero_()
         return rows, hist, nl
-    scal_dev = s.to(dev)
+    # from pinned memory, so that the host does not wait for the stream
+    scal_dev = s.pin_memory().to(dev, non_blocking=True)
     scratch = torch.empty((wc, W), dtype=torch.uint8, device=dev)
     tile = part_tile_rows(W)
     nblk = part_blocks(wc, W)
     blk = torch.empty((nblk,), dtype=torch.int32, device=dev)
     win = torch.empty((2,), dtype=torch.int32, device=dev)
-    nseg = _segments(wc, num_features, num_bins)
     if quantized:
+        ft, nseg = int_hist_grid(wc, num_features, num_bins)
         check_int_segments(wc, nseg)
-        partial = torch.empty((nseg, num_features, 2, num_bins),
-                              dtype=torch.int32, device=dev)
+        partial = int_accumulator(nseg, num_features, num_bins, dev)
     else:
+        ft, nseg = 0, _segments(wc, num_features, num_bins)
         partial = exact_partials(nseg, num_features, num_bins, dev)
     lib = kernels.library("partition")
     err = lib.lgbt_partition_hist(
         rows.data_ptr(), scratch.data_ptr(), W, scal_dev.data_ptr(), wb, wc,
         bpc, int(packed), num_bins // 32, num_features, num_bins, voff, nblk,
-        tile, blk.data_ptr(), win.data_ptr(), nl.data_ptr(), nseg,
+        tile, blk.data_ptr(), win.data_ptr(), nl.data_ptr(), nseg, ft,
         int(quantized), data_ptr(partial), hist.data_ptr(),
         cuda_stream_ptr(rows))
     count_launch("partition")
@@ -262,110 +269,193 @@ def check_windows(wb: np.ndarray, wc: np.ndarray, n: int) -> None:
         raise ValueError("the windows of a level must be disjoint")
 
 
-def partition_hist_level_plain(rows: torch.Tensor, scals, *,
-                               num_features: int, num_bins: int, voff: int,
-                               bpc: int = 1, packed: bool = False,
+def check_stores(src: torch.Tensor, dst: torch.Tensor, s: np.ndarray) -> None:
+    """Refuse a level pass whose stores are one buffer, or differ in shape,
+    type or device, or whose windows leave the stores or overlap."""
+    if src.untyped_storage().data_ptr() == dst.untyped_storage().data_ptr():
+        raise ValueError("the level pass reads src and writes dst: they must "
+                         "be two row stores, not one")
+    if (src.shape != dst.shape or src.dtype != dst.dtype
+            or src.device != dst.device):
+        raise ValueError("src %s %s on %s and dst %s %s on %s must match"
+                         % (tuple(src.shape), src.dtype, src.device,
+                            tuple(dst.shape), dst.dtype, dst.device))
+    check_windows(s[:, 0], s[:, 1], src.shape[0])
+
+
+def partition_hist_level_plain(src: torch.Tensor, dst: torch.Tensor, scals,
+                               *, num_features: int, num_bins: int,
+                               voff: int, bpc: int = 1, packed: bool = False,
                                quantized: bool = False):
-    """Plain version: G sequential plain single-window calls."""
+    """Plain version: one plain single-window call per window, on the
+    window's rows of ``src``, written into the same rows of ``dst``."""
     s = _scals_host(scals, num_bins)
-    check_windows(s[:, 0], s[:, 1], rows.shape[0])
+    check_stores(src, dst, s)
     hists, nls = [], []
     for row in s:
-        rows, h, nl = partition_hist_plain(
-            rows, row.tolist(), num_features=num_features, num_bins=num_bins,
-            voff=voff, bpc=bpc, packed=packed, quantized=quantized)
+        wb, wc = int(row[0]), int(row[1])
+        local = row.copy()
+        local[0] = 0
+        part, h, nl = partition_hist_plain(
+            src[wb:wb + wc], local.tolist(), num_features=num_features,
+            num_bins=num_bins, voff=voff, bpc=bpc, packed=packed,
+            quantized=quantized)
+        dst[wb:wb + wc] = part
         hists.append(h)
         nls.append(nl)
     if not hists:
-        return (rows, torch.zeros((0, num_features, 2, num_bins),
-                                  device=rows.device),
-                torch.zeros((0,), dtype=torch.int32, device=rows.device))
-    return rows, torch.stack(hists), torch.cat(nls)
+        return (torch.zeros((0, num_features, 2, num_bins), device=src.device),
+                torch.zeros((0,), dtype=torch.int32, device=src.device))
+    return torch.stack(hists), torch.cat(nls)
+
+
+class ExactHistMap(NamedTuple):
+    """The exact histogram kernel's map of a level pass: each window keeps
+    the segments of its single-window call (``_segments`` of its rows).  Its
+    part of ``LevelMeta.meta``: [G, 2] (segments, first partial row), then
+    (window, segment) of each grid row."""
+    nseg: int            # grid rows, and f64 partial rows [F, 2, B]
+
+
+class IntHistMap(NamedTuple):
+    """The integer histogram kernel's map of a level pass
+    (``int_hist_grids``, the windows sharing its 264 blocks by rows).  Its
+    part of ``LevelMeta.meta``: [G, 4] (segments, accumulator row, features
+    a block, first block; ``kIntInfo`` in csrc/hist_int.cuh), then the
+    window of each block."""
+    nblocks: int         # blocks of the launch
+    nacc: int            # int64 accumulator rows: windows of several segments
+    ft_max: int          # the widest feature tile
+    reduce: bool         # some window needs pass 2
+    seg_rows: int        # the most rows one block sums
+
+
+class LevelMeta(NamedTuple):
+    """The host-built maps of one level pass (``csrc/partition_level.cu``)."""
+    meta: np.ndarray     # int32: scal rows, window rows, block map, then
+                         # the histogram's map
+    nblk: int            # blocks of the count and scatter kernels
+    hist: Union[ExactHistMap, IntHistMap]
+
+
+def _exact_hist_map(wc: np.ndarray, F: int, num_bins: int):
+    nseg = np.asarray([_segments(int(c), F, num_bins) if c > 0 else 0
+                       for c in wc], dtype=np.int64)
+    poff = np.cumsum(nseg) - nseg
+    gs = np.repeat(np.arange(wc.size), nseg)
+    NS = int(nseg.sum())
+    hmap = np.stack([gs, np.arange(NS) - poff[gs]], 1)
+    return (np.concatenate([np.stack([nseg, poff], 1).reshape(-1),
+                            hmap.reshape(-1)]), ExactHistMap(NS))
+
+
+def _int_hist_map(wc: np.ndarray, F: int, num_bins: int):
+    live = wc > 0
+    share = -(-_INT_FILL_BLOCKS * wc // max(int(wc.sum()), 1))
+    ft, nseg = int_hist_grids(wc, F, num_bins, share)
+    ft = np.where(live, ft, F)
+    nseg = np.where(live, nseg, 0)
+    nhb = nseg * -(-F // ft)              # blocks of each window
+    first = np.cumsum(nhb) - nhb
+    shared = (nseg > 1).astype(np.int64)  # one accumulator row each
+    arow = np.cumsum(shared) - shared
+    info = np.stack([nseg, arow, ft, first], 1)
+    hmap = np.repeat(np.arange(wc.size), nhb)
+    return (np.concatenate([info.reshape(-1), hmap]),
+            IntHistMap(nblocks=int(nhb.sum()), nacc=int(shared.sum()),
+                       ft_max=int(ft[live].max()) if live.any() else 1,
+                       reduce=bool((nseg != 1).any()),
+                       seg_rows=int(np.max(-(-wc // np.maximum(nseg, 1)),
+                                           initial=0))))
 
 
 def level_meta(s: np.ndarray, num_features: int, num_bins: int,
-               row_width: int):
-    """The host-built block and segment maps of ``csrc/partition_level.cu``
-    for scal rows ``s`` [G, S] of an F-feature, B-bin store of
-    ``row_width``-byte rows: (meta int32, NB, NS, rows the partition stages,
-    the largest rows per histogram segment)."""
+               row_width: int, quantized: bool = False) -> LevelMeta:
+    """The block and histogram maps of ``csrc/partition_level.cu`` for scal
+    rows ``s`` [G, S] of an F-feature, B-bin store of ``row_width``-byte
+    rows: the exact kernel's (:class:`ExactHistMap`) or, when
+    ``quantized``, the integer kernel's (:class:`IntHistMap`)."""
     G = s.shape[0]
     wc = s[:, 1].astype(np.int64)
-    nblk = part_blocks(wc, row_width)
-    # each window keeps its single-window call's segmentation
-    nseg = np.asarray([_segments(int(c), num_features, num_bins)
-                       if c > 0 else 0 for c in wc],
-                      dtype=np.int64)
-    blk_off = np.cumsum(nblk) - nblk
-    soff = np.cumsum(wc) - wc
-    poff = np.cumsum(nseg) - nseg
-    NB, NS = int(nblk.sum()), int(nseg.sum())
-    gb = np.repeat(np.arange(G), nblk)
-    blkmap = np.stack([gb, np.arange(NB) - blk_off[gb]], 1)
-    gs = np.repeat(np.arange(G), nseg)
-    segmap = np.stack([gs, np.arange(NS) - poff[gs]], 1)
-    # the window rows of csrc/partition_level.cu (kWinMeta = 4 columns)
-    wmeta = np.stack([blk_off, nblk, soff, np.zeros(G, np.int64)], 1)
-    meta = np.concatenate([s.reshape(-1), wmeta.reshape(-1),
-                           np.stack([nseg, poff], 1).reshape(-1),
-                           blkmap.reshape(-1), segmap.reshape(-1)])
     if int(wc.sum()) >= 2 ** 31:
         raise ValueError("a level's windows hold 2**31 rows or more")
-    seg_rows = int(np.max(-(-wc // np.maximum(nseg, 1)))) if G else 0
-    return meta.astype(np.int32), NB, NS, int(wc.sum()), seg_rows
+    nblk = part_blocks(wc, row_width)
+    blk_off = np.cumsum(nblk) - nblk
+    NB = int(nblk.sum())
+    gb = np.repeat(np.arange(G), nblk)
+    blkmap = np.stack([gb, np.arange(NB) - blk_off[gb]], 1)
+    # the window rows of csrc/partition_level.cu (kWinMeta = 2 columns)
+    wmeta = np.stack([blk_off, nblk], 1)
+    hist_map = _int_hist_map if quantized else _exact_hist_map
+    hmeta, hist = hist_map(wc, num_features, num_bins)
+    meta = np.concatenate([s.reshape(-1), wmeta.reshape(-1),
+                           blkmap.reshape(-1), hmeta])
+    return LevelMeta(meta.astype(np.int32), NB, hist)
 
 
-def partition_hist_level_cuda(rows: torch.Tensor, scals, *,
-                              num_features: int, num_bins: int, voff: int,
+def partition_hist_level_cuda(src: torch.Tensor, dst: torch.Tensor, scals,
+                              *, num_features: int, num_bins: int, voff: int,
                               bpc: int = 1, packed: bool = False,
                               quantized: bool = False):
     """Launch the hand-written level pass (``csrc/partition_level.cu``) over
-    every window of ``scals``; partitions ``rows`` in place."""
+    every window of ``scals``: from ``src`` into ``dst``."""
     from .. import kernels
-    _check_store(rows, voff, num_features, num_bins)
+    _check_store(src, voff, num_features, num_bins)
+    check_tensor(dst, "dst", torch.uint8, ndim=2)
     s = _scals_host(scals, num_bins)
+    check_stores(src, dst, s)
     G, S = s.shape
-    n, W = rows.shape
-    check_windows(s[:, 0], s[:, 1], n)
-    dev = rows.device
+    W = src.shape[1]
+    dev = src.device
     hist = torch.empty((G, num_features, 2, num_bins), dtype=torch.float32,
                        device=dev)
     if G == 0:
-        return rows, hist, torch.zeros((0,), dtype=torch.int32, device=dev)
-    meta, NB, NS, srows, seg_rows = level_meta(s, num_features, num_bins, W)
-    if NS > _MAX_GRID_Y or G > _MAX_GRID_Y:
-        raise ValueError("%d windows in %d histogram segments exceed the "
-                         "grid's %d rows" % (G, NS, _MAX_GRID_Y))
+        return hist, torch.zeros((0,), dtype=torch.int32, device=dev)
+    lm = level_meta(s, num_features, num_bins, W, quantized)
+    h = lm.hist
     if quantized:
-        check_int_segments(seg_rows, 1)
+        check_int_segments(h.seg_rows, 1)
+        # blocks, accumulator rows, and the integer launch's arguments
+        nhist, nrows, iargs = h.nblocks, h.nacc, (h.ft_max, h.nacc,
+                                                  int(h.reduce))
+    else:
+        # grid rows (window, segment), f64 partial rows
+        nhist, nrows, iargs = h.nseg, h.nseg, (0, 0, 0)
+    if G > _MAX_GRID_Y or (not quantized and nhist > _MAX_GRID_Y):
+        raise ValueError("%d windows in %d histogram segments exceed the "
+                         "grid's %d rows" % (G, nhist, _MAX_GRID_Y))
     # the one host->device copy, from pinned memory so that it does not
     # wait for the stream's earlier work
-    meta_dev = torch.from_numpy(meta).pin_memory().to(dev, non_blocking=True)
-    scratch = torch.empty((max(srows, 1), W), dtype=torch.uint8, device=dev)
-    work = torch.empty((NB + 3 * G,), dtype=torch.int32, device=dev)
-    partial = torch.empty((max(NS, 1), num_features, 2, num_bins),
-                          dtype=torch.int32 if quantized else torch.float64,
+    meta_dev = torch.from_numpy(lm.meta).pin_memory().to(dev,
+                                                          non_blocking=True)
+    work = torch.empty((lm.nblk + 3 * G,), dtype=torch.int32, device=dev)
+    partial = torch.empty((max(nrows, 1), num_features, 2, num_bins),
+                          dtype=torch.int64 if quantized else torch.float64,
                           device=dev)
     lib = kernels.library("partition_level")
     err = lib.lgbt_partition_level(
-        rows.data_ptr(), scratch.data_ptr(), W, meta_dev.data_ptr(), G, S,
-        NB, NS, part_tile_rows(W), bpc, int(packed), num_bins // 32,
-        num_features, num_bins, voff, int(quantized), work.data_ptr(),
-        partial.data_ptr(), hist.data_ptr(), cuda_stream_ptr(rows))
+        src.data_ptr(), dst.data_ptr(), W, meta_dev.data_ptr(), G, S,
+        lm.nblk, nhist, part_tile_rows(W), bpc, int(packed), num_bins // 32,
+        num_features, num_bins, voff, int(quantized), *iargs,
+        work.data_ptr(), partial.data_ptr(), hist.data_ptr(),
+        cuda_stream_ptr(src))
     count_launch("partition_level")
     kernels.check(err, "partition_level kernel")
-    return rows, hist, work[NB:NB + G]
+    return hist, work[lm.nblk:lm.nblk + G]
 
 
-def partition_hist_level(rows: torch.Tensor, scals, *, num_features: int,
-                         num_bins: int, voff: int, bpc: int = 1,
-                         packed: bool = False, quantized: bool = False):
-    """Level-batched split pass -> (rows_new, hist [G, F, 2, B] f32,
-    nl [G] i32) over the disjoint windows of ``scals`` [G, S].
+def partition_hist_level(src: torch.Tensor, dst: torch.Tensor, scals, *,
+                         num_features: int, num_bins: int, voff: int,
+                         bpc: int = 1, packed: bool = False,
+                         quantized: bool = False):
+    """Level-batched split pass -> (hist [G, F, 2, B] f32, nl [G] i32) over
+    the disjoint windows of ``scals`` [G, S]: each window's rows of ``src``
+    are stably partitioned into the same rows of ``dst``; no other row of
+    either store is written.
 
-    A CUDA tensor goes through the kernel (one call, in place) or raises; a
-    CPU tensor through the plain version."""
-    fn = (partition_hist_level_cuda if rows.is_cuda
+    A CUDA tensor goes through the kernel (one call) or raises; a CPU tensor
+    through the plain version."""
+    fn = (partition_hist_level_cuda if src.is_cuda
           else partition_hist_level_plain)
-    return fn(rows, scals, num_features=num_features, num_bins=num_bins,
+    return fn(src, dst, scals, num_features=num_features, num_bins=num_bins,
               voff=voff, bpc=bpc, packed=packed, quantized=quantized)

@@ -14,8 +14,11 @@ Two growth modes:
   per depth, split every leaf of the frontier with a positive gain through
   one level-batched split pass over all their windows and one batched split
   scan over all their children.  A 255-leaf tree takes 8 steps instead of
-  254.  The port runs it on the CPU (plain versions) and on the card
-  (kernels) alike and never falls back to leaf-wise growth.
+  254.  Every window of one level holds leaves of one depth, so the pass
+  reads depth d from row store d % 2 and writes store 1 - d % 2: no row is
+  copied back, and a leaf's rows stay in the store of its depth's parity.
+  The port runs it on the CPU (plain versions) and on the card (kernels)
+  alike and never falls back to leaf-wise growth.
 
 ``hist_precision=quantized`` (``core/quant.py``) fills the row store with the
 iteration's stochastically rounded integer gradients; every histogram is an
@@ -169,13 +172,18 @@ class _Growth:
 
     def __init__(self, rows, grad, hess, num_data, feature_mask, feat,
                  feat_host, *, num_leaves, params, num_bins, layout,
-                 hist_features, packed, qscale, hist_fn, part_fn, level_fn):
+                 hist_features, packed, qscale, hist_fn, part_fn, level_fn,
+                 spare=None):
         n = grad.shape[0]
         L = num_leaves
         B = num_bins
         dev = rows.device
         f32 = np.float32
         self.rows, self.n, self.L, self.B, self.dev = rows, n, L, B, dev
+        # level growth: the leaves of depth d live in stores[d % 2] (the
+        # level pass reads one store and writes the other); leaf-wise
+        # growth partitions ``rows`` alone
+        self.stores = None if spare is None else (rows, spare)
         self.feat, self.feat_host, self.feature_mask = feat, feat_host, \
             feature_mask
         self.params, self.layout, self.qscale = params, layout, qscale
@@ -336,9 +344,12 @@ class _Growth:
         if leaf.size == 0:
             return False
         self.levels += 1
-        return self._split(leaf, level=True)
+        return self._split(leaf, depth=d)
 
-    def _split(self, leaf: np.ndarray, level: bool = False) -> bool:
+    def _split(self, leaf: np.ndarray, depth: Optional[int] = None) -> bool:
+        """Split the leaves ``leaf``: leaf-wise (one leaf, ``depth`` None)
+        or a level of depth-``depth`` leaves, from store depth % 2 into the
+        other."""
         G = leaf.size
         kid = self.nl_leaves + np.arange(G, dtype=np.int64)
         node = kid - 1
@@ -346,9 +357,10 @@ class _Growth:
         wb, wc = self.begin[leaf], self.wcount[leaf]
         left_smaller = b["left_count"] <= b["right_count"]
         scal = self._scal(wb, wc, b, left_smaller)
-        if level:
-            self.rows, hist_small, nl_t = self.level_fn(
-                self.rows, scal, num_bins=self.B, **self.hkw)
+        if depth is not None:
+            hist_small, nl_t = self.level_fn(
+                self.stores[depth % 2], self.stores[1 - depth % 2], scal,
+                num_bins=self.B, **self.hkw)
         else:
             self.rows, hist_small, nl_t = self.part_fn(
                 self.rows, scal[0].tolist(), num_bins=self.B, **self.hkw)
@@ -363,7 +375,8 @@ class _Growth:
     def arrays(self) -> TreeArrays:
         """The grown tree, with the per-row leaf read from the windows and
         the order bytes: windows tile [0, n) in begin order; the spare block
-        stays past row n."""
+        stays past row n.  In level growth each position's order bytes are
+        read from the store of its leaf's depth parity."""
         L, n, dev, layout = self.L, self.n, self.dev, self.layout
         valid = np.flatnonzero((np.arange(L) < self.nl_leaves)
                                & (self.wcount > 0))
@@ -371,8 +384,18 @@ class _Growth:
         leaf_of_pos = torch.repeat_interleave(
             torch.as_tensor(valid, device=dev),
             torch.as_tensor(self.wcount[valid], device=dev))
-        order = self.rows[:n, layout.voff + 8:layout.voff + 12].contiguous(
-        ).view(torch.int32).reshape(n).long()
+
+        def order_of(rows):
+            return rows[:n, layout.voff + 8:layout.voff + 12].contiguous(
+            ).view(torch.int32).reshape(n).long()
+        if self.stores is None:
+            order = order_of(self.rows)
+        else:
+            odd = torch.repeat_interleave(
+                torch.as_tensor(self.leaf_depth[valid] % 2 == 1, device=dev),
+                torch.as_tensor(self.wcount[valid], device=dev))
+            order = torch.where(odd, order_of(self.stores[1]),
+                                order_of(self.stores[0]))
         row_leaf = torch.empty(n, dtype=torch.int64, device=dev)
         row_leaf[order] = leaf_of_pos
         return TreeArrays(
@@ -398,9 +421,13 @@ def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
                            packed: bool, grow_mode: str = "leaf",
                            qscale: Optional[torch.Tensor] = None,
                            hist_fn=histogram_rows, part_fn=partition_hist,
-                           level_fn=partition_hist_level) -> TreeArrays:
+                           level_fn=partition_hist_level,
+                           spare: Optional[torch.Tensor] = None
+                           ) -> TreeArrays:
     """Grow one tree; ``rows`` is the filled row store (it is partitioned in
-    place on the card).  ``feat_host`` holds the per-feature
+    place on the card).  Level growth also writes ``spare``, a second store
+    of ``rows``' shape whose contents do not matter (required there, unused
+    leaf-wise).  ``feat_host`` holds the per-feature
     ``num_bin``/``missing_type``/``default_bin`` as numpy for the scalar rows.
 
     ``grow_mode`` "leaf" splits the best leaf per step; "level" splits a
@@ -412,11 +439,13 @@ def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
     default to the kernel dispatchers; a check may pass the plain versions
     to rebuild the same tree without the kernels.
     """
+    if grow_mode == "level" and spare is None:
+        raise ValueError("level growth needs a second row store (spare)")
     g = _Growth(rows, grad, hess, num_data, feature_mask, feat, feat_host,
                 num_leaves=num_leaves, params=params, num_bins=num_bins,
                 layout=layout, hist_features=hist_features, packed=packed,
                 qscale=qscale, hist_fn=hist_fn, part_fn=part_fn,
-                level_fn=level_fn)
+                level_fn=level_fn, spare=spare)
     if grow_mode == "level":
         for d in range(level_count(num_leaves, max_depth)
                        if num_leaves > 1 else 0):
@@ -606,6 +635,8 @@ class SerialTreeLearner:
             bpc = 2 if matrix.dtype == np.uint16 else 1
         self.layout = row_layout(bins_u8.shape[1] // bpc, bpc)
         self.template = row_store_template(bins_u8, self.layout, dev)
+        # level growth's second row store, made at its first tree
+        self.spare: Optional[torch.Tensor] = None
 
     @staticmethod
     def _check_supported(dataset: BinnedDataset, config) -> None:
@@ -677,6 +708,8 @@ class SerialTreeLearner:
                                                     int(iteration),
                                                     self.quant_seed)
         rows = fill_gradients(self.template, self.layout, grad, hess)
+        if self.tree_grow_mode == "level" and self.spare is None:
+            self.spare = torch.empty_like(self.template)
         return build_tree_partitioned(
             rows, grad, hess, int(num_data_in_bag), feature_mask, self.feat,
             self.feat_host, num_leaves=self.num_leaves,
@@ -684,4 +717,4 @@ class SerialTreeLearner:
             num_bins=self.num_bins, layout=self.layout,
             hist_features=self.num_columns, packed=self.packed,
             grow_mode=self.tree_grow_mode, qscale=qscale, hist_fn=hist_fn,
-            part_fn=part_fn, level_fn=level_fn)
+            part_fn=part_fn, level_fn=level_fn, spare=self.spare)

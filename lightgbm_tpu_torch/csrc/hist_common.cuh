@@ -143,7 +143,6 @@ struct HistArgs {
   int grid_y;            // grid rows: nseg, or the length of seg_map
   int nwin;              // windows of the output [nwin, F, 2, B]
   double* partial;       // [rows of partials, F, 2, B] (exact kernel)
-  int* ipartial;         // the same in int32 (integer kernel, hist_int.cuh)
 };
 
 // Window, segment, segment count and partial row of grid row blockIdx.y.
@@ -521,7 +520,6 @@ inline HistArgs hist_args_window(int bpc, int packed, int F, int B,
   a.grid_y = nseg;
   a.nwin = 1;
   a.partial = nullptr;
-  a.ipartial = nullptr;
   return a;
 }
 

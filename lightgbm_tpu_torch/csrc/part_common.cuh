@@ -1,10 +1,10 @@
 // The split pass's steps for one window, as device functions shared by
 // partition.cu (one window per call) and partition_level.cu (every window of
 // a tree level in one call): routing, the left count of a tile of rows, the
-// scan of a window's tile counts, the stable scatter of a tile into the
-// window's scratch rows, and the block-wide copy of contiguous rows.  What
-// the pass replaces, what bounds it and why it is built this way is
-// described in partition.cu.
+// scan of a window's tile counts and the stable scatter of a tile into the
+// window's destination rows (partition.cu's scratch window, or the level
+// pass's second row store).  What the pass replaces, what bounds it and why
+// it is built this way is described in partition.cu.
 //
 // A tile is `tile` rows, a function of the row width W (core/partition.py
 // `part_tile_rows`: about 128 KB of row bytes a block, clamped to
@@ -106,28 +106,8 @@ __device__ __forceinline__ void scan_window(const int* __restrict__ scal,
   }
 }
 
-// Block-wide copy of n16 16-byte vectors from src to dst, each thread with
-// kCopyUnroll loads in flight before its stores.
-__device__ __forceinline__ void copy_block16(uint4* __restrict__ dst,
-                                             const uint4* __restrict__ src,
-                                             int n16) {
-  for (int i0 = threadIdx.x; i0 < n16; i0 += kPartThreads * kCopyUnroll) {
-    uint4 v[kCopyUnroll];
-#pragma unroll
-    for (int k = 0; k < kCopyUnroll; ++k) {
-      const int i = i0 + k * kPartThreads;
-      if (i < n16) v[k] = src[i];
-    }
-#pragma unroll
-    for (int k = 0; k < kCopyUnroll; ++k) {
-      const int i = i0 + k * kPartThreads;
-      if (i < n16) dst[i] = v[k];
-    }
-  }
-}
-
 // Stable scatter of window rows [r0, r0 + tile): left rows to
-// scratch[loff + rank], right rows to scratch[nl + (r0 - loff) + rank], where
+// dst[loff + rank], right rows to dst[nl + (r0 - loff) + rank], where
 // loff is the count of left rows before the tile.  kPartThreads threads:
 // one thread per row routes and ranks (warp ballots and a shared-memory
 // prefix) and keeps the row's destination in shared memory; then every
@@ -135,7 +115,7 @@ __device__ __forceinline__ void copy_block16(uint4* __restrict__ dst,
 // loads in flight each (the tile's rows are contiguous in `rows`, so the
 // loads are one coalesced stream; each row lands as one contiguous run).
 __device__ __forceinline__ void scatter_tile(const uint8_t* __restrict__ rows,
-                                             uint8_t* __restrict__ scratch,
+                                             uint8_t* __restrict__ dst,
                                              int W,
                                              const int* __restrict__ scal,
                                              int bpc, int packed, int nw,
@@ -193,9 +173,9 @@ __device__ __forceinline__ void scatter_tile(const uint8_t* __restrict__ rows,
       const int i = i0 + k * kPartThreads;
       if (i < n16) {
         const int row = i / cpr;
-        uint4* dst =
-            reinterpret_cast<uint4*>(scratch + (size_t)s_dest[row] * W);
-        dst[i - row * cpr] = v[k];
+        uint4* to =
+            reinterpret_cast<uint4*>(dst + (size_t)s_dest[row] * W);
+        to[i - row * cpr] = v[k];
       }
     }
   }

@@ -44,9 +44,10 @@
 //   EFB unfold, NaN bin = nb - 1, zero bin = default_bin, categorical bitset
 //   words in scal[12:].
 // - Under hist_precision=quantized (`quantized` = 1) the child histogram is
-//   the integer kernel of hist_int.cuh (exact int32/int64 sums) instead of
-//   the f64 one; it replaces the quantized child histogram of
-//   `_partition_call(quantized=True)` (partition.py:1080).
+//   the integer kernel of hist_int.cuh (exact integer sums, on a grid of its
+//   own from the parent window's size) instead of the f64 one; it replaces
+//   the quantized child histogram of `_partition_call(quantized=True)`
+//   (partition.py:1080).
 // - The steps are device functions in part_common.cuh, which the level pass
 //   (partition_level.cu) runs over every window of a tree level at once.
 #include "hist_int.cuh"
@@ -84,14 +85,16 @@ __global__ void part_scatter_kernel(const uint8_t* __restrict__ rows,
 }  // namespace lgbt
 
 // `nblk` tiles of `tile` rows; `partial` holds nseg * F * 2 * B doubles (or
-// is null for one segment), or int32 when `quantized`.
+// is null for one segment), or when `quantized`, whose kernel cuts the
+// child's window in `nseg` segments of `ft`-feature tiles, F * 2 * B int64
+// (or null for one segment).
 extern "C" int lgbt_partition_hist(void* rows, void* scratch, int W,
                                    const void* scal, long long wb,
                                    long long wc, int bpc, int packed, int nw,
                                    int F, int B, int voff, int nblk,
                                    int tile, void* blk, void* win, void* nl,
-                                   int nseg, int quantized, void* partial,
-                                   void* hist,
+                                   int nseg, int ft, int quantized,
+                                   void* partial, void* hist,
                                    void* stream) {
   using namespace lgbt;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -115,8 +118,10 @@ extern "C" int lgbt_partition_hist(void* rows, void* scratch, int W,
   if (e != cudaSuccess) return (int)e;
   HistArgs a = hist_args_one(r, W, voff, bpc, packed, F, B, 0, 0, 0, wn, nseg);
   if (quantized) {
-    a.ipartial = static_cast<int*>(partial);
-    return (int)launch_hist_int(a, static_cast<float*>(hist), st);
+    IntGrid q = int_grid_one(nseg, ft);
+    q.acc = static_cast<unsigned long long*>(partial);
+    return (int)launch_hist_int(a, q, 0, nseg > 1, static_cast<float*>(hist),
+                                st);
   }
   a.partial = static_cast<double*>(partial);
   return (int)launch_hist(a, static_cast<float*>(hist), st);

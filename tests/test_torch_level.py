@@ -1,12 +1,19 @@
 """Level-batched growth (``tree_grow_mode=level``) in the port, on the CPU.
 
-- The plain ``partition_hist_level`` equals G sequential plain
-  ``partition_hist`` calls and G sequential ``partition_hist_xla`` calls (the
-  JAX package's contract for ``partition_hist_level_pallas``): rows byte-equal,
-  left counts equal, histograms equal to the sequential port calls and within
-  1e-6 of max|bin sum| of the XLA ones (summation order), exactly equal when
-  quantized; ``wc = 0`` slots are identities with a zero histogram.
-  Overlapping windows or windows outside the store are refused.
+- The plain ``partition_hist_level`` (``src`` -> ``dst``) equals G
+  sequential plain ``partition_hist`` calls and G sequential
+  ``partition_hist_xla`` calls (the JAX package's contract for
+  ``partition_hist_level_pallas``): the windows of ``dst`` byte-equal to the
+  sequential calls' rows, ``src`` and every row of ``dst`` outside the
+  windows untouched, left counts equal, histograms equal to the sequential
+  port calls and within 1e-6 of max|bin sum| of the XLA ones (summation
+  order), exactly equal when quantized; ``wc = 0`` slots write nothing and
+  have a zero histogram.  Overlapping windows, windows outside the stores
+  and bad store pairs (one buffer, different shapes) are refused.
+- Level growth on two stores, which it refuses to grow without (the second
+  store is the caller's): a level-grown tree's per-row leaf (read from
+  each leaf's store by depth parity) equals ``route_binned``'s leaves on the
+  training bins.
 - In the complete-tree regime (``max_depth=3``, ``num_leaves=8``) level
   growth performs the same split set as leaf-wise growth, so the scores are
   bit-equal (the JAX package pins the same, tests/test_partition_buckets.py).
@@ -28,6 +35,7 @@ from lightgbm_tpu.core import partition as jax_part
 from lightgbm_tpu_torch import GBDT, BinnedDataset, Config, create_objective
 from lightgbm_tpu_torch import device as port_device
 from lightgbm_tpu_torch.core import partition as port_part
+from lightgbm_tpu_torch.core import tree_learner as port_tl
 from test_torch_partition import make_rows, routes
 from test_torch_quant import one_thread, quantized_rows  # noqa: F401
 
@@ -66,8 +74,17 @@ def test_level_pass_equals_sequential_calls(frontier, quantized):
     rows, voff = make(N, F, B, seed=5)
     scals = scal_rows(FRONTIERS[frontier])
     kw = dict(num_features=F, num_bins=B, voff=voff, quantized=quantized)
-    got_rows, got_hist, got_nl = port_part.partition_hist_level(
-        torch.from_numpy(rows.copy()), scals, **kw)
+    src = torch.from_numpy(rows.copy())
+    dst = torch.full_like(src, 0xA5)
+    got_hist, got_nl = port_part.partition_hist_level(src, dst, scals, **kw)
+    assert torch.equal(src, torch.from_numpy(rows))
+    inside = torch.zeros(N + 1, dtype=torch.int64)
+    for wb, wc in FRONTIERS[frontier]:
+        inside[wb] += 1
+        inside[wb + wc] -= 1
+    inside = (torch.cumsum(inside, 0)[:len(rows)] > 0)[:, None]
+    assert bool((dst == 0xA5)[~inside.expand_as(dst)].all())
+    got_rows = torch.where(inside, dst, src)
     assert got_hist.shape == (len(scals), F, 2, B)
     assert got_nl.shape == (len(scals),) and got_nl.dtype == torch.int32
 
@@ -103,15 +120,37 @@ def test_level_pass_refuses_bad_windows():
     rows, voff = make_rows(N, F, B, seed=6)
     kw = dict(num_features=F, num_bins=B, voff=voff)
     t = torch.from_numpy(rows)
+    d = torch.empty_like(t)
     for windows in ([(0, 100), (99, 10)], [(N - 5, 10)], [(-1, 4)]):
         with pytest.raises(ValueError):
-            port_part.partition_hist_level(t, scal_rows(windows), **kw)
+            port_part.partition_hist_level(t, d, scal_rows(windows), **kw)
     with pytest.raises(ValueError):      # a scal row of the wrong width
-        port_part.partition_hist_level(t, np.zeros((2, S + 1), np.int64),
+        port_part.partition_hist_level(t, d, np.zeros((2, S + 1), np.int64),
                                        **kw)
     # the CUDA wrapper takes CUDA tensors only: no plain fallback inside it
     with pytest.raises(ValueError):
-        port_part.partition_hist_level_cuda(t, scal_rows([(0, 10)]), **kw)
+        port_part.partition_hist_level_cuda(t, d, scal_rows([(0, 10)]), **kw)
+
+
+@pytest.mark.parametrize("pair", ["same", "view", "overlap", "rows",
+                                  "width", "dtype"])
+def test_level_pass_refuses_bad_store_pairs(pair):
+    """src and dst must be two buffers of one shape and type."""
+    rows, voff = make_rows(N, F, B, seed=7)
+    t = torch.from_numpy(rows)
+    W = t.shape[1]
+    d = {"same": lambda: t,
+         "view": lambda: t[:],
+         "overlap": lambda: t.view(-1)[W:].view(N - 1, W),
+         "rows": lambda: torch.empty((N - 1, W), dtype=torch.uint8),
+         "width": lambda: torch.empty((N, W + 16), dtype=torch.uint8),
+         "dtype": lambda: torch.empty((N, W), dtype=torch.int8)}[pair]()
+    src = t[:N - 1] if pair == "overlap" else t
+    for quantized in (False, True):
+        with pytest.raises(ValueError):
+            port_part.partition_hist_level(
+                src, d, scal_rows([(0, 100)]), num_features=F, num_bins=B,
+                voff=voff, quantized=quantized)
 
 
 def toy_dataset(n=4096, f=8, seed=0):
@@ -214,6 +253,37 @@ def test_level_rules_with_a_cut_level(ds, precision):
         frontier3 = sorted(i for i in range(8))
         split3 = [leftmost_leaf(lc, k) for k in range(m) if depths[k] == 3]
         assert split3 == frontier3[:7]
+
+
+@pytest.mark.parametrize("precision", ["exact", "quantized"])
+@pytest.mark.parametrize("params", [
+    dict(num_leaves=15, max_depth=-1),
+    dict(num_leaves=31, max_depth=-1, min_data_in_leaf=150)])
+def test_level_row_leaf_equals_route_binned(ds, precision, params):
+    """Each position's order bytes come from the store of its leaf's depth
+    parity: the per-row leaves equal the tree's own routing of the training
+    bins, with leaves at depths of both parities."""
+    booster, arrays = train(ds, tree_grow_mode="level",
+                            hist_precision=precision, **params)
+    for a in arrays:
+        L = a.num_leaves
+        assert set(a.leaf_depth[:L] % 2) == {0, 1}
+        want = port_tl.route_binned(booster.learner.valid_bins(ds), a,
+                                    booster.learner.feat_host)
+        assert torch.equal(a.row_leaf, want)
+        assert bool((torch.bincount(a.row_leaf, minlength=L) > 0).all())
+    assert booster.learner.spare is not None
+
+
+def test_level_growth_needs_a_second_store():
+    """Level growth writes a second row store, which the caller owns: the
+    tree builder refuses to grow a level tree without one."""
+    rows = torch.zeros((8, 16), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="second row store"):
+        port_tl.build_tree_partitioned(
+            rows, None, None, 8, None, None, {}, num_leaves=4, max_depth=-1,
+            params=None, num_bins=32, layout=None, hist_features=1,
+            packed=False, grow_mode="level")
 
 
 def test_cpu_tensors_take_the_plain_versions(ds):
