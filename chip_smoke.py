@@ -4,7 +4,8 @@
 Run from the repository root on a machine with an NVIDIA H100::
 
     python3 chip_smoke.py [--rows 1048576] [--iters 5] [--widef-rows 400000]
-                          [--widef-test-rows 100000] [--profile]
+                          [--widef-test-rows 100000] [--ltr-rows 2270296]
+                          [--profile]
 
 It builds the hand-written CUDA kernels from ``lightgbm_tpu_torch/csrc`` into
 ``build/kernels`` (``nvcc``, ``sm_90a``, one process per source, all started
@@ -55,7 +56,28 @@ together) and runs these phases, each of which raises on failure:
    validation set: 1 root histogram and 1 split pass per split, log loss
    falling every iteration, the held-out AUC of every iteration, the
    validation scores of training equal to ``Booster.predict``, tree 0 equal
-   to its plain rebuild; (E) ``build_histogram`` (kernel #5's caller) over
+   to its plain rebuild; (F) L2 regression on (A)'s binned features with a
+   real-valued label made from the seed, ``metric=l2``, the sampling of the
+   reference's examples/regression/train.conf (``bagging_fraction=0.8``,
+   ``bagging_freq=5``, ``feature_fraction=0.9``) and
+   ``hist_precision=quantized``, leaf-wise: one integer root histogram per
+   tree and one quantized split pass per split, the bag mask equal byte for
+   byte to the hash recomputed on the host in numpy, l2 falling every
+   iteration, tree 0 equal to its plain rebuild (strict); (G) 5-class
+   softmax (``multiclass``, the reference's multiclass example) on (A)'s
+   binned features through ``lightgbm_tpu_torch.train`` with (A)'s held-out
+   rows as a validation set (``metric=multi_logloss,multi_error``): 5 trees
+   an iteration, one root histogram per tree and one split pass per split,
+   the train multi_logloss falling every iteration, ``Booster.predict``
+   [n, 5] rows summing to 1 and equal to the validation scores of training,
+   tree 0 of class 0 equal to its plain rebuild; (H) ``lambdarank`` at the
+   MS LTR shape (2,270,296 rows x 137 dense features in queries of ~120
+   documents, none above 1,251, relevance 0-4, made from a seed;
+   ``metric=ndcg``, ``eval_at=1,3,5,10`` and (D)'s published settings)
+   through ``lightgbm_tpu_torch.train``: the training NDCG@10 not falling
+   over the run, the gradient step's device time and peak memory, one root
+   histogram per tree and one split pass per split, tree 0 equal to its
+   plain rebuild; (E) ``build_histogram`` (kernel #5's caller) over
    1,048,576 rows x 28 features;
 5. times of each kernel at the main paths' shapes beside its bound, its
    plain version and one PyTorch library call (``index_add_``; for a split
@@ -65,8 +87,9 @@ together) and runs these phases, each of which raises on failure:
    call, the wrapper's host work included; each histogram, split pass and
    their ``index_add_`` or copy also get a queued time, the device time of
    one call when 25 calls are queued behind a sleeping kernel and run back
-   to back.  The level pass is also timed (queued) at each depth
-   0-7 of a tree over the whole store: 2**d equal windows.
+   to back; the quantized split pass also beside its window's copy.  The
+   level pass is also timed (queued) at each depth 0-7 of a tree over the
+   whole store: 2**d equal windows.
 
 Tolerances: a histogram may differ from the plain version's only by float
 summation order, so ``max|diff| <= 1e-5 * max|bin sum|``; integer histograms
@@ -762,15 +785,17 @@ def check_predictions(booster, X, X_test, raw, k: int = 2000) -> None:
     """The card's predictions against the host trees' own ``Tree.predict``
     (numpy, f64) on ``k`` held-out rows, and the card's f32 train scores
     (accumulated through the binned routes) against ``predict`` on ``k``
-    training rows."""
-    host = sum(t.predict(X_test[:k].astype(np.float64))
-               for t in booster.models)
-    err = float(np.abs(raw[:k] - host).max())
+    training rows; ``raw`` is [n], or [n, K] for K classes."""
+    K = booster.num_tree_per_iteration
+    xs = X_test[:k].astype(np.float64)
+    host = np.stack([sum(t.predict(xs) for t in booster.models[c::K])
+                     for c in range(K)], axis=1)
+    err = float(np.abs(raw[:k].reshape(-1, K) - host).max())
     if not err <= PREDICT_ATOL:
         raise AssertionError("card predict vs host Tree.predict: max|diff| "
                              "%.3g > %.0e" % (err, PREDICT_ATOL))
-    train = booster.train_score[0, :k].double().cpu().numpy()
-    err_t = float(np.abs(booster.predict(X[:k], raw_score=True)
+    train = booster.train_score[:, :k].double().cpu().numpy().T
+    err_t = float(np.abs(booster.predict(X[:k], raw_score=True).reshape(-1, K)
                          - train).max())
     if not err_t <= TRAIN_SCORE_ATOL:
         raise AssertionError("train score vs predict on training rows: "
@@ -781,21 +806,30 @@ def check_predictions(booster, X, X_test, raw, k: int = 2000) -> None:
         % (k, err, k, err_t))
 
 
-def check_tree0(booster, n: int, strict: bool) -> None:
-    """Rebuild tree 0 on the card with the plain versions (called directly:
-    a check, not a path) and hold the kernel-built tree 0 against it.
-    ``strict``: integer histograms (quantized) leave no near tie to excuse,
-    so every split and gain must be equal."""
+def check_tree0(booster, n: int, strict: bool, bag=None,
+                feature_mask=None) -> None:
+    """Rebuild tree 0 (class 0's first tree) on the card with the plain
+    versions (called directly: a check, not a path) and hold the
+    kernel-built tree 0 against it.  ``strict``: integer histograms
+    (quantized) leave no near tie to excuse, so every split and gain must be
+    equal.  ``bag`` = (mask, count) and ``feature_mask`` are iteration 0's,
+    recomputed by the caller."""
     from lightgbm_tpu_torch.core.histogram import histogram_rows_plain
     from lightgbm_tpu_torch.core.partition import (partition_hist_level_plain,
                                                    partition_hist_plain)
-    init = booster.objective.boost_from_score(0)
-    score0 = torch.zeros(n, dtype=torch.float32, device=booster.device)
-    score0 += init
-    grad, hess = booster.objective.get_gradients(score0)
+    K = booster.num_tree_per_iteration
+    score0 = torch.zeros((K, n), dtype=torch.float32, device=booster.device)
+    for c in range(K):
+        score0[c] += booster.objective.boost_from_score(c)
+    grad, hess = booster.objective.get_gradients(score0[0] if K == 1
+                                                 else score0)
+    grad, hess = grad.reshape(K, n)[0], hess.reshape(K, n)[0]
+    count = n
+    if bag is not None:
+        grad, hess, count = grad * bag[0], hess * bag[0], bag[1]
     t = time.perf_counter()
-    plain = booster.learner.train(grad, hess, n, iteration=0,
-                                  hist_fn=histogram_rows_plain,
+    plain = booster.learner.train(grad, hess, count, feature_mask,
+                                  iteration=0, hist_fn=histogram_rows_plain,
                                   part_fn=partition_hist_plain,
                                   level_fn=partition_hist_level_plain)
     torch.cuda.synchronize()
@@ -876,12 +910,13 @@ EPSILON_PARAMS = dict(objective="binary", max_bin=255, num_leaves=255,
 class IterationRecorder:
     """A ``train`` callback: each iteration's wall time (update and
     evaluation, from its ``start`` callback to a device synchronise), the
-    train log loss and the device->host fetches of its tree."""
+    train loss (``loss(gbdt)``; binary log loss by default, computed after
+    the time is taken) and the device->host fetches of its last tree."""
     order = 5
     before_iteration = False
 
-    def __init__(self, label: torch.Tensor) -> None:
-        self.label = label
+    def __init__(self, label: torch.Tensor, loss=None) -> None:
+        self.loss = loss or (lambda gbdt: logloss(gbdt.train_score[0], label))
         self.iter_s, self.losses, self.fetches = [], [], []
         self.t = 0.0
         rec = self
@@ -900,7 +935,7 @@ class IterationRecorder:
         t = time.perf_counter()
         self.iter_s.append(t - self.t)
         gbdt = env.model._booster
-        self.losses.append(logloss(gbdt.train_score[0], self.label))
+        self.losses.append(self.loss(gbdt))
         self.fetches.append(gbdt.last_arrays.host_fetches)
 
 
@@ -982,6 +1017,364 @@ def phase_epsilon(device, n: int, n_test: int, iters: int,
                                                                  want))
     return {"launches": counts, "iter_s": rec.iter_s, "auc": aucs,
             "trees": trees, "splits": splits, "busy_ms": busy_ms}
+
+
+# -------------------------------------------------- other objectives ----
+
+def relabel(ds, label):
+    """The binned dataset ``ds`` with another label: the same bins and bin
+    mappers (a shallow copy; nothing is binned again)."""
+    import copy
+    from lightgbm_tpu_torch.io.metadata import Metadata
+    out = copy.copy(ds)
+    out.metadata = Metadata(ds.num_data)
+    out.metadata.set_label(label)
+    return out
+
+
+def higgs_score(X, rng):
+    """A real-valued target of the Higgs-shaped features, with noise."""
+    return (X[:, 0] * 2 + X[:, 1] ** 2 - X[:, 2] * X[:, 3] + 0.5 * X[:, 4]
+            + rng.normal(scale=0.5, size=len(X)))
+
+
+def bag_mask_host(n: int, seed: int, window: int, frac: float) -> np.ndarray:
+    """The bag mask recomputed on the host in numpy ``uint32`` arithmetic:
+    the stateless hash of (row id, bagging window) of the JAX package's
+    ``_bag_uniforms``, its top as an f32 in [0, 1), below ``frac``."""
+    x = np.arange(n, dtype=np.uint32) * np.uint32(2654435761)
+    x ^= np.uint32((seed + window * 0x9E3779B9) & 0xFFFFFFFF)
+    x ^= x >> np.uint32(16)
+    x *= np.uint32(2246822519)
+    x ^= x >> np.uint32(13)
+    x *= np.uint32(3266489917)
+    x ^= x >> np.uint32(16)
+    u = x.astype(np.float32) * np.float32(1.0 / 4294967296.0)
+    return (u < np.float32(frac)).astype(np.float32)
+
+
+def first_feature_mask(cfg, num_features: int, device):
+    """Iteration 0's ``feature_fraction`` draw, from a fresh stream of the
+    booster's seed."""
+    used = max(1, int(round(num_features * float(cfg.feature_fraction))))
+    chosen = np.random.RandomState(int(cfg.feature_fraction_seed)).choice(
+        num_features, size=used, replace=False)
+    mask = np.zeros(num_features, dtype=bool)
+    mask[chosen] = True
+    return torch.as_tensor(mask, device=device)
+
+
+REGRESSION_PARAMS = dict(objective="regression", metric="l2",
+                         num_leaves=255, max_bin=255, learning_rate=0.1,
+                         hist_precision="quantized", bagging_fraction=0.8,
+                         bagging_freq=5, feature_fraction=0.9, verbosity=-1)
+
+
+def phase_regression_bagging(device, data, ds, iters: int,
+                             profile: bool) -> dict:
+    """Path (F): L2 regression on (A)'s binned features with a real-valued
+    label, bagging and ``feature_fraction`` as in the reference's
+    examples/regression/train.conf, quantized gradients, leaf-wise:
+    ``GBDT`` -> ``train_one_iter``, the launch counts read around it."""
+    from lightgbm_tpu_torch import Config, GBDT, create_objective
+    from lightgbm_tpu_torch import device as D
+    X, _, X_test, _ = data
+    n = len(X)
+    rng = np.random.RandomState(1)
+    y, y_test = higgs_score(X, rng), higgs_score(X_test, rng)
+    cfg = Config(**REGRESSION_PARAMS)
+    booster = GBDT(cfg, relabel(ds, y), create_objective("regression", cfg))
+    label = torch.as_tensor(y, device=booster.device)
+
+    def l2():
+        return float(((booster.train_score[0].double() - label) ** 2).mean())
+    D.reset_launches()
+    iter_s, losses, fetches, bag_cnt = [], [], [], []
+    for _ in range(iters):
+        t = time.perf_counter()
+        booster.train_one_iter()
+        torch.cuda.synchronize()
+        iter_s.append(time.perf_counter() - t)
+        losses.append(l2())
+        fetches.append(booster.last_arrays.host_fetches)
+        bag_cnt.append(booster.bag_data_cnt)
+    raw = booster.predict(X_test, raw_score=True)
+    counts = D.launches()
+    trees = len(booster.models)
+    splits = sum(t.num_leaves - 1 for t in booster.models)
+    med = float(np.median(iter_s))
+    test_l2 = float(np.mean((raw - y_test) ** 2))
+    log("  iterations %d, seconds per iteration %s (median %.4f)"
+        % (iters, ["%.4f" % v for v in iter_s], med))
+    log("  row-trees/s %.1f (median iteration)" % (n / med))
+    log("  train l2 per iteration %s; held-out l2 %.6f over %d rows"
+        % (["%.6f" % v for v in losses], test_l2, len(y_test)))
+    log("  realised bag_data_cnt per iteration %s of %d rows (bagging_fraction"
+        " 0.8, bagging_freq 5); features %d of %d an iteration"
+        % (bag_cnt, n, int(round(0.9 * ds.num_features)), ds.num_features))
+    log("  leaves per tree %s, splits %d" % (
+        [t.num_leaves for t in booster.models], splits))
+    log("  device->host fetches per tree %s" % fetches)
+    log("  launches on path (F) %s" % counts)
+    start = float(np.mean((y - np.float32(y.mean())) ** 2))
+    if not all(b < a for a, b in zip([start] + losses, losses)):
+        raise AssertionError("train l2 did not fall every iteration (from "
+                             "%.6f at the initial score)" % start)
+    if not (np.isfinite(raw).all() and raw.shape == (len(y_test),)
+            and test_l2 < start):
+        raise AssertionError("predict gave %s, held-out l2 %.6f"
+                             % (raw.shape, test_l2))
+    # every iteration of this run lies in bagging window 0
+    want = bag_mask_host(n, int(cfg.bagging_seed), 0, 0.8)
+    got = booster.bag_mask.cpu().numpy()
+    if not (np.array_equal(got.view(np.uint32), want.view(np.uint32))
+            and bag_cnt == [int(want.sum())] * iters):
+        raise AssertionError("bag mask differs from the host hash in %d rows"
+                             " (counts %s, host %d)" % (
+                                 int((got != want).sum()), bag_cnt,
+                                 int(want.sum())))
+    log("  bag mask equal to the host's numpy hash, byte for byte (%d rows "
+        "in the bag)" % int(want.sum()))
+    check_predictions(booster, X, X_test, raw)
+    mask0 = torch.as_tensor(want, device=booster.device)
+    check_tree0(booster, n, strict=True, bag=(mask0, int(want.sum())),
+                feature_mask=first_feature_mask(cfg, ds.num_features,
+                                                booster.device))
+    # one integer root histogram per tree, one quantized split pass per split
+    want_l = {"histogram_int": trees, "partition": splits}
+    if counts != {k: want_l.get(k, 0) for k in counts}:
+        raise AssertionError("path (F): launches %s, want %s"
+                             % (counts, want_l))
+    busy_ms = None
+    if profile:
+        busy_ms = profile_iteration(booster)
+        log("  device busy %.1f%% and idle %.1f%% of the median unprofiled "
+            "iteration (%.4f s)" % (busy_ms / med / 10,
+                                    100 - busy_ms / med / 10, med))
+    return {"launches": counts, "iter_s": iter_s, "trees": trees,
+            "splits": splits, "busy_ms": busy_ms, "l2": losses,
+            "bag_data_cnt": bag_cnt}
+
+
+NUM_CLASS = 5
+MULTICLASS_PARAMS = dict(objective="multiclass", num_class=NUM_CLASS,
+                         metric="multi_logloss,multi_error", num_leaves=255,
+                         max_bin=255, learning_rate=0.1, verbosity=-1)
+
+
+def multi_logloss(score: torch.Tensor, label: torch.Tensor) -> float:
+    """Mean softmax cross entropy of [K, N] scores."""
+    return float(torch.nn.functional.cross_entropy(score.double().T, label))
+
+
+def phase_multiclass(device, data, ds, iters: int, profile: bool) -> dict:
+    """Path (G): 5-class softmax on (A)'s binned features (the class of a
+    noisy real-valued target's quintile), through ``lightgbm_tpu_torch.train``
+    with (A)'s held-out rows as a validation set, leaf-wise, exact."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch import device as D
+    X, _, X_test, _ = data
+    n = len(X)
+    rng = np.random.RandomState(2)
+    z, z_test = higgs_score(X, rng), higgs_score(X_test, rng)
+    cuts = np.quantile(z, np.arange(1, NUM_CLASS) / NUM_CLASS)
+    y = np.digitize(z, cuts).astype(np.float64)
+    y_test = np.digitize(z_test, cuts).astype(np.float64)
+    train = lgb.Dataset(X, y)
+    train.handle = relabel(ds, y)        # (A)'s bins and mappers
+    valid = lgb.Dataset(X_test, y_test, reference=train).construct()
+    label = torch.as_tensor(y, device=device).long()
+    rec = IterationRecorder(label, loss=lambda gbdt: multi_logloss(
+        gbdt.train_score, label))
+    evals = {}
+    D.reset_launches()
+    booster = lgb.train(MULTICLASS_PARAMS, train, num_boost_round=iters,
+                        valid_sets=[valid], valid_names=["test"],
+                        evals_result=evals, verbose_eval=False,
+                        callbacks=[rec, rec.start])
+    counts = D.launches()
+    gbdt = booster._booster
+    trees = len(gbdt.models)
+    splits = sum(t.num_leaves - 1 for t in gbdt.models)
+    med = float(np.median(rec.iter_s))
+    log("  iterations %d, seconds per iteration (train() update and "
+        "evaluation) %s (median %.4f)"
+        % (len(rec.iter_s), ["%.4f" % v for v in rec.iter_s], med))
+    log("  row-trees/s %.1f (median iteration, %d trees an iteration)"
+        % (n * NUM_CLASS / med, NUM_CLASS))
+    log("  train multi_logloss per iteration %s"
+        % ["%.6f" % v for v in rec.losses])
+    log("  held-out multi_logloss %s, multi_error %s over %d rows"
+        % (["%.6f" % v for v in evals["test"]["multi_logloss"]],
+           ["%.6f" % v for v in evals["test"]["multi_error"]], len(y_test)))
+    log("  trees %d, leaves per tree %s, splits %d"
+        % (trees, [t.num_leaves for t in gbdt.models], splits))
+    log("  launches on path (G) %s" % counts)
+    if trees != NUM_CLASS * iters or gbdt.num_tree_per_iteration != NUM_CLASS:
+        raise AssertionError("%d trees after %d iterations, want %d an "
+                             "iteration" % (trees, iters, NUM_CLASS))
+    start = float(np.log(NUM_CLASS))    # softmax of equal scores
+    if not all(b < a for a, b in zip([start] + rec.losses, rec.losses)):
+        raise AssertionError("train multi_logloss did not fall every "
+                             "iteration (from %.6f)" % start)
+    prob = booster.predict(X_test, num_iteration=booster.current_iteration())
+    raw = booster.predict(X_test, raw_score=True,
+                          num_iteration=booster.current_iteration())
+    vscore = gbdt.valid_sets[0]["score"].double().cpu().numpy().T
+    err_v = float(np.abs(raw - vscore).max())
+    e = np.exp(vscore - vscore.max(axis=1, keepdims=True))
+    err_p = float(np.abs(prob - e / e.sum(axis=1, keepdims=True)).max())
+    err_sum = float(np.abs(prob.sum(axis=1) - 1.0).max())
+    if not (prob.shape == (len(y_test), NUM_CLASS) and np.isfinite(prob).all()
+            and err_sum <= 1e-12 and err_v <= VALID_SCORE_ATOL
+            and err_p <= VALID_SCORE_ATOL):
+        raise AssertionError(
+            "predict %s: row sums off 1 by %.3g, raw vs validation scores "
+            "%.3g, probabilities vs their softmax %.3g" % (
+                prob.shape, err_sum, err_v, err_p))
+    log("  predict [%d, %d]: rows sum to 1 within %.3g; vs the validation "
+        "scores of training: raw max|diff| %.3g, probabilities %.3g"
+        % (prob.shape + (err_sum, err_v, err_p)))
+    check_predictions(gbdt, X, X_test, raw)
+    check_tree0(gbdt, n, strict=False)
+    want = {"histogram": trees, "partition": splits}
+    if counts != {k: want.get(k, 0) for k in counts}:
+        raise AssertionError("path (G): launches %s, want %s" % (counts,
+                                                                 want))
+    busy_ms = None
+    if profile:
+        busy_ms = profile_iteration(gbdt)
+        log("  device busy %.1f%% and idle %.1f%% of the median unprofiled "
+            "iteration (%.4f s)" % (busy_ms / med / 10,
+                                    100 - busy_ms / med / 10, med))
+    return {"launches": counts, "iter_s": rec.iter_s, "trees": trees,
+            "splits": splits, "busy_ms": busy_ms,
+            "multi_logloss": rec.losses}
+
+
+LTR_ROWS = 2_270_296     # MSLR-WEB30K's training rows (docs/Experiments.rst)
+LTR_F = 137
+LTR_MAX_QUERY = 1251
+LAMBDARANK_PARAMS = dict(objective="lambdarank", metric="ndcg",
+                         eval_at=[1, 3, 5, 10], max_bin=255, num_leaves=255,
+                         learning_rate=0.1, min_data_in_leaf=1,
+                         min_sum_hessian_in_leaf=100, verbosity=-1)
+
+
+def ltr_task(n: int, device, f: int = LTR_F, seed: int = 0):
+    """MS LTR-shaped ranking data made from ``seed``: ``n`` rows of ``f``
+    standard normal f32 features (made on ``device``), query sizes drawn
+    log-normal with mean ~120 and cut to [1, 1251], relevance labels 0-4
+    (about 52/32/13/2/1 %) from a linear score of 20 features plus noise.
+    Returns host numpy (X, y, group)."""
+    rng = np.random.RandomState(seed)
+    sizes = []
+    total = 0
+    while total < n:
+        s = np.clip(np.round(rng.lognormal(4.6, 0.6, size=4096)), 1,
+                    LTR_MAX_QUERY).astype(np.int64)
+        sizes.append(s)
+        total += int(s.sum())
+    sizes = np.concatenate(sizes)
+    cum = np.cumsum(sizes)
+    q = int(np.searchsorted(cum, n))
+    sizes = sizes[:q + 1]
+    sizes[-1] = n - (int(cum[q - 1]) if q > 0 else 0)
+    g = torch.Generator(device=device).manual_seed(seed)
+    X = torch.randn((n, f), generator=g, device=device)
+    cols = torch.randperm(f, generator=g, device=device)[:20]
+    w = torch.randn(20, generator=g, device=device)
+    score = X[:, cols] @ w / np.sqrt(20.0) + 0.7 * torch.randn(
+        n, generator=g, device=device)
+    cuts = torch.quantile(score[:1 << 20], torch.tensor(
+        [0.52, 0.84, 0.97, 0.99], device=device))
+    y = torch.bucketize(score, cuts).double()
+    return X.cpu().numpy(), y.cpu().numpy(), sizes
+
+
+def phase_lambdarank(device, n: int, iters: int, profile: bool) -> dict:
+    """Path (H): lambdarank at the MS LTR shape (``n`` rows x 137 dense
+    features, queries of ~120 documents), the published settings that (D)
+    uses, through ``lightgbm_tpu_torch.train``, leaf-wise, exact; the
+    training set's NDCG@1,3,5,10 after every iteration."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch import device as D
+    from lightgbm_tpu_torch.metric.rank import NDCGMetric
+    t0 = time.perf_counter()
+    X, y, group = ltr_task(n, device)
+    t1 = time.perf_counter()
+    train = lgb.Dataset(X, y, group=group).construct()
+    t2 = time.perf_counter()
+    log("  set-up: data %.2f s, binning %.2f s (%d rows x %d features, %d "
+        "queries of mean %.1f and max %d documents, labels 0-4 %s)"
+        % (t1 - t0, t2 - t1, n, X.shape[1], len(group), group.mean(),
+           group.max(), np.bincount(y.astype(np.int64), minlength=5)))
+    if train.handle.is_bundled:
+        raise AssertionError("the MS LTR-shaped dataset came out bundled")
+    ndcg = NDCGMetric(lgb.Config(LAMBDARANK_PARAMS))
+    ndcg.init(train.handle.metadata, n)
+    t = time.perf_counter()
+    initial = ndcg.eval(np.zeros(n))
+    log("  training NDCG@1,3,5,10 at the initial score %s (host evaluation "
+        "%.2f s)" % (["%.6f" % v for v in initial], time.perf_counter() - t))
+    rec = IterationRecorder(None, loss=lambda gbdt: ndcg.eval(
+        gbdt.train_score[0].double().cpu().numpy()))
+    D.reset_launches()
+    booster = lgb.train(LAMBDARANK_PARAMS, train, num_boost_round=iters,
+                        verbose_eval=False, callbacks=[rec, rec.start])
+    counts = D.launches()
+    gbdt = booster._booster
+    trees = len(gbdt.models)
+    splits = sum(t.num_leaves - 1 for t in gbdt.models)
+    med = float(np.median(rec.iter_s))
+    log("  iterations %d, seconds per iteration (train() update) %s (median "
+        "%.4f)" % (len(rec.iter_s), ["%.4f" % v for v in rec.iter_s], med))
+    log("  row-trees/s %.1f (median iteration)" % (n / med))
+    log("  training NDCG@1,3,5,10 per iteration %s"
+        % [["%.6f" % v for v in r] for r in rec.losses])
+    log("  leaves per tree %s, splits %d"
+        % ([t.num_leaves for t in gbdt.models], splits))
+    log("  device->host fetches per tree %s" % rec.fetches)
+    log("  launches on path (H) %s" % counts)
+    at10 = [r[3] for r in rec.losses]
+    if not (at10[-1] >= at10[0] and at10[-1] > initial[3]):
+        raise AssertionError("training NDCG@10 fell over the run: %.6f at "
+                             "the initial score, %s" % (initial[3], at10))
+    # the lambdarank gradient step alone: device time and peak memory
+    score = gbdt.train_score[0].clone()
+    obj = gbdt.objective
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grad, hess = obj.get_gradients(score)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    grad_ms = cuda_ms(lambda: obj.get_gradients(score), reps=5, warmup=1)
+    grad_dev, graph_out = graph_ms(lambda: obj.get_gradients(score))
+    if not (bool(torch.isfinite(grad).all()) and bool((hess >= 0).all())
+            and torch.equal(graph_out[0], grad)
+            and torch.equal(graph_out[1], hess)):
+        raise AssertionError("lambdarank gradients not finite, or not "
+                             "repeated by their CUDA graph")
+    log("  lambdarank gradient step (%d bucket chunks): %.3f ms (CUDA events,"
+        " median of 5; its CUDA graph's replay %.3f), peak device memory "
+        "%.1f MB above its inputs"
+        % (len(obj._buckets), grad_ms, grad_dev, peak / 2 ** 20))
+    check_tree0(gbdt, n, strict=False)
+    want = {"histogram": trees, "partition": splits}
+    if counts != {k: want.get(k, 0) for k in counts}:
+        raise AssertionError("path (H): launches %s, want %s" % (counts,
+                                                                 want))
+    busy_ms = None
+    if profile:
+        busy_ms = profile_iteration(gbdt)
+        log("  device busy %.1f%% and idle %.1f%% of the median unprofiled "
+            "iteration (%.4f s)" % (busy_ms / med / 10,
+                                    100 - busy_ms / med / 10, med))
+    return {"launches": counts, "iter_s": rec.iter_s, "trees": trees,
+            "splits": splits, "busy_ms": busy_ms, "ndcg": rec.losses,
+            "grad_ms": grad_ms, "grad_graph_ms": grad_dev,
+            "grad_peak_mb": peak / 2 ** 20}
 
 
 def phase_build_histogram(device, R: int) -> dict:
@@ -1102,6 +1495,23 @@ def queued_ms(fn, reps: int = 25, trials: int = 5) -> float:
         else:
             cycles *= 4
     return float(np.median(times))
+
+
+def graph_ms(fn, reps: int = 5) -> tuple:
+    """Device time of ``fn()`` without the host's share, for work of more
+    kernels than the launch queue holds (where ``queued_ms`` cannot queue
+    them behind a sleep): ``fn`` captured once in a CUDA graph, then the
+    median event time of ``reps`` replays; returns (ms, the graph's
+    output)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return cuda_ms(graph.replay, reps=reps, warmup=1), out
 
 
 def bound(bytes_moved: float, ops: float) -> tuple:
@@ -1327,7 +1737,7 @@ def times_quantized_and_level(device, n: int) -> dict:
                           library_queued_ms=lib_dev))
     out["histogram_int"] = dict(sizes[0], sizes=sizes[1:])
     # the single-window split pass with the integer child histogram, on the
-    # root window (no path grows quantized trees leaf-wise)
+    # root window (path (F) grows quantized trees leaf-wise)
     route, words = split_routes(B, np.random.RandomState(7))["numerical"]
     scal = scal_row(0, n, route, words, 1)
     skw = dict(num_features=F, num_bins=B, voff=voff, quantized=True)
@@ -1336,12 +1746,19 @@ def times_quantized_and_level(device, n: int) -> dict:
     dev = queued_ms(lambda: P.partition_hist(work, scal, **skw))
     plain = cuda_ms(lambda: P.partition_hist_plain(rows, scal, **skw),
                     reps=20)
+    dst = torch.empty((n, rows.shape[1]), dtype=torch.uint8,
+                      device=rows.device)
+    copy = cuda_ms(lambda: dst.copy_(rows[:n]))
+    copy_dev = queued_ms(lambda: dst.copy_(rows[:n]))
+    del dst
     b_ms, b_by = bound(2.0 * n * rows.shape[1], 2.0 * (n / 2) * F)
     log("  quantized split pass %8d rows: kernel %.4f ms (queued %.4f), "
-        "bound %.4f ms (%s), plain %.4f ms, no single library call"
-        % (n, ms, dev, b_ms, b_by, plain))
+        "bound %.4f ms (%s), plain %.4f ms, copy of the window %.4f ms "
+        "(queued %.4f), no single library call"
+        % (n, ms, dev, b_ms, b_by, plain, copy, copy_dev))
     out["partition_q"] = dict(ms=ms, queued_ms=dev, plain_ms=plain,
-                              bound_ms=b_ms)
+                              bound_ms=b_ms, bound_by=b_by, copy_ms=copy,
+                              copy_queued_ms=copy_dev)
     del rows, work
     rng = np.random.RandomState(14)
     fr = level_frontiers(n, B, rng)
@@ -1430,6 +1847,9 @@ def main(argv=None) -> int:
                          "size)")
     ap.add_argument("--widef-test-rows", type=int, default=100_000,
                     help="held-out rows of path (D)")
+    ap.add_argument("--ltr-rows", type=int, default=LTR_ROWS,
+                    help="training rows of path (H) (2270296 is the "
+                         "published MS LTR size)")
     ap.add_argument("--profile", action="store_true",
                     help="print a torch.profiler table of one iteration of "
                          "each main path")
@@ -1486,12 +1906,29 @@ def main(argv=None) -> int:
         paths[path] = phase_main_path(device, data, ds, path, args.iters,
                                       args.profile)
         torch.cuda.empty_cache()
+    log("  (F) regression on (A)'s features: bagging_fraction=0.8, "
+        "bagging_freq=5, feature_fraction=0.9, hist_precision=quantized, "
+        "leaf-wise, %d iterations" % args.iters)
+    paths["F"] = phase_regression_bagging(device, data, ds, args.iters,
+                                          args.profile)
+    torch.cuda.empty_cache()
+    log("  (G) multiclass softmax (num_class=%d) on (A)'s features, "
+        "lightgbm_tpu_torch.train with the held-out rows as a validation set,"
+        " %d iterations" % (NUM_CLASS, args.iters))
+    paths["G"] = phase_multiclass(device, data, ds, args.iters, args.profile)
+    torch.cuda.empty_cache()
     del data, ds
     log("  (D) Epsilon-shaped, lightgbm_tpu_torch.train with a validation "
         "set: %d + %d rows x %d features, max_bin=255, num_leaves=255, %d "
         "iterations" % (nw, args.widef_test_rows, WIDE_F, args.iters))
     paths["D"] = phase_epsilon(device, nw, args.widef_test_rows, args.iters,
                                args.profile)
+    torch.cuda.empty_cache()
+    log("  (H) lambdarank, MS LTR-shaped: %d rows x %d features, metric=ndcg,"
+        " eval_at=1,3,5,10, max_bin=255, num_leaves=255, %d iterations"
+        % (args.ltr_rows, LTR_F, args.iters))
+    paths["H"] = phase_lambdarank(device, args.ltr_rows, args.iters,
+                                  args.profile)
     torch.cuda.empty_cache()
     log("  (E) build_histogram")
     paths["E"] = phase_build_histogram(device, 1 << 20)
@@ -1516,16 +1953,20 @@ def main(argv=None) -> int:
         dict(name="histogram", route="cuda",
              source="lightgbm_tpu_torch/csrc/histogram.cu",
              replaces="lightgbm_tpu/core/histogram.py:743",
-             max_abs_err=hist_err_max, **launches("histogram", "ABC"),
+             max_abs_err=hist_err_max, **launches("histogram", "ABCGH"),
              **times["histogram"]),
         dict(name="partition", route="cuda",
              source="lightgbm_tpu_torch/csrc/partition.cu",
              replaces="lightgbm_tpu/core/partition.py:1090",
              also_replaces="lightgbm_tpu/core/partition.py:1130",
-             max_abs_err=split_err_max, **launches("partition", "ABC"),
+             max_abs_err=split_err_max, **launches("partition", "ABCFGH"),
+             quantized_launches=launches("partition", "F")["launches"],
              quantized_ms=times["partition_q"]["ms"],
              quantized_queued_ms=times["partition_q"]["queued_ms"],
              quantized_plain_ms=times["partition_q"]["plain_ms"],
+             quantized_bound_ms=times["partition_q"]["bound_ms"],
+             quantized_copy_ms=times["partition_q"]["copy_ms"],
+             quantized_copy_queued_ms=times["partition_q"]["copy_queued_ms"],
              **times["partition"]),
         dict(name="histogram_int", route="cuda",
              source="lightgbm_tpu_torch/csrc/histogram_int.cu",

@@ -7,10 +7,11 @@ validation set made with ``reference=`` (or ``create_valid``) is binned with
 the training set's bin mappers.  A :class:`Booster` trains on the device its
 ``device=`` names, ``cuda`` unless the caller passes ``"cpu"``.
 
+``Booster.update(fobj=...)`` trains on a custom objective's gradients.
 Not carried over yet, and refused with ``NotImplementedError``: CSR / scipy
-sparse and pandas inputs (ROADMAP queue 1 item 1), custom objectives
-(``fobj``), leaf-index and contribution prediction, the boosters other than
-``gbdt`` (queue 1 items 10 and 12).  Telemetry, serving and checkpoints are
+sparse and pandas inputs (ROADMAP queue 1 item 1), leaf-index and
+contribution prediction, the boosters other than ``gbdt`` (queue 1 items 10
+and 12).  Telemetry, serving and checkpoints are
 TPU-era planes with no counterpart here (queue 1 items 11 and 15).
 """
 from __future__ import annotations
@@ -128,6 +129,19 @@ class Dataset:
         self.reference = reference
         return self
 
+    def set_group(self, group) -> "Dataset":
+        """Per-query sizes (ranking), before or after ``construct``."""
+        self.group = group
+        if self.handle is not None and group is not None:
+            self.handle.metadata.set_group(_list_to_1d_numpy(group, np.int32))
+        return self
+
+    def get_group(self):
+        if (self.handle is not None
+                and self.handle.metadata.query_boundaries is not None):
+            return np.diff(self.handle.metadata.query_boundaries)
+        return self.group
+
     def get_label(self):
         if self.handle is not None:
             return np.asarray(self.handle.metadata.label)
@@ -189,15 +203,19 @@ class Booster:
     # ---- training ----
 
     def update(self, train_set: Optional[Dataset] = None, fobj=None) -> bool:
-        """One boosting iteration; True when no further split is possible."""
-        if fobj is not None:
-            _refuse("a custom objective (fobj)", "queue 1 item 9")
+        """One boosting iteration; True when no further split is possible.
+        ``fobj(raw_scores, train_set) -> (grad, hess)`` supplies the
+        gradients (class-major [K * N] scores, as the JAX package)."""
         if train_set is not None and train_set is not self._train_set:
             train_set.construct()
             self._train_set = train_set
             self._booster.reset_training_data(train_set.handle,
                                               self._booster.objective)
-        return self._booster.train_one_iter()
+        if fobj is None:
+            return self._booster.train_one_iter()
+        grad, hess = fobj(self._flat_score("train"), self._train_set)
+        return self._booster.train_one_iter(np.asarray(grad, dtype=np.float32),
+                                            np.asarray(hess, dtype=np.float32))
 
     def current_iteration(self) -> int:
         return self._booster.current_iteration
@@ -228,11 +246,12 @@ class Booster:
     # ---- evaluation ----
 
     def _flat_score(self, which: Union[str, int]) -> np.ndarray:
-        """Raw scores of the training set ('train') or the i-th valid set."""
+        """Raw scores of the training set ('train') or the i-th valid set:
+        [N], or class-major [K * N]."""
         b = self._booster
         score = (b.train_score if which == "train"
                  else b.valid_sets[which]["score"])
-        return score[0].double().cpu().numpy()
+        return score.reshape(-1).double().cpu().numpy()
 
     def _apply_feval(self, feval, which, data: Dataset, data_name: str):
         if feval is None:

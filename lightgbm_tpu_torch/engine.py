@@ -8,7 +8,7 @@ Parameter aliases for the round count and early stopping, callback ordering
 the JAX package.  The port adds ``device=``: ``cuda`` unless the caller passes
 ``"cpu"``.  Not carried over yet, and refused with ``NotImplementedError``:
 ``cv``, ``serve``, ``serve_and_train``, checkpoints and preemption (ROADMAP
-queue 1 items 11 and 15), custom objectives (``fobj``).
+queue 1 items 11 and 15).
 """
 from __future__ import annotations
 
@@ -61,11 +61,10 @@ def train(params: Dict[str, Any], train_set: Dataset,
     ``valid_sets`` are scored every iteration on the device (their metrics
     come from ``params["metric"]``, the objective's own by default);
     ``early_stopping_rounds`` stops when no validation metric improved for
-    that many iterations and sets ``best_iteration``."""
+    that many iterations and sets ``best_iteration``.  ``fobj(raw_scores,
+    train_set) -> (grad, hess)`` is a custom objective."""
     if checkpoint_prefix is not None or preemption_checkpoint:
         _refuse("checkpoints and preemption", "queue 1 item 11")
-    if fobj is not None:
-        _refuse("a custom objective (fobj)", "queue 1 item 9")
     params = copy.deepcopy(params) if params else {}
     for alias in _NUM_BOOST_ROUND_ALIASES:
         if alias in params:
@@ -74,6 +73,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
         if alias in params:
             early_stopping_rounds = int(params.pop(alias))
     first_metric_only = bool(params.pop("first_metric_only", False))
+    if fobj is not None:
+        params["objective"] = "none"
     if num_boost_round <= 0:
         raise ValueError("num_boost_round should be greater than zero.")
     if not isinstance(train_set, Dataset):
@@ -137,7 +138,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
                                     begin_iteration=init_iteration,
                                     end_iteration=end,
                                     evaluation_result_list=None))
-        finished = booster.update()
+        finished = booster.update(fobj=fobj)
         results = []
         if valid_sets is not None or gbdt.train_metrics:
             if contains_train:

@@ -1,6 +1,5 @@
 """Copied from ``lightgbm_tpu/metric/metric.py`` for the PyTorch port (which imports nothing of
-the JAX package); only imports differ, and the factory knows the
-binary metrics only.
+the JAX package); only imports differ.
 
 Metric interface + factory (src/metric/metric.cpp:18-62).
 
@@ -44,11 +43,28 @@ class Metric:
 
 
 def create_metric(name: str, config) -> Optional[Metric]:
-    # the port carries the binary metrics so far
     from .binary import AUCMetric, BinaryErrorMetric, BinaryLoglossMetric
+    from .multiclass import AucMuMetric, MultiErrorMetric, MultiSoftmaxLoglossMetric
+    from .rank import MapMetric, NDCGMetric
+    from .regression import (FairLossMetric, GammaDevianceMetric, GammaMetric,
+                             HuberLossMetric, L1Metric, L2Metric, MAPEMetric,
+                             PoissonMetric, QuantileMetric, RMSEMetric,
+                             TweedieMetric)
+    from .xentropy import (CrossEntropyLambdaMetric, CrossEntropyMetric,
+                           KullbackLeiblerDivergence)
     table = {
+        "l2": L2Metric, "rmse": RMSEMetric, "l1": L1Metric,
+        "quantile": QuantileMetric, "huber": HuberLossMetric,
+        "fair": FairLossMetric, "poisson": PoissonMetric,
         "binary_logloss": BinaryLoglossMetric, "binary_error": BinaryErrorMetric,
-        "auc": AUCMetric,
+        "auc": AUCMetric, "auc_mu": AucMuMetric,
+        "ndcg": NDCGMetric, "map": MapMetric,
+        "multi_logloss": MultiSoftmaxLoglossMetric, "multi_error": MultiErrorMetric,
+        "cross_entropy": CrossEntropyMetric,
+        "cross_entropy_lambda": CrossEntropyLambdaMetric,
+        "kullback_leibler": KullbackLeiblerDivergence,
+        "mape": MAPEMetric, "gamma": GammaMetric,
+        "gamma_deviance": GammaDevianceMetric, "tweedie": TweedieMetric,
     }
     if name in ("custom", ""):
         return None

@@ -3,7 +3,9 @@
 Counterpart of ``lightgbm_tpu/objective/base.py`` (the reference
 ``ObjectiveFunction``, include/LightGBM/objective_function.h): gradients and
 hessians from scores, boost-from-score, raw-score -> output conversion.
-Gradients are computed on the objective's device with torch.
+Gradients are computed on the objective's device with torch; the per-leaf
+output renewal of the percentile objectives (l1, quantile, mape) runs on host
+numpy, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from ..io.metadata import Metadata
 class ObjectiveFunction:
     name: str = "custom"
     num_model_per_iteration: int = 1
+    is_renew_tree_output: bool = False
 
     def __init__(self, config, device: DeviceLike = None) -> None:
         self.config = config
@@ -43,7 +46,8 @@ class ObjectiveFunction:
 
     def get_gradients(self, score: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """score: [N] raw scores -> (grad, hess) [N] f32."""
+        """score: [num_model_per_iteration, N] (or [N]) raw scores ->
+        (grad, hess) f32 of the same shape."""
         raise NotImplementedError
 
     def boost_from_score(self, class_id: int = 0) -> float:
@@ -52,6 +56,11 @@ class ObjectiveFunction:
     def convert_output(self, scores: np.ndarray) -> np.ndarray:
         """Raw score -> prediction output (identity by default)."""
         return scores
+
+    def renew_tree_output(self, leaf_rows_residual: np.ndarray,
+                          leaf_rows_weight: Optional[np.ndarray]) -> float:
+        """New output for one leaf given its rows' residuals (+weights)."""
+        raise NotImplementedError
 
     def _apply_weights(self, grad, hess):
         if self.weights is not None:

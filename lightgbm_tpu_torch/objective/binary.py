@@ -17,10 +17,11 @@ class BinaryLogloss(ObjectiveFunction):
     """grad = -y*sig / (1 + exp(y*sig*score)) with y in {-1, +1}
     (binary_objective.hpp:108-137); class re-weighting via is_unbalance /
     scale_pos_weight (:95-105); initscore = log(pavg/(1-pavg))/sigmoid
-    (:139-160)."""
+    (:139-160).  ``is_pos`` maps labels to the positive class (``label >
+    0`` by default; one-vs-all multiclass passes ``label == k``)."""
     name = "binary"
 
-    def __init__(self, config, device: DeviceLike = None):
+    def __init__(self, config, device: DeviceLike = None, is_pos=None):
         super().__init__(config, device)
         self.sigmoid = float(config.sigmoid)
         if self.sigmoid <= 0.0:
@@ -31,12 +32,13 @@ class BinaryLogloss(ObjectiveFunction):
         if self.is_unbalance and abs(self.scale_pos_weight - 1.0) > 1e-6:
             Log.fatal("Cannot set is_unbalance and scale_pos_weight at the "
                       "same time")
+        self._is_pos = is_pos or (lambda label: label > 0)
         self.need_train = True
         self.num_pos_data = 0
 
     def init(self, metadata, num_data):
         super().init(metadata, num_data)
-        pos = self.label_np > 0
+        pos = self._is_pos(self.label_np)
         cnt_pos = int(pos.sum())
         cnt_neg = num_data - cnt_pos
         self.num_pos_data = cnt_pos
@@ -70,7 +72,7 @@ class BinaryLogloss(ObjectiveFunction):
         return self._apply_weights(grad, hess)
 
     def boost_from_score(self, class_id: int = 0) -> float:
-        pos = (self.label_np > 0).astype(np.float64)
+        pos = self._is_pos(self.label_np).astype(np.float64)
         if self.weights_np is not None:
             pavg = float(np.average(pos, weights=self.weights_np))
         else:

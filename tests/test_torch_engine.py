@@ -224,7 +224,7 @@ def test_refusals():
         P.Dataset(sps.csr_matrix(X[:50]), y[:50])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         P.engine.cv(PARAMS, P.Dataset(X, y))
-    with pytest.raises(NotImplementedError, match="bagging"):
-        P.train(dict(PARAMS, bagging_fraction=0.5, bagging_freq=1),
+    with pytest.raises(NotImplementedError, match="boosting=dart"):
+        P.train(dict(PARAMS, boosting="dart"),
                 P.Dataset(X[:300], y[:300]), num_boost_round=1,
                 device="cpu")
