@@ -5,6 +5,7 @@ Run from the repository root on a machine with an NVIDIA H100::
 
     python3 chip_smoke.py [--rows 1048576] [--iters 5] [--widef-rows 400000]
                           [--widef-test-rows 100000] [--ltr-rows 2270296]
+                          [--allstate-rows 1048576] [--expo-rows 11000000]
                           [--profile]
 
 It builds the hand-written CUDA kernels from ``lightgbm_tpu_torch/csrc`` into
@@ -77,8 +78,35 @@ together) and runs these phases, each of which raises on failure:
    through ``lightgbm_tpu_torch.train``: the training NDCG@10 not falling
    over the run, the gradient step's device time and peak memory, one root
    histogram per tree and one split pass per split, tree 0 equal to its
-   plain rebuild; (E) ``build_histogram`` (kernel #5's caller) over
-   1,048,576 rows x 28 features;
+   plain rebuild; (I) EFB on Allstate-shaped sparse data (the reference's
+   Allstate row: 4,228 binary features, the one-hot codes of 30
+   Zipf-skewed categorical columns made from a seed; 1,048,576 + 104,858
+   rows, cut from 13,184,290) as scipy CSR through ``Dataset`` and
+   ``BinnedDataset.from_csr`` (never densified, bundled into group
+   columns) and ``lightgbm_tpu_torch.train`` with a CSR validation set at
+   (D)'s settings: the root histogram over the group columns, one split
+   pass per split, each unfolding its feature's group codes; (J)
+   categorical features at the Expo shape (the reference's Expo row, 11M +
+   100,000 rows of the airline columns Month, DayofMonth, DayOfWeek,
+   UniqueCarrier, Origin and Dest, categorical, and DepTime and Distance,
+   made from a seed) through ``train()`` at (D)'s settings: every
+   categorical split the sorted many-vs-many search, routed by the split
+   passes' category bitsets; (J2) (J)'s binned data with
+   ``tree_grow_mode=level``, ``hist_precision=quantized``, monotone +1 on
+   DepTime, ``extra_trees`` and ``max_cat_to_onehot=8`` (one-hot and
+   many-vs-many splits), 2 iterations: the integer root histogram and one
+   level pass per level, its windows routed by bitsets, every DepTime split
+   with its left leaves at or below its right ones.  Each of (I), (J) and
+   (J2) prints its binning seconds, s/iteration, train log loss and
+   held-out AUC per iteration, the split passes' route counts
+   (``device.route_launches``: launches with ``use_unfold = 1`` and with
+   ``is_cat = 1``) and, with ``--profile``, the device's busy and idle
+   share; holds the validation scores kept by training against
+   ``Booster.predict`` (within 1e-5) and tree 0 against its plain rebuild
+   (category bitsets included), and checks the histogram, split and level
+   kernels against their plain versions on the path's own row store and
+   route; (E) ``build_histogram`` (kernel #5's caller) over 1,048,576 rows
+   x 28 features;
 5. times of each kernel at the main paths' shapes beside its bound, its
    plain version and one PyTorch library call (``index_add_``; for a split
    pass, which has none, the window's device-to-device copy): the
@@ -98,8 +126,10 @@ the level-batched pass must equal G single-window kernel calls bit for bit;
 two launches on the same input must give the same bits.
 
 The line before the last is the card's name and power limit as ``nvidia-smi``
-reports them, the one before that a JSON object with every kernel's numbers,
-and the last line ``{"ok": true, "device": {...}}``.  Without CUDA the script
+reports them, the one before that a JSON object with every kernel's numbers
+(the split passes' entries also count the launches that unfolded a group
+column or routed by a bitset), and the last line ``{"ok": true, "device":
+{...}}``.  Without CUDA the script
 exits with code 2 and prints no result.  ``--profile`` adds a
 ``torch.profiler`` table of one training iteration of each path; on the
 leaf-wise paths, the single-window split passes' ``part_scatter_kernel``
@@ -836,18 +866,29 @@ def check_tree0(booster, n: int, strict: bool, bag=None,
     log("  tree 0 rebuilt with the plain versions in %.3f s"
         % (time.perf_counter() - t))
     tree = booster.models[0]
+    from lightgbm_tpu_torch.core.tree_learner import tree_from_arrays
+    ptree = tree_from_arrays(plain, booster.train_data)
     kern = split_sequence(tree.split_feature_inner, tree.threshold_in_bin,
                           tree.left_child, tree.right_child,
                           tree.split_gain, tree.num_leaves)
-    ref = split_sequence(plain.split_feature, plain.threshold_bin,
-                         plain.left_child, plain.right_child,
-                         plain.split_gain, plain.num_leaves)
+    ref = split_sequence(ptree.split_feature_inner, ptree.threshold_in_bin,
+                         ptree.left_child, ptree.right_child,
+                         ptree.split_gain, ptree.num_leaves)
+    ncat = 0
     for i, (a, b) in enumerate(zip(kern, ref)):
-        if strict and a != b:
+        wa, wb = cat_bins(tree, i), cat_bins(ptree, i)
+        if a[:3] == b[:3] and wa != wb and not (wa & wb) and not strict:
+            log("  tree 0: split %d is a categorical side swap (kernel sends "
+                "bins %s left, plain %s: one partition, gains %.9g vs %.9g);"
+                " the trees agree up to it" % (i, sorted(wa), sorted(wb),
+                                               a[3], b[3]))
+            return
+        if strict and (a != b or wa != wb):
             raise AssertionError(
-                "tree 0 split %d: kernel (feature, bin, parent, gain) %s vs "
-                "plain %s" % (i, a, b))
-        if a[:3] != b[:3]:
+                "tree 0 split %d: kernel (feature, bin, parent, gain) %s "
+                "bins %s vs plain %s bins %s" % (i, a, sorted(wa), b,
+                                                 sorted(wb)))
+        if a[:3] != b[:3] or wa != wb:
             rel = abs(a[3] - b[3]) / max(abs(a[3]), abs(b[3]), 1e-30)
             if rel < SPLIT_GAIN_TIE_RTOL:
                 log("  tree 0: split %d is a near tie (gains %.9g vs %.9g, "
@@ -856,16 +897,30 @@ def check_tree0(booster, n: int, strict: bool, bag=None,
                 return
             raise AssertionError(
                 "tree 0 split %d: kernel (feature, bin, parent) %s gain %.9g "
-                "vs plain %s gain %.9g" % (i, a[:3], a[3], b[:3], b[3]))
+                "bins %s vs plain %s gain %.9g bins %s"
+                % (i, a[:3], a[3], sorted(wa), b[:3], b[3], sorted(wb)))
+        ncat += bool(wa)
     nl = tree.num_leaves
     counts_k = np.asarray(tree.leaf_count[:nl], np.int64)
-    counts_p = np.round(plain.leaf_count[:nl]).astype(np.int64)
-    if plain.num_leaves != nl or not np.array_equal(counts_k, counts_p):
+    counts_p = np.asarray(ptree.leaf_count[:nl], np.int64)
+    if ptree.num_leaves != nl or not np.array_equal(counts_k, counts_p):
         raise AssertionError("tree 0: leaf counts differ from the plain "
                              "rebuild")
     log("  tree 0 equal to the plain rebuild: %d splits (features, "
-        "threshold bins, split order%s) and %d leaf counts"
-        % (nl - 1, ", gains" if strict else "", nl))
+        "threshold bins, split order%s%s) and %d leaf counts"
+        % (nl - 1, ", gains" if strict else "",
+           ", %d category bitsets" % ncat if ncat else "", nl))
+
+
+def cat_bins(tree, node: int) -> set:
+    """The bins a categorical node of a host tree sends left (its inner
+    bitset); empty for a numerical node."""
+    if not int(tree.decision_type[node]) & 1:
+        return set()
+    ci = int(tree.threshold_in_bin[node])
+    lo, hi = tree.cat_boundaries_inner[ci], tree.cat_boundaries_inner[ci + 1]
+    return {32 * (w - lo) + j for w in range(lo, hi) for j in range(32)
+            if (int(tree.cat_threshold_inner[w]) >> j) & 1}
 
 
 def split_sequence(feature, threshold, left, right, gain, num_leaves):
@@ -1377,6 +1432,554 @@ def phase_lambdarank(device, n: int, iters: int, profile: bool) -> dict:
             "grad_peak_mb": peak / 2 ** 20}
 
 
+# ------------------------------------------ sparse and categorical data ----
+
+ALLSTATE_ROWS = 1_048_576       # cut from 13,184,290 (host set-up time)
+ALLSTATE_TEST_ROWS = 104_858
+ALLSTATE_F = 4228               # docs/Experiments.rst's Allstate row
+# about 30 categorical columns whose one-hot codes make the 4,228 features
+ALLSTATE_CARDS = [2, 2, 3, 3, 4, 5, 6, 8, 10, 12, 15, 20, 25, 30, 40, 50, 60,
+                  75, 90, 110, 130, 150, 175, 200, 230, 260, 300, 350, 420]
+ALLSTATE_CARDS.append(ALLSTATE_F - sum(ALLSTATE_CARDS))
+EXPO_ROWS = 11_000_000          # BASELINE.md:15, the reference's Expo row
+EXPO_TEST_ROWS = 100_000
+J2_ITERS = 2                    # path (J2)'s iterations on (J)'s bins
+# the airline columns as szilard/benchm-ml prepares them: (name,
+# categories); 0 categories = numerical
+EXPO_COLUMNS = [("Month", 12), ("DayofMonth", 31), ("DayOfWeek", 7),
+                ("UniqueCarrier", 22), ("Origin", 300), ("Dest", 300),
+                ("DepTime", 0), ("Distance", 0)]
+EXPO_CATS = [i for i, (_, k) in enumerate(EXPO_COLUMNS) if k]
+SPARSE_CAT_PARAMS = dict(EPSILON_PARAMS)        # (D)'s published settings
+EXPO_VARIANT_PARAMS = dict(
+    SPARSE_CAT_PARAMS, tree_grow_mode="level", hist_precision="quantized",
+    extra_trees=True, max_cat_to_onehot=8,
+    monotone_constraints=[int(name == "DepTime")
+                          for name, _ in EXPO_COLUMNS])
+
+
+def zipf(k: int, s: float, device) -> torch.Tensor:
+    """Probabilities of k levels falling as 1 / (rank + 1)**s."""
+    p = 1.0 / torch.arange(1, k + 1, device=device, dtype=torch.float64) ** s
+    return p / p.sum()
+
+
+def allstate_task(n: int, n_test: int, device, seed: int = 0):
+    """Allstate-shaped sparse binary data (the reference's Allstate row:
+    4,228 features): the one-hot codes of ``ALLSTATE_CARDS``' 30
+    categorical columns, each row one level of each column, levels drawn
+    Zipf-skewed (the first level of the small columns is in over half the
+    rows, most levels of the large ones are rare), made on ``device`` from
+    ``seed``; labels from a logistic of five columns' level effects.
+    Returns host CSR arrays (indptr, indices) of the training and held-out
+    rows (values are ones) and the labels."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    total = n + n_test
+    offsets = np.concatenate([[0], np.cumsum(ALLSTATE_CARDS)[:-1]])
+    levels = torch.empty((total, len(ALLSTATE_CARDS)), dtype=torch.int64,
+                         device=device)
+    logit = torch.full((total,), -0.5, dtype=torch.float64, device=device)
+    for c, k in enumerate(ALLSTATE_CARDS):
+        p = zipf(k, 1.0 if k > 2 else 2.0, device)
+        levels[:, c] = torch.multinomial(p, total, replacement=True,
+                                         generator=g)
+        if c % 6 == 3:
+            effect = torch.randn(k, generator=g, device=device,
+                                 dtype=torch.float64)
+            logit += 0.8 * effect[levels[:, c]]
+    u = torch.rand(total, generator=g, device=device, dtype=torch.float64)
+    y = (u < torch.sigmoid(logit)).double().cpu().numpy()
+    cols = (levels + torch.as_tensor(offsets, device=device)).int()
+    cols = cols.cpu().numpy()
+    nc = len(ALLSTATE_CARDS)
+
+    def csr(a, b):
+        return np.arange(0, nc * (b - a) + 1, nc), cols[a:b].reshape(-1)
+    return csr(0, n), csr(n, total), y[:n], y[n:]
+
+
+def sparse_matrix(indptr, indices):
+    import scipy.sparse as sps
+    return sps.csr_matrix((np.ones(len(indices), np.float64), indices,
+                           indptr), shape=(len(indptr) - 1, ALLSTATE_F))
+
+
+def expo_task(n: int, n_test: int, device, seed: int = 0):
+    """Expo-shaped airline rows (the reference's Expo row and its
+    categorical-split experiment, docs/Features.rst): ``EXPO_COLUMNS``, the
+    six categorical ones Zipf-skewed (airports and carriers) or mildly
+    uneven (calendar), DepTime as hhmm from a daily profile, Distance
+    log-normal; the label (departure delayed) from a logistic of the
+    carrier, the origin, the month, the hour and the distance, made on
+    ``device`` from ``seed``.  Returns host f32 X and f64 labels."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    total = n + n_test
+    X = torch.empty((total, len(EXPO_COLUMNS)), dtype=torch.float32,
+                    device=device)
+    logit = torch.full((total,), -1.6, dtype=torch.float64, device=device)
+    for c, (name, k) in enumerate(EXPO_COLUMNS):
+        if not k:
+            continue
+        s = 1.0 if k >= 22 else 0.3
+        v = torch.multinomial(zipf(k, s, device), total, replacement=True,
+                              generator=g)
+        # airport and carrier codes are not ordered by traffic
+        perm = torch.randperm(k, generator=g, device=device)
+        X[:, c] = perm[v].float()
+        if name in ("UniqueCarrier", "Origin", "Month"):
+            effect = torch.randn(k, generator=g, device=device,
+                                 dtype=torch.float64)
+            logit += 0.5 * effect[perm[v]]
+    minutes = torch.clamp(torch.randn(total, generator=g, device=device,
+                                      dtype=torch.float64) * 260 + 800, 0,
+                          1439)
+    X[:, 6] = (torch.floor(minutes / 60) * 100
+               + torch.remainder(minutes, 60)).float()
+    dist = torch.clamp(torch.exp(torch.randn(
+        total, generator=g, device=device, dtype=torch.float64) * 0.7 + 6.3),
+        30, 4983)
+    X[:, 7] = dist.float()
+    logit += 1.2 * (minutes - 800) / 600 - 0.1 * torch.log(dist / 500)
+    u = torch.rand(total, generator=g, device=device, dtype=torch.float64)
+    y = (u < torch.sigmoid(logit)).double().cpu().numpy()
+    X = X.cpu().numpy()
+    return X[:n], y[:n], X[n:], y[n:]
+
+
+def expect_routes(path: str, routes: dict, want: dict) -> None:
+    """The split passes' route counts of a path (``route_launches``):
+    ``want`` maps (kernel, route) to the expected number of launches (or of
+    windows for keys ending in ``_windows``); every other count must be 0."""
+    for kernel, counts in routes.items():
+        for route, v in counts.items():
+            if v != want.get((kernel, route), 0):
+                raise AssertionError(
+                    "path (%s): %s %s counted %d, want %d"
+                    % (path, kernel, route, v, want.get((kernel, route), 0)))
+
+
+def cat_split_modes(models, learner, onehot_max: int) -> dict:
+    """Categorical splits of ``models`` by search mode and feature: one-hot
+    when the feature has at most ``max_cat_to_onehot`` bins."""
+    fh = learner.feat_host
+    out = {}
+    for t in models:
+        for node in range(t.num_leaves - 1):
+            if int(t.decision_type[node]) & 1:
+                f = int(t.split_feature_inner[node])
+                mode = ("one_hot" if fh["num_bin"][f] <= onehot_max
+                        else "many_vs_many")
+                out.setdefault(mode, {}).setdefault(f, 0)
+                out[mode][f] += 1
+    return out
+
+
+def train_with_validation(params, train, valid, iters, label, auc_name):
+    """``lightgbm_tpu_torch.train`` with a validation set, recorded by an
+    :class:`IterationRecorder`, the launch and route counts read around
+    it."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch import device as D
+    rec = IterationRecorder(label)
+    evals = {}
+    D.reset_launches()
+    booster = lgb.train(params, train, num_boost_round=iters,
+                        valid_sets=[valid], valid_names=[auc_name],
+                        evals_result=evals, verbose_eval=False,
+                        callbacks=[rec, rec.start])
+    return booster, rec, evals[auc_name]["auc"], D.launches(), \
+        D.route_launches()
+
+
+def report_training(path, booster, rec, aucs, counts, routes, n, n_test):
+    gbdt = booster._booster
+    trees = len(gbdt.models)
+    splits = sum(t.num_leaves - 1 for t in gbdt.models)
+    med = float(np.median(rec.iter_s))
+    log("  iterations %d, seconds per iteration (train() update and "
+        "evaluation) %s (median %.4f)"
+        % (len(rec.iter_s), ["%.4f" % v for v in rec.iter_s], med))
+    log("  row-trees/s %.1f (median iteration)" % (n / med))
+    log("  train logloss per iteration %s" % ["%.6f" % v for v in rec.losses])
+    log("  held-out AUC per iteration %s over %d rows"
+        % (["%.6f" % v for v in aucs], n_test))
+    log("  leaves per tree %s, splits %d, levels per tree %s"
+        % ([t.num_leaves for t in gbdt.models], splits,
+           gbdt.learner.level_count() if gbdt.learner.tree_grow_mode
+           == "level" else 0))
+    log("  device->host fetches per tree %s" % rec.fetches)
+    log("  launches on path (%s) %s; split-pass routes %s"
+        % (path, counts, routes))
+    return gbdt, trees, splits, med
+
+
+def check_validation_scores(gbdt, booster, X_test, k=None) -> None:
+    """Raw predictions through ``core/predict.py`` (``Booster.predict``)
+    against the validation scores that ``train()`` kept, on the first ``k``
+    held-out rows (all when None)."""
+    raw = booster.predict(X_test if k is None else X_test[:k],
+                          raw_score=True,
+                          num_iteration=booster.current_iteration())
+    m = raw.shape[0]
+    vscore = gbdt.valid_sets[0]["score"][0, :m].double().cpu().numpy()
+    err_v = float(np.abs(raw - vscore).max())
+    if not (np.isfinite(raw).all() and err_v <= VALID_SCORE_ATOL):
+        raise AssertionError("validation scores vs predict: max|diff| %.3g "
+                             "> %.0e" % (err_v, VALID_SCORE_ATOL))
+    log("  validation scores accumulated in training vs predict on %d rows: "
+        "max|diff| %.3g" % (m, err_v))
+    return raw
+
+
+def falls(losses, start) -> bool:
+    return all(b < a for a, b in zip([start] + losses, losses))
+
+
+def phase_allstate(device, n: int, n_test: int, iters: int,
+                   profile: bool) -> dict:
+    """Path (I): EFB on Allstate-shaped sparse binary data (4,228 features,
+    not cut): scipy CSR -> ``Dataset`` -> ``BinnedDataset.from_csr`` (never
+    densified; its EFB bundles the features into group columns), through
+    ``lightgbm_tpu_torch.train`` with a CSR validation set at (D)'s
+    published settings: the root histogram over the group columns and one
+    split pass per split that unfolds the split feature's group codes."""
+    import lightgbm_tpu_torch as lgb
+    t0 = time.perf_counter()
+    tr, te, y, y_test = allstate_task(n, n_test, device)
+    t1 = time.perf_counter()
+    # binned with the training parameters, as train() would bin it
+    train = lgb.Dataset(sparse_matrix(*tr), y,
+                        params=SPARSE_CAT_PARAMS).construct()
+    valid = train.create_valid(sparse_matrix(*te), y_test).construct()
+    t2 = time.perf_counter()
+    ds = train.handle
+    G = ds.binned.shape[1]
+    singles = sum(len(f) == 1 for f in ds.feature_groups)
+    log("  set-up: data %.2f s, binning %.2f s (%d + %d rows x %d sparse "
+        "binary features from %d categorical columns, cardinalities %s; %d "
+        "nonzeros)" % (t1 - t0, t2 - t1, n, n_test, ALLSTATE_F,
+                       len(ALLSTATE_CARDS), ALLSTATE_CARDS, len(tr[1])))
+    log("  EFB: %d used features in G = %d group columns (%d of one "
+        "feature), max_group_bin %d" % (ds.num_features, G, singles,
+                                        ds.max_group_bin))
+    if not (ds.is_bundled and valid.handle.is_bundled
+            and ds.num_features == ALLSTATE_F):
+        raise AssertionError("the Allstate-shaped dataset did not bundle its "
+                             "%d features" % ds.num_features)
+    label = torch.as_tensor(y, device=device)
+    booster, rec, aucs, counts, routes = train_with_validation(
+        SPARSE_CAT_PARAMS, train, valid, iters, label, "test")
+    gbdt, trees, splits, med = report_training("I", booster, rec, aucs,
+                                               counts, routes, n, n_test)
+    lay = gbdt.learner.layout
+    log("  row store %d x %d B = %.1f MB (%d group columns, W = %d), kernel "
+        "bins %d, per-feature scan bins %d"
+        % (gbdt.learner.template.shape[0], lay.W,
+           gbdt.learner.template.numel() / 2 ** 20, G, lay.W,
+           gbdt.learner.num_bins, gbdt.learner.feat_bins))
+    start = logloss(torch.full_like(label, gbdt.objective.boost_from_score(0)),
+                    label)
+    if not falls(rec.losses, start):
+        raise AssertionError("train logloss did not fall every iteration")
+    if len(aucs) != trees or not aucs[-1] > 0.6:
+        raise AssertionError("held-out AUC per iteration %s" % aucs)
+    Xv = sparse_matrix(*te)
+    raw = check_validation_scores(gbdt, booster, Xv, 20_000)
+    Xt = sparse_matrix(*tr)[:2000].toarray()
+    check_predictions(gbdt, Xt, Xv[:2000].toarray(), raw[:2000])
+    check_tree0(gbdt, n, strict=False)
+    times = check_path_kernels(gbdt.learner, "I", unfold=True)
+    want = {"histogram": trees, "partition": splits}
+    if counts != {k: want.get(k, 0) for k in counts}:
+        raise AssertionError("path (I): launches %s, want %s" % (counts,
+                                                                 want))
+    expect_routes("I", routes, {("partition", "unfold"): splits,
+                                ("partition", "unfold_windows"): splits})
+    busy_ms = None
+    if profile:
+        busy_ms = profile_iteration(gbdt)
+        log("  device busy %.1f%% and idle %.1f%% of the median unprofiled "
+            "iteration (%.4f s)" % (busy_ms / med / 10,
+                                    100 - busy_ms / med / 10, med))
+    return {"launches": counts, "routes": routes, "iter_s": rec.iter_s,
+            "auc": aucs, "trees": trees, "splits": splits,
+            "busy_ms": busy_ms, "groups": G, "binning_s": t2 - t1,
+            "times": times}
+
+
+def phase_expo(device, n: int, n_test: int, iters: int,
+               profile: bool) -> tuple:
+    """Path (J): categorical features at the Expo shape (``EXPO_COLUMNS``,
+    six categorical through ``categorical_feature``), through
+    ``lightgbm_tpu_torch.train`` with a validation set at (D)'s published
+    settings: every categorical column has more bins than
+    ``max_cat_to_onehot=4``, so its splits are the sorted many-vs-many
+    search, routed by the split passes' category bitsets.  Returns the
+    path's record and the (train, valid) Datasets for (J2)."""
+    import lightgbm_tpu_torch as lgb
+    t0 = time.perf_counter()
+    X, y, X_test, y_test = expo_task(n, n_test, device)
+    t1 = time.perf_counter()
+    train = lgb.Dataset(X, y, categorical_feature=EXPO_CATS,
+                        params=SPARSE_CAT_PARAMS).construct()
+    valid = train.create_valid(X_test, y_test).construct()
+    t2 = time.perf_counter()
+    ds = train.handle
+    log("  set-up: data %.2f s, binning %.2f s (%d + %d rows x %d columns, "
+        "categorical %s with %s bins; delayed share %.4f)"
+        % (t1 - t0, t2 - t1, n, n_test, X.shape[1],
+           [EXPO_COLUMNS[i][0] for i in EXPO_CATS],
+           [ds.num_bin_per_feature[ds.inner_feature_map[i]]
+            for i in EXPO_CATS], float(y.mean())))
+    if ds.is_bundled or not ds.feature_is_categorical().any():
+        raise AssertionError("the Expo-shaped dataset: bundled %s, "
+                             "categorical %s" % (ds.is_bundled,
+                                                 ds.feature_is_categorical()))
+    label = torch.as_tensor(y, device=device)
+    booster, rec, aucs, counts, routes = train_with_validation(
+        SPARSE_CAT_PARAMS, train, valid, iters, label, "test")
+    gbdt, trees, splits, med = report_training("J", booster, rec, aucs,
+                                               counts, routes, n, n_test)
+    modes = cat_split_modes(gbdt.models, gbdt.learner, 4)
+    ncat = sum(t.num_cat for t in gbdt.models)
+    log("  categorical splits %d of %d by mode and inner feature %s; kernel "
+        "bins %d" % (ncat, splits, modes, gbdt.learner.num_bins))
+    start = logloss(torch.full_like(label, gbdt.objective.boost_from_score(0)),
+                    label)
+    if not falls(rec.losses, start):
+        raise AssertionError("train logloss did not fall every iteration")
+    if len(aucs) != trees or not aucs[-1] > 0.6:
+        raise AssertionError("held-out AUC per iteration %s" % aucs)
+    if not ncat or set(modes) != {"many_vs_many"}:
+        raise AssertionError("path (J): categorical splits by mode %s" % modes)
+    raw = check_validation_scores(gbdt, booster, X_test)
+    check_predictions(gbdt, X, X_test, raw)
+    check_tree0(gbdt, n, strict=False)
+    times = check_path_kernels(gbdt.learner, "J", categorical=True)
+    want = {"histogram": trees, "partition": splits}
+    if counts != {k: want.get(k, 0) for k in counts}:
+        raise AssertionError("path (J): launches %s, want %s" % (counts,
+                                                                 want))
+    expect_routes("J", routes, {("partition", "categorical"): ncat,
+                                ("partition", "categorical_windows"): ncat})
+    busy_ms = None
+    if profile:
+        busy_ms = profile_iteration(gbdt)
+        log("  device busy %.1f%% and idle %.1f%% of the median unprofiled "
+            "iteration (%.4f s)" % (busy_ms / med / 10,
+                                    100 - busy_ms / med / 10, med))
+    return ({"launches": counts, "routes": routes, "iter_s": rec.iter_s,
+             "auc": aucs, "trees": trees, "splits": splits, "modes": modes,
+             "busy_ms": busy_ms, "binning_s": t2 - t1, "times": times},
+            (train, valid, X_test))
+
+
+def subtree_leaves(tree, node: int) -> list:
+    out, stack = [], [node]
+    while stack:
+        c = stack.pop()
+        for child in (int(tree.left_child[c]), int(tree.right_child[c])):
+            if child < 0:
+                out.append(~child)
+            else:
+                stack.append(child)
+    return out
+
+
+def phase_expo_variants(device, sets, iters: int, profile: bool) -> dict:
+    """Path (J2): (J)'s binned data (not binned again) along the other
+    forms: ``tree_grow_mode=level``, ``hist_precision=quantized``,
+    ``monotone_constraints`` +1 on DepTime, ``extra_trees`` and
+    ``max_cat_to_onehot=8`` (DayOfWeek's 7 categories in one-hot mode, the
+    others many-vs-many): one integer root histogram per tree and one
+    level pass per level, with category bitsets in its windows; every
+    DepTime split keeps each leaf of its left subtree at or below each leaf
+    of its right one."""
+    train, valid, X_test = sets
+    n, n_test = train.handle.num_data, valid.handle.num_data
+    label = torch.as_tensor(np.asarray(train.handle.metadata.label),
+                            device=device)
+    booster, rec, aucs, counts, routes = train_with_validation(
+        EXPO_VARIANT_PARAMS, train, valid, iters, label, "test")
+    gbdt, trees, splits, med = report_training("J2", booster, rec, aucs,
+                                               counts, routes, n, n_test)
+    modes = cat_split_modes(gbdt.models, gbdt.learner, 8)
+    ncat = sum(t.num_cat for t in gbdt.models)
+    dep = gbdt.train_data.inner_feature_map[6]
+    checked = 0
+    for t in gbdt.models:
+        for node in range(t.num_leaves - 1):
+            if int(t.split_feature_inner[node]) == dep:
+                left = subtree_leaves(t, int(t.left_child[node])) \
+                    if t.left_child[node] >= 0 else [~int(t.left_child[node])]
+                right = subtree_leaves(t, int(t.right_child[node])) \
+                    if t.right_child[node] >= 0 \
+                    else [~int(t.right_child[node])]
+                if not (max(t.leaf_value[left]) <= min(t.leaf_value[right])):
+                    raise AssertionError("a DepTime split breaks the +1 "
+                                         "constraint at node %d" % node)
+                checked += 1
+    log("  categorical splits %d of %d by mode and inner feature %s; %d "
+        "DepTime splits, each with its left leaves <= its right leaves"
+        % (ncat, splits, modes, checked))
+    if set(modes) != {"one_hot", "many_vs_many"} or not checked:
+        raise AssertionError("path (J2): modes %s, DepTime splits %d"
+                             % (modes, checked))
+    start = logloss(torch.full_like(label, gbdt.objective.boost_from_score(0)),
+                    label)
+    if not falls(rec.losses, start):
+        raise AssertionError("train logloss did not fall every iteration")
+    check_validation_scores(gbdt, booster, X_test)
+    check_tree0(gbdt, n, strict=True)
+    times = check_path_kernels(gbdt.learner, "J2", categorical=True)
+    levels = gbdt.learner.level_count() * trees
+    want = {"histogram_int": trees, "partition_level": levels}
+    if counts != {k: want.get(k, 0) for k in counts}:
+        raise AssertionError("path (J2): launches %s, want %s" % (counts,
+                                                                  want))
+    cat_windows = routes["partition_level"]["categorical_windows"]
+    cat_launches = routes["partition_level"]["categorical"]
+    expect_routes("J2", routes, {
+        ("partition_level", "categorical"): cat_launches,
+        ("partition_level", "categorical_windows"): ncat})
+    if not 0 < cat_launches <= levels:
+        raise AssertionError("path (J2): %d level passes with categorical "
+                             "windows" % cat_launches)
+    log("  level passes with category bitsets: %d of %d, %d windows"
+        % (cat_launches, levels, cat_windows))
+    busy_ms = None
+    if profile:
+        busy_ms = profile_iteration(gbdt)
+        log("  device busy %.1f%% and idle %.1f%% of the median unprofiled "
+            "iteration (%.4f s)" % (busy_ms / med / 10,
+                                    100 - busy_ms / med / 10, med))
+    return {"launches": counts, "routes": routes, "iter_s": rec.iter_s,
+            "auc": aucs, "trees": trees, "splits": splits, "modes": modes,
+            "busy_ms": busy_ms, "times": times}
+
+
+def check_path_kernels(learner, path: str, unfold: bool = False,
+                       categorical: bool = False) -> dict:
+    """The kernels at a path's own shape, against their plain versions: the
+    learner's row store (its bins, random gradients) through the root
+    histogram (exact and integer), a split pass with the path's route (an
+    EFB unfold of a bundled feature, or a category bitset) on a mid window,
+    and in level mode a level pass whose windows take that route.  Then
+    their times on the whole store (exact; in level mode the integer level
+    pass over 8 windows), beside their bounds, plain versions and
+    ``index_add_`` or the store's copy."""
+    from lightgbm_tpu_torch.core.tree_learner import fill_gradients
+    dev = learner.device
+    g = torch.Generator(device=dev).manual_seed(31)
+    n = learner.num_data
+    lay = learner.layout
+    F, B = learner.num_columns, learner.num_bins
+    kw = dict(num_features=F, voff=lay.voff, bpc=lay.bpc,
+              packed=learner.packed)
+    fh = learner.feat_host
+    rng = np.random.RandomState(7)
+    words = [0] * (B // 32)
+    if unfold:
+        f = int(np.flatnonzero([len(gr) > 1 for gr in
+                                learner.dataset.feature_groups])[0])
+        fid = int(learner.dataset.feature_groups[f][1])
+        route = (int(fh["group"][fid]), 0, 0, 0, int(fh["num_bin"][fid]),
+                 0, 0, 1, int(fh["offset"][fid]))
+    else:
+        fid = int(np.flatnonzero(fh["is_cat"] & (fh["num_bin"] > 16))[0])
+        for b in np.flatnonzero(rng.rand(int(fh["num_bin"][fid])) < 0.5):
+            words[b >> 5] |= 1 << (int(b) & 31)
+        words = [w - (1 << 32) if w >= 1 << 31 else w for w in words]
+        route = (fid, 0, 0, 0, int(fh["num_bin"][fid]), 0, 1, 0, 0)
+    name = "unfold" if unfold else "cat"
+    level = learner.tree_grow_mode == "level"
+    bounds_w = np.linspace(0, n, 9).astype(np.int64)
+    scals = np.asarray([scal_row(int(a), int(b - a), route, words, i % 2)
+                        for i, (a, b) in enumerate(zip(bounds_w,
+                                                       bounds_w[1:]))],
+                       dtype=np.int64)
+    times = {}
+    for quantized in (False, True):
+        if quantized:
+            grad = torch.randint(-127, 128, (n,), generator=g,
+                                 device=dev).float()
+            hess = torch.randint(0, 256, (n,), generator=g, device=dev).float()
+        else:
+            grad = torch.randn(n, generator=g, device=dev)
+            hess = torch.rand(n, generator=g, device=dev)
+        rows = fill_gradients(learner.template, lay, grad, hess)
+        tag = "int" if quantized else "exact"
+        check_hist(rows, B, 0, n, "(%s) %s root hist G=%d B=%d" % (
+            path, tag, F, B), quantized=quantized, **kw)
+        scal = scal_row(n // 7, n // 3, route, words, 1)
+        check_split(rows, scal, F=F, B=B, voff=lay.voff, bpc=lay.bpc,
+                    packed=learner.packed, quantized=quantized,
+                    what="(%s) %s split %s" % (path, tag, name))
+        if level:
+            check_level(rows, scals, "(%s) %s level, 8 windows" % (path, tag),
+                        num_bins=B, quantized=quantized, **kw)
+        if quantized == level:
+            times.update(path_times(rows, path, name, route, words, scals,
+                                    B, quantized, kw))
+        del rows
+        torch.cuda.empty_cache()
+    return times
+
+
+def path_times(rows, path, name, route, words, scals, B, quantized,
+               kw) -> dict:
+    """Times of the path's kernels on its whole row store (the root
+    window): the histogram (beside ``index_add_``) and the split pass with
+    the path's route, or in level mode the level pass over ``scals``
+    (beside the store's copy)."""
+    from lightgbm_tpu_torch.core import histogram as H
+    from lightgbm_tpu_torch.core import partition as P
+    n = int(scals[:, 1].sum())
+    F, W, bpc = kw["num_features"], rows.shape[1], kw["bpc"]
+    hk = dict(kw, quantized=quantized)
+    ms = cuda_ms(lambda: H.histogram_rows(rows, B, 0, n, **hk), reps=10)
+    dev = queued_ms(lambda: H.histogram_rows(rows, B, 0, n, **hk), reps=10)
+    plain = cuda_ms(lambda: H.histogram_rows_plain(rows, B, 0, n, **hk),
+                    reps=3, warmup=1)
+    lib, lib_dev = hist_index_add_ms(rows, kw["voff"], F, B, n, quantized,
+                                     bpc)
+    b_ms, b_by = bound(n * row_bytes(F, bpc), 2.0 * n * F)
+    hist = dict(rows=n, ms=ms, queued_ms=dev, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib, library_queued_ms=lib_dev)
+    log("  (%s) %s histogram %d rows x %d columns, B=%d: kernel %.4f ms "
+        "(queued %.4f), bound %.4f ms (%s), plain %.4f ms, index_add_ %.4f "
+        "ms (queued %.4f)" % (path, "int" if quantized else "exact", n, F, B,
+                              ms, dev, b_ms, b_by, plain, lib, lib_dev))
+    pk = dict(hk, num_bins=B)
+    dst = torch.empty_like(rows)
+    if len(scals) > 1 and quantized:
+        fn = lambda: P.partition_hist_level(rows, dst, scals, **pk)  # noqa
+        pfn = lambda: P.partition_hist_level_plain(rows, dst, scals,  # noqa
+                                                   **pk)
+        what = "level pass, 8 windows"
+    else:
+        scal = scal_row(0, n, route, words, 1)
+        work = rows.clone()
+        fn = lambda: P.partition_hist(work, scal, **pk)  # noqa: E731
+        pfn = lambda: P.partition_hist_plain(rows, scal, **pk)  # noqa
+        what = "split pass"
+    ms = cuda_ms(fn, reps=10)
+    dev = queued_ms(fn, reps=10)
+    plain = cuda_ms(pfn, reps=3, warmup=1)
+    copy = cuda_ms(lambda: dst.copy_(rows), reps=10)
+    copy_dev = queued_ms(lambda: dst.copy_(rows), reps=10)
+    b_ms, b_by = bound(2.0 * n * W, 2.0 * (n / 2) * F)
+    log("  (%s) %s %s route %d rows: kernel %.4f ms (queued %.4f), bound "
+        "%.4f ms (%s), plain %.4f ms, copy of the store %.4f ms (queued "
+        "%.4f)" % (path, what, name, n, ms, dev, b_ms, b_by, plain, copy,
+                   copy_dev))
+    split = dict(rows=n, ms=ms, queued_ms=dev, plain_ms=plain, bound_ms=b_ms,
+                 bound_by=b_by, library_ms=None, copy_ms=copy,
+                 copy_queued_ms=copy_dev)
+    torch.cuda.empty_cache()
+    return {"histogram": hist, "split": split}
+
+
 def phase_build_histogram(device, R: int) -> dict:
     """Path (E): the entry point ``build_histogram`` (TPU kernel #5's own
     caller) on R rows x 28 u8 bins at B = 256, with the launch counts read
@@ -1565,12 +2168,13 @@ def split_pass_sizes(rows, voff, F, B, route, words, counts,
     return dict(out[0], sizes=out[1:])
 
 
-def hist_index_add_ms(rows, voff, F, B, count, quantized=False) -> tuple:
+def hist_index_add_ms(rows, voff, F, B, count, quantized=False,
+                      bpc: int = 1) -> tuple:
     """One ``index_add_`` (f32, or int64 when ``quantized``) computing the
     histogram of rows [0, count) of the row store, over flattened
     (feature, bin) ids: its event time and its queued device time."""
     from lightgbm_tpu_torch.core import histogram as H
-    bins, vals = H.rows_split(rows[:count], F, voff)
+    bins, vals = H.rows_split(rows[:count], F, voff, bpc)
     ids = (bins + torch.arange(F, device=rows.device)[None, :] * B
            ).reshape(-1)
     del bins
@@ -1850,6 +2454,12 @@ def main(argv=None) -> int:
     ap.add_argument("--ltr-rows", type=int, default=LTR_ROWS,
                     help="training rows of path (H) (2270296 is the "
                          "published MS LTR size)")
+    ap.add_argument("--allstate-rows", type=int, default=ALLSTATE_ROWS,
+                    help="training rows of path (I) (13184290 is the "
+                         "published Allstate size)")
+    ap.add_argument("--expo-rows", type=int, default=EXPO_ROWS,
+                    help="training rows of paths (J) and (J2) (11000000 is "
+                         "the published Expo size)")
     ap.add_argument("--profile", action="store_true",
                     help="print a torch.profiler table of one iteration of "
                          "each main path")
@@ -1930,6 +2540,28 @@ def main(argv=None) -> int:
     paths["H"] = phase_lambdarank(device, args.ltr_rows, args.iters,
                                   args.profile)
     torch.cuda.empty_cache()
+    log("  (I) EFB, Allstate-shaped sparse data from CSR, "
+        "lightgbm_tpu_torch.train with a validation set: %d + %d rows x %d "
+        "features, (D)'s settings, %d iterations"
+        % (args.allstate_rows, ALLSTATE_TEST_ROWS, ALLSTATE_F, args.iters))
+    paths["I"] = phase_allstate(device, args.allstate_rows,
+                                ALLSTATE_TEST_ROWS, args.iters, args.profile)
+    torch.cuda.empty_cache()
+    log("  (J) categorical features, Expo-shaped: %d + %d rows x %d columns "
+        "(%d categorical), (D)'s settings, %d iterations"
+        % (args.expo_rows, EXPO_TEST_ROWS, len(EXPO_COLUMNS), len(EXPO_CATS),
+           args.iters))
+    paths["J"], expo_sets = phase_expo(device, args.expo_rows,
+                                       EXPO_TEST_ROWS, args.iters,
+                                       args.profile)
+    torch.cuda.empty_cache()
+    log("  (J2) (J)'s binned data: tree_grow_mode=level, "
+        "hist_precision=quantized, monotone +1 on DepTime, extra_trees, "
+        "max_cat_to_onehot=8, %d iterations" % J2_ITERS)
+    paths["J2"] = phase_expo_variants(device, expo_sets, J2_ITERS,
+                                      args.profile)
+    del expo_sets
+    torch.cuda.empty_cache()
     log("  (E) build_histogram")
     paths["E"] = phase_build_histogram(device, 1 << 20)
     log("  median seconds per iteration: %s" % ", ".join(
@@ -1953,13 +2585,20 @@ def main(argv=None) -> int:
         dict(name="histogram", route="cuda",
              source="lightgbm_tpu_torch/csrc/histogram.cu",
              replaces="lightgbm_tpu/core/histogram.py:743",
-             max_abs_err=hist_err_max, **launches("histogram", "ABCGH"),
+             max_abs_err=hist_err_max, **launches("histogram", "ABCGHIJ"),
+             groups_root=paths["I"]["times"]["histogram"],
+             expo_root=paths["J"]["times"]["histogram"],
              **times["histogram"]),
         dict(name="partition", route="cuda",
              source="lightgbm_tpu_torch/csrc/partition.cu",
              replaces="lightgbm_tpu/core/partition.py:1090",
              also_replaces="lightgbm_tpu/core/partition.py:1130",
-             max_abs_err=split_err_max, **launches("partition", "ABCFGH"),
+             max_abs_err=split_err_max, **launches("partition", "ABCFGHIJ"),
+             unfold_launches=paths["I"]["routes"]["partition"]["unfold"],
+             categorical_launches=paths["J"]["routes"]["partition"][
+                 "categorical"],
+             unfold_root=paths["I"]["times"]["split"],
+             categorical_root=paths["J"]["times"]["split"],
              quantized_launches=launches("partition", "F")["launches"],
              quantized_ms=times["partition_q"]["ms"],
              quantized_queued_ms=times["partition_q"]["queued_ms"],
@@ -1973,11 +2612,17 @@ def main(argv=None) -> int:
              replaces="lightgbm_tpu/core/histogram.py:743",
              also_replaces="lightgbm_tpu/core/partition.py:1080",
              max_abs_err=hist_int_err, **launches("histogram_int"),
+             expo_root=paths["J2"]["times"]["histogram"],
              **times["histogram_int"]),
         dict(name="partition_level", route="cuda",
              source="lightgbm_tpu_torch/csrc/partition_level.cu",
              replaces="lightgbm_tpu/core/partition.py:1191",
              max_abs_err=level_err_max, **launches("partition_level"),
+             categorical_launches=paths["J2"]["routes"]["partition_level"][
+                 "categorical"],
+             categorical_windows=paths["J2"]["routes"]["partition_level"][
+                 "categorical_windows"],
+             categorical_level=paths["J2"]["times"]["split"],
              quantized_ms=times["partition_level_q"]["ms"],
              quantized_queued_ms=times["partition_level_q"]["queued_ms"],
              depths_queued_ms=times["depths"],

@@ -8,8 +8,12 @@ the training set's bin mappers.  A :class:`Booster` trains on the device its
 ``device=`` names, ``cuda`` unless the caller passes ``"cpu"``.
 
 ``Booster.update(fobj=...)`` trains on a custom objective's gradients.
-Not carried over yet, and refused with ``NotImplementedError``: CSR / scipy
-sparse and pandas inputs (ROADMAP queue 1 item 1), leaf-index and
+Sparse input (a scipy sparse matrix or :class:`CSRData`) is binned straight
+from CSR without densifying (``BinnedDataset.from_csr``, whose EFB bundles
+the sparse features) unless ``categorical_feature`` is given, which the
+sparse binner does not take: then it is densified, as in the JAX package
+(basic.py:85-112, :227-250).  Not carried over yet, and refused with
+``NotImplementedError``: pandas input (ROADMAP queue 1 item 1), leaf-index and
 contribution prediction, the boosters other than ``gbdt`` (queue 1 items 10
 and 12).  Telemetry, serving and checkpoints are
 TPU-era planes with no counterpart here (queue 1 items 11 and 15).
@@ -29,7 +33,7 @@ from .metric.metric import create_metrics
 from .objective import create_objective
 from .utils.log import LightGBMError
 
-__all__ = ["Dataset", "Booster", "LightGBMError"]
+__all__ = ["Dataset", "Booster", "CSRData", "LightGBMError"]
 
 
 def _refuse(what: str, item: str) -> None:
@@ -43,17 +47,47 @@ def _list_to_1d_numpy(data, dtype):
     return np.asarray(data, dtype=dtype).reshape(-1)
 
 
-def _check_dense(data) -> None:
+class CSRData:
+    """Sparse input as raw CSR arrays (the JAX package's ``CSRData``): it
+    stays sparse through binning; scipy is not required."""
+
+    def __init__(self, indptr, indices, values, num_col: int) -> None:
+        self.indptr = np.asarray(indptr, dtype=np.int64)
+        self.indices = np.asarray(indices, dtype=np.int64)
+        self.values = np.asarray(values, dtype=np.float64)
+        self.num_col = int(num_col)
+
+    @property
+    def shape(self):
+        return (len(self.indptr) - 1, self.num_col)
+
+
+def _as_csr(data) -> Optional[CSRData]:
+    """CSRData or a scipy sparse matrix -> CSRData; anything else -> None."""
+    if isinstance(data, CSRData):
+        return data
+    if hasattr(data, "tocsr"):
+        m = data.tocsr()
+        return CSRData(m.indptr, m.indices, m.data, m.shape[1])
+    return None
+
+
+def _check_input(data) -> None:
     """Refuse the inputs the port cannot bin yet."""
-    if hasattr(data, "tocsr") or type(data).__name__ == "CSRData":
-        _refuse("CSR / sparse input", "queue 1 item 1")
     if type(data).__module__.split(".")[0] == "pandas":
         _refuse("pandas input", "queue 1 item 1")
 
 
 def _to_matrix(data) -> np.ndarray:
-    """A dense 2-D numpy matrix (f32 stays f32; binning reads it as f64)."""
-    _check_dense(data)
+    """A dense 2-D numpy matrix (f32 stays f32; binning reads it as f64);
+    sparse input is densified."""
+    _check_input(data)
+    csr = _as_csr(data)
+    if csr is not None:
+        arr = np.zeros(csr.shape, dtype=np.float64)
+        rows = np.repeat(np.arange(csr.shape[0]), np.diff(csr.indptr))
+        arr[rows, csr.indices] = csr.values
+        return arr
     arr = np.asarray(data)
     if arr.dtype not in (np.float32, np.float64):
         arr = arr.astype(np.float64)
@@ -70,7 +104,7 @@ class Dataset:
                  feature_name="auto", categorical_feature="auto",
                  params: Optional[Dict[str, Any]] = None,
                  free_raw_data: bool = True) -> None:
-        _check_dense(data)
+        _check_input(data)
         self.data = data
         self.label = label
         self.reference = reference
@@ -94,8 +128,7 @@ class Dataset:
             ref = self.reference.construct().handle
         cats = ([] if self.categorical_feature in ("auto", None)
                 else [int(c) for c in self.categorical_feature])
-        self.handle = BinnedDataset.from_matrix(
-            _to_matrix(self.data),
+        common = dict(
             label=_list_to_1d_numpy(self.label, np.float64),
             weight=_list_to_1d_numpy(self.weight, np.float64),
             group=_list_to_1d_numpy(self.group, np.int32),
@@ -103,7 +136,7 @@ class Dataset:
             max_bin=int(cfg.max_bin), min_data_in_bin=int(cfg.min_data_in_bin),
             min_data_in_leaf=int(cfg.min_data_in_leaf),
             bin_construct_sample_cnt=int(cfg.bin_construct_sample_cnt),
-            categorical_feature=cats, use_missing=bool(cfg.use_missing),
+            use_missing=bool(cfg.use_missing),
             zero_as_missing=bool(cfg.zero_as_missing),
             data_random_seed=int(cfg.data_random_seed),
             enable_bundle=bool(cfg.enable_bundle),
@@ -111,8 +144,15 @@ class Dataset:
                            else list(self.feature_name)),
             reference=ref,
             max_bin_by_feature=(list(cfg.max_bin_by_feature)
-                                if cfg.max_bin_by_feature else None),
-            keep_raw=not self.free_raw_data)
+                                if cfg.max_bin_by_feature else None))
+        csr = _as_csr(self.data)
+        if csr is not None and self.categorical_feature in ("auto", None):
+            self.handle = BinnedDataset.from_csr(
+                csr.indptr, csr.indices, csr.values, csr.num_col, **common)
+        else:
+            self.handle = BinnedDataset.from_matrix(
+                _to_matrix(self.data), categorical_feature=cats,
+                keep_raw=not self.free_raw_data, **common)
         if self.free_raw_data:
             self.data = None
         return self

@@ -60,7 +60,7 @@ from typing import NamedTuple, Sequence, Union
 import numpy as np
 import torch
 
-from ..device import check_tensor, count_launch, cuda_stream_ptr
+from ..device import check_tensor, count_launch, count_routes, cuda_stream_ptr
 from ..io.binning import MissingType
 from .histogram import (_INT_FILL_BLOCKS, _segments, check_hist_shape,
                         check_int_segments, data_ptr, exact_partials,
@@ -224,6 +224,7 @@ def partition_hist_cuda(rows: torch.Tensor, scal: ScalLike, *,
         int(quantized), data_ptr(partial), hist.data_ptr(),
         cuda_stream_ptr(rows))
     count_launch("partition")
+    count_routes("partition", int(s[10] == 1), int(s[8] == 1))
     kernels.check(err, "partition kernel")
     return rows, hist, nl
 
@@ -440,6 +441,9 @@ def partition_hist_level_cuda(src: torch.Tensor, dst: torch.Tensor, scals,
         work.data_ptr(), partial.data_ptr(), hist.data_ptr(),
         cuda_stream_ptr(src))
     count_launch("partition_level")
+    live = s[:, 1] > 0
+    count_routes("partition_level", int((live & (s[:, 10] == 1)).sum()),
+                 int((live & (s[:, 8] == 1)).sum()))
     kernels.check(err, "partition_level kernel")
     return hist, work[lm.nblk:lm.nblk + G]
 

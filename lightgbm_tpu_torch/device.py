@@ -9,7 +9,11 @@ the entry point raises; it never falls back to the CPU on its own.  (LightGBM's
 The launch counters are plain integers, one per hand-written kernel family.
 A kernel wrapper adds one where it launches its kernel and nowhere else, so a
 run can show that its main path went through the kernels
-(:func:`reset_launches` before the run, :func:`launches` after it).
+(:func:`reset_launches` before the run, :func:`launches` after it).  The
+split passes also count, at the same place, the routes their scal rows take
+(:func:`route_launches`): launches with a window that unfolds an EFB group
+column (``use_unfold``) or routes by a category bitset (``is_cat``), and the
+number of such windows.
 """
 from __future__ import annotations
 
@@ -23,6 +27,11 @@ KERNELS = ("histogram", "partition", "histogram_int", "partition_level",
            "histogram_masked")
 
 _LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+SPLIT_KERNELS = ("partition", "partition_level")
+ROUTES = ("unfold", "categorical")
+_ROUTES: Dict[str, Dict[str, int]] = {
+    k: {c: 0 for r in ROUTES for c in (r, r + "_windows")}
+    for k in SPLIT_KERNELS}
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -44,14 +53,33 @@ def count_launch(kernel: str) -> None:
     _LAUNCHES[kernel] += 1
 
 
+def count_routes(kernel: str, unfold: int, categorical: int) -> None:
+    """Record the routes of one launch of split pass ``kernel`` (called by
+    its wrapper only, beside :func:`count_launch`): ``unfold`` and
+    ``categorical`` are the numbers of its windows with ``use_unfold = 1``
+    and with ``is_cat = 1``."""
+    for route, windows in (("unfold", unfold), ("categorical", categorical)):
+        _ROUTES[kernel][route] += int(windows > 0)
+        _ROUTES[kernel][route + "_windows"] += int(windows)
+
+
 def launches() -> Dict[str, int]:
     """Launch counts since the last :func:`reset_launches`."""
     return dict(_LAUNCHES)
 
 
+def route_launches() -> Dict[str, Dict[str, int]]:
+    """Per split pass: launches that unfolded a group column or routed by a
+    bitset, and their windows, since the last :func:`reset_launches`."""
+    return {k: dict(v) for k, v in _ROUTES.items()}
+
+
 def reset_launches() -> None:
     for k in _LAUNCHES:
         _LAUNCHES[k] = 0
+    for counts in _ROUTES.values():
+        for c in counts:
+            counts[c] = 0
 
 
 def cuda_stream_ptr(t: torch.Tensor) -> int:

@@ -119,6 +119,9 @@ def test_bundled_dataset_is_refused():
     y = (rng.uniform(size=n) < 0.5).astype(float)
     ds = BinnedDataset.from_matrix(X, label=y, max_bin=63)
     assert ds.is_bundled
+    # bundled datasets train on their group columns now (the refusal went
+    # with the port of EFB); the learner's store holds one column a group
     cfg = Config(objective="binary", num_leaves=7, verbosity=-1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_tl.SerialTreeLearner(ds, cfg, device="cpu")
+    learner = port_tl.SerialTreeLearner(ds, cfg, device="cpu")
+    assert learner.grouped
+    assert learner.num_columns == len(ds.feature_groups) < ds.num_features

@@ -19,8 +19,8 @@ into the port predicts the same, and ``init_model`` continues it to the same
 trees as the JAX continuation.  The port pins one torch thread.
 """
 import numpy as np
+import pandas as pd
 import pytest
-import scipy.sparse as sps
 import torch
 
 import lightgbm_tpu as J
@@ -221,7 +221,7 @@ def test_metric_names_and_values_like_jax(metric):
 def test_refusals():
     X, y, _, _ = make_data()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.Dataset(sps.csr_matrix(X[:50]), y[:50])
+        P.Dataset(pd.DataFrame(X[:50]), y[:50])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         P.engine.cv(PARAMS, P.Dataset(X, y))
     with pytest.raises(NotImplementedError, match="boosting=dart"):
