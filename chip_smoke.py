@@ -105,8 +105,34 @@ together) and runs these phases, each of which raises on failure:
    ``Booster.predict`` (within 1e-5) and tree 0 against its plain rebuild
    (category bitsets included), and checks the histogram, split and level
    kernels against their plain versions on the path's own row store and
-   route; (E) ``build_histogram`` (kernel #5's caller) over 1,048,576 rows
-   x 28 features;
+   route; (K) GOSS (``top_rate=0.2``, ``other_rate=0.1``) on (A)'s
+   binned rows, 12 iterations, the last two sampled: each sampled
+   iteration's device row weights equal byte for byte to the host's stable
+   argsort of the fetched key with the sampling stream replayed from a
+   fresh ``RandomState(bagging_seed)``, top_k + other_k of them nonzero;
+   (L) DART at its defaults on (A)'s binned rows through ``train()`` with
+   (A)'s held-out rows as a validation set, for as many iterations as the
+   host's drop plan (``RandomState(drop_seed)``) needs for two to drop
+   trees: the dropped iterations equal to the plan, the train score equal
+   to the sum of the model's trees routed over the training bins (within
+   1e-5 of its largest value), the validation scores equal to ``predict``;
+   (M) random forest (``bagging_fraction=0.632``, ``bagging_freq=1``,
+   ``feature_fraction=0.8``), 5 iterations: ``average_output`` in the
+   model text, ``predict`` the mean of the trees, the first and last trees
+   equal to plain rebuilds on the gradients of the constant initial score;
+   (N) forced splits (a three-split schedule written to a temporary file:
+   the root on feature 25, both children on feature 26, at the features'
+   medians) and the split, coupled and lazy CEGB penalties, leaf-wise,
+   exact, 5 iterations: every tree's first three splits the forced ones,
+   the lazy paid bits equal to a recompute from the trees and the rows'
+   leaves, tree 0 equal to its plain rebuild; (O) (D)'s binned rows with
+   ``histogram_pool_size=125`` (32 slots of 255 leaves), 2 iterations:
+   the cache's bytes against the per-leaf cache's, the peak device memory,
+   the rebuilt parents (one histogram launch each), and (D)'s first two
+   trees matched to the JAX package's bounds for a pooled build (98% of
+   the split features and of the rows' leaves, sorted leaf values within
+   rtol 1e-4); (E) ``build_histogram`` (kernel #5's caller) over 1,048,576
+   rows x 28 features;
 5. times of each kernel at the main paths' shapes beside its bound, its
    plain version and one PyTorch library call (``index_add_``; for a split
    pass, which has none, the window's device-to-device copy): the
@@ -837,13 +863,16 @@ def check_predictions(booster, X, X_test, raw, k: int = 2000) -> None:
 
 
 def check_tree0(booster, n: int, strict: bool, bag=None,
-                feature_mask=None) -> None:
+                feature_mask=None, index: int = 0, learner=None) -> None:
     """Rebuild tree 0 (class 0's first tree) on the card with the plain
     versions (called directly: a check, not a path) and hold the
     kernel-built tree 0 against it.  ``strict``: integer histograms
     (quantized) leave no near tie to excuse, so every split and gain must be
     equal.  ``bag`` = (mask, count) and ``feature_mask`` are iteration 0's,
-    recomputed by the caller."""
+    recomputed by the caller.  ``index`` picks another model trained on the
+    gradients of the initial scores (a random forest's), ``learner`` a
+    learner other than the booster's (one in its initial state where the
+    booster's carries state between trees)."""
     from lightgbm_tpu_torch.core.histogram import histogram_rows_plain
     from lightgbm_tpu_torch.core.partition import (partition_hist_level_plain,
                                                    partition_hist_plain)
@@ -858,14 +887,14 @@ def check_tree0(booster, n: int, strict: bool, bag=None,
     if bag is not None:
         grad, hess, count = grad * bag[0], hess * bag[0], bag[1]
     t = time.perf_counter()
-    plain = booster.learner.train(grad, hess, count, feature_mask,
-                                  iteration=0, hist_fn=histogram_rows_plain,
-                                  part_fn=partition_hist_plain,
-                                  level_fn=partition_hist_level_plain)
+    plain = (learner or booster.learner).train(
+        grad, hess, count, feature_mask, iteration=0,
+        hist_fn=histogram_rows_plain, part_fn=partition_hist_plain,
+        level_fn=partition_hist_level_plain)
     torch.cuda.synchronize()
-    log("  tree 0 rebuilt with the plain versions in %.3f s"
-        % (time.perf_counter() - t))
-    tree = booster.models[0]
+    log("  tree %d rebuilt with the plain versions in %.3f s"
+        % (index, time.perf_counter() - t))
+    tree = booster.models[index]
     from lightgbm_tpu_torch.core.tree_learner import tree_from_arrays
     ptree = tree_from_arrays(plain, booster.train_data)
     kern = split_sequence(tree.split_feature_inner, tree.threshold_in_bin,
@@ -878,37 +907,38 @@ def check_tree0(booster, n: int, strict: bool, bag=None,
     for i, (a, b) in enumerate(zip(kern, ref)):
         wa, wb = cat_bins(tree, i), cat_bins(ptree, i)
         if a[:3] == b[:3] and wa != wb and not (wa & wb) and not strict:
-            log("  tree 0: split %d is a categorical side swap (kernel sends "
-                "bins %s left, plain %s: one partition, gains %.9g vs %.9g);"
-                " the trees agree up to it" % (i, sorted(wa), sorted(wb),
-                                               a[3], b[3]))
+            log("  tree %d: split %d is a categorical side swap (kernel "
+                "sends bins %s left, plain %s: one partition, gains %.9g vs "
+                "%.9g); the trees agree up to it" % (index, i, sorted(wa),
+                                                    sorted(wb), a[3], b[3]))
             return
         if strict and (a != b or wa != wb):
             raise AssertionError(
-                "tree 0 split %d: kernel (feature, bin, parent, gain) %s "
-                "bins %s vs plain %s bins %s" % (i, a, sorted(wa), b,
+                "tree %d split %d: kernel (feature, bin, parent, gain) %s "
+                "bins %s vs plain %s bins %s" % (index, i, a, sorted(wa), b,
                                                  sorted(wb)))
         if a[:3] != b[:3] or wa != wb:
             rel = abs(a[3] - b[3]) / max(abs(a[3]), abs(b[3]), 1e-30)
             if rel < SPLIT_GAIN_TIE_RTOL:
-                log("  tree 0: split %d is a near tie (gains %.9g vs %.9g, "
-                    "rel %.2g); the trees agree up to it" % (i, a[3], b[3],
-                                                              rel))
+                log("  tree %d: split %d is a near tie (gains %.9g vs %.9g, "
+                    "rel %.2g); the trees agree up to it" % (index, i, a[3],
+                                                              b[3], rel))
                 return
             raise AssertionError(
-                "tree 0 split %d: kernel (feature, bin, parent) %s gain %.9g "
-                "bins %s vs plain %s gain %.9g bins %s"
-                % (i, a[:3], a[3], sorted(wa), b[:3], b[3], sorted(wb)))
+                "tree %d split %d: kernel (feature, bin, parent) %s gain "
+                "%.9g bins %s vs plain %s gain %.9g bins %s"
+                % (index, i, a[:3], a[3], sorted(wa), b[:3], b[3],
+                   sorted(wb)))
         ncat += bool(wa)
     nl = tree.num_leaves
     counts_k = np.asarray(tree.leaf_count[:nl], np.int64)
     counts_p = np.asarray(ptree.leaf_count[:nl], np.int64)
     if ptree.num_leaves != nl or not np.array_equal(counts_k, counts_p):
-        raise AssertionError("tree 0: leaf counts differ from the plain "
-                             "rebuild")
-    log("  tree 0 equal to the plain rebuild: %d splits (features, "
+        raise AssertionError("tree %d: leaf counts differ from the plain "
+                             "rebuild" % index)
+    log("  tree %d equal to the plain rebuild: %d splits (features, "
         "threshold bins, split order%s%s) and %d leaf counts"
-        % (nl - 1, ", gains" if strict else "",
+        % (index, nl - 1, ", gains" if strict else "",
            ", %d category bitsets" % ncat if ncat else "", nl))
 
 
@@ -1015,6 +1045,7 @@ def phase_epsilon(device, n: int, n_test: int, iters: int,
     label = torch.as_tensor(y, device=device)
     rec = IterationRecorder(label)
     evals = {}
+    torch.cuda.reset_peak_memory_stats()
     D.reset_launches()
     booster = lgb.train(EPSILON_PARAMS, train, num_boost_round=iters,
                         valid_sets=[valid], valid_names=["test"],
@@ -1022,6 +1053,7 @@ def phase_epsilon(device, n: int, n_test: int, iters: int,
                         verbose_eval=False,
                         callbacks=[rec, rec.start])
     counts = D.launches()
+    peak = torch.cuda.max_memory_allocated()
     gbdt = booster._booster
     trees = len(gbdt.models)
     splits = sum(t.num_leaves - 1 for t in gbdt.models)
@@ -1038,7 +1070,11 @@ def phase_epsilon(device, n: int, n_test: int, iters: int,
         % (booster.best_iteration, [t.num_leaves for t in gbdt.models],
            splits))
     log("  device->host fetches per tree %s" % rec.fetches)
-    log("  launches on path (D) %s" % counts)
+    log("  launches on path (D) %s; peak device memory %.1f MB, the "
+        "per-leaf histogram cache %.1f MB" % (
+            counts, peak / 1e6, hist_cache_bytes(gbdt.learner,
+                                                  EPSILON_PARAMS["num_leaves"])
+            / 1e6))
     start = logloss(torch.full_like(label, gbdt.objective.boost_from_score(0)),
                     label)
     if not all(b < a for a, b in zip([start] + rec.losses, rec.losses)):
@@ -1071,7 +1107,14 @@ def phase_epsilon(device, n: int, n_test: int, iters: int,
         raise AssertionError("path (D): launches %s, want %s" % (counts,
                                                                  want))
     return {"launches": counts, "iter_s": rec.iter_s, "auc": aucs,
-            "trees": trees, "splits": splits, "busy_ms": busy_ms}
+            "trees": trees, "splits": splits, "busy_ms": busy_ms,
+            "peak_bytes": peak, "train": train, "models": gbdt.models[:2]}
+
+
+def hist_cache_bytes(learner, rows: int) -> int:
+    """Bytes of a histogram cache of ``rows`` leaves or slots: [rows,
+    columns, 2, B] f32."""
+    return rows * learner.num_columns * 2 * learner.num_bins * 4
 
 
 # -------------------------------------------------- other objectives ----
@@ -2002,6 +2045,457 @@ def phase_build_histogram(device, R: int) -> dict:
     return {"launches": counts, "trees": 1}
 
 
+# ------------------------- other boosters, forced splits, CEGB, pool ----
+
+HIGGS_PARAMS = dict(objective="binary", num_leaves=255, learning_rate=0.1,
+                    max_bin=255, verbosity=-1)
+GOSS_ITERS = 12     # 1 / learning_rate = 10 warm-up iterations, then 2
+RF_ITERS = 5
+FORCED_ITERS = 5
+POOL_ITERS = 2
+POOL_MB = 125       # 32 slots of 2000 x 2 x 256 f32 at (D)'s shape
+
+
+def run_iterations(booster, iters: int, label, loss=None) -> dict:
+    """``train_one_iter`` ``iters`` times with the launch counts read
+    around the loop: each iteration's seconds (ending in a synchronise),
+    the train loss after it (binary log loss unless ``loss``), its last
+    tree's device->host fetches and the pool's rebuilt parents."""
+    from lightgbm_tpu_torch import device as D
+    loss = loss or (lambda: logloss(booster.train_score[0], label))
+    out = {"iter_s": [], "losses": [], "fetches": [], "misses": []}
+    D.reset_launches()
+    for _ in range(iters):
+        t = time.perf_counter()
+        booster.train_one_iter()
+        torch.cuda.synchronize()
+        out["iter_s"].append(time.perf_counter() - t)
+        out["losses"].append(loss())
+        out["fetches"].append(booster.last_arrays.host_fetches)
+        out["misses"].append(booster.last_arrays.pool_misses)
+    out["launches"] = D.launches()
+    out["trees"] = len(booster.models)
+    out["splits"] = sum(t.num_leaves - 1 for t in booster.models)
+    return out
+
+
+def report_path(path: str, r: dict, n: int, loss_name: str = "logloss"):
+    med = float(np.median(r["iter_s"]))
+    log("  iterations %d, seconds per iteration %s (median %.4f)"
+        % (len(r["iter_s"]), ["%.4f" % v for v in r["iter_s"]], med))
+    log("  row-trees/s %.1f (median iteration)" % (n / med))
+    log("  train %s per iteration %s" % (loss_name, ["%.6f" % v
+                                                    for v in r["losses"]]))
+    log("  splits %d in %d trees; device->host fetches per tree %s"
+        % (r["splits"], r["trees"], r["fetches"]))
+    log("  launches on path (%s) %s" % (path, r["launches"]))
+    return med
+
+
+def expect_leafwise_launches(path: str, r: dict, rebuilt: int = 0) -> None:
+    """One root histogram per tree (plus the pool's rebuilt parents) and one
+    split pass per split, nothing else."""
+    want = {"histogram": r["trees"] + rebuilt, "partition": r["splits"]}
+    if r["launches"] != {k: want.get(k, 0) for k in r["launches"]}:
+        raise AssertionError("path (%s): launches %s, want %s"
+                             % (path, r["launches"], want))
+
+
+def profile_path(r: dict, booster, profile: bool) -> None:
+    r["busy_ms"] = None
+    if profile:
+        med = float(np.median(r["iter_s"]))
+        r["busy_ms"] = profile_iteration(booster)
+        log("  device busy %.1f%% and idle %.1f%% of the median unprofiled "
+            "iteration (%.4f s)" % (r["busy_ms"] / med / 10,
+                                    100 - r["busy_ms"] / med / 10, med))
+
+
+def goss_weights_host(key: np.ndarray, top_k: int, sampled: np.ndarray,
+                      multiply: float) -> np.ndarray:
+    """GOSS row weights recomputed on the host: the stable descending order
+    of ``np.argsort``, weight 1 for its first ``top_k`` rows and
+    ``multiply`` at the positions ``sampled`` of the rest."""
+    order = np.argsort(-key, kind="stable")
+    w = np.zeros(key.size, np.float32)
+    w[order[:top_k]] = 1.0
+    w[order[top_k:][sampled]] = np.float32(multiply)
+    return w
+
+
+def phase_goss(device, data, ds, profile: bool) -> dict:
+    """Path (K): GOSS (``top_rate=0.2``, ``other_rate=0.1``) on (A)'s
+    binned rows, 12 iterations: the first ``1 / learning_rate`` = 10
+    without sampling, then two sampled ones, whose device row weights must
+    equal the host's stable argsort of the fetched key with the stream's
+    draws replayed from a fresh ``RandomState(bagging_seed)``."""
+    from lightgbm_tpu_torch import Config, create_objective
+    from lightgbm_tpu_torch.boosting import create_boosting
+    X, y, X_test, _ = data
+    n = len(y)
+    cfg = Config(boosting="goss", top_rate=0.2, other_rate=0.1,
+                 **HIGGS_PARAMS)
+    booster = create_boosting("goss", cfg, ds,
+                              create_objective("binary", cfg))
+    label = torch.as_tensor(y, device=booster.device)
+    warm = int(1.0 / cfg.learning_rate)
+    top_k, other_k = int(n * 0.2), int(n * 0.1)
+    replay = np.random.RandomState(int(cfg.bagging_seed))
+    r = {"iter_s": [], "losses": [], "fetches": []}
+    from lightgbm_tpu_torch import device as D
+    D.reset_launches()
+    for it in range(GOSS_ITERS):
+        t = time.perf_counter()
+        booster.train_one_iter()
+        torch.cuda.synchronize()
+        r["iter_s"].append(time.perf_counter() - t)
+        r["losses"].append(logloss(booster.train_score[0], label))
+        r["fetches"].append(booster.last_arrays.host_fetches)
+        if it < warm:
+            if booster.goss_weight is not None:
+                raise AssertionError("GOSS sampled in warm-up iteration %d"
+                                     % it)
+            continue
+        sampled = replay.choice(n - top_k, size=other_k, replace=False)
+        key = booster.goss_key.cpu().numpy()
+        want = goss_weights_host(key, top_k, sampled, (n - top_k) / other_k)
+        got = booster.goss_weight.cpu().numpy()
+        nz = int(np.count_nonzero(got))
+        if not (np.array_equal(got.view(np.uint32), want.view(np.uint32))
+                and nz == top_k + other_k
+                and booster.bag_data_cnt == top_k + other_k):
+            raise AssertionError(
+                "iteration %d: GOSS weights differ from the host's in %d "
+                "rows; %d nonzero, bag_data_cnt %d, want %d"
+                % (it, int((got != want).sum()), nz, booster.bag_data_cnt,
+                   top_k + other_k))
+        log("  iteration %d: device weights equal the host argsort and "
+            "replayed draws byte for byte; %d nonzero (top %d + other %d, "
+            "x%.1f)" % (it, nz, top_k, other_k, (n - top_k) / other_k))
+    r.update(launches=D.launches(), trees=len(booster.models),
+             splits=sum(t.num_leaves - 1 for t in booster.models))
+    report_path("K", r, n)
+    log("  seconds per iteration: warm-up median %.4f, sampled %s"
+        % (float(np.median(r["iter_s"][:warm])),
+           ["%.4f" % v for v in r["iter_s"][warm:]]))
+    start = logloss(torch.full_like(label,
+                                    booster.objective.boost_from_score(0)),
+                    label)
+    if not (falls(r["losses"][:warm], start) and r["losses"][-1]
+            < r["losses"][warm - 1] and np.isfinite(r["losses"]).all()):
+        raise AssertionError("GOSS train log loss %s" % r["losses"])
+    raw = booster.predict(X_test, raw_score=True)
+    check_predictions(booster, X, X_test, raw)
+    check_tree0(booster, n, strict=False)
+    expect_leafwise_launches("K", r)
+    profile_path(r, booster, profile)
+    r["warm_s"] = r["iter_s"][:warm]
+    return r
+
+
+def dart_drop_plan(cfg, iters: int) -> list:
+    """The dropped iterations of each of ``iters`` DART iterations, from
+    ``RandomState(drop_seed)`` alone: without ``uniform_drop`` the draws
+    depend on the iterations' weights, which are their learning rates
+    ``learning_rate / (1 + k)`` scaled by each later drop (dart.hpp:95-183;
+    this plan covers ``xgboost_dart_mode=false``)."""
+    rng = np.random.RandomState(int(cfg.drop_seed))
+    weight, total, plan = [], 0.0, []
+    for it in range(iters):
+        drop = []
+        if rng.uniform() >= cfg.skip_drop and total > 0:
+            inv_avg = len(weight) / total
+            rate = min(cfg.drop_rate, cfg.max_drop * inv_avg / total)
+            for i in range(it):
+                if rng.uniform() < rate * weight[i] * inv_avg:
+                    drop.append(i)
+                    if len(drop) >= cfg.max_drop:
+                        break
+        k = float(len(drop))
+        for i in drop:
+            total -= weight[i] / (k + 1.0)
+            weight[i] *= k / (k + 1.0)
+        weight.append(cfg.learning_rate / (1.0 + k))
+        total += weight[-1]
+        plan.append(drop)
+    return plan
+
+
+def phase_dart(device, data, ds, profile: bool) -> dict:
+    """Path (L): DART at its defaults (``drop_rate=0.1``, ``skip_drop=0.5``,
+    ``max_drop=50``, ``drop_seed=4``) on (A)'s binned rows through
+    ``lightgbm_tpu_torch.train`` with (A)'s held-out rows as a validation
+    set, for as many iterations as the host's drop plan needs for two of
+    them to drop trees."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch import Config
+    X, y, X_test, y_test = data
+    n = len(y)
+    params = dict(HIGGS_PARAMS, boosting="dart", metric="binary_logloss")
+    cfg = Config(**params)
+    plan = dart_drop_plan(cfg, 64)
+    iters = [i for i, d in enumerate(plan) if d][1] + 1
+    log("  host drop plan of %d iterations: %s" % (iters, plan[:iters]))
+    train = lgb.Dataset(X, y)
+    train.handle = ds
+    valid = lgb.Dataset(X_test, y_test, reference=train).construct()
+    label = torch.as_tensor(y, device=device)
+    drops = []
+
+    class Drops:
+        order = 6
+        before_iteration = False
+
+        def __call__(self, env):
+            drops.append(list(env.model._booster.drop_index))
+    rec = IterationRecorder(label)
+    from lightgbm_tpu_torch import device as D
+    evals = {}
+    D.reset_launches()
+    booster = lgb.train(params, train, num_boost_round=iters,
+                        valid_sets=[valid], valid_names=["test"],
+                        evals_result=evals, verbose_eval=False,
+                        callbacks=[rec, rec.start, Drops()])
+    gbdt = booster._booster
+    r = {"iter_s": rec.iter_s, "losses": rec.losses,
+         "fetches": rec.fetches, "launches": D.launches(),
+         "trees": len(gbdt.models),
+         "splits": sum(t.num_leaves - 1 for t in gbdt.models)}
+    report_path("L", r, n)
+    log("  dropped iterations per iteration %s; held-out log loss %s"
+        % (drops, ["%.6f" % v for v in evals["test"]["binary_logloss"]]))
+    if drops != plan[:iters]:
+        raise AssertionError("drops %s, host plan %s" % (drops,
+                                                          plan[:iters]))
+    start = logloss(torch.full_like(label,
+                                    gbdt.objective.boost_from_score(0)),
+                    label)
+    if not (np.isfinite(r["losses"]).all() and r["losses"][-1] < start):
+        raise AssertionError("DART train log loss %s" % r["losses"])
+    # the train score is the sum of the (re-weighted) trees over the bins
+    acc = torch.zeros(n, dtype=torch.float64, device=device)
+    for tree in gbdt.models:
+        gbdt._add_tree_score(tree, gbdt.train_bins(), acc)
+    score = gbdt.train_score[0].double()
+    err = float((score - acc).abs().max())
+    bound = 1e-5 * float(score.abs().max())
+    if not err <= bound:
+        raise AssertionError("train score vs the sum of the trees: max|diff|"
+                             " %.3g > %.3g" % (err, bound))
+    log("  train score vs the sum of the model's %d trees routed over the "
+        "training bins: max|diff| %.3g (bound %.3g)" % (len(gbdt.models),
+                                                        err, bound))
+    raw = check_validation_scores(gbdt, booster, X_test)
+    check_predictions(gbdt, X, X_test, raw)
+    check_tree0(gbdt, n, strict=False)
+    expect_leafwise_launches("L", r)
+    profile_path(r, gbdt, profile)
+    r["drops"] = drops
+    return r
+
+
+def phase_rf(device, data, ds, profile: bool) -> dict:
+    """Path (M): random forest (``bagging_fraction=0.632``,
+    ``bagging_freq=1``, ``feature_fraction=0.8``) on (A)'s binned rows:
+    ``average_output`` in the model text, ``predict`` the mean of the
+    trees, the train score their running mean, and the first and last
+    trees equal to plain rebuilds on the gradients of the constant initial
+    score with their iteration's bag and feature masks."""
+    from lightgbm_tpu_torch import Config, create_objective
+    from lightgbm_tpu_torch.boosting import create_boosting
+    X, y, X_test, _ = data
+    n = len(y)
+    cfg = Config(boosting="rf", bagging_fraction=0.632, bagging_freq=1,
+                 feature_fraction=0.8, **HIGGS_PARAMS)
+    booster = create_boosting("rf", cfg, ds, create_objective("binary", cfg))
+    label = torch.as_tensor(y, device=booster.device)
+    r = run_iterations(booster, RF_ITERS, label)
+    report_path("M", r, n)
+    text = booster.save_model_to_string()
+    if "\naverage_output\n" not in text[:text.index("Tree=")]:
+        raise AssertionError("the model text lacks average_output")
+    k = 2000
+    xs = X_test[:k].astype(np.float64)
+    mean = np.mean([t.predict(xs) for t in booster.models], axis=0)
+    raw = booster.predict(X_test, raw_score=True)
+    err = float(np.abs(raw[:k] - mean).max())
+    train = booster.train_score[0, :k].double().cpu().numpy()
+    err_t = float(np.abs(booster.predict(X[:k], raw_score=True)
+                         - train).max())
+    if not (err <= PREDICT_ATOL and err_t <= TRAIN_SCORE_ATOL
+            and np.isfinite(raw).all()):
+        raise AssertionError("RF predict vs the mean of Tree.predict %.3g, "
+                             "train score vs predict %.3g" % (err, err_t))
+    log("  model text has average_output; predict vs the mean of the %d "
+        "trees' Tree.predict on %d held-out rows: max|diff| %.3g; train "
+        "score (running mean) vs predict on %d training rows: %.3g"
+        % (len(booster.models), k, err, k, err_t))
+    if not (r["losses"][-1] < logloss(torch.full_like(
+            label, booster.objective.boost_from_score(0)), label)):
+        raise AssertionError("RF train log loss %s" % r["losses"])
+    frng = np.random.RandomState(int(cfg.feature_fraction_seed))
+    masks = []
+    for _ in range(RF_ITERS):
+        used = max(1, int(round(ds.num_features * 0.8)))
+        m = np.zeros(ds.num_features, bool)
+        m[frng.choice(ds.num_features, size=used, replace=False)] = True
+        masks.append(torch.as_tensor(m, device=booster.device))
+    for i in (0, RF_ITERS - 1):
+        bag = bag_mask_host(n, int(cfg.bagging_seed), i, 0.632)
+        check_tree0(booster, n, strict=False, index=i, feature_mask=masks[i],
+                    bag=(torch.as_tensor(bag, device=booster.device),
+                         int(bag.sum())))
+    expect_leafwise_launches("M", r)
+    profile_path(r, booster, profile)
+    return r
+
+
+def paid_bits_host(booster, bins, F: int) -> torch.Tensor:
+    """Lazy CEGB's paid bits recomputed from the model: a row has paid
+    feature f once a node splitting on f lies on its path in some tree,
+    i.e. its leaf lies in the subtree of such a node."""
+    from lightgbm_tpu_torch.core.tree_learner import (arrays_from_tree,
+                                                      route_binned)
+    n = bins.shape[0]
+    bits = torch.zeros((n, -(-F // 8)), dtype=torch.uint8,
+                       device=bins.device)
+    fh = booster.learner.feat_host
+    for tree in booster.models:
+        leaf = route_binned(bins, arrays_from_tree(tree, booster.train_data),
+                            fh)
+        for node in range(tree.num_leaves - 1):
+            f = int(tree.split_feature_inner[node])
+            under = torch.as_tensor(subtree_leaves(tree, node),
+                                    device=bins.device)
+            bits[:, f // 8] |= (torch.isin(leaf, under).to(torch.uint8)
+                                << (f % 8))
+    return bits
+
+
+def phase_forced_cegb(device, data, ds, profile: bool) -> dict:
+    """Path (N): forced splits and CEGB on (A)'s binned rows, leaf-wise,
+    exact: a three-split schedule in the form of LightGBM's
+    examples/binary_classification/forced_splits.json (the root on feature
+    25 and both its children on feature 26, at the features' medians)
+    written to a temporary file, and the split, coupled and lazy CEGB
+    penalties over the 28 features."""
+    import tempfile
+    from lightgbm_tpu_torch import Config, GBDT, create_objective
+    from lightgbm_tpu_torch.core.tree_learner import SerialTreeLearner
+    X, y, X_test, _ = data
+    n = len(y)
+    med = [float(np.median(X[:, f])) for f in (25, 26)]
+    spec = {"feature": 25, "threshold": med[0],
+            "left": {"feature": 26, "threshold": med[1]},
+            "right": {"feature": 26, "threshold": med[1]}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_forced_")
+    fname = os.path.join(tmp, "forced_splits.json")
+    with open(fname, "w") as fh:
+        json.dump(spec, fh)
+    F = ds.num_features
+    cfg = Config(forcedsplits_filename=fname, cegb_penalty_split=1e-5,
+                 cegb_penalty_feature_coupled=[2.0] * F,
+                 cegb_penalty_feature_lazy=[1e-5] * F, **HIGGS_PARAMS)
+    try:
+        booster = GBDT(cfg, ds, create_objective("binary", cfg))
+        # tree 0's plain rebuild needs a learner in the initial CEGB state
+        fresh = SerialTreeLearner(ds, cfg, booster.device)
+    finally:
+        os.remove(fname)
+        os.rmdir(tmp)
+    learner = booster.learner
+    label = torch.as_tensor(y, device=booster.device)
+    r = run_iterations(booster, FORCED_ITERS, label)
+    report_path("N", r, n)
+    sched = [a.tolist() for a in learner.forced]
+    log("  forced schedule (leaf, feature, threshold bin): %s; row width %d "
+        "(%d paid-bit bytes)" % (list(zip(*sched)), learner.layout.W,
+                                 learner.layout.bitbytes))
+    for i, t in enumerate(booster.models):
+        got = (list(t.split_feature_inner[:3]), list(t.threshold_in_bin[:3]),
+               int(t.left_child[0]), int(t.right_child[0]))
+        if got != (sched[1], sched[2], 1, 2):
+            raise AssertionError("tree %d's first splits %s, forced %s"
+                                 % (i, got, sched))
+    log("  every tree's first three splits are the forced ones")
+    want = paid_bits_host(booster, booster.train_bins(), F)
+    got = learner.cegb_paid
+    if not torch.equal(got, want):
+        raise AssertionError("paid bits differ from the host recompute in "
+                             "%d rows" % int((got != want).any(1).sum()))
+    used = np.flatnonzero(learner.cegb_used)
+    log("  paid bits equal to the recompute from the trees and the rows' "
+        "leaves (%d of %d rows x features paid); features used %s"
+        % (int(sum(int(((got >> b) & 1).sum()) for b in range(8))), n * F,
+           used.tolist()))
+    start = logloss(torch.full_like(label,
+                                    booster.objective.boost_from_score(0)),
+                    label)
+    if not falls(r["losses"], start):
+        raise AssertionError("train log loss %s" % r["losses"])
+    raw = booster.predict(X_test, raw_score=True)
+    check_predictions(booster, X, X_test, raw)
+    check_tree0(booster, n, strict=False, learner=fresh)
+    del fresh
+    expect_leafwise_launches("N", r)
+    profile_path(r, booster, profile)
+    return r
+
+
+def phase_pool(device, eps: dict, profile: bool) -> dict:
+    """Path (O): (D)'s binned Epsilon-shaped rows (not binned again) with
+    ``histogram_pool_size=125``: K LRU slots in place of the per-leaf
+    cache; an evicted parent is rebuilt from its window by the histogram
+    kernel.  Held to (D)'s first two trees with the JAX package's bounds
+    for a pooled build (tests/test_hist_pool.py
+    ``test_pooled_build_exact_mode_tight``)."""
+    from lightgbm_tpu_torch import Config, GBDT, create_objective
+    from lightgbm_tpu_torch.core.tree_learner import (arrays_from_tree,
+                                                      route_binned)
+    ds = eps["train"].handle
+    n = ds.num_data
+    cfg = Config(histogram_pool_size=POOL_MB, **EPSILON_PARAMS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    booster = GBDT(cfg, ds, create_objective("binary", cfg))
+    learner = booster.learner
+    label = torch.as_tensor(np.asarray(ds.metadata.label), device=device)
+    r = run_iterations(booster, POOL_ITERS, label)
+    peak = torch.cuda.max_memory_allocated()
+    report_path("O", r, n)
+    K, L = learner.hist_pool_slots, EPSILON_PARAMS["num_leaves"]
+    misses = sum(r["misses"])
+    log("  pool: %d slots of %d leaves, cache %.1f MB against the per-leaf "
+        "cache's %.1f MB; peak device memory %.1f MB (path (D) %.1f MB); "
+        "rebuilt parents per tree %s"
+        % (K, L, hist_cache_bytes(learner, K) / 1e6,
+           hist_cache_bytes(learner, L) / 1e6, peak / 1e6,
+           eps["peak_bytes"] / 1e6, r["misses"]))
+    if K != 32 or misses == 0:
+        raise AssertionError("%d slots (want 32), %d rebuilds" % (K, misses))
+    bins = booster.train_bins()
+    fh = learner.feat_host
+    for i, (a, b) in enumerate(zip(eps["models"], booster.models)):
+        nl = a.num_leaves
+        same = float(np.mean(a.split_feature_inner[:nl - 1]
+                             == b.split_feature_inner[:nl - 1]))
+        la = route_binned(bins, arrays_from_tree(a, ds), fh)
+        lb = route_binned(bins, arrays_from_tree(b, ds), fh)
+        rows = float((la == lb).double().mean())
+        va, vb = np.sort(a.leaf_value[:nl]), np.sort(b.leaf_value[:nl])
+        close = (b.num_leaves == nl
+                 and np.allclose(vb, va, rtol=1e-4, atol=1e-5))
+        log("  tree %d vs (D)'s: %.2f%% of split features, %.2f%% of the "
+            "rows' leaves equal; sorted leaf values max|diff| %.3g"
+            % (i, 100 * same, 100 * rows, float(np.abs(va - vb).max())))
+        if not (same >= 0.98 and rows >= 0.98 and close):
+            raise AssertionError("pooled tree %d differs from (D)'s" % i)
+    expect_leafwise_launches("O", r, rebuilt=misses)
+    profile_path(r, booster, profile)
+    r["peak_bytes"], r["cache_bytes"] = peak, hist_cache_bytes(learner, K)
+    return r
+
+
 def profile_iteration(booster) -> float:
     """One more training iteration under ``torch.profiler``: the kernels by
     device time, and the device's busy share of the iteration's wall time."""
@@ -2527,12 +3021,34 @@ def main(argv=None) -> int:
         " %d iterations" % (NUM_CLASS, args.iters))
     paths["G"] = phase_multiclass(device, data, ds, args.iters, args.profile)
     torch.cuda.empty_cache()
+    log("  (K) GOSS on (A)'s binned rows: top_rate=0.2, other_rate=0.1, %d "
+        "iterations (the first 10 without sampling)" % GOSS_ITERS)
+    paths["K"] = phase_goss(device, data, ds, args.profile)
+    torch.cuda.empty_cache()
+    log("  (L) DART on (A)'s binned rows at its defaults, "
+        "lightgbm_tpu_torch.train with the held-out rows as a validation "
+        "set")
+    paths["L"] = phase_dart(device, data, ds, args.profile)
+    torch.cuda.empty_cache()
+    log("  (M) random forest on (A)'s binned rows: bagging_fraction=0.632, "
+        "bagging_freq=1, feature_fraction=0.8, %d iterations" % RF_ITERS)
+    paths["M"] = phase_rf(device, data, ds, args.profile)
+    torch.cuda.empty_cache()
+    log("  (N) forced splits + CEGB on (A)'s binned rows, leaf-wise, exact, "
+        "%d iterations" % FORCED_ITERS)
+    paths["N"] = phase_forced_cegb(device, data, ds, args.profile)
+    torch.cuda.empty_cache()
     del data, ds
     log("  (D) Epsilon-shaped, lightgbm_tpu_torch.train with a validation "
         "set: %d + %d rows x %d features, max_bin=255, num_leaves=255, %d "
         "iterations" % (nw, args.widef_test_rows, WIDE_F, args.iters))
     paths["D"] = phase_epsilon(device, nw, args.widef_test_rows, args.iters,
                                args.profile)
+    torch.cuda.empty_cache()
+    log("  (O) histogram pool on (D)'s binned rows: histogram_pool_size=%d, "
+        "%d iterations" % (POOL_MB, POOL_ITERS))
+    paths["O"] = phase_pool(device, paths["D"], args.profile)
+    del paths["D"]["train"], paths["D"]["models"]
     torch.cuda.empty_cache()
     log("  (H) lambdarank, MS LTR-shaped: %d rows x %d features, metric=ndcg,"
         " eval_at=1,3,5,10, max_bin=255, num_leaves=255, %d iterations"

@@ -7,15 +7,16 @@ validation set made with ``reference=`` (or ``create_valid``) is binned with
 the training set's bin mappers.  A :class:`Booster` trains on the device its
 ``device=`` names, ``cuda`` unless the caller passes ``"cpu"``.
 
-``Booster.update(fobj=...)`` trains on a custom objective's gradients.
-Sparse input (a scipy sparse matrix or :class:`CSRData`) is binned straight
-from CSR without densifying (``BinnedDataset.from_csr``, whose EFB bundles
-the sparse features) unless ``categorical_feature`` is given, which the
-sparse binner does not take: then it is densified, as in the JAX package
-(basic.py:85-112, :227-250).  Not carried over yet, and refused with
-``NotImplementedError``: pandas input (ROADMAP queue 1 item 1), leaf-index and
-contribution prediction, the boosters other than ``gbdt`` (queue 1 items 10
-and 12).  Telemetry, serving and checkpoints are
+``Booster.update(fobj=...)`` trains on a custom objective's gradients.  The
+booster is built by ``boosting.create_boosting``: ``boosting=gbdt``,
+``dart``, ``goss`` or ``rf`` (aliases resolved by the config).  Sparse input
+(a scipy sparse matrix or :class:`CSRData`) is binned straight from CSR
+without densifying (``BinnedDataset.from_csr``, whose EFB bundles the sparse
+features) unless ``categorical_feature`` is given, which the sparse binner
+does not take: then it is densified, as in the JAX package (basic.py:85-112,
+:227-250).  Not carried over yet, and refused with ``NotImplementedError``:
+pandas input (ROADMAP queue 1 item 1), leaf-index and contribution
+prediction (queue 1 items 6 and 12).  Telemetry, serving and checkpoints are
 TPU-era planes with no counterpart here (queue 1 items 11 and 15).
 """
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 
+from .boosting import create_boosting
 from .boosting.gbdt import GBDT
 from .config import Config, alias_transform
 from .device import DeviceLike
@@ -216,14 +218,12 @@ class Booster:
             if not isinstance(train_set, Dataset):
                 raise TypeError("Training data should be Dataset instance, "
                                 "met " + type(train_set).__name__)
-            if self.config.boosting != "gbdt":
-                _refuse("boosting=%s" % self.config.boosting,
-                        "queue 1 item 10")
             train_set.construct()
             objective = create_objective(self.config.objective, self.config,
                                          device=device)
-            self._booster = GBDT(self.config, train_set.handle, objective,
-                                 device=device)
+            self._booster = create_boosting(self.config.boosting, self.config,
+                                            train_set.handle, objective,
+                                            device=device)
             self._booster.add_train_metrics(
                 create_metrics(self.config.metric, self.config))
         elif model_file is not None or model_str is not None:

@@ -3,15 +3,19 @@
 Counterpart of ``lightgbm_tpu/boosting/gbdt.py`` (the reference ``GBDT``,
 src/boosting/gbdt.cpp, gbdt.h): ``__init__``, ``_boost_from_average``,
 bagging (``_bagging``: the JAX package's stateless per-row hash, plain and
-pos/neg balanced) and ``feature_fraction`` (``_feature_mask``),
-``train_one_iter`` (synchronous: one host tree per class and iteration; with
-``gradients``/``hessians`` for a custom objective), the leaf renewal of the
-percentile objectives (``_renew_tree_output``), ``train_score``, validation
-sets (``add_valid_data``, ``_add_tree_score``), metrics and early
-stopping (``eval_train``, ``eval_valid``, ``eval_and_check_early_stopping``),
-the host loop ``train``, the replay of a loaded model
-(``replay_train_score``), ``predict``, ``feature_importance`` and the
-reference-compatible text model (``save_model_to_string`` /
+pos/neg balanced; ``_bag_rng``, the sequential stream GOSS samples from) and
+``feature_fraction`` (``_feature_mask``), ``train_one_iter`` (synchronous:
+one host tree per class and iteration; with ``gradients``/``hessians`` for a
+custom objective; the hooks ``_get_gradients`` and
+``_adjust_gradients_for_bagging`` that DART and GOSS override), the leaf
+renewal of the percentile objectives (``_renew_tree_output``),
+``train_score``, validation sets (``add_valid_data``), the score add of a
+host tree (``_add_tree_score_train`` / ``_add_tree_score_valid``, which
+DART's drops use), metrics and early stopping (``eval_train``,
+``eval_valid``, ``eval_and_check_early_stopping``), the host loop ``train``,
+the replay of a loaded model (``replay_train_score``), ``predict`` (averaged
+over the iterations for ``average_output``, as RF's), ``feature_importance``
+and the reference-compatible text model (``save_model_to_string`` /
 ``load_model_from_string``, gbdt_model_text.cpp:271,375).
 
 Scores live on the device: ``train_score`` [K, N] f32 and one [K, N_v] f32
@@ -22,8 +26,10 @@ gradients on the device, the bag mask and feature mask, then per class one
 tree from :class:`SerialTreeLearner` on the masked gradients, the tree's leaf
 values scaled by the learning rate in f32, the class's train score updated
 through the tree's ``row_leaf`` and each validation score by routing the
-set's bins on the device (``route_binned``).  The fused multi-iteration scan,
-snapshots, checkpoints and DART/GOSS/RF are not ported yet (ROADMAP queue 1).
+set's bins on the device (``route_binned``).  DART, GOSS and RF subclass
+this class (``boosting/dart.py``, ``goss.py``, ``rf.py``; built by
+``boosting.create_boosting``).  The fused multi-iteration scan, snapshots and
+checkpoints are not ported yet (ROADMAP queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -90,6 +96,10 @@ class GBDT:
     ``cuda`` unless the caller passes ``"cpu"``; no silent CPU fallback."""
 
     average_output = False
+    # the host tree takes the f32-scaled leaf values (the JAX package's lazy
+    # path); DART sets False: its host trees shrink in f64 and its scores
+    # take the f32 products (the JAX package's synchronous path)
+    lazy_trees = True
 
     def __init__(self, config: Config,
                  train_data: Optional[BinnedDataset] = None,
@@ -159,8 +169,12 @@ class GBDT:
         self._row_ids = torch.arange(self.num_data, dtype=torch.int64,
                                      device=self.device)
         self._feat_rng = np.random.RandomState(int(cfg.feature_fraction_seed))
+        # the sequential stream GOSS draws its "other" rows from (gbdt.py:
+        # 419-422); plain bagging stays on the stateless hash
+        self._bag_rng = np.random.RandomState(int(cfg.bagging_seed))
         self.bag_mask: Optional[torch.Tensor] = None
         self.bag_data_cnt = self.num_data
+        self._train_bins: Optional[torch.Tensor] = None
 
     def add_train_metrics(self, metrics: Sequence[Metric]) -> None:
         self.train_metrics = list(metrics)
@@ -188,7 +202,7 @@ class GBDT:
               "bins": self.learner.valid_bins(valid_data),
               "metrics": list(metrics), "score": score}
         for i, tree in enumerate(self.models):
-            self._add_tree_score(tree, vs["bins"], vs["score"][i % K])
+            self._add_tree_score_valid(tree, i % K, vs)
         self.valid_sets.append(vs)
 
     def _add_tree_score(self, tree: Tree, bins: torch.Tensor,
@@ -201,6 +215,25 @@ class GBDT:
         lv = torch.as_tensor(arrays.leaf_value, device=self.device)
         score += lv[route_binned(bins, arrays, self.learner.feat_host)]
 
+    def train_bins(self) -> torch.Tensor:
+        """The training set's binned matrix [N, C] on the device, made once
+        (``route_bins_matrix``, tree_learner.py:1950-1960): what a host
+        tree is routed over when it is added to the train score."""
+        if self._train_bins is None:
+            self._train_bins = self.learner.valid_bins(self.train_data)
+        return self._train_bins
+
+    def _add_tree_score_train(self, tree: Tree, class_id: int) -> None:
+        """train_score[class_id] += the host tree's f32 leaf values over the
+        training rows (gbdt.py:537-552)."""
+        self._add_tree_score(tree, self.train_bins(),
+                             self.train_score[class_id])
+
+    def _add_tree_score_valid(self, tree: Tree, class_id: int,
+                              vs: dict) -> None:
+        """The same for the validation set ``vs`` (gbdt.py:554-563)."""
+        self._add_tree_score(tree, vs["bins"], vs["score"][class_id])
+
     def replay_train_score(self) -> None:
         """train_score += every tree of a loaded model, in f32, one tree at a
         time into its class (the loaded-model replay of
@@ -208,9 +241,8 @@ class GBDT:
         if not self.models or self.train_data is None:
             return
         K = self.num_tree_per_iteration
-        bins = self.learner.valid_bins(self.train_data)
         for i, tree in enumerate(self.models):
-            self._add_tree_score(tree, bins, self.train_score[i % K])
+            self._add_tree_score_train(tree, i % K)
 
     # ---- bagging and feature sampling (gbdt.cpp:160-276) ----
 
@@ -265,14 +297,18 @@ class GBDT:
 
     # ---- boosting (gbdt.cpp:143-158, 322-368) ----
 
-    def _boost_from_average(self, class_id: int) -> float:
+    def _boost_from_average(self, class_id: int,
+                            update_scorer: bool = True) -> float:
+        """The first iteration's constant score of ``class_id``, added to
+        the scores when ``update_scorer`` (RF takes it without adding it)."""
         if (not self.models and not self._has_init_score
                 and self.objective is not None):
             if self.config.boost_from_average \
                     or self.train_data.num_features == 0:
                 init_score = self.objective.boost_from_score(class_id)
                 if abs(init_score) > K_EPSILON:
-                    self._add_constant_score(init_score, class_id)
+                    if update_scorer:
+                        self._add_constant_score(init_score, class_id)
                     Log.info("Start training from score %f", init_score)
                     return init_score
             elif self.objective.name in ("regression_l1", "quantile", "mape"):
@@ -312,6 +348,7 @@ class GBDT:
             raise LightGBMError("non-finite gradients/hessians at iteration "
                                 "%d" % self.iter_)
         self._bagging(self.iter_)
+        grad, hess = self._adjust_gradients_for_bagging(grad, hess)
         feature_mask = self._feature_mask()
         should_continue = False
         for k in range(K):
@@ -349,6 +386,12 @@ class GBDT:
         self.iter_ += 1
         return False
 
+    def _adjust_gradients_for_bagging(self, grad: torch.Tensor,
+                                      hess: torch.Tensor):
+        """[K, N] gradients after the iteration's bagging; GOSS folds its
+        row weights in here (gbdt.py:1256)."""
+        return grad, hess
+
     def _grow_scores(self, arrays: TreeArrays, k: int,
                      init_score: float) -> Tree:
         """Add a trained tree of class ``k`` to the train and validation
@@ -356,26 +399,32 @@ class GBDT:
         percentile objectives, then scaled by the learning rate)."""
         rate = np.float32(self.shrinkage_rate)
         renewed = self._renew_tree_output(arrays, k)
-        if renewed is None:
+        if renewed is None and self.lazy_trees:
             # leaf values scaled by the learning rate in f32, as the
             # reference's binary path does before its score update
             scaled = arrays._replace(
                 leaf_value=arrays.leaf_value * rate,
                 internal_value=arrays.internal_value * rate)
             tree = tree_from_arrays(scaled, self.train_data, 1.0)
+            valid_lv = scaled.leaf_value
         else:
-            # the JAX package's synchronous path: the host tree's renewed
-            # values shrink in f64, the scores take them in f32
+            # the JAX package's synchronous path (gbdt.py:1174-1254): the
+            # host tree's (renewed) values shrink in f64, the train score
+            # takes the f32 products and the validation scores the host
+            # tree's values in f32
             tree = tree_from_arrays(arrays, self.train_data, 1.0)
-            tree.leaf_value[:tree.num_leaves] = renewed
+            if renewed is not None:
+                tree.leaf_value[:tree.num_leaves] = renewed
+                arrays = arrays._replace(leaf_value=renewed.astype(np.float32))
             tree.shrink(self.shrinkage_rate)
-            scaled = arrays._replace(
-                leaf_value=renewed.astype(np.float32) * rate)
+            scaled = arrays._replace(leaf_value=arrays.leaf_value * rate)
+            valid_lv = tree.leaf_value[:tree.num_leaves].astype(np.float32)
         lv = torch.as_tensor(scaled.leaf_value, device=self.device)
         self.train_score[k] += lv[arrays.row_leaf]
+        vlv = torch.as_tensor(valid_lv, device=self.device)
         for vs in self.valid_sets:
-            vs["score"][k] += lv[route_binned(vs["bins"], scaled,
-                                              self.learner.feat_host)]
+            vs["score"][k] += vlv[route_binned(vs["bins"], scaled,
+                                               self.learner.feat_host)]
         if abs(init_score) > K_EPSILON:
             tree.add_bias(init_score)
         self.last_arrays = scaled
@@ -509,6 +558,11 @@ class GBDT:
         booster's device."""
         raw = self._raw_predict(X, num_iteration, start_iteration)
         raw = raw.cpu().numpy()
+        if self.average_output:
+            # the mean of the trees' outputs, over every iteration of the
+            # model (gbdt.py:2119-2121)
+            raw = raw / max(len(self.models) // self.num_tree_per_iteration,
+                            1)
         if not raw_score and self.objective is not None:
             raw = np.asarray(self.objective.convert_output(raw))
         return raw[0] if self.num_tree_per_iteration == 1 else raw.T

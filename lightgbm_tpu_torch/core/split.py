@@ -6,8 +6,9 @@ Counterpart of ``lightgbm_tpu/core/split.py`` (the reference
 evaluated at once with prefix sums over the bin axis.  Ported:
 ``SplitParams``, ``FeatureInfo``, ``BestSplit``, ``FeatureBest``,
 ``calculate_leaf_output``, ``leaf_split_gain*``, ``per_feature_best`` (with
-the monotone ``cmin``/``cmax`` clamp and the ``extra_trees`` threshold draw,
-``_extra_trees_mask``), ``per_feature_best_categorical`` (one-hot and the
+the monotone ``cmin``/``cmax`` clamp, the ``extra_trees`` threshold draw,
+``_extra_trees_mask``, and the one-threshold ``threshold_mask`` of a forced
+split), ``per_feature_best_categorical`` (one-hot and the
 sorted many-vs-many scan), ``per_feature_best_combined``, ``_split_gains_clamped``,
 ``reduce_feature_best``, ``best_split_numerical`` and ``dequantize_hist``;
 ``contri_scale``/``apply_feature_contri`` are the JAX learner's ``_apply_contri``
@@ -212,12 +213,15 @@ def _leaf_totals(hist, sum_grad, sum_hess, num_data):
 def per_feature_best(hist: torch.Tensor, feat: FeatureInfo,
                      feature_mask: torch.Tensor, sum_grad, sum_hess,
                      num_data, params: SplitParams, cmin=None,
-                     cmax=None) -> FeatureBest:
+                     cmax=None, threshold_mask=None) -> FeatureBest:
     """Best numerical split of EACH feature of a leaf.
 
     hist: [..., F, 2, B] f32; sum_grad/sum_hess/num_data: leaf totals [...]
     (f32 tensors); feature_mask: [F] bool; cmin/cmax: the leaf's monotone
-    bounds [...] or None.  Outputs are [..., F]."""
+    bounds [...] or None.  ``threshold_mask`` [B] bool restricts the
+    candidates to the thresholds it holds: the stats of one forced threshold
+    (split.py:200-209, feature_histogram.hpp:306 GatherInfoForThreshold),
+    which take no ``extra_trees`` draw.  Outputs are [..., F]."""
     F, B = hist.shape[-3], hist.shape[-1]
     dev = hist.device
     f32 = torch.float32
@@ -282,7 +286,10 @@ def per_feature_best(hist: torch.Tensor, feat: FeatureInfo,
     valid1 = has_missing & (t <= nb - 2)
     valid1 = valid1 & torch.where(is_zero_mode, ~is_def, True)
 
-    if params.extra_trees:
+    if threshold_mask is not None:
+        valid0 = valid0 & threshold_mask
+        valid1 = valid1 & threshold_mask
+    elif params.extra_trees:
         et = _extra_trees_mask(feat, sg0, sh0, t, params)
         valid0 = valid0 & et
         valid1 = valid1 & et

@@ -43,11 +43,35 @@ scal row; monotone constraints propagate the leaf bounds ``cmin``/``cmax``
 (tree_learner.py:984-997, :1220-1230); ``extra_trees`` and ``feature_contri``
 act inside the split scan (``core/split.py``).
 
-Not ported yet, and refused with ``NotImplementedError``: forced splits,
-CEGB, the histogram pool and the parallel learners.
+Leaf-wise growth also takes the JAX learner's leaf-wise-only options:
+
+- forced splits (``forcedsplits_filename``, ``_load_forced_splits``): a BFS
+  schedule of (leaf, feature, threshold bin); the k-th split takes the k-th
+  entry while every earlier one applied (``forced_best``,
+  tree_learner.py:662-696), gathered from the leaf's cached histogram with
+  the candidates restricted to that bin;
+- CEGB (``cegb_*``, ``_init_cegb``): each candidate's gain loses the split
+  penalty times the leaf's count, the coupled penalty of a feature not yet
+  used, and the lazy penalty of the leaf's rows that have not paid the
+  feature yet (tree_learner.py:634-647).  The first use of a feature refunds
+  its coupled penalty in every leaf's cached per-feature candidates (the
+  cache ``fbc``) and promotes those that now win (:998-1040).  The lazy
+  paid bits, one per (row, feature), ride in ``ceil(F / 8)`` bytes after
+  the order column of the row store, so the split passes move them with
+  the rows;
+- the histogram pool (``histogram_pool_size`` MB): the per-leaf cache
+  becomes K LRU slots, and a parent whose slot was evicted is rebuilt by
+  streaming its window through the histogram kernel (:819-835, :940-980).
+  It is ignored, with a warning, with forced splits or CEGB.
+
+``tree_grow_mode=level`` with any of them grows leaf-wise, with one warning
+(``effective_grow_mode``, tree_learner.py:1780-1808).  Not ported yet, and
+refused with ``NotImplementedError``: the parallel learners.
 """
 from __future__ import annotations
 
+import json
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -60,9 +84,12 @@ from .histogram import histogram_rows, pad_bins_pow2
 from .partition import (SCAL_HEAD, partition_hist, partition_hist_level,
                         scal_missing_code)
 from .quant import quantize_gradients
-from .split import (K_MIN_SCORE, BestSplit, FeatureInfo, SplitParams,
-                    best_split, contri_scale, dequantize_hist)
+from .split import (K_MIN_SCORE, BestSplit, FeatureBest, FeatureInfo,
+                    SplitParams, apply_feature_contri, best_split,
+                    contri_scale, dequantize_hist, per_feature_best,
+                    per_feature_best_combined, reduce_feature_best)
 from .tree import Tree
+from ..utils.log import Log
 
 CHUNK = 4096     # the spare row block past every window (partition.py CHUNK)
 
@@ -93,6 +120,10 @@ class TreeArrays(NamedTuple):
     row_leaf: Optional[torch.Tensor]
     host_fetches: int = 0
     levels: int = 0
+    pool_misses: int = 0         # parents rebuilt by the histogram pool
+    # lazy CEGB: the paid bits after this tree, [N, ceil(F / 8)] u8 in
+    # original row order
+    paid_bits: Optional[torch.Tensor] = None
 
 
 class RowLayout(NamedTuple):
@@ -101,12 +132,19 @@ class RowLayout(NamedTuple):
     nbytes_bins: int  # bin bytes per row
     voff: int         # f32 grad at voff, f32 hess at voff+4, s32 order at voff+8
     W: int            # row width, a multiple of 128
+    bitbytes: int = 0  # lazy CEGB paid bits at voff+12: bit f % 8 of byte
+                       # f // 8 is feature f
+
+    @property
+    def bitoff(self) -> int:
+        return self.voff + 12
 
 
-def row_layout(ncols: int, bpc: int) -> RowLayout:
+def row_layout(ncols: int, bpc: int, bitbytes: int = 0) -> RowLayout:
     nbytes = ncols * bpc
     voff = -(-nbytes // 4) * 4
-    return RowLayout(bpc, nbytes, voff, -(-(voff + 12) // 128) * 128)
+    return RowLayout(bpc, nbytes, voff,
+                     -(-(voff + 12 + bitbytes) // 128) * 128, bitbytes)
 
 
 def bin_bytes(binned: np.ndarray) -> np.ndarray:
@@ -221,6 +259,27 @@ def unpack_groups(hist: torch.Tensor, group: torch.Tensor, lanes: tuple,
     return hf
 
 
+class CegbState(NamedTuple):
+    """The CEGB penalties of one tree (``_init_cegb``, tree_learner.py:
+    1706-1732, scaled by ``cegb_tradeoff``, over the used features) and the
+    state carried between trees: the features split on so far and, for lazy
+    penalties, the paid bits of every (row, feature) in original row
+    order."""
+    split_pen: torch.Tensor            # f32 scalar
+    coupled: torch.Tensor              # [F] f32
+    lazy: Optional[torch.Tensor]       # [F] f32, None without lazy penalties
+    used: np.ndarray                   # [F] bool
+    paid: Optional[torch.Tensor]       # [N, ceil(F / 8)] u8 (lazy only)
+
+
+def pool_slot_count(pool_mb: float, columns: int, num_bins: int) -> int:
+    """Histogram pool slots for ``histogram_pool_size`` MB (MiB, as the
+    reference's HistogramPool sizes it): one slot holds a leaf's [columns,
+    2, num_bins] f32 histogram; at least 2 (tree_learner.py:1612-1634)."""
+    slot_bytes = columns * 2 * num_bins * 4
+    return max(2, int(pool_mb * 1024 * 1024 // slot_bytes))
+
+
 def level_count(num_leaves: int, max_depth: int) -> int:
     """Levels of a ``tree_grow_mode=level`` build (tree_learner.py:1321-1324):
     ``min(max_depth, L - 1)``, else ``ceil(log2 L)``."""
@@ -232,13 +291,18 @@ def level_count(num_leaves: int, max_depth: int) -> int:
 class _Growth:
     """One tree while it grows: the device row store and per-leaf histogram
     cache, and the host bookkeeping in numpy f32/i32 (so it does the JAX
-    program's f32 arithmetic), the monotone bounds ``cmin``/``cmax`` among
-    it.  ``fetches`` counts the device->host transfers, ``levels`` the level
-    steps."""
+    program's f32 arithmetic), the monotone bounds ``cmin``/``cmax`` and the
+    leaf totals ``lsum_g``/``lsum_h`` among it.  With ``pool_slots`` the
+    cache holds that many LRU slots (``slot_of`` per leaf, ``stamps`` per
+    slot); ``forced`` is the forced-split schedule, ``cegb`` the tree's CEGB
+    state.  ``fetches`` counts the device->host transfers, ``levels`` the
+    level steps, ``misses`` the pool's rebuilt parents."""
 
     def __init__(self, rows, grad, hess, num_data, scan: SplitScan,
                  feat_host, *, num_leaves, num_bins, layout, hist_features,
-                 packed, qscale, hist_fn, part_fn, level_fn, spare=None):
+                 packed, qscale, hist_fn, part_fn, level_fn, spare=None,
+                 forced=None, cegb: Optional[CegbState] = None,
+                 pool_slots: int = 0):
         n = grad.shape[0]
         L = num_leaves
         B = num_bins
@@ -251,28 +315,56 @@ class _Growth:
         self.stores = None if spare is None else (rows, spare)
         self.scan, self.feat_host = scan, feat_host
         self.layout, self.qscale = layout, qscale
-        self.part_fn, self.level_fn = part_fn, level_fn
+        self.hist_fn, self.part_fn, self.level_fn = hist_fn, part_fn, level_fn
         self.hkw = dict(num_features=hist_features, voff=layout.voff,
                         bpc=layout.bpc, packed=packed,
                         quantized=qscale is not None)
         self.fetches = 0
         self.levels = 0
+        self.misses = 0
         self.cmin = np.full(L, -np.inf, dtype=f32)
         self.cmax = np.full(L, np.inf, dtype=f32)
+        self.forced, self.force_on = forced, True
+        self.cegb = cegb
+        self.lazy = cegb is not None and cegb.lazy is not None
+        self.num_features = F = scan.feat.num_bin.shape[0]
+        if self.lazy:
+            # rows that paid a feature's lazy cost in earlier trees
+            lo = layout.bitoff
+            rows[:n, lo:lo + layout.bitbytes] = cegb.paid
+        self.feat_used = None if cegb is None else cegb.used.copy()
 
         # ---- root ----
-        self.hist = torch.zeros((L, hist_features, 2, B), dtype=torch.float32,
-                                device=dev)
-        self.hist[0] = self._dequant(hist_fn(rows, B, 0, n, **self.hkw))
+        hist0 = self._dequant(hist_fn(rows, B, 0, n, **self.hkw))
+        self.pool = max(2, min(pool_slots, L)) if pool_slots > 0 else 0
+        self.hist = torch.zeros((self.pool or L, hist_features, 2, B),
+                                dtype=torch.float32, device=dev)
+        self.hist[0] = hist0
+        if self.pool:
+            self.slot_of = np.full(L, -1, np.int64)
+            self.slot_of[0] = 0
+            self.stamps = np.full(self.pool, -1, np.int64)
+            self.stamps[0] = 0
         if qscale is None:
             sums = torch.stack([grad.sum(), hess.sum()]).to(torch.float32)
         else:
             # the integer sums (exact in f64) times the iteration's scales
             sums = torch.stack([grad.double().sum(), hess.double().sum()]
                                ).float() * qscale
-        best0 = self._best(self.hist[0], sums[0], sums[1],
-                           torch.tensor(float(num_data), device=dev),
-                           self.cmin[0], self.cmax[0])
+        ucnt0 = (self._paid_counts(rows[:n]).sum(0, dtype=torch.int32)
+                 .to(torch.float32) if self.lazy else None)
+        best0, fb0 = self._best(hist0, sums[0], sums[1],
+                                torch.tensor(float(num_data), device=dev),
+                                self.cmin[0], self.cmax[0], ucnt0)
+        if fb0 is not None:
+            # the per-(leaf, feature) candidates (splits_per_leaf_)
+            self.fbc = FeatureBest(*[
+                torch.full((L,) + x.shape,
+                           K_MIN_SCORE if name == "gain" else 0,
+                           dtype=x.dtype, device=dev)
+                for name, x in zip(FeatureBest._fields, fb0)])
+            for x, v in zip(self.fbc, fb0):
+                x[0] = v
         root, sums_host = self._fetch(best0, sums)
         sum_h = f32(sums_host[1])
 
@@ -289,6 +381,8 @@ class _Growth:
         self.cat_bitset = np.zeros_like(self.bests["cat_bitset"])
         self.leaf_weight[0] = sum_h
         self.leaf_count[0] = f32(num_data)
+        self.lsum_g, self.lsum_h = zl(), zl()
+        self.lsum_g[0], self.lsum_h[0] = f32(sums_host[0]), sum_h
         self.begin = np.zeros(L, dtype=np.int64)
         self.wcount = np.zeros(L, dtype=np.int64)
         self.wcount[0] = n
@@ -300,10 +394,22 @@ class _Growth:
         return hist if self.qscale is None else dequantize_hist(hist,
                                                                 self.qscale)
 
-    def _best(self, hist, sum_grad, sum_hess, count, cmin, cmax) -> BestSplit:
+    def _paid_counts(self, window: torch.Tensor) -> torch.Tensor:
+        """[R, F] bools of the rows of ``window`` (row-store rows) that
+        paid each feature's lazy cost, unpacked from their bit bytes."""
+        lo = self.layout.bitoff
+        bits = window[:, lo:lo + self.layout.bitbytes]
+        shifts = torch.arange(8, dtype=torch.uint8, device=self.dev)
+        return ((bits[..., None] >> shifts) & 1).reshape(
+            bits.shape[0], -1)[:, :self.num_features].bool()
+
+    def _best(self, hist, sum_grad, sum_hess, count, cmin, cmax, ucnt=None):
         """Best splits of leaves from their cached (group) histograms, leaf
         totals and monotone bounds (host f32): the JAX learner's ``best_of``
-        on the unpacked histograms."""
+        on the unpacked histograms.  Returns (BestSplit, the per-feature
+        candidates with the CEGB penalties, or None without CEGB);
+        ``ucnt`` [..., F] counts the leaves' rows that paid each feature's
+        lazy cost."""
         sc, dev = self.scan, self.dev
         sg = torch.as_tensor(sum_grad, dtype=torch.float32, device=dev)
         sh = torch.as_tensor(sum_hess, dtype=torch.float32, device=dev)
@@ -313,9 +419,25 @@ class _Growth:
         if sc.monotone:
             bounds = dict(cmin=torch.as_tensor(cmin, device=dev),
                           cmax=torch.as_tensor(cmax, device=dev))
-        return best_split(hist, sc.feat, sc.feature_mask, sg, sh, count,
-                          sc.params, any_categorical=sc.categorical,
-                          contri=sc.contri, **bounds)
+        if self.cegb is None:
+            return best_split(hist, sc.feat, sc.feature_mask, sg, sh, count,
+                              sc.params, any_categorical=sc.categorical,
+                              contri=sc.contri, **bounds), None
+        fb = apply_feature_contri(per_feature_best_combined(
+            hist, sc.feat, sc.feature_mask, sg, sh, count, sc.params,
+            sc.categorical, **bounds), sc.contri)
+        # DetlaGain (cost_effective_gradient_boosting.hpp:50-61)
+        cg = self.cegb
+        cnt = torch.as_tensor(count, dtype=torch.float32, device=dev)[...,
+                                                                      None]
+        used = torch.as_tensor(self.feat_used, device=dev)
+        penalty = cg.split_pen * cnt + torch.where(
+            used, torch.zeros_like(cg.coupled), cg.coupled)
+        if cg.lazy is not None:
+            penalty = penalty + cg.lazy * torch.clamp(cnt - ucnt, min=0.0)
+        fb = fb._replace(gain=torch.where(fb.gain > K_MIN_SCORE,
+                                          fb.gain - penalty, fb.gain))
+        return reduce_feature_best(fb), fb
 
     def _fetch(self, best: BestSplit, extra: torch.Tensor):
         self.fetches += 1
@@ -368,19 +490,20 @@ class _Growth:
         rmax = np.where(is_num & (mono < 0), np.minimum(pmax, mid), pmax)
         return lmin, lmax, rmin, rmax
 
-    def _children(self, hist_small, leaf, kid, left_smaller, b, bounds):
+    def _children(self, hist_small, parent, dst_left, dst_right,
+                  left_smaller, b, bounds, ucnt=None):
         """Subtraction trick and the children's best splits, batched over
-        the G splits of a step: returns the batched BestSplit over the 2G
-        children (all left children first) and caches both histograms."""
+        the G splits of a step: the larger child is ``parent`` (the parents'
+        histograms [G, ...]) minus the smaller; both are cached at cache
+        rows ``dst_left`` / ``dst_right``.  Returns the batched BestSplit
+        over the 2G children (all left children first)."""
         dev = self.dev
-        lt = torch.as_tensor(leaf, device=dev)
-        kt = torch.as_tensor(kid, device=dev)
-        hist_larger = self.hist[lt] - hist_small
+        hist_larger = parent - hist_small
         ls = torch.as_tensor(left_smaller, device=dev)[:, None, None, None]
         hist_left = torch.where(ls, hist_small, hist_larger)
         hist_right = torch.where(ls, hist_larger, hist_small)
-        self.hist[lt] = hist_left
-        self.hist[kt] = hist_right
+        self.hist[torch.as_tensor(dst_left, device=dev)] = hist_left
+        self.hist[torch.as_tensor(dst_right, device=dev)] = hist_right
 
         def pair(lf, rf):
             return torch.as_tensor(np.concatenate([b[lf], b[rf]]),
@@ -391,7 +514,7 @@ class _Growth:
             pair("left_sum_grad", "right_sum_grad"),
             pair("left_sum_hess", "right_sum_hess"),
             pair("left_count", "right_count"),
-            np.concatenate([lmin, rmin]), np.concatenate([lmax, rmax]))
+            np.concatenate([lmin, rmin]), np.concatenate([lmax, rmax]), ucnt)
 
     def _apply(self, leaf, kid, node, b, nl, wb, wc, fetched,
                bounds) -> None:
@@ -422,6 +545,10 @@ class _Growth:
         self.leaf_weight[kid] = b["right_sum_hess"]
         self.leaf_count[leaf] = b["left_count"]
         self.leaf_count[kid] = b["right_count"]
+        self.lsum_g[leaf], self.lsum_g[kid] = (b["left_sum_grad"],
+                                               b["right_sum_grad"])
+        self.lsum_h[leaf], self.lsum_h[kid] = (b["left_sum_hess"],
+                                               b["right_sum_hess"])
         self.leaf_parent[leaf] = node
         self.leaf_parent[kid] = node
         depth = self.leaf_depth[leaf] + 1
@@ -438,9 +565,40 @@ class _Growth:
             self.bests[f][kid] = v[G:]
         self.nl_leaves += G
 
+    def _forced_best(self, k: int) -> dict:
+        """The stats of the k-th forced split (``forced_best``,
+        tree_learner.py:662-696): the scan of its leaf's cached histogram
+        for its feature, restricted to its threshold bin (no feature mask,
+        ``feature_contri`` or CEGB penalty), as host fields [1]."""
+        fleaf, ffeat, fthr = (int(a[k - 1]) for a in self.forced)
+        sc, dev = self.scan, self.dev
+        sg, sh = (torch.tensor(float(a[fleaf]), dtype=torch.float32,
+                               device=dev)
+                  for a in (self.lsum_g, self.lsum_h))
+        one = slice(ffeat, ffeat + 1)
+        feat1 = FeatureInfo(*[None if a is None else a[one] for a in sc.feat])
+        if sc.lanes is not None:
+            hist = unpack_groups(self.hist[fleaf], feat1.group,
+                                 tuple(x[one] for x in sc.lanes), sg, sh)
+        else:
+            hist = self.hist[fleaf, one]
+        bounds = {}
+        if sc.monotone:
+            bounds = dict(cmin=self.cmin[fleaf], cmax=self.cmax[fleaf])
+        tmask = torch.arange(hist.shape[-1], device=dev) == fthr
+        fb = per_feature_best(hist, feat1, torch.ones(1, dtype=torch.bool,
+                                                      device=dev),
+                              sg, sh, float(self.leaf_count[fleaf]),
+                              sc.params, threshold_mask=tmask, **bounds)
+        best, _ = self._fetch(reduce_feature_best(fb),
+                              torch.zeros(0, device=dev))
+        best["feature"][:] = ffeat
+        return fleaf, best
+
     def split_leaf(self, max_depth: int) -> bool:
-        """One leaf-wise step: split the leaf with the best cached gain
-        (tree_learner.py:852-1120).  False when no leaf can split."""
+        """One leaf-wise step: split the leaf with the best cached gain, or
+        the next forced split while the schedule holds (tree_learner.py:
+        852-1120).  False when no leaf can split."""
         L = self.L
         gains = np.where(np.arange(L) < self.nl_leaves, self.bests["gain"],
                          np.float32(K_MIN_SCORE))
@@ -448,9 +606,21 @@ class _Growth:
             gains = np.where(self.leaf_depth < max_depth, gains,
                              np.float32(K_MIN_SCORE))
         leaf = int(np.argmax(gains))
-        if not gains[leaf] > 0.0:
+        ok = bool(gains[leaf] > 0.0)
+        b = None
+        k = self.nl_leaves
+        if self.forced is not None and self.force_on \
+                and k <= self.forced[0].size:
+            fleaf, fb = self._forced_best(k)
+            if fb["gain"][0] > K_MIN_SCORE and (
+                    max_depth <= 0 or self.leaf_depth[fleaf] < max_depth):
+                leaf, ok, b = fleaf, True, fb
+            else:
+                # one failed entry invalidates the rest of the schedule
+                self.force_on = False
+        if not ok:
             return False
-        return self._split(np.asarray([leaf], np.int64))
+        return self._split(np.asarray([leaf], np.int64), b=b)
 
     def split_level(self, d: int) -> bool:
         """One level step (``level_step``, tree_learner.py:1122-1309): split
@@ -469,17 +639,44 @@ class _Growth:
         self.levels += 1
         return self._split(leaf, depth=d)
 
-    def _split(self, leaf: np.ndarray, depth: Optional[int] = None) -> bool:
-        """Split the leaves ``leaf``: leaf-wise (one leaf, ``depth`` None)
-        or a level of depth-``depth`` leaves, from store depth % 2 into the
-        other."""
+    def _refund(self, f: int) -> None:
+        """The first use of feature ``f`` in this training: its coupled
+        penalty is refunded in every leaf's cached candidate for ``f``, and
+        a leaf whose refunded candidate beats its cached best takes it
+        (UpdateLeafBestSplits, tree_learner.py:998-1040)."""
+        fbc = self.fbc
+        fbc.gain[:, f] += self.cegb.coupled[f]
+        col = BestSplit(feature=torch.full_like(fbc.threshold[:, f], f),
+                        **{name: getattr(fbc, name)[:, f]
+                           for name in FeatureBest._fields})
+        cand, _ = self._fetch(col, torch.zeros(0, device=self.dev))
+        old = self.bests["gain"]
+        promote = (old > K_MIN_SCORE) & (cand["gain"] > old)
+        for name, v in cand.items():
+            self.bests[name][promote] = v[promote]
+
+    def _split(self, leaf: np.ndarray, depth: Optional[int] = None,
+               b: Optional[dict] = None) -> bool:
+        """Split the leaves ``leaf``: leaf-wise (one leaf, ``depth`` None;
+        ``b`` a forced split's fields, else the cached bests) or a level of
+        depth-``depth`` leaves, from store depth % 2 into the other."""
         G = leaf.size
         kid = self.nl_leaves + np.arange(G, dtype=np.int64)
         node = kid - 1
-        b = {f: v[leaf] for f, v in self.bests.items()}
+        if b is None:
+            b = {f: v[leaf] for f, v in self.bests.items()}
         wb, wc = self.begin[leaf], self.wcount[leaf]
         left_smaller = b["left_count"] <= b["right_count"]
         scal = self._scal(wb, wc, b, left_smaller)
+        if self.cegb is not None:
+            f = int(b["feature"][0])
+            if not self.feat_used[f]:
+                self._refund(f)
+                self.feat_used[f] = True
+            if self.lazy:
+                # every row of the split leaf pays the feature's lazy cost
+                col = self.layout.bitoff + f // 8
+                self.rows[wb[0]:wb[0] + wc[0], col] |= 1 << (f % 8)
         if depth is not None:
             hist_small, nl_t = self.level_fn(
                 self.stores[depth % 2], self.stores[1 - depth % 2], scal,
@@ -488,19 +685,63 @@ class _Growth:
             self.rows, hist_small, nl_t = self.part_fn(
                 self.rows, scal[0].tolist(), num_bins=self.B, **self.hkw)
             hist_small = hist_small[None]
+        hist_small = self._dequant(hist_small)
+        if self.pool:
+            parent, dst_l, dst_r = self._pool_slots(int(leaf[0]), int(kid[0]),
+                                                    int(wb[0]), int(wc[0]))
+        else:
+            parent = self.hist[torch.as_tensor(leaf, device=self.dev)]
+            dst_l, dst_r = leaf, kid
+        ucnt = None
+        if self.lazy:
+            paid = self._paid_counts(self.rows[wb[0]:wb[0] + wc[0]])
+            in_left = (torch.arange(int(wc[0]), device=self.dev)
+                       < nl_t.reshape(-1)[0])[:, None]
+            used_l = (paid & in_left).sum(0, dtype=torch.int32)
+            used_r = paid.sum(0, dtype=torch.int32) - used_l
+            ucnt = torch.stack([used_l, used_r]).to(torch.float32)
         bounds = self._bounds(leaf, b)
-        child = self._children(self._dequant(hist_small), leaf, kid,
-                               left_smaller, b, bounds)
+        child, child_fb = self._children(hist_small, parent, dst_l, dst_r,
+                                         left_smaller, b, bounds, ucnt)
+        if child_fb is not None:
+            for x, v in zip(self.fbc, child_fb):
+                x[torch.as_tensor(leaf, device=self.dev)] = v[:G]
+                x[torch.as_tensor(kid, device=self.dev)] = v[G:]
         fetched, nl_host = self._fetch(child, nl_t)
         self._apply(leaf, kid, node, b, nl_host.astype(np.int64), wb, wc,
                     fetched, bounds)
         return True
 
+    def _pool_slots(self, leaf: int, kid: int, wb: int, wc: int):
+        """The histogram pool's part of a leaf-wise split (tree_learner.py:
+        940-980): the parent's histogram [1, ...] from its slot, or rebuilt
+        from its window (after the split pass the window still holds exactly
+        the parent's rows); the left child keeps the parent's slot (or the
+        least recently used one on a miss), the right child evicts the next
+        least recently used slot.  Returns (parent, left slot, right
+        slot)."""
+        ps = int(self.slot_of[leaf])
+        if ps >= 0:
+            parent = self.hist[ps:ps + 1]
+        else:
+            self.misses += 1
+            parent = self._dequant(self.hist_fn(self.rows, self.B, wb, wc,
+                                                **self.hkw))[None]
+        s_l = ps if ps >= 0 else int(np.argmin(self.stamps))
+        stamps = self.stamps.copy()
+        stamps[s_l] = 2 ** 30
+        s_r = int(np.argmin(stamps))
+        self.stamps[[s_l, s_r]] = kid
+        self.slot_of[(self.slot_of == s_l) | (self.slot_of == s_r)] = -1
+        self.slot_of[leaf], self.slot_of[kid] = s_l, s_r
+        return parent, np.asarray([s_l]), np.asarray([s_r])
+
     def arrays(self) -> TreeArrays:
         """The grown tree, with the per-row leaf read from the windows and
         the order bytes: windows tile [0, n) in begin order; the spare block
         stays past row n.  In level growth each position's order bytes are
-        read from the store of its leaf's depth parity."""
+        read from the store of its leaf's depth parity.  Lazy CEGB's paid
+        bits come back in original row order."""
         L, n, dev, layout = self.L, self.n, self.dev, self.layout
         valid = np.flatnonzero((np.arange(L) < self.nl_leaves)
                                & (self.wcount > 0))
@@ -522,6 +763,12 @@ class _Growth:
                                 order_of(self.stores[0]))
         row_leaf = torch.empty(n, dtype=torch.int64, device=dev)
         row_leaf[order] = leaf_of_pos
+        paid = None
+        if self.lazy:
+            lo = layout.bitoff
+            paid = torch.empty((n, layout.bitbytes), dtype=torch.uint8,
+                               device=dev)
+            paid[order] = self.rows[:n, lo:lo + layout.bitbytes]
         return TreeArrays(
             split_feature=self.split_feature,
             threshold_bin=self.threshold_bin, split_gain=self.split_gain,
@@ -534,7 +781,7 @@ class _Growth:
             leaf_parent=self.leaf_parent, leaf_depth=self.leaf_depth,
             cat_bitset=self.cat_bitset, num_leaves=self.nl_leaves,
             row_leaf=row_leaf, host_fetches=self.fetches,
-            levels=self.levels)
+            levels=self.levels, pool_misses=self.misses, paid_bits=paid)
 
 
 def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
@@ -549,7 +796,10 @@ def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
                            level_fn=partition_hist_level,
                            spare: Optional[torch.Tensor] = None,
                            categorical: bool = False, monotone: bool = False,
-                           lanes: Optional[tuple] = None) -> TreeArrays:
+                           lanes: Optional[tuple] = None,
+                           forced: Optional[tuple] = None,
+                           cegb: Optional[CegbState] = None,
+                           pool_slots: int = 0) -> TreeArrays:
     """Grow one tree; ``rows`` is the filled row store (it is partitioned in
     place on the card).  Level growth also writes ``spare``, a second store
     of ``rows``' shape whose contents do not matter (required there, unused
@@ -560,10 +810,15 @@ def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
 
     ``grow_mode`` "leaf" splits the best leaf per step; "level" splits a
     whole depth per step (one level-batched split pass and one batched split
-    scan per level) and never falls back to leaf-wise growth.  ``qscale``
-    (hist_precision=quantized) holds the iteration's (s_g, s_h): grad/hess
-    and the row store then carry the quantized integers and every histogram
-    is dequantized before it is cached.  ``categorical``, ``monotone``
+    scan per level) and never falls back to leaf-wise growth.  Leaf-wise
+    growth also takes ``forced`` (the schedule of
+    ``SerialTreeLearner._load_forced_splits``: leaf, feature and threshold
+    bin arrays), ``cegb`` (:class:`CegbState`; with lazy penalties ``rows``
+    must have the layout's bit bytes) and ``pool_slots`` (histogram pool
+    slots, 0 for one cache row per leaf); level growth refuses them.
+    ``qscale`` (hist_precision=quantized) holds the iteration's (s_g, s_h):
+    grad/hess and the row store then carry the quantized integers and every
+    histogram is dequantized before it is cached.  ``categorical``, ``monotone``
     and ``lanes`` set up the split scan (:class:`SplitScan`).
     ``hist_fn``/``part_fn``/``level_fn`` default to the kernel dispatchers;
     a check may pass the plain versions to rebuild the same tree without the
@@ -571,13 +826,17 @@ def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
     """
     if grow_mode == "level" and spare is None:
         raise ValueError("level growth needs a second row store (spare)")
+    if grow_mode == "level" and (forced is not None or cegb is not None
+                                 or pool_slots > 0):
+        raise ValueError("forced splits, CEGB and the histogram pool grow "
+                         "leaf-wise only")
     scan = SplitScan(feat, feature_mask, params, categorical, monotone,
                      contri_scale(params, feature_mask.device), lanes)
     g = _Growth(rows, grad, hess, num_data, scan, feat_host,
                 num_leaves=num_leaves, num_bins=num_bins, layout=layout,
                 hist_features=hist_features, packed=packed, qscale=qscale,
                 hist_fn=hist_fn, part_fn=part_fn, level_fn=level_fn,
-                spare=spare)
+                spare=spare, forced=forced, cegb=cegb, pool_slots=pool_slots)
     if grow_mode == "level":
         for d in range(level_count(num_leaves, max_depth)
                        if num_leaves > 1 else 0):
@@ -777,6 +1036,7 @@ class SerialTreeLearner:
         self.max_depth = int(config.max_depth)
         self.tree_grow_mode = str(getattr(config, "tree_grow_mode", "leaf")
                                   or "leaf")
+        self._grow_mode_warned = False
         self.quantized = str(getattr(config, "hist_precision", "exact")
                              or "exact") == "quantized"
         # the quantization stream is keyed by (seed, iteration, row id)
@@ -844,10 +1104,34 @@ class SerialTreeLearner:
         else:
             bins_u8 = bin_bytes(matrix)
             bpc = 2 if matrix.dtype == np.uint16 else 1
-        self.layout = row_layout(bins_u8.shape[1] // bpc, bpc)
+        self.forced = self._load_forced_splits(config, dataset)
+        self.cegb = self._init_cegb(config, dataset, dev)
+        lazy = self.cegb is not None and self.cegb[2] is not None
+        F = dataset.num_features
+        self.layout = row_layout(bins_u8.shape[1] // bpc, bpc,
+                                 -(-F // 8) if lazy else 0)
         self.template = row_store_template(bins_u8, self.layout, dev)
         # level growth's second row store, made at its first tree
         self.spare: Optional[torch.Tensor] = None
+        # histogram_pool_size MB -> LRU slots (0: one cache row per leaf)
+        pool_mb = float(getattr(config, "histogram_pool_size", -1.0))
+        self.hist_pool_slots = 0
+        if pool_mb > 0 and (self.forced is not None or self.cegb is not None):
+            Log.warning("histogram_pool_size is ignored with forced splits "
+                        "or CEGB (their candidate caches need every leaf's "
+                        "histogram resident); histogram memory is unbounded")
+        elif pool_mb > 0:
+            self.hist_pool_slots = pool_slot_count(pool_mb, self.num_columns,
+                                                   self.num_bins)
+        # CEGB state kept for the whole training: the features split on
+        # (is_feature_used_in_split_) and, for lazy penalties, every
+        # (row, feature)'s paid bit in original row order
+        # (feature_used_in_data_)
+        self.cegb_used = (np.zeros(F, bool) if self.cegb is not None
+                          else None)
+        self.cegb_paid = (torch.zeros((self.num_data, self.layout.bitbytes),
+                                      dtype=torch.uint8, device=dev)
+                          if lazy else None)
 
     @staticmethod
     def _map_feature_contri(config, dataset: BinnedDataset) -> tuple:
@@ -863,18 +1147,98 @@ class SerialTreeLearner:
                 out[j] = float(contri[orig])
         return tuple(out)
 
+    def _load_forced_splits(self, config, dataset: BinnedDataset):
+        """The BFS schedule of ``forcedsplits_filename``
+        (tree_learner.py:1666-1704; serial_tree_learner.cpp:458
+        ForceSplits): (leaf, inner feature, threshold bin) i32 arrays, the
+        k-th entry the k-th split; a right child's leaf is the id its split
+        creates.  A missing file gives a warning and no schedule; a
+        categorical or unused feature drops the rest of the schedule with a
+        warning."""
+        fname = str(getattr(config, "forcedsplits_filename", "") or "")
+        if not fname:
+            return None
+        if not os.path.exists(fname):
+            Log.warning("Forced splits file %s does not exist", fname)
+            return None
+        with open(fname) as fh:
+            spec = json.load(fh)
+        sched = []
+        queue = [(spec, 0)]
+        while queue and len(sched) < self.num_leaves - 1:
+            node, leaf = queue.pop(0)
+            orig = int(node.get("feature", -1))
+            inner = dataset.inner_feature_map.get(orig)
+            if inner is None or \
+                    dataset.bin_mappers[orig].bin_type == BinType.CATEGORICAL:
+                Log.warning("Forced split on unusable feature %d; dropping "
+                            "the rest of the forced-splits schedule", orig)
+                break
+            thr_bin = int(dataset.bin_mappers[orig].values_to_bins(
+                np.asarray([float(node["threshold"])]))[0])
+            step = len(sched) + 1
+            sched.append((leaf, inner, thr_bin))
+            if "left" in node:
+                queue.append((node["left"], leaf))
+            if "right" in node:
+                queue.append((node["right"], step))
+        if not sched:
+            return None
+        arr = np.asarray(sched, dtype=np.int32)
+        return arr[:, 0], arr[:, 1], arr[:, 2]
+
+    @staticmethod
+    def _init_cegb(config, dataset: BinnedDataset, device):
+        """(tradeoff * penalty_split [f32 scalar], tradeoff * coupled [F],
+        tradeoff * lazy [F] or None) over the used features when CEGB is on
+        (tree_learner.py:1706-1732, cost_effective_gradient_boosting.hpp:
+        25-31 IsEnable), else None.  The per-feature lists are in original
+        feature order and must cover every feature."""
+        tr = float(config.cegb_tradeoff)
+        ps = float(config.cegb_penalty_split)
+        coupled_cfg = list(config.cegb_penalty_feature_coupled or [])
+        lazy_cfg = list(config.cegb_penalty_feature_lazy or [])
+        if ps <= 0.0 and not any(coupled_cfg) and not any(lazy_cfg):
+            return None
+        if coupled_cfg and len(coupled_cfg) != dataset.num_total_features:
+            Log.fatal("cegb_penalty_feature_coupled should be the same size "
+                      "as feature number.")
+        if lazy_cfg and len(lazy_cfg) != dataset.num_total_features:
+            Log.fatal("cegb_penalty_feature_lazy should be the same size "
+                      "as feature number.")
+        coupled = np.zeros(dataset.num_features, dtype=np.float32)
+        lazy = np.zeros(dataset.num_features, dtype=np.float32)
+        for j, orig in enumerate(dataset.used_feature_idx):
+            if orig < len(coupled_cfg):
+                coupled[j] = tr * float(coupled_cfg[orig])
+            if orig < len(lazy_cfg):
+                lazy[j] = tr * float(lazy_cfg[orig])
+        t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+        return (t(np.float32(tr * ps)), t(coupled),
+                t(lazy) if lazy.any() else None)
+
     @staticmethod
     def _check_supported(config) -> None:
-        if str(getattr(config, "forcedsplits_filename", "") or ""):
-            _refuse("forced splits", "queue 1 item 4")
-        if (float(config.cegb_penalty_split) > 0
-                or any(config.cegb_penalty_feature_coupled or [])
-                or any(config.cegb_penalty_feature_lazy or [])):
-            _refuse("CEGB", "queue 1 item 4")
-        if float(getattr(config, "histogram_pool_size", -1.0)) > 0:
-            _refuse("histogram_pool_size", "queue 1 item 4")
         if str(getattr(config, "tree_learner", "serial") or "serial") != "serial":
             _refuse("parallel tree learners", "queue 1 item 13")
+
+    def effective_grow_mode(self) -> str:
+        """The growth mode the builds run (tree_learner.py:1780-1808):
+        ``level`` unless forced splits, CEGB or the histogram pool are on,
+        which grow leaf-wise, with one warning."""
+        if self.tree_grow_mode != "level":
+            return "leaf"
+        blockers = [name for name, on in (
+            ("forced splits", self.forced is not None),
+            ("CEGB", self.cegb is not None),
+            ("histogram_pool_size", self.hist_pool_slots > 0)) if on]
+        if not blockers:
+            return "level"
+        if not self._grow_mode_warned:
+            Log.warning("tree_grow_mode=level unavailable (%s); growing "
+                        "leaf-wise", "; ".join(blockers))
+            self._grow_mode_warned = True
+        return "leaf"
 
     def valid_bins(self, dataset: BinnedDataset) -> torch.Tensor:
         """Binned matrix [N, C] of a validation set (binned with the training
@@ -898,7 +1262,7 @@ class SerialTreeLearner:
         """Split-pass launches one tree makes at most: one per level in
         level mode (whatever the window sizes), L - 1 leaf-wise
         (tree_learner.py:1834-1848)."""
-        if self.tree_grow_mode == "level":
+        if self.effective_grow_mode() == "level":
             return self.level_count()
         return self.num_leaves - 1
 
@@ -910,7 +1274,8 @@ class SerialTreeLearner:
         """grad/hess: [N] f32 on the learner's device.  ``iteration`` keys
         the quantized path's rounding hash (ignored when exact);
         ``hist_fn``/``part_fn``/``level_fn`` as in
-        :func:`build_tree_partitioned`."""
+        :func:`build_tree_partitioned`.  With CEGB, the features this tree
+        splits on (and the lazy paid bits) carry over to the next call."""
         if feature_mask is None:
             feature_mask = torch.ones(self.dataset.num_features, dtype=torch.bool,
                                       device=self.device)
@@ -921,15 +1286,26 @@ class SerialTreeLearner:
                                                     int(iteration),
                                                     self.quant_seed)
         rows = fill_gradients(self.template, self.layout, grad, hess)
-        if self.tree_grow_mode == "level" and self.spare is None:
+        grow_mode = self.effective_grow_mode()
+        if grow_mode == "level" and self.spare is None:
             self.spare = torch.empty_like(self.template)
-        return build_tree_partitioned(
+        cegb = None
+        if self.cegb is not None:
+            cegb = CegbState(*self.cegb, self.cegb_used, self.cegb_paid)
+        arrays = build_tree_partitioned(
             rows, grad, hess, int(num_data_in_bag), feature_mask, self.feat,
             self.feat_host, num_leaves=self.num_leaves,
             max_depth=self.max_depth, params=self.params,
             num_bins=self.num_bins, layout=self.layout,
             hist_features=self.num_columns, packed=self.packed,
-            grow_mode=self.tree_grow_mode, qscale=qscale, hist_fn=hist_fn,
+            grow_mode=grow_mode, qscale=qscale, hist_fn=hist_fn,
             part_fn=part_fn, level_fn=level_fn, spare=self.spare,
             categorical=self.has_categorical, monotone=self.has_monotone,
-            lanes=self.lanes)
+            lanes=self.lanes, forced=self.forced, cegb=cegb,
+            pool_slots=self.hist_pool_slots)
+        if cegb is not None:
+            # tree_learner.py:1930-1937 _update_cegb_used, and the paid bits
+            self.cegb_used[arrays.split_feature[:arrays.num_leaves - 1]] = True
+            if arrays.paid_bits is not None:
+                self.cegb_paid = arrays.paid_bits
+        return arrays

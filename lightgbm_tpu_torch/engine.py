@@ -5,10 +5,12 @@
 Parameter aliases for the round count and early stopping, callback ordering
 (before/after an iteration), early stopping through ``EarlyStopException``,
 ``evals_result`` recording and continued training from ``init_model`` follow
-the JAX package.  The port adds ``device=``: ``cuda`` unless the caller passes
-``"cpu"``.  Not carried over yet, and refused with ``NotImplementedError``:
-``cv``, ``serve``, ``serve_and_train``, checkpoints and preemption (ROADMAP
-queue 1 items 11 and 15).
+the JAX package.  ``params["boosting"]`` picks GBDT, DART, GOSS or random
+forest (``boosting.create_boosting``, through ``Booster``).  The port adds
+``device=``: ``cuda`` unless the caller passes ``"cpu"``.  Not carried over
+yet, and refused with ``NotImplementedError``: ``cv``, ``serve``,
+``serve_and_train``, checkpoints and preemption (ROADMAP queue 1 items 11
+and 15).
 """
 from __future__ import annotations
 

@@ -162,14 +162,8 @@ def bundled_cat_dataset():
 
 
 @pytest.mark.parametrize("params,item", [
-    (dict(forcedsplits_filename="forced.json"), "queue 1 item 4"),
-    (dict(cegb_penalty_split=0.5), "queue 1 item 4"),
-    (dict(cegb_penalty_feature_coupled=[1.0, 2.0]), "queue 1 item 4"),
-    (dict(cegb_penalty_feature_lazy=[1.0]), "queue 1 item 4"),
-    (dict(histogram_pool_size=64.0), "queue 1 item 4"),
     (dict(tree_learner="data"), "queue 1 item 13"),
-], ids=["forced_splits", "cegb_split", "cegb_coupled", "cegb_lazy",
-        "histogram_pool_size", "parallel"])
+], ids=["parallel"])
 def test_still_refused(bundled_cat_dataset, params, item):
     cfg = Config(objective="binary", verbosity=-1, **params)
     with pytest.raises(NotImplementedError, match="ROADMAP %s" % item):
@@ -178,13 +172,26 @@ def test_still_refused(bundled_cat_dataset, params, item):
 
 @pytest.mark.parametrize("params", [
     dict(), dict(monotone_constraints=[0] * 62 + [1, -1]),
-    dict(feature_contri=[0.5] * 64), dict(extra_trees=True)],
-    ids=["bundled_categorical", "monotone", "feature_contri", "extra_trees"])
-def test_lifted_refusals_are_gone(bundled_cat_dataset, params):
+    dict(feature_contri=[0.5] * 64), dict(extra_trees=True),
+    dict(forcedsplits_filename="forced.json"),
+    dict(cegb_penalty_split=1e-4),
+    dict(cegb_penalty_feature_coupled=[1.0, 2.0] * 32),
+    dict(cegb_penalty_feature_lazy=[1e-4] * 64),
+    dict(histogram_pool_size=64.0)],
+    ids=["bundled_categorical", "monotone", "feature_contri", "extra_trees",
+         "forced_splits", "cegb_split", "cegb_coupled", "cegb_lazy",
+         "histogram_pool_size"])
+def test_lifted_refusals_are_gone(bundled_cat_dataset, params, tmp_path):
     """EFB-bundled data, categorical features, monotone constraints,
-    feature_contri and extra_trees build a learner and grow a tree."""
+    feature_contri, extra_trees, forced splits (on numerical column 62),
+    the three CEGB penalties (lists over the dataset's 64 features) and the
+    histogram pool build a learner and grow a tree."""
     ds = bundled_cat_dataset
     assert ds.is_bundled and ds.feature_is_categorical().any()
+    if "forcedsplits_filename" in params:
+        path = tmp_path / params["forcedsplits_filename"]
+        path.write_text('{"feature": 62, "threshold": 0.0}')
+        params = dict(params, forcedsplits_filename=str(path))
     cfg = Config(objective="binary", num_leaves=7, verbosity=-1, **params)
     learner = port_tl.SerialTreeLearner(ds, cfg, device="cpu")
     rng = np.random.RandomState(0)
@@ -192,3 +199,5 @@ def test_lifted_refusals_are_gone(bundled_cat_dataset, params):
     hess = torch.full((ds.num_data,), 0.25)
     arrays = learner.train(grad, hess, ds.num_data)
     assert arrays.num_leaves > 1
+    if "forcedsplits_filename" in params:
+        assert arrays.split_feature[0] == ds.inner_feature_map[62]

@@ -224,7 +224,7 @@ def test_refusals():
         P.Dataset(pd.DataFrame(X[:50]), y[:50])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         P.engine.cv(PARAMS, P.Dataset(X, y))
-    with pytest.raises(NotImplementedError, match="boosting=dart"):
-        P.train(dict(PARAMS, boosting="dart"),
-                P.Dataset(X[:300], y[:300]), num_boost_round=1,
-                device="cpu")
+    booster = P.train(PARAMS, P.Dataset(X[:300], y[:300]),
+                      num_boost_round=1, device="cpu")
+    with pytest.raises(NotImplementedError, match="pred_contrib"):
+        booster.predict(X[:10], pred_contrib=True)
