@@ -131,8 +131,28 @@ together) and runs these phases, each of which raises on failure:
    the rebuilt parents (one histogram launch each), and (D)'s first two
    trees matched to the JAX package's bounds for a pooled build (98% of
    the split features and of the rows' leaves, sorted leaf values within
-   rtol 1e-4); (E) ``build_histogram`` (kernel #5's caller) over 1,048,576
-   rows x 28 features;
+   rtol 1e-4); (P) prediction on (A)'s data with (A)'s trees each repeated
+   100 times (500 trees at 5 iterations): the f32 regime over the training
+   rows, the f64 regime on 511 rows, the binned path over (A)'s row store,
+   ``pred_leaf`` on 65,536 rows, prediction early stop (freq 10, margin
+   4.0) and the bf16 tier, each timed with its peak device memory; the
+   card equal to the port's CPU run bit for bit (within 1e-12 for f64),
+   the f32 scores within (T + 1) * 2**-24 * sum|v| of the f64
+   ``Tree.predict`` sum, raw equal to binned on every training row, the
+   leaves equal to ``Tree.predict_leaf_index`` and the bf16 tier's to the
+   exact tier's; (Q) SHAP contributions of (A)'s model on 65,536 held-out
+   rows (raw) and 65,536 training rows (binned): within rtol 1e-12 of the
+   CPU run and of the host ``Tree.predict_contrib``, every row summing to
+   its f64 raw score within 1e-9, binned equal to raw bit for bit; (R)
+   checkpoint and resume on (A)'s bins into ``build/ckpt/``: GBDT with
+   bagging and ``feature_fraction``, 4 iterations resumed from 2, and DART
+   at (L)'s settings, 6 iterations resumed from 4, each equal to the
+   uninterrupted run in model text and train score bytes, with the
+   checkpoint's size and write and read seconds, and ``rollback_one_iter``
+   after a 5th GBDT iteration giving back the 4-iteration score bytes;
+   every path's ``predict`` is held to the port's CPU run bit for bit and
+   to ``Tree.predict`` within that f32 bound; (E) ``build_histogram``
+   (kernel #5's caller) over 1,048,576 rows x 28 features;
 5. times of each kernel at the main paths' shapes beside its bound, its
    plain version and one PyTorch library call (``index_add_``; for a split
    pass, which has none, the window's device-to-device copy): the
@@ -180,7 +200,9 @@ F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores;
                               # it also stands in for 32-bit integer adds
 HIST_RTOL = 1e-5              # of max|bin sum|: summation order only
 SPLIT_GAIN_TIE_RTOL = 1e-6    # top-two gains closer than this are a tie
-PREDICT_ATOL = 1e-9           # f64 sums of the same leaf values, any order
+F32_U = 2.0 ** -24             # f32 unit roundoff (predict's f32 regime)
+CONTRIB_RTOL = 1e-12          # f64 TreeSHAP, card vs CPU and vs the host
+CONTRIB_SUM_ATOL = 1e-9       # phi rows vs the f64 raw score
 TRAIN_SCORE_ATOL = 1e-5       # f32 running sum of 6 terms of magnitude < 4
 VALID_SCORE_ATOL = 1e-5       # the same for the validation scores
 WIDE_F = 2000                 # Epsilon's dense feature count
@@ -814,7 +836,7 @@ def phase_main_path(device, data, ds, path: str, iters: int,
                                     med))
     return {"launches": counts, "iter_s": iter_s, "auc": auc,
             "splits": splits, "trees": trees, "fetches": fetches,
-            "levels": levels, "busy_ms": busy_ms}
+            "levels": levels, "busy_ms": busy_ms, "booster": booster}
 
 
 def expect_launches(path: str, counts: dict, trees: int, splits: int,
@@ -837,19 +859,54 @@ def expect_launches(path: str, counts: dict, trees: int, splits: int,
                                  % (path, k, v, want.get(k, 0)))
 
 
+def cpu_twin(booster):
+    """The same model on the CPU, loaded from its model text (which keeps
+    every f64 leaf value): the port's own CPU run, for the card-vs-CPU bit
+    checks."""
+    from lightgbm_tpu_torch import GBDT
+    twin = GBDT(booster.config, device="cpu")
+    twin.load_model_from_string(booster.save_model_to_string())
+    return twin
+
+
+def host_sums(models, xs: np.ndarray, K: int):
+    """Per class, the host trees' f64 sum of ``Tree.predict`` over the rows
+    ``xs`` ([n, K]), and the f32 bound of a running sum of the same leaf
+    values: (T + 1) * 2**-24 * sum_t |v_t| per row (the rounding of each
+    leaf value to f32, and of each of the T adds, each below 2**-24 of a
+    partial sum whose magnitude is at most sum_t |v_t|)."""
+    per = [np.stack([t.predict(xs) for t in models[c::K]]) for c in range(K)]
+    host = np.stack([p.sum(axis=0) for p in per], axis=1)
+    bound = np.stack([(len(p) + 1) * F32_U * np.abs(p).sum(axis=0)
+                      for p in per], axis=1)
+    return host, bound
+
+
 def check_predictions(booster, X, X_test, raw, k: int = 2000) -> None:
-    """The card's predictions against the host trees' own ``Tree.predict``
-    (numpy, f64) on ``k`` held-out rows, and the card's f32 train scores
-    (accumulated through the binned routes) against ``predict`` on ``k``
-    training rows; ``raw`` is [n], or [n, K] for K classes."""
+    """The card's predictions on ``k`` held-out rows (from 512 rows on the
+    f32 regime: f32 rows, floored f32 thresholds, an f32 running sum in tree
+    order) against the same model's run on the CPU, bit for bit, and against
+    the host trees' ``Tree.predict`` (numpy, f64) on the f32-cast rows
+    within the f32 bound of :func:`host_sums` (averaged over the iterations
+    for ``average_output``); and the card's f32 train scores (accumulated
+    through the binned routes) against ``predict`` on ``k`` training rows.
+    ``raw`` is [n], or [n, K] for K classes."""
     K = booster.num_tree_per_iteration
-    xs = X_test[:k].astype(np.float64)
-    host = np.stack([sum(t.predict(xs) for t in booster.models[c::K])
-                     for c in range(K)], axis=1)
-    err = float(np.abs(raw[:k].reshape(-1, K) - host).max())
-    if not err <= PREDICT_ATOL:
+    got = raw[:k].reshape(-1, K)
+    cpu = cpu_twin(booster).predict(X_test[:k], raw_score=True).reshape(-1, K)
+    if not np.array_equal(got, cpu):
+        raise AssertionError("card predict vs the CPU run: %d of %d values "
+                             "differ" % (int((got != cpu).sum()), got.size))
+    xs = np.asarray(X_test[:k], np.float32).astype(np.float64)
+    host, bound = host_sums(booster.models, xs, K)
+    if booster.average_output:
+        host, bound = host / (len(booster.models) // K), \
+            bound / (len(booster.models) // K)
+    err = np.abs(got - host)
+    if not (err <= bound).all():
         raise AssertionError("card predict vs host Tree.predict: max|diff| "
-                             "%.3g > %.0e" % (err, PREDICT_ATOL))
+                             "%.3g over its f32 bound in %d rows"
+                             % (float(err.max()), int((err > bound).sum())))
     train = booster.train_score[:, :k].double().cpu().numpy().T
     err_t = float(np.abs(booster.predict(X[:k], raw_score=True).reshape(-1, K)
                          - train).max())
@@ -857,9 +914,10 @@ def check_predictions(booster, X, X_test, raw, k: int = 2000) -> None:
         raise AssertionError("train score vs predict on training rows: "
                              "max|diff| %.3g > %.0e" % (err_t,
                                                        TRAIN_SCORE_ATOL))
-    log("  predict vs host Tree.predict on %d held-out rows: max|diff| %.3g; "
-        "train score vs predict on %d training rows: max|diff| %.3g"
-        % (k, err, k, err_t))
+    log("  predict on %d held-out rows: equal bit for bit to the CPU run; vs "
+        "host Tree.predict max|diff| %.3g (f32 bound up to %.3g); train "
+        "score vs predict on %d training rows: max|diff| %.3g"
+        % (k, float(err.max()), float(bound.max()), k, err_t))
 
 
 def check_tree0(booster, n: int, strict: bool, bag=None,
@@ -2314,22 +2372,13 @@ def phase_rf(device, data, ds, profile: bool) -> dict:
     text = booster.save_model_to_string()
     if "\naverage_output\n" not in text[:text.index("Tree=")]:
         raise AssertionError("the model text lacks average_output")
-    k = 2000
-    xs = X_test[:k].astype(np.float64)
-    mean = np.mean([t.predict(xs) for t in booster.models], axis=0)
     raw = booster.predict(X_test, raw_score=True)
-    err = float(np.abs(raw[:k] - mean).max())
-    train = booster.train_score[0, :k].double().cpu().numpy()
-    err_t = float(np.abs(booster.predict(X[:k], raw_score=True)
-                         - train).max())
-    if not (err <= PREDICT_ATOL and err_t <= TRAIN_SCORE_ATOL
-            and np.isfinite(raw).all()):
-        raise AssertionError("RF predict vs the mean of Tree.predict %.3g, "
-                             "train score vs predict %.3g" % (err, err_t))
-    log("  model text has average_output; predict vs the mean of the %d "
-        "trees' Tree.predict on %d held-out rows: max|diff| %.3g; train "
-        "score (running mean) vs predict on %d training rows: %.3g"
-        % (len(booster.models), k, err, k, err_t))
+    if not np.isfinite(raw).all():
+        raise AssertionError("RF predict is not finite")
+    log("  model text has average_output; predict against the mean of the "
+        "%d trees' Tree.predict, and the train score (running mean):"
+        % len(booster.models))
+    check_predictions(booster, X, X_test, raw)
     if not (r["losses"][-1] < logloss(torch.full_like(
             label, booster.objective.boost_from_score(0)), label)):
         raise AssertionError("RF train log loss %s" % r["losses"])
@@ -2440,6 +2489,276 @@ def phase_forced_cegb(device, data, ds, profile: bool) -> dict:
     expect_leafwise_launches("N", r)
     profile_path(r, booster, profile)
     return r
+
+
+PREDICT_REPEAT = 100          # (P): each of (A)'s 5 trees 100 times
+PREDICT_SMALL_ROWS = 511      # the f64 regime (below 512 rows)
+LEAF_ROWS = 65_536
+EARLY_STOP = dict(pred_early_stop=True, pred_early_stop_freq=10,
+                  pred_early_stop_margin=4.0)
+CONTRIB_ROWS = 65_536
+CKPT_DIR = os.path.join("build", "ckpt")
+
+
+def timed(fn):
+    """(result, seconds, peak device bytes) of one call of ``fn``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t,
+            torch.cuda.max_memory_allocated() - base)
+
+
+def repeated_model(booster, repeat: int, device, **params):
+    """A GBDT on ``device`` holding ``booster``'s trees, each repeated
+    ``repeat`` times in order (loaded from the model text), with
+    ``params`` over the booster's own."""
+    from lightgbm_tpu_torch import Config, GBDT
+    big = GBDT(Config(dict(booster.config.raw_params, **params)),
+               device=device)
+    big.load_model_from_string(booster.save_model_to_string())
+    big.models = [t for t in big.models for _ in range(repeat)]
+    big._invalidate_predict_cache()
+    return big
+
+
+def phase_predict(device, data, ds, booster) -> dict:
+    """Path (P): every prediction path on (A)'s data, with (A)'s 5 trees
+    each repeated 100 times in order (a 500-tree ensemble, the size of the
+    500-iteration Higgs model of docs/Experiments.rst): the f32 regime on
+    the training rows, the f64 regime on 511 rows, the binned path on (A)'s
+    row store, ``pred_leaf``, prediction early stop and the bf16 tier."""
+    from lightgbm_tpu_torch.core.predict import StackedTrees
+    X, _, X_test, _ = data
+    n = len(X)
+    big = repeated_model(booster, PREDICT_REPEAT, device)
+    T = len(big.models)
+    out = {}
+
+    def report(name, rows, secs, peak):
+        out[name] = dict(rows=rows, s=secs, rows_per_s=rows / secs,
+                         peak_bytes=peak)
+        log("  %-22s %9d rows  %.4f s  %.4g rows/s  peak %.1f MiB"
+            % (name, rows, secs, rows / secs, peak / 2 ** 20))
+
+    _, s0, _ = timed(lambda: big.predict(X[:2048], raw_score=True))
+    log("  %d trees stacked on the card and first call in %.3f s"
+        % (T, s0))
+    raw, s, peak = timed(lambda: big.predict(X, raw_score=True))
+    report("f32 raw", n, s, peak)
+    small, s, peak = timed(lambda: big.predict(
+        X_test[:PREDICT_SMALL_ROWS], raw_score=True))
+    report("f64 raw (511 rows)", PREDICT_SMALL_ROWS, s, peak)
+    big.raw_predict_binned(ds)      # stacks the binned predictor
+    binned, s, peak = timed(lambda: big.raw_predict_binned(ds)[0])
+    report("binned", n, s, peak)
+    leaves, s, peak = timed(lambda: big.predict_leaf_index(X[:LEAF_ROWS]))
+    report("pred_leaf", LEAF_ROWS, s, peak)
+    es = repeated_model(booster, PREDICT_REPEAT, device, **EARLY_STOP)
+    es.predict(X[:2048], raw_score=True)
+    es_raw, s, peak = timed(lambda: es.predict(X, raw_score=True))
+    report("pred_early_stop", n, s, peak)
+    stopped = float(np.mean(es_raw != raw))
+    log("  early stop (freq 10, margin 4.0) ended %.4f of the rows before "
+        "the last tree" % stopped)
+    big.predict(X[:2048], raw_score=True, precision="bf16")
+    bf16, s, peak = timed(lambda: big.predict(X, raw_score=True,
+                                              precision="bf16"))
+    report("bf16", n, s, peak)
+    # checks: the card against its CPU run, the host trees and itself
+    cpu = repeated_model(booster, PREDICT_REPEAT, "cpu")
+    k = 2000
+    for name, card, twin in (
+            ("f32", raw[:k], cpu.predict(X[:k], raw_score=True)),
+            ("f64", small, cpu.predict(X_test[:PREDICT_SMALL_ROWS],
+                                       raw_score=True)),
+            ("early stop", es_raw[:k], repeated_model(
+                booster, PREDICT_REPEAT, "cpu", **EARLY_STOP).predict(
+                    X[:k], raw_score=True)),
+            ("bf16", bf16[:k], cpu.predict(X[:k], raw_score=True,
+                                           precision="bf16"))):
+        if name == "f64":
+            ok = np.allclose(card, twin, rtol=0, atol=1e-12)
+        else:
+            ok = np.array_equal(card, twin)
+        if not ok:
+            raise AssertionError("(P) %s scores: card vs CPU run differ by "
+                                 "%.3g" % (name, np.abs(card - twin).max()))
+    log("  card vs the port's CPU run on %d rows: f32, early stop and bf16 "
+        "bit for bit, f64 (%d rows) within 1e-12" % (k, PREDICT_SMALL_ROWS))
+    # the host sums of the 5 distinct trees, each counted 100 times
+    xs = X[:k].astype(np.float64)
+    base = [t.predict(xs) for t in booster.models]
+    per = np.stack([base[i // PREDICT_REPEAT] for i in range(T)])
+    host = per.sum(axis=0)
+    bound = (T + 1) * F32_U * np.abs(per).sum(axis=0)
+    err = np.abs(raw[:k] - host)
+    if not (err <= bound).all():
+        raise AssertionError("(P) f32 scores vs f64 Tree.predict: max|diff| "
+                             "%.3g over the bound" % float(err.max()))
+    log("  f32 scores vs the f64 Tree.predict sum of 500 trees: max|diff| "
+        "%.3g, within (T + 1) * 2**-24 * sum|v| (up to %.3g)"
+        % (float(err.max()), float(bound.max())))
+    if not np.array_equal(raw, binned):
+        raise AssertionError("(P) raw vs binned scores differ in %d training "
+                             "rows" % int((raw != binned).sum()))
+    log("  raw and binned scores bit-equal on the %d training rows" % n)
+    xl = X[:LEAF_ROWS].astype(np.float64)
+    distinct = [t.predict_leaf_index(xl) for t in booster.models]
+    want = np.stack([distinct[i // PREDICT_REPEAT] for i in range(T)], 1)
+    if not np.array_equal(leaves, want):
+        raise AssertionError("(P) pred_leaf vs Tree.predict_leaf_index: %d "
+                             "differ" % int((leaves != want).sum()))
+    bf_leaves = big._fused_predictor(big.models, 0, T, 0,
+                                     precision="bf16")(X[:LEAF_ROWS],
+                                                       want_leaf=True)
+    if not np.array_equal(bf_leaves, leaves):
+        raise AssertionError("(P) the bf16 tier's leaves differ")
+    err_bf = float(np.abs(bf16 - raw).max())
+    log("  pred_leaf equal to Tree.predict_leaf_index on %d rows x %d trees;"
+        " the bf16 tier in the same leaves, its scores within %.3g of the "
+        "exact tier's" % (LEAF_ROWS, T, err_bf))
+    if not (np.isfinite(raw).all() and stopped > 0):
+        raise AssertionError("(P) scores not finite, or early stop ended "
+                             "%.4f of the rows" % stopped)
+    st = StackedTrees(booster.models, device)
+    out.update(trees=T, depth=int(st.depths.max()), stopped_share=stopped,
+               bf16_max_abs_err=err_bf, f32_max_abs_err=float(err.max()))
+    return out
+
+
+def phase_contrib(device, data, ds, booster) -> dict:
+    """Path (Q): SHAP contributions of (A)'s 5-tree model on the card:
+    65,536 held-out rows through the raw path and 65,536 training rows
+    through the binned path."""
+    from lightgbm_tpu_torch.core.predict import StackedTrees
+    X, _, X_test, _ = data
+    rows = CONTRIB_ROWS
+    ncol = booster.max_feature_idx + 2
+    sub = ds.subset(np.arange(rows))
+    booster.predict_contrib(X_test[:8])          # harvest and stack
+    phi, s, peak = timed(lambda: booster.predict_contrib(X_test[:rows]))
+    out = {"raw": dict(rows=rows, s=s, rows_per_s=rows / s,
+                       peak_bytes=peak)}
+    log("  raw:    %d rows x %d trees (depth up to %d) in %.3f s, %.4g rows/s,"
+        " peak %.1f MiB" % (rows, len(booster.models),
+                            int(StackedTrees(booster.models, device)
+                                .depths.max()), s, rows / s,
+                            peak / 2 ** 20))
+    phi_b, s, peak = timed(lambda: booster.predict_contrib_binned(sub))
+    out["binned"] = dict(rows=rows, s=s, rows_per_s=rows / s,
+                         peak_bytes=peak)
+    log("  binned: %d training rows in %.3f s, %.4g rows/s, peak %.1f MiB"
+        % (rows, s, rows / s, peak / 2 ** 20))
+    cpu = cpu_twin(booster)
+    want = cpu.predict_contrib(X_test[:256])
+    if not np.allclose(phi[:256], want, rtol=CONTRIB_RTOL, atol=1e-15):
+        raise AssertionError("(Q) card vs CPU contributions differ by %.3g"
+                             % float(np.abs(phi[:256] - want).max()))
+    xs = np.asarray(X_test[:16], np.float32)
+    host = sum(t.predict_contrib(xs, ncol) for t in booster.models)
+    if not np.allclose(phi[:16], host, rtol=CONTRIB_RTOL, atol=1e-15):
+        raise AssertionError("(Q) card vs host Tree.predict_contrib differ "
+                             "by %.3g" % float(np.abs(phi[:16] - host).max()))
+    raw64 = StackedTrees(booster.models, device).predict(
+        np.asarray(X_test[:rows], np.float32), torch.float64)
+    err_sum = float(np.abs(phi.sum(axis=1) - raw64).max())
+    if not (np.isfinite(phi).all() and err_sum <= CONTRIB_SUM_ATOL):
+        raise AssertionError("(Q) rows sum to the raw score within %.3g"
+                             % err_sum)
+    phi_r = booster.predict_contrib(X[:rows])
+    if not np.array_equal(phi_b, phi_r):
+        raise AssertionError("(Q) binned vs raw contributions differ in %d "
+                             "values" % int((phi_b != phi_r).sum()))
+    log("  card vs the CPU run on 256 rows and vs host Tree.predict_contrib "
+        "on 16 rows within rtol %.0e; rows sum to the f64 raw score within "
+        "%.3g; binned equal to raw bit for bit on %d training rows"
+        % (CONTRIB_RTOL, err_sum, rows))
+    out["sum_max_abs_err"] = err_sum
+    return out
+
+
+def phase_checkpoint(device, data, ds) -> dict:
+    """Path (R): checkpoint and resume on (A)'s bins.  GBDT with
+    ``bagging_fraction=0.8, bagging_freq=1, feature_fraction=0.9``, 4
+    iterations, ``snapshot_freq=2`` into ``build/ckpt/``, resumed by a
+    fresh booster from iteration 2; DART at (L)'s settings, 6 iterations,
+    resumed from iteration 4; ``rollback_one_iter`` after a 5th GBDT
+    iteration."""
+    import shutil
+    from lightgbm_tpu_torch import Config, create_objective
+    from lightgbm_tpu_torch import checkpoint as ckpt
+    from lightgbm_tpu_torch import device as D
+    from lightgbm_tpu_torch.boosting import create_boosting
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    os.makedirs(CKPT_DIR)
+    out = {"trees": 0}
+    D.reset_launches()
+
+    def make(params, iters):
+        cfg = Config(dict(HIGGS_PARAMS, snapshot_freq=2,
+                          num_iterations=iters, **params))
+        return create_boosting(cfg.boosting, cfg, ds,
+                               create_objective("binary", cfg))
+
+    def head(b):
+        text = b.save_model_to_string()
+        return text[:text.index("\nparameters:")]
+
+    cases = (("gbdt", dict(bagging_fraction=0.8, bagging_freq=1,
+                           feature_fraction=0.9), 4, 2),
+             ("dart", dict(boosting="dart"), 6, 4))
+    for name, params, iters, at in cases:
+        prefix = os.path.join(CKPT_DIR, name)
+        full = make(params, iters)
+        full.train(snapshot_out=prefix)
+        out["trees"] += len(full.models)
+        path = ckpt.checkpoint_path(prefix, at)
+        size = os.path.getsize(path)
+        res = make(params, iters)
+        t = time.perf_counter()
+        state = ckpt.load_checkpoint(path)
+        ckpt.restore_state(res, state + (path,))
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t
+        t = time.perf_counter()
+        ckpt.save_checkpoint(res, os.path.join(CKPT_DIR, name + "_again"))
+        write_s = time.perf_counter() - t
+        res.train()
+        out["trees"] += len(res.models) - at
+        same_text = head(res) == head(full)
+        same_score = (res.train_score.cpu().numpy().tobytes()
+                      == full.train_score.cpu().numpy().tobytes())
+        log("  %s: %d iterations, resumed from iteration %d: model text %s,"
+            " train_score bytes %s; checkpoint %d bytes, written in %.3f s,"
+            " read and restored in %.3f s"
+            % (name, iters, at, "equal" if same_text else "DIFFERENT",
+               "equal" if same_score else "DIFFERENT", size, write_s, read_s))
+        if not (same_text and same_score):
+            raise AssertionError("(R) %s: the resumed run differs from the "
+                                 "uninterrupted one" % name)
+        out[name] = dict(bytes=size, write_s=write_s, read_s=read_s)
+        if name == "gbdt":
+            four = full.train_score.cpu().numpy().tobytes()
+            full.train_one_iter()
+            out["trees"] += 1
+            full.rollback_one_iter()
+            if full.train_score.cpu().numpy().tobytes() != four \
+                    or full.current_iteration != iters:
+                raise AssertionError("(R) rollback_one_iter did not give "
+                                     "back the 4-iteration train score")
+            log("  gbdt: a 5th iteration and rollback_one_iter give back "
+                "the 4-iteration train_score bytes")
+    out["launches"] = D.launches()
+    log("  launches %s" % out["launches"])
+    for k in ("histogram", "partition"):
+        if out["launches"][k] == 0:
+            raise AssertionError("(R) %s was not launched" % k)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return out
 
 
 def phase_pool(device, eps: dict, profile: bool) -> dict:
@@ -3009,6 +3328,8 @@ def main(argv=None) -> int:
     for path in PATHS:
         paths[path] = phase_main_path(device, data, ds, path, args.iters,
                                       args.profile)
+        if path != "A":
+            del paths[path]["booster"]
         torch.cuda.empty_cache()
     log("  (F) regression on (A)'s features: bagging_fraction=0.8, "
         "bagging_freq=5, feature_fraction=0.9, hist_precision=quantized, "
@@ -3037,6 +3358,25 @@ def main(argv=None) -> int:
     log("  (N) forced splits + CEGB on (A)'s binned rows, leaf-wise, exact, "
         "%d iterations" % FORCED_ITERS)
     paths["N"] = phase_forced_cegb(device, data, ds, args.profile)
+    torch.cuda.empty_cache()
+    from lightgbm_tpu_torch import device as D
+    log("  (P) prediction on (A)'s data: (A)'s %d trees each repeated %d "
+        "times (%d trees)" % (args.iters, PREDICT_REPEAT,
+                              args.iters * PREDICT_REPEAT))
+    D.reset_launches()
+    paths["P"] = phase_predict(device, data, ds, paths["A"]["booster"])
+    paths["P"]["launches"] = D.launches()
+    torch.cuda.empty_cache()
+    log("  (Q) SHAP contributions of (A)'s model: %d held-out rows raw, %d "
+        "training rows binned" % (CONTRIB_ROWS, CONTRIB_ROWS))
+    D.reset_launches()
+    paths["Q"] = phase_contrib(device, data, ds, paths["A"].pop("booster"))
+    paths["Q"]["launches"] = D.launches()
+    log("  predict and SHAP launched none of the kernels: %s, %s"
+        % (paths["P"]["launches"], paths["Q"]["launches"]))
+    torch.cuda.empty_cache()
+    log("  (R) checkpoint and resume on (A)'s bins")
+    paths["R"] = phase_checkpoint(device, data, ds)
     torch.cuda.empty_cache()
     del data, ds
     log("  (D) Epsilon-shaped, lightgbm_tpu_torch.train with a validation "
@@ -3101,7 +3441,7 @@ def main(argv=None) -> int:
         dict(name="histogram", route="cuda",
              source="lightgbm_tpu_torch/csrc/histogram.cu",
              replaces="lightgbm_tpu/core/histogram.py:743",
-             max_abs_err=hist_err_max, **launches("histogram", "ABCGHIJ"),
+             max_abs_err=hist_err_max, **launches("histogram", "ABCGHIJR"),
              groups_root=paths["I"]["times"]["histogram"],
              expo_root=paths["J"]["times"]["histogram"],
              **times["histogram"]),
@@ -3109,7 +3449,7 @@ def main(argv=None) -> int:
              source="lightgbm_tpu_torch/csrc/partition.cu",
              replaces="lightgbm_tpu/core/partition.py:1090",
              also_replaces="lightgbm_tpu/core/partition.py:1130",
-             max_abs_err=split_err_max, **launches("partition", "ABCFGHIJ"),
+             max_abs_err=split_err_max, **launches("partition", "ABCFGHIJR"),
              unfold_launches=paths["I"]["routes"]["partition"]["unfold"],
              categorical_launches=paths["J"]["routes"]["partition"][
                  "categorical"],

@@ -14,10 +14,13 @@ booster is built by ``boosting.create_boosting``: ``boosting=gbdt``,
 without densifying (``BinnedDataset.from_csr``, whose EFB bundles the sparse
 features) unless ``categorical_feature`` is given, which the sparse binner
 does not take: then it is densified, as in the JAX package (basic.py:85-112,
-:227-250).  Not carried over yet, and refused with ``NotImplementedError``:
-pandas input (ROADMAP queue 1 item 1), leaf-index and contribution
-prediction (queue 1 items 6 and 12).  Telemetry, serving and checkpoints are
-TPU-era planes with no counterpart here (queue 1 items 11 and 15).
+:227-250).  ``predict`` takes ``pred_leaf``, ``pred_contrib`` and
+``precision`` (``exact`` or ``bf16``), ``predict_binned`` a constructed
+``Dataset``'s row store; ``save_checkpoint`` and ``resume_from_checkpoint``
+carry the train state (``checkpoint.py``).  Not carried over yet, and
+refused with ``NotImplementedError``: pandas input (ROADMAP queue 1 item 1).
+Telemetry and serving are TPU-era planes with no counterpart here (queue 1
+item 15).
 """
 from __future__ import annotations
 
@@ -257,8 +260,15 @@ class Booster:
         return self._booster.train_one_iter(np.asarray(grad, dtype=np.float32),
                                             np.asarray(hess, dtype=np.float32))
 
+    def rollback_one_iter(self) -> "Booster":
+        self._booster.rollback_one_iter()
+        return self
+
     def current_iteration(self) -> int:
         return self._booster.current_iteration
+
+    def num_model_per_iteration(self) -> int:
+        return self._booster.num_tree_per_iteration
 
     def num_trees(self) -> int:
         return self._booster.num_trees
@@ -314,21 +324,65 @@ class Booster:
             out += self._apply_feval(feval, i, vs, name)
         return out
 
+    def eval(self, data: Dataset, name: str, feval=None) -> List:
+        """The metrics of ``data``: the training set or a validation set
+        added with ``add_valid`` (basic.py:491)."""
+        if data is self._train_set:
+            return [(name, m, v, h) for (_, m, v, h) in self.eval_train(feval)]
+        for i, vs in enumerate(self._valid_sets):
+            if data is vs:
+                out = [r for r in self._booster.eval_valid()
+                       if r[0] == self.name_valid_sets[i]]
+                return out + self._apply_feval(feval, i, vs, name)
+        raise LightGBMError("Data should be added in Booster.add_valid() "
+                            "first")
+
     # ---- prediction ----
 
     def predict(self, data, start_iteration: int = 0,
                 num_iteration: Optional[int] = None, raw_score: bool = False,
                 pred_leaf: bool = False, pred_contrib: bool = False,
-                **kwargs) -> np.ndarray:
+                precision: str = "exact", **kwargs) -> np.ndarray:
+        """Scores of raw rows ([n], or [n, K] for K classes); with
+        ``pred_leaf`` the [n, num_models] leaf indices, with
+        ``pred_contrib`` the SHAP contributions (exact only).
+        ``precision="bf16"`` is the bf16 tier of the scores."""
         if isinstance(data, Dataset):
             raise TypeError("Cannot use Dataset instance for prediction, "
                             "please use raw data instead")
-        if pred_leaf or pred_contrib:
-            _refuse("pred_leaf / pred_contrib", "queue 1 items 6 and 12")
+        mat = _to_matrix(data)
+        num_iteration = self._num_iteration(num_iteration)
+        if pred_leaf:
+            # leaf indices are routing only: no precision tier
+            return self._booster.predict_leaf_index(mat, num_iteration)
+        if pred_contrib:
+            if precision != "exact":
+                raise LightGBMError("pred_contrib has no bf16 tier: "
+                                    "precision must be 'exact'")
+            return self._booster.predict_contrib(
+                mat, num_iteration, start_iteration=start_iteration)
         return self._booster.predict(
-            _to_matrix(data), raw_score=raw_score,
-            num_iteration=self._num_iteration(num_iteration),
-            start_iteration=start_iteration)
+            mat, raw_score=raw_score, num_iteration=num_iteration,
+            start_iteration=start_iteration, precision=precision)
+
+    def predict_binned(self, data: Dataset, start_iteration: int = 0,
+                       num_iteration: Optional[int] = None,
+                       raw_score: bool = False,
+                       pred_leaf: bool = False) -> np.ndarray:
+        """Predict from a constructed ``Dataset``'s binned row store (the
+        training set, or one made with ``reference=`` it), routed by
+        integer compares (basic.py:534-553)."""
+        if not isinstance(data, Dataset):
+            raise TypeError("predict_binned wants a Dataset instance; use "
+                            "predict() for raw feature matrices")
+        data.construct()
+        num_iteration = self._num_iteration(num_iteration)
+        if pred_leaf:
+            return self._booster.predict_leaf_index_binned(data.handle,
+                                                           num_iteration)
+        return self._booster.predict_binned(data.handle, raw_score=raw_score,
+                                            num_iteration=num_iteration,
+                                            start_iteration=start_iteration)
 
     # ---- model IO ----
 
@@ -352,6 +406,84 @@ class Booster:
         self._booster = GBDT(self.config, device=self._booster.device)
         self._booster.load_model_from_string(model_str)
         return self
+
+    def save_checkpoint(self, checkpoint_prefix: str) -> "Booster":
+        """Write the full train state atomically to
+        ``<prefix>.ckpt_iter_<n>`` (``checkpoint.py``)."""
+        self._booster.save_checkpoint(checkpoint_prefix)
+        return self
+
+    def resume_from_checkpoint(self, checkpoint_prefix: str) -> int:
+        """Restore the newest valid checkpoint of ``checkpoint_prefix`` into
+        this booster, which has the checkpointed run's training data and
+        validation sets attached; the restored iteration, 0 when there is
+        none."""
+        return self._booster.resume_from_checkpoint(checkpoint_prefix)
+
+    def dump_model(self, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0) -> Dict:
+        """The model as a dict in the reference's JSON layout
+        (gbdt_model_text.cpp:20, basic.py:627)."""
+        b = self._booster
+        num_iteration = self._num_iteration(num_iteration)
+        K = b.num_tree_per_iteration
+        total_iter = len(b.models) // max(K, 1)
+        end_iter = total_iter if num_iteration <= 0 else min(
+            total_iter, start_iteration + num_iteration)
+        trees = [{"tree_index": i, **b.models[i].to_json()}
+                 for i in range(start_iteration * K, end_iter * K)]
+        return {
+            "name": b.sub_model_name(),
+            "version": "v3",
+            "num_class": b.num_class,
+            "num_tree_per_iteration": K,
+            "label_index": b.label_idx,
+            "max_feature_idx": b.max_feature_idx,
+            "objective": b.objective.to_string() if b.objective else "none",
+            "average_output": b.average_output,
+            "feature_names": list(b.feature_names),
+            "feature_importances": {
+                name: int(v) for name, v in zip(
+                    b.feature_names, b.feature_importance("split"))
+                if v > 0},
+            "tree_info": trees,
+        }
+
+    def get_split_value_histogram(self, feature, bins=None,
+                                  xgboost_style: bool = False):
+        """Histogram of the thresholds the trees use for ``feature`` (an
+        index, or a name); categorical splits are refused (basic.py:658).
+        ``xgboost_style`` gives the [value, count] rows of the nonempty
+        bins as a numpy array."""
+        model = self.dump_model()
+        feature_names = model.get("feature_names")
+        values: List[float] = []
+
+        def walk(node):
+            if "split_index" not in node:
+                return
+            f = node["split_feature"]
+            name = (feature_names[f] if feature_names is not None
+                    and isinstance(feature, str) else f)
+            if name == feature:
+                if node.get("decision_type") == "==":
+                    raise LightGBMError("Cannot compute split value histogram "
+                                        "for the categorical feature")
+                values.append(float(node["threshold"]))
+            walk(node["left_child"])
+            walk(node["right_child"])
+
+        for info in model["tree_info"]:
+            walk(info["tree_structure"])
+        if bins is None or (isinstance(bins, int) and xgboost_style):
+            n_unique = len(np.unique(values))
+            bins = max(min(n_unique, bins) if bins is not None else n_unique,
+                       1)
+        hist, bin_edges = np.histogram(values, bins=bins)
+        if xgboost_style:
+            ret = np.column_stack((bin_edges[1:], hist))
+            return ret[ret[:, 1] > 0]
+        return hist, bin_edges
 
     # ---- introspection ----
 

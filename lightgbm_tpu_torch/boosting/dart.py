@@ -11,19 +11,23 @@ to the train and validation scores (``_normalize``).  The drop draws come
 from ``RandomState(drop_seed)`` in the JAX package's order, with
 ``uniform_drop``, ``max_drop`` and ``skip_drop``; without ``uniform_drop``
 each iteration's weight is kept (``tree_weight``) and makes its drop
-probability.  Host trees shrink in f64 (``lazy_trees = False``).
+probability.  Host trees shrink in f64 (``lazy_trees = False``).  A
+checkpoint carries the drop stream and the weight history
+(``_extra_train_state``, dart.py:31-47).
 """
 from __future__ import annotations
 
 import numpy as np
 
 from .gbdt import GBDT
+from ..checkpoint import decode_rng_state, encode_rng_state
 
 
 class DART(GBDT):
     """Dropout boosting on top of :class:`GBDT`."""
 
     lazy_trees = False
+    keep_rollback_scores = False
 
     def __init__(self, config, train_data=None, objective=None,
                  device=None) -> None:
@@ -33,6 +37,20 @@ class DART(GBDT):
         self.drop_index = []
         self._score_is_dropped = False
         super().__init__(config, train_data, objective, device=device)
+
+    def _extra_train_state(self):
+        """The drop stream and the weight history that set later drops
+        (dart.py:31-40)."""
+        return {"drop_rng": encode_rng_state(self._drop_rng),
+                "tree_weight": [float(w) for w in self.tree_weight],
+                "sum_weight": float(self.sum_weight)}
+
+    def _restore_extra_train_state(self, extra):
+        self._drop_rng.set_state(decode_rng_state(extra["drop_rng"]))
+        self.tree_weight = [float(w) for w in extra.get("tree_weight", [])]
+        self.sum_weight = float(extra.get("sum_weight", 0.0))
+        self.drop_index = []
+        self._score_is_dropped = False
 
     def _get_gradients(self):
         """Drop trees once an iteration, then the gradients of the dropped
@@ -125,4 +143,4 @@ class DART(GBDT):
                     self.sum_weight -= (self.tree_weight[j]
                                         / (k + cfg.learning_rate))
                     self.tree_weight[j] *= k / (k + cfg.learning_rate)
-        self._predictor = None
+        self._invalidate_predict_cache()

@@ -12,10 +12,16 @@ renewal of the percentile objectives (``_renew_tree_output``),
 ``train_score``, validation sets (``add_valid_data``), the score add of a
 host tree (``_add_tree_score_train`` / ``_add_tree_score_valid``, which
 DART's drops use), metrics and early stopping (``eval_train``,
-``eval_valid``, ``eval_and_check_early_stopping``), the host loop ``train``,
-the replay of a loaded model (``replay_train_score``), ``predict`` (averaged
-over the iterations for ``average_output``, as RF's), ``feature_importance``
-and the reference-compatible text model (``save_model_to_string`` /
+``eval_valid``, ``eval_and_check_early_stopping``), the host loop ``train``
+with its snapshots (``snapshot_out``), the train state of a checkpoint
+(``capture_train_state`` / ``restore_train_state``, gbdt.py:1446-1615, and
+``save_checkpoint`` / ``resume_from_checkpoint``), ``rollback_one_iter``,
+``refit``, the replay of a loaded model (``replay_train_score``), every
+prediction path (gbdt.py:1999-2343: ``predict`` with its 512-row regimes,
+prediction early stop and the bf16 tier, ``predict_leaf_index``,
+``predict_contrib``, and their binned forms over a row store), averaged over
+the iterations for ``average_output`` (RF), ``feature_importance`` and the
+reference-compatible text model (``save_model_to_string`` /
 ``load_model_from_string``, gbdt_model_text.cpp:271,375).
 
 Scores live on the device: ``train_score`` [K, N] f32 and one [K, N_v] f32
@@ -28,8 +34,16 @@ values scaled by the learning rate in f32, the class's train score updated
 through the tree's ``row_leaf`` and each validation score by routing the
 set's bins on the device (``route_binned``).  DART, GOSS and RF subclass
 this class (``boosting/dart.py``, ``goss.py``, ``rf.py``; built by
-``boosting.create_boosting``).  The fused multi-iteration scan, snapshots and
-checkpoints are not ported yet (ROADMAP queue 1 item 11).
+``boosting.create_boosting``).  The loop stays one host iteration at a time:
+the JAX package's fused multi-iteration scan is an XLA program, whose
+counterpart on the card is a CUDA graph (ROADMAP queue 2 B).
+
+Prediction (gbdt.py:1999-2110): from 512 rows on, or in the bf16 tier, a
+class's trees go through the cached :class:`FusedPredictor` (f32 rows, f32
+thresholds floored, an f32 running sum in tree order); below 512 rows
+through the f64 traversal of :class:`StackedTrees`.  Both run on the
+booster's device.  Contributions run on the device from 8 rows on, below
+that on the host recursion ``Tree.predict_contrib`` (gbdt.py:2128, :2150).
 """
 from __future__ import annotations
 
@@ -41,6 +55,7 @@ import torch
 
 from ..config import Config
 from ..core.predict import StackedTrees
+from ..core.predict_fused import FusedPredictor
 from ..core.quant import _M32, _mul32
 from ..core.tree import Tree
 from ..core.tree_learner import (SerialTreeLearner, TreeArrays,
@@ -96,6 +111,14 @@ class GBDT:
     ``cuda`` unless the caller passes ``"cpu"``; no silent CPU fallback."""
 
     average_output = False
+    # below these row counts predict takes the f64 traversal and
+    # predict_contrib the host recursion (gbdt.py:1999, :2128)
+    _DEVICE_PREDICT_MIN_ROWS = 512
+    _DEVICE_CONTRIB_MIN_ROWS = 8
+    # rollback_one_iter restores the scores the last iteration started
+    # from; DART subtracts the last trees instead (its drops changed the
+    # scores before the new trees were added)
+    keep_rollback_scores = True
     # the host tree takes the f32-scaled leaf values (the JAX package's lazy
     # path); DART sets False: its host trees shrink in f64 and its scores
     # take the f32 products (the JAX package's synchronous path)
@@ -120,7 +143,12 @@ class GBDT:
         self.feature_infos: List[str] = []
         self.label_idx = 0
         self.last_arrays: Optional[TreeArrays] = None
-        self._predictor = None
+        # the last iteration's scaled arrays per class, and the scores it
+        # started from (rollback_one_iter)
+        self._last_iter_arrays: List[Optional[TreeArrays]] = []
+        self._pre_iter_scores = None
+        self._fused_pred: Dict = {}
+        self._stacked_pred = None
         self.valid_sets: List[dict] = []
         self.train_metrics: List[Metric] = []
         # iteration of the best validation score when early stopping ended
@@ -334,6 +362,7 @@ class GBDT:
         custom objective's (``Booster.update(fobj=...)``).  Returns True
         when training cannot continue (no splittable leaves)."""
         K = self.num_tree_per_iteration
+        self._keep_pre_iter_scores()
         init_scores = [0.0] * K
         if gradients is None or hessians is None:
             for k in range(K):
@@ -353,6 +382,7 @@ class GBDT:
         should_continue = False
         for k in range(K):
             new_tree = Tree(1)
+            self.last_arrays = None
             if self.class_need_train[k] and self.train_data.num_features > 0:
                 gk, hk = grad[k], hess[k]
                 if self.bag_mask is not None:
@@ -376,7 +406,8 @@ class GBDT:
                 if abs(output) > K_EPSILON:
                     self._add_constant_score(output, k)
             self.models.append(new_tree)
-        self._predictor = None
+            self._last_iter_arrays.append(self.last_arrays)
+        self._invalidate_predict_cache()
         if not should_continue:
             Log.warning("Stopped training because there are no more leaves "
                         "that meet the split requirements")
@@ -385,6 +416,16 @@ class GBDT:
             return True
         self.iter_ += 1
         return False
+
+    def _keep_pre_iter_scores(self) -> None:
+        """Keep the scores this iteration starts from, for
+        ``rollback_one_iter`` (one [K, N] f32 copy and one per validation
+        set)."""
+        self._last_iter_arrays = []
+        self._pre_iter_scores = (
+            (self.train_score.clone(),
+             [vs["score"].clone() for vs in self.valid_sets])
+            if self.keep_rollback_scores else None)
 
     def _adjust_gradients_for_bagging(self, grad: torch.Tensor,
                                       hess: torch.Tensor):
@@ -462,14 +503,19 @@ class GBDT:
 
     # ---- the training loop (gbdt.py:1843, without fused chunks) ----
 
-    def train(self) -> None:
-        """Train ``num_iterations`` iterations (counting from this booster's
-        first), evaluating every ``metric_freq`` iterations and stopping
-        early when ``eval_and_check_early_stopping`` says so."""
+    def train(self, snapshot_out: Optional[str] = None) -> None:
+        """Train up to ``num_iterations`` iterations (counting from this
+        booster's first; a restored booster goes on from its iteration),
+        evaluating every ``metric_freq`` iterations and stopping early when
+        ``eval_and_check_early_stopping`` says so.  With ``snapshot_out``,
+        every ``snapshot_freq`` iterations write the model to
+        ``<snapshot_out>.snapshot_iter_<n>`` and the train state to a
+        checkpoint beside it (gbdt.py:1917-1950)."""
         t_start = time.perf_counter()
         total = int(self.config.num_iterations)
         has_eval = bool(self.train_metrics) or bool(self.valid_sets)
         mf = int(self.config.metric_freq)
+        sf = int(self.config.snapshot_freq)
         while self.iter_ < total:
             finished = self.train_one_iter()
             Log.info("%f seconds elapsed, finished iteration %d",
@@ -478,6 +524,22 @@ class GBDT:
                 finished = self.eval_and_check_early_stopping()
             if finished:
                 break
+            if snapshot_out and sf > 0 and self.iter_ % sf == 0:
+                self._write_snapshot(snapshot_out)
+
+    def _write_snapshot(self, snapshot_out: str) -> None:
+        """The model snapshot (gbdt.cpp:291-295) and a checkpoint of the
+        train state, both atomic and best effort: a failed write is skipped
+        with a warning, and the previous checkpoint stays the resume
+        point."""
+        from ..checkpoint import save_checkpoint_best_effort
+        snap = "%s.snapshot_iter_%d" % (snapshot_out, self.iter_)
+        try:
+            self.save_model(snap)
+        except OSError as exc:
+            Log.warning("model snapshot %s failed (%s); training continues",
+                        snap, exc)
+        save_checkpoint_best_effort(self, snapshot_out)
 
     @property
     def num_trees(self) -> int:
@@ -532,40 +594,456 @@ class GBDT:
                     stop = True
         return stop
 
-    # ---- prediction ----
+    # ---- prediction (gbdt.py:1999-2343) ----
 
-    def _raw_predict(self, X, num_iteration: int = -1,
-                     start_iteration: int = 0) -> torch.Tensor:
-        """[K, n] f64 raw scores of the iterations [start_iteration,
-        start_iteration + num_iteration) (all when ``num_iteration <= 0``)."""
+    def _invalidate_predict_cache(self) -> None:
+        """Drop the stacked predictors: a change to the trees (a new tree,
+        DART's shrinks, refit, rollback, a loaded model) must not be served
+        from stale stacks."""
+        self._fused_pred = {}
+        self._stacked_pred = None
+
+    def _iteration_range(self, num_iteration: int, start_iteration: int):
         K = self.num_tree_per_iteration
         total = len(self.models) // K
         end = total if num_iteration <= 0 else min(
             total, start_iteration + num_iteration)
-        key = (start_iteration, end, len(self.models))
-        if self._predictor is None or self._predictor[0] != key:
-            sel = self.models[start_iteration * K:end * K]
-            self._predictor = (key, [StackedTrees(sel[k::K], self.device)
-                                     for k in range(K)])
-        X = torch.as_tensor(np.asarray(X, dtype=np.float64)
-                            if not isinstance(X, torch.Tensor) else X)
-        return torch.stack([p.raw_predict(X) for p in self._predictor[1]])
+        return end, self.models[start_iteration * K:end * K]
 
-    def predict(self, X, raw_score: bool = False, num_iteration: int = -1,
-                start_iteration: int = 0) -> np.ndarray:
-        """[n, D] raw features -> [n] scores, or [n, K] for K classes
-        (converted by the objective unless ``raw_score``), computed on the
-        booster's device."""
-        raw = self._raw_predict(X, num_iteration, start_iteration)
-        raw = raw.cpu().numpy()
+    def _predict_early_stop(self) -> Tuple[float, int]:
+        """(margin, round period) of prediction early stop; a margin below 0
+        turns it off.  Only for one model per iteration and an objective
+        that does not need accurate predictions (predictor.hpp:38-47,
+        gbdt.py:2001-2012)."""
+        if (bool(self.config.pred_early_stop)
+                and self.num_tree_per_iteration == 1
+                and self.objective is not None
+                and not self.objective.need_accurate_prediction):
+            return (float(self.config.pred_early_stop_margin),
+                    int(self.config.pred_early_stop_freq))
+        return -1.0, 10
+
+    def _fused_predictor(self, sel: List[Tree], start: int, end: int,
+                         class_id: int, kind: str = "raw", layout_ds=None,
+                         precision: str = "exact") -> FusedPredictor:
+        """The cached device predictor of one (kind, iteration range, class,
+        model count, layout, precision), stacked once (gbdt.py:2019-2046);
+        at most 8 are kept."""
+        if kind == "binned" and layout_ds is None:
+            layout_ds = self.train_data
+        key = (kind, start, end, class_id, len(self.models),
+               id(layout_ds) if kind == "binned" else 0, precision)
+        pred = self._fused_pred.get(key)
+        if pred is None:
+            if len(self._fused_pred) >= 8:
+                self._fused_pred.pop(next(iter(self._fused_pred)))
+            pred = FusedPredictor(sel, dataset=layout_ds, kind=kind,
+                                  precision=precision, device=self.device)
+            self._fused_pred[key] = pred
+        return pred
+
+    def _stacked(self, sel: List[Tree], start: int, end: int):
+        """The cached f64-regime stacks of ``sel``, one per class."""
+        K = self.num_tree_per_iteration
+        key = (start, end, len(self.models))
+        if self._stacked_pred is None or self._stacked_pred[0] != key:
+            self._stacked_pred = (key, [StackedTrees(sel[k::K], self.device)
+                                        for k in range(K)])
+        return self._stacked_pred[1]
+
+    def _raw_predict(self, X, num_iteration: int = -1,
+                     start_iteration: int = 0,
+                     precision: str = "exact") -> np.ndarray:
+        """[K, n] f64 raw scores of the iterations [start_iteration,
+        start_iteration + num_iteration) (all when ``num_iteration <= 0``):
+        the f32 regime from 512 rows on and in the bf16 tier, the f64 regime
+        below (gbdt.py:2052-2110)."""
+        n = len(X)
+        K = self.num_tree_per_iteration
+        out = np.zeros((K, n), dtype=np.float64)
+        end, sel = self._iteration_range(num_iteration, start_iteration)
+        if not sel or n == 0:
+            return out
+        margin, freq = self._predict_early_stop()
+        if n >= self._DEVICE_PREDICT_MIN_ROWS or precision != "exact":
+            for k in range(K):
+                out[k] = self._fused_predictor(
+                    sel[k::K], start_iteration, end, k,
+                    precision=precision)(X, margin, freq)
+            return out
+        for k, st in enumerate(self._stacked(sel, start_iteration, end)):
+            out[k] = st.predict(X, torch.float64, margin, freq)
+        return out
+
+    def _convert(self, raw: np.ndarray, raw_score: bool) -> np.ndarray:
+        """[K, n] raw scores -> [n] or [n, K] outputs: averaged over every
+        iteration of the model for ``average_output`` (gbdt.py:2119-2121),
+        converted by the objective unless ``raw_score``."""
         if self.average_output:
-            # the mean of the trees' outputs, over every iteration of the
-            # model (gbdt.py:2119-2121)
             raw = raw / max(len(self.models) // self.num_tree_per_iteration,
                             1)
         if not raw_score and self.objective is not None:
             raw = np.asarray(self.objective.convert_output(raw))
         return raw[0] if self.num_tree_per_iteration == 1 else raw.T
+
+    def predict(self, X, raw_score: bool = False, num_iteration: int = -1,
+                start_iteration: int = 0,
+                precision: str = "exact") -> np.ndarray:
+        """[n, D] raw features -> [n] scores, or [n, K] for K classes
+        (converted by the objective unless ``raw_score``), computed on the
+        booster's device; ``precision="bf16"`` carries the leaf values and
+        the score in bfloat16."""
+        if precision not in ("exact", "bf16"):
+            raise ValueError("precision must be 'exact' or 'bf16'")
+        return self._convert(self._raw_predict(X, num_iteration,
+                                               start_iteration, precision),
+                             raw_score)
+
+    def predict_contrib(self, X, num_iteration: int = -1,
+                        start_iteration: int = 0) -> np.ndarray:
+        """SHAP contributions (tree.h:133 PredictContrib): [n, F + 1] (last
+        column the expected value), K classes concatenated along axis 1,
+        on f32-cast rows.  From 8 rows on, the device TreeSHAP of
+        ``core.predict_contrib``; below, the host recursion
+        (gbdt.py:2130-2185, without its fallback: a failure raises)."""
+        K = self.num_tree_per_iteration
+        end, sel = self._iteration_range(num_iteration, start_iteration)
+        n = len(X)
+        ncol = self.max_feature_idx + 2
+        out = np.zeros((K, n, ncol), dtype=np.float64)
+        Xf = np.ascontiguousarray(np.asarray(X, dtype=np.float32))
+        if sel and n >= self._DEVICE_CONTRIB_MIN_ROWS:
+            for k in range(K):
+                out[k] = self._fused_predictor(
+                    sel[k::K], start_iteration, end, k).predict_contrib(
+                        Xf, ncol)
+        else:
+            for i, tree in enumerate(sel):
+                out[i % K] += tree.predict_contrib(Xf, ncol)
+        return out[0] if K == 1 else np.concatenate(out, axis=1)
+
+    def predict_leaf_index(self, X, num_iteration: int = -1) -> np.ndarray:
+        """[n, num_models] int32 leaf of every row in every tree of the first
+        ``num_iteration`` iterations (gbdt.py:2213): the f32 regime's
+        routing from 512 rows on, the f64 one below."""
+        K = self.num_tree_per_iteration
+        end, sel = self._iteration_range(num_iteration, 0)
+        out = np.zeros((len(X), len(sel)), dtype=np.int32)
+        if not sel or len(X) == 0:
+            return out
+        if len(X) >= self._DEVICE_PREDICT_MIN_ROWS:
+            for k in range(K):
+                out[:, k::K] = self._fused_predictor(sel[k::K], 0, end, k)(
+                    X, want_leaf=True)
+            return out
+        for k, st in enumerate(self._stacked(sel, 0, end)):
+            out[:, k::K] = st.predict(X, torch.float64, want_leaf=True)
+        return out
+
+    def _binned_rows(self, dataset: Optional[BinnedDataset]):
+        """(dataset, its rows, the layout) of a binned predict: the training
+        set's rows from the device when it is the training set."""
+        ds = dataset if dataset is not None else self.train_data
+        if ds is None or ds.binned is None:
+            raise ValueError("binned prediction needs a BinnedDataset with "
+                             "its row store attached")
+        rows = (self.train_bins() if ds is self.train_data
+                and self.train_data is not None else ds.binned)
+        layout = self.train_data if self.train_data is not None else ds
+        return ds, rows, layout
+
+    def raw_predict_binned(self, dataset: Optional[BinnedDataset] = None,
+                           num_iteration: int = -1, start_iteration: int = 0,
+                           use_early_stop: bool = True) -> np.ndarray:
+        """[K, N] raw scores of a binned dataset's row store (the training
+        set by default; any set binned with its mappers), routed by integer
+        compares: on training rows the same bits as :meth:`predict`'s f32
+        regime (gbdt.py:2260)."""
+        ds, rows, layout = self._binned_rows(dataset)
+        K = self.num_tree_per_iteration
+        out = np.zeros((K, ds.num_data), dtype=np.float64)
+        end, sel = self._iteration_range(num_iteration, start_iteration)
+        if not sel:
+            return out
+        margin, freq = ((-1.0, 10) if not use_early_stop
+                        else self._predict_early_stop())
+        for k in range(K):
+            out[k] = self._fused_predictor(
+                sel[k::K], start_iteration, end, k, kind="binned",
+                layout_ds=layout)(rows, margin, freq)
+        return out
+
+    def predict_binned(self, dataset: Optional[BinnedDataset] = None,
+                       raw_score: bool = False, num_iteration: int = -1,
+                       start_iteration: int = 0) -> np.ndarray:
+        """:meth:`predict` over a binned dataset's row store
+        (gbdt.py:2312)."""
+        return self._convert(self.raw_predict_binned(
+            dataset, num_iteration, start_iteration), raw_score)
+
+    def predict_leaf_index_binned(
+            self, dataset: Optional[BinnedDataset] = None,
+            num_iteration: int = -1) -> np.ndarray:
+        """[N, num_models] leaf indices of a binned row store (the router of
+        ``refit``, gbdt.py:2324)."""
+        ds, rows, layout = self._binned_rows(dataset)
+        K = self.num_tree_per_iteration
+        end, sel = self._iteration_range(num_iteration, 0)
+        out = np.zeros((ds.num_data, len(sel)), dtype=np.int32)
+        for k in range(K if sel else 0):
+            out[:, k::K] = self._fused_predictor(
+                sel[k::K], 0, end, k, kind="binned", layout_ds=layout)(
+                    rows, want_leaf=True)
+        return out
+
+    def predict_contrib_binned(self, dataset: Optional[BinnedDataset] = None,
+                               num_iteration: int = -1,
+                               start_iteration: int = 0) -> np.ndarray:
+        """SHAP contributions of a binned row store (gbdt.py:2187): on
+        training rows the same bits as :meth:`predict_contrib`."""
+        ds, rows, layout = self._binned_rows(dataset)
+        K = self.num_tree_per_iteration
+        end, sel = self._iteration_range(num_iteration, start_iteration)
+        ncol = self.max_feature_idx + 2
+        out = np.zeros((K, ds.num_data, ncol), dtype=np.float64)
+        for k in range(K if sel else 0):
+            out[k] = self._fused_predictor(
+                sel[k::K], start_iteration, end, k, kind="binned",
+                layout_ds=layout).predict_contrib(rows, ncol)
+        return out[0] if K == 1 else np.concatenate(out, axis=1)
+
+    # ---- model surgery (gbdt.cpp:299, :454-470) ----
+
+    def rollback_one_iter(self) -> None:
+        """Undo the last iteration (gbdt.cpp:454-470): its trees leave the
+        model, and the scores go back to those it started from.  Where they
+        were not kept (DART, or the first iteration after a restore) the
+        last trees are taken out of the scores as gbdt.py:1705-1732 does,
+        through their ``row_leaf`` (or routed over the training bins when
+        that is gone); f32 ``(s + v) - v`` need not give back ``s``."""
+        self._invalidate_predict_cache()
+        if self.iter_ <= 0:
+            return
+        K = self.num_tree_per_iteration
+        if self._pre_iter_scores is not None:
+            self.train_score, valid = self._pre_iter_scores
+            for vs, score in zip(self.valid_sets, valid):
+                vs["score"] = score
+        else:
+            for k in range(K):
+                tree = self.models[len(self.models) - K + k]
+                tree.shrink(-1.0)
+                arrays = (self._last_iter_arrays[k]
+                          if k < len(self._last_iter_arrays) else None)
+                if arrays is not None:
+                    lv = torch.as_tensor(arrays.leaf_value,
+                                         device=self.device)
+                    self.train_score[k] -= lv[arrays.row_leaf]
+                else:
+                    self._add_tree_score_train(tree, k)
+                for vs in self.valid_sets:
+                    self._add_tree_score_valid(tree, k, vs)
+        del self.models[-K:]
+        self.iter_ -= 1
+        self._pre_iter_scores = None
+        self._last_iter_arrays = []
+
+    def refit(self, leaf_preds: np.ndarray) -> None:
+        """Refit every tree's leaf values on the training data, keeping the
+        structure (gbdt.cpp:299 RefitTree, gbdt.py:1734): the rows routed by
+        ``leaf_preds`` [num_data, num_models], each leaf's output from the
+        gradient sums at the boosting state so far, blended by
+        ``refit_decay_rate``; the train score rebuilt on the way."""
+        self._invalidate_predict_cache()
+        models = self.models
+        leaf_preds = np.asarray(leaf_preds, dtype=np.int32)
+        if leaf_preds.ndim != 2 or leaf_preds.shape[0] != self.num_data \
+                or leaf_preds.shape[1] != len(models):
+            raise ValueError(
+                "leaf_preds must be [num_data, num_models] = [%d, %d]"
+                % (self.num_data, len(models)))
+        K = self.num_tree_per_iteration
+        cfg = self.config
+        l1, l2 = float(cfg.lambda_l1), float(cfg.lambda_l2)
+        mds = float(cfg.max_delta_step)
+        decay = float(cfg.refit_decay_rate)
+        score = np.zeros((K, self.num_data), dtype=np.float64)
+        if self.train_data.metadata.init_score is not None:
+            score[:] = np.asarray(self.train_data.metadata.init_score,
+                                  np.float64).reshape(K, self.num_data)
+        for it in range(len(models) // K):
+            s32 = torch.as_tensor(score.astype(np.float32),
+                                  device=self.device)
+            g, h = self.objective.get_gradients(s32[0] if K == 1 else s32)
+            grad = g.double().cpu().numpy().reshape(K, self.num_data)
+            hess = h.double().cpu().numpy().reshape(K, self.num_data)
+            for k in range(K):
+                i = it * K + k
+                tree = models[i]
+                lp = leaf_preds[:, i]
+                nl = tree.num_leaves
+                if lp.max(initial=0) >= nl:
+                    raise ValueError("leaf prediction out of range for tree "
+                                     "%d" % i)
+                sum_g = np.bincount(lp, weights=grad[k], minlength=nl)
+                sum_h = (np.bincount(lp, weights=hess[k], minlength=nl)
+                         + K_EPSILON)
+                sg = np.sign(sum_g) * np.maximum(np.abs(sum_g) - l1, 0.0)
+                out = -sg / (sum_h + l2)
+                if mds > 0.0:
+                    out = np.clip(out, -mds, mds)
+                new_vals = (decay * tree.leaf_value[:nl]
+                            + (1.0 - decay) * out * tree.shrinkage)
+                tree.leaf_value[:nl] = new_vals
+                score[k] += new_vals[lp]
+        self.train_score = torch.as_tensor(score.astype(np.float32),
+                                           device=self.device)
+        self._pre_iter_scores = None
+        self._last_iter_arrays = []
+
+    # ---- train state of a checkpoint (gbdt.py:1446-1615) ----
+
+    def capture_train_state(self):
+        """(meta, arrays, model string): everything later iterations read
+        (``checkpoint.py``): the RNG streams, the early-stopping state, the
+        f32 scores as binary arrays and CEGB's state, beside the model."""
+        from ..checkpoint import dataset_fingerprint, encode_rng_state
+        meta = {
+            "boosting": type(self).__name__.lower(),
+            "iteration": int(self.iter_),
+            "num_data": int(self.num_data),
+            "dataset": (dataset_fingerprint(self.train_data)
+                        if self.train_data is not None else None),
+            "num_init_iteration": int(self.num_init_iteration),
+            "shrinkage_rate": float(self.shrinkage_rate),
+            "bag_rng": encode_rng_state(self._bag_rng),
+            "feat_rng": encode_rng_state(self._feat_rng),
+            "es_state": [[ds, name, float(cur), int(it)]
+                         for (ds, name), (cur, it)
+                         in sorted(self._es_state.items())],
+            "valid_names": [vs["name"] for vs in self.valid_sets],
+            "params": {k: str(v)
+                       for k, v in sorted(self.config.raw_params.items())},
+            "extra": self._extra_train_state(),
+        }
+        arrays = {"train_score": self.train_score.cpu().numpy()}
+        for i, vs in enumerate(self.valid_sets):
+            arrays["valid_score_%d" % i] = vs["score"].cpu().numpy()
+        ln = self.learner
+        if ln.cegb_used is not None:
+            arrays["cegb_used"] = np.asarray(ln.cegb_used)
+        if ln.cegb_paid is not None:
+            arrays["cegb_paid"] = ln.cegb_paid.cpu().numpy()
+        return meta, arrays, self.save_model_to_string()
+
+    def restore_train_state(self, meta, arrays, model_str) -> None:
+        """Inverse of :meth:`capture_train_state`, on a booster with the
+        same training data and validation sets (in the same order) already
+        attached; ``train`` then goes on as the checkpointed run would
+        have.  A checkpoint of the JAX package loads too: its score rows
+        padded past ``num_data`` are cut (its elastic resume,
+        gbdt.py:1531-1563)."""
+        from ..checkpoint import (CheckpointError, dataset_fingerprint,
+                                  decode_rng_state)
+        want = type(self).__name__.lower()
+        if meta.get("boosting") != want:
+            raise CheckpointError(
+                "checkpoint was written by boosting=%r, this booster is %r"
+                % (meta.get("boosting"), want))
+        names = list(meta.get("valid_names", []))
+        have = [vs["name"] for vs in self.valid_sets]
+        if names != have:
+            raise CheckpointError(
+                "checkpoint validation sets %r do not match the attached "
+                "ones %r: attach the same valid sets in the same order "
+                "before restoring" % (names, have))
+        saved_fp = meta.get("dataset")
+        if saved_fp is not None and self.train_data is not None:
+            cur_fp = dataset_fingerprint(self.train_data)
+            diff = [k for k in ("num_rows", "num_features", "bin_digest")
+                    if saved_fp.get(k) != cur_fp.get(k)]
+            if diff:
+                raise CheckpointError(
+                    "checkpoint was written against a different dataset "
+                    "(%s): resume needs the same training data"
+                    % ", ".join("%s: %r != %r" % (k, saved_fp.get(k),
+                                                  cur_fp.get(k))
+                                for k in diff))
+        n = self.num_data
+        ts = np.asarray(arrays["train_score"])
+        K = self.train_score.shape[0]
+        if ts.shape != tuple(self.train_score.shape):
+            if ts.ndim == 2 and ts.shape[0] == K and ts.shape[1] >= n \
+                    and int(meta.get("num_data", -1)) == n:
+                ts = ts[:, :n]
+            else:
+                raise CheckpointError(
+                    "checkpoint train_score shape %r does not match this "
+                    "dataset's %r: resume needs the same training data"
+                    % (ts.shape, tuple(self.train_score.shape)))
+        saved_params = meta.get("params")
+        if saved_params is not None:
+            path_keys = {"output_model", "input_model", "output_result",
+                         "config", "task"}
+            cur = {k: str(v) for k, v in self.config.raw_params.items()}
+            diff = sorted(k for k in set(saved_params) | set(cur)
+                          if k not in path_keys
+                          and saved_params.get(k) != cur.get(k))
+            if diff:
+                Log.warning(
+                    "resuming a checkpoint whose parameters differ from the "
+                    "current run (%s); the resumed model mixes both configs",
+                    ", ".join("%s: %r -> %r" % (k, saved_params.get(k),
+                                                cur.get(k)) for k in diff))
+        self.load_model_from_string(model_str)
+        # a resume is the same run going on, not an init_model
+        self.iter_ = int(meta["iteration"])
+        self.num_init_iteration = int(meta["num_init_iteration"])
+        self.shrinkage_rate = float(meta["shrinkage_rate"])
+        self._bag_rng.set_state(decode_rng_state(meta["bag_rng"]))
+        self._feat_rng.set_state(decode_rng_state(meta["feat_rng"]))
+        self._es_state = {(ds, name): (cur, it)
+                          for ds, name, cur, it in meta.get("es_state", [])}
+        dev = self.device
+        self.train_score = torch.as_tensor(
+            np.array(ts, dtype=np.float32), device=dev)
+        for i, vs in enumerate(self.valid_sets):
+            vs["score"] = torch.as_tensor(
+                np.array(arrays["valid_score_%d" % i], dtype=np.float32),
+                device=dev)
+        self.learner.restore_cegb_state(arrays.get("cegb_used"),
+                                        arrays.get("cegb_paid"))
+        # the bag mask of the window in progress, regenerated by the
+        # stateless hash at the window's first iteration
+        cfg = self.config
+        if cfg.bagging_freq > 0 and (self._balanced_bagging()
+                                     or float(cfg.bagging_fraction) < 1.0):
+            freq = int(cfg.bagging_freq)
+            GBDT._bagging(self, self.iter_ - self.iter_ % freq)
+        self._pre_iter_scores = None
+        self._last_iter_arrays = []
+        self._restore_extra_train_state(meta.get("extra") or {})
+
+    def _extra_train_state(self) -> Dict:
+        """Subclass state that must survive a resume (DART and RF add
+        theirs)."""
+        return {}
+
+    def _restore_extra_train_state(self, extra: Dict) -> None:
+        pass
+
+    def save_checkpoint(self, prefix: str, keep: Optional[int] = None) -> str:
+        """Write the train state atomically to
+        ``<prefix>.ckpt_iter_<iteration>`` (``checkpoint.save_checkpoint``)."""
+        from ..checkpoint import save_checkpoint
+        return save_checkpoint(self, prefix, keep=keep)
+
+    def resume_from_checkpoint(self, prefix: str) -> int:
+        """Restore the newest valid checkpoint of ``prefix`` (a corrupt one
+        falls back to an older one); the restored iteration, 0 when there
+        is none."""
+        from ..checkpoint import restore_checkpoint
+        return restore_checkpoint(self, prefix)
 
     # ---- model serialization (gbdt_model_text.cpp:271,375) ----
 
@@ -695,6 +1173,6 @@ class GBDT:
                 "num_tree_per_iteration=%d — the tree section is truncated"
                 % (len(models), K))
         self.models = models
-        self._predictor = None
+        self._invalidate_predict_cache()
         self.num_init_iteration = len(models) // K
         self.iter_ = 0

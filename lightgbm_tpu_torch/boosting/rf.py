@@ -7,7 +7,9 @@ takes the init score as a bias, and the scores hold the running average of
 the trees' outputs (``average_output``: ``predict`` divides by the number of
 iterations).  The running average keeps the JAX package's f32 order: the
 score times ``it``, plus the tree, times ``1 / (it + 1)``.  Custom
-objectives are refused.
+objectives are refused.  A checkpoint carries the constant init scores the
+gradients are taken at (``_extra_train_state``, rf.py:36-50): after a resume
+the model is not empty, and ``_boost_from_average`` would give 0.
 """
 from __future__ import annotations
 
@@ -32,18 +34,31 @@ class RF(GBDT):
         super().__init__(config, train_data, objective, device=device)
         self.shrinkage_rate = 1.0
         self._init_scores = [0.0] * self.num_tree_per_iteration
+        self._init_scores_ready = False
         if objective is None:
             Log.fatal("RF mode do not support custom objective function, "
                       "please use built-in objectives.")
         self._rf_grad = None
+
+    def _extra_train_state(self):
+        return {"init_scores": [float(s) for s in self._init_scores],
+                "init_scores_ready": bool(self._init_scores_ready)}
+
+    def _restore_extra_train_state(self, extra):
+        if "init_scores" in extra:
+            self._init_scores = [float(s) for s in extra["init_scores"]]
+            self._init_scores_ready = bool(extra.get("init_scores_ready"))
+            self._rf_grad = None
 
     def _get_gradients(self):
         """[K, N] gradients at the constant init scores, computed once
         (rf.hpp:83-101); the init scores are not added to the scores."""
         if self._rf_grad is None:
             K = self.num_tree_per_iteration
-            for k in range(K):
-                self._init_scores[k] = self._boost_from_average(k, False)
+            if not self._init_scores_ready:
+                for k in range(K):
+                    self._init_scores[k] = self._boost_from_average(k, False)
+                self._init_scores_ready = True
             init = torch.as_tensor(np.asarray(self._init_scores, np.float32),
                                    device=self.device)
             scores = init[:, None].expand(K, self.num_data).contiguous()
@@ -65,6 +80,7 @@ class RF(GBDT):
         if gradients is not None or hessians is not None:
             raise LightGBMError("RF does not accept custom gradients")
         self.shrinkage_rate = 1.0
+        self._keep_pre_iter_scores()
         it = self.iter_ + self.num_init_iteration
         grad, hess = self._get_gradients()
         self._bagging(self.iter_)
@@ -72,6 +88,7 @@ class RF(GBDT):
         should_continue = False
         for k in range(self.num_tree_per_iteration):
             new_tree = Tree(1)
+            self.last_arrays = None
             if self.class_need_train[k]:
                 gk, hk = grad[k], hess[k]
                 if self.bag_mask is not None:
@@ -83,7 +100,8 @@ class RF(GBDT):
                     should_continue = True
                     new_tree = self._average_in(arrays, k, it)
             self.models.append(new_tree)
-        self._predictor = None
+            self._last_iter_arrays.append(self.last_arrays)
+        self._invalidate_predict_cache()
         if not should_continue:
             Log.warning("Stopped training because there are no more leaves "
                         "that meet the split requirements")

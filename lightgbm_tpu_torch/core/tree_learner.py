@@ -1240,6 +1240,19 @@ class SerialTreeLearner:
             self._grow_mode_warned = True
         return "leaf"
 
+    def restore_cegb_state(self, used, paid) -> None:
+        """Restore CEGB's state from a checkpoint: the features split on
+        ([F] bool) and the lazy paid bits ([num_data, bitbytes] u8 in
+        original row order; a JAX checkpoint's padded rows are cut), which
+        the next tree writes into its row store."""
+        if self.cegb_used is not None and used is not None:
+            self.cegb_used = np.array(used, dtype=bool)
+        if self.cegb_paid is not None and paid is not None:
+            paid = np.array(np.asarray(paid, dtype=np.uint8)
+                            [:self.num_data, :self.cegb_paid.shape[1]])
+            self.cegb_paid = torch.as_tensor(paid,
+                                             device=self.cegb_paid.device)
+
     def valid_bins(self, dataset: BinnedDataset) -> torch.Tensor:
         """Binned matrix [N, C] of a validation set (binned with the training
         set's mappers and groups, ``reference=``) on the learner's device,

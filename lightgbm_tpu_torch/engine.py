@@ -6,11 +6,13 @@ Parameter aliases for the round count and early stopping, callback ordering
 (before/after an iteration), early stopping through ``EarlyStopException``,
 ``evals_result`` recording and continued training from ``init_model`` follow
 the JAX package.  ``params["boosting"]`` picks GBDT, DART, GOSS or random
-forest (``boosting.create_boosting``, through ``Booster``).  The port adds
-``device=``: ``cuda`` unless the caller passes ``"cpu"``.  Not carried over
-yet, and refused with ``NotImplementedError``: ``cv``, ``serve``,
-``serve_and_train``, checkpoints and preemption (ROADMAP queue 1 items 11
-and 15).
+forest (``boosting.create_boosting``, through ``Booster``).
+``checkpoint_prefix`` writes the train state every ``snapshot_freq``
+iterations and resumes an interrupted call from it (engine.py:147-151,
+:218-292 of the JAX package).  The port adds ``device=``: ``cuda`` unless
+the caller passes ``"cpu"``.  Not carried over yet, and refused with
+``NotImplementedError``: ``cv``, ``serve``, ``serve_and_train`` and
+``preemption_checkpoint`` (ROADMAP queue 1 item 15, ``resilience.py``).
 """
 from __future__ import annotations
 
@@ -21,7 +23,9 @@ from typing import Any, Dict, List, Optional
 
 from . import callback
 from .basic import Booster, Dataset, _refuse
+from .checkpoint import cleanup_checkpoints, save_checkpoint_best_effort
 from .device import DeviceLike
+from .utils.log import Log
 
 __all__ = ["train", "cv", "serve", "serve_and_train"]
 
@@ -64,9 +68,18 @@ def train(params: Dict[str, Any], train_set: Dataset,
     come from ``params["metric"]``, the objective's own by default);
     ``early_stopping_rounds`` stops when no validation metric improved for
     that many iterations and sets ``best_iteration``.  ``fobj(raw_scores,
-    train_set) -> (grad, hess)`` is a custom objective."""
-    if checkpoint_prefix is not None or preemption_checkpoint:
-        _refuse("checkpoints and preemption", "queue 1 item 11")
+    train_set) -> (grad, hess)`` is a custom objective.
+
+    ``checkpoint_prefix``: the full train state (checkpoint.py) is written
+    atomically to ``<prefix>.ckpt_iter_<n>`` every ``snapshot_freq``
+    iterations (``snapshot_keep`` bounds the files kept), and a call with
+    the same prefix after an interruption resumes from the newest valid
+    one.  A call that completes removes its checkpoints.  The
+    ``early_stopping_rounds`` callback keeps its counters where no
+    checkpoint reaches them, so they restart on a resume (the JAX
+    package's known limit, engine.py:53-57)."""
+    if preemption_checkpoint:
+        _refuse("preemption_checkpoint", "queue 1 item 15 (resilience.py)")
     params = copy.deepcopy(params) if params else {}
     for alias in _NUM_BOOST_ROUND_ALIASES:
         if alias in params:
@@ -88,6 +101,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
     params["num_iterations"] = num_boost_round
 
     booster = Booster(params=params, train_set=train_set, device=device)
+    if bool(booster.config.preemption_checkpoint):
+        _refuse("preemption_checkpoint", "queue 1 item 15 (resilience.py)")
     gbdt = booster._booster
     if init_model is not None:
         gbdt.load_model_from_string(_model_text(init_model))
@@ -111,6 +126,15 @@ def train(params: Dict[str, Any], train_set: Dataset,
         booster.add_valid(vs, valid_names[i] if i < len(valid_names)
                           else "valid_%d" % i)
     contains_train = any(vs is train_set for vs in (valid_sets or []))
+    resumed_iter = 0
+    ckpt_freq = int(booster.config.snapshot_freq)
+    if checkpoint_prefix is not None:
+        # after the validation sets: their scores are restored by position
+        resumed_iter = gbdt.resume_from_checkpoint(checkpoint_prefix)
+        if ckpt_freq <= 0:
+            Log.warning("checkpoint_prefix is set but snapshot_freq is not "
+                        "(<= 0): no checkpoints will be written; pass "
+                        "snapshot_freq in params to choose the cadence")
 
     callbacks = set() if callbacks is None else set(callbacks)
     if verbose_eval is True:
@@ -134,7 +158,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
 
     end = init_iteration + num_boost_round
     results = []
-    for i in range(init_iteration, end):
+    for i in range(init_iteration + resumed_iter, end):
         for cb in before:
             cb(callback.CallbackEnv(model=booster, params=params, iteration=i,
                                     begin_iteration=init_iteration,
@@ -158,8 +182,14 @@ def train(params: Dict[str, Any], train_set: Dataset,
             booster.best_iteration = stop.best_iteration + 1
             results = stop.best_score
             break
+        if (checkpoint_prefix is not None and ckpt_freq > 0
+                and gbdt.iter_ % ckpt_freq == 0):
+            save_checkpoint_best_effort(gbdt, checkpoint_prefix)
         if finished:
             break
+    if checkpoint_prefix is not None:
+        # the call completed: a rerun with the same prefix trains afresh
+        cleanup_checkpoints(checkpoint_prefix)
     booster.best_score = collections.defaultdict(collections.OrderedDict)
     for data_name, eval_name, value, _ in results or []:
         booster.best_score[data_name][eval_name] = value

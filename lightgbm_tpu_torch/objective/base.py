@@ -22,6 +22,9 @@ class ObjectiveFunction:
     name: str = "custom"
     num_model_per_iteration: int = 1
     is_renew_tree_output: bool = False
+    # prediction early stop is refused for objectives whose outputs need
+    # every tree (predictor.hpp:38-47); the classifiers set False
+    need_accurate_prediction: bool = True
 
     def __init__(self, config, device: DeviceLike = None) -> None:
         self.config = config

@@ -19,6 +19,7 @@ class BinaryLogloss(ObjectiveFunction):
     scale_pos_weight (:95-105); initscore = log(pavg/(1-pavg))/sigmoid
     (:139-160).  ``is_pos`` maps labels to the positive class (``label >
     0`` by default; one-vs-all multiclass passes ``label == k``)."""
+    need_accurate_prediction = False
     name = "binary"
 
     def __init__(self, config, device: DeviceLike = None, is_pos=None):

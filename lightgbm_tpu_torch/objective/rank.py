@@ -103,6 +103,7 @@ def lambdarank_bucket(scores: torch.Tensor, labels: torch.Tensor,
 
 
 class LambdarankNDCG(ObjectiveFunction):
+    need_accurate_prediction = False
     name = "lambdarank"
 
     def __init__(self, config, device: DeviceLike = None):
@@ -205,6 +206,7 @@ class RankXENDCG(ObjectiveFunction):
     phi(l, gamma) = 2^l - gamma with per-doc uniform gammas, batched on the
     device.  Call c draws bucket i's gammas from ``fold_in(PRNGKey(
     objective_seed + c), i)``, the JAX package's stream."""
+    need_accurate_prediction = False
     name = "rank_xendcg"
 
     def __init__(self, config, device: DeviceLike = None):

@@ -16,6 +16,7 @@ K_EPSILON = 1e-15
 
 class CrossEntropy(ObjectiveFunction):
     """grad = sigmoid(f) - y (:76-93); initscore = logit(mean y) (:112-134)."""
+    need_accurate_prediction = False
     name = "cross_entropy"
 
     def init(self, metadata, num_data):
@@ -46,6 +47,7 @@ class CrossEntropy(ObjectiveFunction):
 
 class CrossEntropyLambda(ObjectiveFunction):
     """Alternative parameterization with weight-dependent link (:185-260)."""
+    need_accurate_prediction = False
     name = "cross_entropy_lambda"
 
     def init(self, metadata, num_data):

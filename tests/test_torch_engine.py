@@ -224,7 +224,9 @@ def test_refusals():
         P.Dataset(pd.DataFrame(X[:50]), y[:50])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         P.engine.cv(PARAMS, P.Dataset(X, y))
-    booster = P.train(PARAMS, P.Dataset(X[:300], y[:300]),
-                      num_boost_round=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="pred_contrib"):
-        booster.predict(X[:10], pred_contrib=True)
+    for kw in (dict(preemption_checkpoint=True),
+               dict(params=dict(PARAMS, preemption_checkpoint=True))):
+        with pytest.raises(NotImplementedError,
+                           match="preemption_checkpoint.*queue 1 item 15"):
+            P.train(kw.pop("params", PARAMS), P.Dataset(X[:300], y[:300]),
+                    num_boost_round=1, device="cpu", **kw)

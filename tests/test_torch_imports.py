@@ -6,7 +6,9 @@ imported (JAX, the JAX package) cannot hide an import of the port:
 - importing every module of ``lightgbm_tpu_torch`` leaves neither ``jax`` nor
   ``lightgbm_tpu`` in ``sys.modules``, and ``chip_smoke.py`` imports neither;
 - with CUDA unavailable, an entry point called without ``device=`` raises
-  instead of running on the CPU, and ``device="cpu"`` is honoured;
+  instead of running on the CPU (the predictors of ``core/predict.py`` and
+  ``core/predict_fused.py`` too), and ``device="cpu"`` is honoured, through
+  training, ``pred_leaf``, ``pred_contrib`` and a checkpoint's round trip;
 - ``chip_smoke.py`` exits nonzero and prints no result without CUDA.
 """
 import ast
@@ -111,6 +113,15 @@ ENTRY_POINTS = {
         from lightgbm_tpu_torch.convert import booster_from_model_string
         booster_from_model_string("tree\\nversion=v3\\n")
     """,
+    "fused_predictor": """
+        from lightgbm_tpu_torch.core.predict_fused import FusedPredictor
+        from lightgbm_tpu_torch.core.tree import Tree
+        FusedPredictor([Tree(1)])
+    """,
+    "stacked_trees": """
+        from lightgbm_tpu_torch.core.predict import StackedTrees
+        StackedTrees([])
+    """,
     "build_histogram": """
         import numpy as np
         from lightgbm_tpu_torch.core.histogram import build_histogram
@@ -146,12 +157,22 @@ def test_entry_point_runs_on_cpu_when_asked():
                         num_boost_round=2, verbose_eval=False, device="cpu")
         h = build_histogram(np.zeros((8, 2), np.uint8),
                             np.ones((2, 8), np.float32), 32, device="cpu")
+        leaves = bst.predict(X, pred_leaf=True)
+        phi = bst.predict(X[:20], pred_contrib=True)
+        import tempfile, os
+        prefix = os.path.join(tempfile.mkdtemp(), "m")
+        bst.save_checkpoint(prefix)
+        again = lgb.Booster({"objective": "binary", "num_leaves": 4,
+                             "verbosity": -1},
+                            lgb.Dataset(X, (X[:, 0] > 0) * 1.0),
+                            device="cpu")
         print(b.train_score.device, len(b.models), bst.device,
-              bst.num_trees(), float(h[0, 0, 0]))
+              bst.num_trees(), float(h[0, 0, 0]), leaves.shape[1],
+              phi.shape[1], again.resume_from_checkpoint(prefix))
     """))
     assert out.returncode == 0, out.stderr
     assert out.stdout.splitlines()[-1].split() == ["cpu", "1", "cpu", "2",
-                                                   "8.0"]
+                                                   "8.0", "2", "4", "2"]
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
