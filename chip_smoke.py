@@ -152,7 +152,32 @@ together) and runs these phases, each of which raises on failure:
    after a 5th GBDT iteration giving back the 4-iteration score bytes;
    every path's ``predict`` is held to the port's CPU run bit for bit and
    to ``Tree.predict`` within that f32 bound; (E) ``build_histogram``
-   (kernel #5's caller) over 1,048,576 rows x 28 features;
+   (kernel #5's caller) over 1,048,576 rows x 28 features; (S) the CLI
+   from text files (``python -m lightgbm_tpu_torch``'s ``Application``,
+   no pandas on the card): (S1) (A)'s task written to a CSV of 1,048,576
+   rows x 28 features and a label, each value in
+   millionths in the fixed decimal form ``sDD.DDDDDD`` (so every correctly
+   rounding parser reads it exactly), with a ``.weight`` side file and the
+   held-out tenth as a validation file, trained by ``task=train``
+   (``metric=auc``, (A)'s settings, 5 iterations): the loaded dataset
+   byte-equal to ``BinnedDataset.from_matrix`` of the file's values (bin
+   mappers, packed store, labels, weights, raw values), the model's trees
+   equal to ``lightgbm_tpu_torch.train``'s on that matrix, one root
+   histogram per tree and one split pass per split, and the kernels held
+   to their plain versions on the CLI's row store (a numerical route);
+   (S2) the file loaded one-shot, with ``data_chunk_rows=65536`` and with
+   ``two_round``, one after another, each in a process of its own: each
+   byte-equal to (S1)'s dataset, with its seconds and its peak resident
+   set (sampled every 10 ms); (S3) ``task=predict`` on
+   the validation file equal to ``Booster.predict`` within the ``%g``
+   print, ``task=convert_model`` built with ``g++`` equal to ``predict``
+   on 1,000 rows to rtol 1e-10, and ``task=refit`` on the training file
+   (the same trees, held-out AUC > 0.75), none of which launches a kernel;
+   (S4) the reference's binary, regression, multiclass and lambdarank
+   examples and the LibSVM ``sparse_binary`` override through the CLI at
+   ``test_parity.py``'s iteration counts, each within its windows around
+   the reference CLI's metrics (``tests/data/golden_metrics.json``), one
+   root histogram per tree and one split pass per split;
 5. times of each kernel at the main paths' shapes beside its bound, its
    plain version and one PyTorch library call (``index_add_``; for a split
    pass, which has none, the window's device-to-device copy): the
@@ -1960,11 +1985,14 @@ def phase_expo_variants(device, sets, iters: int, profile: bool) -> dict:
 
 
 def check_path_kernels(learner, path: str, unfold: bool = False,
-                       categorical: bool = False) -> dict:
+                       categorical: bool = False,
+                       numerical: bool = False) -> dict:
     """The kernels at a path's own shape, against their plain versions: the
     learner's row store (its bins, random gradients) through the root
     histogram (exact and integer), a split pass with the path's route (an
-    EFB unfold of a bundled feature, or a category bitset) on a mid window,
+    EFB unfold of a bundled feature, a category bitset, or with
+    ``numerical`` a threshold at the middle bin of feature 0) on a mid
+    window,
     and in level mode a level pass whose windows take that route.  Then
     their times on the whole store (exact; in level mode the integer level
     pass over 8 windows), beside their bounds, plain versions and
@@ -1986,13 +2014,17 @@ def check_path_kernels(learner, path: str, unfold: bool = False,
         fid = int(learner.dataset.feature_groups[f][1])
         route = (int(fh["group"][fid]), 0, 0, 0, int(fh["num_bin"][fid]),
                  0, 0, 1, int(fh["offset"][fid]))
+    elif numerical:
+        nb = int(fh["num_bin"][0])
+        col = 0 if fh["group"] is None else int(fh["group"][0])
+        route = (col, nb // 2, 0, 0, nb, 0, 0, 0, 0)
     else:
         fid = int(np.flatnonzero(fh["is_cat"] & (fh["num_bin"] > 16))[0])
         for b in np.flatnonzero(rng.rand(int(fh["num_bin"][fid])) < 0.5):
             words[b >> 5] |= 1 << (int(b) & 31)
         words = [w - (1 << 32) if w >= 1 << 31 else w for w in words]
         route = (fid, 0, 0, 0, int(fh["num_bin"][fid]), 0, 1, 0, 0)
-    name = "unfold" if unfold else "cat"
+    name = "unfold" if unfold else "numerical" if numerical else "cat"
     level = learner.tree_grow_mode == "level"
     bounds_w = np.linspace(0, n, 9).astype(np.int64)
     scals = np.asarray([scal_row(int(a), int(b - a), route, words, i % 2)
@@ -2815,6 +2847,429 @@ def phase_pool(device, eps: dict, profile: bool) -> dict:
     return r
 
 
+# ------------------------------------------------- path (S): CLI from files
+
+
+CLI_DIR = os.path.join("build", "cli")
+CLI_ROWS = 1 << 20                # (A)'s rows
+CLI_ITERS = 5
+CLI_CHUNK = 65_536
+CLI_PARAMS = ["objective=binary", "num_leaves=255", "max_bin=255",
+              "metric=auc", "verbosity=-1"]
+CONVERT_ROWS = 1000
+CONVERT_RTOL = 1e-10
+# (config, iterations, windows): test_parity.py's counts and windows
+# (:71-165) around the reference LightGBM 2.3.2 CLI's metrics
+CLI_EXAMPLES = [
+    ("binary_classification", 25, {
+        "training auc": 0.02, "valid_1 auc": 0.025,
+        "training binary_logloss": 0.04, "valid_1 binary_logloss": 0.04}),
+    ("regression", 25, {"training l2": 0.02, "valid_1 l2": 0.02}),
+    ("multiclass_classification", 10, {
+        "training multi_logloss": 0.06, "valid_1 multi_logloss": 0.08,
+        "training auc_mu": 0.03, "valid_1 auc_mu": 0.05}),
+    ("lambdarank", 10, {
+        "training ndcg@5": 0.04, "valid_1 ndcg@5": 0.08,
+        "training ndcg@1": 0.05, "valid_1 ndcg@1": 0.08}),
+    ("sparse_binary", 25, {
+        "training auc": 0.02, "valid_1 auc": 0.03,
+        "training binary_logloss": 0.04, "valid_1 binary_logloss": 0.05}),
+]
+# one load of a text file in a process of its own: its seconds and its
+# resident set sampled every 10 ms during the load, against the one before
+# it (getrusage's ru_maxrss would carry the forking parent's high-water
+# mark across the exec on Linux); the dataset is written back in binary
+LOAD_CHILD = """
+import json, os, sys, threading, time
+sys.path.insert(0, sys.argv[4])
+if sys.argv[5] == "1":
+    sys.modules["pandas"] = None
+from lightgbm_tpu_torch.config import Config
+from lightgbm_tpu_torch.io.loader import DatasetLoader
+page = os.sysconf("SC_PAGE_SIZE")
+def rss():
+    with open("/proc/self/statm") as fh:
+        return int(fh.read().split()[1]) * page
+cfg = Config(json.loads(sys.argv[2]))
+base, peak, done = rss(), [0], threading.Event()
+def sample():
+    while not done.wait(0.01):
+        peak[0] = max(peak[0], rss())
+th = threading.Thread(target=sample, daemon=True)
+th.start()
+t = time.perf_counter()
+ds = DatasetLoader(cfg).load_from_file(sys.argv[1])
+dt = time.perf_counter() - t
+done.set()
+th.join()
+peak[0] = max(peak[0], rss())
+ds.save_binary(sys.argv[3])
+print(json.dumps({"seconds": dt, "base": base, "peak": peak[0]}))
+"""
+
+
+def fixed_text(k: np.ndarray) -> bytes:
+    """[n, c] int64 values in millionths -> CSV text, each value written as
+    ``sDD.DDDDDD`` (the exact decimal, so that every correctly rounded
+    parser reads ``k / 1e6``), ``,`` between values and a newline after
+    each row."""
+    n, c = k.shape
+    if n and np.abs(k).max() >= 10 ** 8:
+        raise ValueError("value out of the fixed format's range")
+    out = np.empty((n, c, 11), np.uint8)
+    out[:, :, 0] = np.where(k < 0, ord("-"), ord("+"))
+    a = np.abs(k)
+    for j, col in enumerate((1, 2, 4, 5, 6, 7, 8, 9)):
+        out[:, :, col] = (a // 10 ** (7 - j)) % 10 + ord("0")
+    out[:, :, 3] = ord(".")
+    out[:, :, 10] = ord(",")
+    out[:, -1, 10] = ord("\n")
+    return out.tobytes()
+
+
+def write_fixed_csv(path: str, cols: np.ndarray) -> float:
+    """``cols`` [n, c] (f64, already millionths) to ``path`` in blocks;
+    returns the seconds taken."""
+    t = time.perf_counter()
+    with open(path, "wb") as fh:
+        for lo in range(0, len(cols), 1 << 17):
+            fh.write(fixed_text(np.rint(cols[lo:lo + (1 << 17)] * 1e6)
+                                .astype(np.int64)))
+    return time.perf_counter() - t
+
+
+def millionths(a) -> np.ndarray:
+    """The values the fixed format writes for ``a``, as f64."""
+    return np.rint(np.asarray(a, np.float64) * 1e6) / 1e6
+
+
+def dataset_digest(ds) -> tuple:
+    """What two loads of one file must share byte for byte."""
+    mappers = json.dumps([m.to_dict() for m in ds.bin_mappers],
+                         sort_keys=True)
+    meta = ds.metadata
+    return (mappers, ds.binned.dtype.str, ds.binned.shape,
+            ds.binned.tobytes(), [list(g) for g in ds.feature_groups],
+            np.asarray(meta.label).tobytes(),
+            None if meta.weights is None
+            else np.asarray(meta.weights).tobytes())
+
+
+def expect_same_dataset(a, b, what: str) -> None:
+    da, db = dataset_digest(a), dataset_digest(b)
+    names = ("bin mappers", "store dtype", "store shape", "packed store",
+             "EFB groups", "labels", "weights")
+    bad = [n for n, x, y in zip(names, da, db) if x != y]
+    if bad:
+        raise AssertionError("%s: %s differ" % (what, ", ".join(bad)))
+    log("  %-52s byte-equal (mappers, store, labels, weights)" % what)
+
+
+def trees_text(text: str) -> str:
+    return text[:text.index("\nparameters:")]
+
+
+class IterationTimes:
+    """Each ``GBDT.train_one_iter``'s wall seconds, ending in a device
+    synchronise, while installed (the CLI builds its booster inside)."""
+
+    def __init__(self) -> None:
+        from lightgbm_tpu_torch.boosting.gbdt import GBDT
+        self.cls, self.real, self.iter_s = GBDT, GBDT.train_one_iter, []
+
+    def __enter__(self):
+        rec = self
+
+        def timed_iter(booster, *a, **k):
+            t = time.perf_counter()
+            out = rec.real(booster, *a, **k)
+            torch.cuda.synchronize()
+            rec.iter_s.append(time.perf_counter() - t)
+            return out
+        self.cls.train_one_iter = timed_iter
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.cls.train_one_iter = self.real
+
+
+def run_cli(argv, what: str) -> tuple:
+    """``cli.Application(argv).run()`` on the card (what ``cli.main`` runs)
+    with the launch counts read around it: (application, launches,
+    seconds, iteration seconds)."""
+    from lightgbm_tpu_torch import device as D
+    from lightgbm_tpu_torch.cli import Application
+    D.reset_launches()
+    t = time.perf_counter()
+    with IterationTimes() as rec:
+        app = Application(argv)
+        app.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = D.launches()
+    log("  %s: %.2f s wall, launches %s" % (what, wall, counts))
+    return app, counts, wall, rec.iter_s
+
+
+def expect_cli_launches(what: str, booster, counts: dict) -> tuple:
+    """The CLI's training went through the root histogram (#1) once per
+    tree and the split pass (#3/#4) once per split, and nothing else."""
+    trees = len(booster.models)
+    splits = sum(t.num_leaves - 1 for t in booster.models)
+    want = {"histogram": trees, "partition": splits}
+    if counts != {k: want.get(k, 0) for k in counts}:
+        raise AssertionError("(%s): launches %s, want %s"
+                             % (what, counts, want))
+    return trees, splits
+
+
+def run_loaders(path: str, params: dict, out_dir: str) -> dict:
+    """One-shot, ``data_chunk_rows`` and ``two_round`` loads of ``path``,
+    one after another, each in a process of its own: seconds, peak RSS and
+    the dataset written back in binary."""
+    from lightgbm_tpu_torch.io.dataset import BinnedDataset
+    root = os.path.dirname(os.path.abspath(__file__))
+    modes = {"one-shot": {}, "data_chunk_rows=%d" % CLI_CHUNK:
+             {"data_chunk_rows": CLI_CHUNK}, "two_round": {"two_round": True}}
+    no_pandas = "pandas" in sys.modules and sys.modules["pandas"] is None
+    res = {}
+    for i, (name, extra) in enumerate(modes.items()):
+        out = os.path.join(out_dir, "load%d.bin" % i)
+        proc = subprocess.run(
+            [sys.executable, "-c", LOAD_CHILD, path,
+             json.dumps(dict(params, **extra)), out, root,
+             "1" if no_pandas else "0"],
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError("%s load failed: %s"
+                                 % (name, proc.stderr[-2000:]))
+        r = json.loads(proc.stdout.strip().splitlines()[-1])
+        r["ds"] = BinnedDataset.load_binary(out)
+        mib = 1 << 20
+        log("  %-22s load %.2f s, peak RSS during it %.0f MiB (%.0f MiB "
+            "over the %.0f MiB before it)"
+            % (name, r["seconds"], r["peak"] / mib,
+               (r["peak"] - r["base"]) / mib, r["base"] / mib))
+        res[name] = r
+    return res
+
+
+def phase_cli(device, n: int) -> dict:
+    """Path (S): the CLI from text files on the card (``cli.py``,
+    ``io/loader.py``, ``io/parser.py``, ``model_codegen.py``).  (S1) (A)'s
+    Higgs-shaped task written to CSV (values in millionths, exact in
+    decimal) with a ``.weight`` side file and a validation file, trained by
+    ``task=train``: the loaded dataset byte-equal to ``from_matrix`` of the
+    file's values, the model's trees equal to ``lightgbm_tpu_torch.train``'s
+    on that matrix, the kernels launched once per tree and split and held
+    to their plain versions on the CLI's row store; (S2) the same file
+    loaded one-shot, with ``data_chunk_rows`` and ``two_round``, each
+    byte-equal to (S1)'s dataset, with its seconds and peak RSS; (S3)
+    ``task=predict`` equal to ``Booster.predict`` within the ``%g`` print,
+    ``task=convert_model`` built with ``g++`` equal to ``predict`` on 1,000
+    rows to rtol 1e-10, ``task=refit`` on the training file; (S4) the
+    reference's example configs through the CLI, held to the golden
+    metrics' windows."""
+    import ctypes
+    import shutil
+
+    import lightgbm_tpu_torch as P
+    from lightgbm_tpu_torch.metric.binary import weighted_auc
+    from lightgbm_tpu_torch.utils.log import Log
+
+    if os.path.isdir(CLI_DIR):
+        shutil.rmtree(CLI_DIR)
+    os.makedirs(CLI_DIR)
+    out = {"launches": {}, "trees": 0, "splits": 0}
+
+    def add(counts, trees, splits):
+        for k, v in counts.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        out["trees"] += trees
+        out["splits"] += splits
+
+    try:
+        # ---- (S1) ----
+        X, y, X_test, y_test = synthetic_task(n)
+        w = np.random.RandomState(11).randint(500_000, 1_500_001,
+                                              size=n) / 1e6
+        train_f = os.path.join(CLI_DIR, "higgs.train")
+        valid_f = os.path.join(CLI_DIR, "higgs.test")
+        model_f = os.path.join(CLI_DIR, "model.txt")
+        t = time.perf_counter()
+        secs = write_fixed_csv(train_f, np.column_stack([y, X]))
+        secs += write_fixed_csv(valid_f, np.column_stack([y_test, X_test]))
+        secs += write_fixed_csv(train_f + ".weight", w[:, None])
+        mb = (os.path.getsize(train_f) + os.path.getsize(valid_f)) / 2 ** 20
+        log("  (S1) wrote %d + %d rows x %d columns (%.1f MiB of CSV) and a "
+            ".weight file in %.2f s" % (n, len(y_test), X.shape[1] + 1, mb,
+                                        secs))
+        Xq, Xq_test, wq = millionths(X), millionths(X_test), millionths(w)
+        argv = (["task=train", "data=%s" % train_f, "valid=%s" % valid_f,
+                 "num_iterations=%d" % CLI_ITERS, "output_model=%s" % model_f]
+                + CLI_PARAMS)
+        app, counts, wall, iter_s = run_cli(argv, "(S1) task=train")
+        booster = app.booster
+        trees, splits = expect_cli_launches("S1", booster, counts)
+        add(counts, trees, splits)
+        out["iter_s"] = iter_s
+        med = float(np.median(iter_s))
+        log("  (S1) seconds per iteration %s (median %.4f), %d trees, %d "
+            "splits" % (["%.4f" % v for v in iter_s], med, trees, splits))
+        evals = booster.eval_valid()
+        log("  (S1) validation %s" % evals)
+        cfg_params = dict(objective="binary", num_leaves=255, max_bin=255,
+                          metric="auc", verbosity=-1)
+        t = time.perf_counter()
+        ref = P.BinnedDataset.from_matrix(Xq, label=y, weight=wq,
+                                          max_bin=255)
+        log("  (S1) from_matrix of the file's values in %.2f s"
+            % (time.perf_counter() - t))
+        expect_same_dataset(booster.train_data, ref,
+                            "(S1) CLI dataset vs from_matrix")
+        if not np.array_equal(booster.train_data.raw_data, Xq):
+            raise AssertionError("(S1) the CLI's raw values differ from the "
+                                 "file's")
+        bst = P.train(cfg_params, P.Dataset(Xq, y, weight=wq,
+                                            params=cfg_params),
+                      num_boost_round=CLI_ITERS, verbose_eval=False)
+        with open(model_f) as fh:
+            cli_text = fh.read()
+        if trees_text(cli_text) != trees_text(bst.model_to_string()):
+            raise AssertionError("(S1) the CLI's trees differ from "
+                                 "lightgbm_tpu_torch.train's")
+        log("  (S1) the CLI's %d trees equal lightgbm_tpu_torch.train's on "
+            "the file's matrix" % trees)
+        del bst
+        out["times"] = check_path_kernels(booster.learner, "S",
+                                          numerical=True)
+        train_ds = booster.train_data
+        del app, booster
+        torch.cuda.empty_cache()
+
+        # ---- (S2) ----
+        loads = run_loaders(train_f, {"max_bin": 255, "verbosity": -1},
+                            CLI_DIR)
+        for name, r in loads.items():
+            expect_same_dataset(r["ds"], train_ds,
+                                "(S2) %s vs (S1)" % name)
+        out["loads"] = {k: {"seconds": v["seconds"],
+                            "peak_rss_mib": v["peak"] / (1 << 20),
+                            "growth_mib": (v["peak"] - v["base"]) / (1 << 20)}
+                        for k, v in loads.items()}
+        del loads, train_ds
+
+        # ---- (S3) ----
+        result_f = os.path.join(CLI_DIR, "predict.txt")
+        _, counts, t_pred, _ = run_cli(
+            ["task=predict", "data=%s" % valid_f, "verbosity=-1",
+             "input_model=%s" % model_f, "output_result=%s" % result_f],
+            "(S3) task=predict")
+        s3_counts = [counts]
+        got = np.loadtxt(result_f)
+        model = P.Booster(model_file=model_f)
+        want = model.predict(Xq_test)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+        auc = weighted_auc(y_test, want, None)
+        log("  (S3) task=predict %d rows in %.2f s: equal to Booster.predict "
+            "within the %%g print; held-out AUC %.6f" % (len(got), t_pred,
+                                                           auc))
+        if not auc > 0.75:
+            raise AssertionError("(S3) held-out AUC %.4f" % auc)
+        cpp = os.path.join(CLI_DIR, "model.cpp")
+        so = os.path.join(CLI_DIR, "model.so")
+        t = time.perf_counter()
+        _, counts, _, _ = run_cli(
+            ["task=convert_model", "input_model=%s" % model_f,
+             "convert_model=%s" % cpp, "verbosity=-1"],
+            "(S3) task=convert_model")
+        s3_counts.append(counts)
+        subprocess.run(["g++", "-O2", "-shared", "-fPIC", cpp, "-o", so],
+                       check=True)
+        lib = ctypes.CDLL(os.path.abspath(so))
+        ptr = ctypes.POINTER(ctypes.c_double)
+        lib.Predict.argtypes = [ptr, ptr]
+        one = np.zeros(1)
+        rows = np.ascontiguousarray(Xq_test[:CONVERT_ROWS])
+        conv = np.empty(len(rows))
+        for i in range(len(rows)):
+            lib.Predict(rows[i].ctypes.data_as(ptr), one.ctypes.data_as(ptr))
+            conv[i] = one[0]
+        np.testing.assert_allclose(conv, model.predict(rows),
+                                   rtol=CONVERT_RTOL, atol=0)
+        log("  (S3) task=convert_model + g++ in %.2f s: %d rows equal to "
+            "predict to rtol %g" % (time.perf_counter() - t, len(rows),
+                                    CONVERT_RTOL))
+        refit_f = os.path.join(CLI_DIR, "refit.txt")
+        _, counts, t_refit, _ = run_cli(
+            ["task=refit", "data=%s" % train_f, "input_model=%s" % model_f,
+             "output_model=%s" % refit_f] + CLI_PARAMS, "(S3) task=refit")
+        s3_counts.append(counts)
+        refit = P.Booster(model_file=refit_f)
+        for a, b in zip(model._booster.models, refit._booster.models):
+            nl = a.num_leaves
+            if not (b.num_leaves == nl and np.array_equal(
+                    a.split_feature[:nl - 1], b.split_feature[:nl - 1])
+                    and np.isfinite(b.leaf_value[:nl]).all()):
+                raise AssertionError("(S3) refit changed a tree's shape")
+        r_auc = weighted_auc(y_test, refit.predict(Xq_test), None)
+        log("  (S3) task=refit on the training file in %.2f s: same trees, "
+            "held-out AUC %.6f" % (t_refit, r_auc))
+        if not r_auc > 0.75:
+            raise AssertionError("(S3) refit's held-out AUC %.4f" % r_auc)
+        if any(any(c.values()) for c in s3_counts):
+            raise AssertionError("(S3) predict, convert_model and refit "
+                                 "launched kernels: %s" % s3_counts)
+        del model, refit
+
+        # ---- (S4) ----
+        here = os.path.dirname(os.path.abspath(__file__))
+        data_dir = os.path.join(here, "tests", "data")
+        with open(os.path.join(data_dir, "golden_metrics.json")) as fh:
+            golden = json.load(fh)
+        out["examples"] = {}
+        for name, iters, windows in CLI_EXAMPLES:
+            conf_dir = os.path.join(data_dir, name)
+            conf = os.path.join(conf_dir, "train.conf")
+            params = {}
+            with open(conf) as fh:
+                for line in fh:
+                    line = line.split("#", 1)[0]
+                    if "=" in line:
+                        k, v = line.split("=", 1)
+                        params[k.strip()] = v.strip()
+            argv = ["config=%s" % conf,
+                    "data=%s" % os.path.join(conf_dir, params["data"]),
+                    "valid=%s" % os.path.join(conf_dir,
+                                              params["valid_data"]),
+                    "num_iterations=%d" % iters, "verbosity=-1",
+                    "output_model=%s" % os.path.join(CLI_DIR, name + ".txt")]
+            app, counts, wall, _ = run_cli(argv, "(S4) %s" % name)
+            trees, splits = expect_cli_launches("S4 " + name, app.booster,
+                                                counts)
+            add(counts, trees, splits)
+            got = {"%s %s" % (d, m): v for d, m, v, _ in
+                   app.booster.eval_train() + app.booster.eval_valid()}
+            want = golden[name][str(iters)]
+            bad = [k for k, tol in windows.items()
+                   if not abs(got[k] - want[k]) < tol]
+            log("  (S4) %s, %d iterations, %.2f s: %s" % (
+                name, iters, wall, ", ".join(
+                    "%s %.6f (reference %.6f)" % (k, got[k], want[k])
+                    for k in sorted(windows))))
+            if bad:
+                raise AssertionError("(S4) %s outside the golden windows: %s"
+                                     % (name, bad))
+            out["examples"][name] = {"seconds": wall, "metrics": got}
+            del app
+        log("  (S) launches %s over %d trees and %d splits"
+            % (out["launches"], out["trees"], out["splits"]))
+    finally:
+        Log.reset_level(Log.level_from_verbosity(-1))
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
+    return out
+
+
 def profile_iteration(booster) -> float:
     """One more training iteration under ``torch.profiler``: the kernels by
     device time, and the device's busy share of the iteration's wall time."""
@@ -3420,6 +3875,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     log("  (E) build_histogram")
     paths["E"] = phase_build_histogram(device, 1 << 20)
+    torch.cuda.empty_cache()
+    log("  (S) the CLI from text files: %d rows x 28 features, "
+        "max_bin=255, num_leaves=255, %d iterations; the reference's "
+        "example configs" % (CLI_ROWS, CLI_ITERS))
+    paths["S"] = phase_cli(device, CLI_ROWS)
+    torch.cuda.empty_cache()
     log("  median seconds per iteration: %s" % ", ".join(
         "(%s) %.4f" % (p, float(np.median(r["iter_s"])))
         for p, r in paths.items() if "iter_s" in r))
@@ -3441,15 +3902,18 @@ def main(argv=None) -> int:
         dict(name="histogram", route="cuda",
              source="lightgbm_tpu_torch/csrc/histogram.cu",
              replaces="lightgbm_tpu/core/histogram.py:743",
-             max_abs_err=hist_err_max, **launches("histogram", "ABCGHIJR"),
+             max_abs_err=hist_err_max, **launches("histogram", "ABCGHIJRS"),
              groups_root=paths["I"]["times"]["histogram"],
+             cli_root=paths["S"]["times"]["histogram"],
              expo_root=paths["J"]["times"]["histogram"],
              **times["histogram"]),
         dict(name="partition", route="cuda",
              source="lightgbm_tpu_torch/csrc/partition.cu",
              replaces="lightgbm_tpu/core/partition.py:1090",
              also_replaces="lightgbm_tpu/core/partition.py:1130",
-             max_abs_err=split_err_max, **launches("partition", "ABCFGHIJR"),
+             max_abs_err=split_err_max,
+             **launches("partition", "ABCFGHIJRS"),
+             cli_root=paths["S"]["times"]["split"],
              unfold_launches=paths["I"]["routes"]["partition"]["unfold"],
              categorical_launches=paths["J"]["routes"]["partition"][
                  "categorical"],

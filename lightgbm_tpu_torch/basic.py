@@ -1,11 +1,18 @@
-"""Public ``Dataset`` and ``Booster``: the numpy subset of
-``lightgbm_tpu/basic.py`` (python-package/lightgbm/basic.py), for the PyTorch
-port (which imports nothing of the JAX package).
+"""Public ``Dataset`` and ``Booster``: ``lightgbm_tpu/basic.py``
+(python-package/lightgbm/basic.py) for the PyTorch port (which imports
+nothing of the JAX package).
 
 A :class:`Dataset` is binned on the host (lazily, at ``construct``); a
 validation set made with ``reference=`` (or ``create_valid``) is binned with
-the training set's bin mappers.  A :class:`Booster` trains on the device its
-``device=`` names, ``cuda`` unless the caller passes ``"cpu"``.
+the training set's bin mappers.  Its data is a numpy matrix, a pandas
+DataFrame (category columns become their codes, basic.py:47-82), a sparse
+matrix, or the path of a text or binary file, loaded by
+``io.loader.DatasetLoader`` with its side files.  ``subset``, the
+``set_``/``get_`` fields, ``save_binary`` (the ``LGBMTPU1`` format) and
+``set_categorical_feature`` follow the JAX package (basic.py:259-359).  A
+:class:`Booster` trains on the device its ``device=`` names, ``cuda`` unless
+the caller passes ``"cpu"``, and pickles through its model text onto the
+same device type.
 
 ``Booster.update(fobj=...)`` trains on a custom objective's gradients.  The
 booster is built by ``boosting.create_boosting``: ``boosting=gbdt``,
@@ -17,13 +24,12 @@ does not take: then it is densified, as in the JAX package (basic.py:85-112,
 :227-250).  ``predict`` takes ``pred_leaf``, ``pred_contrib`` and
 ``precision`` (``exact`` or ``bf16``), ``predict_binned`` a constructed
 ``Dataset``'s row store; ``save_checkpoint`` and ``resume_from_checkpoint``
-carry the train state (``checkpoint.py``).  Not carried over yet, and
-refused with ``NotImplementedError``: pandas input (ROADMAP queue 1 item 1).
-Telemetry and serving are TPU-era planes with no counterpart here (queue 1
-item 15).
+carry the train state (``checkpoint.py``).  Telemetry and serving are
+TPU-era planes with no counterpart here (ROADMAP queue 1 items 14-15).
 """
 from __future__ import annotations
 
+import sys
 from copy import deepcopy
 from typing import Any, Dict, List, Optional, Union
 
@@ -34,6 +40,7 @@ from .boosting.gbdt import GBDT
 from .config import Config, alias_transform
 from .device import DeviceLike
 from .io.dataset import BinnedDataset
+from .io.loader import DatasetLoader
 from .metric.metric import create_metrics
 from .objective import create_objective
 from .utils.log import LightGBMError
@@ -46,10 +53,58 @@ def _refuse(what: str, item: str) -> None:
                               "(ROADMAP %s)" % (what, item))
 
 
+_PANDAS_DTYPES = {"int8", "int16", "int32", "int64", "uint8", "uint16",
+                  "uint32", "uint64", "float16", "float32", "float64", "bool"}
+
+
+def _pandas_type(data, name: str) -> bool:
+    """``data`` is a pandas ``name`` (DataFrame, Series): pandas is then
+    imported already, so the check imports nothing."""
+    pd = sys.modules.get("pandas")
+    return pd is not None and isinstance(data, getattr(pd, name))
+
+
 def _list_to_1d_numpy(data, dtype):
     if data is None:
         return None
+    if _pandas_type(data, "Series"):
+        data = data.values
     return np.asarray(data, dtype=dtype).reshape(-1)
+
+
+def _data_from_pandas(data, feature_name, categorical_feature):
+    """DataFrame -> (float64 matrix, names, categorical indices): category
+    columns become their codes, -1 becoming NaN (basic.py:47-82 of the JAX
+    package, the reference's basic.py:263-330)."""
+    if data.shape[0] == 0:
+        raise LightGBMError("Input data must not be empty")
+    names = [str(c) for c in data.columns]
+    cat_cols = [i for i, c in enumerate(data.columns)
+                if str(data[c].dtype) == "category"]
+    if categorical_feature == "auto":
+        categorical = cat_cols
+    elif categorical_feature is None:
+        categorical = []
+    else:
+        categorical = [names.index(c) if isinstance(c, str) else int(c)
+                       for c in categorical_feature
+                       if not isinstance(c, str) or c in names]
+    out = np.empty(data.shape, dtype=np.float64)
+    for i, c in enumerate(data.columns):
+        col = data[c]
+        if str(col.dtype) == "category":
+            codes = col.cat.codes.values.astype(np.float64)
+            codes[codes < 0] = np.nan
+            out[:, i] = codes
+        else:
+            if str(col.dtype) not in _PANDAS_DTYPES:
+                raise LightGBMError(
+                    "DataFrame.dtypes for data must be int, float or bool. "
+                    "Did not expect the data types in field %s" % c)
+            out[:, i] = col.values.astype(np.float64)
+    if feature_name == "auto":
+        feature_name = names
+    return out, feature_name, categorical
 
 
 class CSRData:
@@ -77,39 +132,38 @@ def _as_csr(data) -> Optional[CSRData]:
     return None
 
 
-def _check_input(data) -> None:
-    """Refuse the inputs the port cannot bin yet."""
-    if type(data).__module__.split(".")[0] == "pandas":
-        _refuse("pandas input", "queue 1 item 1")
-
-
-def _to_matrix(data) -> np.ndarray:
-    """A dense 2-D numpy matrix (f32 stays f32; binning reads it as f64);
-    sparse input is densified."""
-    _check_input(data)
+def _to_matrix(data, feature_name="auto", categorical_feature="auto"):
+    """(dense 2-D numpy matrix, feature names or None, categorical
+    indices): a DataFrame through :func:`_data_from_pandas`, sparse input
+    densified; f32 stays f32 (binning reads it as f64)."""
+    if _pandas_type(data, "DataFrame"):
+        return _data_from_pandas(data, feature_name, categorical_feature)
     csr = _as_csr(data)
     if csr is not None:
         arr = np.zeros(csr.shape, dtype=np.float64)
         rows = np.repeat(np.arange(csr.shape[0]), np.diff(csr.indptr))
         arr[rows, csr.indices] = csr.values
-        return arr
-    arr = np.asarray(data)
-    if arr.dtype not in (np.float32, np.float64):
-        arr = arr.astype(np.float64)
+    else:
+        arr = np.asarray(data)
+        if arr.dtype not in (np.float32, np.float64):
+            arr = arr.astype(np.float64)
     if arr.ndim == 1:
         arr = arr.reshape(1, -1)
-    return arr
+    cats = ([] if categorical_feature in ("auto", None)
+            else [int(c) for c in categorical_feature])
+    names = None if feature_name == "auto" else list(feature_name)
+    return arr, names, cats
 
 
 class Dataset:
-    """Dataset for training or validation: a lazily binned numpy matrix."""
+    """Dataset for training or validation: a lazily binned numpy matrix,
+    DataFrame, sparse matrix or text file."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
                  weight=None, group=None, init_score=None,
                  feature_name="auto", categorical_feature="auto",
                  params: Optional[Dict[str, Any]] = None,
                  free_raw_data: bool = True) -> None:
-        _check_input(data)
         self.data = data
         self.label = label
         self.reference = reference
@@ -121,43 +175,74 @@ class Dataset:
         self.params = deepcopy(params) if params else {}
         self.free_raw_data = free_raw_data
         self.handle: Optional[BinnedDataset] = None
+        self.used_indices: Optional[np.ndarray] = None
 
     def construct(self) -> "Dataset":
-        """Bin the matrix (basic.py:712 ``_lazy_init``): with the reference's
-        bin mappers when there is one."""
+        """Bin the data (basic.py:712 ``_lazy_init``): with the reference's
+        bin mappers when there is one; a subset takes its reference's rows;
+        a path goes through ``io.loader.DatasetLoader`` (side files
+        included) and the fields given here replace the file's."""
         if self.handle is not None:
+            return self
+        if self.used_indices is not None:
+            ref = self.reference.construct()
+            self.handle = ref.handle.subset(self.used_indices)
+            if self.label is not None:
+                self.handle.metadata.set_label(
+                    _list_to_1d_numpy(self.label, np.float64))
             return self
         cfg = Config(alias_transform(dict(self.params)))
         ref = None
         if self.reference is not None:
             ref = self.reference.construct().handle
-        cats = ([] if self.categorical_feature in ("auto", None)
-                else [int(c) for c in self.categorical_feature])
+        label = _list_to_1d_numpy(self.label, np.float64)
+        weight = _list_to_1d_numpy(self.weight, np.float64)
+        group = _list_to_1d_numpy(self.group, np.int32)
+        init_score = _list_to_1d_numpy(self.init_score, np.float64)
+        if isinstance(self.data, str):
+            self.handle = DatasetLoader(cfg).load_from_file(self.data,
+                                                            reference=ref)
+            meta = self.handle.metadata
+            for value, setter in ((label, meta.set_label),
+                                  (weight, meta.set_weights),
+                                  (group, meta.set_group),
+                                  (init_score, meta.set_init_score)):
+                if value is not None:
+                    setter(value)
+            return self
+        chunk_rows = int(cfg.data_chunk_rows or 0)
         common = dict(
-            label=_list_to_1d_numpy(self.label, np.float64),
-            weight=_list_to_1d_numpy(self.weight, np.float64),
-            group=_list_to_1d_numpy(self.group, np.int32),
-            init_score=_list_to_1d_numpy(self.init_score, np.float64),
+            label=label, weight=weight, group=group, init_score=init_score,
             max_bin=int(cfg.max_bin), min_data_in_bin=int(cfg.min_data_in_bin),
             min_data_in_leaf=int(cfg.min_data_in_leaf),
             bin_construct_sample_cnt=int(cfg.bin_construct_sample_cnt),
             use_missing=bool(cfg.use_missing),
             zero_as_missing=bool(cfg.zero_as_missing),
             data_random_seed=int(cfg.data_random_seed),
-            enable_bundle=bool(cfg.enable_bundle),
-            feature_names=(None if self.feature_name == "auto"
-                           else list(self.feature_name)),
-            reference=ref,
+            enable_bundle=bool(cfg.enable_bundle), reference=ref,
             max_bin_by_feature=(list(cfg.max_bin_by_feature)
                                 if cfg.max_bin_by_feature else None))
         csr = _as_csr(self.data)
         if csr is not None and self.categorical_feature in ("auto", None):
             self.handle = BinnedDataset.from_csr(
-                csr.indptr, csr.indices, csr.values, csr.num_col, **common)
+                csr.indptr, csr.indices, csr.values, csr.num_col,
+                feature_names=(None if self.feature_name == "auto"
+                               else list(self.feature_name)),
+                data_chunk_rows=chunk_rows, **common)
         else:
-            self.handle = BinnedDataset.from_matrix(
-                _to_matrix(self.data), categorical_feature=cats,
-                keep_raw=not self.free_raw_data, **common)
+            mat, names, cats = _to_matrix(self.data, self.feature_name,
+                                          self.categorical_feature)
+            if chunk_rows > 0 and self.free_raw_data:
+                # two-pass chunked construction (from_row_chunks, equal to
+                # from_matrix): binning holds one chunk at a time
+                self.handle = BinnedDataset.from_row_chunks(
+                    lambda: (mat[i:i + chunk_rows]
+                             for i in range(0, mat.shape[0], chunk_rows)),
+                    categorical_feature=cats, feature_names=names, **common)
+            else:
+                self.handle = BinnedDataset.from_matrix(
+                    mat, categorical_feature=cats, feature_names=names,
+                    keep_raw=not self.free_raw_data, **common)
         if self.free_raw_data:
             self.data = None
         return self
@@ -170,8 +255,34 @@ class Dataset:
                        categorical_feature=self.categorical_feature,
                        params=params or self.params)
 
+    def subset(self, used_indices, params=None) -> "Dataset":
+        """The rows ``used_indices`` (sorted) of this dataset, binned with
+        its mappers (basic.py:259)."""
+        ret = Dataset(None, reference=self, feature_name=self.feature_name,
+                      categorical_feature=self.categorical_feature,
+                      params=params or self.params,
+                      free_raw_data=self.free_raw_data)
+        ret.used_indices = np.sort(np.asarray(used_indices))
+        return ret
+
     def set_reference(self, reference: "Dataset") -> "Dataset":
         self.reference = reference
+        return self
+
+    # ---- fields (basic.py:268-335) ----
+
+    def set_label(self, label) -> "Dataset":
+        self.label = label
+        if self.handle is not None:
+            self.handle.metadata.set_label(_list_to_1d_numpy(label,
+                                                             np.float64))
+        return self
+
+    def set_weight(self, weight) -> "Dataset":
+        self.weight = weight
+        if self.handle is not None and weight is not None:
+            self.handle.metadata.set_weights(_list_to_1d_numpy(weight,
+                                                               np.float64))
         return self
 
     def set_group(self, group) -> "Dataset":
@@ -181,16 +292,50 @@ class Dataset:
             self.handle.metadata.set_group(_list_to_1d_numpy(group, np.int32))
         return self
 
+    def set_init_score(self, init_score) -> "Dataset":
+        self.init_score = init_score
+        if self.handle is not None and init_score is not None:
+            self.handle.metadata.set_init_score(
+                _list_to_1d_numpy(init_score, np.float64))
+        return self
+
+    def get_label(self):
+        if self.handle is not None:
+            return np.asarray(self.handle.metadata.label)
+        return self.label
+
+    def get_weight(self):
+        if self.handle is not None:
+            return self.handle.metadata.weights
+        return self.weight
+
     def get_group(self):
         if (self.handle is not None
                 and self.handle.metadata.query_boundaries is not None):
             return np.diff(self.handle.metadata.query_boundaries)
         return self.group
 
-    def get_label(self):
+    def get_init_score(self):
         if self.handle is not None:
-            return np.asarray(self.handle.metadata.label)
-        return self.label
+            return self.handle.metadata.init_score
+        return self.init_score
+
+    def get_data(self):
+        return self.data
+
+    def get_field(self, field_name: str):
+        getter = {"label": self.get_label, "weight": self.get_weight,
+                  "group": self.get_group, "init_score": self.get_init_score}
+        if field_name not in getter:
+            raise LightGBMError("Unknown field name %s" % field_name)
+        return getter[field_name]()
+
+    def set_field(self, field_name: str, data) -> "Dataset":
+        setter = {"label": self.set_label, "weight": self.set_weight,
+                  "group": self.set_group, "init_score": self.set_init_score}
+        if field_name not in setter:
+            raise LightGBMError("Unknown field name %s" % field_name)
+        return setter[field_name](data)
 
     def num_data(self) -> int:
         return self.construct().handle.num_data
@@ -200,6 +345,19 @@ class Dataset:
 
     def get_feature_name(self) -> List[str]:
         return list(self.construct().handle.feature_names)
+
+    def save_binary(self, filename: str) -> "Dataset":
+        """The binned dataset in the ``LGBMTPU1`` binary format, which a
+        path given to ``Dataset`` or the CLI loads back."""
+        self.construct().handle.save_binary(filename)
+        return self
+
+    def set_categorical_feature(self, categorical_feature) -> "Dataset":
+        if self.handle is not None:
+            raise LightGBMError(
+                "Cannot set categorical feature after freed raw data")
+        self.categorical_feature = categorical_feature
+        return self
 
 
 class Booster:
@@ -350,7 +508,7 @@ class Booster:
         if isinstance(data, Dataset):
             raise TypeError("Cannot use Dataset instance for prediction, "
                             "please use raw data instead")
-        mat = _to_matrix(data)
+        mat = _to_matrix(data)[0]
         num_iteration = self._num_iteration(num_iteration)
         if pred_leaf:
             # leaf indices are routing only: no precision tier
@@ -495,3 +653,27 @@ class Booster:
         imp = self._booster.feature_importance(
             importance_type, -1 if iteration is None else iteration)
         return imp.astype(np.int32) if importance_type == "split" else imp
+
+    # ---- pickling (basic.py:707-724) ----
+
+    def __getstate__(self):
+        """The model text, params and best iteration/score; the training
+        and validation sets are dropped.  The device type is kept: a CUDA
+        booster unpickles onto CUDA (and raises without it), a CPU booster
+        onto the CPU."""
+        return {"params": self.params,
+                "model_str": self._booster.save_model_to_string(),
+                "best_iteration": self.best_iteration,
+                "best_score": self.best_score,
+                "device": self.device.type}
+
+    def __setstate__(self, state):
+        self.params = state["params"]
+        self.best_iteration = state["best_iteration"]
+        self.best_score = state["best_score"]
+        self._train_set = None
+        self._valid_sets = []
+        self.name_valid_sets = []
+        self.config = Config(self.params)
+        self._booster = GBDT(self.config, device=state["device"])
+        self._booster.load_model_from_string(state["model_str"])

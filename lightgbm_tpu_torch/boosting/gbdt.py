@@ -20,7 +20,10 @@ with its snapshots (``snapshot_out``), the train state of a checkpoint
 prediction path (gbdt.py:1999-2343: ``predict`` with its 512-row regimes,
 prediction early stop and the bf16 tier, ``predict_leaf_index``,
 ``predict_contrib``, and their binned forms over a row store), averaged over
-the iterations for ``average_output`` (RF), ``feature_importance`` and the
+the iterations for ``average_output`` (RF), ``feature_importance``, the
+host-time scopes of ``utils/timer.py`` (``GBDT::Boosting``,
+``GBDT::Bagging``, ``TreeLearner::Train``, ``GBDT::UpdateScore``, as the JAX
+package's synchronous path names them; they synchronise nothing) and the
 reference-compatible text model (``save_model_to_string`` /
 ``load_model_from_string``, gbdt_model_text.cpp:271,375).
 
@@ -67,6 +70,7 @@ from ..metric.metric import Metric, create_metrics
 from ..objective import ObjectiveFunction, create_objective
 from ..utils.file_io import atomic_write
 from ..utils.log import LightGBMError, Log
+from ..utils.timer import FunctionTimer
 
 K_EPSILON = 1e-15
 MODEL_VERSION = "v3"
@@ -367,17 +371,18 @@ class GBDT:
         if gradients is None or hessians is None:
             for k in range(K):
                 init_scores[k] = self._boost_from_average(k)
-            grad, hess = self._get_gradients()
+            with FunctionTimer("GBDT::Boosting"):
+                grad, hess = self._get_gradients()
         else:
             grad, hess = (torch.as_tensor(
                 np.asarray(a, dtype=np.float32).reshape(K, self.num_data),
                 device=self.device) for a in (gradients, hessians))
-        if not (bool(torch.isfinite(grad).all())
-                and bool(torch.isfinite(hess).all())):
-            raise LightGBMError("non-finite gradients/hessians at iteration "
-                                "%d" % self.iter_)
-        self._bagging(self.iter_)
-        grad, hess = self._adjust_gradients_for_bagging(grad, hess)
+        grad, hess, skip = self._guard_gradients(grad, hess)
+        if skip:
+            return self._skip_iteration(init_scores)
+        with FunctionTimer("GBDT::Bagging"):
+            self._bagging(self.iter_)
+            grad, hess = self._adjust_gradients_for_bagging(grad, hess)
         feature_mask = self._feature_mask()
         should_continue = False
         for k in range(K):
@@ -388,12 +393,15 @@ class GBDT:
                 if self.bag_mask is not None:
                     gk = gk * self.bag_mask
                     hk = hk * self.bag_mask
-                arrays = self.learner.train(gk, hk, self.bag_data_cnt,
-                                            feature_mask,
-                                            iteration=self.iter_)
+                with FunctionTimer("TreeLearner::Train"):
+                    arrays = self.learner.train(gk, hk, self.bag_data_cnt,
+                                                feature_mask,
+                                                iteration=self.iter_)
                 if arrays.num_leaves > 1:
                     should_continue = True
-                    new_tree = self._grow_scores(arrays, k, init_scores[k])
+                    with FunctionTimer("GBDT::UpdateScore"):
+                        new_tree = self._grow_scores(arrays, k,
+                                                     init_scores[k])
                 else:
                     new_tree.leaf_value[0] = init_scores[k]
             elif len(self.models) < K:
@@ -414,6 +422,63 @@ class GBDT:
             if len(self.models) > K:
                 del self.models[-K:]
             return True
+        self.iter_ += 1
+        return False
+
+    # ---- non-finite guards (nan_policy, gbdt.py:1268-1364) ----
+    #
+    # ``raise`` (the default) fails naming the iteration, ``skip_iter``
+    # advances the iteration with constant trees, ``clip`` sanitises (NaN ->
+    # 0, +-inf -> +-1e35; hessians have no negative clip) and trains on.  The
+    # JAX package's per-chunk score guard (``_guard_chunk_scores``) belongs
+    # to its fused multi-iteration chunk, which the port does not have
+    # (ROADMAP queue 2 B2): it is left out.
+
+    _NAN_CLIP = float(np.float32(1e35))
+
+    @property
+    def _nan_policy(self) -> str:
+        return str(getattr(self.config, "nan_policy", "raise"))
+
+    def _guard_gradients(self, grad: torch.Tensor, hess: torch.Tensor):
+        """(grad, hess, skip) of one iteration's [K, N] device gradients
+        (``_guard_gradients``, gbdt.py:1315-1346): one isfinite reduction
+        on the device, whose verdict is the only value read back."""
+        if bool(torch.isfinite(grad).all() & torch.isfinite(hess).all()):
+            return grad, hess, False
+        policy = self._nan_policy
+        if policy == "raise":
+            raise LightGBMError(
+                "non-finite gradients/hessians at iteration %d "
+                "(nan_policy=raise); set nan_policy=skip_iter or clip to "
+                "degrade gracefully instead" % self.iter_)
+        if policy == "skip_iter":
+            Log.warning("non-finite gradients/hessians at iteration %d; "
+                        "skipping the iteration (nan_policy=skip_iter)",
+                        self.iter_)
+            return grad, hess, True
+        Log.warning("non-finite gradients/hessians at iteration %d; "
+                    "clipping (nan_policy=clip)", self.iter_)
+        clip = self._NAN_CLIP
+        grad = torch.nan_to_num(grad, nan=0.0, posinf=clip, neginf=-clip)
+        hess = torch.nan_to_num(hess, nan=0.0, posinf=clip, neginf=0.0)
+        return grad, hess, False
+
+    def _skip_iteration(self, init_scores: Optional[List[float]] = None
+                        ) -> bool:
+        """nan_policy=skip_iter: one constant tree per class, the scores
+        untouched (``_skip_iteration``, gbdt.py:1348-1364).  On the first
+        iteration the trees carry the boost-from-average offset, which is
+        already in the scores."""
+        K = self.num_tree_per_iteration
+        first = len(self.models) < K
+        for k in range(K):
+            tree = Tree(1)
+            if init_scores is not None and first:
+                tree.leaf_value[0] = init_scores[k]
+            self.models.append(tree)
+        self._last_iter_arrays = [None] * K
+        self._invalidate_predict_cache()
         self.iter_ += 1
         return False
 
@@ -1176,3 +1241,14 @@ class GBDT:
         self._invalidate_predict_cache()
         self.num_init_iteration = len(models) // K
         self.iter_ = 0
+
+    @classmethod
+    def load_model(cls, filename: str, config: Optional[Config] = None,
+                   device: DeviceLike = None) -> "GBDT":
+        """A booster holding the model of the text file ``filename``
+        (gbdt.py:2506), on ``device``."""
+        with open(filename) as fh:
+            text = fh.read()
+        booster = cls(config or Config(), device=device)
+        booster.load_model_from_string(text)
+        return booster

@@ -39,6 +39,7 @@ class RF(GBDT):
             Log.fatal("RF mode do not support custom objective function, "
                       "please use built-in objectives.")
         self._rf_grad = None
+        self._rf_skip = False
 
     def _extra_train_state(self):
         return {"init_scores": [float(s) for s in self._init_scores],
@@ -67,10 +68,9 @@ class RF(GBDT):
                 grad, hess = g[None, :], h[None, :]
             else:
                 grad, hess = self.objective.get_gradients(scores)
-            if not (bool(torch.isfinite(grad).all())
-                    and bool(torch.isfinite(hess).all())):
-                raise LightGBMError("non-finite gradients/hessians at the "
-                                    "init scores")
+            # the gradients never change: guarded once, and the sanitised
+            # pair and the skip verdict kept (rf.py:77-86)
+            grad, hess, self._rf_skip = self._guard_gradients(grad, hess)
             self._rf_grad = (grad, hess)
         return self._rf_grad
 
@@ -83,6 +83,8 @@ class RF(GBDT):
         self._keep_pre_iter_scores()
         it = self.iter_ + self.num_init_iteration
         grad, hess = self._get_gradients()
+        if self._rf_skip:
+            return self._skip_iteration(self._init_scores)
         self._bagging(self.iter_)
         feature_mask = self._feature_mask()
         should_continue = False

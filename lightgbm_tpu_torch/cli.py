@@ -1,0 +1,220 @@
+"""Command-line application: ``python -m lightgbm_tpu_torch config=train.conf``.
+
+The counterpart of ``lightgbm_tpu/cli.py`` for the PyTorch port (which
+imports nothing of the JAX package), and of the reference CLI (src/main.cpp,
+src/application/application.cpp): parameter precedence argv ``key=value``
+over config-file lines (:49-82), the tasks ``train``, ``predict``,
+``convert_model`` and ``refit`` (:204-260), evaluation every
+``metric_freq`` iterations, snapshots, and the ``LightGBM_predict_result.txt``
+format (predictor.hpp).  ``task=train`` with ``snapshot_freq`` resumes an
+interrupted run of the same command from its newest valid checkpoint and
+removes its checkpoints when it completes (``checkpoint.py``).
+
+Device rule: :class:`Application` and :func:`main` run on ``cuda`` and raise
+without it, unless the caller passes ``device="cpu"``; ``python -m
+lightgbm_tpu_torch`` runs on ``cuda``.  LightGBM's ``device_type`` key is
+not read for this (its upstream default is ``cpu``).  ``task=serve`` and
+``task=online``, ``telemetry_out``, ``metrics_port``,
+``preemption_checkpoint`` and ``plan_cache`` belong to planes not ported yet
+and are refused with ``NotImplementedError`` (ROADMAP queue 1 items 14-15).
+"""
+from __future__ import annotations
+
+import sys
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from .basic import _refuse
+from .boosting import create_boosting
+from .boosting.gbdt import GBDT
+from .checkpoint import (cleanup_checkpoints, load_latest_checkpoint,
+                         restore_state)
+from .config import Config, parse_config_file
+from .device import DeviceLike, resolve_device
+from .io.loader import DatasetLoader
+from .metric.metric import create_metrics
+from .objective import create_objective
+from .utils.log import Log
+from .utils.timer import global_timer
+
+
+def parse_args(argv: List[str]) -> Dict[str, str]:
+    """argv ``k=v`` pairs + optional ``config=file`` (application.cpp:49-82);
+    command-line values win over config-file values."""
+    params: Dict[str, str] = {}
+    for arg in argv:
+        if "=" not in arg:
+            Log.warning("Unknown argument %s", arg)
+            continue
+        k, v = arg.split("=", 1)
+        params[k.strip()] = v.strip()
+    if "config" in params:
+        file_params = parse_config_file(params.pop("config"))
+        for k, v in file_params.items():
+            params.setdefault(k, v)
+    return params
+
+
+class Application:
+    """CLI application (src/application/application.h) on ``device``."""
+
+    def __init__(self, argv: List[str], device: DeviceLike = None) -> None:
+        self.device = resolve_device(device)
+        self.params = parse_args(argv)
+        self.config = Config(self.params)
+        Log.reset_level(Log.level_from_verbosity(int(self.config.verbosity)))
+        cfg = self.config
+        if cfg.task in ("serve", "online"):
+            _refuse("task=%s" % cfg.task, "queue 1 item 15")
+        for key, on, item in (
+                ("telemetry_out", bool(cfg.telemetry_out), 14),
+                ("metrics_port", int(cfg.metrics_port) > 0, 14),
+                ("plan_cache", bool(cfg.plan_cache), 14),
+                ("preemption_checkpoint", bool(cfg.preemption_checkpoint),
+                 15)):
+            if on:
+                _refuse(key, "queue 1 item %d" % item)
+
+    def run(self) -> None:
+        task = self.config.task
+        if task == "train":
+            self.train()
+        elif task in ("predict", "prediction", "test"):
+            self.predict()
+        elif task == "convert_model":
+            self.convert_model()
+        elif task == "refit":
+            self.refit()
+        else:
+            Log.fatal("Unknown task: %s", task)
+
+    # ---- task=train (application.cpp:84-213) ----
+
+    def train(self) -> None:
+        cfg = self.config
+        loader = DatasetLoader(cfg)
+        num_machines = max(int(cfg.num_machines), 1)
+        train_data = loader.load_from_file(cfg.data, 0, num_machines)
+        Log.info("Finished loading data: %d rows, %d features",
+                 train_data.num_data, train_data.num_features)
+        objective = create_objective(cfg.objective, cfg, device=self.device)
+        booster = create_boosting(cfg.boosting, cfg, train_data, objective,
+                                  device=self.device)
+        # a previous run of this command that left a checkpoint is resumed
+        # (the newest valid one); the restore waits for the validation sets,
+        # whose scores ride the checkpoint
+        ckpt_state = None
+        resumable = cfg.snapshot_freq > 0 and bool(cfg.output_model)
+        if resumable:
+            ckpt_state = load_latest_checkpoint(cfg.output_model)
+        if ckpt_state is None and cfg.input_model:
+            with open(cfg.input_model) as fh:
+                booster.load_model_from_string(fh.read())
+            booster.reset_training_data(train_data, objective)
+            booster.replay_train_score()
+        if cfg.is_provide_training_metric:
+            booster.add_train_metrics(create_metrics(cfg.metric, cfg))
+        for i, valid_file in enumerate(cfg.valid or []):
+            valid = loader.load_from_file(valid_file, reference=train_data)
+            booster.add_valid_data(valid, "valid_%d" % (i + 1),
+                                   create_metrics(cfg.metric, cfg))
+        if ckpt_state is not None:
+            restore_state(booster, ckpt_state)
+        booster.train(snapshot_out=cfg.output_model)
+        booster.save_model(cfg.output_model)
+        if resumable:
+            # the run completed: a rerun of this command trains afresh
+            cleanup_checkpoints(cfg.output_model)
+        self.booster = booster
+        if cfg.verbosity > 0:
+            global_timer.print()
+
+    # ---- task=predict (application.cpp:215-252, predictor.hpp) ----
+
+    @staticmethod
+    def _write_result(path: str, out) -> None:
+        """The LightGBM_predict_result.txt format (predictor.hpp)."""
+        with open(path, "w") as fh:
+            for row in np.atleast_1d(out):
+                if np.ndim(row) == 0:
+                    fh.write("%g\n" % row)
+                else:
+                    fh.write("\t".join("%g" % v for v in row) + "\n")
+
+    def predict(self) -> None:
+        cfg = self.config
+        if not cfg.input_model:
+            Log.fatal("Need input_model for prediction task")
+        booster = GBDT.load_model(cfg.input_model, cfg, device=self.device)
+        X = DatasetLoader(cfg).load_prediction_data(cfg.data)
+        num_iter = int(cfg.num_iteration_predict)
+        precision = str(cfg.predict_precision)
+        if cfg.predict_leaf_index:
+            out = booster.predict_leaf_index(X, num_iter)
+        elif cfg.predict_contrib:
+            if precision != "exact":
+                Log.fatal("predict_contrib has no bf16 tier: "
+                          "predict_precision must be exact")
+            out = booster.predict_contrib(X, num_iter)
+        else:
+            out = booster.predict(X, raw_score=bool(cfg.predict_raw_score),
+                                  num_iteration=num_iter,
+                                  precision=precision)
+        self._write_result(cfg.output_result, out)
+        Log.info("Finished prediction, wrote results to %s",
+                 cfg.output_result)
+
+    # ---- task=convert_model (gbdt_model_text.cpp:87 ModelToIfElse) ----
+
+    def convert_model(self) -> None:
+        cfg = self.config
+        if not cfg.input_model:
+            Log.fatal("Need input_model for convert_model task")
+        booster = GBDT.load_model(cfg.input_model, cfg, device=self.device)
+        from .model_codegen import model_to_cpp
+        out = cfg.convert_model or "gbdt_prediction.cpp"
+        with open(out, "w") as fh:
+            fh.write(model_to_cpp(booster))
+        Log.info("Wrote converted model to %s", out)
+
+    # ---- task=refit (application.cpp:216-252 + gbdt.cpp:299 RefitTree) ----
+
+    def refit(self) -> None:
+        cfg = self.config
+        if not cfg.input_model:
+            Log.fatal("Need input_model for refit task")
+        train_data = DatasetLoader(cfg).load_from_file(cfg.data)
+        objective = create_objective(cfg.objective, cfg, device=self.device)
+        booster = create_boosting(cfg.boosting, cfg, train_data, objective,
+                                  device=self.device)
+        with open(cfg.input_model) as fh:
+            booster.load_model_from_string(fh.read())
+        booster.reset_training_data(train_data, objective)
+        if train_data.raw_data is not None:
+            # raw values: each node routes by v <= thr, as the reference's
+            # RefitTree does for any model
+            leaf_preds = booster.predict_leaf_index(
+                np.asarray(train_data.raw_data), -1)
+        else:
+            # a dataset without raw values (binary file) routes its bins
+            leaf_preds = booster.predict_leaf_index_binned()
+        booster.refit(leaf_preds)
+        booster.save_model(cfg.output_model)
+        self.booster = booster
+        Log.info("Finished refit, saved model to %s", cfg.output_model)
+
+
+def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv:
+        print("Usage: python -m lightgbm_tpu_torch config=<config file> "
+              "[key=value ...]")
+        return 1
+    try:
+        Application(argv, device=device).run()
+    except Exception as exc:  # main.cpp:23-41 catch-all
+        Log.warning("Met Exceptions:")
+        Log.warning(str(exc))
+        raise SystemExit(1)
+    return 0

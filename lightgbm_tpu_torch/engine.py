@@ -10,9 +10,12 @@ forest (``boosting.create_boosting``, through ``Booster``).
 ``checkpoint_prefix`` writes the train state every ``snapshot_freq``
 iterations and resumes an interrupted call from it (engine.py:147-151,
 :218-292 of the JAX package).  The port adds ``device=``: ``cuda`` unless
-the caller passes ``"cpu"``.  Not carried over yet, and refused with
-``NotImplementedError``: ``cv``, ``serve``, ``serve_and_train`` and
-``preemption_checkpoint`` (ROADMAP queue 1 item 15, ``resilience.py``).
+the caller passes ``"cpu"``.  ``cv`` (engine.py:472-656) builds one booster
+per fold through ``Dataset.subset``, with group-aware, stratified or shuffled
+folds, and aggregates the folds' metrics as mean and standard deviation.
+Not carried over yet, and refused with ``NotImplementedError``: ``serve``,
+``serve_and_train`` and ``preemption_checkpoint`` (ROADMAP queue 1 item 15,
+``resilience.py``).
 """
 from __future__ import annotations
 
@@ -21,13 +24,15 @@ import copy
 import os
 from typing import Any, Dict, List, Optional
 
+import numpy as np
+
 from . import callback
 from .basic import Booster, Dataset, _refuse
 from .checkpoint import cleanup_checkpoints, save_checkpoint_best_effort
 from .device import DeviceLike
 from .utils.log import Log
 
-__all__ = ["train", "cv", "serve", "serve_and_train"]
+__all__ = ["train", "cv", "serve", "serve_and_train", "CVBooster"]
 
 _NUM_BOOST_ROUND_ALIASES = ("num_boost_round", "num_iterations",
                             "num_iteration", "n_iter", "num_tree", "num_trees",
@@ -198,11 +203,6 @@ def train(params: Dict[str, Any], train_set: Dataset,
     return booster
 
 
-def cv(*args, **kwargs):
-    """Cross-validation: not ported yet."""
-    _refuse("cv", "queue 1 item 15")
-
-
 def serve(*args, **kwargs):
     """The serving tier: not ported yet."""
     _refuse("serve", "queue 1 item 15")
@@ -211,3 +211,193 @@ def serve(*args, **kwargs):
 def serve_and_train(*args, **kwargs):
     """The online train-and-serve loop: not ported yet."""
     _refuse("serve_and_train", "queue 1 item 15")
+
+
+class CVBooster:
+    """Ensemble of per-fold boosters (engine.py:277 _CVBooster)."""
+
+    def __init__(self):
+        self.boosters: List[Booster] = []
+        self.best_iteration = -1
+
+    def _append(self, booster: Booster) -> None:
+        self.boosters.append(booster)
+
+    def __getattr__(self, name):
+        def handler_function(*args, **kwargs):
+            return [getattr(b, name)(*args, **kwargs) for b in self.boosters]
+        return handler_function
+
+
+def _make_n_folds(full_data: Dataset, folds, nfold, params, seed,
+                  fpreproc=None, stratified=True, shuffle=True,
+                  eval_train_metric=False, device: DeviceLike = None):
+    full_data = full_data.construct()
+    num_data = full_data.num_data()
+    if folds is not None:
+        if not hasattr(folds, "__iter__") and not hasattr(folds, "split"):
+            raise AttributeError("folds should be a generator or iterator of "
+                                 "(train_idx, test_idx) tuples or scikit-learn "
+                                 "splitter object with split method")
+        if hasattr(folds, "split"):
+            group_info = full_data.get_group()
+            if group_info is not None:
+                group_info = np.asarray(group_info, dtype=np.int32)
+                flatted_group = np.repeat(range(len(group_info)),
+                                          repeats=group_info)
+            else:
+                flatted_group = np.zeros(num_data, dtype=np.int32)
+            folds = folds.split(X=np.empty(num_data),
+                                y=full_data.get_label(),
+                                groups=flatted_group)
+    else:
+        if any(params.get(name) in {"lambdarank", "rank_xendcg"}
+               for name in ("objective", "application")):
+            # group-aware fold split (engine.py:313)
+            group_info = np.asarray(full_data.get_group(), dtype=np.int32)
+            num_group = len(group_info)
+            group_kfold = _LGBMGroupKFold(n_splits=nfold)
+            flatted_group = np.repeat(range(num_group), repeats=group_info)
+            folds = group_kfold.split(np.empty(num_data), groups=flatted_group)
+        elif stratified:
+            labels = np.asarray(full_data.get_label())
+            order = np.argsort(labels, kind="stable")
+            folds_idx = [order[i::nfold] for i in range(nfold)]
+            folds = [(np.setdiff1d(np.arange(num_data), fi), np.sort(fi))
+                     for fi in folds_idx]
+        else:
+            if shuffle:
+                randidx = np.random.RandomState(seed).permutation(num_data)
+            else:
+                randidx = np.arange(num_data)
+            kstep = int(num_data / nfold)
+            test_id = [randidx[i:i + kstep] for i in range(0, num_data, kstep)
+                       ][:nfold]
+            folds = [(np.setdiff1d(randidx, ti), np.sort(ti)) for ti in test_id]
+
+    ret = CVBooster()
+    for train_idx, test_idx in folds:
+        train_subset = full_data.subset(sorted(train_idx))
+        valid_subset = full_data.subset(sorted(test_idx))
+        if fpreproc is not None:
+            train_subset, valid_subset, tparam = fpreproc(
+                train_subset, valid_subset, params.copy())
+        else:
+            tparam = params
+        cvbooster = Booster(tparam, train_subset, device=device)
+        if eval_train_metric:
+            cvbooster.add_valid(train_subset, "train")
+        cvbooster.add_valid(valid_subset, "valid")
+        ret._append(cvbooster)
+    return ret
+
+
+class _LGBMGroupKFold:
+    """Minimal GroupKFold (sklearn-compatible subset) for ranking cv."""
+
+    def __init__(self, n_splits=5):
+        self.n_splits = n_splits
+
+    def split(self, X, y=None, groups=None):
+        groups = np.asarray(groups)
+        unique = np.unique(groups)
+        for i in range(self.n_splits):
+            test_groups = unique[i::self.n_splits]
+            test_mask = np.isin(groups, test_groups)
+            yield np.where(~test_mask)[0], np.where(test_mask)[0]
+
+
+def _agg_cv_result(raw_results, eval_train_metric=False):
+    cvmap = collections.OrderedDict()
+    metric_type = {}
+    for one_result in raw_results:
+        for one_line in one_result:
+            if eval_train_metric:
+                key = "%s %s" % (one_line[0], one_line[1])
+            else:
+                key = one_line[1]
+            metric_type[key] = one_line[3]
+            cvmap.setdefault(key, [])
+            cvmap[key].append(one_line[2])
+    return [("cv_agg", k, np.mean(v), metric_type[k], np.std(v))
+            for k, v in cvmap.items()]
+
+
+def cv(params, train_set, num_boost_round=100, folds=None, nfold=5,
+       stratified=True, shuffle=True, metrics=None, fobj=None, feval=None,
+       init_model=None, feature_name="auto", categorical_feature="auto",
+       early_stopping_rounds=None, fpreproc=None, verbose_eval=None,
+       show_stdv=True, seed=0, callbacks=None, eval_train_metric=False,
+       return_cvbooster=False, device: DeviceLike = None):
+    """Cross-validation (engine.py:572-656 of the JAX package): one booster
+    per fold on ``device`` (``cuda`` unless the caller passes ``"cpu"``);
+    returns a dict of 'metric-mean'/'metric-stdv' lists."""
+    if not isinstance(train_set, Dataset):
+        raise TypeError("Training only accepts Dataset object")
+    params = copy.deepcopy(params) if params else {}
+    for alias in _NUM_BOOST_ROUND_ALIASES:
+        if alias in params:
+            num_boost_round = int(params.pop(alias))
+    for alias in _EARLY_STOP_ALIASES:
+        if alias in params:
+            early_stopping_rounds = int(params.pop(alias))
+    first_metric_only = bool(params.pop("first_metric_only", False))
+    if fobj is not None:
+        params["objective"] = "none"
+    if metrics is not None:
+        params["metric"] = metrics
+    params["num_iterations"] = num_boost_round
+    if feature_name != "auto":
+        train_set.feature_name = feature_name
+    if categorical_feature != "auto":
+        train_set.categorical_feature = categorical_feature
+
+    results = collections.defaultdict(list)
+    cvfolds = _make_n_folds(train_set, folds=folds, nfold=nfold,
+                            params=params, seed=seed, fpreproc=fpreproc,
+                            stratified=stratified, shuffle=shuffle,
+                            eval_train_metric=eval_train_metric,
+                            device=device)
+
+    callbacks = set() if callbacks is None else set(callbacks)
+    if early_stopping_rounds is not None and early_stopping_rounds > 0:
+        callbacks.add(callback.early_stopping(early_stopping_rounds,
+                                              first_metric_only, verbose=False))
+    if verbose_eval is True:
+        callbacks.add(callback.print_evaluation(show_stdv=show_stdv))
+    elif isinstance(verbose_eval, int) and verbose_eval > 0:
+        callbacks.add(callback.print_evaluation(verbose_eval, show_stdv))
+    callbacks_before_iter = sorted(
+        (cb for cb in callbacks if getattr(cb, "before_iteration", False)),
+        key=lambda cb: getattr(cb, "order", 0))
+    callbacks_after_iter = sorted(
+        (cb for cb in callbacks if not getattr(cb, "before_iteration", False)),
+        key=lambda cb: getattr(cb, "order", 0))
+
+    for i in range(num_boost_round):
+        for cb in callbacks_before_iter:
+            cb(callback.CallbackEnv(model=cvfolds, params=params, iteration=i,
+                                    begin_iteration=0,
+                                    end_iteration=num_boost_round,
+                                    evaluation_result_list=None))
+        for b in cvfolds.boosters:
+            b.update(fobj=fobj)
+        res = _agg_cv_result([b.eval_valid(feval) for b in cvfolds.boosters],
+                             eval_train_metric)
+        for _, key, mean, _, std in res:
+            results[key + "-mean"].append(mean)
+            results[key + "-stdv"].append(std)
+        try:
+            for cb in callbacks_after_iter:
+                cb(callback.CallbackEnv(model=cvfolds, params=params,
+                                        iteration=i, begin_iteration=0,
+                                        end_iteration=num_boost_round,
+                                        evaluation_result_list=res))
+        except callback.EarlyStopException as earlyStopException:
+            cvfolds.best_iteration = earlyStopException.best_iteration + 1
+            for k in results:
+                results[k] = results[k][:cvfolds.best_iteration]
+            break
+    if return_cvbooster:
+        results["cvbooster"] = cvfolds
+    return dict(results)

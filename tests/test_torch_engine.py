@@ -19,7 +19,6 @@ into the port predicts the same, and ``init_model`` continues it to the same
 trees as the JAX continuation.  The port pins one torch thread.
 """
 import numpy as np
-import pandas as pd
 import pytest
 import torch
 
@@ -219,11 +218,13 @@ def test_metric_names_and_values_like_jax(metric):
 
 
 def test_refusals():
+    # pandas input and cv are ported (tests/test_torch_python_api.py);
+    # the serving entry points and preemption stay refused
     X, y, _, _ = make_data()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.Dataset(pd.DataFrame(X[:50]), y[:50])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.engine.cv(PARAMS, P.Dataset(X, y))
+    for entry in (P.engine.serve, P.engine.serve_and_train):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 1 item 15"):
+            entry(PARAMS, P.Dataset(X, y))
     for kw in (dict(preemption_checkpoint=True),
                dict(params=dict(PARAMS, preemption_checkpoint=True))):
         with pytest.raises(NotImplementedError,

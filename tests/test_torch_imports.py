@@ -1,17 +1,23 @@
 """The port stands alone and keeps its device rule.
 
-Each check runs in a fresh interpreter, so that what the test process itself
+Each check runs in a fresh interpreter (the host-API entry points and the
+import with JAX blocked share one), so that what the test process itself
 imported (JAX, the JAX package) cannot hide an import of the port:
 
 - importing every module of ``lightgbm_tpu_torch`` leaves neither ``jax`` nor
-  ``lightgbm_tpu`` in ``sys.modules``, and ``chip_smoke.py`` imports neither;
+  ``lightgbm_tpu`` in ``sys.modules``, every module imports with both
+  blocked (the CLI, ingest, sklearn, plotting and codegen modules among
+  them), and ``chip_smoke.py`` imports neither;
 - with CUDA unavailable, an entry point called without ``device=`` raises
   instead of running on the CPU (the predictors of ``core/predict.py`` and
-  ``core/predict_fused.py`` too), and ``device="cpu"`` is honoured, through
-  training, ``pred_leaf``, ``pred_contrib`` and a checkpoint's round trip;
+  ``core/predict_fused.py``, the CLI's ``Application`` and ``main``, ``cv``,
+  the sklearn estimators and an unpickled CUDA booster too), and
+  ``device="cpu"`` is honoured, through training, ``pred_leaf``,
+  ``pred_contrib`` and a checkpoint's round trip;
 - ``chip_smoke.py`` exits nonzero and prints no result without CUDA.
 """
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -52,6 +58,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert int(count) >= 20
     assert walked == "True"
     assert bad.strip() == "[]"
+
+
+NEW_MODULES = ["cli", "__main__", "compat", "sklearn", "plotting",
+               "model_codegen", "io.parser", "io.loader", "utils.timer",
+               "engine", "basic"]
+
+
+def test_every_module_imports_with_jax_blocked(host_api_child):
+    walked = set(host_api_child["walked"])
+    assert set(NEW_MODULES) <= walked, set(NEW_MODULES) - walked
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
@@ -131,11 +147,99 @@ ENTRY_POINTS = {
 }
 
 
-@pytest.mark.parametrize("entry", list(ENTRY_POINTS))
-def test_entry_point_without_device_raises_without_cuda(entry):
-    out = run_python(NO_CUDA + textwrap.dedent(ENTRY_POINTS[entry]))
-    assert out.returncode != 0
-    assert "CUDA is not available" in out.stderr, out.stderr
+# the CLI and host-API entry points: driven in one child (below)
+HOST_API_ENTRY_POINTS = {
+    "application": """
+        from lightgbm_tpu_torch.cli import Application
+        Application(["task=train", "data=missing.train"])
+    """,
+    "gbdt_load_model": """
+        from lightgbm_tpu_torch import GBDT
+        import tempfile, os
+        path = os.path.join(tempfile.mkdtemp(), "m.txt")
+        open(path, "w").write("tree\\nversion=v3\\n")
+        GBDT.load_model(path)
+    """,
+    "cv": """
+        import numpy as np
+        import lightgbm_tpu_torch as lgb
+        X = np.random.RandomState(0).normal(size=(200, 3))
+        lgb.cv({"objective": "binary", "verbosity": -1},
+               lgb.Dataset(X, (X[:, 0] > 0) * 1.0), num_boost_round=1,
+               nfold=2)
+    """,
+    "sklearn": """
+        import numpy as np
+        import lightgbm_tpu_torch as lgb
+        X = np.random.RandomState(0).normal(size=(200, 3))
+        lgb.LGBMClassifier(n_estimators=1).fit(X, X[:, 0] > 0)
+    """,
+    "unpickle_cuda_booster": """
+        import lightgbm_tpu_torch as lgb
+        lgb.Booster.__new__(lgb.Booster).__setstate__(
+            {"params": {}, "model_str": "tree\\nversion=v3\\n",
+             "best_iteration": -1, "best_score": {}, "device": "cuda"})
+    """,
+}
+
+# One child for the host-API entry points and the import of every module
+# with JAX and the JAX package blocked (each entry point in a namespace of
+# its own): one interpreter's start-up, torch's import and sklearn's instead
+# of one for each.
+HOST_API_CHILD = NO_CUDA + """
+import importlib, json, pkgutil, sys, textwrap, traceback
+for blocked in ("jax", "jaxlib", "lightgbm_tpu"):
+    sys.modules[blocked] = None
+import lightgbm_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                               pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+raised = {}
+for entry, code in json.loads(sys.argv[1]).items():
+    try:
+        exec(textwrap.dedent(code), {})
+        raised[entry] = ""
+    except Exception:
+        raised[entry] = traceback.format_exc()
+print(json.dumps({"walked": [n.split(".", 1)[1] for n in names],
+                  "raised": raised}))
+"""
+
+
+@pytest.fixture(scope="module")
+def host_api_child():
+    out = run_python(HOST_API_CHILD,
+                     args=[json.dumps(HOST_API_ENTRY_POINTS)])
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.splitlines()[-1])
+
+
+@pytest.mark.parametrize("entry", list(ENTRY_POINTS)
+                         + list(HOST_API_ENTRY_POINTS))
+def test_entry_point_without_device_raises_without_cuda(entry, request):
+    if entry in ENTRY_POINTS:
+        out = run_python(NO_CUDA + textwrap.dedent(ENTRY_POINTS[entry]))
+        assert out.returncode != 0
+        err = out.stderr
+    else:
+        err = request.getfixturevalue("host_api_child")["raised"][entry]
+    assert "CUDA is not available" in err, err
+
+
+def test_cli_main_without_device_fails_without_cuda(tmp_path):
+    """``cli.main`` (and so ``python -m lightgbm_tpu_torch``) runs on CUDA:
+    without it, it exits 1 naming the reason, and writes no model."""
+    model = str(tmp_path / "m.txt")
+    out = run_python(NO_CUDA + textwrap.dedent("""
+        import sys
+        from lightgbm_tpu_torch.cli import main
+        sys.exit(main(["task=train", "data=x.train",
+                       "output_model=%s"]))
+    """ % model))
+    assert out.returncode == 1
+    assert "CUDA is not available" in out.stdout + out.stderr
+    assert not os.path.exists(model)
 
 
 def test_entry_point_runs_on_cpu_when_asked():
