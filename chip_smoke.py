@@ -177,7 +177,30 @@ together) and runs these phases, each of which raises on failure:
    examples and the LibSVM ``sparse_binary`` override through the CLI at
    ``test_parity.py``'s iteration counts, each within its windows around
    the reference CLI's metrics (``tests/data/golden_metrics.json``), one
-   root histogram per tree and one split pass per split;
+   root histogram per tree and one split pass per split; (T) the C ABI:
+   ``lib_lightgbm_tpu_torch.so`` (built by ``capi_build`` with ``gcc``
+   into ``build/capi``) loaded with ctypes in this process, (A)'s rows as
+   f64 row-major with f32 labels and the held-out rows as a validation
+   set through ``LGBM_DatasetCreateFromMat``, (A)'s parameters, 5
+   ``LGBM_BoosterUpdateOneIter``, ``LGBM_BoosterGetEval``, the model
+   string size-then-fill, ``LGBM_BoosterPredictForMat`` (normal and raw)
+   and ``LGBM_BoosterPredictForCSR`` on 1,000 rows: the model text
+   byte-equal to ``lightgbm_tpu_torch.train``'s on the same data in the
+   same run, the predictions equal to ``Booster.predict``'s to the last
+   bit, one root histogram per tree and one split pass per split, and
+   s/iteration beside ``train()``'s; (T2) a second C booster with
+   ``tree_grow_mode=level hist_precision=quantized``: the integer root
+   histogram and the level pass, its model equal to ``train()``'s; (U)
+   preemption and the watchdog: ``train()`` at (A)'s shape with
+   ``preemption_checkpoint``, ``watchdog_timeout_s=120`` and a checkpoint
+   prefix under ``build/``, SIGTERM sent to this process after iteration
+   2: ``TrainingPreempted`` and the emergency checkpoint (its write
+   seconds and bytes); the same call resumed to 5 iterations with (T)'s
+   trees and no watchdog stall; the CLI on ``tests/data``'s binary
+   example with ``preemption_checkpoint=true snapshot_freq=1`` in a child
+   process sent SIGTERM once its first checkpoint exists, which exits 75,
+   and the same command again resuming to the uninterrupted CLI run's
+   trees;
 5. times of each kernel at the main paths' shapes beside its bound, its
    plain version and one PyTorch library call (``index_add_``; for a split
    pass, which has none, the window's device-to-device copy): the
@@ -3270,6 +3293,406 @@ def phase_cli(device, n: int) -> dict:
     return out
 
 
+# --------------------------- paths (T) and (U): the C ABI and resilience
+
+CAPI_PARAMS = ("objective=binary num_leaves=255 max_bin=255 "
+               "learning_rate=0.1 metric=auc num_iterations=%d verbosity=-1")
+CAPI_LEVEL = " tree_grow_mode=level hist_precision=quantized"
+CAPI_CSR_ROWS = 1000
+RESIL_DIR = os.path.join("build", "resil")
+PREEMPT_AT = 2                # (U) SIGTERM after this iteration
+WATCHDOG_S = 120.0
+RESIL_CLI_ITERS = 30          # long enough for SIGTERM to land mid-run
+
+
+def capi_params(iters: int, extra: str = "") -> dict:
+    """The C parameter string's pairs, as ``train()`` gets them."""
+    return dict(tok.split("=", 1) for tok in
+                (CAPI_PARAMS % iters + extra).split())
+
+
+class CLib:
+    """``lib_lightgbm_tpu_torch.so`` through ctypes, each call checked."""
+
+    def __init__(self, path: str) -> None:
+        import ctypes
+        self.ct = ctypes
+        self.lib = ctypes.CDLL(path)
+        self.lib.LGBM_GetLastError.restype = ctypes.c_char_p
+
+    def __call__(self, name: str, *args) -> None:
+        if getattr(self.lib, name)(*args) != 0:
+            raise AssertionError("%s: %s" % (
+                name, self.lib.LGBM_GetLastError().decode()))
+
+    def ptr(self, a: np.ndarray):
+        return a.ctypes.data_as(self.ct.c_void_p)
+
+    def mat(self, X: np.ndarray, label, ref=None):
+        ct = self.ct
+        h = ct.c_void_p()
+        self("LGBM_DatasetCreateFromMat", self.ptr(X), 1,
+             ct.c_int32(X.shape[0]), ct.c_int32(X.shape[1]), 1,
+             b"max_bin=255", ref, ct.byref(h))
+        lab = np.ascontiguousarray(label, dtype=np.float32)
+        self("LGBM_DatasetSetField", h, b"label", self.ptr(lab), len(lab), 0)
+        return h
+
+    def booster(self, train, params: str, valid=None):
+        h = self.ct.c_void_p()
+        self("LGBM_BoosterCreate", train, params.encode(), self.ct.byref(h))
+        if valid is not None:
+            self("LGBM_BoosterAddValidData", h, valid)
+        return h
+
+    def iterations(self, h, iters: int) -> list:
+        """``iters`` calls of LGBM_BoosterUpdateOneIter, each timed to a
+        device synchronise, as (A) times ``train_one_iter``."""
+        fin = self.ct.c_int()
+        out = []
+        for _ in range(iters):
+            t = time.perf_counter()
+            self("LGBM_BoosterUpdateOneIter", h, self.ct.byref(fin))
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t)
+        return out
+
+    def model(self, h) -> str:
+        """Size-then-fill, as the R glue reads it."""
+        ct = self.ct
+        n = ct.c_int64()
+        self("LGBM_BoosterSaveModelToString", h, 0, -1, ct.c_int64(0),
+             ct.byref(n), None)
+        buf = ct.create_string_buffer(n.value)
+        self("LGBM_BoosterSaveModelToString", h, 0, -1, n, ct.byref(n), buf)
+        return buf.value.decode()
+
+    def predict(self, h, X: np.ndarray, ptype: int) -> np.ndarray:
+        ct = self.ct
+        out = np.zeros(X.shape[0])
+        n = ct.c_int64()
+        self("LGBM_BoosterPredictForMat", h, self.ptr(X), 1,
+             ct.c_int32(X.shape[0]), ct.c_int32(X.shape[1]), 1, ptype, -1,
+             b"", ct.byref(n), out.ctypes.data_as(ct.POINTER(ct.c_double)))
+        return out
+
+    def predict_csr(self, h, X: np.ndarray) -> np.ndarray:
+        ct = self.ct
+        indptr = np.arange(0, X.size + 1, X.shape[1], dtype=np.int64)
+        indices = np.tile(np.arange(X.shape[1], dtype=np.int32), X.shape[0])
+        data = np.ascontiguousarray(X).ravel()
+        if not np.all(data != 0):
+            raise AssertionError("(T) the CSR rows must have no zeros")
+        out = np.zeros(X.shape[0])
+        n = ct.c_int64()
+        self("LGBM_BoosterPredictForCSR", h, self.ptr(indptr), 3,
+             self.ptr(indices), self.ptr(data), 1, ct.c_int64(len(indptr)),
+             ct.c_int64(len(data)), ct.c_int64(X.shape[1]), 0, -1, b"",
+             ct.byref(n), out.ctypes.data_as(ct.POINTER(ct.c_double)))
+        return out
+
+    def free(self, *handles) -> None:
+        from lightgbm_tpu_torch import c_api
+        for h in handles:
+            kind = type(c_api._get(h.value)).__name__
+            self("LGBM_BoosterFree" if kind == "_CBooster"
+                 else "LGBM_DatasetFree", h)
+
+
+def gbdt_of(handle):
+    """The booster behind a C handle (the library calls this process's
+    ``lightgbm_tpu_torch.c_api``)."""
+    from lightgbm_tpu_torch import c_api
+    return c_api._get(handle.value).booster._booster
+
+
+def phase_capi(device, data, iters: int) -> dict:
+    """Path (T): the C ABI (``lib_lightgbm_tpu_torch.so``, built by
+    ``capi_build`` into ``build/capi``) at (A)'s shape, full width, through
+    raw ``LGBM_*`` calls in this process: the training rows as f64
+    row-major with f32 labels (LGBM_DatasetCreateFromMat +
+    LGBM_DatasetSetField), the held-out rows as a validation set binned
+    with the training set's mappers, (A)'s parameters, ``iters``
+    LGBM_BoosterUpdateOneIter, LGBM_BoosterGetEval, the model string
+    (size-then-fill), LGBM_BoosterPredictForMat (normal and raw) and
+    LGBM_BoosterPredictForCSR on 1,000 rows.  Held to
+    ``lightgbm_tpu_torch.train`` with the same parameters on the same data
+    in this run: the model text byte-equal, the predictions equal to the
+    last bit, the launches one root histogram per tree and one split pass
+    per split.  Then (T2): a second booster on the same C dataset with
+    ``tree_grow_mode=level hist_precision=quantized``: its model equal to
+    ``train()``'s, launches of the integer histogram (one per tree) and of
+    the level pass (one per level)."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch import capi_build, c_api
+    from lightgbm_tpu_torch import device as D
+    from lightgbm_tpu_torch.metric.binary import weighted_auc
+    X, y, X_test, y_test = data
+    X64 = np.ascontiguousarray(X, dtype=np.float64)
+    Xt64 = np.ascontiguousarray(X_test, dtype=np.float64)
+    t = time.perf_counter()
+    so = capi_build.build()
+    build_s = time.perf_counter() - t
+    lib = CLib(so)
+    log("  library %s (%.2f s to build or find)" % (so, build_s))
+    t = time.perf_counter()
+    train = lib.mat(X64, y)
+    valid = lib.mat(Xt64, y_test, train)
+    bin_s = time.perf_counter() - t
+    bst = lib.booster(train, CAPI_PARAMS % iters, valid)
+    D.reset_launches()
+    iter_s = lib.iterations(bst, iters)
+    counts = D.launches()
+    ct = lib.ct
+    auc = np.zeros(1)
+    n = ct.c_int()
+    lib("LGBM_BoosterGetEval", bst, 1, ct.byref(n),
+        auc.ctypes.data_as(ct.POINTER(ct.c_double)))
+    text = lib.model(bst)
+    prob = lib.predict(bst, Xt64, 0)
+    raw = lib.predict(bst, Xt64, 1)
+    csr = lib.predict_csr(bst, Xt64[:CAPI_CSR_ROWS])
+    gbdt = gbdt_of(bst)
+    trees = len(gbdt.models)
+    splits = sum(tr.num_leaves - 1 for tr in gbdt.models)
+    fallbacks = ct.c_int64(-1)
+    lib("LGBM_PredictFallbackCount", ct.byref(fallbacks))
+    med = float(np.median(iter_s))
+    log("  (T) C ABI: binning (train + validation) %.2f s; iterations %s "
+        "(median %.4f s); held-out AUC %.6f (LGBM_BoosterGetEval), %.6f "
+        "(from the raw predictions); launches %s"
+        % (bin_s, ["%.4f" % s for s in iter_s], med, auc[0],
+           weighted_auc(y_test, raw, None), counts))
+
+    # the same training through the Python API, on the same data
+    params = capi_params(iters)
+    ref_set = lgb.Dataset(X64, label=y, params={"max_bin": "255"})
+    ref_valid = lgb.Dataset(Xt64, label=y_test, reference=ref_set)
+    with IterationTimes() as rec:
+        ref = lgb.train(dict(params), ref_set, num_boost_round=iters,
+                        valid_sets=[ref_valid], verbose_eval=False)
+    ref_med = float(np.median(rec.iter_s))
+    checks = {
+        "model text byte-equal": text == ref.model_to_string(),
+        "predict equal": np.array_equal(prob, ref.predict(Xt64)),
+        "raw predict equal": np.array_equal(
+            raw, ref.predict(Xt64, raw_score=True)),
+        "CSR predict equal": np.array_equal(
+            csr, ref.predict(Xt64[:CAPI_CSR_ROWS])),
+        "AUC equal": auc[0] == ref.best_score["valid_0"]["auc"],
+        "launches": counts == {k: {"histogram": trees,
+                                   "partition": splits}.get(k, 0)
+                               for k in counts},
+        "no fallback": fallbacks.value == 0,
+    }
+    log("  (T) train() on the same data: iterations %s (median %.4f s); "
+        "C ABI / train() median %.4f" % (["%.4f" % s for s in rec.iter_s],
+                                          ref_med, med / ref_med))
+    log("  (T) %d trees, %d splits; %s" % (trees, splits, ", ".join(
+        "%s %s" % (k, "yes" if v else "NO") for k, v in checks.items())))
+    if not all(checks.values()):
+        raise AssertionError("(T) the C ABI differs from the Python API: %s"
+                             % [k for k, v in checks.items() if not v])
+    lib.free(bst)
+    del ref
+    torch.cuda.empty_cache()
+
+    # (T2) level-wise, quantized, on the same C dataset
+    bst2 = lib.booster(train, CAPI_PARAMS % iters + CAPI_LEVEL)
+    D.reset_launches()
+    fin = ct.c_int()
+    iter2_s, levels = [], 0
+    for _ in range(iters):
+        t = time.perf_counter()
+        lib("LGBM_BoosterUpdateOneIter", bst2, ct.byref(fin))
+        torch.cuda.synchronize()
+        iter2_s.append(time.perf_counter() - t)
+        levels += gbdt_of(bst2).last_arrays.levels
+    counts2 = D.launches()
+    text2 = lib.model(bst2)
+    ref2 = lgb.train(capi_params(iters, CAPI_LEVEL), ref_set,
+                     num_boost_round=iters, verbose_eval=False)
+    trees2 = len(gbdt_of(bst2).models)
+    want2 = {"histogram_int": trees2, "partition_level": levels}
+    same2 = text2 == ref2.model_to_string()
+    log("  (T2) C ABI, level + quantized: iterations %s (median %.4f s); "
+        "%d level steps; launches %s; model text %s train()'s"
+        % (["%.4f" % s for s in iter2_s], float(np.median(iter2_s)), levels,
+           counts2, "equal to" if same2 else "DIFFERENT from"))
+    if counts2 != {k: want2.get(k, 0) for k in counts2} or not same2:
+        raise AssertionError("(T2) launches %s (want %s), model %s"
+                             % (counts2, want2, same2))
+    lib.free(bst2, valid, train)
+    del ref2, ref_set, ref_valid, X64, Xt64
+    torch.cuda.empty_cache()
+    if c_api._handles:
+        raise AssertionError("(T) handles left: %s" % list(c_api._handles))
+    return {"T": dict(launches=counts, trees=trees, splits=splits,
+                      iter_s=iter_s, train_iter_s=rec.iter_s,
+                      auc=float(auc[0]), bin_s=bin_s, build_s=build_s),
+            "T2": dict(launches=counts2, trees=trees2, levels=levels,
+                       iter_s=iter2_s),
+            "text": text}
+
+
+def phase_resilience(device, data, iters: int, uninterrupted: str) -> dict:
+    """Path (U): preemption and the watchdog on the card.  (U1)
+    ``lightgbm_tpu_torch.train`` at (A)'s shape with (T)'s parameters plus
+    ``watchdog_timeout_s``, ``preemption_checkpoint=True`` and a checkpoint
+    prefix under ``build/``; a callback sends SIGTERM to this process after
+    iteration 2: the call raises ``TrainingPreempted`` and the emergency
+    checkpoint exists (its write seconds and bytes printed).  (U2) the same
+    call again resumes it to ``iters``: the trees byte-equal to (T)'s
+    uninterrupted ``train()`` (``uninterrupted``; the parameters footer
+    differs by the two keys) and no watchdog stall.  (U3) the CLI on the
+    reference's binary example from ``tests/data`` (7,000 x 28) with
+    ``preemption_checkpoint=true snapshot_freq=1``: uninterrupted in this
+    process; in a child process that this one sends SIGTERM once its first
+    checkpoint exists, which must exit 75; and the same command again in
+    this process, which resumes and writes the uninterrupted run's
+    trees."""
+    import glob
+    import shutil
+    import signal
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch import device as D
+    from lightgbm_tpu_torch import resilience
+    from lightgbm_tpu_torch.checkpoint import list_checkpoints
+    X, y, _, _ = data
+    shutil.rmtree(RESIL_DIR, ignore_errors=True)
+    os.makedirs(RESIL_DIR)
+    out = {}
+    try:
+        # ---- (U1), (U2) ----
+        params = dict(capi_params(iters), watchdog_timeout_s=WATCHDOG_S)
+        ds = lgb.Dataset(np.ascontiguousarray(X, dtype=np.float64), label=y,
+                         params={"max_bin": "255"})
+        prefix = os.path.join(RESIL_DIR, "higgs")
+
+        def sigterm_after(env):
+            if env.iteration == PREEMPT_AT - 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        D.reset_launches()
+        t = time.perf_counter()
+        try:
+            lgb.train(dict(params), ds, num_boost_round=iters,
+                      checkpoint_prefix=prefix, preemption_checkpoint=True,
+                      callbacks=[sigterm_after], verbose_eval=False)
+        except resilience.TrainingPreempted as exc:
+            # its fields only: the exception's traceback holds the
+            # preempted booster, whose device memory (D) would still see
+            pre_it, pre_path, pre_write_s = (exc.iteration,
+                                             exc.checkpoint_path,
+                                             exc.checkpoint_seconds)
+        else:
+            raise AssertionError("(U1) SIGTERM did not preempt train()")
+        pre_s = time.perf_counter() - t
+        ckpt_bytes = os.path.getsize(pre_path)
+        log("  (U1) SIGTERM after iteration %d: TrainingPreempted at "
+            "iteration %d after %.2f s; emergency checkpoint %s, %d bytes, "
+            "written in %.4f s" % (PREEMPT_AT, pre_it, pre_s, pre_path,
+                                   ckpt_bytes, pre_write_s))
+        if pre_it != PREEMPT_AT or \
+                [i for i, _ in list_checkpoints(prefix)] != [PREEMPT_AT]:
+            raise AssertionError("(U1) preempted at %d, checkpoints %s"
+                                 % (pre_it, list_checkpoints(prefix)))
+        if signal.getsignal(signal.SIGTERM) is resilience._on_preempt_signal:
+            raise AssertionError("(U1) the SIGTERM handler stayed installed")
+        with IterationTimes() as rec:
+            resumed = lgb.train(dict(params), ds, num_boost_round=iters,
+                                checkpoint_prefix=prefix,
+                                preemption_checkpoint=True,
+                                verbose_eval=False)
+        counts = D.launches()
+        same = trees_text(resumed.model_to_string()) == \
+            trees_text(uninterrupted)
+        stall = resilience.last_stall()
+        trees = len(resumed._booster.models)
+        splits = sum(tr.num_leaves - 1 for tr in resumed._booster.models)
+        log("  (U2) resumed from iteration %d to %d: iterations %s; trees "
+            "%s (T)'s uninterrupted train(); watchdog stall %s; launches %s "
+            "over both calls" % (pre_it, resumed.current_iteration(),
+                                 ["%.4f" % s for s in rec.iter_s],
+                                 "equal to" if same else "DIFFERENT from",
+                                 stall, counts))
+        want = {"histogram": trees, "partition": splits}
+        if not same or stall is not None or list_checkpoints(prefix) or \
+                counts != {k: want.get(k, 0) for k in counts}:
+            raise AssertionError("(U2) resume: same %s, stall %s, launches "
+                                 "%s (want %s)" % (same, stall, counts,
+                                                   want))
+        out.update(launches=counts, trees=trees, splits=splits,
+                   ckpt_bytes=ckpt_bytes, ckpt_write_s=pre_write_s,
+                   resume_iter_s=rec.iter_s)
+        del ds, resumed
+        torch.cuda.empty_cache()
+
+        # ---- (U3) the CLI ----
+        here = os.path.dirname(os.path.abspath(__file__))
+        conf_dir = os.path.join(here, "tests", "data",
+                                "binary_classification")
+
+        def argv(model):
+            return ["config=%s" % os.path.join(conf_dir, "train.conf"),
+                    "data=%s" % os.path.join(conf_dir, "binary.train"),
+                    "valid=%s" % os.path.join(conf_dir, "binary.test"),
+                    "num_iterations=%d" % RESIL_CLI_ITERS,
+                    "preemption_checkpoint=true", "snapshot_freq=1",
+                    "verbosity=-1", "output_model=%s" % model]
+
+        ref_model = os.path.join(RESIL_DIR, "cli_ref.txt")
+        run_cli(argv(ref_model), "(U3) uninterrupted CLI")
+        model = os.path.join(RESIL_DIR, "cli.txt")
+        env = dict(os.environ, PYTHONPATH=here)
+        t = time.perf_counter()
+        child = subprocess.Popen(
+            [sys.executable, "-m", "lightgbm_tpu_torch"] + argv(model),
+            cwd=here, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        try:
+            first = None
+            while child.poll() is None:
+                found = glob.glob(glob.escape(model) + ".ckpt_iter_*")
+                if found:
+                    first = sorted(found)[0]
+                    child.send_signal(signal.SIGTERM)
+                    break
+                time.sleep(0.01)
+            log_text, _ = child.communicate(timeout=300)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        child_s = time.perf_counter() - t
+        left = list_checkpoints(model)
+        log("  (U3) child CLI: SIGTERM once %s existed; exit code %d after "
+            "%.2f s; checkpoints left %s"
+            % (first, child.returncode, child_s, [i for i, _ in left]))
+        if child.returncode != resilience.EXIT_PREEMPTED or not left \
+                or os.path.exists(model):
+            raise AssertionError("(U3) the child exited %d (want %d), "
+                                 "checkpoints %s:\n%s"
+                                 % (child.returncode,
+                                    resilience.EXIT_PREEMPTED, left,
+                                    log_text[-3000:]))
+        app, cli_counts, wall, _ = run_cli(argv(model), "(U3) rerun")
+        with open(model) as fh, open(ref_model) as gh:
+            same_cli = trees_text(fh.read()) == trees_text(gh.read())
+        log("  (U3) the rerun resumed from iteration %d and wrote %d "
+            "iterations in %.2f s: trees %s the uninterrupted CLI run's; "
+            "checkpoints left %s" % (left[0][0], app.booster.iter_, wall,
+                                     "equal to" if same_cli
+                                     else "DIFFERENT from",
+                                     list_checkpoints(model)))
+        if not same_cli or list_checkpoints(model):
+            raise AssertionError("(U3) the resumed CLI run differs")
+        out.update(cli_preempted_at=left[0][0], cli_child_s=child_s)
+    finally:
+        shutil.rmtree(RESIL_DIR, ignore_errors=True)
+    return out
+
+
 def profile_iteration(booster) -> float:
     """One more training iteration under ``torch.profiler``: the kernels by
     device time, and the device's busy share of the iteration's wall time."""
@@ -3833,7 +4256,18 @@ def main(argv=None) -> int:
     log("  (R) checkpoint and resume on (A)'s bins")
     paths["R"] = phase_checkpoint(device, data, ds)
     torch.cuda.empty_cache()
-    del data, ds
+    del ds
+    log("  (T) the C ABI at (A)'s shape through raw LGBM_* calls: %d rows x "
+        "28 f64 features, (A)'s parameters, %d iterations" % (args.rows,
+                                                               args.iters))
+    capi = phase_capi(device, data, args.iters)
+    paths["T"], paths["T2"] = capi["T"], capi["T2"]
+    log("  (U) preemption and the watchdog: train() at (A)'s shape, "
+        "SIGTERM after iteration %d, resumed; the CLI in a child process"
+        % PREEMPT_AT)
+    paths["U"] = phase_resilience(device, data, args.iters, capi.pop("text"))
+    torch.cuda.empty_cache()
+    del data
     log("  (D) Epsilon-shaped, lightgbm_tpu_torch.train with a validation "
         "set: %d + %d rows x %d features, max_bin=255, num_leaves=255, %d "
         "iterations" % (nw, args.widef_test_rows, WIDE_F, args.iters))
@@ -3902,7 +4336,8 @@ def main(argv=None) -> int:
         dict(name="histogram", route="cuda",
              source="lightgbm_tpu_torch/csrc/histogram.cu",
              replaces="lightgbm_tpu/core/histogram.py:743",
-             max_abs_err=hist_err_max, **launches("histogram", "ABCGHIJRS"),
+             max_abs_err=hist_err_max,
+             **launches("histogram", "ABCGHIJRSTU"),
              groups_root=paths["I"]["times"]["histogram"],
              cli_root=paths["S"]["times"]["histogram"],
              expo_root=paths["J"]["times"]["histogram"],
@@ -3912,7 +4347,7 @@ def main(argv=None) -> int:
              replaces="lightgbm_tpu/core/partition.py:1090",
              also_replaces="lightgbm_tpu/core/partition.py:1130",
              max_abs_err=split_err_max,
-             **launches("partition", "ABCFGHIJRS"),
+             **launches("partition", "ABCFGHIJRSTU"),
              cli_root=paths["S"]["times"]["split"],
              unfold_launches=paths["I"]["routes"]["partition"]["unfold"],
              categorical_launches=paths["J"]["routes"]["partition"][

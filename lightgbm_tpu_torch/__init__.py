@@ -10,7 +10,10 @@ lightgbm_tpu_torch config=train.conf``.  Underneath: ``BinnedDataset`` ->
 ``train_one_iter`` -> ``predict``, with hand-written CUDA kernels for the
 row-store histograms and the fused split passes (``csrc/``).  Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"`` (see
-:mod:`lightgbm_tpu_torch.device`).  The serving and online planes
+:mod:`lightgbm_tpu_torch.device`).  ``c_api`` carries the ``LGBM_*`` C
+ABI, which ``python -m lightgbm_tpu_torch.capi_build`` compiles into
+``lib_lightgbm_tpu_torch.so``; ``resilience`` the preemption flag and the
+watchdog.  The serving and online planes
 (``serve``, ``serve_and_train``) and telemetry (``obs``) are not ported
 (ROADMAP queue 1 items 14-15).  The sklearn estimators and plotting are
 imported on first use (they import sklearn and pandas when installed).

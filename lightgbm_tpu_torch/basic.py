@@ -413,10 +413,10 @@ class Booster:
             self._booster.reset_training_data(train_set.handle,
                                               self._booster.objective)
         if fobj is None:
-            return self._booster.train_one_iter()
+            return self._booster.watched_iter()
         grad, hess = fobj(self._flat_score("train"), self._train_set)
-        return self._booster.train_one_iter(np.asarray(grad, dtype=np.float32),
-                                            np.asarray(hess, dtype=np.float32))
+        return self._booster.watched_iter(np.asarray(grad, dtype=np.float32),
+                                          np.asarray(hess, dtype=np.float32))
 
     def rollback_one_iter(self) -> "Booster":
         self._booster.rollback_one_iter()

@@ -15,8 +15,12 @@ DART's drops use), metrics and early stopping (``eval_train``,
 ``eval_valid``, ``eval_and_check_early_stopping``), the host loop ``train``
 with its snapshots (``snapshot_out``), the train state of a checkpoint
 (``capture_train_state`` / ``restore_train_state``, gbdt.py:1446-1615, and
-``save_checkpoint`` / ``resume_from_checkpoint``), ``rollback_one_iter``,
-``refit``, the replay of a loaded model (``replay_train_score``), every
+``save_checkpoint`` / ``resume_from_checkpoint``), the preemption poll of
+``train`` (once an iteration; ``_preempt_exit`` writes the emergency
+checkpoint) and the watchdog section of every iteration (``watched_iter``),
+``rollback_one_iter``, ``refit``, the model surgery of the C API
+(``merge_from``, ``shuffle_models``, ``set_leaf_value``), the replay of a
+loaded model (``replay_train_score``), every
 prediction path (gbdt.py:1999-2343: ``predict`` with its 512-row regimes,
 prediction early stop and the bf16 tier, ``predict_leaf_index``,
 ``predict_contrib``, and their binned forms over a row store), averaged over
@@ -68,6 +72,8 @@ from ..device import DeviceLike, resolve_device
 from ..io.dataset import BinnedDataset
 from ..metric.metric import Metric, create_metrics
 from ..objective import ObjectiveFunction, create_objective
+from ..resilience import (TrainingPreempted, clear_preemption,
+                          emergency_checkpoint, preemption_requested, watch)
 from ..utils.file_io import atomic_write
 from ..utils.log import LightGBMError, Log
 from ..utils.timer import FunctionTimer
@@ -582,15 +588,44 @@ class GBDT:
         mf = int(self.config.metric_freq)
         sf = int(self.config.snapshot_freq)
         while self.iter_ < total:
-            finished = self.train_one_iter()
+            finished = self.watched_iter()
             Log.info("%f seconds elapsed, finished iteration %d",
                      time.perf_counter() - t_start, self.iter_)
             if not finished and has_eval and mf > 0 and self.iter_ % mf == 0:
                 finished = self.eval_and_check_early_stopping()
             if finished:
                 break
+            if preemption_requested():
+                # polled once an iteration (the JAX package polls at its
+                # fused chunks' boundaries, gbdt.py:1880), after the eval,
+                # so the emergency checkpoint holds the same early-stopping
+                # state a periodic one would
+                self._preempt_exit(snapshot_out)
             if snapshot_out and sf > 0 and self.iter_ % sf == 0:
                 self._write_snapshot(snapshot_out)
+
+    def watched_iter(self, gradients=None, hessians=None) -> bool:
+        """:meth:`train_one_iter` inside a watchdog section (a no-op when
+        no watchdog is armed); every entry point's iterations come here."""
+        with watch("train_one_iter", builds=self.device.type == "cuda",
+                   iteration=int(self.iter_)):
+            return self.train_one_iter(gradients, hessians)
+
+    def _preempt_exit(self, snapshot_out: Optional[str]) -> None:
+        """The preemption flag is set: let the queued device work finish,
+        write the emergency checkpoint through the ordinary atomic path,
+        consume the flag and raise :class:`TrainingPreempted`, which the
+        entry points turn into the resumable exit (gbdt.py:1910-1930)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        path = seconds = None
+        if snapshot_out:
+            path, seconds = emergency_checkpoint(self, snapshot_out)
+        # handled: a later train() in this process (the in-process resume)
+        # starts with a clear flag
+        clear_preemption()
+        raise TrainingPreempted(int(self.iter_), path,
+                                checkpoint_seconds=seconds)
 
     def _write_snapshot(self, snapshot_out: str) -> None:
         """The model snapshot (gbdt.cpp:291-295) and a checkpoint of the
@@ -877,7 +912,54 @@ class GBDT:
                 layout_ds=layout).predict_contrib(rows, ncol)
         return out[0] if K == 1 else np.concatenate(out, axis=1)
 
-    # ---- model surgery (gbdt.cpp:299, :454-470) ----
+    # ---- model surgery (gbdt.cpp:299, :454-470; gbdt.py:1800-1839) ----
+
+    def _drop_rollback_caches(self) -> None:
+        """After surgery on the trees: the predictors restack, and a later
+        rollback cannot restore or subtract the last iteration."""
+        self._invalidate_predict_cache()
+        self._pre_iter_scores = None
+        self._last_iter_arrays = []
+
+    def merge_from(self, other: "GBDT") -> None:
+        """Append ``other``'s trees (c_api.cpp Booster::MergeFrom), deep
+        copies, so later leaf surgery on one booster leaves the other as
+        it was; the iteration counts add."""
+        if other.num_tree_per_iteration != self.num_tree_per_iteration:
+            raise ValueError("cannot merge boosters with different "
+                             "num_tree_per_iteration")
+        import copy
+        self.models.extend(copy.deepcopy(t) for t in other.models)
+        self.iter_ += other.iter_
+        self._drop_rollback_caches()
+
+    def shuffle_models(self, start_iter: int = 0, end_iter: int = -1) -> None:
+        """Shuffle the order of the iterations in [start_iter, end_iter),
+        each iteration's K trees kept together (gbdt.h ShuffleModels); the
+        permutation is ``RandomState(42)``'s, as the JAX package's.
+        ``end_iter <= 0`` means the last iteration."""
+        models = self.models
+        K = self.num_tree_per_iteration
+        total_iter = len(models) // K
+        start_iter = max(0, start_iter)
+        end = total_iter if end_iter <= 0 else min(end_iter, total_iter)
+        if end - start_iter <= 1:
+            return
+        rng = np.random.RandomState(42)
+        order = start_iter + rng.permutation(end - start_iter)
+        chunk = [models[i * K:(i + 1) * K] for i in range(total_iter)]
+        shuffled = chunk[:start_iter] + [chunk[i] for i in order] + chunk[end:]
+        self.models = [t for c in shuffled for t in c]
+        self._drop_rollback_caches()
+
+    def set_leaf_value(self, tree_idx: int, leaf_idx: int,
+                       value: float) -> None:
+        """Set one leaf's output (c_api.cpp LGBM_BoosterSetLeafValue)."""
+        tree = self.models[tree_idx]
+        if not 0 <= leaf_idx < tree.num_leaves:
+            raise IndexError("leaf index %d out of range" % leaf_idx)
+        tree.leaf_value[leaf_idx] = value
+        self._invalidate_predict_cache()
 
     def rollback_one_iter(self) -> None:
         """Undo the last iteration (gbdt.cpp:454-470): its trees leave the

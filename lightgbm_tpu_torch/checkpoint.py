@@ -20,7 +20,8 @@ Files are written atomically (``utils.file_io.atomic_write``) at
 newest first with each file's CRC checked: a corrupt or truncated newest
 file falls back to the previous good one.  Scores go as binary f32 arrays,
 never replayed from the model text: DART's drops make the f32 score sum
-depend on its history.  The JAX package's telemetry, fault hooks and host
+depend on its history.  Writes retry transient filesystem faults and fire
+the fault hook of ``utils.file_io``; the JAX package's telemetry and host
 shards have no counterpart here.
 """
 from __future__ import annotations

@@ -6,17 +6,22 @@ src/application/application.cpp): parameter precedence argv ``key=value``
 over config-file lines (:49-82), the tasks ``train``, ``predict``,
 ``convert_model`` and ``refit`` (:204-260), evaluation every
 ``metric_freq`` iterations, snapshots, and the ``LightGBM_predict_result.txt``
-format (predictor.hpp).  ``task=train`` with ``snapshot_freq`` resumes an
-interrupted run of the same command from its newest valid checkpoint and
-removes its checkpoints when it completes (``checkpoint.py``).
+format (predictor.hpp).  ``task=train`` with ``snapshot_freq`` or
+``preemption_checkpoint=true`` resumes an interrupted run of the same
+command from its newest valid checkpoint and removes its checkpoints when it
+completes (``checkpoint.py``).  With ``preemption_checkpoint=true``, SIGTERM
+or SIGINT makes ``task=train`` write an emergency checkpoint at the next
+iteration end and exit with code 75 (``resilience.EXIT_PREEMPTED``);
+``watchdog_timeout_s`` aborts a stalled iteration with code 79
+(cli.py:147-280 of the JAX package).
 
 Device rule: :class:`Application` and :func:`main` run on ``cuda`` and raise
 without it, unless the caller passes ``device="cpu"``; ``python -m
 lightgbm_tpu_torch`` runs on ``cuda``.  LightGBM's ``device_type`` key is
 not read for this (its upstream default is ``cpu``).  ``task=serve`` and
-``task=online``, ``telemetry_out``, ``metrics_port``,
-``preemption_checkpoint`` and ``plan_cache`` belong to planes not ported yet
-and are refused with ``NotImplementedError`` (ROADMAP queue 1 items 14-15).
+``task=online``, ``telemetry_out``, ``metrics_port`` and ``plan_cache``
+belong to planes not ported yet and are refused with
+``NotImplementedError`` (ROADMAP queue 1 items 14-15).
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from . import resilience
 from .basic import _refuse
 from .boosting import create_boosting
 from .boosting.gbdt import GBDT
@@ -67,14 +73,11 @@ class Application:
         cfg = self.config
         if cfg.task in ("serve", "online"):
             _refuse("task=%s" % cfg.task, "queue 1 item 15")
-        for key, on, item in (
-                ("telemetry_out", bool(cfg.telemetry_out), 14),
-                ("metrics_port", int(cfg.metrics_port) > 0, 14),
-                ("plan_cache", bool(cfg.plan_cache), 14),
-                ("preemption_checkpoint", bool(cfg.preemption_checkpoint),
-                 15)):
+        for key, on in (("telemetry_out", bool(cfg.telemetry_out)),
+                        ("metrics_port", int(cfg.metrics_port) > 0),
+                        ("plan_cache", bool(cfg.plan_cache))):
             if on:
-                _refuse(key, "queue 1 item %d" % item)
+                _refuse(key, "queue 1 item 14")
 
     def run(self) -> None:
         task = self.config.task
@@ -93,6 +96,22 @@ class Application:
 
     def train(self) -> None:
         cfg = self.config
+        owned = resilience.arm_supervision(
+            bool(cfg.preemption_checkpoint), float(cfg.watchdog_timeout_s),
+            artifact_base=cfg.output_model or None)
+        try:
+            self._train()
+        except resilience.TrainingPreempted as exc:
+            # the emergency checkpoint is on disk: the distinct exit code
+            # tells a supervisor to rerun this command, which resumes
+            Log.warning("%s; exiting with code %d (resumable)", exc,
+                        resilience.EXIT_PREEMPTED)
+            raise SystemExit(resilience.EXIT_PREEMPTED)
+        finally:
+            resilience.disarm_supervision(*owned)
+
+    def _train(self) -> None:
+        cfg = self.config
         loader = DatasetLoader(cfg)
         num_machines = max(int(cfg.num_machines), 1)
         train_data = loader.load_from_file(cfg.data, 0, num_machines)
@@ -105,7 +124,8 @@ class Application:
         # (the newest valid one); the restore waits for the validation sets,
         # whose scores ride the checkpoint
         ckpt_state = None
-        resumable = cfg.snapshot_freq > 0 and bool(cfg.output_model)
+        resumable = ((cfg.snapshot_freq > 0 or cfg.preemption_checkpoint)
+                     and bool(cfg.output_model))
         if resumable:
             ckpt_state = load_latest_checkpoint(cfg.output_model)
         if ckpt_state is None and cfg.input_model:
@@ -213,6 +233,9 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> int:
         return 1
     try:
         Application(argv, device=device).run()
+    except resilience.TrainingPreempted as exc:
+        Log.warning(str(exc))
+        raise SystemExit(resilience.EXIT_PREEMPTED)
     except Exception as exc:  # main.cpp:23-41 catch-all
         Log.warning("Met Exceptions:")
         Log.warning(str(exc))

@@ -1,6 +1,5 @@
 """Copied from ``lightgbm_tpu/config.py`` for the PyTorch port (which imports nothing of
-the JAX package); only imports differ, and the io_retry_* parameters,
-whose retry policy the port lacks, only warn.
+the JAX package); only imports differ.
 
 Typed configuration with alias resolution and validation.
 
@@ -361,9 +360,11 @@ class Config:
                         int(self.data_chunk_rows))
         if ("io_retry_attempts" in self.raw_params
                 or "io_retry_backoff_s" in self.raw_params):
-            # the port's atomic_write has no retry policy yet
-            Log.warning("io_retry_attempts / io_retry_backoff_s have no "
-                        "effect in lightgbm_tpu_torch")
+            # the retry policy is process-wide (file_io.atomic_write), so an
+            # explicit parameter configures it
+            from .utils.file_io import configure_retries
+            configure_retries(attempts=int(self.io_retry_attempts),
+                              base_delay=float(self.io_retry_backoff_s))
         # seed cascade (config.cpp:205-230): explicit `seed` derives the sub-seeds
         if "seed" in self.raw_params:
             base = int(self.seed)

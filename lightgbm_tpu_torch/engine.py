@@ -10,12 +10,17 @@ forest (``boosting.create_boosting``, through ``Booster``).
 ``checkpoint_prefix`` writes the train state every ``snapshot_freq``
 iterations and resumes an interrupted call from it (engine.py:147-151,
 :218-292 of the JAX package).  The port adds ``device=``: ``cuda`` unless
-the caller passes ``"cpu"``.  ``cv`` (engine.py:472-656) builds one booster
-per fold through ``Dataset.subset``, with group-aware, stratified or shuffled
-folds, and aggregates the folds' metrics as mean and standard deviation.
-Not carried over yet, and refused with ``NotImplementedError``: ``serve``,
-``serve_and_train`` and ``preemption_checkpoint`` (ROADMAP queue 1 item 15,
-``resilience.py``).
+the caller passes ``"cpu"``.  ``preemption_checkpoint`` routes SIGTERM and
+SIGINT to the preemption flag, polled at every iteration end: the call then
+writes an emergency checkpoint to ``checkpoint_prefix`` and raises
+``resilience.TrainingPreempted``, and the same call again resumes from it;
+``watchdog_timeout_s`` in the params arms the dispatch watchdog for the
+call (engine.py:205-320 of the JAX package, ``resilience.py``).  ``cv``
+(engine.py:472-656) builds one booster per fold through ``Dataset.subset``,
+with group-aware, stratified or shuffled folds, and aggregates the folds'
+metrics as mean and standard deviation.  Not carried over yet, and refused
+with ``NotImplementedError``: ``serve`` and ``serve_and_train`` (ROADMAP
+queue 1 item 15).
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from . import callback
+from . import callback, resilience
 from .basic import Booster, Dataset, _refuse
 from .checkpoint import cleanup_checkpoints, save_checkpoint_best_effort
 from .device import DeviceLike
@@ -82,9 +87,14 @@ def train(params: Dict[str, Any], train_set: Dataset,
     one.  A call that completes removes its checkpoints.  The
     ``early_stopping_rounds`` callback keeps its counters where no
     checkpoint reaches them, so they restart on a resume (the JAX
-    package's known limit, engine.py:53-57)."""
-    if preemption_checkpoint:
-        _refuse("preemption_checkpoint", "queue 1 item 15 (resilience.py)")
+    package's known limit, engine.py:53-57).
+
+    ``preemption_checkpoint`` (or the parameter of that name): SIGTERM and
+    SIGINT set a flag that the loop polls at every iteration end; a set
+    flag writes an emergency checkpoint to ``checkpoint_prefix`` and
+    raises :class:`resilience.TrainingPreempted`.  ``watchdog_timeout_s``
+    in the params aborts the process (exit 79) when an iteration makes no
+    progress for that long."""
     params = copy.deepcopy(params) if params else {}
     for alias in _NUM_BOOST_ROUND_ALIASES:
         if alias in params:
@@ -106,8 +116,6 @@ def train(params: Dict[str, Any], train_set: Dataset,
     params["num_iterations"] = num_boost_round
 
     booster = Booster(params=params, train_set=train_set, device=device)
-    if bool(booster.config.preemption_checkpoint):
-        _refuse("preemption_checkpoint", "queue 1 item 15 (resilience.py)")
     gbdt = booster._booster
     if init_model is not None:
         gbdt.load_model_from_string(_model_text(init_model))
@@ -161,37 +169,54 @@ def train(params: Dict[str, Any], train_set: Dataset,
                     if not getattr(cb, "before_iteration", False)),
                    key=lambda cb: getattr(cb, "order", 0))
 
+    preempt = bool(preemption_checkpoint) or bool(
+        booster.config.preemption_checkpoint)
+    if preempt and checkpoint_prefix is None:
+        Log.warning("preemption_checkpoint is set without a "
+                    "checkpoint_prefix: a preempted run stops cleanly but "
+                    "has nothing to resume from")
+    owned_signals, owned_wd = resilience.arm_supervision(
+        preempt, float(booster.config.watchdog_timeout_s),
+        artifact_base=checkpoint_prefix)
     end = init_iteration + num_boost_round
     results = []
-    for i in range(init_iteration + resumed_iter, end):
-        for cb in before:
-            cb(callback.CallbackEnv(model=booster, params=params, iteration=i,
-                                    begin_iteration=init_iteration,
-                                    end_iteration=end,
-                                    evaluation_result_list=None))
-        finished = booster.update(fobj=fobj)
-        results = []
-        if valid_sets is not None or gbdt.train_metrics:
-            if contains_train:
-                results += [(train_data_name, m, v, h)
-                            for (_, m, v, h) in booster.eval_train(feval)]
-            results += booster.eval_valid(feval)
-        try:
-            for cb in after:
+    try:
+        for i in range(init_iteration + resumed_iter, end):
+            for cb in before:
                 cb(callback.CallbackEnv(model=booster, params=params,
                                         iteration=i,
                                         begin_iteration=init_iteration,
                                         end_iteration=end,
-                                        evaluation_result_list=results))
-        except callback.EarlyStopException as stop:
-            booster.best_iteration = stop.best_iteration + 1
-            results = stop.best_score
-            break
-        if (checkpoint_prefix is not None and ckpt_freq > 0
-                and gbdt.iter_ % ckpt_freq == 0):
-            save_checkpoint_best_effort(gbdt, checkpoint_prefix)
-        if finished:
-            break
+                                        evaluation_result_list=None))
+            finished = booster.update(fobj=fobj)
+            results = []
+            if valid_sets is not None or gbdt.train_metrics:
+                if contains_train:
+                    results += [(train_data_name, m, v, h) for (_, m, v, h)
+                                in booster.eval_train(feval)]
+                results += booster.eval_valid(feval)
+            try:
+                for cb in after:
+                    cb(callback.CallbackEnv(model=booster, params=params,
+                                            iteration=i,
+                                            begin_iteration=init_iteration,
+                                            end_iteration=end,
+                                            evaluation_result_list=results))
+            except callback.EarlyStopException as stop:
+                booster.best_iteration = stop.best_iteration + 1
+                results = stop.best_score
+                break
+            if (checkpoint_prefix is not None and ckpt_freq > 0
+                    and gbdt.iter_ % ckpt_freq == 0):
+                save_checkpoint_best_effort(gbdt, checkpoint_prefix)
+            if preempt and resilience.preemption_requested():
+                # the one preempt-exit sequence of every entry point: drain
+                # the device, emergency checkpoint, consume the flag, raise
+                gbdt._preempt_exit(checkpoint_prefix)
+            if finished:
+                break
+    finally:
+        resilience.disarm_supervision(owned_signals, owned_wd)
     if checkpoint_prefix is not None:
         # the call completed: a rerun with the same prefix trains afresh
         cleanup_checkpoints(checkpoint_prefix)

@@ -18,13 +18,15 @@ allgather.  The JAX package's default allgather over a multi-process
 runtime has no counterpart yet (ROADMAP queue 1 item 13): ``num_machines >
 1`` with no injected ``allgather_fn`` takes the JAX package's single-process
 branch (one warning, bins from the local rows), and nothing here calls
-``torch.distributed``.  The ingest telemetry and the preemption check
-between chunks of the JAX loader belong to planes the port does not have
-(queue 1 items 14-15) and are left out.
+``torch.distributed``.  A preemption flag (``resilience.py``) set during a
+streaming load raises ``TrainingPreempted(0)`` between chunks, as in the
+JAX loader; its ingest telemetry belongs to a plane the port does not have
+(queue 1 item 14) and is left out.  Side files, the data file's existence
+and the binary check go through ``utils.file_io``, so a registered
+``scheme://`` serves them.
 """
 from __future__ import annotations
 
-import os
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -33,6 +35,8 @@ from . import sample as _sample
 from .dataset import BinnedDataset
 from .metadata import Metadata
 from .parser import detect_format, parse_file
+from .. import resilience
+from ..utils import file_io
 from ..utils.log import Log
 
 
@@ -248,8 +252,8 @@ class DatasetLoader:
         """``.weight``/``.query``/``.init`` side files (metadata.cpp),
         restricted to the rank stripe [begin, end)."""
         weight_file = filename + ".weight"
-        if weight is None and os.path.exists(weight_file):
-            with open(weight_file) as fh:
+        if weight is None and file_io.exists(weight_file):
+            with file_io.open_file(weight_file) as fh:
                 weight = np.loadtxt(fh, dtype=np.float64, ndmin=1)[begin:end]
             Log.info("Reading weights from %s", weight_file)
         group = None
@@ -257,8 +261,8 @@ class DatasetLoader:
         if group_col is not None:
             # per-row query ids -> group sizes (metadata.h qids)
             group = _qid_to_group_sizes(group_col)
-        elif os.path.exists(query_file):
-            with open(query_file) as fh:
+        elif file_io.exists(query_file):
+            with file_io.open_file(query_file) as fh:
                 sizes = np.loadtxt(fh, dtype=np.int64, ndmin=1)
             # intersect the query runs with the stripe
             edges = np.concatenate([[0], np.cumsum(sizes)])
@@ -268,8 +272,8 @@ class DatasetLoader:
             Log.info("Reading query boundaries from %s", query_file)
         init_score = None
         init_file = filename + ".init"
-        if os.path.exists(init_file):
-            with open(init_file) as fh:
+        if file_io.exists(init_file):
+            with file_io.open_file(init_file) as fh:
                 init_score = np.loadtxt(fh, dtype=np.float64,
                                         ndmin=1)[begin:end]
             Log.info("Reading initial scores from %s", init_file)
@@ -280,7 +284,7 @@ class DatasetLoader:
                        reference: Optional[BinnedDataset] = None
                        ) -> BinnedDataset:
         cfg = self.config
-        if not os.path.exists(filename):
+        if not file_io.exists(filename):
             Log.fatal("Data file %s does not exist", filename)
         if _is_binary_file(filename):
             ds = BinnedDataset.load_binary(filename)
@@ -567,6 +571,11 @@ class DatasetLoader:
                                       else None),
                             skip_rows=begin, max_rows=n_kept),
                 depth):
+            if resilience.preemption_requested():
+                # nothing durable is half-written: the store lives in memory
+                # until save_binary's atomic rename after the last chunk
+                resilience.clear_preemption()
+                raise resilience.TrainingPreempted(0)
             k = part.shape[0]
             binned[wpos:wpos + k] = ds.bundle_rows(part[:, keep])
             label[wpos:wpos + k] = part[:, label_idx]
@@ -612,15 +621,15 @@ class DatasetLoader:
 
 
 def _is_binary_file(path: str) -> bool:
-    with open(path, "rb") as fh:
+    with file_io.open_file(path, "rb") as fh:
         return fh.read(8) == BinnedDataset.MAGIC
 
 
 def _load_forced_bins(path: str):
     import json
-    if not os.path.exists(path):
+    if not file_io.exists(path):
         return None
-    with open(path) as fh:
+    with file_io.open_file(path) as fh:
         data = json.load(fh)
     return {int(e["feature"]): list(map(float, e["bin_upper_bound"]))
             for e in data}

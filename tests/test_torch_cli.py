@@ -337,7 +337,6 @@ def test_timer_scopes(data_files, one_thread):
 @pytest.mark.parametrize("arg", ["task=serve", "task=online",
                                  "telemetry_out=run.jsonl",
                                  "metrics_port=9100",
-                                 "preemption_checkpoint=true",
                                  "plan_cache=plans.json"])
 def test_refused_planes(arg):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):

@@ -218,16 +218,11 @@ def test_metric_names_and_values_like_jax(metric):
 
 
 def test_refusals():
-    # pandas input and cv are ported (tests/test_torch_python_api.py);
-    # the serving entry points and preemption stay refused
+    # pandas input and cv are ported (tests/test_torch_python_api.py), and
+    # preemption_checkpoint (tests/test_torch_resilience.py); the serving
+    # entry points stay refused
     X, y, _, _ = make_data()
     for entry in (P.engine.serve, P.engine.serve_and_train):
         with pytest.raises(NotImplementedError,
                            match="ROADMAP queue 1 item 15"):
             entry(PARAMS, P.Dataset(X, y))
-    for kw in (dict(preemption_checkpoint=True),
-               dict(params=dict(PARAMS, preemption_checkpoint=True))):
-        with pytest.raises(NotImplementedError,
-                           match="preemption_checkpoint.*queue 1 item 15"):
-            P.train(kw.pop("params", PARAMS), P.Dataset(X[:300], y[:300]),
-                    num_boost_round=1, device="cpu", **kw)

@@ -62,7 +62,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 NEW_MODULES = ["cli", "__main__", "compat", "sklearn", "plotting",
                "model_codegen", "io.parser", "io.loader", "utils.timer",
-               "engine", "basic"]
+               "engine", "basic", "c_api", "capi_build", "resilience",
+               "utils.file_io"]
 
 
 def test_every_module_imports_with_jax_blocked(host_api_child):
@@ -173,6 +174,13 @@ HOST_API_ENTRY_POINTS = {
         import lightgbm_tpu_torch as lgb
         X = np.random.RandomState(0).normal(size=(200, 3))
         lgb.LGBMClassifier(n_estimators=1).fit(X, X[:, 0] > 0)
+    """,
+    "c_api_booster_create": """
+        import ctypes
+        from lightgbm_tpu_torch import c_api
+        out = ctypes.c_void_p()
+        if c_api.bind()["LGBM_BoosterCreate"](0, 0, ctypes.addressof(out)):
+            raise RuntimeError(c_api.get_last_error())
     """,
     "unpickle_cuda_booster": """
         import lightgbm_tpu_torch as lgb
@@ -294,3 +302,18 @@ def test_chip_smoke_fails_without_cuda(where, tmp_path):
                      cwd=cwd)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_c_shim_imports_only_the_port():
+    """The generated C library imports one module, the port's C ABI (and
+    so, through it, nothing of JAX: the walk above covers ``c_api``)."""
+    import re
+    sys.path.insert(0, REPO)
+    try:
+        from lightgbm_tpu_torch import capi_build
+    finally:
+        sys.path.pop(0)
+    src = capi_build.c_source()
+    assert set(re.findall(r'PyImport_ImportModule\("([\w.]+)"\)', src)) \
+        == {"lightgbm_tpu_torch.c_api"}
+    assert "jax" not in src and "lightgbm_tpu." not in src
