@@ -38,6 +38,10 @@ together) and runs these phases, each of which raises on failure:
    mix of small, ~10k-row and empty windows, and the route matrix; both
    split kernels again at F=2000 (the single-window one over five windows
    and two routes, the level one over one window and a level-7 frontier),
+   exact and quantized; the single-window kernel with the feature window
+   (the scal row's trailing ``hist_feature_begin``, a feature-parallel
+   rank's block: the histogram over columns [0, 14) and [14, 28) of 28,
+   over the same window sizes and routes, and over [1000, 2000) of 2000),
    exact and quantized; and the batched split scan of a level of 256
    children x 2000 features x 256 bins in one call, with its peak memory;
 4. the main paths, with the kernels' launch counts set to 0 just before each
@@ -200,7 +204,36 @@ together) and runs these phases, each of which raises on failure:
    example with ``preemption_checkpoint=true snapshot_freq=1`` in a child
    process sent SIGTERM once its first checkpoint exists, which exits 75,
    and the same command again resuming to the uninterrupted CLI run's
-   trees;
+   trees; (V) the parallel tree learners (``lightgbm_tpu_torch.parallel``)
+   at (A)'s shape and settings: (V1) ``DataParallelTreeLearner``,
+   ``FeatureParallelTreeLearner``, ``VotingParallelTreeLearner`` and
+   ``PartitionedDataParallelTreeLearner`` built directly on a one-rank
+   NCCL group (the factory gives the serial learner there) and trained
+   through ``GBDT`` on (A)'s bins: each model's trees byte-equal to (A)'s,
+   one root histogram per tree and one split pass per split, the comm's
+   calls and bytes per split; (V2) two processes of a gloo group, both on
+   the one card (NCCL cannot put two ranks on one GPU), each binning (A)'s
+   task and training 3 iterations through the factory ``tree_learner=data``,
+   ``feature``, ``voting`` (``top_k=20``: every feature elected) and
+   ``data`` with ``hist_precision=quantized``: both ranks' models equal,
+   ``feature``'s trees equal to (A)'s first three (it sums nothing across
+   the ranks) or, where they are not, the first difference printed beside
+   the count of features whose best split differs bitwise when (A)'s root
+   histogram is scanned whole and in the ranks' two blocks (alone and as a
+   batch of two leaves),
+   ``data``'s, ``voting``'s and such a ``feature`` run's tree 0 equal to
+   (A)'s up to a split whose
+   two gains differ by less than 1e-6 relative to the terms an f32 gain is
+   a difference of (the split leaf's G^2/H, plus the gain) and their train
+   log loss
+   within 2e-4 relative of (A)'s after as many iterations
+   (``tests/test_parallel.py:151-152``), the quantized run's within 5e-2 of
+   (C)'s, ``sharded_predict`` equal to one
+   rank's predictor bit for bit, only rank 0 writing model files, and
+   every ``feature`` split pass launched with the feature window; each
+   run prints its s/iteration, train log loss, held-out AUC, the comm's
+   calls and bytes per split and each rank's launches; the ranks are
+   killed past a join deadline;
 5. times of each kernel at the main paths' shapes beside its bound, its
    plain version and one PyTorch library call (``index_add_``; for a split
    pass, which has none, the window's device-to-device copy): the
@@ -222,7 +255,8 @@ two launches on the same input must give the same bits.
 The line before the last is the card's name and power limit as ``nvidia-smi``
 reports them, the one before that a JSON object with every kernel's numbers
 (the split passes' entries also count the launches that unfolded a group
-column or routed by a bitset), and the last line ``{"ok": true, "device":
+column, routed by a bitset or histogrammed a feature window), and the last
+line ``{"ok": true, "device":
 {...}}``.  Without CUDA the script
 exits with code 2 and prints no result.  ``--profile`` adds a
 ``torch.profiler`` table of one training iteration of each path; on the
@@ -531,6 +565,27 @@ def phase_split(device, n: int) -> float:
         worst = max(worst, check_split(rows, scal, F=28, B=B, voff=voff,
                                        bpc=bpc, packed=packed, what=what))
         del rows
+    # the feature window (the scal row's trailing hist_feature_begin, a
+    # feature-parallel rank's block): the histogram over columns [0, 14) or
+    # [14, 28) while every row is routed on the whole store, exact and
+    # integer
+    B = 256
+    for quantized in (False, True):
+        rows, voff = make_store(n, 28, B, quantized=quantized, device=device,
+                                seed=6)
+        routes = split_routes(B, rng)
+        for f0 in (0, 14):
+            for wi, (wb, wc) in enumerate(windows):
+                for name, (route, words) in routes.items():
+                    scal = scal_row(wb, wc, route, words,
+                                    (wi + len(name)) % 2) + [f0]
+                    what = "%s [%d, %d) %s [%d, +%d)" % (
+                        "int" if quantized else "exact", f0, f0 + 14, name,
+                        wb, wc)
+                    worst = max(worst, check_split(
+                        rows, scal, F=14, B=B, voff=voff,
+                        quantized=quantized, what=what))
+        del rows
     return worst
 
 
@@ -714,6 +769,11 @@ def phase_widef_split(device, n: int) -> float:
                 worst = max(worst, check_split(rows, scal, F=F, B=B,
                                                voff=voff, quantized=quantized,
                                                what=what))
+                # the feature window [1000, 2000)
+                worst = max(worst, check_split(
+                    rows, scal + [F // 2], F=F // 2, B=B, voff=voff,
+                    quantized=quantized,
+                    what=what + " window [%d, %d)" % (F // 2, F)))
         kw = dict(num_features=F, num_bins=B, voff=voff, quantized=quantized)
         for name in ("one window", "level-7 frontier"):
             scals = frontiers[name]
@@ -884,7 +944,8 @@ def phase_main_path(device, data, ds, path: str, iters: int,
                                     med))
     return {"launches": counts, "iter_s": iter_s, "auc": auc,
             "splits": splits, "trees": trees, "fetches": fetches,
-            "levels": levels, "busy_ms": busy_ms, "booster": booster}
+            "levels": levels, "busy_ms": busy_ms, "booster": booster,
+            "losses": losses}
 
 
 def expect_launches(path: str, counts: dict, trees: int, splits: int,
@@ -2870,6 +2931,402 @@ def phase_pool(device, eps: dict, profile: bool) -> dict:
     return r
 
 
+# ------------------------------- path (V): the parallel tree learners ----
+
+PARALLEL_DIR = os.path.join("build", "parallel")
+PARALLEL_DEADLINE_S = 600.0   # (V2)'s ranks are killed past this
+TRAIN_LOSS_RTOL = 2e-4        # tests/test_parallel.py:151-152 (sum order)
+QUANT_LOSS_RTOL = 5e-2        # tests/test_hist_quant.py:272-297's band
+# (V2)'s iterations: two processes time-slice the one card, so an iteration
+# takes seconds (4.66-5.05 s at 262,144 rows on the H100); 3 keep (V) near
+# its time and the width whole
+V2_ITERS = 3
+# (V2): tree_learner and its extra parameters, one run each
+V2_RUNS = (("data", {}), ("feature", {}), ("voting", {"top_k": 20}),
+           ("data_quantized", {"hist_precision": "quantized"}))
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def comm_per_split(summary: dict, splits: int) -> dict:
+    """Calls and bytes per split of each collective kind."""
+    return {k: {"calls": v["calls"] / max(splits, 1),
+                "bytes": v["bytes"] / max(splits, 1)}
+            for k, v in summary.items()}
+
+
+def tree_blocks(text: str) -> list:
+    """The ``Tree=k`` blocks of a model text, in order (without the blank
+    line after the last)."""
+    return [b.rstrip("\n") for b in
+            text.split("end of trees")[0].split("\nTree=")[1:]]
+
+
+def tree0_sequence(booster) -> list:
+    """Tree 0's splits in the order they were made (split_sequence)."""
+    t = booster.models[0]
+    return split_sequence(t.split_feature_inner, t.threshold_in_bin,
+                          t.left_child, t.right_child, t.split_gain,
+                          t.num_leaves)
+
+
+def tree0_split_terms(booster) -> list:
+    """For each split of tree 0 of a leaf-wise binary booster, G^2 / (H +
+    l2) of the leaf it split: the term its gain is a difference against
+    (gain = GL^2/HL + GR^2/HR - G^2/H, without l1 or max_delta_step), from
+    the node's value before the split (o = -G / (H + l2), held in tree 0
+    with the shrinkage and the initial score) and its hessian sum."""
+    t = booster.models[0]
+    l2 = float(booster.config.lambda_l2)
+    init = booster.objective.boost_from_score(0)
+    out = []
+    for i in range(t.num_leaves - 1):
+        o = (float(t.internal_value[i]) - init) / booster.shrinkage_rate
+        out.append(o * o * (float(t.internal_weight[i]) + l2))
+    return out
+
+
+def expect_tree0_up_to_tie(what: str, got: list, want: list,
+                           terms: list) -> None:
+    """``got``'s tree 0 (a split sequence) must be ``want``'s up to the
+    first split whose two gains differ by less than SPLIT_GAIN_TIE_RTOL
+    relative to the terms they are computed from (``terms``: the split
+    leaf's G^2/H, plus the gain; an f32 gain resolves no finer than those,
+    and another summation order rounds them differently)."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a[:3] == b[:3]:
+            continue
+        rel = abs(a[3] - b[3]) / (terms[i] + max(abs(a[3]), abs(b[3])))
+        if rel < SPLIT_GAIN_TIE_RTOL:
+            log("  %s: tree 0 equal to (A)'s up to split %d, a near tie "
+                "(gains %.9g vs %.9g of terms %.6g, rel %.2g)"
+                % (what, i, a[3], b[3], terms[i], rel))
+            return
+        raise AssertionError("%s: tree 0 split %d %s, (A)'s %s"
+                             % (what, i, a, b))
+    if len(got) != len(want):
+        raise AssertionError("%s: %d splits in tree 0, (A)'s %d"
+                             % (what, len(got), len(want)))
+    log("  %s: tree 0 equal to (A)'s split for split" % what)
+
+
+def block_scan_differences(booster, d: int = 2) -> tuple:
+    """The split scan of (A)'s root histogram on the card, whole and in
+    ``d`` feature blocks (the scans of ``feature`` mode's ranks), alone and
+    as a batch of two leaves (a split's children, scanned together): how
+    many features' best splits differ bitwise in any field between the
+    whole and the blocked scan, alone and batched, of how many.  Same
+    histogram, same arithmetic: a difference comes from the tensor's shape
+    alone."""
+    from lightgbm_tpu_torch.core.histogram import histogram_rows
+    from lightgbm_tpu_torch.core.split import (FeatureBest, FeatureInfo,
+                                               per_feature_best_combined)
+    from lightgbm_tpu_torch.core.tree_learner import fill_gradients
+    lr = booster.learner
+    n, dev = lr.num_data, booster.device
+    score0 = torch.full((n,), booster.objective.boost_from_score(0),
+                        dtype=torch.float32, device=dev)
+    grad, hess = booster.objective.get_gradients(score0)
+    rows = fill_gradients(lr.template, lr.layout, grad, hess)
+    hist = histogram_rows(rows, lr.num_bins, 0, n,
+                          num_features=lr.num_columns, voff=lr.layout.voff,
+                          bpc=lr.layout.bpc, packed=lr.packed)
+    F = hist.shape[0]
+    c = F // d
+    mask = torch.ones(F, dtype=torch.bool, device=dev)
+    sg, sh = grad.sum(), hess.sum()
+    cnt = torch.tensor(float(n), device=dev)
+    counts = []
+    for batch in (False, True):
+        h, tot = hist, (sg, sh, cnt)
+        if batch:
+            # two leaves: the root's sums and their halves
+            h = torch.stack([hist, hist * 0.5])
+            tot = tuple(torch.stack([t, t * 0.5]) for t in tot)
+        whole = per_feature_best_combined(h, lr.feat, mask, *tot, lr.params)
+        parts = [per_feature_best_combined(
+            h[..., i * c:(i + 1) * c, :, :],
+            FeatureInfo(*[None if a is None else a[i * c:(i + 1) * c]
+                          for a in lr.feat]), mask[i * c:(i + 1) * c],
+            *tot, lr.params) for i in range(d)]
+        differ = torch.zeros(F, dtype=torch.bool, device=dev)
+        for name in FeatureBest._fields:
+            w = getattr(whole, name)
+            b = torch.cat([getattr(p, name) for p in parts],
+                          dim=w.dim() - (2 if name == "cat_bitset" else 1))
+            ne = w != b
+            if name == "cat_bitset":
+                ne = ne.any(-1)
+            differ |= ne.reshape(-1, F).any(0)
+        counts.append(int(differ.sum()))
+    return counts[0], counts[1], F
+
+
+def first_text_difference(got: str, want: str) -> str:
+    """The first line of the trees where two model texts differ."""
+    for k, (a, b) in enumerate(zip(tree_blocks(got), tree_blocks(want))):
+        for la, lb in zip(a.splitlines(), b.splitlines()):
+            if la != lb:
+                return "tree %d: %r vs (A)'s %r" % (k, la[:160], lb[:160])
+    return "none"
+
+
+def phase_parallel_nccl(device, data, ds, iters: int, a_text: str) -> dict:
+    """Path (V1): the four parallel learners built directly on a one-rank
+    NCCL group (the factory would give the serial learner, as the JAX one
+    does at d = 1), each trained through ``GBDT`` on (A)'s binned rows:
+    every model's trees byte-equal to (A)'s, one root histogram per tree and
+    one split pass per split (each over the whole feature window in
+    ``feature`` mode), and the comm's calls and bytes per split."""
+    import torch.distributed as dist
+
+    from lightgbm_tpu_torch import Config, GBDT, create_objective
+    from lightgbm_tpu_torch import device as D
+    from lightgbm_tpu_torch.parallel import (
+        DataParallelTreeLearner, FeatureParallelTreeLearner,
+        PartitionedDataParallelTreeLearner, VotingParallelTreeLearner)
+    label = torch.as_tensor(data[1], device=device)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method="tcp://127.0.0.1:%d"
+                            % free_port(), rank=0, world_size=1)
+    out = {"launches": {}, "trees": 0}
+    try:
+        for cls in (DataParallelTreeLearner, FeatureParallelTreeLearner,
+                    VotingParallelTreeLearner,
+                    PartitionedDataParallelTreeLearner):
+            cfg = Config(objective="binary", num_leaves=255,
+                         learning_rate=0.1, max_bin=255, verbosity=-1)
+            booster = GBDT(cfg, ds, create_objective("binary", cfg,
+                                                     device=device),
+                           device=device)
+            booster.learner = cls(ds, cfg, device)
+            mode = booster.learner.mode
+            r = run_iterations(booster, iters, label)
+            routes = D.route_launches()["partition"]
+            if trees_text(booster.save_model_to_string()) != trees_text(
+                    a_text):
+                raise AssertionError("(V1) %s: the model differs from (A)'s"
+                                     % mode)
+            expect_leafwise_launches("V1 " + mode, r)
+            if mode == "feature" and routes["feature_window"] != r["splits"]:
+                raise AssertionError("(V1) feature: %d windowed split passes "
+                                     "of %d" % (routes["feature_window"],
+                                                r["splits"]))
+            ops = booster.learner.comm.ops
+            log("  (V1) %s (%s, %s, 1 rank): trees equal to (A)'s byte for "
+                "byte; s/iteration %s; comm per split %s"
+                % (cls.__name__, mode, backend,
+                   ["%.4f" % v for v in r["iter_s"]],
+                   json.dumps(comm_per_split(ops.summary(), r["splits"]))))
+            for k, v in r["launches"].items():
+                out["launches"][k] = out["launches"].get(k, 0) + v
+            out["trees"] += r["trees"]
+            del booster
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def _parallel_rank(rank: int, port: int, n: int, iters: int,
+                   out_dir: str, device: str) -> None:
+    """One rank of (V2): a gloo group of 2 processes, both on ``device``
+    (CUDA device 0 on the card), each binning (A)'s task itself and
+    training every run of ``V2_RUNS`` through the factory; results to
+    ``<out_dir>/rank<r>.pkl``."""
+    import pickle
+    import traceback
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    res = {}
+    try:
+        device = torch.device(device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device.index or 0)
+        dist.init_process_group("gloo", init_method="tcp://127.0.0.1:%d"
+                                % port, rank=rank, world_size=2,
+                                timeout=timedelta(seconds=300))
+        from lightgbm_tpu_torch import (BinnedDataset, Config, GBDT,
+                                        create_objective)
+        from lightgbm_tpu_torch import device as D
+        from lightgbm_tpu_torch.core.predict_fused import FusedPredictor
+        from lightgbm_tpu_torch.metric.binary import weighted_auc
+        from lightgbm_tpu_torch.utils.log import Log
+        Log.reset_level(Log.level_from_verbosity(-1))
+        t0 = time.perf_counter()
+        X, y, X_test, y_test = synthetic_task(n)
+        ds = BinnedDataset.from_matrix(X, label=y, max_bin=255)
+        label = torch.as_tensor(y, device=device)
+        res["setup_s"] = time.perf_counter() - t0
+        for name, extra in V2_RUNS:
+            t0 = time.perf_counter()
+            cfg = Config(objective="binary", num_leaves=255,
+                         learning_rate=0.1, max_bin=255, verbosity=-1,
+                         tree_learner=name.split("_")[0], **extra)
+            booster = GBDT(cfg, ds, create_objective("binary", cfg,
+                                                     device=device),
+                           device=device)
+            booster.learner.comm.ops.reset()
+            r = run_iterations(booster, iters, label)
+            r["routes"] = D.route_launches()["partition"]
+            r["comm"] = booster.learner.comm.ops.summary()
+            raw = booster.predict(X_test, raw_score=True)
+            single = FusedPredictor(booster.models, device=device)(X_test)
+            r["predict_equal"] = bool(np.array_equal(raw, single))
+            r["auc"] = weighted_auc(y_test, raw, None)
+            r["text"] = booster.save_model_to_string()
+            r["tree0"] = tree0_sequence(booster)
+            r["class"] = type(booster.learner).__name__
+            booster._write_snapshot(os.path.join(out_dir, "%s_r%d"
+                                                 % (name, rank)))
+            r["run_s"] = time.perf_counter() - t0
+            res[name] = r
+            del booster
+            torch.cuda.empty_cache()
+        dist.barrier()
+        setup = res.pop("setup_s")
+        res = {"ok": res, "files": sorted(os.listdir(out_dir)),
+               "setup_s": setup}
+        dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        res = {"error": traceback.format_exc()}
+    with open(os.path.join(out_dir, "rank%d.pkl" % rank), "wb") as fh:
+        pickle.dump(res, fh)
+
+
+def phase_parallel_gloo(device, n: int, iters: int, a: dict,
+                        c_losses: list) -> dict:
+    """Path (V2): two ranks of a gloo group on the one card (NCCL cannot put
+    two ranks on one GPU), where the cross-rank reductions really happen:
+    ``tree_learner=data``, ``feature``, ``voting`` (``top_k=20``: every
+    feature elected) and ``data`` with ``hist_precision=quantized``.  The
+    ranks run under a join deadline and are killed past it."""
+    import pickle
+    import shutil
+
+    import torch.multiprocessing as mp
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    os.makedirs(PARALLEL_DIR)
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_parallel_rank,
+                         args=(r, port, n, iters, PARALLEL_DIR, str(device)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + PARALLEL_DEADLINE_S
+    for p in procs:
+        p.join(max(0.0, end - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    if hung:
+        raise AssertionError("(V2) ranks %s still running after %.0f s "
+                             "(killed)" % (hung, PARALLEL_DEADLINE_S))
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(PARALLEL_DIR, "rank%d.pkl" % r), "rb") as fh:
+            got = pickle.load(fh)
+        if "error" in got:
+            raise AssertionError("(V2) rank %d failed:\n%s" % (r,
+                                                                got["error"]))
+        ranks.append(got)
+    log("  (V2) 2 ranks (gloo, both on %s): %.1f s, of it each rank's data "
+        "and binning %s s"
+        % (device, time.perf_counter() - t0,
+           ["%.1f" % r["setup_s"] for r in ranks]))
+    a_loss, c_loss = a["losses"][iters - 1], c_losses[iters - 1]
+    out = {"launches": {}, "trees": 0, "feature_window_launches": 0}
+    for name, _ in V2_RUNS:
+        r0, r1 = ranks[0]["ok"][name], ranks[1]["ok"][name]
+        if r0["text"] != r1["text"]:
+            raise AssertionError("(V2) %s: the ranks' models differ" % name)
+        loss = r0["losses"][-1]
+        quantized = name.endswith("quantized")
+        log("  (V2) %s (%s, %.1f s on rank 0): s/iteration %s; train logloss "
+            "%s; held-out AUC %.6f; comm per split %s"
+            % (name, r0["class"], r0["run_s"],
+               ["%.4f" % v for v in r0["iter_s"]],
+               ["%.6f" % v for v in r0["losses"]], r0["auc"],
+               json.dumps(comm_per_split(r0["comm"], r0["splits"]))))
+        for rank, r in enumerate((r0, r1)):
+            root = "histogram_int" if quantized else "histogram"
+            want = {root: r["trees"], "partition": r["splits"]}
+            if r["launches"] != {k: want.get(k, 0) for k in r["launches"]}:
+                raise AssertionError("(V2) %s rank %d: launches %s, want %s"
+                                     % (name, rank, r["launches"], want))
+            windowed = r["routes"]["feature_window"]
+            if windowed != (r["splits"] if name == "feature" else 0):
+                raise AssertionError("(V2) %s rank %d: %d windowed split "
+                                     "passes of %d" % (name, rank, windowed,
+                                                       r["splits"]))
+            if not r["predict_equal"]:
+                raise AssertionError("(V2) %s rank %d: sharded_predict "
+                                     "differs from predict" % (name, rank))
+            for k, v in r["launches"].items():
+                out["launches"][k] = out["launches"].get(k, 0) + v
+            out["trees"] += r["trees"]
+            out["feature_window_launches"] += windowed
+            log("  (V2) %s rank %d: launches %s, split passes with the "
+                "feature window %d" % (name, rank, r["launches"], windowed))
+        if name == "feature" and (tree_blocks(r0["text"])
+                                  == tree_blocks(a["text"])[:iters]):
+            # every rank holds every row and sums nothing across the ranks
+            log("  (V2) feature: its %d trees equal to (A)'s first %d byte "
+                "for byte" % (iters, iters))
+        elif quantized:
+            rel = abs(loss - c_loss) / c_loss
+            if not rel <= QUANT_LOSS_RTOL:
+                raise AssertionError("(V2) %s: train logloss %.6f vs (C)'s "
+                                     "%.6f, rel %.3g" % (name, loss, c_loss,
+                                                         rel))
+            log("  (V2) %s: train logloss within %.3g relative of (C)'s "
+                "serial quantized %.6f" % (name, rel, c_loss))
+        else:
+            if name == "feature":
+                # the same histograms, scanned by block: find why
+                log("  (V2) feature: the trees differ from (A)'s, first at "
+                    "%s; (A)'s root histogram scanned whole and in 2 feature"
+                    " blocks on this device: %d (alone) and %d (a batch of "
+                    "two leaves) of %d features' best splits differ bitwise"
+                    % ((first_text_difference(
+                        r0["text"], a["text"]),)
+                        + block_scan_differences(a["booster"])))
+            expect_tree0_up_to_tie("(V2) " + name, r0["tree0"], a["tree0"],
+                                   a["tree0_terms"])
+            rel = abs(loss - a_loss) / a_loss
+            if not rel <= TRAIN_LOSS_RTOL:
+                raise AssertionError("(V2) %s: train logloss %.6f vs (A)'s "
+                                     "%.6f, rel %.3g" % (name, loss, a_loss,
+                                                         rel))
+            log("  (V2) %s: train logloss after %d iterations within %.3g "
+                "relative of (A)'s %.6f" % (name, len(r0["losses"]), rel,
+                                            a_loss))
+    files = ranks[0]["files"]
+    for name, _ in V2_RUNS:
+        if not any(f.startswith("%s_r0.snapshot_iter_" % name)
+                   for f in files):
+            raise AssertionError("(V2) %s: the write leader wrote no model "
+                                 "file" % name)
+    if any("_r1." in f for f in files):
+        raise AssertionError("(V2) rank 1 wrote files: %s" % files)
+    log("  (V2) only the write leader (rank 0) wrote model files: %d files"
+        % len(files))
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    if out["feature_window_launches"] == 0:
+        raise AssertionError("(V2) no split pass ran with a feature window")
+    return out
+
+
 # ------------------------------------------------- path (S): CLI from files
 
 
@@ -4237,6 +4694,21 @@ def main(argv=None) -> int:
         "%d iterations" % FORCED_ITERS)
     paths["N"] = phase_forced_cegb(device, data, ds, args.profile)
     torch.cuda.empty_cache()
+    log("  (V) the parallel tree learners on (A)'s task, %d iterations: "
+        "(V1) each learner on a one-rank NCCL group, (V2) data, feature, "
+        "voting and quantized data on 2 gloo ranks" % args.iters)
+    a_path = paths["A"]
+    a_path["text"] = a_path["booster"].save_model_to_string()
+    a_path["tree0"] = tree0_sequence(a_path["booster"])
+    a_path["tree0_terms"] = tree0_split_terms(a_path["booster"])
+    t = time.perf_counter()
+    paths["V1"] = phase_parallel_nccl(device, data, ds, args.iters,
+                                      a_path["text"])
+    paths["V2"] = phase_parallel_gloo(device, args.rows,
+                                      min(args.iters, V2_ITERS), a_path,
+                                      paths["C"]["losses"])
+    log("  (V) took %.1f s" % (time.perf_counter() - t))
+    torch.cuda.empty_cache()
     from lightgbm_tpu_torch import device as D
     log("  (P) prediction on (A)'s data: (A)'s %d trees each repeated %d "
         "times (%d trees)" % (args.iters, PREDICT_REPEAT,
@@ -4325,9 +4797,10 @@ def main(argv=None) -> int:
     times.update(times_masked(device, 1 << 20))
     reset_launches()
 
-    def launches(kernel, only=None):
-        by_path = {p: r["launches"][kernel] for p, r in paths.items()
-                   if r["launches"][kernel] and (only is None or p in only)}
+    def launches(kernel, only=None, more=()):
+        by_path = {p: r["launches"].get(kernel, 0) for p, r in paths.items()
+                   if r["launches"].get(kernel, 0)
+                   and (only is None or p in only or p in more)}
         per_tree = {p: v / paths[p]["trees"] for p, v in by_path.items()}
         return dict(launches=sum(by_path.values()), launches_by_path=by_path,
                     launches_per_tree=per_tree)
@@ -4337,7 +4810,7 @@ def main(argv=None) -> int:
              source="lightgbm_tpu_torch/csrc/histogram.cu",
              replaces="lightgbm_tpu/core/histogram.py:743",
              max_abs_err=hist_err_max,
-             **launches("histogram", "ABCGHIJRSTU"),
+             **launches("histogram", "ABCGHIJRSTU", ("V1", "V2")),
              groups_root=paths["I"]["times"]["histogram"],
              cli_root=paths["S"]["times"]["histogram"],
              expo_root=paths["J"]["times"]["histogram"],
@@ -4347,7 +4820,8 @@ def main(argv=None) -> int:
              replaces="lightgbm_tpu/core/partition.py:1090",
              also_replaces="lightgbm_tpu/core/partition.py:1130",
              max_abs_err=split_err_max,
-             **launches("partition", "ABCFGHIJRSTU"),
+             **launches("partition", "ABCFGHIJRSTU", ("V1", "V2")),
+             feature_window_launches=paths["V2"]["feature_window_launches"],
              cli_root=paths["S"]["times"]["split"],
              unfold_launches=paths["I"]["routes"]["partition"]["unfold"],
              categorical_launches=paths["J"]["routes"]["partition"][

@@ -30,13 +30,14 @@ class DART(GBDT):
     keep_rollback_scores = False
 
     def __init__(self, config, train_data=None, objective=None,
-                 device=None) -> None:
+                 device=None, group=None) -> None:
         self._drop_rng = np.random.RandomState(int(config.drop_seed))
         self.tree_weight = []
         self.sum_weight = 0.0
         self.drop_index = []
         self._score_is_dropped = False
-        super().__init__(config, train_data, objective, device=device)
+        super().__init__(config, train_data, objective, device=device,
+                         group=group)
 
     def _extra_train_state(self):
         """The drop stream and the weight history that set later drops

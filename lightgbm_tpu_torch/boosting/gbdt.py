@@ -36,7 +36,10 @@ score per validation set, K = ``num_tree_per_iteration`` (the number of
 classes for multiclass objectives, else 1).  Each iteration:
 boost-from-average (first iteration, added to every score), objective
 gradients on the device, the bag mask and feature mask, then per class one
-tree from :class:`SerialTreeLearner` on the masked gradients, the tree's leaf
+tree from the learner that ``parallel.create_tree_learner`` chose for
+``tree_learner`` (the serial one at a world size of 1; ``group`` is the
+process group of a parallel learner, as the JAX ``mesh`` is) on the masked
+gradients, the tree's leaf
 values scaled by the learning rate in f32, the class's train score updated
 through the tree's ``row_leaf`` and each validation score by routing the
 set's bins on the device (``route_binned``).  DART, GOSS and RF subclass
@@ -51,6 +54,10 @@ thresholds floored, an f32 running sum in tree order); below 512 rows
 through the f64 traversal of :class:`StackedTrees`.  Both run on the
 booster's device.  Contributions run on the device from 8 rows on, below
 that on the host recursion ``Tree.predict_contrib`` (gbdt.py:2128, :2150).
+A booster trained by a parallel learner runs on every rank of its group:
+its device predictions are split over the ranks (``sharded_predict``,
+``sharded_predict_contrib``, gbdt.py:2048-2162), and only the write leader
+(rank 0) writes snapshots (gbdt.py:1934-1941).
 """
 from __future__ import annotations
 
@@ -65,13 +72,14 @@ from ..core.predict import StackedTrees
 from ..core.predict_fused import FusedPredictor
 from ..core.quant import _M32, _mul32
 from ..core.tree import Tree
-from ..core.tree_learner import (SerialTreeLearner, TreeArrays,
-                                 arrays_from_tree, route_binned,
-                                 tree_from_arrays)
+from ..core.tree_learner import (TreeArrays, arrays_from_tree,
+                                 route_binned, tree_from_arrays)
 from ..device import DeviceLike, resolve_device
 from ..io.dataset import BinnedDataset
 from ..metric.metric import Metric, create_metrics
 from ..objective import ObjectiveFunction, create_objective
+from ..parallel.learners import (create_tree_learner, is_write_leader,
+                                 sharded_predict, sharded_predict_contrib)
 from ..resilience import (TrainingPreempted, clear_preemption,
                           emergency_checkpoint, preemption_requested, watch)
 from ..utils.file_io import atomic_write
@@ -118,7 +126,9 @@ class GBDT:
     """Gradient Boosting Decision Tree (sub-model name "tree", gbdt.h:362).
 
     ``device`` follows the port's device rule (``lightgbm_tpu_torch.device``):
-    ``cuda`` unless the caller passes ``"cpu"``; no silent CPU fallback."""
+    ``cuda`` unless the caller passes ``"cpu"``; no silent CPU fallback.
+    ``group`` is the ``torch.distributed`` process group of a parallel
+    learner (None: the default group, when one is initialized)."""
 
     average_output = False
     # below these row counts predict takes the f64 traversal and
@@ -137,9 +147,10 @@ class GBDT:
     def __init__(self, config: Config,
                  train_data: Optional[BinnedDataset] = None,
                  objective: Optional[ObjectiveFunction] = None,
-                 device: DeviceLike = None) -> None:
+                 device: DeviceLike = None, group=None) -> None:
         self.device = resolve_device(device)
         self.config = config
+        self.group = group
         self.models: List[Tree] = []
         self.iter_ = 0
         self.num_init_iteration = 0
@@ -182,7 +193,8 @@ class GBDT:
         self.num_tree_per_iteration = (objective.num_model_per_iteration
                                        if objective else max(1, self.num_class))
         K = self.num_tree_per_iteration
-        self.learner = SerialTreeLearner(train_data, cfg, self.device)
+        self.learner = create_tree_learner(train_data, cfg, self.device,
+                                           group=self.group)
         self.max_feature_idx = train_data.num_total_features - 1
         self.feature_names = list(train_data.feature_names)
         self.feature_infos = train_data.feature_infos()
@@ -633,6 +645,8 @@ class GBDT:
         with a warning, and the previous checkpoint stays the resume
         point."""
         from ..checkpoint import save_checkpoint_best_effort
+        if not is_write_leader(self.group):
+            return
         snap = "%s.snapshot_iter_%d" % (snapshot_out, self.iter_)
         try:
             self.save_model(snap)
@@ -751,6 +765,13 @@ class GBDT:
                                         for k in range(K)])
         return self._stacked_pred[1]
 
+    def _sharded_comm(self):
+        """The process comm of a parallel learner, whose ranks all predict
+        together (None for a serial or a loaded booster)."""
+        learner = getattr(self, "learner", None)
+        comm = getattr(learner, "comm", None)
+        return None if comm is None else comm.ops
+
     def _raw_predict(self, X, num_iteration: int = -1,
                      start_iteration: int = 0,
                      precision: str = "exact") -> np.ndarray:
@@ -766,10 +787,14 @@ class GBDT:
             return out
         margin, freq = self._predict_early_stop()
         if n >= self._DEVICE_PREDICT_MIN_ROWS or precision != "exact":
+            comm = self._sharded_comm()
             for k in range(K):
-                out[k] = self._fused_predictor(
-                    sel[k::K], start_iteration, end, k,
-                    precision=precision)(X, margin, freq)
+                pred = self._fused_predictor(sel[k::K], start_iteration, end,
+                                             k, precision=precision)
+                out[k] = (pred(X, margin, freq) if comm is None else
+                          sharded_predict(pred, X, comm,
+                                          early_stop_margin=margin,
+                                          round_period=freq))
             return out
         for k, st in enumerate(self._stacked(sel, start_iteration, end)):
             out[k] = st.predict(X, torch.float64, margin, freq)
@@ -813,10 +838,12 @@ class GBDT:
         out = np.zeros((K, n, ncol), dtype=np.float64)
         Xf = np.ascontiguousarray(np.asarray(X, dtype=np.float32))
         if sel and n >= self._DEVICE_CONTRIB_MIN_ROWS:
+            comm = self._sharded_comm()
             for k in range(K):
-                out[k] = self._fused_predictor(
-                    sel[k::K], start_iteration, end, k).predict_contrib(
-                        Xf, ncol)
+                pred = self._fused_predictor(sel[k::K], start_iteration, end,
+                                             k)
+                out[k] = (pred.predict_contrib(Xf, ncol) if comm is None else
+                          sharded_predict_contrib(pred, Xf, ncol, comm))
         else:
             for i, tree in enumerate(sel):
                 out[i % K] += tree.predict_contrib(Xf, ncol)

@@ -43,8 +43,9 @@ class GOSS(GBDT):
     """Gradient-based one-side sampling on top of :class:`GBDT`."""
 
     def __init__(self, config, train_data=None, objective=None,
-                 device=None) -> None:
-        super().__init__(config, train_data, objective, device=device)
+                 device=None, group=None) -> None:
+        super().__init__(config, train_data, objective, device=device,
+                         group=group)
         if config.top_rate + config.other_rate > 1.0:
             Log.fatal("top_rate + other_rate cannot be larger than 1.0 in "
                       "GOSS")

@@ -30,8 +30,9 @@ class RF(GBDT):
     average_output = True
 
     def __init__(self, config, train_data=None, objective=None,
-                 device=None) -> None:
-        super().__init__(config, train_data, objective, device=device)
+                 device=None, group=None) -> None:
+        super().__init__(config, train_data, objective, device=device,
+                         group=group)
         self.shrinkage_rate = 1.0
         self._init_scores = [0.0] * self.num_tree_per_iteration
         self._init_scores_ready = False

@@ -38,8 +38,10 @@ name (no telemetry plane yet, ROADMAP queue 1 item 14);
 reference's ``std::function`` cannot be called from C):
 ``int get_row(int idx, int32_t* indices, double* values)`` writes row
 ``idx``'s nonzeros (at most ``num_col``) into the two buffers and returns
-their count; and the three ``LGBM_Network*`` entries are no-ops until the
-multi-GPU learners land (item 13).
+their count; and the three ``LGBM_Network*`` entries are no-ops, as in
+the JAX package (c_api.py:940-955): the parallel learners run over a
+``torch.distributed`` process group that the caller initializes, with
+``tree_learner`` naming the learner.
 """
 from __future__ import annotations
 
@@ -1007,15 +1009,16 @@ def _entries() -> Dict[str, Callable]:  # noqa: C901 - one table
     def LGBM_PredictFallbackCount(out_count):
         _put(out_count, _I64, _impl_predict_fallback_count())
 
-    # ---- network shims: no-ops until the multi-GPU learners land ----
+    # ---- network shims: no-ops; distribution is torch.distributed's ----
 
     @entry
     def LGBM_NetworkInit(machines, local_listen_port, listen_time_out,
                          num_machines):
         if int(num_machines) > 1:
             Log.warning("LGBM_NetworkInit is a compatibility no-op: the "
-                        "multi-GPU learners are not ported yet (ROADMAP "
-                        "queue 1 item 13)")
+                        "parallel learners run over a torch.distributed "
+                        "process group (init_process_group in every process, "
+                        "then set tree_learner)")
 
     @entry
     def LGBM_NetworkFree():
@@ -1027,8 +1030,9 @@ def _entries() -> Dict[str, Callable]:  # noqa: C901 - one table
                                       allgather_ext_fun):
         if int(num_machines) > 1:
             Log.warning("LGBM_NetworkInitWithFunctions is a compatibility "
-                        "no-op: the multi-GPU learners are not ported yet "
-                        "(ROADMAP queue 1 item 13)")
+                        "no-op: the collectives are torch.distributed's "
+                        "(init_process_group in every process, then set "
+                        "tree_learner)")
 
     return E
 

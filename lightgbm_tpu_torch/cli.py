@@ -13,7 +13,11 @@ completes (``checkpoint.py``).  With ``preemption_checkpoint=true``, SIGTERM
 or SIGINT makes ``task=train`` write an emergency checkpoint at the next
 iteration end and exit with code 75 (``resilience.EXIT_PREEMPTED``);
 ``watchdog_timeout_s`` aborts a stalled iteration with code 79
-(cli.py:147-280 of the JAX package).
+(cli.py:147-280 of the JAX package).  Under an initialized
+``torch.distributed`` group each process loads as its rank (``num_machines``
+is the group's size, with a warning when the key says otherwise) and rank 0
+alone writes the model; training from a rank's stripe of the rows is ROADMAP
+queue 1 item 13b, so a parallel ``tree_learner`` refuses a striped load.
 
 Device rule: :class:`Application` and :func:`main` run on ``cuda`` and raise
 without it, unless the caller passes ``device="cpu"``; ``python -m
@@ -41,6 +45,8 @@ from .device import DeviceLike, resolve_device
 from .io.loader import DatasetLoader
 from .metric.metric import create_metrics
 from .objective import create_objective
+from .parallel.distdata import pod_info
+from .parallel.learners import is_write_leader
 from .utils.log import Log
 from .utils.timer import global_timer
 
@@ -114,7 +120,19 @@ class Application:
         cfg = self.config
         loader = DatasetLoader(cfg)
         num_machines = max(int(cfg.num_machines), 1)
-        train_data = loader.load_from_file(cfg.data, 0, num_machines)
+        # rank resolution (cli.py:176-188): under torch.distributed each
+        # process loads as its rank (a row stripe unless pre_partition); a
+        # single process keeps rank 0
+        rank, pod = pod_info()
+        if pod > 1:
+            if num_machines > 1 and num_machines != pod:
+                Log.warning("num_machines=%d but the torch.distributed "
+                            "group has %d processes; using the group size",
+                            num_machines, pod)
+            num_machines = pod
+        else:
+            rank = 0
+        train_data = loader.load_from_file(cfg.data, rank, num_machines)
         Log.info("Finished loading data: %d rows, %d features",
                  train_data.num_data, train_data.num_features)
         objective = create_objective(cfg.objective, cfg, device=self.device)
@@ -142,10 +160,13 @@ class Application:
         if ckpt_state is not None:
             restore_state(booster, ckpt_state)
         booster.train(snapshot_out=cfg.output_model)
-        booster.save_model(cfg.output_model)
-        if resumable:
-            # the run completed: a rerun of this command trains afresh
-            cleanup_checkpoints(cfg.output_model)
+        if is_write_leader(booster.group):
+            # rank 0 alone writes the model and removes the checkpoints
+            # (cli.py:249-258)
+            booster.save_model(cfg.output_model)
+            if resumable:
+                # the run completed: a rerun of this command trains afresh
+                cleanup_checkpoints(cfg.output_model)
         self.booster = booster
         if cfg.verbosity > 0:
             global_timer.print()

@@ -8,12 +8,17 @@ and one implementation serves every window here) with the output contract of
     partition_hist(rows, scal, ...) -> (rows_new, hist [F, 2, B], nl)
 
 ``scal`` is the scalar row of partition.py:1030-1037, i32
-``[12 + num_bins // 32]``: (window_begin, window_count, group_col,
-threshold_bin, default_left, missing_type, num_bin_f, default_bin, is_cat,
-hist_left_side, use_unfold, efb_offset, *cat_bitset_words).  The window
-``[wb, wb + wc)`` is stably partitioned (left rows first), ``nl`` is the left
-count, and ``hist`` is the histogram of the child that ``hist_left_side``
-names, already folded to ``[F, 2, B]``.  ``missing_type`` is the kernel's own
+``[12 + num_bins // 32]`` or ``[13 + num_bins // 32]``: (window_begin,
+window_count, group_col, threshold_bin, default_left, missing_type,
+num_bin_f, default_bin, is_cat, hist_left_side, use_unfold, efb_offset,
+*cat_bitset_words[, hist_feature_begin]).  The window ``[wb, wb + wc)`` is
+stably partitioned (left rows first), ``nl`` is the left count, and ``hist``
+is the histogram of the child that ``hist_left_side`` names, already folded
+to ``[F, 2, B]``.  The optional trailing ``hist_feature_begin`` (the feature
+window of a feature-parallel rank, feature_parallel_tree_learner.cpp:33-52)
+makes ``hist`` cover the columns ``[f_begin, f_begin + num_features)`` of
+the store only, while the rows are routed and partitioned on the whole
+store as without it; absent, it is 0.  ``missing_type`` is the kernel's own
 code, as ``_route_tile`` reads it: 1 routes the NaN bin ``num_bin_f - 1``, 2
 the default (zero) bin, anything else nothing; it is NOT the ``MissingType``
 enum (ZERO = 1, NAN = 2) -- :func:`scal_missing_code` maps one to the other.
@@ -100,10 +105,31 @@ def part_blocks(count, row_width: int):
 
 def _scal_host(scal: ScalLike, num_bins: int) -> torch.Tensor:
     s = torch.as_tensor(scal, dtype=torch.int32).cpu().reshape(-1)
-    if s.numel() != SCAL_HEAD + num_bins // 32:
-        raise ValueError("scal needs %d entries (12 + num_bins // 32), got %d"
-                         % (SCAL_HEAD + num_bins // 32, s.numel()))
+    base = SCAL_HEAD + num_bins // 32
+    if s.numel() not in (base, base + 1):
+        raise ValueError("scal needs %d entries (12 + num_bins // 32), or %d "
+                         "with the feature window, got %d"
+                         % (base, base + 1, s.numel()))
     return s
+
+
+def scal_feature_begin(s: torch.Tensor, num_bins: int) -> int:
+    """The histogram's first column: the scal row's optional trailing
+    ``hist_feature_begin``, else 0."""
+    base = SCAL_HEAD + num_bins // 32
+    return int(s[base]) if s.numel() > base else 0
+
+
+def check_feature_window(f_begin: int, num_features: int, voff: int,
+                         bpc: int, packed: bool) -> None:
+    """Refuse a feature window that starts below column 0 or reaches past
+    the bin bytes (into the values at ``voff``)."""
+    end = ((num_features + f_begin + 1) // 2 if packed
+           else (num_features + f_begin) * bpc)
+    if f_begin < 0 or end > voff:
+        raise ValueError("feature window [%d, %d) outside the bin columns "
+                         "(values at byte %d)" % (f_begin,
+                                                 f_begin + num_features, voff))
 
 
 def extract_column(rows: torch.Tensor, gcol: int, bpc: int,
@@ -147,6 +173,7 @@ def partition_hist_plain(rows: torch.Tensor, scal: ScalLike, *,
                          quantized: bool = False):
     """Plain PyTorch version (the ``partition_hist_xla`` contract)."""
     s = _scal_host(scal, num_bins)
+    f_begin = scal_feature_begin(s, num_bins)
     wb, wc, gcol, hist_left = int(s[0]), int(s[1]), int(s[2]), int(s[9])
     n = rows.shape[0]
     dev = rows.device
@@ -165,7 +192,7 @@ def partition_hist_plain(rows: torch.Tensor, scal: ScalLike, *,
     side = sel_l if hist_left == 1 else sel_r
     hist = histogram_rows_plain(
         rows, num_bins, wb, wc, num_features=num_features, voff=voff,
-        bpc=bpc, packed=packed, quantized=quantized,
+        bpc=bpc, packed=packed, f_begin=f_begin, quantized=quantized,
         weight=side[wb:wb + wc].to(torch.float32))
     return rows_new, hist, torch.tensor([nl], dtype=torch.int32, device=dev)
 
@@ -189,6 +216,8 @@ def partition_hist_cuda(rows: torch.Tensor, scal: ScalLike, *,
     from .. import kernels
     _check_store(rows, voff, num_features, num_bins)
     s = _scal_host(scal, num_bins)
+    f_begin = scal_feature_begin(s, num_bins)
+    check_feature_window(f_begin, num_features, voff, bpc, packed)
     n, W = rows.shape
     wb, wc = int(s[0]), int(s[1])
     if not 0 <= wb <= wb + wc <= n:
@@ -203,6 +232,8 @@ def partition_hist_cuda(rows: torch.Tensor, scal: ScalLike, *,
         nl.zero_()
         return rows, hist, nl
     # from pinned memory, so that the host does not wait for the stream
+    # (the kernels read the head and the bitset words; the window's start
+    # rides as an argument)
     scal_dev = s.pin_memory().to(dev, non_blocking=True)
     scratch = torch.empty((wc, W), dtype=torch.uint8, device=dev)
     tile = part_tile_rows(W)
@@ -219,12 +250,13 @@ def partition_hist_cuda(rows: torch.Tensor, scal: ScalLike, *,
     lib = kernels.library("partition")
     err = lib.lgbt_partition_hist(
         rows.data_ptr(), scratch.data_ptr(), W, scal_dev.data_ptr(), wb, wc,
-        bpc, int(packed), num_bins // 32, num_features, num_bins, voff, nblk,
-        tile, blk.data_ptr(), win.data_ptr(), nl.data_ptr(), nseg, ft,
-        int(quantized), data_ptr(partial), hist.data_ptr(),
+        bpc, int(packed), num_bins // 32, num_features, num_bins, f_begin,
+        voff, nblk, tile, blk.data_ptr(), win.data_ptr(), nl.data_ptr(), nseg,
+        ft, int(quantized), data_ptr(partial), hist.data_ptr(),
         cuda_stream_ptr(rows))
     count_launch("partition")
-    count_routes("partition", int(s[10] == 1), int(s[8] == 1))
+    count_routes("partition", int(s[10] == 1), int(s[8] == 1),
+                 int(s.numel() > SCAL_HEAD + num_bins // 32))
     kernels.check(err, "partition kernel")
     return rows, hist, nl
 

@@ -48,18 +48,25 @@ def quant_uniforms(row_ids: torch.Tensor, seed: int, it: int) -> torch.Tensor:
 
 
 def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
-                       row_ids: torch.Tensor, it: int, seed: int):
+                       row_ids: torch.Tensor, it: int, seed: int, comm=None):
     """Stochastically round (grad, hess) to integer-valued f32.
 
     Returns ``(q_grad, q_hess, qscale[2])``: q_grad in [-127, 127], q_hess in
     [0, 255], ``qscale = (s_g, s_h)`` with real value = q * s.  Exact zeros
-    stay exact zeros (quant.py:59-90)."""
+    stay exact zeros (quant.py:59-90).  With ``comm`` (a
+    ``parallel.comm.ProcessComm`` over ranks that each hold a stripe of the
+    rows) the maxima behind the scales are taken over every rank
+    (quant.py:71-73, ``pmax``), so a striped build quantizes with the serial
+    stream's scales; ``row_ids`` must then be the global ids."""
     f32 = torch.float32
     grad = grad.to(f32)
     hess = hess.to(f32)
     tiny = torch.tensor(1e-30, dtype=f32, device=grad.device)
-    s_g = torch.maximum(grad.abs().max(), tiny) / GRAD_LEVELS
-    s_h = torch.maximum(hess.max(), tiny) / HESS_LEVELS
+    maxima = torch.stack([grad.abs().max(), hess.max()])
+    if comm is not None:
+        maxima = comm.all_reduce_max(maxima)
+    s_g = torch.maximum(maxima[0], tiny) / GRAD_LEVELS
+    s_h = torch.maximum(maxima[1], tiny) / HESS_LEVELS
     u_g = quant_uniforms(row_ids, seed, it)
     # the hessian reuses the grad stream reflected: 1 - 2**-24 - u_g
     u_h = torch.tensor(1.0 - 2.0 ** -24, dtype=f32, device=grad.device) - u_g

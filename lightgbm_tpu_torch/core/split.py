@@ -10,7 +10,8 @@ the monotone ``cmin``/``cmax`` clamp, the ``extra_trees`` threshold draw,
 ``_extra_trees_mask``, and the one-threshold ``threshold_mask`` of a forced
 split), ``per_feature_best_categorical`` (one-hot and the
 sorted many-vs-many scan), ``per_feature_best_combined``, ``_split_gains_clamped``,
-``reduce_feature_best``, ``best_split_numerical`` and ``dequantize_hist``;
+``reduce_feature_best`` (with the scan's global feature ids), ``sync_best``
+(over a process group), ``best_split_numerical`` and ``dequantize_hist``;
 ``contri_scale``/``apply_feature_contri`` are the JAX learner's ``_apply_contri``
 (tree_learner.py:569-580) and :func:`best_split` the learner's ``best_of``
 for one serial leaf (or a batch).  All plain torch: the JAX counterparts are
@@ -602,16 +603,51 @@ def apply_feature_contri(fb: FeatureBest, contri: Optional[torch.Tensor]
                                         fb.gain * contri, fb.gain))
 
 
-def reduce_feature_best(fb: FeatureBest) -> BestSplit:
+def reduce_feature_best(fb: FeatureBest,
+                        feature_ids: Optional[torch.Tensor] = None
+                        ) -> BestSplit:
     """Argmax-by-gain across features (last axis); ties go to the smaller
-    feature id (split_info.hpp:185 comparators)."""
+    feature id (split_info.hpp:185 comparators).  ``feature_ids`` [F] maps
+    the scan's positions to global inner feature ids (ascending, so the
+    first maximum is the smallest id), as a sharded or elected scan reports
+    them (split.py:570-589); None means the positions are the ids."""
     best_f = torch.argmax(fb.gain, -1, keepdim=True)   # first max
     fields = {name: torch.gather(getattr(fb, name), -1, best_f)[..., 0]
               for name in FeatureBest._fields if name != "cat_bitset"}
     W = fb.cat_bitset.shape[-1]
     idx = best_f[..., None].expand(best_f.shape[:-1] + (1, W))
     bits = torch.gather(fb.cat_bitset, -2, idx)[..., 0, :]
-    return BestSplit(feature=best_f[..., 0], cat_bitset=bits, **fields)
+    feature = best_f[..., 0]
+    if feature_ids is not None:
+        feature = feature_ids.to(feature.device)[feature]
+    return BestSplit(feature=feature, cat_bitset=bits, **fields)
+
+
+_SYNC_FIELDS = tuple(f for f in BestSplit._fields if f != "cat_bitset")
+
+
+def sync_best(best: BestSplit, comm) -> BestSplit:
+    """The best of every rank's best split (``SyncUpGlobalBestSplit``,
+    parallel_tree_learner.h:190-213; split.py:592-600): the candidates
+    (fields [...]) are all-gathered in one f64 payload (f32 values, ids and
+    32-bit bitset words are exact in f64), and the largest gain wins, ties
+    going to the smaller feature id.  ``comm`` is a
+    :class:`lightgbm_tpu_torch.parallel.comm.ProcessComm`."""
+    f64 = torch.float64
+    packed = torch.cat([torch.stack([getattr(best, f).to(f64)
+                                     for f in _SYNC_FIELDS], dim=-1),
+                        best.cat_bitset.to(f64)], dim=-1)
+    g = comm.all_gather(packed)                     # [d, ..., width]
+    gain = g[..., 0]
+    feature = g[..., 1]
+    top = gain.max(0, keepdim=True).values
+    tie = torch.where(gain == top, feature, torch.full_like(feature, 2 ** 31))
+    i = torch.argmin(tie, 0, keepdim=True)          # [1, ...]
+    won = torch.gather(g, 0, i[..., None].expand((1,) + g.shape[1:]))[0]
+    out = {f: won[..., k].to(getattr(best, f).dtype)
+           for k, f in enumerate(_SYNC_FIELDS)}
+    out["cat_bitset"] = won[..., len(_SYNC_FIELDS):].to(best.cat_bitset.dtype)
+    return BestSplit(**out)
 
 
 def best_split(hist: torch.Tensor, feat: FeatureInfo,

@@ -1,8 +1,8 @@
 """Tree growth over a physically partitioned row store.
 
-Counterpart of ``lightgbm_tpu/core/tree_learner.py`` ``build_tree_partitioned``
-and ``SerialTreeLearner`` (the reference ``SerialTreeLearner``,
-serial_tree_learner.cpp:150-197), for serial growth.
+Counterpart of ``lightgbm_tpu/core/tree_learner.py`` ``build_tree_partitioned``,
+``Comm`` and ``SerialTreeLearner`` (the reference ``SerialTreeLearner``,
+serial_tree_learner.cpp:150-197).
 Two growth modes:
 
 - ``tree_grow_mode=leaf`` (best-first): per split, pick the leaf with the
@@ -65,8 +65,21 @@ Leaf-wise growth also takes the JAX learner's leaf-wise-only options:
   It is ignored, with a warning, with forced splits or CEGB.
 
 ``tree_grow_mode=level`` with any of them grows leaf-wise, with one warning
-(``effective_grow_mode``, tree_learner.py:1780-1808).  Not ported yet, and
-refused with ``NotImplementedError``: the parallel learners.
+(``effective_grow_mode``, tree_learner.py:1780-1808).
+
+The parallel learners (``parallel/learners.py``) grow through the same
+:func:`build_tree_partitioned` with a :class:`Comm`: one process per rank of
+a ``torch.distributed`` group, each holding a contiguous stripe of the rows
+(or, in ``feature`` mode, every row), with the collectives where the JAX
+build puts them (``reduce_hist``, tree_learner.py:490-516; ``best_of``,
+:582-647; the root sums, :769-773).  Every host decision that feeds a
+collective comes from replicated data: the chosen leaf (the gains of the
+synced best splits), the smaller side (the global counts), the pool's hits
+and misses (its slots follow the leaves chosen), the forced-split schedule.
+Only the window offsets and the left counts ``nl`` are the rank's own.  A
+rank that decided alone would leave the others waiting in a collective.
+Level growth stays serial: under a comm the learner grows leaf-wise with one
+warning, as the JAX learner does.
 """
 from __future__ import annotations
 
@@ -87,11 +100,42 @@ from .quant import quantize_gradients
 from .split import (K_MIN_SCORE, BestSplit, FeatureBest, FeatureInfo,
                     SplitParams, apply_feature_contri, best_split,
                     contri_scale, dequantize_hist, per_feature_best,
-                    per_feature_best_combined, reduce_feature_best)
+                    per_feature_best_combined, reduce_feature_best,
+                    sync_best)
 from .tree import Tree
 from ..utils.log import Log
 
 CHUNK = 4096     # the spare row block past every window (partition.py CHUNK)
+
+
+class Comm(NamedTuple):
+    """The collective strategy of a parallel tree build (tree_learner.py:
+    53-83): ``ops`` is the rank's ``parallel.comm.ProcessComm`` over a group
+    of ``num_shards`` ranks, this one ``rank``.  The modes:
+
+    - ``rs``: rows striped; each child's histogram is reduce-scattered over
+      the features, so each rank holds and scans the global histograms of
+      its F/d block, and the ranks' best splits are all-gathered and the
+      best kept (data_parallel_tree_learner.cpp:149-240);
+    - ``psum``: rows striped; each child's histogram is all-reduced whole,
+      so EFB groups, 4-bit packing, forced splits and CEGB work as serial;
+    - ``feature``: every rank holds every row and partitions them alike,
+      builds its histograms over its own F/d block only (the split pass's
+      feature window) and scans it; only the best splits cross ranks
+      (feature_parallel_tree_learner.cpp:33-71);
+    - ``voting``: rows striped, histograms local; each rank elects its
+      ``top_k`` features by local gain with the minimums scaled by 1/d,
+      the votes are all-gathered, and only the ``2 * top_k`` elected
+      features' histograms are all-reduced and scanned
+      (voting_parallel_tree_learner.cpp:170-366)."""
+    ops: object
+    mode: str = "psum"
+    num_shards: int = 1
+    rank: int = 0
+    top_k: int = 20
+
+
+COMM_MODES = ("rs", "psum", "feature", "voting")
 
 
 class TreeArrays(NamedTuple):
@@ -296,13 +340,16 @@ class _Growth:
     cache holds that many LRU slots (``slot_of`` per leaf, ``stamps`` per
     slot); ``forced`` is the forced-split schedule, ``cegb`` the tree's CEGB
     state.  ``fetches`` counts the device->host transfers, ``levels`` the
-    level steps, ``misses`` the pool's rebuilt parents."""
+    level steps, ``misses`` the pool's rebuilt parents.  With ``comm`` (a
+    :class:`Comm`) the rank's rows are ``rows`` and the collectives of its
+    mode run where the JAX build runs them; the cache then holds the rank's
+    F/d block in ``rs`` and ``feature`` mode."""
 
     def __init__(self, rows, grad, hess, num_data, scan: SplitScan,
                  feat_host, *, num_leaves, num_bins, layout, hist_features,
                  packed, qscale, hist_fn, part_fn, level_fn, spare=None,
                  forced=None, cegb: Optional[CegbState] = None,
-                 pool_slots: int = 0):
+                 pool_slots: int = 0, comm: Optional[Comm] = None):
         n = grad.shape[0]
         L = num_leaves
         B = num_bins
@@ -316,9 +363,45 @@ class _Growth:
         self.scan, self.feat_host = scan, feat_host
         self.layout, self.qscale = layout, qscale
         self.hist_fn, self.part_fn, self.level_fn = hist_fn, part_fn, level_fn
+        self.comm = comm
+        self.mode = "serial" if comm is None else comm.mode
+        F = scan.feat.num_bin.shape[0]
+        # the first histogram column (the feature window of ``feature``
+        # mode); ``shard`` is the (first, count) of the features the rank
+        # scans in ``rs`` and ``feature`` mode (tree_learner.py:458-488)
+        self.f0, self.shard, cache_features = 0, None, hist_features
+        if self.mode in ("rs", "feature"):
+            d = comm.num_shards
+            if F % d or hist_features != F:
+                raise ValueError("a feature-sharded scan needs one column per "
+                                 "feature, padded to a multiple of the %d "
+                                 "ranks (%d features, %d columns)"
+                                 % (d, F, hist_features))
+            chunk = F // d
+            self.shard = (comm.rank * chunk, chunk)
+            cache_features = chunk
+            if self.mode == "feature":
+                hist_features, self.f0 = chunk, comm.rank * chunk
+            cut = slice(self.shard[0], self.shard[0] + chunk)
+            self.scan_c = scan._replace(
+                feat=FeatureInfo(*[None if a is None else a[cut]
+                                   for a in scan.feat]),
+                feature_mask=scan.feature_mask[cut],
+                contri=None if scan.contri is None else scan.contri[cut])
+            self.ids_c = torch.arange(cut.start, cut.stop, device=dev)
+        if self.mode == "voting":
+            # the local election scales the leaf minimums by 1/d
+            # (voting_parallel_tree_learner.cpp:57-59)
+            p, d = scan.params, comm.num_shards
+            self.vote_params = p._replace(
+                min_data_in_leaf=max(p.min_data_in_leaf // d, 1),
+                min_sum_hessian_in_leaf=p.min_sum_hessian_in_leaf / d)
         self.hkw = dict(num_features=hist_features, voff=layout.voff,
                         bpc=layout.bpc, packed=packed,
                         quantized=qscale is not None)
+        # the histogram kernel takes the window as an argument, the split
+        # pass as the scal row's trailing element (``_scal``)
+        self.hist_kw = dict(self.hkw, f_begin=self.f0)
         self.fetches = 0
         self.levels = 0
         self.misses = 0
@@ -327,7 +410,7 @@ class _Growth:
         self.forced, self.force_on = forced, True
         self.cegb = cegb
         self.lazy = cegb is not None and cegb.lazy is not None
-        self.num_features = F = scan.feat.num_bin.shape[0]
+        self.num_features = F
         if self.lazy:
             # rows that paid a feature's lazy cost in earlier trees
             lo = layout.bitoff
@@ -335,9 +418,9 @@ class _Growth:
         self.feat_used = None if cegb is None else cegb.used.copy()
 
         # ---- root ----
-        hist0 = self._dequant(hist_fn(rows, B, 0, n, **self.hkw))
+        hist0 = self._reduce(hist_fn(rows, B, 0, n, **self.hist_kw))
         self.pool = max(2, min(pool_slots, L)) if pool_slots > 0 else 0
-        self.hist = torch.zeros((self.pool or L, hist_features, 2, B),
+        self.hist = torch.zeros((self.pool or L, cache_features, 2, B),
                                 dtype=torch.float32, device=dev)
         self.hist[0] = hist0
         if self.pool:
@@ -345,14 +428,25 @@ class _Growth:
             self.slot_of[0] = 0
             self.stamps = np.full(self.pool, -1, np.int64)
             self.stamps[0] = 0
+        # the root sums are all-reduced unless every rank holds every row
+        # (tree_learner.py:769-773)
+        striped = comm is not None and self.mode != "feature"
         if qscale is None:
             sums = torch.stack([grad.sum(), hess.sum()]).to(torch.float32)
+            if striped:
+                sums = comm.ops.all_reduce_sum(sums)
         else:
             # the integer sums (exact in f64) times the iteration's scales
-            sums = torch.stack([grad.double().sum(), hess.double().sum()]
-                               ).float() * qscale
-        ucnt0 = (self._paid_counts(rows[:n]).sum(0, dtype=torch.int32)
-                 .to(torch.float32) if self.lazy else None)
+            sums = torch.stack([grad.double().sum(), hess.double().sum()])
+            if striped:
+                sums = comm.ops.all_reduce_sum(sums)
+            sums = sums.float() * qscale
+        ucnt0 = None
+        if self.lazy:
+            ucnt0 = self._paid_counts(rows[:n]).sum(0, dtype=torch.int32)
+            if striped:
+                ucnt0 = comm.ops.all_reduce_sum(ucnt0)
+            ucnt0 = ucnt0.to(torch.float32)
         best0, fb0 = self._best(hist0, sums[0], sums[1],
                                 torch.tensor(float(num_data), device=dev),
                                 self.cmin[0], self.cmax[0], ucnt0)
@@ -388,9 +482,27 @@ class _Growth:
         self.wcount[0] = n
         self.nl_leaves = 1
 
-    def _dequant(self, hist: torch.Tensor) -> torch.Tensor:
-        """Quantized mode: integer sums -> real f32 sums before caching
-        (``reduce_hist``, tree_learner.py:490-508); identity otherwise."""
+    def _reduce(self, hist: torch.Tensor) -> torch.Tensor:
+        """A freshly built histogram [..., F, 2, B] -> what the cache holds
+        (``reduce_hist``, tree_learner.py:490-516): reduce-scattered over
+        the features (``rs``) or all-reduced (``psum``) across the ranks,
+        kept as it is in ``feature`` mode (every row is local) and in
+        ``voting`` mode (the histograms stay local); then, when quantized,
+        the integer sums dequantized to real f32 sums.
+
+        Quantized histograms cross the ranks as the kernels give them: f32
+        integer sums, exact up to 2**24 a bin, as LightGBM reduces its
+        integer histograms exactly.  The JAX package casts them to bf16
+        first (tree_learner.py:491-508): bf16 keeps 8 significant bits, the
+        subtraction trick then takes each larger child from a rounded
+        parent, and deep leaves lose their sums; at the Higgs shape on the
+        card (1,048,576 rows, 2 ranks) its train log loss rose from 0.5935
+        to 0.9079 in the second iteration (PERF.md section 6)."""
+        ops = None if self.comm is None else self.comm.ops
+        if self.mode == "rs":
+            hist = ops.reduce_scatter_features(hist)
+        elif self.mode == "psum":
+            hist = ops.all_reduce_sum(hist)
         return hist if self.qscale is None else dequantize_hist(hist,
                                                                 self.qscale)
 
@@ -413,6 +525,8 @@ class _Growth:
         sc, dev = self.scan, self.dev
         sg = torch.as_tensor(sum_grad, dtype=torch.float32, device=dev)
         sh = torch.as_tensor(sum_hess, dtype=torch.float32, device=dev)
+        if self.shard is not None or self.mode == "voting":
+            return self._parallel_best(hist, sg, sh, count, cmin, cmax), None
         if sc.lanes is not None:
             hist = unpack_groups(hist, sc.feat.group, sc.lanes, sg, sh)
         bounds = {}
@@ -439,6 +553,64 @@ class _Growth:
                                           fb.gain - penalty, fb.gain))
         return reduce_feature_best(fb), fb
 
+    def _parallel_best(self, hist, sg, sh, count, cmin, cmax) -> BestSplit:
+        """``best_of`` of the ``rs``/``feature`` and ``voting`` modes
+        (tree_learner.py:586-627).  ``rs``/``feature``: the scan of the
+        rank's F/d block with ``feature_contri`` by global id, then the best
+        of the ranks' bests (:func:`sync_best`).  ``voting``: the local scan
+        with the scaled minimums elects each rank's ``top_k`` features; the
+        ids and their ``gain > K_MIN_SCORE`` flags are all-gathered and
+        counted as votes (ties to the lower id); the histograms of the
+        ``2 * top_k`` most voted features are all-reduced and scanned.  The
+        scan runs over every feature with the others' gains dropped, which
+        gives each elected feature the result of a scan of the elected
+        ones alone."""
+        sc, dev, ops = self.scan, self.dev, self.comm.ops
+        f32 = torch.float32
+        bounds = {}
+        if sc.monotone:
+            bounds = dict(cmin=torch.as_tensor(cmin, device=dev),
+                          cmax=torch.as_tensor(cmax, device=dev))
+        cnt = torch.as_tensor(count, dtype=f32, device=dev)
+        if self.shard is not None:
+            c = self.scan_c
+            fb = apply_feature_contri(per_feature_best_combined(
+                hist, c.feat, c.feature_mask, sg, sh, cnt, sc.params,
+                sc.categorical, **bounds), c.contri)
+            return sync_best(reduce_feature_best(fb, self.ids_c), ops)
+        # every row hits one bin of feature 0: its bins sum to the rank's
+        # leaf totals
+        local = hist[..., 0, :, :].sum(-1)
+        lg, lh = local[..., 0], local[..., 1]
+        lcnt = cnt * lh / (sh + 1e-15)
+        fb = apply_feature_contri(per_feature_best_combined(
+            hist, sc.feat, sc.feature_mask, lg, lh, lcnt, self.vote_params,
+            sc.categorical, **bounds), sc.contri)
+        F, d = hist.shape[-3], self.comm.num_shards
+        k = min(self.comm.top_k, F)
+        top_gain, top_ids = torch.topk(fb.gain, k, dim=-1)
+        ballots = ops.all_gather(torch.stack(
+            [top_ids, (top_gain > K_MIN_SCORE).long()], -1))  # [d, ..., k, 2]
+        lead = hist.shape[:-3]
+        ids = ballots[..., 0].movedim(0, -2).reshape(lead + (d * k,))
+        ok = ballots[..., 1].movedim(0, -2).reshape(lead + (d * k,)).to(f32)
+        votes = torch.zeros(lead + (F,), dtype=f32, device=dev)
+        votes.scatter_add_(-1, ids, ok)
+        key = votes - torch.arange(F, dtype=f32, device=dev) / (F + 1.0)
+        elected = torch.sort(torch.topk(key, min(2 * k, F), dim=-1).indices,
+                             dim=-1).values
+        idx = elected[..., None, None].expand(elected.shape
+                                              + hist.shape[-2:])
+        he = ops.all_reduce_sum(torch.gather(hist, -3, idx))
+        full = torch.zeros_like(hist).scatter_(-3, idx, he)
+        fb = apply_feature_contri(per_feature_best_combined(
+            full, sc.feat, sc.feature_mask, sg, sh, cnt, sc.params,
+            sc.categorical, **bounds), sc.contri)
+        won = torch.zeros(lead + (F,), dtype=torch.bool, device=dev)
+        won.scatter_(-1, elected, True)
+        return reduce_feature_best(fb._replace(gain=torch.where(
+            won, fb.gain, torch.full_like(fb.gain, K_MIN_SCORE))))
+
     def _fetch(self, best: BestSplit, extra: torch.Tensor):
         self.fetches += 1
         return _to_host(best, extra)
@@ -450,7 +622,13 @@ class _Growth:
         (tree_learner.py:890-910)."""
         fh = self.feat_host
         fid = np.asarray(b["feature"], np.int64)
-        scal = np.zeros((fid.size, SCAL_HEAD + self.B // 32), dtype=np.int64)
+        # feature mode: the trailing hist_feature_begin (tree_learner.py:
+        # 908-912)
+        window = int(self.mode == "feature")
+        scal = np.zeros((fid.size, SCAL_HEAD + self.B // 32 + window),
+                        dtype=np.int64)
+        if window:
+            scal[:, -1] = self.f0
         grouped = fh["group"] is not None
         scal[:, 0] = wb
         scal[:, 1] = wc
@@ -685,7 +863,9 @@ class _Growth:
             self.rows, hist_small, nl_t = self.part_fn(
                 self.rows, scal[0].tolist(), num_bins=self.B, **self.hkw)
             hist_small = hist_small[None]
-        hist_small = self._dequant(hist_small)
+        # the smaller child is chosen from the replicated global counts, so
+        # every rank streams the same child into the collective
+        hist_small = self._reduce(hist_small)
         if self.pool:
             parent, dst_l, dst_r = self._pool_slots(int(leaf[0]), int(kid[0]),
                                                     int(wb[0]), int(wc[0]))
@@ -699,7 +879,10 @@ class _Growth:
                        < nl_t.reshape(-1)[0])[:, None]
             used_l = (paid & in_left).sum(0, dtype=torch.int32)
             used_r = paid.sum(0, dtype=torch.int32) - used_l
-            ucnt = torch.stack([used_l, used_r]).to(torch.float32)
+            ucnt = torch.stack([used_l, used_r])
+            if self.comm is not None:
+                ucnt = self.comm.ops.all_reduce_sum(ucnt)
+            ucnt = ucnt.to(torch.float32)
         bounds = self._bounds(leaf, b)
         child, child_fb = self._children(hist_small, parent, dst_l, dst_r,
                                          left_smaller, b, bounds, ucnt)
@@ -725,8 +908,8 @@ class _Growth:
             parent = self.hist[ps:ps + 1]
         else:
             self.misses += 1
-            parent = self._dequant(self.hist_fn(self.rows, self.B, wb, wc,
-                                                **self.hkw))[None]
+            parent = self._reduce(self.hist_fn(self.rows, self.B, wb, wc,
+                                               **self.hist_kw))[None]
         s_l = ps if ps >= 0 else int(np.argmin(self.stamps))
         stamps = self.stamps.copy()
         stamps[s_l] = 2 ** 30
@@ -799,7 +982,8 @@ def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
                            lanes: Optional[tuple] = None,
                            forced: Optional[tuple] = None,
                            cegb: Optional[CegbState] = None,
-                           pool_slots: int = 0) -> TreeArrays:
+                           pool_slots: int = 0,
+                           comm: Optional[Comm] = None) -> TreeArrays:
     """Grow one tree; ``rows`` is the filled row store (it is partitioned in
     place on the card).  Level growth also writes ``spare``, a second store
     of ``rows``' shape whose contents do not matter (required there, unused
@@ -822,8 +1006,21 @@ def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
     and ``lanes`` set up the split scan (:class:`SplitScan`).
     ``hist_fn``/``part_fn``/``level_fn`` default to the kernel dispatchers;
     a check may pass the plain versions to rebuild the same tree without the
-    kernels.
+    kernels.  ``comm`` (:class:`Comm`) grows the tree of one rank of a
+    parallel learner, leaf-wise, from its rows ``rows`` (``num_data`` is the
+    global count); forced splits and CEGB need the ``psum`` mode, whose
+    ranks hold whole histograms.
     """
+    if comm is not None:
+        if comm.mode not in COMM_MODES:
+            raise ValueError("unknown comm mode %r (%s)"
+                             % (comm.mode, ", ".join(COMM_MODES)))
+        if grow_mode != "leaf":
+            raise ValueError("parallel learners grow leaf-wise only")
+        if comm.mode != "psum" and (forced is not None or cegb is not None
+                                    or lanes is not None):
+            raise ValueError("forced splits, CEGB and EFB groups need the "
+                             "psum comm mode")
     if grow_mode == "level" and spare is None:
         raise ValueError("level growth needs a second row store (spare)")
     if grow_mode == "level" and (forced is not None or cegb is not None
@@ -836,7 +1033,8 @@ def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
                 num_leaves=num_leaves, num_bins=num_bins, layout=layout,
                 hist_features=hist_features, packed=packed, qscale=qscale,
                 hist_fn=hist_fn, part_fn=part_fn, level_fn=level_fn,
-                spare=spare, forced=forced, cegb=cegb, pool_slots=pool_slots)
+                spare=spare, forced=forced, cegb=cegb, pool_slots=pool_slots,
+                comm=comm)
     if grow_mode == "level":
         for d in range(level_count(num_leaves, max_depth)
                        if num_leaves > 1 else 0):
@@ -1017,21 +1215,25 @@ def tree_from_arrays(arrays: TreeArrays, dataset: BinnedDataset,
     return t
 
 
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError("%s is not ported to lightgbm_tpu_torch yet "
-                              "(ROADMAP %s)" % (what, item))
-
-
 class SerialTreeLearner:
     """Owns the device row-store template and per-feature metadata and grows
-    one tree per :meth:`train` call."""
+    one tree per :meth:`train` call.  The ``tree_learner`` key is not read
+    here (the JAX class ignores it too): ``parallel.create_tree_learner``
+    chooses the learner.  The parallel learners subclass this one through
+    the hooks ``_store_matrix``, ``_local_rows``, ``_row_ids`` and
+    ``_gather_rows``, and ``comm``."""
+
+    # the parallel learners that shard the scan over features take one
+    # column per feature: no EFB groups, no 4-bit packing
+    supports_groups = True
+    supports_packing = True
+    comm: Optional[Comm] = None
 
     def __init__(self, dataset: BinnedDataset, config,
                  device: DeviceLike = None) -> None:
         self.device = resolve_device(device)
         self.dataset = dataset
         self.config = config
-        self._check_supported(config)
         self.num_leaves = int(config.num_leaves)
         self.max_depth = int(config.max_depth)
         self.tree_grow_mode = str(getattr(config, "tree_grow_mode", "leaf")
@@ -1069,7 +1271,7 @@ class SerialTreeLearner:
         self.has_monotone = bool((mono != 0).any())
         # on a bundled dataset the row store, the histograms and their cache
         # are over group columns; the split scan runs per feature
-        self.grouped = bool(dataset.is_bundled)
+        self.grouped = bool(dataset.is_bundled and self.supports_groups)
         self.feat_bins = feature_bins(dataset)
         self.num_bins = (pad_bins_pow2(dataset.max_group_bin) if self.grouped
                          else self.feat_bins)
@@ -1091,10 +1293,15 @@ class SerialTreeLearner:
             monotone=t(mono), group=t(fh["group"]), offset=t(fh["offset"]))
         self.lanes = (unpack_lanes(dataset, self.num_bins, self.feat_bins,
                                    dev) if self.grouped else None)
-        matrix = dataset.binned
+        matrix = self._route_matrix(dataset)
         self.num_columns = matrix.shape[1]
+        # this process's rows and columns of the row store
+        matrix = self._store_matrix(matrix)
+        self.hist_columns = matrix.shape[1]
         # 4-bit packing (dense_nbits_bin.hpp): two columns per byte
-        self.packed = bool(dataset.max_group_bin <= 16 and matrix.shape[1] > 1)
+        self.packed = bool(self.supports_packing
+                           and dataset.max_group_bin <= 16
+                           and matrix.shape[1] > 1)
         if self.packed:
             m = np.asarray(matrix, dtype=np.uint8)
             if m.shape[1] % 2:
@@ -1121,7 +1328,7 @@ class SerialTreeLearner:
                         "or CEGB (their candidate caches need every leaf's "
                         "histogram resident); histogram memory is unbounded")
         elif pool_mb > 0:
-            self.hist_pool_slots = pool_slot_count(pool_mb, self.num_columns,
+            self.hist_pool_slots = pool_slot_count(pool_mb, self.hist_columns,
                                                    self.num_bins)
         # CEGB state kept for the whole training: the features split on
         # (is_feature_used_in_split_) and, for lazy penalties, every
@@ -1217,18 +1424,44 @@ class SerialTreeLearner:
         return (t(np.float32(tr * ps)), t(coupled),
                 t(lazy) if lazy.any() else None)
 
-    @staticmethod
-    def _check_supported(config) -> None:
-        if str(getattr(config, "tree_learner", "serial") or "serial") != "serial":
-            _refuse("parallel tree learners", "queue 1 item 13")
+    def _route_matrix(self, dataset: BinnedDataset) -> np.ndarray:
+        """The binned columns the learner routes by: the group columns when
+        it takes EFB groups, else one column per feature."""
+        if self.grouped or not dataset.is_bundled:
+            return dataset.binned
+        return dataset.unbundled_matrix()
+
+    def _store_matrix(self, matrix: np.ndarray) -> np.ndarray:
+        """The rows and columns of ``matrix`` this learner's row store
+        holds: all of them (a parallel learner keeps its rank's stripe and
+        pads the features)."""
+        return matrix
+
+    def _local_rows(self, t: Optional[torch.Tensor]):
+        """This learner's rows of a per-row tensor [N, ...]: all of them."""
+        return t
+
+    def _row_ids(self, n: int) -> torch.Tensor:
+        """Global ids of the row store's ``n`` rows (the quantization hash's
+        key)."""
+        return torch.arange(n, device=self.device)
+
+    def _gather_rows(self, t: Optional[torch.Tensor]):
+        """A per-row result of this learner's rows -> over all N rows."""
+        return t
+
+    def _padded_feature_mask(self, mask: torch.Tensor) -> torch.Tensor:
+        return mask
 
     def effective_grow_mode(self) -> str:
         """The growth mode the builds run (tree_learner.py:1780-1808):
-        ``level`` unless forced splits, CEGB or the histogram pool are on,
-        which grow leaf-wise, with one warning."""
+        ``level`` unless a parallel learner's comm, forced splits, CEGB or
+        the histogram pool are on, which grow leaf-wise, with one
+        warning."""
         if self.tree_grow_mode != "level":
             return "leaf"
         blockers = [name for name, on in (
+            ("parallel tree learner", self.comm is not None),
             ("forced splits", self.forced is not None),
             ("CEGB", self.cegb is not None),
             ("histogram_pool_size", self.hist_pool_slots > 0)) if on]
@@ -1258,11 +1491,12 @@ class SerialTreeLearner:
         set's mappers and groups, ``reference=``) on the learner's device,
         for :func:`route_binned` (the JAX learner's ``valid_bins``): its
         group columns on a bundled dataset."""
-        if dataset.binned.shape[1] != self.num_columns:
+        bins = self._route_matrix(dataset)
+        if bins.shape[1] != self.num_columns:
             raise ValueError("validation set has %d bin columns, the training "
                              "set %d: bin it with reference= the training set"
-                             % (dataset.binned.shape[1], self.num_columns))
-        bins = np.ascontiguousarray(dataset.binned)
+                             % (bins.shape[1], self.num_columns))
+        bins = np.ascontiguousarray(bins)
         if bins.dtype == np.uint16:
             bins = bins.astype(np.int32)
         return torch.from_numpy(bins).to(self.device)
@@ -1292,30 +1526,36 @@ class SerialTreeLearner:
         if feature_mask is None:
             feature_mask = torch.ones(self.dataset.num_features, dtype=torch.bool,
                                       device=self.device)
+        feature_mask = self._padded_feature_mask(feature_mask)
+        grad, hess = self._local_rows(grad), self._local_rows(hess)
         qscale = None
         if self.quantized:
-            rid = torch.arange(grad.shape[0], device=self.device)
-            grad, hess, qscale = quantize_gradients(grad, hess, rid,
-                                                    int(iteration),
-                                                    self.quant_seed)
+            # striped ranks quantize with the scales over every rank
+            striped = self.comm is not None and self.comm.mode != "feature"
+            grad, hess, qscale = quantize_gradients(
+                grad, hess, self._row_ids(grad.shape[0]), int(iteration),
+                self.quant_seed, self.comm.ops if striped else None)
         rows = fill_gradients(self.template, self.layout, grad, hess)
         grow_mode = self.effective_grow_mode()
         if grow_mode == "level" and self.spare is None:
             self.spare = torch.empty_like(self.template)
         cegb = None
         if self.cegb is not None:
-            cegb = CegbState(*self.cegb, self.cegb_used, self.cegb_paid)
+            cegb = CegbState(*self.cegb, self.cegb_used,
+                             self._local_rows(self.cegb_paid))
         arrays = build_tree_partitioned(
             rows, grad, hess, int(num_data_in_bag), feature_mask, self.feat,
             self.feat_host, num_leaves=self.num_leaves,
             max_depth=self.max_depth, params=self.params,
             num_bins=self.num_bins, layout=self.layout,
-            hist_features=self.num_columns, packed=self.packed,
+            hist_features=self.hist_columns, packed=self.packed,
             grow_mode=grow_mode, qscale=qscale, hist_fn=hist_fn,
             part_fn=part_fn, level_fn=level_fn, spare=self.spare,
             categorical=self.has_categorical, monotone=self.has_monotone,
             lanes=self.lanes, forced=self.forced, cegb=cegb,
-            pool_slots=self.hist_pool_slots)
+            pool_slots=self.hist_pool_slots, comm=self.comm)
+        arrays = arrays._replace(row_leaf=self._gather_rows(arrays.row_leaf),
+                                 paid_bits=self._gather_rows(arrays.paid_bits))
         if cegb is not None:
             # tree_learner.py:1930-1937 _update_cegb_used, and the paid bits
             self.cegb_used[arrays.split_feature[:arrays.num_leaves - 1]] = True

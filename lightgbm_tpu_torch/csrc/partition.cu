@@ -43,6 +43,14 @@
 // - Routing follows lightgbm_tpu/core/partition.py `_route_tile` exactly:
 //   EFB unfold, NaN bin = nb - 1, zero bin = default_bin, categorical bitset
 //   words in scal[12:].
+// - The feature window (the scal row's optional trailing element
+//   hist_feature_begin, partition.py:1030-1036): a feature-parallel rank
+//   histograms only the columns [f_begin, f_begin + F) of the child while
+//   the rows are routed and partitioned on the whole store.  The host holds
+//   the scal row, so it passes f_begin as an argument to the histogram
+//   launch (HistArgs.f_begin, whose column offset the row-store kernels
+//   already take); the route, count, scan and scatter kernels are the same
+//   with or without it, and f_begin = 0 is the launch without a window.
 // - Under hist_precision=quantized (`quantized` = 1) the child histogram is
 //   the integer kernel of hist_int.cuh (exact integer sums, on a grid of its
 //   own from the parent window's size) instead of the f64 one; it replaces
@@ -84,14 +92,16 @@ __global__ void part_scatter_kernel(const uint8_t* __restrict__ rows,
 
 }  // namespace lgbt
 
-// `nblk` tiles of `tile` rows; `partial` holds nseg * F * 2 * B doubles (or
+// `nblk` tiles of `tile` rows; the histogram covers columns
+// [f_begin, f_begin + F) (0 without a feature window); `partial` holds nseg * F * 2 * B doubles (or
 // is null for one segment), or when `quantized`, whose kernel cuts the
 // child's window in `nseg` segments of `ft`-feature tiles, F * 2 * B int64
 // (or null for one segment).
 extern "C" int lgbt_partition_hist(void* rows, void* scratch, int W,
                                    const void* scal, long long wb,
                                    long long wc, int bpc, int packed, int nw,
-                                   int F, int B, int voff, int nblk,
+                                   int F, int B, int f_begin, int voff,
+                                   int nblk,
                                    int tile, void* blk, void* win, void* nl,
                                    int nseg, int ft, int quantized,
                                    void* partial, void* hist,
@@ -116,7 +126,8 @@ extern "C" int lgbt_partition_hist(void* rows, void* scratch, int W,
   e = cudaMemcpyAsync(r + (size_t)wb * W, s, (size_t)wc * W,
                       cudaMemcpyDeviceToDevice, st);
   if (e != cudaSuccess) return (int)e;
-  HistArgs a = hist_args_one(r, W, voff, bpc, packed, F, B, 0, 0, 0, wn, nseg);
+  HistArgs a = hist_args_one(r, W, voff, bpc, packed, F, B, f_begin, 0, 0, wn,
+                             nseg);
   if (quantized) {
     IntGrid q = int_grid_one(nseg, ft);
     q.acc = static_cast<unsigned long long*>(partial);

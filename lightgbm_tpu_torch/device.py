@@ -12,8 +12,9 @@ run can show that its main path went through the kernels
 (:func:`reset_launches` before the run, :func:`launches` after it).  The
 split passes also count, at the same place, the routes their scal rows take
 (:func:`route_launches`): launches with a window that unfolds an EFB group
-column (``use_unfold``) or routes by a category bitset (``is_cat``), and the
-number of such windows.
+column (``use_unfold``), routes by a category bitset (``is_cat``) or
+histograms a feature window (the trailing ``hist_feature_begin`` of a
+feature-parallel rank), and the number of such windows.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ KERNELS = ("histogram", "partition", "histogram_int", "partition_level",
 
 _LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 SPLIT_KERNELS = ("partition", "partition_level")
-ROUTES = ("unfold", "categorical")
+ROUTES = ("unfold", "categorical", "feature_window")
 _ROUTES: Dict[str, Dict[str, int]] = {
     k: {c: 0 for r in ROUTES for c in (r, r + "_windows")}
     for k in SPLIT_KERNELS}
@@ -53,12 +54,15 @@ def count_launch(kernel: str) -> None:
     _LAUNCHES[kernel] += 1
 
 
-def count_routes(kernel: str, unfold: int, categorical: int) -> None:
+def count_routes(kernel: str, unfold: int, categorical: int,
+                 feature_window: int = 0) -> None:
     """Record the routes of one launch of split pass ``kernel`` (called by
-    its wrapper only, beside :func:`count_launch`): ``unfold`` and
-    ``categorical`` are the numbers of its windows with ``use_unfold = 1``
-    and with ``is_cat = 1``."""
-    for route, windows in (("unfold", unfold), ("categorical", categorical)):
+    its wrapper only, beside :func:`count_launch`): ``unfold``,
+    ``categorical`` and ``feature_window`` are the numbers of its windows
+    with ``use_unfold = 1``, with ``is_cat = 1`` and with a
+    ``hist_feature_begin``."""
+    for route, windows in (("unfold", unfold), ("categorical", categorical),
+                           ("feature_window", feature_window)):
         _ROUTES[kernel][route] += int(windows > 0)
         _ROUTES[kernel][route + "_windows"] += int(windows)
 
@@ -69,8 +73,9 @@ def launches() -> Dict[str, int]:
 
 
 def route_launches() -> Dict[str, Dict[str, int]]:
-    """Per split pass: launches that unfolded a group column or routed by a
-    bitset, and their windows, since the last :func:`reset_launches`."""
+    """Per split pass: launches that unfolded a group column, routed by a
+    bitset or histogrammed a feature window, and their windows, since the
+    last :func:`reset_launches`."""
     return {k: dict(v) for k, v in _ROUTES.items()}
 
 

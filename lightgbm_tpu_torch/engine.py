@@ -141,6 +141,10 @@ def train(params: Dict[str, Any], train_set: Dataset,
     contains_train = any(vs is train_set for vs in (valid_sets or []))
     resumed_iter = 0
     ckpt_freq = int(booster.config.snapshot_freq)
+    # every rank of a parallel learner runs this loop; rank 0 alone writes
+    # and removes the checkpoints (engine.py:184, :222)
+    from .parallel.learners import is_write_leader
+    write_ckpt = is_write_leader(gbdt.group)
     if checkpoint_prefix is not None:
         # after the validation sets: their scores are restored by position
         resumed_iter = gbdt.resume_from_checkpoint(checkpoint_prefix)
@@ -207,7 +211,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
                 results = stop.best_score
                 break
             if (checkpoint_prefix is not None and ckpt_freq > 0
-                    and gbdt.iter_ % ckpt_freq == 0):
+                    and write_ckpt and gbdt.iter_ % ckpt_freq == 0):
                 save_checkpoint_best_effort(gbdt, checkpoint_prefix)
             if preempt and resilience.preemption_requested():
                 # the one preempt-exit sequence of every entry point: drain
@@ -217,7 +221,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
                 break
     finally:
         resilience.disarm_supervision(owned_signals, owned_wd)
-    if checkpoint_prefix is not None:
+    if checkpoint_prefix is not None and write_ckpt:
         # the call completed: a rerun with the same prefix trains afresh
         cleanup_checkpoints(checkpoint_prefix)
     booster.best_score = collections.defaultdict(collections.OrderedDict)

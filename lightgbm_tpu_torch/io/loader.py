@@ -10,15 +10,18 @@ dataset's bin mappers (LoadFromFileAlignWithOtherDataset :230), and the
 streaming ingest of ``data_chunk_rows`` and ``two_round`` (pass 1 samples raw
 lines, pass 2 bins bounded chunks into the packed store).
 
-Distributed loading works through an injected ``allgather_fn(payload:
-bytes) -> List[bytes]`` (the ``allgather_fn`` attribute of a loader, or the
-argument of :func:`find_bin_mappers_distributed`): feature-sharded bin
-finding, and the striped streaming scan whose candidate samples ride one
-allgather.  The JAX package's default allgather over a multi-process
-runtime has no counterpart yet (ROADMAP queue 1 item 13): ``num_machines >
-1`` with no injected ``allgather_fn`` takes the JAX package's single-process
-branch (one warning, bins from the local rows), and nothing here calls
-``torch.distributed``.  A preemption flag (``resilience.py``) set during a
+Distributed loading works through an ``allgather_fn(payload: bytes) ->
+List[bytes]``: feature-sharded bin finding, and the striped streaming scan
+whose candidate samples ride one allgather.  An injected one (the
+``allgather_fn`` attribute of a loader, or the argument of
+:func:`find_bin_mappers_distributed`) wins; otherwise, under an initialized
+``torch.distributed`` group of more than one process, the default is the
+group's bytes allgather (``parallel.comm.ProcessComm.all_gather_bytes``,
+the JAX package's ``_default_allgather`` over ``jax.distributed``,
+loader.py:109-125).  With neither, ``num_machines > 1`` takes the
+single-process branch (one warning, bins from the local rows).  The schema
+agreement of the striped scan is ``parallel/distdata.py``'s.  A preemption
+flag (``resilience.py``) set during a
 streaming load raises ``TrainingPreempted(0)`` between chunks, as in the
 JAX loader; its ingest telemetry belongs to a plane the port does not have
 (queue 1 item 14) and is left out.  Side files, the data file's existence
@@ -36,6 +39,9 @@ from .dataset import BinnedDataset
 from .metadata import Metadata
 from .parser import detect_format, parse_file
 from .. import resilience
+# schema_digest is re-exported: the loader's API names it
+from ..parallel.distdata import (pod_info, schema_digest,  # noqa: F401
+                                 verify_schema)
 from ..utils import file_io
 from ..utils.log import Log
 
@@ -76,9 +82,8 @@ def find_bin_mappers_distributed(mat: np.ndarray, rank: int,
     LOCAL rows, and an allgather merges the full set (:1028).
 
     ``allgather_fn(payload: bytes) -> List[bytes]`` supplies the collective —
-    the seam the reference exposes as LGBM_NetworkInitWithFunctions.  It is
-    required when ``num_machines > 1``: the port has no default collective
-    yet (ROADMAP queue 1 item 13).
+    the seam the reference exposes as LGBM_NetworkInitWithFunctions; None
+    takes the process group's (:func:`_default_allgather`).
     """
     import json as _json
 
@@ -124,47 +129,23 @@ def find_bin_mappers_distributed(mat: np.ndarray, rank: int,
 
 
 def _default_allgather(num_machines: int):
-    """The identity allgather of a single machine; several machines need an
-    injected one (the JAX package's allgather over ``jax.distributed`` has
-    no counterpart yet, ROADMAP queue 1 item 13)."""
-    if num_machines > 1:
-        Log.fatal("distributed bin finding over %d machines needs an "
-                  "allgather_fn (no default collective is ported yet)",
-                  num_machines)
-    return lambda payload: [payload]
+    """The bytes allgather of the initialized ``torch.distributed`` group
+    (loader.py:109-125); the identity of a single machine or a
+    single-process run.  NCCL moves the bytes through the current CUDA
+    device, gloo through host memory."""
+    if num_machines <= 1:
+        return lambda payload: [payload]
 
+    def gather(payload: bytes) -> List[bytes]:
+        import torch.distributed as dist
 
-def schema_digest(ds, total_rows: Optional[int] = None) -> str:
-    """Digest of what every rank must agree on before training
-    (``parallel/distdata.py`` ``schema_digest``): the bin mappers, the EFB
-    group layout and the global row count."""
-    import zlib
+        from ..parallel.comm import ProcessComm
+        if pod_info()[1] == 1:
+            return [payload]
+        dev = "cuda" if str(dist.get_backend()) == "nccl" else "cpu"
+        return ProcessComm(device=dev).all_gather_bytes(payload)
 
-    from ..checkpoint import mapper_digest
-    crc = mapper_digest(ds.bin_mappers)
-    crc = zlib.crc32(np.asarray(
-        [int(ds.num_total_features),
-         int(total_rows if total_rows is not None else ds.num_data)],
-        dtype=np.int64).tobytes(), crc)
-    for g in ds.feature_groups:
-        crc = zlib.crc32(np.asarray([-1] + [int(f) for f in g],
-                                    dtype=np.int64).tobytes(), crc)
-    crc = zlib.crc32(np.asarray(ds.bin_offset,
-                                dtype=np.int64).tobytes(), crc)
-    return "%08x" % (crc & 0xFFFFFFFF)
-
-
-def verify_schema(ds, allgather_fn, total_rows: Optional[int] = None) -> str:
-    """Allgather :func:`schema_digest` and fail on any divergence
-    (``parallel/distdata.py`` ``verify_schema``); returns the digest."""
-    digest = schema_digest(ds, total_rows=total_rows)
-    parts = [p.decode() for p in allgather_fn(digest.encode())]
-    bad = [r for r, d in enumerate(parts) if d != parts[0]]
-    if bad:
-        Log.fatal("sharded ingest: schema digest mismatch across ranks "
-                  "(digests %s; disagreeing ranks %s): all hosts must see "
-                  "the same file and config", parts, bad)
-    return digest
+    return gather
 
 
 def _qid_to_group_sizes(group_col: np.ndarray) -> np.ndarray:
@@ -336,9 +317,10 @@ class DatasetLoader:
         mappers = None
         if num_machines > 1 and reference is None:
             # feature-sharded bin finding + allgather merge
-            # (dataset_loader.cpp:867-1044, allgather at :1028); needs an
-            # injected collective
-            if getattr(self, "allgather_fn", None) is not None:
+            # (dataset_loader.cpp:867-1044, allgather at :1028); needs a
+            # collective: injected, or a process group's
+            if (getattr(self, "allgather_fn", None) is not None
+                    or pod_info()[1] > 1):
                 mappers = find_bin_mappers_distributed(
                     mat, rank, num_machines, cfg, categorical,
                     allgather_fn=getattr(self, "allgather_fn", None),
@@ -458,6 +440,8 @@ class DatasetLoader:
         t0 = time.perf_counter()
         striped = num_machines > 1 and cfg.pre_partition is False
         allgather = getattr(self, "allgather_fn", None)
+        if striped and allgather is None and pod_info()[1] > 1:
+            allgather = _default_allgather(num_machines)
         use_collective = striped and allgather is not None
         if use_collective:
             # each rank scans ONLY its stripe; O(sample_cnt) candidates ride

@@ -26,9 +26,6 @@ recoverable; this layer handles the faults that are not crashes:
 
 Where the port differs from the JAX package:
 
-- One process is always the write leader: the port has no multi-process
-  learner yet (ROADMAP queue 1 item 13), so :func:`emergency_checkpoint`
-  always writes.
 - The port has no telemetry sink (item 14): nothing here emits events or
   metrics, and the entry points that would configure one
   (``telemetry_out``, ``LGBM_Telemetry*``) refuse by name.
@@ -192,8 +189,12 @@ def disarm_supervision(owned_signals, owned_wd: bool) -> None:
 
 def emergency_checkpoint(booster, prefix: str):
     """Write the emergency checkpoint through ``checkpoint.py``'s atomic
-    path; returns ``(path, seconds)``.  One process is always the write
-    leader here (no multi-process learner yet)."""
+    path; returns ``(path, seconds)``.  Only the write leader (rank 0 of a
+    parallel learner's processes, which all stop together) writes; the
+    others return ``(None, None)`` (resilience.py:189-190)."""
+    from .parallel.learners import is_write_leader
+    if not is_write_leader(getattr(booster, "group", None)):
+        return None, None
     t0 = time.perf_counter()
     path = booster.save_checkpoint(prefix)
     dt = time.perf_counter() - t0

@@ -162,12 +162,21 @@ def bundled_cat_dataset():
 
 
 @pytest.mark.parametrize("params,item", [
-    (dict(tree_learner="data"), "queue 1 item 13"),
+    (dict(tree_learner="data"), "queue 1 item 13b"),
 ], ids=["parallel"])
 def test_still_refused(bundled_cat_dataset, params, item):
+    """A parallel learner trains from every row on every rank; a rank's
+    stripe of the rows (a dataset the loader stamped ``shard``) is refused
+    by name before any process group is touched."""
+    import copy
+
+    from lightgbm_tpu_torch.parallel import DataParallelTreeLearner
     cfg = Config(objective="binary", verbosity=-1, **params)
+    stripe = copy.copy(bundled_cat_dataset)
+    stripe.shard = {"rank": 0, "num_machines": 2, "begin": 0,
+                    "end": stripe.num_data, "num_total": 2 * stripe.num_data}
     with pytest.raises(NotImplementedError, match="ROADMAP %s" % item):
-        port_tl.SerialTreeLearner(bundled_cat_dataset, cfg, device="cpu")
+        DataParallelTreeLearner(stripe, cfg, device="cpu")
 
 
 @pytest.mark.parametrize("params", [

@@ -63,7 +63,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 NEW_MODULES = ["cli", "__main__", "compat", "sklearn", "plotting",
                "model_codegen", "io.parser", "io.loader", "utils.timer",
                "engine", "basic", "c_api", "capi_build", "resilience",
-               "utils.file_io"]
+               "utils.file_io", "parallel", "parallel.comm",
+               "parallel.learners", "parallel.distdata"]
 
 
 def test_every_module_imports_with_jax_blocked(host_api_child):
