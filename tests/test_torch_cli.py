@@ -46,6 +46,17 @@ def write_tsv(path, X, y):
             fh.write("%g\t" % lab + "\t".join("%g" % v for v in row) + "\n")
 
 
+@pytest.fixture(autouse=True)
+def _restore_log_level():
+    """``Application`` sets the process-global log level from
+    ``verbosity``; put back the level each test found, so a later test
+    file in the same process still sees its warnings."""
+    from lightgbm_tpu_torch.utils.log import Log
+    level = Log._level
+    yield
+    Log.reset_level(level)
+
+
 @pytest.fixture(scope="module")
 def data_files(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("cli")

@@ -49,11 +49,19 @@ def data():
 
 @pytest.fixture
 def warnings():
-    """The port's log lines of level warning or worse, one per line."""
+    """The port's log lines of level warning or worse, one per line.  The
+    log level is process-global (an in-process CLI run with verbosity=-1
+    earlier in the same process leaves it at FATAL), so it is pinned to
+    WARNING here and restored after."""
     lines = []
+    level = Log._level
+    Log.reset_level(Log.Level.WARNING)
     Log.reset_callback(lines.append)
-    yield lines
-    Log.reset_callback(None)
+    try:
+        yield lines
+    finally:
+        Log.reset_callback(None)
+        Log.reset_level(level)
 
 
 def forced_file(tmp_path, spec) -> str:

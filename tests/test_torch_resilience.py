@@ -62,6 +62,17 @@ BASE = dict(objective="regression", num_leaves=15, min_data_in_leaf=5,
 
 
 @pytest.fixture(autouse=True)
+def _restore_log_level():
+    """The in-process CLI runs set the process-global log level from
+    ``verbosity``; put back the level each test found, so a later test
+    file in the same process still sees its warnings."""
+    from lightgbm_tpu_torch.utils.log import Log
+    level = Log._level
+    yield
+    Log.reset_level(level)
+
+
+@pytest.fixture(autouse=True)
 def _clean_resilience_state():
     """Every test starts and ends with supervision disarmed."""
     resilience.clear_preemption()
