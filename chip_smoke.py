@@ -233,7 +233,33 @@ together) and runs these phases, each of which raises on failure:
    every ``feature`` split pass launched with the feature window; each
    run prints its s/iteration, train log loss, held-out AUC, the comm's
    calls and bytes per split and each rank's launches; the ranks are
-   killed past a join deadline;
+   killed past a join deadline; (W) telemetry and the serving tier
+   (``lightgbm_tpu_torch.obs``, ``lightgbm_tpu_torch.serving``): (W1) (A)'s
+   task through ``lightgbm_tpu_torch.train`` with ``telemetry_out`` and
+   ``metrics_port`` (a free port) into ``build/serve/``: the summary's
+   ``tree_kernel_launches`` equal to the split-pass kernels' own launch
+   counts and to the trees' splits, every JSONL event schema-valid, the
+   summary's device memory peak equal to ``torch.cuda.max_memory_allocated``,
+   ``/metrics`` and ``/healthz`` answering 200 during training, the trees
+   equal to (A)'s; (W2) ``lightgbm_tpu_torch.serve`` with (A)'s trees each
+   repeated 100 times (the 500-tree Higgs model) resident as ``higgs`` and
+   (C)'s trees registered beside it under a residency budget of ``higgs``'s
+   bytes plus half of (C)'s (one eviction of ``higgs``; (C) served, equal to
+   its ``FusedPredictor``, and unregistered; ``higgs`` admitted again by the
+   first request of the traffic), then 8 client threads submitting 262,144
+   held-out and training rows, raw and binned, in requests of 1-4,096 rows
+   (sizes from a seeded RNG, 4 in flight a client), with ``swap`` to (B)'s
+   trees (repeated alike) under load once two fifths of the responses are
+   back, the last two fifths of the requests submitted after it returned:
+   every response equal to one ``FusedPredictor`` call over its rows, of the
+   old or the new model, the new one for every request submitted after
+   ``swap`` returned; zero drops and failures, one eviction, one
+   re-admission, one swap, the miss gauge (``obs.recompile``) flat outside
+   the warm-up and the swap; then 64 single-row requests through the
+   compiled fast path, equal to the new model's ``FusedPredictor``; it
+   prints rows/s, p50/p99 request latency, batches, mean batch rows and the
+   peak device memory; (W3) CLI ``task=serve`` and ``task=predict`` on a
+   CSV of 20,000 held-out rows: the outputs equal line for line;
 5. times of each kernel at the main paths' shapes beside its bound, its
    plain version and one PyTorch library call (``index_add_``; for a split
    pass, which has none, the window's device-to-device copy): the
@@ -259,7 +285,9 @@ column, routed by a bitset or histogrammed a feature window), and the last
 line ``{"ok": true, "device":
 {...}}``.  Without CUDA the script
 exits with code 2 and prints no result.  ``--profile`` adds a
-``torch.profiler`` table of one training iteration of each path; on the
+``torch.profiler`` table of one training iteration of each path, and for
+(W2) the port's trace ranges (``obs.trace.annotate``: ``serve_dispatch``,
+``tree_block_predict``) over a burst of 16 requests; on the
 leaf-wise paths, the single-window split passes' ``part_scatter_kernel``
 time beside their own copy-backs' (the ``Memcpy DtoD`` after each); on the
 level paths, the level pass's scatter time, and a failure if any
@@ -4150,6 +4178,423 @@ def phase_resilience(device, data, iters: int, uninterrupted: str) -> dict:
     return out
 
 
+# ---------------------- path (W): telemetry and the serving tier, on the card
+
+SERVE_DIR = os.path.join("build", "serve")
+SERVE_ROWS = 262_144          # (W2): rows the clients submit
+SERVE_MAX_REQUEST = 4096      # (W2): request sizes 1..4096 rows
+SERVE_CLIENTS = 8
+SERVE_OUTSTANDING = 4         # requests a client keeps in flight
+SERVE_SINGLE_ROWS = 64
+SERVE_CLI_ROWS = 20_000       # (W3)
+HIGGS_PARAMS = dict(objective="binary", num_leaves=255, learning_rate=0.1,
+                    max_bin=255, verbosity=-1)
+
+
+def http_status(port: int, path: str) -> int:
+    import urllib.request
+    with urllib.request.urlopen("http://127.0.0.1:%d%s" % (port, path),
+                                timeout=30) as r:
+        r.read()
+        return r.status
+
+
+def phase_telemetry_train(device, data, ds, iters: int, a_text: str) -> dict:
+    """Path (W1): (A)'s task through ``lightgbm_tpu_torch.train`` with
+    ``telemetry_out`` and ``metrics_port`` (a free port): the summary's
+    split passes (``tree_kernel_launches``) equal to the kernels' own launch
+    counts, every event schema-valid, the summary's device memory peak equal
+    to ``torch.cuda.max_memory_allocated``, one scrape of ``/metrics`` and
+    ``/healthz`` answering 200 during training, and the trees equal to
+    (A)'s (telemetry changes nothing)."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch import device as D
+    from lightgbm_tpu_torch import obs
+    X, y, _, _ = data
+    os.makedirs(SERVE_DIR, exist_ok=True)
+    out_path = os.path.join(SERVE_DIR, "train.jsonl")
+    port = free_port()
+    codes = {}
+
+    def scrape(env):
+        if env.iteration == 1:
+            codes.update({p: http_status(port, p)
+                          for p in ("/metrics", "/healthz")})
+
+    train = lgb.Dataset(X, y)
+    train.handle = ds                    # (A)'s bins and mappers
+    obs.launches.reset()
+    D.reset_launches()
+    t = time.perf_counter()
+    booster = lgb.train(dict(HIGGS_PARAMS, telemetry_out=out_path,
+                             metrics_port=port), train,
+                        num_boost_round=iters, verbose_eval=False,
+                        callbacks=[scrape])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    counts = D.launches()
+    peak = torch.cuda.max_memory_allocated()
+    gbdt = booster._booster
+    with open(out_path + ".summary.json") as fh:
+        summary = json.load(fh)
+    events = obs.read_events(out_path)      # validates every line
+    kinds = sorted({e["kind"] for e in events})
+    passes = summary["tree_kernel_launch_total"]
+    kernel_passes = counts["partition"] + counts["partition_level"]
+    splits = sum(t.num_leaves - 1 for t in gbdt.models)
+    dm_peak = summary.get("devmem", {}).get("peak_bytes_max")
+    log("  (W1) train() with telemetry_out and metrics_port=%d: %.2f s, "
+        "launches %s" % (port, secs, counts))
+    log("  summary: tree_kernel_launches %s, total %d; the kernels' split "
+        "passes %d; splits %d" % (summary["tree_kernel_launches"], passes,
+                                  kernel_passes, splits))
+    log("  %d events of kinds %s, all schema-valid; scrapes %s; devmem "
+        "peak %s vs torch.cuda.max_memory_allocated %d" % (
+            len(events), kinds, codes, dm_peak, peak))
+    if not (passes == kernel_passes == splits and passes > 0):
+        raise AssertionError("(W1) the summary's split passes %d, the "
+                             "kernels' %d, the trees' splits %d"
+                             % (passes, kernel_passes, splits))
+    if counts["histogram"] != len(gbdt.models):
+        raise AssertionError("(W1) %d root histograms for %d trees"
+                             % (counts["histogram"], len(gbdt.models)))
+    if codes != {"/metrics": 200, "/healthz": 200}:
+        raise AssertionError("(W1) scrapes answered %s" % codes)
+    if dm_peak != peak:
+        raise AssertionError("(W1) devmem peak %s != max_memory_allocated "
+                             "%d" % (dm_peak, peak))
+    if trees_text(gbdt.save_model_to_string()) != trees_text(a_text):
+        raise AssertionError("(W1) the trees differ from (A)'s")
+    if obs.active() is not None:
+        raise AssertionError("(W1) train() left its telemetry run open")
+    log("  trees equal to (A)'s; the run closed, its summary at %s"
+        % (out_path + ".summary.json"))
+    return dict(launches=counts, trees=len(gbdt.models), s=secs,
+                split_passes=passes, events=len(events), booster=gbdt,
+                devmem_peak=dm_peak)
+
+
+def _serve_requests(n_train: int, n_test: int, seed: int = 0) -> list:
+    """(kind, source, start, rows) of the clients' requests: sizes 1..4096
+    from a seeded RNG up to ``SERVE_ROWS`` rows, each raw held-out, raw
+    training or binned training rows."""
+    rng = np.random.RandomState(seed)
+    out, total = [], 0
+    while total < SERVE_ROWS:
+        n = min(int(rng.randint(1, SERVE_MAX_REQUEST + 1)), SERVE_ROWS - total)
+        src = ("test", "train", "binned")[rng.randint(3)]
+        n = min(n, n_test if src == "test" else n_train)
+        hi = (n_test if src == "test" else n_train) - n
+        out.append((src, int(rng.randint(0, hi + 1)), n))
+        total += n
+    return out
+
+
+def phase_serving(device, data, ds, a_gbdt, texts: dict, profile: bool
+                  ) -> dict:
+    """Path (W2): the serving tier (``lightgbm_tpu_torch.serve``) on the card
+    with (A)'s trees each repeated ``PREDICT_REPEAT`` times (the Higgs
+    model's 500 trees) resident as ``higgs``, (C)'s trees registered beside
+    it under a residency budget between one and two models' bytes (one
+    eviction: ``higgs`` goes, (C) is served and unregistered, and
+    ``higgs`` is admitted again by the first request of the traffic), then
+    ``SERVE_CLIENTS`` client threads submitting ``SERVE_ROWS`` held-out and
+    training rows, raw and binned, in requests of 1-4096 rows, with one
+    ``swap`` of ``higgs`` to (B)'s trees (repeated alike) under load (the
+    last two fifths of the requests wait for it to return).  Every
+    response equal to one ``FusedPredictor`` call over the same rows, of
+    the old model or the new one (the new one for every request submitted
+    after ``swap`` returned), zero drops, the miss gauge flat outside the
+    warm-up and the swap; then ``SERVE_SINGLE_ROWS`` single-row requests
+    through the compiled fast path."""
+    import threading
+
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch import Config, GBDT
+    from lightgbm_tpu_torch import device as D
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.core.predict_fused import FusedPredictor
+    X, _, X_test, _ = data
+    bins = ds.binned
+    t_phase = time.perf_counter()
+    higgs = repeated_model(a_gbdt, PREDICT_REPEAT, device)
+    b_src = GBDT(Config(verbosity=-1), device=device)
+    b_src.load_model_from_string(texts["B"])
+    higgs_b = repeated_model(b_src, PREDICT_REPEAT, device)
+    level = GBDT(Config(verbosity=-1), device=device)
+    level.load_model_from_string(texts["C"])
+    # the residency budget: the higgs model's bytes (raw and binned
+    # predictors) plus half of (C)'s, so one fits and both do not
+    from lightgbm_tpu_torch.serving import ModelRegistry
+    probe = ModelRegistry(budget_mb=0, device=device)
+    e = probe.register("h", higgs, layout_ds=ds)
+    e.predict(bins[:8], kind="binned")
+    e2 = probe.register("c", level, layout_ds=ds)
+    e2.predict(bins[:8], kind="binned")
+    h_bytes, c_bytes = e.resident_bytes, e2.resident_bytes
+    probe.unregister("h")
+    probe.unregister("c")
+    del probe, e, e2
+    budget_mb = (h_bytes + c_bytes / 2.0) / float(1 << 20)
+    log("  (W2) resident bytes: higgs %d, (C) %d; budget %.3f MiB"
+        % (h_bytes, c_bytes, budget_mb))
+    out_path = os.path.join(SERVE_DIR, "serve.jsonl")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    D.reset_launches()
+    srv = lgb.serve({}, params=dict(
+        max_batch_wait_us=500, serve_residency_budget_mb=budget_mb,
+        telemetry_out=out_path, telemetry_freq=16), device=device)
+    results = []
+    try:
+        srv.register("higgs", higgs, layout_ds=ds)
+        srv.predict("higgs", X_test[:64], raw_score=True)      # warm-up
+        srv.predict("higgs", bins[:64], binned=True, raw_score=True)
+        srv.register("level", level, layout_ds=ds)             # evicts
+        want_c = FusedPredictor(level.models, device=device)(X_test[:4096])
+        got_c = srv.predict("level", X_test[:4096], raw_score=True)
+        want_cb = FusedPredictor(level.models, dataset=ds, kind="binned",
+                                 device=device)(bins[:4096])
+        got_cb = srv.predict("level", bins[:4096], binned=True,
+                             raw_score=True)
+        if not (np.array_equal(got_c, want_c)
+                and np.array_equal(got_cb, want_cb)):
+            raise AssertionError("(W2) (C)'s responses differ from its "
+                                 "FusedPredictor")
+        srv.registry.unregister("level")
+        base = obs.recompile.total()
+        requests = _serve_requests(len(X), len(X_test))
+        swapped = threading.Event()
+        lock = threading.Lock()
+        swap_misses = []
+
+        def rows_of(src, lo, n):
+            return (X_test if src == "test" else
+                    bins if src == "binned" else X)[lo:lo + n]
+
+        # the last two fifths of the requests wait for swap to return, so
+        # that the new model serves some whatever the host's speed; the
+        # first three fifths keep the server loaded during the swap
+        split = len(requests) * 3 // 5
+
+        def client(tid):
+            pending = []
+            for i in range(tid, len(requests), SERVE_CLIENTS):
+                src, lo, n = requests[i]
+                if i >= split and not swapped.wait(300):
+                    raise AssertionError("(W2) swap did not return")
+                after = swapped.is_set()
+                t0 = time.perf_counter()
+                fut = srv.submit("higgs", rows_of(src, lo, n),
+                                 binned=src == "binned", raw_score=True)
+                pending.append((i, after, t0, fut))
+                if len(pending) >= SERVE_OUTSTANDING:
+                    j, aft, t1, f = pending.pop(0)
+                    res = f.result(120)
+                    with lock:
+                        results.append((j, aft, time.perf_counter() - t1,
+                                        res))
+            for j, aft, t1, f in pending:
+                res = f.result(120)
+                with lock:
+                    results.append((j, aft, time.perf_counter() - t1, res))
+
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(SERVE_CLIENTS)]
+        t_traffic = time.perf_counter()
+        for th in threads:
+            th.start()
+        deadline = time.monotonic() + 300
+        while True:
+            with lock:
+                done = len(results)
+            if done >= len(requests) * 2 // 5:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError("(W2) %d of %d responses in 300 s"
+                                     % (done, len(requests)))
+            time.sleep(0.001)
+        before = obs.recompile.total()
+        t_swap = time.perf_counter()
+        srv.swap("higgs", higgs_b, layout_ds=ds)
+        swap_s = time.perf_counter() - t_swap
+        swap_misses.append(obs.recompile.total() - before)
+        swapped.set()
+        for th in threads:
+            th.join()
+        traffic_s = time.perf_counter() - t_traffic
+        torch.cuda.synchronize()
+        misses = obs.recompile.total() - base
+        stats = srv.stats()
+        # the single-row fast path on the new generation
+        srv.single_row_fast = True
+        t_single = time.perf_counter()
+        singles = [srv.predict("higgs", X_test[0], raw_score=True)]
+        compile_s = time.perf_counter() - t_single   # the chain's build
+        t_single = time.perf_counter()
+        singles += [srv.predict("higgs", X_test[i], raw_score=True)
+                    for i in range(1, SERVE_SINGLE_ROWS)]
+        single_s = time.perf_counter() - t_single
+        fast = srv.fast_served
+        if profile:
+            profile_serving(srv, X_test)
+    finally:
+        srv.close()
+    peak = torch.cuda.max_memory_allocated()
+    counts = D.launches()
+    with open(out_path + ".summary.json") as fh:
+        served = json.load(fh)["serving"]
+    batch_ev = [e for e in obs.read_events(out_path)
+                if e["kind"] == "serve_batch" and not e["fast"]
+                and e["model"] == "higgs"]
+    dispatch_s = sorted(e["dt_s"] for e in batch_ev)
+    # checks: every response against one FusedPredictor call of its rows
+    refs = {}
+    for name, model in (("old", higgs), ("new", higgs_b)):
+        refs[name] = (FusedPredictor(model.models, device=device),
+                      FusedPredictor(model.models, dataset=ds, kind="binned",
+                                     device=device))
+    served_new = 0
+    for i, after, _, got in results:
+        src, lo, n = requests[i]
+        raw_p, bin_p = refs["new"]
+        want_new = (bin_p if src == "binned" else raw_p)(rows_of(src, lo, n))
+        if np.array_equal(got, want_new):
+            served_new += 1
+            continue
+        if after:
+            raise AssertionError("(W2) request %d, submitted after swap "
+                                 "returned, differs from the new model" % i)
+        raw_p, bin_p = refs["old"]
+        if not np.array_equal(got, (bin_p if src == "binned" else raw_p)(
+                rows_of(src, lo, n))):
+            raise AssertionError("(W2) request %d (%s, %d rows) equals "
+                                 "neither generation" % (i, src, n))
+    want_single = refs["new"][0](X_test[:SERVE_SINGLE_ROWS])
+    if not np.array_equal(np.concatenate(singles), want_single):
+        raise AssertionError("(W2) single-row responses differ")
+    lat = np.array([r[2] for r in results])
+    regs = stats["registry"]
+    log("  %d requests, %d rows in %.3f s: %.1f rows/s; request latency "
+        "p50 %.3f ms p99 %.3f ms; %d batches, mean %.1f rows a batch"
+        % (len(results), SERVE_ROWS, traffic_s, SERVE_ROWS / traffic_s,
+           1e3 * float(np.percentile(lat, 50)),
+           1e3 * float(np.percentile(lat, 99)), stats["batches"],
+           SERVE_ROWS / max(stats["batches"], 1)))
+    log("  dispatch wall a batch (serve_batch events, %d batches): median "
+        "%.3f ms, max %.3f ms; %.1f rows/s inside the dispatches"
+        % (len(batch_ev), 1e3 * dispatch_s[len(dispatch_s) // 2],
+           1e3 * dispatch_s[-1],
+           sum(e["rows"] for e in batch_ev) / sum(dispatch_s)))
+    log("  swap under load in %.3f s (%d misses, its stacking); %d responses"
+        " from the new model; dropped %d, failed %d; evictions %d, "
+        "re-admissions %d, swaps %d; misses outside the warm-up and the "
+        "swap %d" % (swap_s, swap_misses[0], served_new, stats["dropped"],
+                     stats["failed"], regs["evictions"], regs["readmits"],
+                     regs["swaps"], misses - swap_misses[0]))
+    log("  %d single-row requests through the fast path (%d fast): the "
+        "first, with compile_single_row of %d trees, %.3f s, the other %d "
+        "%.3f ms each; peak device memory %.1f MiB; launches %s; serving "
+        "block batches %d, readmits %d"
+        % (SERVE_SINGLE_ROWS, fast, len(higgs_b.models), compile_s,
+           SERVE_SINGLE_ROWS - 1, 1e3 * single_s / (SERVE_SINGLE_ROWS - 1),
+           peak / 2 ** 20, counts, served["batches"], served["readmits"]))
+    if stats["dropped"] or stats["failed"] or len(results) != len(requests):
+        raise AssertionError("(W2) dropped %d, failed %d, %d of %d answered"
+                             % (stats["dropped"], stats["failed"],
+                                len(results), len(requests)))
+    if (regs["evictions"], regs["readmits"], regs["swaps"]) != (1, 1, 1):
+        raise AssertionError("(W2) evictions %d, re-admissions %d, swaps %d"
+                             % (regs["evictions"], regs["readmits"],
+                                regs["swaps"]))
+    late = sum(1 for r in results if r[1])
+    if misses != swap_misses[0] or late < len(requests) - split:
+        raise AssertionError("(W2) %d misses outside the swap; %d requests "
+                             "submitted after it" % (misses - swap_misses[0],
+                                                     late))
+    if fast != SERVE_SINGLE_ROWS or any(counts.values()):
+        raise AssertionError("(W2) fast path %d of %d, launches %s"
+                             % (fast, SERVE_SINGLE_ROWS, counts))
+    return dict(launches=counts, trees=0, rows=SERVE_ROWS, s=traffic_s,
+                rows_per_s=SERVE_ROWS / traffic_s,
+                p50_ms=1e3 * float(np.percentile(lat, 50)),
+                p99_ms=1e3 * float(np.percentile(lat, 99)),
+                requests=len(results), batches=stats["batches"],
+                dispatch_median_ms=1e3 * dispatch_s[len(dispatch_s) // 2],
+                mean_batch_rows=SERVE_ROWS / max(stats["batches"], 1),
+                served_new=served_new, swap_s=swap_s, peak_bytes=peak,
+                single_compile_s=compile_s,
+                phase_s=time.perf_counter() - t_phase)
+
+
+def profile_serving(srv, X_test) -> None:
+    """16 dispatches of 4096 rows under ``torch.profiler``: the port's
+    trace ranges (``serve_dispatch``, ``tree_block_predict``).  The
+    profiler records the operators of the thread that started it, so the
+    dispatches run here, through the dispatcher's own ``Server._run``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lightgbm_tpu_torch.obs import annotate
+    from lightgbm_tpu_torch.serving.scheduler import _BatchKey
+    key = _BatchKey(model="higgs", kind="raw", num_iteration=-1,
+                    start_iteration=0, margin=-1.0, freq=10, raw_score=True,
+                    contrib=False, precision="exact")
+    entry = srv.registry.acquire("higgs")
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(16):
+                with annotate("serve_dispatch"):
+                    srv._run(entry, key, X_test[i * 4096:(i + 1) * 4096],
+                             False)
+            torch.cuda.synchronize()
+    finally:
+        srv.registry.release(entry)
+    names = ("serve_dispatch", "tree_block_predict")
+    events = prof.key_averages()
+    for e in events:
+        if any(n in e.key for n in names):
+            log("  range %-20s calls %3d  cpu %.3f ms  device %.3f ms"
+                % (e.key, e.count, e.cpu_time_total / 1e3,
+                   e.device_time_total / 1e3))
+    log(events.table(sort_by="cpu_time_total", row_limit=12))
+
+
+def phase_serve_cli(device, data, gbdt) -> dict:
+    """Path (W3): CLI ``task=serve`` on a CSV of (A)'s first 20,000
+    held-out rows, equal line for line to ``task=predict``'s output (both
+    in the f32 regime from 512 rows on)."""
+    from lightgbm_tpu_torch import device as D
+    from lightgbm_tpu_torch.cli import Application
+    _, _, X_test, y_test = data
+    n = min(SERVE_CLI_ROWS, len(X_test))
+    model = os.path.join(SERVE_DIR, "model.txt")
+    gbdt.save_model(model)
+    csv = os.path.join(SERVE_DIR, "serve.csv")
+    write_fixed_csv(csv, np.column_stack([y_test[:n], X_test[:n]]))
+    outs = {}
+    D.reset_launches()
+    t = time.perf_counter()
+    for task in ("predict", "serve"):
+        outs[task] = os.path.join(SERVE_DIR, "%s.txt" % task)
+        Application(["task=%s" % task, "data=%s" % csv,
+                     "input_model=%s" % model,
+                     "output_result=%s" % outs[task], "verbosity=-1",
+                     "max_batch_wait_us=500"]).run()
+    secs = time.perf_counter() - t
+    counts = D.launches()
+    with open(outs["predict"]) as a, open(outs["serve"]) as b:
+        pa, pb = a.read().splitlines(), b.read().splitlines()
+    log("  (W3) CLI task=predict and task=serve on %d rows: %d and %d lines,"
+        " %d differ; %.2f s; launches %s"
+        % (n, len(pa), len(pb), sum(x != y for x, y in zip(pa, pb)), secs,
+           counts))
+    if not (pa == pb and len(pa) == n):
+        raise AssertionError("(W3) task=serve's output differs from "
+                             "task=predict's")
+    return dict(launches=counts, trees=0, s=secs)
+
+
 def profile_iteration(booster) -> float:
     """One more training iteration under ``torch.profiler``: the kernels by
     device time, and the device's busy share of the iteration's wall time."""
@@ -4659,10 +5104,11 @@ def main(argv=None) -> int:
     data = synthetic_task(args.rows)
     ds = BinnedDataset.from_matrix(data[0], label=data[1], max_bin=255)
     log("  set-up (data, binning) %.2f s" % (time.perf_counter() - t0))
-    paths = {}
+    paths, texts = {}, {}
     for path in PATHS:
         paths[path] = phase_main_path(device, data, ds, path, args.iters,
                                       args.profile)
+        texts[path] = paths[path]["booster"].save_model_to_string()
         if path != "A":
             del paths[path]["booster"]
         torch.cuda.empty_cache()
@@ -4728,6 +5174,22 @@ def main(argv=None) -> int:
     log("  (R) checkpoint and resume on (A)'s bins")
     paths["R"] = phase_checkpoint(device, data, ds)
     torch.cuda.empty_cache()
+    log("  (W) telemetry and the serving tier: (W1) train() of (A)'s task "
+        "with telemetry_out and metrics_port, (W2) serving (A)'s trees x%d "
+        "to %d client threads with (C)'s resident beside it and a swap to "
+        "(B)'s under load, (W3) CLI task=serve" % (PREDICT_REPEAT,
+                                                   SERVE_CLIENTS))
+    t = time.perf_counter()
+    paths["W1"] = phase_telemetry_train(device, data, ds, args.iters,
+                                        texts["A"])
+    w_gbdt = paths["W1"].pop("booster")
+    paths["W2"] = phase_serving(device, data, ds, w_gbdt, texts,
+                                args.profile)
+    torch.cuda.empty_cache()
+    paths["W3"] = phase_serve_cli(device, data, w_gbdt)
+    del w_gbdt
+    torch.cuda.empty_cache()
+    log("  (W) took %.1f s" % (time.perf_counter() - t))
     del ds
     log("  (T) the C ABI at (A)'s shape through raw LGBM_* calls: %d rows x "
         "28 f64 features, (A)'s parameters, %d iterations" % (args.rows,
@@ -4810,7 +5272,7 @@ def main(argv=None) -> int:
              source="lightgbm_tpu_torch/csrc/histogram.cu",
              replaces="lightgbm_tpu/core/histogram.py:743",
              max_abs_err=hist_err_max,
-             **launches("histogram", "ABCGHIJRSTU", ("V1", "V2")),
+             **launches("histogram", "ABCGHIJRSTU", ("V1", "V2", "W1")),
              groups_root=paths["I"]["times"]["histogram"],
              cli_root=paths["S"]["times"]["histogram"],
              expo_root=paths["J"]["times"]["histogram"],
@@ -4820,7 +5282,7 @@ def main(argv=None) -> int:
              replaces="lightgbm_tpu/core/partition.py:1090",
              also_replaces="lightgbm_tpu/core/partition.py:1130",
              max_abs_err=split_err_max,
-             **launches("partition", "ABCFGHIJRSTU", ("V1", "V2")),
+             **launches("partition", "ABCFGHIJRSTU", ("V1", "V2", "W1")),
              feature_window_launches=paths["V2"]["feature_window_launches"],
              cli_root=paths["S"]["times"]["split"],
              unfold_launches=paths["I"]["routes"]["partition"]["unfold"],

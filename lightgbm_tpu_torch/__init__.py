@@ -13,19 +13,22 @@ run on ``cuda`` unless the caller passes ``device="cpu"`` (see
 :mod:`lightgbm_tpu_torch.device`).  ``c_api`` carries the ``LGBM_*`` C
 ABI, which ``python -m lightgbm_tpu_torch.capi_build`` compiles into
 ``lib_lightgbm_tpu_torch.so``; ``resilience`` the preemption flag and the
-watchdog.  The serving and online planes
-(``serve``, ``serve_and_train``) and telemetry (``obs``) are not ported
-(ROADMAP queue 1 items 14-15).  The sklearn estimators and plotting are
+watchdog; ``serve`` (and ``Booster.serve``) the serving tier
+(``serving``: continuous batching, multi-model residency, hot swap, the
+single-row fast path); ``obs`` the telemetry plane (``telemetry_out``,
+``metrics_port``).  The train-while-serve loop ``serve_and_train`` is not
+ported (ROADMAP queue 1 item 15).  The sklearn estimators and plotting are
 imported on first use (they import sklearn and pandas when installed).
 """
 import importlib
 
+from . import obs
 from .basic import Booster, Dataset
 from .boosting.gbdt import GBDT
 from .callback import (EarlyStopException, early_stopping, print_evaluation,
                        record_evaluation, reset_parameter)
 from .config import Config
-from .engine import CVBooster, cv, train
+from .engine import CVBooster, cv, serve, serve_and_train, train
 from .io.dataset import BinnedDataset
 from .objective import create_objective
 from .utils.log import LightGBMError
@@ -33,7 +36,7 @@ from .utils.log import LightGBMError
 __version__ = "2.3.2"
 
 __all__ = ["Dataset", "Booster", "CVBooster", "LightGBMError",
-           "train", "cv",
+           "train", "cv", "serve", "serve_and_train", "obs",
            "LGBMModel", "LGBMRegressor", "LGBMClassifier", "LGBMRanker",
            "early_stopping", "print_evaluation", "record_evaluation",
            "reset_parameter", "EarlyStopException",

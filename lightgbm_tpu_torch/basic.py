@@ -24,8 +24,9 @@ does not take: then it is densified, as in the JAX package (basic.py:85-112,
 :227-250).  ``predict`` takes ``pred_leaf``, ``pred_contrib`` and
 ``precision`` (``exact`` or ``bf16``), ``predict_binned`` a constructed
 ``Dataset``'s row store; ``save_checkpoint`` and ``resume_from_checkpoint``
-carry the train state (``checkpoint.py``).  Telemetry and serving are
-TPU-era planes with no counterpart here (ROADMAP queue 1 items 14-15).
+carry the train state (``checkpoint.py``).  ``Booster.serve`` starts the
+serving tier with the booster resident, and ``telemetry_summary`` reads
+the active telemetry run (``obs``).
 """
 from __future__ import annotations
 
@@ -577,6 +578,42 @@ class Booster:
         validation sets attached; the restored iteration, 0 when there is
         none."""
         return self._booster.resume_from_checkpoint(checkpoint_prefix)
+
+    # ---- serving (serving/) and telemetry (obs/), basic.py:589-630 ----
+
+    def serve(self, name: str = "model", **server_kwargs):
+        """Start a serving tier with this booster resident as ``name``, on
+        the booster's device unless ``device=`` says otherwise.  The
+        returned :class:`~lightgbm_tpu_torch.serving.Server` coalesces
+        requests (``submit``/``predict``), takes per-request
+        ``num_iteration``/``pred_early_stop`` and binned rows, holds more
+        models (``register``) and hot-swaps (``swap``).  The knobs come
+        from this booster's params (``max_batch_wait_us``,
+        ``serve_residency_budget_mb``, ``serve_single_row_fast``);
+        ``server_kwargs`` override them."""
+        from .serving import Server
+        server_kwargs.setdefault("device", self.device)
+        server = Server(config=self.config, **server_kwargs)
+        try:
+            server.register(name, self._booster)
+        except BaseException:
+            server.close(drain=False)  # don't leak the dispatcher thread
+            raise
+        return server
+
+    def telemetry_summary(self) -> Optional[Dict]:
+        """Summary dict of the process-active telemetry run (counters,
+        gauges, histograms with p50/p99, misses per bucket, split passes
+        per growth mode, host-phase timings), or None when telemetry is
+        off.  A run ``train`` opened for ``telemetry_out`` is finalized and
+        closed when training ends; ``obs.configure`` opens one this method
+        can read mid-flight."""
+        from . import obs
+        tele = obs.active()
+        if tele is None:
+            return None
+        from .obs.report import summarize
+        return summarize(tele)
 
     def dump_model(self, num_iteration: Optional[int] = None,
                    start_iteration: int = 0) -> Dict:

@@ -13,7 +13,9 @@ from ``RandomState(drop_seed)`` in the JAX package's order, with
 each iteration's weight is kept (``tree_weight``) and makes its drop
 probability.  Host trees shrink in f64 (``lazy_trees = False``).  A
 checkpoint carries the drop stream and the weight history
-(``_extra_train_state``, dart.py:31-47).
+(``_extra_train_state``, dart.py:31-47).  With a telemetry run active,
+every drop observes ``dart_dropped_trees`` and every ``telemetry_freq``-th
+iteration emits a ``dart_drop`` event (dart.py:99-107).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import numpy as np
 
 from .gbdt import GBDT
 from ..checkpoint import decode_rng_state, encode_rng_state
+from ..obs import active as _telemetry_active
 
 
 class DART(GBDT):
@@ -107,6 +110,12 @@ class DART(GBDT):
                 tree.shrink(-1.0)
                 self._add_tree_score_train(tree, c)
         kdrop = len(self.drop_index)
+        tele = _telemetry_active()
+        if tele is not None:
+            tele.histogram("dart_dropped_trees").observe(kdrop)
+            if self.iter_ % tele.freq == 0:
+                tele.event("dart_drop", iteration=int(self.iter_),
+                           dropped=int(kdrop))
         lr = self.config.learning_rate
         if not cfg.xgboost_dart_mode:
             self.shrinkage_rate = lr / (1.0 + kdrop)

@@ -58,6 +58,16 @@ A booster trained by a parallel learner runs on every rank of its group:
 its device predictions are split over the ranks (``sharded_predict``,
 ``sharded_predict_contrib``, gbdt.py:2048-2162), and only the write leader
 (rank 0) writes snapshots (gbdt.py:1934-1941).
+
+Telemetry (``obs``): with a run active, :meth:`train` records each
+iteration as a chunk of one (``_record_chunk_telemetry``, gbdt.py:1101-1170:
+``chunk_*`` histograms, a ``train_chunk`` event and span, the quantized
+path's ``quant_*`` block, a ``devmem`` sample) and the run gauges
+``train_rows``/``train_iterations``/``train_wall_s``; evaluation emits
+``eval`` events, a non-finite guard trip ``nan_trip``, and the binned
+predict of an external dataset feeds the quality plane
+(``quality_baseline``, gbdt.py:2230-2310).  The JAX package's fused chunk
+(its compile key and the per-chunk non-finite rollback) has no counterpart.
 """
 from __future__ import annotations
 
@@ -69,7 +79,7 @@ import torch
 
 from ..config import Config
 from ..core.predict import StackedTrees
-from ..core.predict_fused import FusedPredictor
+from ..core.predict_fused import FusedPredictor, note_stack
 from ..core.quant import _M32, _mul32
 from ..core.tree import Tree
 from ..core.tree_learner import (TreeArrays, arrays_from_tree,
@@ -78,6 +88,9 @@ from ..device import DeviceLike, resolve_device
 from ..io.dataset import BinnedDataset
 from ..metric.metric import Metric, create_metrics
 from ..objective import ObjectiveFunction, create_objective
+from ..obs import active as _telemetry_active
+from ..obs import devmem as _devmem
+from ..obs import spans as _spans
 from ..parallel.learners import (create_tree_learner, is_write_leader,
                                  sharded_predict, sharded_predict_contrib)
 from ..resilience import (TrainingPreempted, clear_preemption,
@@ -155,6 +168,13 @@ class GBDT:
         self.iter_ = 0
         self.num_init_iteration = 0
         self.train_data: Optional[BinnedDataset] = None
+        # quality-plane provenance (obs/quality.py): when the model last
+        # trained, and the training score fingerprints, taken lazily on the
+        # first drift baseline
+        self.trained_at: Optional[float] = None
+        self._score_fingerprint_raw = None
+        self._score_fingerprint_out = None
+        self._quality_baseline_cache = None
         self.objective = objective
         self.num_tree_per_iteration = 1
         self.num_class = int(config.num_class)
@@ -384,6 +404,7 @@ class GBDT:
         custom objective's (``Booster.update(fobj=...)``).  Returns True
         when training cannot continue (no splittable leaves)."""
         K = self.num_tree_per_iteration
+        self.trained_at = time.time()
         self._keep_pre_iter_scores()
         init_scores = [0.0] * K
         if gradients is None or hessians is None:
@@ -465,6 +486,7 @@ class GBDT:
         if bool(torch.isfinite(grad).all() & torch.isfinite(hess).all()):
             return grad, hess, False
         policy = self._nan_policy
+        self._nan_trip_telemetry(self.iter_, policy, policy)
         if policy == "raise":
             raise LightGBMError(
                 "non-finite gradients/hessians at iteration %d "
@@ -481,6 +503,16 @@ class GBDT:
         grad = torch.nan_to_num(grad, nan=0.0, posinf=clip, neginf=-clip)
         hess = torch.nan_to_num(hess, nan=0.0, posinf=clip, neginf=0.0)
         return grad, hess, False
+
+    @staticmethod
+    def _nan_trip_telemetry(iteration: int, policy: str, action: str) -> None:
+        """Cold-path accounting of a non-finite guard trip
+        (gbdt.py:1283-1292)."""
+        tele = _telemetry_active()
+        if tele is not None:
+            tele.counter("nan_policy_trips").inc()
+            tele.event("nan_trip", iteration=int(iteration), policy=policy,
+                       action=action)
 
     def _skip_iteration(self, init_scores: Optional[List[float]] = None
                         ) -> bool:
@@ -595,12 +627,18 @@ class GBDT:
         ``<snapshot_out>.snapshot_iter_<n>`` and the train state to a
         checkpoint beside it (gbdt.py:1917-1950)."""
         t_start = time.perf_counter()
+        it_start = self.iter_
         total = int(self.config.num_iterations)
         has_eval = bool(self.train_metrics) or bool(self.valid_sets)
         mf = int(self.config.metric_freq)
         sf = int(self.config.snapshot_freq)
+        tele = _telemetry_active()
         while self.iter_ < total:
+            it0, t0 = self.iter_, time.perf_counter()
             finished = self.watched_iter()
+            if tele is not None:
+                self._record_chunk_telemetry(tele, it0,
+                                             time.perf_counter() - t0)
             Log.info("%f seconds elapsed, finished iteration %d",
                      time.perf_counter() - t_start, self.iter_)
             if not finished and has_eval and mf > 0 and self.iter_ % mf == 0:
@@ -615,6 +653,52 @@ class GBDT:
                 self._preempt_exit(snapshot_out)
             if snapshot_out and sf > 0 and self.iter_ % sf == 0:
                 self._write_snapshot(snapshot_out)
+        if tele is not None:
+            # the run gauges report.summarize folds into row-trees/s; the
+            # iterations are this call's (a resumed run's wall covers only
+            # this process's work)
+            tele.gauge("train_rows").set(int(self.num_data))
+            tele.gauge("train_iterations").set(int(self.iter_ - it_start))
+            tele.gauge("train_wall_s").set(time.perf_counter() - t_start)
+
+    def _record_chunk_telemetry(self, tele, first_iter: int,
+                                dt: float) -> None:
+        """One iteration's metrics and events (``_record_chunk_telemetry``
+        with ``fused=False``, gbdt.py:1101-1170); ``dt`` is its host wall."""
+        iters = self.iter_ - first_iter
+        if iters <= 0:
+            return
+        rows = float(self.num_data) * iters
+        rate = rows / dt if dt > 0 else 0.0
+        tele.histogram("chunk_dispatch_s").observe(dt)
+        tele.histogram("chunk_rows_per_s").observe(rate)
+        tele.histogram("chunk_ns_per_row").observe(
+            dt / rows * 1e9 if rows else 0.0)
+        tele.gauge("bag_data_cnt").set(self.bag_data_cnt)
+        tele.event("train_chunk", first_iter=int(first_iter),
+                   iters=int(iters), dt_s=dt, rows_per_s=rate, fused=False,
+                   bag_data_cnt=int(self.bag_data_cnt))
+        learner = getattr(self, "learner", None)
+        if learner is not None and getattr(learner, "quantized", False):
+            from ..core.quant import GRAD_LEVELS, HESS_LEVELS
+            # the integer kernels read two value rows (grad, hess) a row,
+            # the exact ones four (hist_channels of the JAX package)
+            tele.counter("quant_chunks").inc()
+            tele.counter("quant_iters").inc(int(iters))
+            tele.gauge("quant_grad_levels").set(GRAD_LEVELS)
+            tele.gauge("quant_hess_levels").set(HESS_LEVELS)
+            tele.gauge("quant_hist_channels").set(2)
+            tele.event("quant", first_iter=int(first_iter),
+                       iters=int(iters), grad_levels=int(GRAD_LEVELS),
+                       hess_levels=int(HESS_LEVELS), hist_channels=2,
+                       exact_channels=4,
+                       collective_dtype=("float32" if getattr(
+                           learner, "comm", None) is not None else ""))
+        _devmem.sample(tele, phase="train_chunk")
+        _spans.record_span(tele, "train_chunk", t0=time.time() - dt,
+                           dur_s=dt, trace_id=tele.trace_id,
+                           first_iter=int(first_iter), iters=int(iters),
+                           fused=False)
 
     def watched_iter(self, gradients=None, hessians=None) -> bool:
         """:meth:`train_one_iter` inside a watchdog section (a no-op when
@@ -684,8 +768,12 @@ class GBDT:
         for ``early_stopping_round`` evaluations' worth of iterations (with
         ``first_metric_only``, only the first metric of each set counts,
         gbdt.cpp OutputMetric).  Records ``best_iteration`` when it stops."""
+        tele = _telemetry_active()
         for ds, name, val, _ in self.eval_train():
             Log.info("Iteration:%d, %s %s : %g", self.iter_, ds, name, val)
+            if tele is not None:
+                tele.event("eval", iteration=int(self.iter_), dataset=ds,
+                           metric=name, value=float(val))
         rounds = int(self.config.early_stopping_round)
         first_only = bool(self.config.first_metric_only)
         stop = False
@@ -694,6 +782,9 @@ class GBDT:
             for ds, name, val, bigger_better in self._eval(
                     vs["name"], vs["score"], vs["metrics"]):
                 Log.info("Iteration:%d, %s %s : %g", self.iter_, ds, name, val)
+                if tele is not None:
+                    tele.event("eval", iteration=int(self.iter_), dataset=ds,
+                               metric=name, value=float(val))
                 first = name if first is None else first
                 if rounds <= 0 or (first_only and name != first):
                     continue
@@ -753,6 +844,9 @@ class GBDT:
                 self._fused_pred.pop(next(iter(self._fused_pred)))
             pred = FusedPredictor(sel, dataset=layout_ds, kind=kind,
                                   precision=precision, device=self.device)
+            if note_stack(self, (kind, start, end, class_id, precision,
+                                 key[5], len(self.models))):
+                pred.pending_miss = True
             self._fused_pred[key] = pred
         return pred
 
@@ -898,7 +992,43 @@ class GBDT:
             out[k] = self._fused_predictor(
                 sel[k::K], start_iteration, end, k, kind="binned",
                 layout_ds=layout)(rows, margin, freq)
+        # quality plane (gbdt.py:2292-2310): an EXTERNAL dataset's bins fold
+        # into the drift counters (replays of the training set are drift
+        # free by definition); quality_monitor=false switches it off
+        tele = _telemetry_active()
+        if tele is not None and dataset is not None \
+                and ds is not self.train_data \
+                and bool(getattr(self.config, "quality_monitor", True)):
+            from ..obs import quality as _quality
+            mon = _quality.monitor(
+                tele, create=True,
+                top_k=int(getattr(self.config, "quality_top_k", 20)))
+            mon.observe(tele, getattr(self, "quality_name", "model"), self,
+                        layout, 1, ds.binned, "binned",
+                        scores=out[0] if K == 1 else None, raw_score=True)
         return out
+
+    def quality_baseline(self, layout_ds=None):
+        """Drift baseline of this model against ``layout_ds`` (default the
+        training data): per-feature training bin occupancy, importance and
+        the score fingerprints, cached per (layout, model size)
+        (gbdt.py:2230-2258).  None without a layout dataset."""
+        from ..obs.quality import QualityBaseline, capture_fingerprints
+        ds = layout_ds if layout_ds is not None else self.train_data
+        if ds is None:
+            return None
+        key = len(self.models)
+        cached = self._quality_baseline_cache
+        if cached is not None and cached[0] is ds and cached[1] == key:
+            return cached[2]
+        if (self._score_fingerprint_raw is None
+                and getattr(self, "train_score", None) is not None):
+            # taken here, on the first baseline, not at train end: a run
+            # with telemetry off never pays for it
+            capture_fingerprints(self)
+        base = QualityBaseline.from_model(self, ds)
+        self._quality_baseline_cache = (ds, key, base)
+        return base
 
     def predict_binned(self, dataset: Optional[BinnedDataset] = None,
                        raw_score: bool = False, num_iteration: int = -1,

@@ -13,6 +13,9 @@ stable=True)``: ties go to the lower row index, as ``lax.top_k`` and
 sampled rows within the rest come from the booster's sequential
 ``_bag_rng``, the same ``choice`` call as the JAX package's.  There is one
 selection path: a failure in it raises.
+With a telemetry run active the selection sets ``goss_top_k`` and
+``goss_other_k``, and every ``telemetry_freq``-th iteration emits
+``goss_select`` (goss.py:113-123).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from .gbdt import GBDT
+from ..obs import active as _telemetry_active
 from ..utils.log import Log
 
 
@@ -84,5 +88,13 @@ class GOSS(GBDT):
         self.goss_weight = goss_weights(key, top_k, sampled, multiply)
         self.goss_key, self.goss_sampled = key, sampled
         self.bag_data_cnt = top_k + len(sampled)
+        tele = _telemetry_active()
+        if tele is not None:
+            tele.gauge("goss_top_k").set(top_k)
+            tele.gauge("goss_other_k").set(len(sampled))
+            if self.iter_ % tele.freq == 0:
+                tele.event("goss_select", iteration=int(self.iter_),
+                           top_k=int(top_k), other_k=int(len(sampled)),
+                           multiplier=float(multiply))
         w = self.goss_weight[None, :]
         return grad * w, hess * w

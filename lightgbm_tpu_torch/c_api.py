@@ -31,8 +31,12 @@ CUDA, every entry that creates a dataset or booster fails with "CUDA is not
 available; set LIGHTGBM_TPU_TORCH_DEVICE=cpu"); ``cpu`` means the CPU; any
 other value is an error.  Nothing runs on the CPU unless asked.
 
-Where the port differs from the JAX package: ``LGBM_Telemetry*`` refuse by
-name (no telemetry plane yet, ROADMAP queue 1 item 14);
+``LGBM_TelemetryConfigure|Disable|Summary|RecompileCount`` drive the
+port's telemetry plane (``obs``, c_api.py:295-330 of the JAX package): the
+summary is the JSON of ``obs.report.summarize`` ("" with telemetry off)
+and the count is ``obs.recompile.total()``, the port's misses.
+
+Where the port differs from the JAX package:
 ``LGBM_PredictFallbackCount`` reads 0, since the port has no degraded path;
 ``LGBM_DatasetCreateFromCSRFunc`` takes a plain C callback (the
 reference's ``std::function`` cannot be called from C):
@@ -381,10 +385,34 @@ def _impl_predict_for_file(cb: _CBooster, data_filename: str,
             fh.write("\t".join(repr(float(v)) for v in row) + "\n")
 
 
-def _refuse_telemetry() -> None:
-    raise NotImplementedError("the telemetry plane is not ported to "
-                              "lightgbm_tpu_torch yet (ROADMAP queue 1 "
-                              "item 14)")
+def _impl_telemetry_configure(out_path: str, freq: int) -> None:
+    """Start (or restart) the process-active telemetry run; an empty
+    ``out_path`` keeps the events in memory."""
+    from . import obs
+    obs.configure(out=out_path or None, freq=int(freq) or 1, entry="c_api")
+
+
+def _impl_telemetry_disable() -> None:
+    from . import obs
+    obs.disable()
+
+
+def _impl_telemetry_summary() -> str:
+    """Summary JSON of the active telemetry run ("" when telemetry is
+    off)."""
+    from . import obs
+    tele = obs.active()
+    if tele is None:
+        return ""
+    from .obs.report import summarize
+    return json.dumps(summarize(tele), default=str)
+
+
+def _impl_telemetry_recompile_count() -> int:
+    """The port's misses (``obs.recompile``: predictors stacked for a new
+    key, the kernel build), always on."""
+    from .obs import recompile
+    return int(recompile.total())
 
 
 def _impl_preemption_install() -> None:
@@ -977,23 +1005,24 @@ def _entries() -> Dict[str, Callable]:  # noqa: C901 - one table
             iteration=None if int(num_iteration) <= 0 else int(num_iteration))
         _write_out(out_results, np.asarray(imp, dtype=np.float64))
 
-    # ---- telemetry: refused by name (ROADMAP queue 1 item 14) ----
+    # ---- telemetry (obs) ----
 
     @entry
     def LGBM_TelemetryConfigure(out_path, freq):
-        _refuse_telemetry()
+        _impl_telemetry_configure(_str(out_path), int(freq))
 
     @entry
     def LGBM_TelemetryDisable():
-        _refuse_telemetry()
+        _impl_telemetry_disable()
 
     @entry
     def LGBM_TelemetrySummary(buffer_len, out_len, out_str):
-        _refuse_telemetry()
+        _text_to_buffer(_impl_telemetry_summary(), buffer_len, out_len,
+                        out_str)
 
     @entry
     def LGBM_TelemetryRecompileCount(out_count):
-        _refuse_telemetry()
+        _put(out_count, ctypes.c_int64, _impl_telemetry_recompile_count())
 
     # ---- resilience (resilience.py) ----
 

@@ -21,8 +21,11 @@ newest first with each file's CRC checked: a corrupt or truncated newest
 file falls back to the previous good one.  Scores go as binary f32 arrays,
 never replayed from the model text: DART's drops make the f32 score sum
 depend on its history.  Writes retry transient filesystem faults and fire
-the fault hook of ``utils.file_io``; the JAX package's telemetry and host
-shards have no counterpart here.
+the fault hook of ``utils.file_io``.  With a telemetry run active, a write
+records ``checkpoint_write_s``, a ``checkpoint_write`` event and span, a
+skipped write ``checkpoint_skipped``, a restore ``checkpoint_restore_s``
+(checkpoint.py:205-270, :340-362 of the JAX package); the age of the last
+write feeds ``/healthz`` (:func:`last_checkpoint_time`).
 """
 from __future__ import annotations
 
@@ -179,14 +182,39 @@ def deserialize_state(blob: bytes
 
 # ---- save / load / discover ----
 
+# wall-clock time of this process's newest successful checkpoint write:
+# /healthz (obs/exporter.py) shows its age
+_LAST_WRITE_TS: Optional[float] = None
+
+
+def last_checkpoint_time() -> Optional[float]:
+    """Unix time of this process's newest successful checkpoint write
+    (None before the first one)."""
+    return _LAST_WRITE_TS
+
+
 def save_checkpoint(booster, prefix: str, keep: Optional[int] = None) -> str:
     """Capture the booster's train state and write it atomically to
     ``<prefix>.ckpt_iter_<iteration>``; keep the newest ``keep`` files
     (``snapshot_keep`` when None; <= 0 keeps every file)."""
+    global _LAST_WRITE_TS
+    t0, ts0 = time.perf_counter(), time.time()
     meta, arrays, model_str = booster.capture_train_state()
     path = checkpoint_path(prefix, int(meta["iteration"]))
-    atomic_write(path, serialize_state(meta, arrays, model_str))
+    blob = serialize_state(meta, arrays, model_str)
+    atomic_write(path, blob)
+    _LAST_WRITE_TS = time.time()
     Log.info("Wrote checkpoint %s", path)
+    from .obs import active as _telemetry_active
+    tele = _telemetry_active()
+    if tele is not None:
+        from .obs import spans
+        dt = time.perf_counter() - t0
+        tele.histogram("checkpoint_write_s").observe(dt)
+        tele.event("checkpoint_write", iteration=int(meta["iteration"]),
+                   dt_s=dt, bytes=len(blob))
+        spans.record_span(tele, "checkpoint_write", t0=ts0, dur_s=dt,
+                          iteration=int(meta["iteration"]))
     if keep is None:
         keep = int(getattr(booster.config, "snapshot_keep", 0))
     prune_checkpoints(prefix, keep)
@@ -204,6 +232,12 @@ def save_checkpoint_best_effort(booster, prefix: str,
         Log.warning("checkpoint write %s failed (%s); training continues and "
                     "the previous checkpoint remains the resume point",
                     prefix, exc)
+        from .obs import active as _telemetry_active
+        tele = _telemetry_active()
+        if tele is not None:
+            tele.counter("checkpoint_skipped").inc()
+            tele.event("checkpoint_skipped", what="checkpoint %s" % prefix,
+                       error=str(exc)[:300])
         return None
 
 
@@ -270,8 +304,15 @@ def restore_state(booster, state) -> int:
     meta, arrays, model_str, path = state
     t0 = time.perf_counter()
     booster.restore_train_state(meta, arrays, model_str)
+    dt = time.perf_counter() - t0
     Log.info("Resumed training from checkpoint %s (iteration %d, %.3f s)",
-             path, booster.iter_, time.perf_counter() - t0)
+             path, booster.iter_, dt)
+    from .obs import active as _telemetry_active
+    tele = _telemetry_active()
+    if tele is not None:
+        tele.histogram("checkpoint_restore_s").observe(dt)
+        tele.event("checkpoint_restore", iteration=int(meta["iteration"]),
+                   dt_s=dt, path=path)
     return int(meta["iteration"])
 
 

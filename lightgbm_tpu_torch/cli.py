@@ -17,24 +17,34 @@ iteration end and exit with code 75 (``resilience.EXIT_PREEMPTED``);
 ``torch.distributed`` group each process loads as its rank (``num_machines``
 is the group's size, with a warning when the key says otherwise) and rank 0
 alone writes the model; training from a rank's stripe of the rows is ROADMAP
-queue 1 item 13b, so a parallel ``tree_learner`` refuses a striped load.
+item 13b (a gap of the JAX package), so a parallel ``tree_learner`` refuses
+a striped load.
 
 Device rule: :class:`Application` and :func:`main` run on ``cuda`` and raise
 without it, unless the caller passes ``device="cpu"``; ``python -m
 lightgbm_tpu_torch`` runs on ``cuda``.  LightGBM's ``device_type`` key is
-not read for this (its upstream default is ``cpu``).  ``task=serve`` and
-``task=online``, ``telemetry_out``, ``metrics_port`` and ``plan_cache``
-belong to planes not ported yet and are refused with
-``NotImplementedError`` (ROADMAP queue 1 items 14-15).
+not read for this (its upstream default is ``cpu``).
+
+``task=serve`` (cli.py:337-425 of the JAX package) scores ``data`` through
+the serving tier: every row (every 256-row block past 8,192 rows) is one
+request, coalesced by the scheduler, and the output has
+``task=predict``'s format; it equals ``task=predict``'s line for line from
+512 rows on (below that ``task=predict`` takes the f64 regime).
+``telemetry_out`` and ``metrics_port`` make any task record a telemetry
+run (``obs``), finalized into ``<telemetry_out>.summary.json``.
+``task=online`` (ROADMAP queue 1 item 15), ``plan_cache``, ``alert_rules``
+and ``flight_recorder`` (item 14) are not ported and are refused with
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import sys
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
 
-from . import resilience
+from . import obs, resilience
 from .basic import _refuse
 from .boosting import create_boosting
 from .boosting.gbdt import GBDT
@@ -77,11 +87,11 @@ class Application:
         self.config = Config(self.params)
         Log.reset_level(Log.level_from_verbosity(int(self.config.verbosity)))
         cfg = self.config
-        if cfg.task in ("serve", "online"):
-            _refuse("task=%s" % cfg.task, "queue 1 item 15")
-        for key, on in (("telemetry_out", bool(cfg.telemetry_out)),
-                        ("metrics_port", int(cfg.metrics_port) > 0),
-                        ("plan_cache", bool(cfg.plan_cache))):
+        if cfg.task == "online":
+            _refuse("task=online", "queue 1 item 15")
+        for key, on in (("plan_cache", bool(cfg.plan_cache)),
+                        ("alert_rules", bool(cfg.alert_rules)),
+                        ("flight_recorder", bool(cfg.flight_recorder))):
             if on:
                 _refuse(key, "queue 1 item 14")
 
@@ -90,7 +100,9 @@ class Application:
         if task == "train":
             self.train()
         elif task in ("predict", "prediction", "test"):
-            self.predict()
+            self._with_telemetry(self.predict)
+        elif task == "serve":
+            self._with_telemetry(self.serve)
         elif task == "convert_model":
             self.convert_model()
         elif task == "refit":
@@ -98,15 +110,34 @@ class Application:
         else:
             Log.fatal("Unknown task: %s", task)
 
+    def _with_telemetry(self, task) -> None:
+        """Run ``task()`` inside the telemetry run the config asks for
+        (cli.py:107-145 of the JAX package); ``task`` returns the extra
+        summary fields, and the run is finalized and closed after it (and
+        closed, unfinalized, when it raises)."""
+        tele = obs.configure_from_config(self.config, "cli",
+                                         task=str(self.config.task))
+        try:
+            extra = task()
+            if tele is not None:
+                from .obs.report import finalize_run
+                finalize_run(tele, gbdt=getattr(self, "booster", None)
+                             if self.config.task == "train" else None,
+                             extra=extra)
+        finally:
+            if tele is not None and obs.active() is tele:
+                obs.disable()
+
     # ---- task=train (application.cpp:84-213) ----
 
     def train(self) -> None:
         cfg = self.config
         owned = resilience.arm_supervision(
             bool(cfg.preemption_checkpoint), float(cfg.watchdog_timeout_s),
-            artifact_base=cfg.output_model or None)
+            artifact_base=(str(cfg.telemetry_out or "")
+                           or cfg.output_model or None))
         try:
-            self._train()
+            self._with_telemetry(self._train)
         except resilience.TrainingPreempted as exc:
             # the emergency checkpoint is on disk: the distinct exit code
             # tells a supervisor to rerun this command, which resumes
@@ -205,6 +236,61 @@ class Application:
         self._write_result(cfg.output_result, out)
         Log.info("Finished prediction, wrote results to %s",
                  cfg.output_result)
+        return {"rows_predicted": int(len(X))}
+
+    # ---- task=serve (the serving tier over task=predict's data) ----
+
+    def serve(self) -> Dict:
+        """Score ``data`` through the serving tier (cli.py:337-425 of the
+        JAX package) into ``output_result`` in ``task=predict``'s format;
+        ``predict_contrib=true`` serves contributions.  Returns the
+        summary's extra fields."""
+        cfg = self.config
+        if not cfg.input_model:
+            Log.fatal("Need input_model for serve task")
+        if cfg.predict_leaf_index:
+            Log.fatal("task=serve serves scores and pred_contrib; "
+                      "predict_leaf_index is not supported: use "
+                      "task=predict")
+        contrib = bool(cfg.predict_contrib)
+        precision = str(cfg.predict_precision)
+        if contrib and precision != "exact":
+            Log.fatal("predict_contrib has no bf16 tier: "
+                      "predict_precision must be exact")
+        from .serving import Server
+        t_start = time.perf_counter()
+        booster = GBDT.load_model(cfg.input_model, cfg, device=self.device)
+        X = DatasetLoader(cfg).load_prediction_data(cfg.data)
+        server = Server(config=cfg, device=self.device)
+        try:
+            server.register("model", booster)
+            # single-row requests exercise the coalescer (and the fast path
+            # with serve_single_row_fast=true); large files go in
+            # micro-batches so the replay stays O(batches) host work
+            step = 1 if len(X) <= 8192 else 256
+            futures = [server.submit(
+                "model", X[lo:lo + step],
+                raw_score=bool(cfg.predict_raw_score),
+                num_iteration=int(cfg.num_iteration_predict),
+                pred_contrib=contrib, precision=precision)
+                for lo in range(0, len(X), step)]
+            outs = [f.result() for f in futures]
+        finally:
+            server.close()
+        stats = server.stats()
+        if stats["dropped"]:
+            Log.fatal("serving replay dropped %d requests", stats["dropped"])
+        out = (np.concatenate([np.atleast_1d(o) for o in outs])
+               if outs else np.zeros(0))
+        self._write_result(cfg.output_result, out)
+        Log.info("Served %d rows in %d requests / %d batches (single-row "
+                 "fast: %d), wrote results to %s", len(X),
+                 stats["submitted"], stats["batches"],
+                 stats["single_row_fast"], cfg.output_result)
+        return {"rows_served": int(len(X)),
+                "serve_requests": int(stats["submitted"]),
+                "serve_batches": int(stats["batches"]),
+                "serve_wall_s": time.perf_counter() - t_start}
 
     # ---- task=convert_model (gbdt_model_text.cpp:87 ModelToIfElse) ----
 

@@ -21,9 +21,20 @@ bfloat16, each add rounded, and routes as the exact tier (``_cast_lossy``,
 ladder have no counterpart: rows go in chunks of at most
 ``core.predict.CHUNK_ROWS`` and trees in blocks sized from a byte budget;
 neither changes a result.  There is no degraded path: a failure raises.
+
+Telemetry (``obs``): a predictor built for a key its owner (a ``GBDT``, one
+resident model of the serving registry) had not built before is the port's
+miss (:func:`note_stack`, ``obs.recompile``'s ``predict_stack``), and its
+first call carries the stacking seconds into the compile accounting.  With
+a run active, every call records ``predict_dispatch_s_bucket_<b>`` and a
+``predict`` event (``contrib_*`` and a ``contrib`` event for
+contributions), ``b`` being the serving ladder's rung of the call's rows
+(:data:`PREDICT_BUCKETS`, predict_fused.py:72 and :97 of the JAX package),
+as in predict_fused.py:465-505 and :577-610.
 """
 from __future__ import annotations
 
+import time
 from typing import List
 
 import numpy as np
@@ -31,8 +42,58 @@ import torch
 
 from ..device import DeviceLike
 from ..io.binning import BinType, MissingType
+from ..obs import active as _telemetry_active
+from ..obs import annotate as _annotate
+from ..obs import compile as _compile
+from ..obs import recompile as _recompile
 from .predict import StackedTrees, _Stacked
 from .tree import K_CATEGORICAL_MASK, K_DEFAULT_LEFT_MASK, Tree
+
+# the JAX package's row ladder (predict_fused.py:72).  The port pads
+# nothing and compiles nothing per size: the rungs are the serving
+# coalescer's batch sizes and the bucket a call's metrics are filed under
+PREDICT_BUCKETS = (128, 1024, 8192, 65536, 524288)
+
+
+def shape_bucket(n: int) -> int:
+    """Smallest rung holding ``n`` rows (the top rung past it)."""
+    for b in PREDICT_BUCKETS:
+        if n <= b:
+            return b
+    return PREDICT_BUCKETS[-1]
+
+
+def note_stack(owner, key: tuple) -> bool:
+    """Record the build of a predictor for ``key`` (kind, start, end, class,
+    precision, layout id, model count) of ``owner`` (the booster whose trees
+    it stacks): a key the owner had not built before is a miss
+    (``obs.recompile`` ``predict_stack``).  Returns whether it was one."""
+    keys = owner.__dict__.setdefault("_stack_keys", set())
+    if key in keys:
+        return False
+    keys.add(key)
+    _recompile.record("predict_stack", "%s:%d-%d:k%d:%s" % key[:5])
+    return True
+
+
+def tensor_bytes(obj, seen=None) -> int:
+    """Bytes of every tensor held by ``obj``'s attributes (through dicts,
+    lists and tuples, each tensor once): a stack's device footprint."""
+    seen = set() if seen is None else seen
+    if id(obj) in seen:
+        return 0
+    if isinstance(obj, torch.Tensor):
+        seen.add(id(obj))
+        return int(obj.numel() * obj.element_size())
+    seen.add(id(obj))
+    if isinstance(obj, dict):
+        return sum(tensor_bytes(v, seen) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(tensor_bytes(v, seen) for v in obj)
+    if hasattr(obj, "__dict__") and not isinstance(obj, type) \
+            and not isinstance(obj, np.ndarray):
+        return sum(tensor_bytes(v, seen) for v in vars(obj).values())
+    return 0
 
 
 class BinnedStackedTrees(_Stacked):
@@ -149,18 +210,61 @@ class FusedPredictor:
         self._trees = list(trees)
         # held so that the id the booster's cache keys on stays this one's
         self.layout_ds = dataset
+        t0 = time.perf_counter()
+        self.kind = kind
         self.stack = (StackedTrees(trees, device) if kind == "raw"
                       else BinnedStackedTrees(trees, dataset, device))
+        # the leaf values of the accumulation dtype, made now so that the
+        # footprint (nbytes) does not grow at the first call
+        self.acc = torch.bfloat16 if precision == "bf16" else torch.float32
+        self.stack.leaf_values(self.acc)
+        self.stack_s = time.perf_counter() - t0
         self._contrib: dict = {}
+        # (site, bucket label) of this predictor's miss until its first
+        # call prices it (compile accounting); None when it was no miss
+        self.pending_miss = None
+
+    def nbytes(self) -> int:
+        """Bytes of the device tensors this predictor holds (its stack and
+        any contribution plans built so far)."""
+        return tensor_bytes(self.stack) + tensor_bytes(
+            [vars(p) for p in self._contrib.values()])
+
+    def _note_call(self, tele, site: str, n: int, dt: float,
+                   miss) -> int:
+        """Compile accounting of one call; returns its rung."""
+        bucket = shape_bucket(n)
+        _compile.note_dispatch(tele, site, bucket,
+                               dt + (self.stack_s if miss else 0.0),
+                               1 if miss else 0)
+        return bucket
 
     def __call__(self, X, early_stop_margin: float = -1.0,
                  round_period: int = 10, want_leaf: bool = False
                  ) -> np.ndarray:
         """[n] f64 raw scores (or [n, T] int32 leaf indices with
         ``want_leaf``) of raw rows (cast to f32) or binned rows."""
-        acc = torch.bfloat16 if self.precision == "bf16" else torch.float32
-        return self.stack.predict(X, torch.float32, early_stop_margin,
-                                  round_period, want_leaf, acc_dtype=acc)
+        # a miss is priced by the first call after it, with or without a run
+        miss, self.pending_miss = self.pending_miss, None
+        tele = _telemetry_active()
+        t0 = time.perf_counter() if tele is not None else 0.0
+        with _annotate("tree_block_predict"):
+            out = self.stack.predict(X, torch.float32, early_stop_margin,
+                                     round_period, want_leaf,
+                                     acc_dtype=self.acc)
+        if tele is not None:
+            dt = time.perf_counter() - t0
+            bucket = self._note_call(tele, "predict_fused", len(X), dt,
+                                     miss)
+            tele.histogram("predict_dispatch_s_bucket_%d" % bucket
+                           if self.precision == "exact" else
+                           "predict_dispatch_bf16_s_bucket_%d"
+                           % bucket).observe(dt)
+            tele.event("predict", rows=int(len(X)), bucket=int(bucket),
+                       store=self.kind, trees=int(len(self._trees)),
+                       dt_s=dt, want_leaf=bool(want_leaf),
+                       precision=self.precision)
+        return out
 
     def predict_contrib(self, X, ncol: int) -> np.ndarray:
         """[n, ncol] f64 SHAP contributions (last column the expected value)
@@ -174,4 +278,19 @@ class FusedPredictor:
         if plan is None:
             plan = self._contrib[int(ncol)] = ContribPlan(
                 self._trees, int(ncol), self.stack)
-        return plan(X)
+        miss, self.pending_miss = self.pending_miss, None
+        tele = _telemetry_active()
+        t0 = time.perf_counter() if tele is not None else 0.0
+        with _annotate("contrib_fused"):
+            out = plan(X)
+        if tele is not None:
+            dt = time.perf_counter() - t0
+            bucket = self._note_call(tele, "contrib_fused", len(X), dt,
+                                     miss)
+            tele.histogram("contrib_latency_s_bucket_%d" % bucket
+                           ).observe(dt)
+            tele.counter("contrib_calls").inc()
+            tele.counter("contrib_rows").inc(int(len(X)))
+            tele.event("contrib", rows=int(len(X)), bucket=int(bucket),
+                       trees=int(len(self._trees)), dt_s=dt)
+        return out

@@ -85,6 +85,7 @@ from __future__ import annotations
 
 import json
 import os
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -103,6 +104,9 @@ from .split import (K_MIN_SCORE, BestSplit, FeatureBest, FeatureInfo,
                     per_feature_best_combined, reduce_feature_best,
                     sync_best)
 from .tree import Tree
+from ..obs import active as _telemetry_active
+from ..obs import annotate as _annotate
+from ..obs import launches as _launches
 from ..utils.log import Log
 
 CHUNK = 4096     # the spare row block past every window (partition.py CHUNK)
@@ -1543,7 +1547,38 @@ class SerialTreeLearner:
         if self.cegb is not None:
             cegb = CegbState(*self.cegb, self.cegb_used,
                              self._local_rows(self.cegb_paid))
-        arrays = build_tree_partitioned(
+        tele = _telemetry_active()
+        t0, pc0 = ((time.time(), time.perf_counter()) if tele is not None
+                   else (0.0, 0.0))
+        with _annotate("tree_build"):
+            arrays = self._build(rows, grad, hess, num_data_in_bag,
+                                 feature_mask, grow_mode, qscale, hist_fn,
+                                 part_fn, level_fn, cegb)
+        # split passes this tree dispatched (obs/launches.py): one a split
+        # leaf-wise, one a level in level mode
+        passes = (arrays.levels if grow_mode == "level"
+                  else max(int(arrays.num_leaves) - 1, 0))
+        _launches.record(grow_mode, passes)
+        if tele is not None:
+            from ..obs import spans as _spans
+            _spans.record_span(tele, "tree_build", t0=t0,
+                               dur_s=time.perf_counter() - pc0,
+                               trace_id=tele.trace_id, mode=grow_mode,
+                               launches=int(passes),
+                               levels=int(arrays.levels),
+                               leaves=int(arrays.num_leaves))
+        arrays = arrays._replace(row_leaf=self._gather_rows(arrays.row_leaf),
+                                 paid_bits=self._gather_rows(arrays.paid_bits))
+        if cegb is not None:
+            # tree_learner.py:1930-1937 _update_cegb_used, and the paid bits
+            self.cegb_used[arrays.split_feature[:arrays.num_leaves - 1]] = True
+            if arrays.paid_bits is not None:
+                self.cegb_paid = arrays.paid_bits
+        return arrays
+
+    def _build(self, rows, grad, hess, num_data_in_bag, feature_mask,
+               grow_mode, qscale, hist_fn, part_fn, level_fn, cegb):
+        return build_tree_partitioned(
             rows, grad, hess, int(num_data_in_bag), feature_mask, self.feat,
             self.feat_host, num_leaves=self.num_leaves,
             max_depth=self.max_depth, params=self.params,
@@ -1554,11 +1589,3 @@ class SerialTreeLearner:
             categorical=self.has_categorical, monotone=self.has_monotone,
             lanes=self.lanes, forced=self.forced, cegb=cegb,
             pool_slots=self.hist_pool_slots, comm=self.comm)
-        arrays = arrays._replace(row_leaf=self._gather_rows(arrays.row_leaf),
-                                 paid_bits=self._gather_rows(arrays.paid_bits))
-        if cegb is not None:
-            # tree_learner.py:1930-1937 _update_cegb_used, and the paid bits
-            self.cegb_used[arrays.split_feature[:arrays.num_leaves - 1]] = True
-            if arrays.paid_bits is not None:
-                self.cegb_paid = arrays.paid_bits
-        return arrays

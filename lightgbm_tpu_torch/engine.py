@@ -18,8 +18,17 @@ writes an emergency checkpoint to ``checkpoint_prefix`` and raises
 call (engine.py:205-320 of the JAX package, ``resilience.py``).  ``cv``
 (engine.py:472-656) builds one booster per fold through ``Dataset.subset``,
 with group-aware, stratified or shuffled folds, and aggregates the folds'
-metrics as mean and standard deviation.  Not carried over yet, and refused
-with ``NotImplementedError``: ``serve`` and ``serve_and_train`` (ROADMAP
+metrics as mean and standard deviation.
+
+Telemetry (``obs``, engine.py:175-325 of the JAX package): ``telemetry_out``
+and/or ``metrics_port`` in the params make ``train`` record its own run
+(an ``iteration`` event every ``telemetry_freq`` iterations, the run
+gauges) and finalize it into ``<telemetry_out>.summary.json``, closing it;
+a run the caller configured (``obs.configure``) is recorded into and left
+open.  :func:`serve` (engine.py:355-400) starts the serving tier over one
+or many models on ``device``; a run it opens for ``telemetry_out`` is
+finalized by ``Server.close``.  ``serve_and_train`` (the train-while-serve
+loop) is not carried over yet and raises ``NotImplementedError`` (ROADMAP
 queue 1 item 15).
 """
 from __future__ import annotations
@@ -27,11 +36,12 @@ from __future__ import annotations
 import collections
 import copy
 import os
+import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from . import callback, resilience
+from . import callback, obs, resilience
 from .basic import Booster, Dataset, _refuse
 from .checkpoint import cleanup_checkpoints, save_checkpoint_best_effort
 from .device import DeviceLike
@@ -179,9 +189,17 @@ def train(params: Dict[str, Any], train_set: Dataset,
         Log.warning("preemption_checkpoint is set without a "
                     "checkpoint_prefix: a preempted run stops cleanly but "
                     "has nothing to resume from")
+    # telemetry: a run the params ask for is owned (finalized and closed
+    # here); a run the caller configured is recorded into and left open
+    tele = obs.configure_from_config(booster.config, "engine.train")
+    own_tele = tele is not None
+    if not own_tele:
+        tele = obs.active()
+    t_start = time.perf_counter()
     owned_signals, owned_wd = resilience.arm_supervision(
         preempt, float(booster.config.watchdog_timeout_s),
-        artifact_base=checkpoint_prefix)
+        artifact_base=str(booster.config.telemetry_out or "")
+        or checkpoint_prefix)
     end = init_iteration + num_boost_round
     results = []
     try:
@@ -192,7 +210,16 @@ def train(params: Dict[str, Any], train_set: Dataset,
                                         begin_iteration=init_iteration,
                                         end_iteration=end,
                                         evaluation_result_list=None))
+            it_t0 = time.perf_counter() if tele is not None else 0.0
             finished = booster.update(fobj=fobj)
+            if tele is not None and (i + 1 - init_iteration) % tele.freq == 0:
+                dt_it = time.perf_counter() - it_t0
+                n_rows = int(gbdt.num_data)
+                rate = n_rows / dt_it if dt_it > 0 else 0.0
+                tele.histogram("iteration_dispatch_s").observe(dt_it)
+                tele.histogram("chunk_rows_per_s").observe(rate)
+                tele.event("iteration", iteration=int(i), dt_s=dt_it,
+                           rows_per_s=rate)
             results = []
             if valid_sets is not None or gbdt.train_metrics:
                 if contains_train:
@@ -219,22 +246,79 @@ def train(params: Dict[str, Any], train_set: Dataset,
                 gbdt._preempt_exit(checkpoint_prefix)
             if finished:
                 break
+        if checkpoint_prefix is not None and write_ckpt:
+            # the call completed: a rerun with the same prefix trains afresh
+            cleanup_checkpoints(checkpoint_prefix)
+        booster.best_score = collections.defaultdict(
+            collections.OrderedDict)
+        for data_name, eval_name, value, _ in results or []:
+            booster.best_score[data_name][eval_name] = value
+        if booster.best_iteration <= 0:
+            booster.best_iteration = booster.current_iteration()
+        if tele is not None:
+            wall = time.perf_counter() - t_start
+            # the iterations this call trained (a resume restored
+            # resumed_iter of them before the loop)
+            iters_run = int(gbdt.iter_) - int(resumed_iter)
+            tele.gauge("train_rows").set(int(gbdt.num_data))
+            tele.gauge("train_iterations").set(iters_run)
+            tele.gauge("train_wall_s").set(wall)
+            if own_tele:
+                from .obs.report import finalize_run
+                finalize_run(tele, gbdt=gbdt, wall_s=wall, iters=iters_run)
+                obs.disable()
+        return booster
     finally:
         resilience.disarm_supervision(owned_signals, owned_wd)
-    if checkpoint_prefix is not None and write_ckpt:
-        # the call completed: a rerun with the same prefix trains afresh
-        cleanup_checkpoints(checkpoint_prefix)
-    booster.best_score = collections.defaultdict(collections.OrderedDict)
-    for data_name, eval_name, value, _ in results or []:
-        booster.best_score[data_name][eval_name] = value
-    if booster.best_iteration <= 0:
-        booster.best_iteration = booster.current_iteration()
-    return booster
+        # an exception (nan_policy=raise, a callback's error) must not
+        # leave the owned run process-active
+        if own_tele and obs.active() is tele:
+            obs.disable()
 
 
-def serve(*args, **kwargs):
-    """The serving tier: not ported yet."""
-    _refuse("serve", "queue 1 item 15")
+def serve(models, params: Optional[Dict[str, Any]] = None,
+          device: DeviceLike = None, **server_kwargs):
+    """Start the serving tier (``serving``) over one or many models on
+    ``device`` (``cuda`` unless the caller passes ``"cpu"``).
+
+    ``models`` is a Booster, a GBDT or a model-file path, or a dict of
+    ``name -> one of those`` for multi-model residency (a single model is
+    served as ``"model"``).  ``params`` feeds the serving knobs
+    (``max_batch_wait_us``, ``serve_residency_budget_mb``,
+    ``serve_single_row_fast``) and ``telemetry_out``/``metrics_port``,
+    which open a run the server owns when none is active (finalized into
+    ``<telemetry_out>.summary.json`` by ``server.close()``).  Extra keyword
+    arguments go to :class:`~lightgbm_tpu_torch.serving.Server` (e.g.
+    ``max_queue_depth``).  Returns the running server: ``submit``/
+    ``predict``, ``register``, ``swap``, ``close`` (also a context
+    manager)."""
+    from .boosting.gbdt import GBDT
+    from .config import Config, alias_transform
+    from .serving import Server
+
+    cfg = Config(alias_transform(dict(params or {})))
+    own_tele = (obs.configure_from_config(cfg, "engine.serve")
+                if obs.active() is None else None)
+    server = None
+    try:
+        server = Server(config=cfg, owned_telemetry=own_tele, device=device,
+                        **server_kwargs)
+        if not isinstance(models, dict):
+            models = {"model": models}
+        for name, model in models.items():
+            if isinstance(model, str):
+                model = GBDT.load_model(model, cfg, device=server.device)
+            server.register(name, model)
+    except BaseException:
+        # a failed construction, load or register must not leak the
+        # dispatcher thread or keep the owned run process-active
+        if server is not None:
+            server.disown_telemetry()
+            server.close(drain=False)
+        if own_tele is not None and obs.active() is own_tele:
+            obs.disable()
+        raise
+    return server
 
 
 def serve_and_train(*args, **kwargs):

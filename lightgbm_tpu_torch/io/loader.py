@@ -23,8 +23,12 @@ single-process branch (one warning, bins from the local rows).  The schema
 agreement of the striped scan is ``parallel/distdata.py``'s.  A preemption
 flag (``resilience.py``) set during a
 streaming load raises ``TrainingPreempted(0)`` between chunks, as in the
-JAX loader; its ingest telemetry belongs to a plane the port does not have
-(queue 1 item 14) and is left out.  Side files, the data file's existence
+JAX loader.  With a telemetry run active the streaming load emits
+``ingest`` events (phases ``sample``, ``bin`` per chunk, ``done``), the
+``ingest_chunks``/``ingest_rows`` counters, the per-chunk rows/s histogram
+and the host RSS high-water (loader.py:431-615 of the JAX package); the
+JAX loader's pipeline stall time is not measured by the port's prefetch
+and is left out.  Side files, the data file's existence
 and the binary check go through ``utils.file_io``, so a registered
 ``scheme://`` serves them.
 """
@@ -428,6 +432,8 @@ class DatasetLoader:
         """
         import time
 
+        from .. import obs
+        from ..obs import hostmem
         from .parser import count_data_rows, hash_sample_lines, stream_file
 
         cfg = self.config
@@ -435,6 +441,7 @@ class DatasetLoader:
         fmt = detect_format(filename)[0]
         sample_cnt = int(cfg.bin_construct_sample_cnt)
         seed = int(cfg.data_random_seed)
+        tele = obs.active()
 
         # ---- pass 1: hash-priority sample + row count + width ----
         t0 = time.perf_counter()
@@ -472,6 +479,11 @@ class DatasetLoader:
         n_kept = end - begin
         Log.info("streaming ingest: sampled %d of %d rows from %s in %.3f s",
                  len(sample), total_rows, filename, time.perf_counter() - t0)
+        hostmem.note()
+        if tele is not None:
+            tele.event("ingest", phase="sample", rows=int(total_rows),
+                       sampled=int(len(sample)),
+                       dt_s=round(time.perf_counter() - t0, 6))
 
         # column resolution (full-file coordinates; LibSVM fixes label at 0)
         names = None
@@ -549,6 +561,7 @@ class DatasetLoader:
 
         t1 = time.perf_counter()
         wpos = 0      # write cursor into the kept stripe
+        n_chunks = 0
         for part in self._prefetch(
                 stream_file(filename, chunk_rows, header,
                             num_cols=(full_cols - 1 if fmt == "libsvm"
@@ -561,6 +574,7 @@ class DatasetLoader:
                 resilience.clear_preemption()
                 raise resilience.TrainingPreempted(0)
             k = part.shape[0]
+            tc = time.perf_counter()
             binned[wpos:wpos + k] = ds.bundle_rows(part[:, keep])
             label[wpos:wpos + k] = part[:, label_idx]
             if weight is not None:
@@ -568,13 +582,31 @@ class DatasetLoader:
             if group_col is not None:
                 group_col[wpos:wpos + k] = part[:, group_idx]
             wpos += k
+            rss = hostmem.note()
+            if tele is not None:
+                dt = time.perf_counter() - tc
+                tele.event("ingest", phase="bin", chunk=n_chunks,
+                           rows=int(k), dt_s=round(dt, 6),
+                           rss_bytes=int(rss))
+                tele.counter("ingest_chunks").inc()
+                tele.counter("ingest_rows").inc(int(k))
+                tele.histogram("ingest_chunk_rows_per_s").observe(
+                    k / dt if dt > 0 else 0.0)
+            n_chunks += 1
         if wpos != n_kept:
             Log.fatal("streaming ingest: pass 2 delivered %d rows for a "
                       "stripe of %d (file changed between passes?)",
                       wpos, n_kept)
         ds.binned = binned
-        Log.info("streaming ingest: binned %d rows in %.3f s", n_kept,
-                 time.perf_counter() - t1)
+        dt2 = time.perf_counter() - t1
+        Log.info("streaming ingest: binned %d rows in %.3f s", n_kept, dt2)
+        if tele is not None:
+            tele.event("ingest", phase="done", chunks=int(n_chunks),
+                       rows=int(n_kept), dt_s=round(dt2, 6),
+                       rows_per_s=round(n_kept / dt2 if dt2 > 0 else 0.0, 1),
+                       rss_high_water=int(hostmem.high_water()))
+            tele.gauge("host_rss_high_water_bytes").set(
+                float(hostmem.high_water()))
 
         ds.metadata = Metadata(n_kept)
         ds.metadata.set_label(label)

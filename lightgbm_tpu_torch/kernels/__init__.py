@@ -5,7 +5,9 @@ its own shared library with a plain C interface and loaded with ``ctypes``.
 The libraries are built at first use into ``build/kernels/`` at the repository
 root, named by a hash of the sources so an edited source is rebuilt; all
 sources compile in parallel, one ``nvcc`` each.  Nothing is built or loaded
-at import time.
+at import time.  A build (or a load of libraries built before) is the port's
+``kernels`` miss in ``obs.recompile``; with a telemetry run active its
+seconds go to the compile accounting as ``kernels|nvcc``.
 """
 from __future__ import annotations
 
@@ -119,6 +121,14 @@ def build() -> Dict[str, ctypes.CDLL]:
         libs[name] = lib
     _STATE.libs = libs
     _STATE.build_seconds = time.perf_counter() - t0
+    from ..obs import active as _telemetry_active
+    from ..obs import compile as _compile
+    from ..obs import recompile as _recompile
+    _recompile.record("kernels", "nvcc" if procs else "load")
+    tele = _telemetry_active()
+    if tele is not None:
+        _compile.note_dispatch(tele, "kernels", "nvcc",
+                               _STATE.build_seconds, 1)
     return libs
 
 

@@ -45,6 +45,7 @@ and ``resilience.note_fallback`` is never called.
 """
 from __future__ import annotations
 
+import time
 from typing import List
 
 import numpy as np
@@ -95,9 +96,23 @@ def sharded_predict(predictor, rows, comm: ProcessComm, *,
     each rank runs ``predictor`` (a ``core.predict_fused.FusedPredictor``,
     the same on every rank) on its stripe, then one all-gather
     (learners.py:103-186).  Every row is scored as ``predictor(rows)``
-    scores it, so the result equals it bit for bit."""
-    return _stripe_run(lambda b: predictor(b, early_stop_margin,
-                                           round_period), rows, comm)
+    scores it, so the result equals it bit for bit.  With a telemetry run
+    active, one ``sharded_predict`` event a call (learners.py:178-181)."""
+    from ..obs import active as _telemetry_active
+    from ..obs import annotate as _annotate
+    tele = _telemetry_active()
+    t0 = time.perf_counter() if tele is not None else 0.0
+    with _annotate("sharded_predict"):
+        out = _stripe_run(lambda b: predictor(b, early_stop_margin,
+                                              round_period), rows, comm)
+    if tele is not None:
+        from ..core.predict_fused import shape_bucket
+        n = len(rows)
+        tele.event("sharded_predict", rows=int(n),
+                   bucket=int(shape_bucket(-(-n // comm.size))),
+                   shards=int(comm.size), dt_s=time.perf_counter() - t0,
+                   fallback=False)
+    return out
 
 
 def sharded_predict_contrib(predictor, rows, ncol: int,
@@ -128,7 +143,7 @@ class _ParallelTreeLearner(SerialTreeLearner):
                 "a parallel learner trains from every row on every rank; "
                 "training from a rank's stripe of the rows (a dataset "
                 "stamped shard) is not ported to lightgbm_tpu_torch yet "
-                "(ROADMAP queue 1 item 13b)")
+                "(ROADMAP item 13b, a gap of the JAX package)")
         from ..device import resolve_device
         dev = resolve_device(device)
         ops = ProcessComm(group, dev)

@@ -26,9 +26,12 @@ recoverable; this layer handles the faults that are not crashes:
 
 Where the port differs from the JAX package:
 
-- The port has no telemetry sink (item 14): nothing here emits events or
-  metrics, and the entry points that would configure one
-  (``telemetry_out``, ``LGBM_Telemetry*``) refuse by name.
+- With a telemetry run active, an emergency checkpoint records
+  ``preemptions``, ``preempt_checkpoint_s`` and a ``preempt_checkpoint``
+  event, and a stall ``watchdog_stall_s`` and a ``watchdog_stall`` event
+  (resilience.py:199-205, :365-370 of the JAX package).  The JAX package
+  also raises an alert and fires its flight recorder there: those are
+  ROADMAP queue 1 item 14.
 - The first-dispatch grace covers the first ``nvcc`` build of the kernels
   (``kernels.build()``, run at the first launch), where the JAX package's
   covers an XLA compile of a program: a section that may launch a kernel
@@ -202,6 +205,14 @@ def emergency_checkpoint(booster, prefix: str):
                if _PREEMPT_SIGNUM is not None else "request")
     Log.warning("preemption (%s): wrote emergency checkpoint %s in %.0f ms",
                 signame, path, dt * 1e3)
+    from .obs import active as _telemetry_active
+    tele = _telemetry_active()
+    if tele is not None:
+        tele.counter("preemptions").inc()
+        tele.histogram("preempt_checkpoint_s").observe(dt)
+        tele.event("preempt_checkpoint", iteration=int(booster.iter_),
+                   dt_s=dt, path=path, signal=signame)
+        tele.flush()  # the process is about to stop; keep the tail
     return path, dt
 
 
@@ -341,6 +352,13 @@ class Watchdog:
         Log.warning("WATCHDOG: no progress in %r for %.1f s (timeout %.1f s)"
                     " - writing diagnostics and aborting", name, elapsed,
                     self.timeout_s)
+        from .obs import active as _telemetry_active
+        tele = _telemetry_active()
+        if tele is not None:
+            tele.gauge("watchdog_stall_s").set(elapsed)
+            tele.event("watchdog_stall", section=name, stall_s=elapsed,
+                       timeout_s=self.timeout_s)
+            tele.flush()
         if self.artifact:
             try:
                 from .utils.file_io import atomic_write

@@ -19,9 +19,10 @@ backoff (:func:`retry_io`, configured by the ``io_retry_attempts`` /
 ``io_retry_backoff_s`` parameters through :func:`configure_retries`); every
 other error (a full disk, permissions) raises at once.  A process-global
 fault hook (:func:`set_fault_hook`) lets tests kill or fail the writer
-between the temp write and the rename.  The port has no telemetry plane
-(ROADMAP queue 1 item 14): a retry is logged and counted
-(:func:`io_retry_count`), and sent nowhere else.
+between the temp write and the rename.  A retry is logged and counted
+(:func:`io_retry_count`, always on); with a telemetry run active it also
+bumps ``io_retries`` and emits an ``io_retry`` event (file_io.py:95-110 of
+the JAX package).
 """
 from __future__ import annotations
 
@@ -99,6 +100,13 @@ def _note_retry(what: str, path: str, exc: OSError, attempt: int) -> None:
         _IO_RETRIES += 1
     Log.warning("%s %s failed transiently (%s); retrying (attempt %d/%d)",
                 what, path, exc, attempt + 1, _RETRY["attempts"])
+    from ..obs import active as _telemetry_active
+    tele = _telemetry_active()
+    if tele is not None:
+        tele.counter("io_retries").inc()
+        tele.event("io_retry", what=what, path=path,
+                   errno=int(getattr(exc, "errno", -1) or -1),
+                   attempt=int(attempt + 1))
 
 
 def retry_io(fn: Callable[[], object], what: str = "io", path: str = ""):

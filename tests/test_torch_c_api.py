@@ -18,7 +18,7 @@ leaf counts equal; leaf values within ``leaf_value_tolerance`` of
 order equal.  Also: the two libraries' symbol lists equal (74 ``LGBM_*``
 entries), ``tests/test_r_glue_sequence.py``'s call order against the
 port's library, the row callback of ``LGBM_DatasetCreateFromCSRFunc``, the
-error protocol, the telemetry refusals, and the device rule: without CUDA
+error protocol, the telemetry entries, and the device rule: without CUDA
 and without the variable, ``LGBM_BoosterCreate`` returns -1 naming it.
 """
 import ast
@@ -828,12 +828,21 @@ def test_error_protocol_and_refusals(port):
     assert "Invalid handle" in port.error()
     lib.LGBM_SetLastError(b"set by the host")
     assert port.error() == "set by the host"
-    for call in (lambda: lib.LGBM_TelemetryConfigure(b"x.jsonl", 1),
-                 lambda: lib.LGBM_TelemetryDisable(),
-                 lambda: lib.LGBM_TelemetryRecompileCount(
-                     ctypes.byref(ctypes.c_int64()))):
-        assert call() == -1
-        assert "ROADMAP queue 1 item 14" in port.error()
+    # the telemetry entries drive the port's obs plane (an in-memory run)
+    count = ctypes.c_int64(-1)
+    assert lib.LGBM_TelemetryRecompileCount(ctypes.byref(count)) == 0
+    assert count.value >= 0
+    assert lib.LGBM_TelemetryConfigure(b"", 1) == 0
+    need = ctypes.c_int64(0)
+    assert lib.LGBM_TelemetrySummary(0, ctypes.byref(need), None) == 0
+    buf = ctypes.create_string_buffer(need.value)
+    assert lib.LGBM_TelemetrySummary(need.value, ctypes.byref(need),
+                                     buf) == 0
+    assert json.loads(buf.value.decode())["metric"] == "telemetry_run"
+    assert lib.LGBM_TelemetryDisable() == 0
+    assert lib.LGBM_TelemetrySummary(need.value, ctypes.byref(need),
+                                     buf) == 0
+    assert need.value == 1 and buf.value == b""
     assert lib.LGBM_NetworkInit(b"127.0.0.1:1234", 1234, 120, 1) == 0
     assert lib.LGBM_NetworkFree() == 0
     assert lib.LGBM_NetworkInitWithFunctions(1, 0, None, None) == 0

@@ -345,10 +345,10 @@ def test_timer_scopes(data_files, one_thread):
     assert global_timer.totals() == {}
 
 
-@pytest.mark.parametrize("arg", ["task=serve", "task=online",
-                                 "telemetry_out=run.jsonl",
-                                 "metrics_port=9100",
-                                 "plan_cache=plans.json"])
+@pytest.mark.parametrize("arg", ["task=online", "task=serve_and_train",
+                                 "plan_cache=plans.json",
+                                 "alert_rules=rules.json",
+                                 "flight_recorder=true"])
 def test_refused_planes(arg):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         Application(["data=x.train", arg], device="cpu")

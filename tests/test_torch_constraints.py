@@ -162,7 +162,7 @@ def bundled_cat_dataset():
 
 
 @pytest.mark.parametrize("params,item", [
-    (dict(tree_learner="data"), "queue 1 item 13b"),
+    (dict(tree_learner="data"), "item 13b"),
 ], ids=["parallel"])
 def test_still_refused(bundled_cat_dataset, params, item):
     """A parallel learner trains from every row on every rank; a rank's

@@ -218,11 +218,12 @@ def test_metric_names_and_values_like_jax(metric):
 
 
 def test_refusals():
-    # pandas input and cv are ported (tests/test_torch_python_api.py), and
-    # preemption_checkpoint (tests/test_torch_resilience.py); the serving
-    # entry points stay refused
+    # pandas input and cv are ported (tests/test_torch_python_api.py),
+    # preemption_checkpoint (tests/test_torch_resilience.py) and serve
+    # (tests/test_torch_serving.py); the train-while-serve loop stays
+    # refused
     X, y, _, _ = make_data()
-    for entry in (P.engine.serve, P.engine.serve_and_train):
+    for entry in (P.engine.serve_and_train,):
         with pytest.raises(NotImplementedError,
                            match="ROADMAP queue 1 item 15"):
             entry(PARAMS, P.Dataset(X, y))

@@ -7,11 +7,13 @@ imported (JAX, the JAX package) cannot hide an import of the port:
 - importing every module of ``lightgbm_tpu_torch`` leaves neither ``jax`` nor
   ``lightgbm_tpu`` in ``sys.modules``, every module imports with both
   blocked (the CLI, ingest, sklearn, plotting and codegen modules among
-  them), and ``chip_smoke.py`` imports neither;
+  them), and ``chip_smoke.py`` imports neither; ``http.server`` is imported
+  only when a telemetry run serves a metrics port;
 - with CUDA unavailable, an entry point called without ``device=`` raises
   instead of running on the CPU (the predictors of ``core/predict.py`` and
   ``core/predict_fused.py``, the CLI's ``Application`` and ``main``, ``cv``,
-  the sklearn estimators and an unpickled CUDA booster too), and
+  the sklearn estimators, ``serve``, the serving ``Server`` and
+  ``ModelRegistry`` and an unpickled CUDA booster too), and
   ``device="cpu"`` is honoured, through training, ``pred_leaf``,
   ``pred_contrib`` and a checkpoint's round trip;
 - ``chip_smoke.py`` exits nonzero and prints no result without CUDA.
@@ -64,12 +66,45 @@ NEW_MODULES = ["cli", "__main__", "compat", "sklearn", "plotting",
                "model_codegen", "io.parser", "io.loader", "utils.timer",
                "engine", "basic", "c_api", "capi_build", "resilience",
                "utils.file_io", "parallel", "parallel.comm",
-               "parallel.learners", "parallel.distdata"]
+               "parallel.learners", "parallel.distdata",
+               "obs", "obs.registry", "obs.trace", "obs.recompile",
+               "obs.launches", "obs.hostmem", "obs.devmem", "obs.compile",
+               "obs.spans", "obs.quality", "obs.exporter", "obs.report",
+               "serving", "serving.registry", "serving.scheduler"]
 
 
 def test_every_module_imports_with_jax_blocked(host_api_child):
     walked = set(host_api_child["walked"])
     assert set(NEW_MODULES) <= walked, set(NEW_MODULES) - walked
+
+
+def test_http_server_is_imported_only_by_the_exporter():
+    """The exporter (``obs/exporter.py``) is imported lazily: importing the
+    package, its telemetry and serving modules, training and serving with
+    telemetry off import no ``http.server``; a run with a metrics port
+    does."""
+    out = run_python("""
+        import socket, sys
+        import numpy as np
+        import lightgbm_tpu_torch as lgb
+        from lightgbm_tpu_torch import obs, serving
+        from lightgbm_tpu_torch.obs import report, quality, devmem
+        X = np.random.RandomState(0).normal(size=(300, 3))
+        b = lgb.train({"objective": "binary", "verbosity": -1},
+                      lgb.Dataset(X, (X[:, 0] > 0) * 1.0), 2, device="cpu")
+        with b.serve() as srv:
+            srv.predict("model", X[:8])
+        before = "http.server" in sys.modules
+        sock = socket.socket()
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        obs.configure(metrics_port=port)
+        obs.disable()
+        print(before, "http.server" in sys.modules)
+    """)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines()[-1].split() == ["False", "True"]
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
@@ -182,6 +217,18 @@ HOST_API_ENTRY_POINTS = {
         out = ctypes.c_void_p()
         if c_api.bind()["LGBM_BoosterCreate"](0, 0, ctypes.addressof(out)):
             raise RuntimeError(c_api.get_last_error())
+    """,
+    "serve": """
+        import lightgbm_tpu_torch as lgb
+        lgb.serve({})
+    """,
+    "serving_server": """
+        from lightgbm_tpu_torch.serving import Server
+        Server()
+    """,
+    "model_registry": """
+        from lightgbm_tpu_torch.serving import ModelRegistry
+        ModelRegistry()
     """,
     "unpickle_cuda_booster": """
         import lightgbm_tpu_torch as lgb

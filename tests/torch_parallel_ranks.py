@@ -1,5 +1,6 @@
 """The rank side of the port's multi-process tests (``tests/
-test_torch_parallel.py``, ``tests/test_torch_comm.py``).
+test_torch_parallel.py``, ``tests/test_torch_comm.py``,
+``tests/test_torch_obs_plane.py``).
 
 Each rank is a process started by :func:`spawn` with ``torch.multiprocessing``
 (the spawn context), one torch thread, in a gloo group on the CPU.  This
@@ -335,8 +336,25 @@ def comm_and_data(rank, d, arg):
     return out
 
 
+def telemetry_shards(rank, d, arg):
+    """A data-parallel ``train`` with ``telemetry_out``: the rank comes
+    from the group, each rank writes its own shard, rank 0 alone the
+    summary."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch import obs
+    X, y = indivisible()
+    base = os.path.join(arg, "pod.jsonl")
+    lgb.train({"objective": "regression", "num_leaves": 7, "verbosity": -1,
+               "tree_learner": "data", "telemetry_out": base},
+              lgb.Dataset(X, y), 3, device="cpu")
+    return {"ranks": sorted({e.get("rank") for e in obs.read_events(
+                obs.shard_path(base, rank))}),
+            "launches": obs.launches.counts()}
+
+
 SCENARIOS = {"learners": learners, "boosting": boosting,
-             "world_one": world_one, "comm_and_data": comm_and_data}
+             "world_one": world_one, "comm_and_data": comm_and_data,
+             "telemetry_shards": telemetry_shards}
 
 
 # ---- process plumbing ----
