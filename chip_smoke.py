@@ -69,7 +69,8 @@ together) and runs these phases, each of which raises on failure:
    tree and one quantized split pass per split, the bag mask equal byte for
    byte to the hash recomputed on the host in numpy, l2 falling every
    iteration, tree 0 equal to its plain rebuild (strict); (G) 5-class
-   softmax (``multiclass``, the reference's multiclass example) on (A)'s
+   softmax (``multiclass``, the reference's multiclass example), 3
+   iterations, on (A)'s
    binned features through ``lightgbm_tpu_torch.train`` with (A)'s held-out
    rows as a validation set (``metric=multi_logloss,multi_error``): 5 trees
    an iteration, one root histogram per tree and one split pass per split,
@@ -90,7 +91,8 @@ together) and runs these phases, each of which raises on failure:
    columns) and ``lightgbm_tpu_torch.train`` with a CSR validation set at
    (D)'s settings: the root histogram over the group columns, one split
    pass per split, each unfolding its feature's group codes; (J)
-   categorical features at the Expo shape (the reference's Expo row, 11M +
+   categorical features at the Expo shape, 3 iterations (the reference's
+   Expo row, 11M +
    100,000 rows of the airline columns Month, DayofMonth, DayOfWeek,
    UniqueCarrier, Origin and Dest, categorical, and DepTime and Distance,
    made from a seed) through ``train()`` at (D)'s settings: every
@@ -213,10 +215,10 @@ together) and runs these phases, each of which raises on failure:
    one root histogram per tree and one split pass per split, the comm's
    calls and bytes per split; (V2) two processes of a gloo group, both on
    the one card (NCCL cannot put two ranks on one GPU), each binning (A)'s
-   task and training 3 iterations through the factory ``tree_learner=data``,
+   task and training 2 iterations through the factory ``tree_learner=data``,
    ``feature``, ``voting`` (``top_k=20``: every feature elected) and
    ``data`` with ``hist_precision=quantized``: both ranks' models equal,
-   ``feature``'s trees equal to (A)'s first three (it sums nothing across
+   ``feature``'s trees equal to (A)'s first two (it sums nothing across
    the ranks) or, where they are not, the first difference printed beside
    the count of features whose best split differs bitwise when (A)'s root
    histogram is scanned whole and in the ranks' two blocks (alone and as a
@@ -259,7 +261,41 @@ together) and runs these phases, each of which raises on failure:
    compiled fast path, equal to the new model's ``FusedPredictor``; it
    prints rows/s, p50/p99 request latency, batches, mean batch rows and the
    peak device memory; (W3) CLI ``task=serve`` and ``task=predict`` on a
-   CSV of 20,000 held-out rows: the outputs equal line for line;
+   CSV of 20,000 held-out rows: the outputs equal line for line; (X) the
+   kernel planner, MFU, alerts and captures, the online loop and
+   compaction (``phase_path_x``, the kernels' launch counts read around
+   it): (X1) ``resolve`` at (A)'s and (C)'s shape classes gives the
+   analytic plan, ``plan.autotune.run_sweep`` tunes both (4 reps, CUDA
+   events: a 15-leaf tree of a synthetic set of the class's shape under
+   each split-pass block size and integer block target, a walk of 128
+   trees over 524,288 rows under each walk budget) and writes the cache
+   into ``build/plan``; under every candidate pinned, (A)'s and (C)'s
+   first trees equal the analytic plan's (model text, every split pass's
+   left counts, the final row store) and (A)'s predictions are equal;
+   ``train()`` with ``plan_cache`` equals (A) with provenance ``tuned`` and
+   no fallback; a corrupt cache gives one warning, the counter and the
+   analytic plan; (X2) (W1)'s summary carries ``mfu``, ``device_util``,
+   ``est_bytes`` and ``est_macs`` (``obs/mfu.py``), 0 < ``device_util`` <=
+   1 equal to ``est_bytes / wall / 3.35e12``; (X3) ``serve`` with
+   ``alert_rules`` (a p99 rule of 1 s) over the Higgs model, warmed: the
+   swap to (B)'s trees x300 without warm-up breaks it (``/alerts``
+   firing), and it resolves once the traffic stops; ``/debug/profile
+   ?seconds=2`` during a ``train()`` writes a Chrome trace naming
+   ``hist_seg_kernel``, ``part_count_kernel`` and ``part_scatter_kernel``;
+   two forced watchdog stalls fire the flight recorder once; (X4)
+   ``serve_and_train`` of (A)'s task trained on 524,288 rows for 10
+   iterations, 8 client threads, the other 524,288 rows as 4 windows
+   (``online_min_rows=131072``, ``online_rounds=5``, the third window
+   refit, the last with feature 0 shifted by 4 and served before it is
+   ingested): at least 3 generations, no drop, every response equal to a
+   generation live while it was in flight, each extended generation
+   byte-equal to checkpoint-resume from its boundary on its window,
+   ``rows_behind`` 0 after each publish, the last trigger ``drift``,
+   latency p50/p99; (X5) ``compact_booster`` of the Higgs model
+   (``leaf_codes=255``): on 262,144 held-out rows ``max_score_delta`` at
+   most the declared bound, the AUC delta and the reductions, the
+   compacted generation swapped into (X3)'s server under load, its
+   responses within the f32 bound of its CPU predictions;
 5. times of each kernel at the main paths' shapes beside its bound, its
    plain version and one PyTorch library call (``index_add_``; for a split
    pass, which has none, the window's device-to-device copy): the
@@ -1450,6 +1486,10 @@ def phase_regression_bagging(device, data, ds, iters: int,
 
 
 NUM_CLASS = 5
+# (G)'s and (J)'s iterations: 5-class trees take ~6 s an iteration and 11M
+# categorical rows ~3 s; 3 make room for path (X)
+MULTICLASS_ITERS = 3
+EXPO_ITERS = 3
 MULTICLASS_PARAMS = dict(objective="multiclass", num_class=NUM_CLASS,
                          metric="multi_logloss,multi_error", num_leaves=255,
                          max_bin=255, learning_rate=0.1, verbosity=-1)
@@ -2966,9 +3006,9 @@ PARALLEL_DEADLINE_S = 600.0   # (V2)'s ranks are killed past this
 TRAIN_LOSS_RTOL = 2e-4        # tests/test_parallel.py:151-152 (sum order)
 QUANT_LOSS_RTOL = 5e-2        # tests/test_hist_quant.py:272-297's band
 # (V2)'s iterations: two processes time-slice the one card, so an iteration
-# takes seconds (4.66-5.05 s at 262,144 rows on the H100); 3 keep (V) near
-# its time and the width whole
-V2_ITERS = 3
+# takes seconds (2.5-4.5 s at (A)'s rows on the H100); 2 keep (V) near its
+# time and the width whole, and make room for path (X)
+V2_ITERS = 2
 # (V2): tree_learner and its extra parameters, one run each
 V2_RUNS = (("data", {}), ("feature", {}), ("voting", {"top_k": 20}),
            ("data_quantized", {"hist_precision": "quantized"}))
@@ -4271,7 +4311,7 @@ def phase_telemetry_train(device, data, ds, iters: int, a_text: str) -> dict:
         % (out_path + ".summary.json"))
     return dict(launches=counts, trees=len(gbdt.models), s=secs,
                 split_passes=passes, events=len(events), booster=gbdt,
-                devmem_peak=dm_peak)
+                devmem_peak=dm_peak, summary=summary)
 
 
 def _serve_requests(n_train: int, n_test: int, seed: int = 0) -> list:
@@ -4646,6 +4686,793 @@ def profile_iteration(booster) -> float:
     return busy_ms
 
 
+# ------------- path (X): the planner, MFU, alerts and captures, the online
+# ------------- loop and compaction, on the card
+
+PLAN_DIR = os.path.join("build", "plan")
+ONLINE_DIR = os.path.join("build", "online")
+TUNE_REPS = 4
+ONLINE_BASE_ROWS = 524_288      # (X4): the base model's rows of (A)'s task
+ONLINE_BASE_ITERS = 10
+ONLINE_WINDOW_ROWS = 131_072    # the other 524,288 rows, 4 windows
+ONLINE_WINDOWS = 4
+ONLINE_ROUNDS = 5
+ONLINE_REFIT_WINDOW = 2         # (X4): the 0-based window refit, not extended
+ONLINE_SHIFT = 4.0              # (X4): feature 0 of the last window, shifted
+ONLINE_CLIENTS = 8
+COMPACT_ROWS = 262_144          # (X5): held-out rows
+COMPACT_SERVED_ROWS = 16_384    # (X5): the rows the swap's traffic draws
+ALERT_P99_S = 1.0               # (X3): the p99 the swap's first dispatch breaks
+ALERT_SWAP_REPEAT = 300         # (X3): (B)'s trees x300 stack in seconds
+# (X3): kernels a profiler capture during a train() must name
+CAPTURE_KERNELS = ("hist_seg_kernel", "part_count_kernel",
+                   "part_scatter_kernel")
+
+
+def _plan_recorder(booster):
+    """Route ``booster``'s learner through split passes that keep what they
+    produce: every launch's left counts and the row store the last one
+    wrote.  Returns the record."""
+    import functools
+    from lightgbm_tpu_torch.core import partition as PT
+    rec = {"nl": [], "store": None}
+
+    def part(rows, scal, **kw):
+        out = PT.partition_hist(rows, scal, **kw)
+        rec["nl"].append(out[2])
+        rec["store"] = out[0]
+        return out
+
+    def level(src, dst, scals, **kw):
+        out = PT.partition_hist_level(src, dst, scals, **kw)
+        rec["nl"].append(out[1])
+        rec["store"] = dst
+        return out
+
+    learner = booster.learner
+    learner.train = functools.partial(learner.train, part_fn=part,
+                                      level_fn=level)
+    return rec
+
+
+def grow_one_tree(ds, extra: dict) -> dict:
+    """One iteration of (A)'s settings plus ``extra`` on (A)'s bins, under
+    whatever plan is pinned: the model text, the learner's plan, its left
+    counts and its final row store (on the host)."""
+    from lightgbm_tpu_torch import Config, GBDT, create_objective
+    cfg = Config(dict(HIGGS_PARAMS, **extra))
+    booster = GBDT(cfg, ds, create_objective("binary", cfg))
+    rec = _plan_recorder(booster)
+    booster.train_one_iter()
+    torch.cuda.synchronize()
+    return dict(text=trees_text(booster.save_model_to_string()),
+                plan=booster.learner.plan,
+                nl=torch.cat([t.reshape(-1) for t in rec["nl"]]).cpu(),
+                store=rec["store"].cpu())
+
+
+def phase_planner(device, data, ds, iters: int, a_text: str,
+                  c_text: str) -> dict:
+    """(X1): the kernel planner.  ``resolve`` at (A)'s and (C)'s shape
+    classes gives the analytic plan (today's constants); ``run_sweep``
+    tunes both classes (``TUNE_REPS`` reps, CUDA events) and writes the
+    cache, printing each candidate's tree and walk times; under every
+    candidate pinned, (A)'s and (C)'s first trees are byte-equal to the
+    analytic plan's (model text, left counts of every split pass, the final
+    row store) and (A)'s predictions under the walk budgets equal; then
+    ``train()`` with ``plan_cache`` set to the cache is byte-equal to (A)
+    with provenance ``tuned`` and no fallback, and a corrupt cache gives one
+    warning, the counter at 1 and the analytic plan."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch import Config, GBDT, create_objective
+    from lightgbm_tpu_torch.plan import autotune, planner
+    from lightgbm_tpu_torch.plan import cache as plan_cache
+    from lightgbm_tpu_torch.plan import state as plan_state
+    from lightgbm_tpu_torch.utils.log import Log
+    X, y, X_test, _ = data
+    os.makedirs(PLAN_DIR, exist_ok=True)
+    plan_state.reset()
+    plan_cache.reset_fallbacks()
+    classes = {}
+    for path, extra in (("A", {}), ("C", PATHS["C"][1])):
+        cfg = Config(dict(HIGGS_PARAMS, **extra))
+        learner = GBDT(cfg, ds, create_objective("binary", cfg)).learner
+        sc = learner.plan_shape()
+        if learner.plan != planner.analytic_plan(sc):
+            raise AssertionError("(X1) resolve at (%s)'s class gave %s"
+                                 % (path, learner.plan))
+        classes[path] = sc
+        log("  (X1) (%s) %s: key %s, analytic plan %s" % (
+            path, learner.effective_grow_mode(), planner.plan_key(sc),
+            learner.plan))
+    cache_path = os.path.join(PLAN_DIR, "plan_cache.json")
+
+    def progress(sc, res):
+        for row in res["candidates"]:
+            log("  (X1) %s %-12s tree %s s, walk %s s" % (
+                res["key"], row["name"],
+                "%.6f" % row["train_steady_p50_s"]
+                if row.get("train_steady_p50_s") is not None else "-",
+                "%.6f" % row["predict_steady_p50_s"]
+                if row.get("predict_steady_p50_s") is not None else "-"))
+        log("  (X1) %s winner %s, margins %s" % (
+            res["key"], res["winner"]["name"], res["margin"]))
+
+    t = time.perf_counter()
+    sweep = autotune.run_sweep(list(classes.values()), cache_path=cache_path,
+                               reps=TUNE_REPS, device=device,
+                               progress=progress)
+    tune_s = time.perf_counter() - t
+    # every distinct candidate of either class, pinned, on (A) and (C)
+    cands = {}
+    for sc in classes.values():
+        for cand in autotune.candidate_plans(sc):
+            cands.setdefault(cand.name, cand.plan)
+    ref = {p: grow_one_tree(ds, PATHS[p][1]) for p in ("A", "C")}
+    ref_raw = None
+    for name, plan in cands.items():
+        with plan_state.pinned(plan):
+            for p in ("A", "C"):
+                got = grow_one_tree(ds, PATHS[p][1])
+                if got["plan"].provenance != "pinned":
+                    raise AssertionError("(X1) %s not pinned" % name)
+                same = (got["text"] == ref[p]["text"]
+                        and torch.equal(got["nl"], ref[p]["nl"])
+                        and torch.equal(got["store"], ref[p]["store"]))
+                if not same:
+                    raise AssertionError(
+                        "(X1) candidate %s changed (%s)'s tree (text %s, "
+                        "left counts %s, row store %s)" % (
+                            name, p, got["text"] == ref[p]["text"],
+                            torch.equal(got["nl"], ref[p]["nl"]),
+                            torch.equal(got["store"], ref[p]["store"])))
+            a = GBDT(Config(HIGGS_PARAMS), device=device)
+            a.load_model_from_string(a_text)
+            raw = a.predict(X_test, raw_score=True)
+            if ref_raw is None:
+                ref_raw = raw
+            elif not np.array_equal(raw, ref_raw):
+                raise AssertionError("(X1) candidate %s changed (A)'s "
+                                     "predictions" % name)
+    log("  (X1) %d candidates pinned: (A)'s and (C)'s trees, %d and %d "
+        "left counts and the row stores byte-equal to the analytic plan's; "
+        "(A)'s predictions on %d rows equal" % (
+            len(cands), ref["A"]["nl"].numel(), ref["C"]["nl"].numel(),
+            len(X_test)))
+    # the tuned cache through train()
+    out_path = os.path.join(PLAN_DIR, "tuned.jsonl")
+    train = lgb.Dataset(X, y)
+    train.handle = ds
+    booster = lgb.train(dict(HIGGS_PARAMS, plan_cache=cache_path,
+                             telemetry_out=out_path), train,
+                        num_boost_round=iters, verbose_eval=False)
+    with open(out_path + ".summary.json") as fh:
+        summary = json.load(fh)
+    plan = summary.get("plan") or {}
+    if trees_text(booster.model_to_string()) != trees_text(a_text):
+        raise AssertionError("(X1) train() with the tuned cache differs "
+                             "from (A)")
+    if (plan.get("provenance"), plan.get("cache_fallbacks")) != ("tuned", 0):
+        raise AssertionError("(X1) the summary's plan block %s" % plan)
+    tuned = booster._booster.learner.plan
+    log("  (X1) train() with plan_cache: trees equal to (A)'s, summary plan "
+        "%s, fallbacks %d, the learner's plan %s" % (
+            plan["sites"], plan["cache_fallbacks"], tuned))
+    # a corrupt cache
+    plan_state.reset()
+    plan_cache.reset_fallbacks()
+    bad = os.path.join(PLAN_DIR, "corrupt.json")
+    with open(bad, "w") as fh:
+        fh.write("{ not json")
+    warned = []
+    real_warning = Log.warning
+
+    def counting(msg, *a):
+        if "plan cache" in str(msg):
+            warned.append(msg)
+        real_warning(msg, *a)
+    Log.warning = staticmethod(counting)
+    try:
+        engaged = (plan_state.configure(bad), plan_state.configure(bad))
+    finally:
+        Log.warning = staticmethod(real_warning)
+    sc = classes["A"]
+    got = plan_state.resolve(*sc[:3], bpc=sc.bpc, packed=sc.packed,
+                             device_kind=sc.device_kind)
+    if (engaged != (None, None) or plan_cache.fallback_count() != 2
+            or len(warned) != 1 or got != planner.analytic_plan(sc)):
+        raise AssertionError("(X1) corrupt cache: engaged %s, fallbacks "
+                             "%d, warnings %d, plan %s" % (
+                                 engaged, plan_cache.fallback_count(),
+                                 len(warned), got))
+    log("  (X1) a corrupt cache, engaged twice: one warning, "
+        "plan_cache_fallbacks 2, the analytic plan")
+    plan_state.reset()
+    plan_cache.reset_fallbacks()
+    return dict(tune_s=tune_s, sweep=sweep, candidates=len(cands),
+                tuned=tuned._asdict())
+
+
+def phase_mfu(w1: dict) -> dict:
+    """(X2): (W1)'s ``train()`` summary carries the cost model's estimate
+    over the port's kernels: 0 < ``device_util`` <= 1 and ``est_bytes /
+    wall / 3.35e12`` equal to it."""
+    s = w1["summary"]
+    g = s["gauges"]
+    wall = g["train_wall_s"]
+    util, mfu = s.get("device_util"), s.get("mfu")
+    log("  (X2) (W1)'s summary: wall %.4f s, est_bytes %.6g, est_macs %.6g, "
+        "device_util %s, mfu %s" % (wall, g.get("est_bytes", 0),
+                                    g.get("est_macs", 0), util, mfu))
+    if util is None or not 0 < util <= 1 or mfu is None or not 0 < mfu <= 1:
+        raise AssertionError("(X2) device_util %s, mfu %s" % (util, mfu))
+    want = g["est_bytes"] / wall / HBM_BYTES_PER_S
+    if abs(want - util) > 1e-12 * max(want, 1e-30):
+        raise AssertionError("(X2) est_bytes / wall / 3.35e12 = %.9g, "
+                             "device_util %.9g" % (want, util))
+    return dict(device_util=util, mfu=mfu, est_bytes=g["est_bytes"],
+                est_macs=g["est_macs"], wall_s=wall)
+
+
+def _latency_traffic(srv, name, X, stop, out, seed, binned=None):
+    """One client: requests of 1-4096 rows (from a seeded RNG) of the raw
+    rows ``X``, or every other one of the row store ``binned``, four in
+    flight, until ``stop`` is set; (start, n, t_submit, t_done, response)
+    of the raw requests into ``out``."""
+    rng = np.random.RandomState(seed)
+    pending = []
+    k = 0
+    while not stop.is_set() or pending:
+        while not stop.is_set() and len(pending) < SERVE_OUTSTANDING:
+            n = int(rng.randint(1, SERVE_MAX_REQUEST + 1))
+            k += 1
+            if binned is not None and k % 2:
+                lo = int(rng.randint(0, len(binned) - n + 1))
+                fut = srv.submit(name, binned[lo:lo + n], binned=True,
+                                 raw_score=True)
+                pending.append((None, n, time.perf_counter(), fut))
+                continue
+            lo = int(rng.randint(0, len(X) - n + 1))
+            pending.append((lo, n, time.perf_counter(),
+                            srv.submit(name, X[lo:lo + n], raw_score=True)))
+        lo, n, t0, fut = pending.pop(0)
+        res = fut.result(timeout=600)
+        if lo is not None:
+            out.append((lo, n, t0, time.perf_counter(), res))
+
+
+def phase_alert_serving(device, data, ds, texts: dict) -> tuple:
+    """(X3), the alert: ``serve`` with ``alert_rules`` (a p99 rule on the
+    served latency, ``ALERT_P99_S``, fast 2 s and slow 4 s windows) over
+    (A)'s trees x100 as ``higgs`` with (A)'s bin layout, warmed (raw and
+    binned) before any request; clients send raw held-out rows and binned
+    training rows; the swap to (B)'s trees x``ALERT_SWAP_REPEAT`` without
+    warm-up makes the first binned dispatch stack them (a Python loop over
+    their nodes, on the dispatcher thread) under load, so every request
+    in flight waits for it: the rule fires (read from ``/alerts``) and,
+    once traffic stops and its samples leave both windows, resolves.
+    Returns the numbers, the server (still serving, for (X5)'s swap) and
+    its telemetry path."""
+    import threading
+    import urllib.request
+    import lightgbm_tpu_torch as lgb
+    X_test = data[2]
+    os.makedirs(SERVE_DIR, exist_ok=True)
+    out = {}
+    # --- a p99 rule that the swap breaks
+    rules = os.path.join(SERVE_DIR, "rules.json")
+    with open(rules, "w") as fh:
+        json.dump([{"name": "serve_p99", "kind": "quantile",
+                    "metric": "serve_latency_s_model_*", "quantile": "p99",
+                    "max": ALERT_P99_S, "budget": 0.0, "fast_window_s": 2.0,
+                    "slow_window_s": 4.0, "severity": "page",
+                    "capture": False}], fh)
+    port = free_port()
+    tele_out = os.path.join(SERVE_DIR, "alerts.jsonl")
+    higgs = repeated_model_text(texts["A"], PREDICT_REPEAT, device)
+    higgs_b = repeated_model_text(texts["B"], ALERT_SWAP_REPEAT, device)
+    srv = lgb.serve({}, dict(HIGGS_PARAMS, telemetry_out=tele_out,
+                             metrics_port=port, alert_rules=rules,
+                             alert_interval_s=0.1),
+                    device=device)
+    # stacked before any request: no request waits for it
+    srv.register("higgs", higgs, layout_ds=ds).warm()
+
+    def alerts_now():
+        with urllib.request.urlopen("http://127.0.0.1:%d/alerts" % port,
+                                    timeout=30) as r:
+            return json.loads(r.read())
+
+    stop = threading.Event()
+    done = []
+    store = ds.binned
+    clients = [threading.Thread(target=_latency_traffic,
+                                args=(srv, "higgs", X_test, stop, done, s,
+                                      store))
+               for s in range(SERVE_CLIENTS)]
+    for c in clients:
+        c.start()
+    # a short warm traffic: the rule judges the run's cumulative p99, which
+    # the requests behind the swap's stacking must move past ALERT_P99_S
+    time.sleep(1.0)
+    before = alerts_now()
+    t_swap = time.perf_counter()
+    srv.swap("higgs", higgs_b, layout_ds=ds, warm=False)
+    swap_s = time.perf_counter() - t_swap
+    fired = None
+    deadline = time.time() + 30
+    while time.time() < deadline:
+        body = alerts_now()
+        if body.get("firing"):
+            fired = body
+            break
+        time.sleep(0.1)
+    stop.set()
+    for c in clients:
+        c.join(600)
+    lat = np.array([d[3] - d[2] for d in done])
+    resolved = None
+    deadline = time.time() + 30
+    while time.time() < deadline:
+        body = alerts_now()
+        if body.get("fired_total") and not body.get("firing"):
+            resolved = body
+            break
+        time.sleep(0.1)
+    log("  (X3) serve with alert_rules: %d raw requests, p50 %.3f ms, p99 "
+        "%.3f ms, max %.3f ms; swap without warm-up %.3f s; /alerts before "
+        "%s firing, then %s, after the traffic %s" % (
+            len(done), np.percentile(lat, 50) * 1e3,
+            np.percentile(lat, 99) * 1e3, lat.max() * 1e3, swap_s,
+            before.get("firing"),
+            fired and [(s["rule"], s["state"], s["value"])
+                       for s in fired["series"]],
+            resolved and [(s["rule"], s["state"]) for s in
+                          resolved["series"]]))
+    if before.get("firing") or fired is None or resolved is None:
+        raise AssertionError("(X3) the p99 rule: before %s, fired %s, "
+                             "resolved %s" % (before, fired, resolved))
+    out["alert"] = dict(requests=len(done),
+                        p50_ms=float(np.percentile(lat, 50) * 1e3),
+                        p99_ms=float(np.percentile(lat, 99) * 1e3),
+                        swap_s=swap_s)
+    return out, srv, tele_out
+
+
+def phase_captures(device, data, ds, iters: int) -> dict:
+    """(X3), the captures: ``/debug/profile?seconds=2`` during a
+    ``train()`` of (A)'s task writes a Chrome trace naming the port's
+    kernels (``CAPTURE_KERNELS``); two forced watchdog stalls fire the
+    flight recorder once (the second stall takes no capture)."""
+    import threading
+    import urllib.request
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch import obs, resilience
+    from lightgbm_tpu_torch.obs import profiling
+    X, y, _, _ = data
+    os.makedirs(SERVE_DIR, exist_ok=True)
+    out = {}
+    # --- /debug/profile during a train()
+    prof_out = os.path.join(SERVE_DIR, "profiled.jsonl")
+    prof_port = free_port()
+    captured = {}
+
+    def grab(env):
+        if env.iteration == 1 and not captured:
+            def get():
+                with urllib.request.urlopen(
+                        "http://127.0.0.1:%d/debug/profile?seconds=2"
+                        % prof_port, timeout=120) as r:
+                    captured.update(json.loads(r.read()))
+            captured["thread"] = threading.Thread(target=get)
+            captured["thread"].start()
+
+    train = lgb.Dataset(X, y)
+    train.handle = ds
+    lgb.train(dict(HIGGS_PARAMS, telemetry_out=prof_out,
+                   metrics_port=prof_port), train,
+              num_boost_round=iters, verbose_eval=False, callbacks=[grab])
+    captured.pop("thread").join(120)
+    names = set()
+    if captured.get("trace"):
+        with open(captured["trace"]) as fh:
+            trace = json.load(fh)
+        names = {e.get("name", "") for e in trace.get("traceEvents", [])
+                 if e.get("cat") == "kernel"}
+    ours = sorted({k for k in CAPTURE_KERNELS
+                   if any(k in n for n in names)})
+    log("  (X3) /debug/profile?seconds=2 during train(): %s, %d kernel "
+        "names in the trace, the port's: %s" % (
+            captured.get("trace") or captured.get("error"), len(names),
+            ours))
+    if len(ours) != len(CAPTURE_KERNELS):
+        raise AssertionError("(X3) the capture %s names %s" % (captured,
+                                                              ours))
+    # --- the flight recorder, fired by a forced watchdog stall
+    tele = obs.configure(out=os.path.join(SERVE_DIR, "stall.jsonl"),
+                         flight_recorder=True)
+    stalls = []
+    for i in range(2):
+        # the watchdog is one-shot: a fresh one for each stall
+        resilience.start_watchdog(0.5, abort=False, on_stall=stalls.append)
+        try:
+            t0 = time.monotonic()
+            with resilience.watch("forced_stall", iteration=i):
+                while len(stalls) <= i and time.monotonic() - t0 < 120:
+                    time.sleep(0.05)
+        finally:
+            resilience.stop_watchdog()
+            resilience.clear_stall()
+    st = profiling.state(tele)
+    caps = list(st.captures) if st is not None else []
+    fired_alerts = tele.counter("alerts_fired").value
+    obs.disable()
+    log("  (X3) two forced watchdog stalls: %d stall(s), alerts_fired %d, "
+        "flight recorder captures %s" % (
+            len(stalls), fired_alerts,
+            [(c["reason"], c.get("trace") or c.get("error"))
+             for c in caps]))
+    if (len(stalls) != 2 or fired_alerts != 2 or len(caps) != 1
+            or caps[0]["reason"] != "watchdog_stall"
+            or not os.path.exists(caps[0].get("trace", ""))):
+        raise AssertionError("(X3) flight recorder: stalls %d, alerts %d, "
+                             "captures %s" % (len(stalls), fired_alerts,
+                                              caps))
+    out["capture_kernels"] = ours
+    return out
+
+
+def repeated_model_text(text: str, repeat: int, device):
+    """A GBDT on ``device`` holding the trees of model ``text``, each
+    repeated ``repeat`` times in order (the Higgs model's size from (A)'s
+    5 trees)."""
+    from lightgbm_tpu_torch import Config, GBDT
+    big = GBDT(Config(HIGGS_PARAMS), device=device)
+    big.load_model_from_string(text)
+    big.models = [t for t in big.models for _ in range(repeat)]
+    big._invalidate_predict_cache()
+    return big
+
+
+def phase_compaction(device, srv, ds, texts: dict, tele_out: str) -> dict:
+    """(X5): ``compact_booster`` on the 500-tree Higgs model (``leaf_codes
+    = 255``): the measured ``max_score_delta`` on ``COMPACT_ROWS`` held-out
+    rows at most the declared bound, the AUC delta and the node and byte
+    reductions; the compacted generation swapped into (X3)'s registry under
+    load (requests over the first ``COMPACT_SERVED_ROWS`` of those rows),
+    its served scores equal to its CPU predictions from the same text
+    within the f32 bound of :func:`host_sums` (and counted where equal bit
+    for bit).  Closes (X3)'s server, whose summary carries the alert."""
+    import threading
+    from lightgbm_tpu_torch import Config, GBDT
+    from lightgbm_tpu_torch.core.compact import (compact_booster,
+                                                 measure_compaction)
+    Xh, yh, _, _ = synthetic_task(COMPACT_ROWS, seed=1)
+    higgs = repeated_model_text(texts["A"], PREDICT_REPEAT, device)
+    t = time.perf_counter()
+    gen, st = compact_booster(higgs, leaf_codes=255)
+    compact_s = time.perf_counter() - t
+    meas = measure_compaction(higgs, gen, Xh, yh)
+    log("  (X5) compact_booster(leaf_codes=255) of %d trees in %.2f s: nodes "
+        "%d -> %d (%.4f), predictor bytes %d -> %d (%.4f), model text %d -> "
+        "%d bytes; on %d held-out rows max_score_delta %.6g (declared bound "
+        "%.6g), AUC %.6f -> %.6f (delta %.3g)" % (
+            st["trees"], compact_s, st["nodes_in"], st["nodes_out"],
+            st["tree_reduction"], st["bytes_in"], st["bytes_out"],
+            st["byte_reduction"], st["model_bytes_in"],
+            st["model_bytes_out"], meas["rows"], meas["max_score_delta"],
+            st["declared_max_score_delta"], meas["auc_in"],
+            meas["auc_out"], meas["auc_delta"]))
+    if not meas["max_score_delta"] <= st["declared_max_score_delta"]:
+        raise AssertionError("(X5) max_score_delta %.6g over the declared "
+                             "bound %.6g" % (meas["max_score_delta"],
+                                             st["declared_max_score_delta"]))
+    # the compacted generation swapped in under load
+    stop = threading.Event()
+    done = []
+    Xs = Xh[:COMPACT_SERVED_ROWS]
+    clients = [threading.Thread(target=_latency_traffic,
+                                args=(srv, "higgs", Xs, stop, done, 100 + s))
+               for s in range(SERVE_CLIENTS)]
+    for c in clients:
+        c.start()
+    time.sleep(1.0)
+    t_swap = time.perf_counter()
+    srv.swap("higgs", gen, layout_ds=ds)
+    swapped = time.perf_counter()
+    time.sleep(2.0)
+    stop.set()
+    for c in clients:
+        c.join(600)
+    stats = srv.stats()
+    srv.close()
+    after = [d for d in done if d[2] > swapped]
+    # each row once: the CPU predictions and the f32 bound of the rows the
+    # responses after the swap carried
+    cpu = GBDT(Config(HIGGS_PARAMS), device="cpu")
+    cpu.load_model_from_string(gen.save_model_to_string())
+    lo_all = np.concatenate([np.arange(lo, lo + n) for lo, n, *_ in after])
+    rows, inverse = np.unique(lo_all, return_inverse=True)
+    want = cpu.predict(Xs[rows], raw_score=True)
+    _, bound = host_sums(gen.models, np.asarray(Xs[rows], np.float32)
+                         .astype(np.float64), 1)
+    got = np.concatenate([np.asarray(d[4], np.float64).ravel()
+                          for d in after])
+    err = np.abs(got - want[inverse])
+    bound = bound[inverse]
+    with open(tele_out + ".summary.json") as fh:
+        summary = json.load(fh)
+    log("  (X5) swap of the compacted generation under load %.3f s; %d "
+        "responses after it: vs the CPU predictions max|diff| %.3g (f32 "
+        "bound up to %.3g), %d of %d values equal bit for bit; drops %d; "
+        "(X3)'s summary: alerts fired %s" % (
+            swapped - t_swap, len(after), float(err.max()),
+            float(bound.max()), int((err == 0).sum()), err.size,
+            stats["dropped"], summary.get("alerts", {}).get("fired_total")))
+    if not after or not (err <= bound[:, 0]).all() or stats["dropped"]:
+        raise AssertionError("(X5) served compacted scores: %d responses, "
+                             "max|diff| %.3g, drops %d" % (
+                                 len(after), float(err.max()),
+                                 stats["dropped"]))
+    if not summary.get("alerts", {}).get("fired_total"):
+        raise AssertionError("(X3) the summary's alerts block %s"
+                             % summary.get("alerts"))
+    return dict(stats={k: st[k] for k in (
+        "trees", "nodes_in", "nodes_out", "tree_reduction", "bytes_in",
+        "bytes_out", "byte_reduction", "declared_max_score_delta")},
+        measured=meas, compact_s=compact_s, served=len(after),
+        bit_equal=int((err == 0).sum()), values=err.size)
+
+
+def phase_online(device, data) -> dict:
+    """(X4): the train-while-serve loop.  The base model is (A)'s task
+    trained on the first ``ONLINE_BASE_ROWS`` rows for
+    ``ONLINE_BASE_ITERS`` iterations; ``serve_and_train`` serves it to
+    ``ONLINE_CLIENTS`` client threads while the other rows come in as
+    ``ONLINE_WINDOWS`` windows (``online_min_rows`` = one window,
+    ``online_rounds`` = ``ONLINE_ROUNDS``; window ``ONLINE_REFIT_WINDOW``
+    refits instead of extending; the last one's feature 0 shifted, served
+    before it is ingested, so the drift trigger fires).  Checks: at least
+    3 generations, no drop, every response equal to the generation that
+    served it (its ``FusedPredictor`` over the rows; a response in flight
+    across a publish equals one of the two), every extended generation's
+    trees byte-equal to a checkpoint-resume from the same boundary on the
+    same window, ``rows_behind`` 0 after each publish; prints p50/p99
+    latency, apart and across publishes."""
+    import copy
+    import threading
+    from lightgbm_tpu_torch import (BinnedDataset, Config, GBDT,
+                                    create_objective, obs, serve_and_train)
+    from lightgbm_tpu_torch.core.predict_fused import FusedPredictor
+    X, y, X_test, _ = data
+    os.makedirs(ONLINE_DIR, exist_ok=True)
+    nb = ONLINE_BASE_ROWS
+    t = time.perf_counter()
+    base_ds = BinnedDataset.from_matrix(X[:nb], label=y[:nb], max_bin=255)
+    cfg = Config(dict(HIGGS_PARAMS, num_iterations=ONLINE_BASE_ITERS))
+    booster = GBDT(cfg, base_ds, create_objective("binary", cfg))
+    booster.train()
+    torch.cuda.synchronize()
+    base_s = time.perf_counter() - t
+    shifted = X_test.copy()
+    shifted[:, 0] += ONLINE_SHIFT
+    tele_out = os.path.join(ONLINE_DIR, "online.jsonl")
+    ctrl = serve_and_train(
+        booster, train_set=base_ds, name="higgs_online",
+        params=dict(HIGGS_PARAMS, telemetry_out=tele_out,
+                    online_min_rows=ONLINE_WINDOW_ROWS,
+                    online_rounds=ONLINE_ROUNDS, online_drift_trigger=True,
+                    online_poll_s=0.05),
+        device=device)
+    # what each cycle did: the boundary checkpoint and window of an
+    # extended cycle, and every published generation with its live span
+    cycles, gens = [], []
+    trainer = ctrl.booster
+    real_train = trainer.train
+    real_freeze = ctrl._freeze_generation
+
+    def train_from_boundary(snapshot_out=None):
+        prefix = os.path.join(ONLINE_DIR, "cycle%d" % len(cycles))
+        trainer.save_checkpoint(prefix)
+        boundary = trainer.iter_
+        real_train(snapshot_out=snapshot_out)
+        cycles.append(dict(prefix=prefix, ds=ctrl._last_window_ds,
+                           boundary=boundary,
+                           target=int(trainer.config.num_iterations),
+                           text=trees_text(
+                               trainer.save_model_to_string())))
+
+    real_publish = ctrl._publish
+
+    def freeze():
+        gen, text = real_freeze()
+        gens.append(dict(text=text, t0=time.perf_counter()))
+        return gen, text
+
+    def publish():
+        real_publish()
+        gens[-1]["t1"] = time.perf_counter()      # the swap returned
+    trainer.train = train_from_boundary
+    ctrl._freeze_generation = freeze
+    ctrl._publish = publish
+    # the generation published by start(), before the wrappers
+    gens.insert(0, dict(text=booster.save_model_to_string(), t0=0.0,
+                        t1=0.0))
+    stop = threading.Event()
+    source = {"rows": X_test}
+    done = []
+
+    def client(seed):
+        rng = np.random.RandomState(seed)
+        pending = []
+        while not stop.is_set() or pending:
+            while not stop.is_set() and len(pending) < SERVE_OUTSTANDING:
+                n = int(rng.randint(1, SERVE_MAX_REQUEST + 1))
+                lo = int(rng.randint(0, len(X_test) - n + 1))
+                rows = source["rows"]
+                pending.append((rows is shifted, lo, n, time.perf_counter(),
+                                ctrl.submit(rows[lo:lo + n],
+                                            raw_score=True)))
+            sh, lo, n, t0, fut = pending.pop(0)
+            done.append((sh, lo, n, t0, fut.result(timeout=600),
+                         time.perf_counter()))
+
+    threads = [threading.Thread(target=client, args=(200 + s,))
+               for s in range(ONLINE_CLIENTS)]
+    for th in threads:
+        th.start()
+    behind_after, triggers = [], []
+    t_loop = time.perf_counter()
+    try:
+        for w in range(ONLINE_WINDOWS):
+            lo = nb + w * ONLINE_WINDOW_ROWS
+            Xw = X[lo:lo + ONLINE_WINDOW_ROWS].astype(np.float64)
+            if w == ONLINE_WINDOWS - 1:
+                # shifted traffic reaches the quality monitor first
+                source["rows"] = shifted
+                Xw = Xw.copy()
+                Xw[:, 0] += ONLINE_SHIFT
+                time.sleep(2.0)
+            ctrl.update_mode = ("refit" if w == ONLINE_REFIT_WINDOW
+                                else "extend")
+            gen0 = ctrl.generation
+            ctrl.ingest(Xw, y[lo:lo + ONLINE_WINDOW_ROWS])
+            deadline = time.time() + 600
+            while ctrl.generation == gen0 and time.time() < deadline:
+                if ctrl.cycle_failures:
+                    raise AssertionError("(X4) cycle failed: %s"
+                                         % ctrl.last_error)
+                time.sleep(0.02)
+            behind_after.append(ctrl.buffer.rows_behind())
+            triggers.append(ctrl.last_trigger)
+            time.sleep(0.5)
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(600)
+        loop_s = time.perf_counter() - t_loop
+        stats = ctrl.stats()
+        ctrl.close()
+    with open(tele_out + ".summary.json") as fh:
+        summary = json.load(fh)
+    # every response against the generations live while it was in flight
+    preds = []
+    for g in gens:
+        m = GBDT(Config(HIGGS_PARAMS), device=device)
+        m.load_model_from_string(g["text"])
+        fp = FusedPredictor(m.models, device=device)
+        preds.append((np.asarray(fp(X_test), np.float64).ravel(),
+                      np.asarray(fp(shifted), np.float64).ravel()))
+    # generation i serves from its freeze until the next swap returns
+    ends = [g["t1"] for g in gens[1:]] + [float("inf")]
+    wrong, across = 0, []
+    for sh, lo, n, t0, res, t1 in done:
+        live = [i for i in range(len(gens))
+                if gens[i]["t0"] <= t1 and ends[i] >= t0]
+        res = np.asarray(res, np.float64).ravel()
+        if not any(np.array_equal(res, preds[i][int(sh)][lo:lo + n])
+                   for i in live):
+            wrong += 1
+        if len(live) > 1:
+            across.append(t1 - t0)
+    lat = np.array([d[5] - d[3] for d in done])
+    # each extended generation against checkpoint-resume on its window
+    resumed = 0
+    for c in cycles:
+        fresh = GBDT(copy.copy(trainer.config), c["ds"],
+                     create_objective("binary", trainer.config))
+        if fresh.resume_from_checkpoint(c["prefix"]) != c["boundary"]:
+            raise AssertionError("(X4) checkpoint %s did not restore "
+                                 "iteration %d" % (c["prefix"],
+                                                   c["boundary"]))
+        fresh.config.num_iterations = c["target"]
+        fresh.train()
+        if trees_text(fresh.save_model_to_string()) != c["text"]:
+            raise AssertionError("(X4) the generation extended from "
+                                 "iteration %d differs from checkpoint-"
+                                 "resume" % c["boundary"])
+        resumed += 1
+    onl = summary.get("online", {})
+    log("  (X4) base model: %d rows, %d iterations in %.2f s; %d windows of "
+        "%d rows in %.2f s: triggers %s, rows_behind after each publish "
+        "%s, %d generations, %d cycles (%s), %d iterations" % (
+            nb, ONLINE_BASE_ITERS, base_s, ONLINE_WINDOWS,
+            ONLINE_WINDOW_ROWS, loop_s, triggers, behind_after,
+            stats["generation"], stats["cycles"], onl.get("triggers"),
+            stats["iterations"]))
+    log("  (X4) %d responses (%d shifted), %d not equal to their "
+        "generation; latency p50 %.3f ms, p99 %.3f ms; %d in flight across "
+        "a publish: p50 %.3f ms, p99 %.3f ms; drops %d; %d extended "
+        "generations byte-equal to checkpoint-resume" % (
+            len(done), sum(d[0] for d in done), wrong,
+            np.percentile(lat, 50) * 1e3, np.percentile(lat, 99) * 1e3,
+            len(across), np.percentile(across, 50) * 1e3 if across else 0,
+            np.percentile(across, 99) * 1e3 if across else 0,
+            stats["serving"]["dropped"], resumed))
+    if (stats["generation"] < 3 or stats["serving"]["dropped"] or wrong
+            or any(behind_after) or triggers[-1] != "drift"
+            or resumed != ONLINE_WINDOWS - 1 or not done):
+        raise AssertionError("(X4) generations %d, drops %d, wrong %d, "
+                             "rows_behind %s, triggers %s, resumed %d" % (
+                                 stats["generation"],
+                                 stats["serving"]["dropped"], wrong,
+                                 behind_after, triggers, resumed))
+    if obs.active() is not None:
+        raise AssertionError("(X4) the online run stayed open")
+    return dict(generations=stats["generation"], cycles=stats["cycles"],
+                triggers=triggers, responses=len(done),
+                p50_ms=float(np.percentile(lat, 50) * 1e3),
+                p99_ms=float(np.percentile(lat, 99) * 1e3),
+                across=len(across),
+                across_p99_ms=float(np.percentile(across, 99) * 1e3)
+                if across else None, resumed=resumed, base_s=base_s,
+                loop_s=loop_s)
+
+
+def phase_path_x(device, data, ds, texts: dict, iters: int,
+                 w1: dict) -> dict:
+    """Path (X), with the kernels' launch counts set to 0 just before it
+    and read just after: (X1)-(X5)."""
+    from lightgbm_tpu_torch import device as D
+    t = time.perf_counter()
+    D.reset_launches()
+    secs = {}
+
+    def timed_phase(name, fn, *a):
+        t0 = time.perf_counter()
+        res = fn(*a)
+        torch.cuda.empty_cache()
+        secs[name] = time.perf_counter() - t0
+        return res
+
+    out = {"X1": timed_phase("X1", phase_planner, device, data, ds, iters,
+                             texts["A"], texts["C"])}
+    out["X2"] = phase_mfu(w1)
+    # the serving run stays the process's telemetry run until (X5) closes
+    # its server; the captures open runs of their own after it
+    x3, srv, tele_out = timed_phase("X3 alert", phase_alert_serving,
+                                    device, data, ds, texts)
+    out["X5"] = timed_phase("X5", phase_compaction, device, srv, ds, texts,
+                            tele_out)
+    x3.update(timed_phase("X3 captures", phase_captures, device, data, ds,
+                          iters))
+    out["X3"] = x3
+    out["X4"] = timed_phase("X4", phase_online, device, data)
+    out["seconds"] = secs
+    counts = D.launches()
+    missing = [k for k in ("histogram", "partition", "histogram_int",
+                           "partition_level") if not counts.get(k)]
+    log("  (X) took %.1f s (%s); launches %s" % (
+        time.perf_counter() - t, ", ".join("%s %.1f s" % kv
+                                           for kv in secs.items()), counts))
+    if missing:
+        raise AssertionError("(X) launched no %s" % missing)
+    out["launches"] = counts
+    out["trees"] = max(1, counts["histogram"] + counts["histogram_int"])
+    out["s"] = time.perf_counter() - t
+    return out
+
+
 # ---------------------------------------------------------------- times ----
 
 def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
@@ -4723,11 +5550,12 @@ def row_bytes(F: int, bpc: int = 1) -> int:
 
 
 def split_pass_sizes(rows, voff, F, B, route, words, counts,
-                     reps: int) -> dict:
-    """Times of the single-window split pass on windows [0, wc) of ``rows``
-    for each wc of ``counts`` (the first one first), each beside its bound,
-    its plain version and the window's device-to-device copy of wc * W
-    bytes (2 * wc * W bytes read and written: the least data movement of a
+                     reps: int, quantized: bool = False) -> dict:
+    """Times of the single-window split pass (with the integer child
+    histogram when ``quantized``) on windows [0, wc) of ``rows`` for each
+    wc of ``counts`` (the first one first), each beside its bound, its
+    plain version and the window's device-to-device copy of wc * W bytes
+    (2 * wc * W bytes read and written: the least data movement of a
     partition, and the copy-back inside the pass); the first size's numbers,
     with the others under ``sizes``."""
     from lightgbm_tpu_torch.core import partition as P
@@ -4735,7 +5563,7 @@ def split_pass_sizes(rows, voff, F, B, route, words, counts,
     out = []
     for wc in counts:
         scal = scal_row(0, wc, route, words, 1)
-        kw = dict(num_features=F, num_bins=B, voff=voff)
+        kw = dict(num_features=F, num_bins=B, voff=voff, quantized=quantized)
         work = rows.clone()
         ms = cuda_ms(lambda: P.partition_hist(work, scal, **kw), reps=reps)
         dev = queued_ms(lambda: P.partition_hist(work, scal, **kw),
@@ -4750,10 +5578,11 @@ def split_pass_sizes(rows, voff, F, B, route, words, counts,
         # each window row read once and written once; the child histogram's
         # adds are two per (row, feature) of the smaller child
         b_ms, b_by = bound(2.0 * wc * W, 2.0 * (wc / 2) * F)
-        log("  split pass F=%d %8d rows: kernel %.4f ms (queued %.4f), bound "
-            "%.4f ms (%s), plain %.4f ms, copy of the window %.4f ms (queued "
-            "%.4f), no single library call"
-            % (F, wc, ms, dev, b_ms, b_by, plain, copy, copy_dev))
+        log("  %ssplit pass F=%d %8d rows: kernel %.4f ms (queued %.4f), "
+            "bound %.4f ms (%s), plain %.4f ms, copy of the window %.4f ms "
+            "(queued %.4f), no single library call"
+            % ("quantized " if quantized else "", F, wc, ms, dev, b_ms, b_by,
+               plain, copy, copy_dev))
         out.append(dict(rows=wc, ms=ms, queued_ms=dev, plain_ms=plain,
                         bound_ms=b_ms, bound_by=b_by, library_ms=None,
                         copy_ms=copy, copy_queued_ms=copy_dev))
@@ -4934,29 +5763,13 @@ def times_quantized_and_level(device, n: int) -> dict:
                           library_queued_ms=lib_dev))
     out["histogram_int"] = dict(sizes[0], sizes=sizes[1:])
     # the single-window split pass with the integer child histogram, on the
-    # root window (path (F) grows quantized trees leaf-wise)
+    # root window and child-sized windows (path (F) grows quantized trees
+    # leaf-wise)
     route, words = split_routes(B, np.random.RandomState(7))["numerical"]
-    scal = scal_row(0, n, route, words, 1)
-    skw = dict(num_features=F, num_bins=B, voff=voff, quantized=True)
-    work = rows.clone()
-    ms = cuda_ms(lambda: P.partition_hist(work, scal, **skw))
-    dev = queued_ms(lambda: P.partition_hist(work, scal, **skw))
-    plain = cuda_ms(lambda: P.partition_hist_plain(rows, scal, **skw),
-                    reps=20)
-    dst = torch.empty((n, rows.shape[1]), dtype=torch.uint8,
-                      device=rows.device)
-    copy = cuda_ms(lambda: dst.copy_(rows[:n]))
-    copy_dev = queued_ms(lambda: dst.copy_(rows[:n]))
-    del dst
-    b_ms, b_by = bound(2.0 * n * rows.shape[1], 2.0 * (n / 2) * F)
-    log("  quantized split pass %8d rows: kernel %.4f ms (queued %.4f), "
-        "bound %.4f ms (%s), plain %.4f ms, copy of the window %.4f ms "
-        "(queued %.4f), no single library call"
-        % (n, ms, dev, b_ms, b_by, plain, copy, copy_dev))
-    out["partition_q"] = dict(ms=ms, queued_ms=dev, plain_ms=plain,
-                              bound_ms=b_ms, bound_by=b_by, copy_ms=copy,
-                              copy_queued_ms=copy_dev)
-    del rows, work
+    out["partition_q"] = split_pass_sizes(rows, voff, F, B, route, words,
+                                          (n, 20000, 900), reps=25,
+                                          quantized=True)
+    del rows
     rng = np.random.RandomState(14)
     fr = level_frontiers(n, B, rng)
     for quantized in (False, True):
@@ -5120,8 +5933,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     log("  (G) multiclass softmax (num_class=%d) on (A)'s features, "
         "lightgbm_tpu_torch.train with the held-out rows as a validation set,"
-        " %d iterations" % (NUM_CLASS, args.iters))
-    paths["G"] = phase_multiclass(device, data, ds, args.iters, args.profile)
+        " %d iterations" % (NUM_CLASS, min(args.iters, MULTICLASS_ITERS)))
+    paths["G"] = phase_multiclass(device, data, ds,
+                                  min(args.iters, MULTICLASS_ITERS),
+                                  args.profile)
     torch.cuda.empty_cache()
     log("  (K) GOSS on (A)'s binned rows: top_rate=0.2, other_rate=0.1, %d "
         "iterations (the first 10 without sampling)" % GOSS_ITERS)
@@ -5190,6 +6005,14 @@ def main(argv=None) -> int:
     del w_gbdt
     torch.cuda.empty_cache()
     log("  (W) took %.1f s" % (time.perf_counter() - t))
+    log("  (X) the kernel planner and autotuner, MFU, alerts and profiler "
+        "captures, the online train-while-serve loop (%d + %d x %d rows) "
+        "and compaction of (A)'s trees x%d" % (
+            ONLINE_BASE_ROWS, ONLINE_WINDOWS, ONLINE_WINDOW_ROWS,
+            PREDICT_REPEAT))
+    paths["X"] = phase_path_x(device, data, ds, texts, args.iters,
+                              paths["W1"])
+    torch.cuda.empty_cache()
     del ds
     log("  (T) the C ABI at (A)'s shape through raw LGBM_* calls: %d rows x "
         "28 f64 features, (A)'s parameters, %d iterations" % (args.rows,
@@ -5229,9 +6052,10 @@ def main(argv=None) -> int:
     log("  (J) categorical features, Expo-shaped: %d + %d rows x %d columns "
         "(%d categorical), (D)'s settings, %d iterations"
         % (args.expo_rows, EXPO_TEST_ROWS, len(EXPO_COLUMNS), len(EXPO_CATS),
-           args.iters))
+           min(args.iters, EXPO_ITERS)))
     paths["J"], expo_sets = phase_expo(device, args.expo_rows,
-                                       EXPO_TEST_ROWS, args.iters,
+                                       EXPO_TEST_ROWS,
+                                       min(args.iters, EXPO_ITERS),
                                        args.profile)
     torch.cuda.empty_cache()
     log("  (J2) (J)'s binned data: tree_grow_mode=level, "
@@ -5272,7 +6096,8 @@ def main(argv=None) -> int:
              source="lightgbm_tpu_torch/csrc/histogram.cu",
              replaces="lightgbm_tpu/core/histogram.py:743",
              max_abs_err=hist_err_max,
-             **launches("histogram", "ABCGHIJRSTU", ("V1", "V2", "W1")),
+             **launches("histogram", "ABCGHIJRSTU", ("V1", "V2", "W1",
+                                                     "X")),
              groups_root=paths["I"]["times"]["histogram"],
              cli_root=paths["S"]["times"]["histogram"],
              expo_root=paths["J"]["times"]["histogram"],
@@ -5282,7 +6107,8 @@ def main(argv=None) -> int:
              replaces="lightgbm_tpu/core/partition.py:1090",
              also_replaces="lightgbm_tpu/core/partition.py:1130",
              max_abs_err=split_err_max,
-             **launches("partition", "ABCFGHIJRSTU", ("V1", "V2", "W1")),
+             **launches("partition", "ABCFGHIJRSTU", ("V1", "V2", "W1",
+                                                      "X")),
              feature_window_launches=paths["V2"]["feature_window_launches"],
              cli_root=paths["S"]["times"]["split"],
              unfold_launches=paths["I"]["routes"]["partition"]["unfold"],
@@ -5297,6 +6123,7 @@ def main(argv=None) -> int:
              quantized_bound_ms=times["partition_q"]["bound_ms"],
              quantized_copy_ms=times["partition_q"]["copy_ms"],
              quantized_copy_queued_ms=times["partition_q"]["copy_queued_ms"],
+             quantized_sizes=times["partition_q"]["sizes"],
              **times["partition"]),
         dict(name="histogram_int", route="cuda",
              source="lightgbm_tpu_torch/csrc/histogram_int.cu",

@@ -16,8 +16,10 @@ ABI, which ``python -m lightgbm_tpu_torch.capi_build`` compiles into
 watchdog; ``serve`` (and ``Booster.serve``) the serving tier
 (``serving``: continuous batching, multi-model residency, hot swap, the
 single-row fast path); ``obs`` the telemetry plane (``telemetry_out``,
-``metrics_port``).  The train-while-serve loop ``serve_and_train`` is not
-ported (ROADMAP queue 1 item 15).  The sklearn estimators and plotting are
+``metrics_port``, ``alert_rules``, ``flight_recorder``);
+``serve_and_train`` the train-while-serve loop (``online``); ``plan`` the
+kernel planner and its autotuner (``plan_cache``); ``core.compact`` the
+ensemble compaction.  The sklearn estimators and plotting are
 imported on first use (they import sklearn and pandas when installed).
 """
 import importlib

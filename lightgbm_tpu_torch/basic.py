@@ -49,11 +49,6 @@ from .utils.log import LightGBMError
 __all__ = ["Dataset", "Booster", "CSRData", "LightGBMError"]
 
 
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError("%s is not ported to lightgbm_tpu_torch yet "
-                              "(ROADMAP %s)" % (what, item))
-
-
 _PANDAS_DTYPES = {"int8", "int16", "int32", "int64", "uint8", "uint16",
                   "uint32", "uint64", "float16", "float32", "float64", "bool"}
 

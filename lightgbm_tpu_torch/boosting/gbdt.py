@@ -18,7 +18,8 @@ with its snapshots (``snapshot_out``), the train state of a checkpoint
 ``save_checkpoint`` / ``resume_from_checkpoint``), the preemption poll of
 ``train`` (once an iteration; ``_preempt_exit`` writes the emergency
 checkpoint) and the watchdog section of every iteration (``watched_iter``),
-``rollback_one_iter``, ``refit``, the model surgery of the C API
+``rollback_one_iter``, ``refit``, the online loop's warm start
+(``warm_start_continuation``), the model surgery of the C API
 (``merge_from``, ``shuffle_models``, ``set_leaf_value``), the replay of a
 loaded model (``replay_train_score``), every
 prediction path (gbdt.py:1999-2343: ``predict`` with its 512-row regimes,
@@ -1348,6 +1349,36 @@ class GBDT:
         is none."""
         from ..checkpoint import restore_checkpoint
         return restore_checkpoint(self, prefix)
+
+    def warm_start_continuation(self, model_str: Optional[str] = None,
+                                train_data: Optional[BinnedDataset] = None,
+                                objective=None) -> int:
+        """Bind this booster to continue a published model: the online
+        loop's warm-start contract (gbdt.py:1637-1676 of the JAX package).
+
+        Loads ``model_str`` when given (else keeps the loaded model),
+        rebinds to ``train_data`` with the replay of every tree onto the
+        training scores, and aligns the iteration clock to the ensemble:
+        ``iter_`` goes on ABSOLUTE, so the stateless bagging hash (keyed by
+        the iteration) gives the masks the uninterrupted run would have
+        used, and ``train`` to ``k + m`` after a publish at ``k`` equals
+        the checkpoint-resume path at the same boundary byte for byte.
+        Returns the aligned iteration."""
+        if model_str is not None:
+            self.load_model_from_string(model_str)
+        ds = train_data if train_data is not None else self.train_data
+        if ds is None:
+            raise LightGBMError("warm_start_continuation needs a training "
+                                "dataset to bind the continuation to")
+        self.reset_training_data(ds, objective if objective is not None
+                                 else self.objective)
+        self.replay_train_score()
+        # align to the ENSEMBLE: a booster trained in this process and
+        # rebound to a new window has num_init_iteration 0 but k trees
+        self.iter_ = max(int(self.num_init_iteration),
+                         len(self.models)
+                         // max(self.num_tree_per_iteration, 1))
+        return self.iter_
 
     # ---- model serialization (gbdt_model_text.cpp:271,375) ----
 

@@ -229,16 +229,22 @@ def save_checkpoint_best_effort(booster, prefix: str,
     try:
         return save_checkpoint(booster, prefix, keep=keep)
     except OSError as exc:
-        Log.warning("checkpoint write %s failed (%s); training continues and "
-                    "the previous checkpoint remains the resume point",
-                    prefix, exc)
-        from .obs import active as _telemetry_active
-        tele = _telemetry_active()
-        if tele is not None:
-            tele.counter("checkpoint_skipped").inc()
-            tele.event("checkpoint_skipped", what="checkpoint %s" % prefix,
-                       error=str(exc)[:300])
+        skip_io_failure("checkpoint %s" % prefix, exc)
         return None
+
+
+def skip_io_failure(what: str, exc: OSError) -> None:
+    """Record a skipped best-effort durability write (checkpoint.py:254-265
+    of the JAX package): a warning, and with a telemetry run the
+    ``checkpoint_skipped`` counter and event.  The previous checkpoint
+    stays the resume point."""
+    Log.warning("%s failed (%s); training continues and the previous "
+                "checkpoint remains the resume point", what, exc)
+    from .obs import active as _telemetry_active
+    tele = _telemetry_active()
+    if tele is not None:
+        tele.counter("checkpoint_skipped").inc()
+        tele.event("checkpoint_skipped", what=what, error=str(exc)[:300])
 
 
 def load_checkpoint(path: str

@@ -32,9 +32,15 @@ request, coalesced by the scheduler, and the output has
 512 rows on (below that ``task=predict`` takes the f64 regime).
 ``telemetry_out`` and ``metrics_port`` make any task record a telemetry
 run (``obs``), finalized into ``<telemetry_out>.summary.json``.
-``task=online`` (ROADMAP queue 1 item 15), ``plan_cache``, ``alert_rules``
-and ``flight_recorder`` (item 14) are not ported and are refused with
-``NotImplementedError``.
+``alert_rules`` and ``flight_recorder`` ride that run (``obs/alerts.py``,
+``obs/profiling.py``); ``plan_cache`` engages the kernel planner's tuned
+plans for every task (``plan/``, cli.py:81-86 of the JAX package).
+``task=online`` (cli.py:425-525) bootstraps or loads a model over ``data``,
+serves it while a trainer thread continues it (``online``), replays
+``online_feed`` (a labeled file binned against the training layout) as
+both requests and trainer ingest, writes the scores to ``output_result``
+in request order and each published generation to ``output_model``; a
+SIGTERM exits 75 and the same command again resumes the cycle.
 """
 from __future__ import annotations
 
@@ -45,7 +51,6 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from . import obs, resilience
-from .basic import _refuse
 from .boosting import create_boosting
 from .boosting.gbdt import GBDT
 from .checkpoint import (cleanup_checkpoints, load_latest_checkpoint,
@@ -86,14 +91,11 @@ class Application:
         self.params = parse_args(argv)
         self.config = Config(self.params)
         Log.reset_level(Log.level_from_verbosity(int(self.config.verbosity)))
-        cfg = self.config
-        if cfg.task == "online":
-            _refuse("task=online", "queue 1 item 15")
-        for key, on in (("plan_cache", bool(cfg.plan_cache)),
-                        ("alert_rules", bool(cfg.alert_rules)),
-                        ("flight_recorder", bool(cfg.flight_recorder))):
-            if on:
-                _refuse(key, "queue 1 item 14")
+        # the tuned-plan cache (plan_cache, else the default path): absent
+        # means analytic plans, unusable means analytic with one warning
+        # and the plan_cache_fallbacks counter
+        from .plan import state as _plan_state
+        _plan_state.configure_from_config(self.config)
 
     def run(self) -> None:
         task = self.config.task
@@ -103,6 +105,8 @@ class Application:
             self._with_telemetry(self.predict)
         elif task == "serve":
             self._with_telemetry(self.serve)
+        elif task == "online":
+            self.online()
         elif task == "convert_model":
             self.convert_model()
         elif task == "refit":
@@ -122,8 +126,8 @@ class Application:
             if tele is not None:
                 from .obs.report import finalize_run
                 finalize_run(tele, gbdt=getattr(self, "booster", None)
-                             if self.config.task == "train" else None,
-                             extra=extra)
+                             if self.config.task in ("train", "online")
+                             else None, extra=extra)
         finally:
             if tele is not None and obs.active() is tele:
                 obs.disable()
@@ -291,6 +295,95 @@ class Application:
                 "serve_requests": int(stats["submitted"]),
                 "serve_batches": int(stats["batches"]),
                 "serve_wall_s": time.perf_counter() - t_start}
+
+    # ---- task=online (the train-while-serve loop) ----
+
+    def online(self) -> None:
+        """Serve and train in one process (cli.py:427-524 of the JAX
+        package); a preempted trainer exits 75 after serving drains."""
+        cfg = self.config
+        owned = resilience.arm_supervision(
+            bool(cfg.preemption_checkpoint), float(cfg.watchdog_timeout_s),
+            artifact_base=(str(cfg.telemetry_out or "")
+                           or cfg.output_model or None))
+        try:
+            self._with_telemetry(self._online)
+        except resilience.TrainingPreempted as exc:
+            Log.warning("%s; exiting with code %d (resumable)", exc,
+                        resilience.EXIT_PREEMPTED)
+            raise SystemExit(resilience.EXIT_PREEMPTED)
+        finally:
+            resilience.disarm_supervision(*owned)
+
+    def _online(self) -> Dict:
+        from .online import OnlineController
+        from .serving import Server
+        cfg = self.config
+        loader = DatasetLoader(cfg)
+        train_data = loader.load_from_file(cfg.data)
+        Log.info("Finished loading data: %d rows, %d features",
+                 train_data.num_data, train_data.num_features)
+        objective = create_objective(cfg.objective, cfg, device=self.device)
+        booster = create_boosting(cfg.boosting, cfg, train_data, objective,
+                                  device=self.device)
+        if cfg.input_model:
+            # the controller's warm-start binding replays the loaded model
+            # onto the training scores and aligns the clock
+            with open(cfg.input_model) as fh:
+                booster.load_model_from_string(fh.read())
+        else:
+            booster.train()     # the bootstrap: num_iterations rounds
+        self.booster = booster
+        prefix = cfg.output_model or None
+        server = Server(config=cfg, device=self.device)
+        controller = None
+        try:
+            controller = OnlineController(
+                server=server, name="model", booster=booster,
+                base_ds=train_data, config=cfg, checkpoint_prefix=prefix,
+                publish_out=prefix)
+            controller.start()
+            futures = []
+            if cfg.online_feed:
+                feed = loader.load_from_file(cfg.online_feed,
+                                             reference=train_data)
+                if feed.raw_data is None:
+                    Log.fatal("online_feed must load with raw values "
+                              "(dense input) to replay as requests")
+                Xf = np.asarray(feed.raw_data, dtype=np.float32)
+                yf = np.asarray(feed.metadata.label, dtype=np.float64)
+                step = max(1, min(256, len(Xf) // 8 or 1))
+                for lo in range(0, len(Xf), step):
+                    if controller.preempted is not None:
+                        break
+                    futures.append(controller.submit(
+                        Xf[lo:lo + step],
+                        raw_score=bool(cfg.predict_raw_score)))
+                    controller.ingest(Xf[lo:lo + step].astype(np.float64),
+                                      yf[lo:lo + step])
+                controller.flush(timeout=600.0)
+            outs = [f.result() for f in futures]
+            # raises the TrainingPreempted the trainer thread caught, once
+            # serving has answered every accepted request
+            controller.wait(timeout=0.0)
+            out = (np.concatenate([np.atleast_1d(o) for o in outs])
+                   if outs else np.zeros(0))
+            self._write_result(cfg.output_result, out)
+            st = controller.stats()
+        finally:
+            if controller is not None:
+                controller.close()
+            else:
+                server.close(drain=False)
+        if st["serving"]["dropped"]:
+            Log.fatal("online replay dropped %d requests",
+                      st["serving"]["dropped"])
+        Log.info("Online run: %d cycles (generation %d), %d rows ingested, "
+                 "%d requests served, results in %s", st["cycles"],
+                 st["generation"], st["rows_ingested"],
+                 st["serving"]["submitted"], cfg.output_result)
+        self.booster = controller.booster
+        return {"online_cli": st["cycles"]}
 
     # ---- task=convert_model (gbdt_model_text.cpp:87 ModelToIfElse) ----
 

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..device import check_tensor, count_launch, cuda_stream_ptr
+from ..plan import state as _plan_state
 
 from ..device import DeviceLike, resolve_device
 
@@ -174,12 +175,12 @@ def _segments(count: int, num_features: int, num_bins: int) -> int:
 # rows one block of the integer kernel can sum: its int32 partial holds
 # |sum| <= rows * 255 (its packed shared-memory sums hold twice as many)
 _INT_BLOCK_ROWS = (2 ** 31 - 1) // 255
-# the integer kernel's grid (csrc/hist_int.cuh): blocks that fill an H100,
-# the shared memory of one copy of a tile's int32 sums (kIntHistSmem), the
-# fewest rows worth a segment of their own, the most rows of a window whose
-# feature tiles narrow before its rows split, and the most rows a block of
-# such a window stages in turn
-_INT_FILL_BLOCKS = 2 * 132
+# the integer kernel's grid (csrc/hist_int.cuh): the shared memory of one
+# copy of a tile's int32 sums (kIntHistSmem), the fewest rows worth a
+# segment of their own, the most rows of a window whose feature tiles narrow
+# before its rows split, and the most rows a block of such a window stages
+# in turn; the blocks it aims at are the plan's int_fill_blocks (two an SM
+# of the H100 in the analytic plan, plan/device_specs.py)
 _INT_HIST_SMEM = 64 << 10
 _INT_SEG_ROWS = 1024
 _INT_SMALL_ROWS = 1 << 16
@@ -220,9 +221,12 @@ def int_hist_grids(count: np.ndarray, num_features: int, num_bins: int,
 
 
 def int_hist_grid(count: int, num_features: int, num_bins: int,
-                  blocks: int = _INT_FILL_BLOCKS) -> Tuple[int, int]:
+                  blocks: Optional[int] = None) -> Tuple[int, int]:
     """:func:`int_hist_grids` of one window of ``count`` rows: (features a
-    block, row segments), aiming at ``blocks`` blocks."""
+    block, row segments), aiming at ``blocks`` blocks (the active plan's
+    ``int_fill_blocks`` when None, ``plan/state.py``)."""
+    if blocks is None:
+        blocks = _plan_state.int_fill_blocks()
     ft, nseg = int_hist_grids(np.array([count]), num_features, num_bins,
                               np.array([blocks]))
     return int(ft[0]), int(nseg[0])

@@ -67,16 +67,14 @@ import torch
 
 from ..device import check_tensor, count_launch, count_routes, cuda_stream_ptr
 from ..io.binning import MissingType
-from .histogram import (_INT_FILL_BLOCKS, _segments, check_hist_shape,
+from ..plan import planner as _planner
+from ..plan import state as _plan_state
+from .histogram import (_segments, check_hist_shape,
                         check_int_segments, data_ptr, exact_partials,
                         histogram_rows_plain, int_accumulator, int_hist_grid,
                         int_hist_grids)
 
 SCAL_HEAD = 12
-# rows per block of the count/scatter kernels: about this many row bytes,
-# clamped to [32, 2048] (2048: kPartMaxTile, csrc/part_common.cuh)
-_PART_BLOCK_BYTES = 128 << 10
-_PART_TILE_MIN, _PART_TILE_MAX = 32, 2048
 
 ScalLike = Union[torch.Tensor, Sequence[int]]
 
@@ -92,9 +90,11 @@ def scal_missing_code(missing_type: int) -> int:
 
 def part_tile_rows(row_width: int) -> int:
     """Rows per block of the split pass's kernels for rows of
-    ``row_width`` bytes: 2048 at W = 64, 1024 at W = 128, 64 at W = 2048."""
-    return max(_PART_TILE_MIN, min(_PART_TILE_MAX,
-                                   _PART_BLOCK_BYTES // row_width))
+    ``row_width`` bytes: the active plan's ``part_block_bytes`` (128 KiB in
+    the analytic plan, ``plan/state.py``) over the width, clamped to [32,
+    2048] (2048: kPartMaxTile, csrc/part_common.cuh); analytic: 2048 at W =
+    64, 1024 at W = 128, 64 at W = 2048."""
+    return _planner.part_tile(_plan_state.part_block_bytes(), row_width)
 
 
 def part_blocks(count, row_width: int):
@@ -352,10 +352,10 @@ class ExactHistMap(NamedTuple):
 
 class IntHistMap(NamedTuple):
     """The integer histogram kernel's map of a level pass
-    (``int_hist_grids``, the windows sharing its 264 blocks by rows).  Its
-    part of ``LevelMeta.meta``: [G, 4] (segments, accumulator row, features
-    a block, first block; ``kIntInfo`` in csrc/hist_int.cuh), then the
-    window of each block."""
+    (``int_hist_grids``, the windows sharing the plan's int_fill_blocks by
+    rows).  Its part of ``LevelMeta.meta``: [G, 4] (segments, accumulator
+    row, features a block, first block; ``kIntInfo`` in csrc/hist_int.cuh),
+    then the window of each block."""
     nblocks: int         # blocks of the launch
     nacc: int            # int64 accumulator rows: windows of several segments
     ft_max: int          # the widest feature tile
@@ -384,7 +384,7 @@ def _exact_hist_map(wc: np.ndarray, F: int, num_bins: int):
 
 def _int_hist_map(wc: np.ndarray, F: int, num_bins: int):
     live = wc > 0
-    share = -(-_INT_FILL_BLOCKS * wc // max(int(wc.sum()), 1))
+    share = -(-_plan_state.int_fill_blocks() * wc // max(int(wc.sum()), 1))
     ft, nseg = int_hist_grids(wc, F, num_bins, share)
     ft = np.where(live, ft, F)
     nseg = np.where(live, nseg, 0)

@@ -33,7 +33,8 @@ A categorical node carries its category bitset in a [T, M, W] word array and
 decides as ``decide_raw`` (predict.py:145-175): the category is the integer
 part of the value, and a negative, unseen (outside the bitset's words) or NaN
 category goes right (tree.h:283-331).  Rows go in chunks of at most
-:data:`CHUNK_ROWS` and trees in blocks sized from :data:`TEMP_BYTES`, so the
+:data:`CHUNK_ROWS` and trees in blocks sized from the active plan's
+``walk_temp_bytes`` (``plan/state.py``; 2 GiB in the analytic plan), so the
 temporaries stay bounded; the results do not depend on either.
 """
 from __future__ import annotations
@@ -44,13 +45,12 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..plan import state as _plan_state
 from .tree import K_ZERO_THRESHOLD, Tree
 
 # rows per chunk (the JAX package's top shape bucket, PREDICT_BUCKETS[-1])
 CHUNK_ROWS = 524288
-# bytes of [rows, trees] temporaries one tree block may hold, and their
-# bytes per (row, tree) of a walk step
-TEMP_BYTES = 1 << 31
+# bytes per (row, tree) of a walk step's [rows, trees] temporaries
 WALK_BYTES = 96
 
 
@@ -139,7 +139,10 @@ class _Stacked:
         return self._lv[dtype]
 
     def block_size(self, n: int, per_pair: int = WALK_BYTES) -> int:
-        return int(max(1, min(self.T, TEMP_BYTES // max(n * per_pair, 1))))
+        """Trees a block of the walk over ``n`` rows: as many as the active
+        plan's ``walk_temp_bytes`` of temporaries hold."""
+        budget = _plan_state.walk_temp_bytes()
+        return int(max(1, min(self.T, budget // max(n * per_pair, 1))))
 
     def decide(self, rows: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
         """go_left [n, k] of the rows at the flat node indices ``flat``

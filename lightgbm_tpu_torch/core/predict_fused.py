@@ -46,21 +46,26 @@ from ..obs import active as _telemetry_active
 from ..obs import annotate as _annotate
 from ..obs import compile as _compile
 from ..obs import recompile as _recompile
+from ..plan import planner as _planner
+from ..plan import state as _plan_state
 from .predict import StackedTrees, _Stacked
 from .tree import K_CATEGORICAL_MASK, K_DEFAULT_LEFT_MASK, Tree
 
-# the JAX package's row ladder (predict_fused.py:72).  The port pads
-# nothing and compiles nothing per size: the rungs are the serving
-# coalescer's batch sizes and the bucket a call's metrics are filed under
-PREDICT_BUCKETS = (128, 1024, 8192, 65536, 524288)
+# the JAX package's row ladder (predict_fused.py:72), the analytic plan's
+# (plan/planner.py).  The port pads nothing and compiles nothing per size:
+# the rungs are the serving coalescer's batch sizes and the bucket a call's
+# metrics are filed under; a pinned or tuned plan's ladder replaces it
+PREDICT_BUCKETS = _planner.PREDICT_BUCKETS
 
 
 def shape_bucket(n: int) -> int:
-    """Smallest rung holding ``n`` rows (the top rung past it)."""
-    for b in PREDICT_BUCKETS:
+    """Smallest rung of the active plan's ladder holding ``n`` rows (the
+    top rung past it)."""
+    ladder = _plan_state.predict_buckets()
+    for b in ladder:
         if n <= b:
             return b
-    return PREDICT_BUCKETS[-1]
+    return ladder[-1]
 
 
 def note_stack(owner, key: tuple) -> bool:

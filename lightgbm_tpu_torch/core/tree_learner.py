@@ -107,6 +107,8 @@ from .tree import Tree
 from ..obs import active as _telemetry_active
 from ..obs import annotate as _annotate
 from ..obs import launches as _launches
+from ..plan import state as _plan_state
+from ..plan.device_specs import current_device_kind
 from ..utils.log import Log
 
 CHUNK = 4096     # the spare row block past every window (partition.py CHUNK)
@@ -1322,6 +1324,14 @@ class SerialTreeLearner:
         self.layout = row_layout(bins_u8.shape[1] // bpc, bpc,
                                  -(-F // 8) if lazy else 0)
         self.template = row_store_template(bins_u8, self.layout, dev)
+        # the dispatch plan every tree of this learner runs under
+        # (plan/state.py: pinned > tuned > analytic), resolved once here as
+        # tree_learner.py:1755-1770 of the JAX package resolves it
+        sc = self.plan_shape()
+        self.plan = _plan_state.resolve(
+            sc.n_rows, sc.num_features, sc.num_bins, bpc=sc.bpc,
+            packed=sc.packed, num_class=sc.num_class,
+            device_kind=sc.device_kind, quantized=sc.quantized)
         # level growth's second row store, made at its first tree
         self.spare: Optional[torch.Tensor] = None
         # histogram_pool_size MB -> LRU slots (0: one cache row per leaf)
@@ -1505,6 +1515,18 @@ class SerialTreeLearner:
             bins = bins.astype(np.int32)
         return torch.from_numpy(bins).to(self.device)
 
+    def plan_shape(self):
+        """The kernel planner's shape class of this learner (``plan``):
+        its rows, features, kernel bins, row-store packing, classes, card
+        and precision."""
+        from ..plan.planner import shape_class
+        return shape_class(
+            self.num_data, int(self.dataset.num_features),
+            int(self.num_bins), bpc=self.layout.bpc, packed=self.packed,
+            num_class=int(getattr(self.config, "num_class", 1) or 1),
+            device_kind=current_device_kind(self.device),
+            quantized=self.quantized)
+
     def level_count(self) -> int:
         """Level steps of a tree_grow_mode=level build (its schedule)."""
         return level_count(self.num_leaves, self.max_depth)
@@ -1550,7 +1572,7 @@ class SerialTreeLearner:
         tele = _telemetry_active()
         t0, pc0 = ((time.time(), time.perf_counter()) if tele is not None
                    else (0.0, 0.0))
-        with _annotate("tree_build"):
+        with _annotate("tree_build"), _plan_state.dispatching(self.plan):
             arrays = self._build(rows, grad, hess, num_data_in_bag,
                                  feature_mask, grow_mode, qscale, hist_fn,
                                  part_fn, level_fn, cegb)
@@ -1560,6 +1582,12 @@ class SerialTreeLearner:
                   else max(int(arrays.num_leaves) - 1, 0))
         _launches.record(grow_mode, passes)
         if tele is not None:
+            # which plan the tree dispatched under (gbdt.py:1130-1139 of
+            # the JAX package), once a run per (site, key, provenance)
+            _plan_state.stamp(tele, "tree_build", self.plan.provenance,
+                              key="n%d_b%d" % (int(self.num_data),
+                                               int(self.num_bins)),
+                              mode=grow_mode)
             from ..obs import spans as _spans
             _spans.record_span(tele, "tree_build", t0=t0,
                                dur_s=time.perf_counter() - pc0,

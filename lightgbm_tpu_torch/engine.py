@@ -27,9 +27,10 @@ gauges) and finalize it into ``<telemetry_out>.summary.json``, closing it;
 a run the caller configured (``obs.configure``) is recorded into and left
 open.  :func:`serve` (engine.py:355-400) starts the serving tier over one
 or many models on ``device``; a run it opens for ``telemetry_out`` is
-finalized by ``Server.close``.  ``serve_and_train`` (the train-while-serve
-loop) is not carried over yet and raises ``NotImplementedError`` (ROADMAP
-queue 1 item 15).
+finalized by ``Server.close``.  :func:`serve_and_train` (engine.py:405-463)
+starts the train-while-serve loop (``online``).  Every entry point engages
+the kernel planner's tuned-plan cache first (``plan_cache``, or the
+default path; ``plan/state.py``), before a tree learner resolves its plan.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from . import callback, obs, resilience
-from .basic import Booster, Dataset, _refuse
+from .basic import Booster, Dataset
 from .checkpoint import cleanup_checkpoints, save_checkpoint_best_effort
 from .device import DeviceLike
 from .utils.log import Log
@@ -125,6 +126,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
         train_set.categorical_feature = categorical_feature
     params["num_iterations"] = num_boost_round
 
+    _engage_plan_cache(params)
     booster = Booster(params=params, train_set=train_set, device=device)
     gbdt = booster._booster
     if init_model is not None:
@@ -276,6 +278,17 @@ def train(params: Dict[str, Any], train_set: Dataset,
             obs.disable()
 
 
+def _engage_plan_cache(params: Dict[str, Any]) -> None:
+    """Engage the tuned-plan cache of ``params`` (``plan_cache``, else the
+    default path) before a learner resolves its plan (engine.py:95-104 of
+    the JAX package); no cache means the analytic plans."""
+    from .config import alias_transform
+    from .plan import state as _plan_state
+    _plan_state.configure(
+        str(alias_transform(dict(params)).get("plan_cache", "") or "")
+        or None)
+
+
 def serve(models, params: Optional[Dict[str, Any]] = None,
           device: DeviceLike = None, **server_kwargs):
     """Start the serving tier (``serving``) over one or many models on
@@ -299,6 +312,8 @@ def serve(models, params: Optional[Dict[str, Any]] = None,
     cfg = Config(alias_transform(dict(params or {})))
     own_tele = (obs.configure_from_config(cfg, "engine.serve")
                 if obs.active() is None else None)
+    from .plan import state as _plan_state
+    _plan_state.configure_from_config(cfg)
     server = None
     try:
         server = Server(config=cfg, owned_telemetry=own_tele, device=device,
@@ -321,9 +336,66 @@ def serve(models, params: Optional[Dict[str, Any]] = None,
     return server
 
 
-def serve_and_train(*args, **kwargs):
-    """The online train-and-serve loop: not ported yet."""
-    _refuse("serve_and_train", "queue 1 item 15")
+def serve_and_train(booster, train_set=None,
+                    params: Optional[Dict[str, Any]] = None,
+                    name: str = "model",
+                    checkpoint_prefix: Optional[str] = None,
+                    publish_out: Optional[str] = None,
+                    warm=True, device: DeviceLike = None, **server_kwargs):
+    """Start the train-while-serve loop (``online``, engine.py:405-463 of
+    the JAX package): one process that serves ``booster`` through the
+    serving tier while a trainer thread ingests fresh labeled rows
+    (``controller.ingest(X, y)``) and republishes each continued
+    generation through ``ModelRegistry.swap``.
+
+    ``booster`` is a Booster, a GBDT or a model-file path; ``train_set``
+    the base ``BinnedDataset`` (or a ``Dataset``) whose bin layout every
+    window is binned against (the booster's training data by default).
+    ``params`` feeds the serving knobs and the ``online_*`` policy;
+    ``checkpoint_prefix`` arms the cycle windows and checkpoints (a rerun
+    resumes a preempted cycle); ``publish_out`` keeps each published
+    generation's model text (a restarted process warm-starts from it).
+    ``device`` is the server's (``cuda`` unless the caller passes
+    ``"cpu"``); a loaded model goes there too.  Extra keyword arguments go
+    to :class:`~lightgbm_tpu_torch.serving.Server`.  Returns the running
+    :class:`~lightgbm_tpu_torch.online.OnlineController`: ``submit``,
+    ``ingest``, ``close`` (also a context manager)."""
+    from .boosting.gbdt import GBDT
+    from .config import Config, alias_transform
+    from .online import OnlineController
+    from .plan import state as _plan_state
+    from .serving import Server
+
+    cfg = Config(alias_transform(dict(params or {})))
+    own_tele = (obs.configure_from_config(cfg, "engine.serve_and_train")
+                if obs.active() is None else None)
+    _plan_state.configure_from_config(cfg)
+    server = None
+    try:
+        server = Server(config=cfg, owned_telemetry=own_tele, device=device,
+                        **server_kwargs)
+        if isinstance(booster, str):
+            booster = GBDT.load_model(booster, cfg, device=server.device)
+        if train_set is not None:
+            construct = getattr(train_set, "construct", None)
+            if construct is not None:
+                train_set = construct()
+            train_set = getattr(train_set, "handle", train_set)
+        controller = OnlineController(
+            server=server, name=name, booster=booster, base_ds=train_set,
+            config=cfg, checkpoint_prefix=checkpoint_prefix,
+            publish_out=publish_out, warm=warm)
+        controller.start()
+    except BaseException:
+        # a failed construction must not leak the dispatcher thread or
+        # keep the owned run process-active
+        if server is not None:
+            server.disown_telemetry()
+            server.close(drain=False)
+        if own_tele is not None and obs.active() is own_tele:
+            obs.disable()
+        raise
+    return controller
 
 
 class CVBooster:
@@ -465,6 +537,7 @@ def cv(params, train_set, num_boost_round=100, folds=None, nfold=5,
     if categorical_feature != "auto":
         train_set.categorical_feature = categorical_feature
 
+    _engage_plan_cache(params)
     results = collections.defaultdict(list)
     cvfolds = _make_n_folds(train_set, folds=folds, nfold=nfold,
                             params=params, seed=seed, fpreproc=fpreproc,

@@ -20,9 +20,12 @@ rank, and rank 0 alone writes the summary.  The rank comes from an
 initialised ``torch.distributed`` group of more than one process or from
 ``LIGHTGBM_TPU_TORCH_TELEMETRY_RANK``.
 
-The JAX package's alert engine (``alert_rules``), flight recorder
-(``flight_recorder``), MFU estimate and profiler captures are ROADMAP
-queue 1 item 14 and are refused by name here.
+``alert_rules`` installs the live alert engine on the run (:mod:`.alerts`,
+its ``/alerts`` endpoint and firing gauges), ``flight_recorder`` arms one
+``torch.profiler`` capture for the run's first incident (:mod:`.profiling`,
+also ``/debug/profile?seconds=N``), and the end-of-run summary carries the
+cost model's ``mfu``/``device_util`` estimate (:mod:`.mfu`); the three
+modules are imported by their call sites, on first use.
 """
 from __future__ import annotations
 
@@ -72,6 +75,7 @@ def configure(out: Optional[str] = None, freq: int = 1,
               rank: Optional[int] = None, metrics_port: int = 0,
               metrics_addr: str = "127.0.0.1",
               alert_rules: Optional[str] = None,
+              alert_interval_s: float = 1.0,
               flight_recorder: bool = False, **meta: Any) -> Telemetry:
     """Install the process-active telemetry run (closing any previous one).
 
@@ -81,18 +85,10 @@ def configure(out: Optional[str] = None, freq: int = 1,
     rank-stamped.  ``metrics_port > 0`` starts the live HTTP exporter
     (``/metrics`` ``/healthz`` ``/summary.json``), stopped by
     ``Telemetry.close()``/:func:`disable`.  Extra keyword arguments land on
-    the ``run_start`` event.  ``alert_rules`` and ``flight_recorder`` are
-    not ported yet and raise ``NotImplementedError``."""
+    the ``run_start`` event.  ``alert_rules`` (a JSON rules file) starts
+    the alert engine, evaluated every ``alert_interval_s``;
+    ``flight_recorder`` arms the one-shot incident capture."""
     global _active
-    if alert_rules:
-        raise NotImplementedError("alert_rules (the live alert engine) is not "
-                                  "ported to lightgbm_tpu_torch yet (ROADMAP "
-                                  "queue 1 item 14)")
-    if flight_recorder:
-        raise NotImplementedError("flight_recorder (the incident profiler "
-                                  "capture) is not ported to "
-                                  "lightgbm_tpu_torch yet (ROADMAP queue 1 "
-                                  "item 14)")
     rank, sharded = _resolve_rank(rank)
     sink = shard_path(out, rank) if (out and sharded) else out
     tele = Telemetry(out=sink, freq=freq, meta=meta, rank=rank,
@@ -106,6 +102,13 @@ def configure(out: Optional[str] = None, freq: int = 1,
     if int(metrics_port) > 0:
         from .exporter import start_exporter
         start_exporter(tele, port=int(metrics_port), addr=metrics_addr)
+    if alert_rules:
+        from . import alerts as _alerts
+        _alerts.install(tele, rules_path=str(alert_rules),
+                        interval_s=float(alert_interval_s))
+    if flight_recorder:
+        from . import profiling as _profiling
+        _profiling.arm_flight_recorder(tele)
     return tele
 
 
@@ -126,6 +129,8 @@ def configure_from_config(cfg, entry: str, **meta: Any
                                       or "127.0.0.1"),
                      alert_rules=str(getattr(cfg, "alert_rules", "")
                                      or "") or None,
+                     alert_interval_s=float(getattr(cfg, "alert_interval_s",
+                                                    1.0)),
                      flight_recorder=bool(getattr(cfg, "flight_recorder",
                                                   False)),
                      entry=entry, **meta)

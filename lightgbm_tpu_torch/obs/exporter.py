@@ -16,13 +16,18 @@ provider registry alone).
   (preemption flag: ``draining``; watchdog: ``stalled`` and HTTP 503 once
   it fired), the serving tier's queue depth and the age of the last
   checkpoint write;
-- ``GET /summary.json``: what ``report.finalize_run`` would write now.
+- ``GET /summary.json``: what ``report.finalize_run`` would write now;
+- ``GET /alerts``: the alert engine's live state (``obs/alerts.py``;
+  ``{"enabled": false, ...}`` on a run without one);
+- ``GET /debug/profile?seconds=N``: one bounded ``torch.profiler`` capture
+  into the run's profile directory (``obs/profiling.py``): 200 with its
+  metadata, 409 while another capture or profiler runs, 400 for a bad
+  ``seconds``.
 
+``/metrics`` also carries ``plan_cache_fallbacks_total`` (the kernel
+planner's always-on counter, ``plan/cache.py``) and one
+``alert_state{rule,series}`` gauge per series of the alert engine.
 ``port=0`` binds an ephemeral port (the bound one is on ``self.port``).
-The JAX module's ``/alerts`` and ``/debug/profile`` endpoints belong to its
-alert engine and profiler capture (ROADMAP queue 1 item 14), and its
-``plan_cache_fallbacks_total`` counter to the kernel planner (same item):
-they are left out until those land.
 """
 from __future__ import annotations
 
@@ -89,7 +94,8 @@ def render_prometheus(snapshot: Dict[str, Any],
                       quality: Optional[Dict[str, Any]] = None,
                       compile_acct: Optional[Dict[str, Any]] = None,
                       devmem_stats=None,
-                      residency: Optional[Dict[str, Any]] = None) -> str:
+                      residency: Optional[Dict[str, Any]] = None,
+                      alerts: Optional[Dict[str, Any]] = None) -> str:
     """Registry snapshot -> Prometheus text exposition (0.0.4).
 
     Counters render as ``counter``, gauges as ``gauge``, histograms as
@@ -107,7 +113,8 @@ def render_prometheus(snapshot: Dict[str, Any],
     counts), ``devmem_stats`` (a live ``obs.devmem.sample`` result: the
     card's memory per device) and ``residency``
     (``serving.registry.residency_snapshot()``: accounted-vs-actual
-    resident bytes per model)."""
+    resident bytes per model) and ``alerts`` (an alert engine's
+    snapshot: one firing gauge per (rule, series))."""
     from .. import resilience
     from ..utils.file_io import io_retry_count
     from . import launches, recompile
@@ -122,7 +129,7 @@ def render_prometheus(snapshot: Dict[str, Any],
     # exposition — Prometheus fails the whole scrape); the labeled
     # process-wide block is the richer one, so it wins
     mirrored = ("recompiles", "tree_kernel_launches", "predict_fallbacks",
-                "io_retries")
+                "io_retries", "plan_cache_fallbacks")
     for name, v in sorted(snapshot.get("counters", {}).items()):
         if name in mirrored:
             continue
@@ -169,6 +176,11 @@ def render_prometheus(snapshot: Dict[str, Any],
            or ["%s 0" % fb])
     io = _PREFIX + "io_retries_total"
     metric(io, "counter", ["%s %d" % (io, io_retry_count())])
+    # plan-cache degradations (plan/cache.py): analytic fallbacks from a
+    # corrupt, foreign or mismatched tuned-plan cache, always on
+    from ..plan.cache import fallback_count as _plan_fallbacks
+    pf = _PREFIX + "plan_cache_fallbacks_total"
+    metric(pf, "counter", ["%s %d" % (pf, _plan_fallbacks())])
     # host-memory plane (obs/hostmem.py): current RSS plus the
     # high-water (max of the chunk-boundary polls and the kernel's VmHWM)
     # — always-on like the resilience counters; the scrape IS the poll,
@@ -277,6 +289,15 @@ def render_prometheus(snapshot: Dict[str, Any],
             # labeled + rebuilt per scrape from LIVE models only: a
             # departed model's divergence vanishes with it
             metric(rd, "gauge", div_samples)
+    # live alerting (obs/alerts.py): one firing gauge per (rule, series)
+    if alerts and alerts.get("series"):
+        af = _PREFIX + "alert_state"
+        metric(af, "gauge",
+               ['%s{rule="%s",series="%s"} %d'
+                % (af, _esc_label(st.get("rule")),
+                   _esc_label(st.get("series")),
+                   1 if st.get("state") == "firing" else 0)
+                for st in alerts["series"]])
     return "\n".join(lines) + "\n"
 
 
@@ -373,6 +394,19 @@ class MetricsExporter:
                         self._send(200, json.dumps(
                             summarize(exporter.tele), default=str),
                             "application/json")
+                    elif path == "/alerts":
+                        from . import alerts as _alerts
+                        eng = _alerts.engine(exporter.tele)
+                        body = (eng.snapshot() if eng is not None
+                                else {"enabled": False, "series": [],
+                                      "firing": 0, "fired_total": 0})
+                        self._send(200, json.dumps(body, default=str),
+                                   "application/json")
+                    elif path == "/debug/profile":
+                        code, body = exporter._debug_profile(
+                            self.path.partition("?")[2])
+                        self._send(code, json.dumps(body, default=str),
+                                   "application/json")
                     else:
                         self._send(404, "not found: %s\n" % path,
                                    "text/plain")
@@ -402,6 +436,7 @@ class MetricsExporter:
                   for k, n in recompile.counts().items())
         mon = getattr(self.tele, "quality", None)
         acct = getattr(self.tele, "compile_acct", None)
+        eng = getattr(self.tele, "alerts", None)
         # the scrape IS the devmem poll (live gauges cost nothing between
         # scrapes) and the residency cross-check runs on the same cadence
         dm = devmem.sample(self.tele)
@@ -410,7 +445,23 @@ class MetricsExporter:
             snap, run_recompiles=run,
             quality=mon.snapshot() if mon is not None else None,
             compile_acct=acct.snapshot() if acct is not None else None,
-            devmem_stats=dm, residency=residency)
+            devmem_stats=dm, residency=residency,
+            alerts=eng.snapshot() if eng is not None else None)
+
+    def _debug_profile(self, query: str):
+        """GET /debug/profile?seconds=N: one bounded capture into the
+        run's profile directory; 409 while one is already running."""
+        from urllib.parse import parse_qs
+        from . import profiling
+        try:
+            seconds = float(parse_qs(query).get(
+                "seconds", [profiling.DEFAULT_SECONDS])[0])
+        except (TypeError, ValueError):
+            return 400, {"error": "seconds must be a number"}
+        meta = profiling.capture(self.tele, seconds=seconds, reason="http")
+        if meta.get("busy"):
+            return 409, meta
+        return (200 if "error" not in meta else 501), meta
 
     def stop(self) -> None:
         self._server.shutdown()

@@ -444,11 +444,32 @@ class QualityMonitor:
                         trained_at: Optional[float] = None,
                         published_at: Optional[float] = None) -> None:
         with self._lock:
+            prev = self._provenance.get(str(name)) or {}
             self._provenance[str(name)] = {
                 "generation": int(generation),
                 "trained_at": trained_at,
                 "published_at": published_at,
+                # the online buffer's freshness counters survive the
+                # republish (note_freshness refreshes them right after)
+                **{k: prev[k] for k in ("rows_behind", "rows_ingested",
+                                        "rows_trained") if k in prev},
             }
+
+    def note_freshness(self, name: str,
+                       rows_behind: Optional[int] = None,
+                       rows_ingested: Optional[int] = None,
+                       rows_trained: Optional[int] = None) -> None:
+        """The online loop's ingested-vs-trained row counters: the
+        ``rows_behind`` gauge beside ``seconds_behind`` (quality.py:475-489
+        of the JAX package)."""
+        with self._lock:
+            prov = self._provenance.setdefault(str(name), {})
+            if rows_behind is not None:
+                prov["rows_behind"] = int(rows_behind)
+            if rows_ingested is not None:
+                prov["rows_ingested"] = int(rows_ingested)
+            if rows_trained is not None:
+                prov["rows_trained"] = int(rows_trained)
 
     # -- accumulation --
 

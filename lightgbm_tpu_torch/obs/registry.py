@@ -285,10 +285,14 @@ class Telemetry:
         # runs that never serve/score traffic
         self.quality = None
         # run-owned state created on first use by its module: compile
-        # accounting (obs/compile.py) and device-memory tracking
-        # (obs/devmem.py)
+        # accounting (obs/compile.py), device-memory tracking
+        # (obs/devmem.py), profiler captures (obs/profiling.py) and the
+        # live alert engine (obs/alerts.py, the one with a thread: close()
+        # stops it with the run)
         self.compile_acct = None
         self.devmem = None
+        self.profiling = None
+        self.alerts = None
         self.freq = max(int(freq), 1)
         # newest-EVENT_BUFFER_CAP mirror of the JSONL stream (the file is
         # the durable record); event_count is the total ever recorded
@@ -362,11 +366,15 @@ class Telemetry:
                 self._fh.flush()
 
     def close(self) -> None:
-        # the exporter thread is stopped OUTSIDE the event lock (an
-        # in-flight handler may be reading a snapshot that briefly takes it)
+        # the exporter and alert-engine threads are stopped OUTSIDE the
+        # event lock (an in-flight handler or tick may be reading a
+        # snapshot, or emitting an event, that briefly takes it)
         exp, self.exporter = self.exporter, None
         if exp is not None:
             exp.stop()
+        eng, self.alerts = self.alerts, None
+        if eng is not None:
+            eng.stop()
         with self._lock:
             if self._fh is not None:
                 self._fh.flush()

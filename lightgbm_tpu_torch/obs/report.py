@@ -14,16 +14,18 @@ run's JSONL (rank 0 alone under a multi-process group) and emits
       "recompiles": {"fn|bucket": n}, "recompile_total": n,
       "tree_kernel_launches": {mode: {"launches", "trees", "per_tree"}},
       "tree_kernel_launch_total": n, "resilience": {...},
-      "serving": {...}, "contrib": {...}, "ingest": {...}, "quant": {...},
-      "compile": {...}, "devmem": {...}, "quality": {...},
+      "mfu": x|null, "device_util": y|null,
+      "serving": {...}, "online": {...}, "contrib": {...}, "ingest": {...},
+      "quant": {...}, "compile": {...}, "devmem": {...},
+      "profiling": {...}, "alerts": {...}, "plan": {...}, "quality": {...},
       "events": <event count>, "rank": ..., "host": ...
     }
 
-Each named block is present only when the run recorded what it folds.  The
-JAX summary's ``mfu``/``device_util`` estimate, ``plan`` provenance,
-``alerts`` and ``profiling`` blocks come from modules of ROADMAP queue 1
-item 14 and are absent here (never written as zeros); its ``online``
-block belongs to item 15.
+Each named block is present only when the run recorded what it folds.
+``mfu``/``device_util`` come from the cost model of ``obs/mfu.py`` over the
+port's kernels (None on the CPU, which has no peaks); ``plan`` is the
+kernel planner's provenance per site (``plan/state.py``), with the engaged
+cache and its fallback counter.
 """
 from __future__ import annotations
 
@@ -104,6 +106,29 @@ def serving_block(counters: Dict[str, Any], gauges: Dict[str, Any],
 
 
 _CONTRIB_LAT = "contrib_latency_s_bucket_"
+
+
+_ONLINE_TRIG = "online_trigger_"
+
+
+def online_block(counters: Dict[str, Any], gauges: Dict[str, Any],
+                 hists: Dict[str, Any]):
+    """Fold the online controller's metrics into one section (None when
+    the run never trained while serving; report.py:117-134 of the JAX
+    package)."""
+    cycles = counters.get("online_cycles")
+    if not cycles:
+        return None
+    return {
+        "cycles": int(cycles),
+        "generation": gauges.get("online_generation"),
+        "rows_behind": gauges.get("online_rows_behind"),
+        "triggers": {name[len(_ONLINE_TRIG):]: int(n)
+                     for name, n in sorted(counters.items())
+                     if name.startswith(_ONLINE_TRIG)},
+        "train_s": hists.get("online_train_s", {"count": 0}),
+        "publish_s": hists.get("online_publish_s", {"count": 0}),
+    }
 
 
 def contrib_block(counters: Dict[str, Any], gauges: Dict[str, Any],
@@ -256,6 +281,8 @@ def summarize(tele: Telemetry, extra: Optional[Dict[str, Any]] = None
         "tree_kernel_launches": run_launches,
         "tree_kernel_launch_total": launch_total,
         "resilience": resilience,
+        "mfu": gauges.get("mfu"),
+        "device_util": gauges.get("device_util"),
         "events": getattr(tele, "event_count", len(tele.events)),
         # pod provenance: which host produced this summary (rank None =
         # single-process run)
@@ -267,6 +294,11 @@ def summarize(tele: Telemetry, extra: Optional[Dict[str, Any]] = None
     serving = serving_block(counters, gauges, hists)
     if serving is not None:
         out["serving"] = serving
+    # online-learning rollup (online/): train-while-serve cycles by
+    # trigger, the live generation and the rows-behind gauge
+    online = online_block(counters, gauges, hists)
+    if online is not None:
+        out["online"] = online
     # explanations rollup (core/predict_contrib.py): contrib
     # dispatch/row counts, per-bucket latency and degraded fallbacks —
     # present only when the run served pred_contrib traffic
@@ -295,6 +327,36 @@ def summarize(tele: Telemetry, extra: Optional[Dict[str, Any]] = None
     dm = _devmem.snapshot(tele)
     if dm:
         out["devmem"] = dm
+    # profiler captures and the live-alert tally (report.py:339-351 of the
+    # JAX package)
+    from . import profiling as _profiling
+    prof = _profiling.snapshot(tele)
+    if prof:
+        out["profiling"] = prof
+    eng = getattr(tele, "alerts", None)
+    if eng is not None:
+        out["alerts"] = eng.snapshot()
+    elif counters.get("alerts_fired"):
+        # out-of-band incidents (a watchdog stall without an engine)
+        out["alerts"] = {"enabled": False, "series": [],
+                         "fired_total": int(counters["alerts_fired"])}
+    # kernel-plan provenance (plan/): which plan each site dispatched
+    # under, the engaged cache and its always-on fallback counter
+    stamps = getattr(tele, "plan_stamps", None)
+    if stamps:
+        from ..plan import cache as _plan_cache
+        from ..plan import state as _plan_state
+        sites = {site: {k: v for k, v in info.items() if k != "_tag"}
+                 for site, info in stamps.items()}
+        provs = {info["provenance"] for info in sites.values()}
+        headline = ("pinned" if "pinned" in provs
+                    else "tuned" if "tuned" in provs else "analytic")
+        out["plan"] = {
+            "provenance": headline,
+            "sites": sites,
+            "cache_path": _plan_state.configured_path(),
+            "cache_fallbacks": _plan_cache.fallback_count(),
+        }
     # model-quality rollup (obs/quality.py): per-model drift PSI/JS ranked
     # by importance, score PSI, generation + freshness — present only when
     # the run monitored traffic
@@ -322,6 +384,8 @@ def human_table(summary: Dict[str, Any]) -> str:
     row("iterations", num(summary.get("iterations"), "%d")
         if summary.get("iterations") is not None else "-")
     row("wall_s", num(summary.get("wall_s")))
+    row("mfu", num(summary.get("mfu")))
+    row("device_util", num(summary.get("device_util")))
     row("recompiles (total)", "%d" % summary.get("recompile_total", 0))
     for key, n in sorted((summary.get("recompiles") or {}).items()):
         row("  recompile %s" % key, "%d" % n)
@@ -455,6 +519,33 @@ def human_table(summary: Dict[str, Any]) -> str:
         for dev, ms in sorted(dm["devices"].items()):
             row("    device %s" % dev,
                 " ".join("%s=%d" % (k, v) for k, v in sorted(ms.items())))
+    onl = summary.get("online") or {}
+    if onl:
+        lines.append("  online:")
+        trig = onl.get("triggers") or {}
+        row("    cycles", "%d (%s) gen=%s rows_behind=%s"
+            % (onl.get("cycles", 0),
+               ", ".join("%s=%d" % kv for kv in sorted(trig.items()))
+               or "-", onl.get("generation"), onl.get("rows_behind")))
+    plan = summary.get("plan") or {}
+    if plan:
+        row("plan provenance", "%s (cache=%s, fallbacks=%d)"
+            % (plan.get("provenance", "analytic"),
+               plan.get("cache_path") or "-",
+               plan.get("cache_fallbacks", 0)))
+    al = summary.get("alerts") or {}
+    if al:
+        lines.append("  alerts:")
+        row("    fired_total", "%d" % al.get("fired_total", 0))
+        for st in al.get("series") or []:
+            if st.get("state") == "firing":
+                row("    %s[%s]" % (st.get("rule"), st.get("series", "-")),
+                    "firing value=%s" % st.get("value", "-"))
+    prof = summary.get("profiling") or {}
+    for c in prof.get("captures") or []:
+        row("  profiler capture #%d %s" % (c.get("n", 0),
+                                           c.get("reason", "?")),
+            c.get("error") or c.get("dir", "-"))
     res = summary.get("resilience") or {}
     shown = {k: v for k, v in sorted(res.items())
              if (isinstance(v, (int, float)) and v)
@@ -525,9 +616,18 @@ def finalize_run(tele: Telemetry, gbdt=None, wall_s: Optional[float] = None,
         tele.gauge("train_wall_s").set(wall_s)
     if iters is not None and tele.gauge("train_iterations").value is None:
         tele.gauge("train_iterations").set(iters)
+    eff_wall = tele.gauge("train_wall_s").value
+    eff_iters = tele.gauge("train_iterations").value
     if gbdt is not None:
         if tele.gauge("train_rows").value is None:
             tele.gauge("train_rows").set(int(gbdt.num_data))
+        if eff_wall:
+            # the cost model's shares of the card (report.py:656 of the
+            # JAX package)
+            from .mfu import record_training_estimate
+            record_training_estimate(
+                tele, gbdt, eff_wall,
+                iters=int(eff_iters) if eff_iters else None)
         # split/gain feature importance rides the summary: the quality
         # table ranks drifted features by importance x PSI, and the
         # artifact should carry the ranking weights it used (top 50 by

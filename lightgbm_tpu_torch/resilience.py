@@ -28,10 +28,10 @@ Where the port differs from the JAX package:
 
 - With a telemetry run active, an emergency checkpoint records
   ``preemptions``, ``preempt_checkpoint_s`` and a ``preempt_checkpoint``
-  event, and a stall ``watchdog_stall_s`` and a ``watchdog_stall`` event
-  (resilience.py:199-205, :365-370 of the JAX package).  The JAX package
-  also raises an alert and fires its flight recorder there: those are
-  ROADMAP queue 1 item 14.
+  event, and a stall ``watchdog_stall_s``, a ``watchdog_stall`` event, a
+  firing ``watchdog_stall`` alert (``obs/alerts.note_incident``) and the
+  flight recorder's capture when the run armed one (resilience.py:199-205,
+  :365-380 of the JAX package).
 - The first-dispatch grace covers the first ``nvcc`` build of the kernels
   (``kernels.build()``, run at the first launch), where the JAX package's
   covers an XLA compile of a program: a section that may launch a kernel
@@ -358,6 +358,16 @@ class Watchdog:
             tele.gauge("watchdog_stall_s").set(elapsed)
             tele.event("watchdog_stall", section=name, stall_s=elapsed,
                        timeout_s=self.timeout_s)
+            # a stall is an incident: into the alert stream, and the
+            # flight recorder's one capture, taken before the abort so the
+            # trace exists when a supervisor reads the exit code
+            # (resilience.py:371-380 of the JAX package); both do nothing
+            # unless the run armed them
+            from .obs import alerts as _alerts
+            from .obs import profiling as _profiling
+            _alerts.note_incident(tele, "watchdog_stall", section=name,
+                                  stall_s=elapsed)
+            _profiling.on_incident("watchdog_stall")
             tele.flush()
         if self.artifact:
             try:

@@ -17,8 +17,8 @@ The counterpart of ``lightgbm_tpu/serving/__init__.py`` (:1-32):
   telemetry calls when no run is active.
 
 Entry points: ``lightgbm_tpu_torch.serve(...)``, ``Booster.serve()`` and
-CLI ``task=serve``.  The train-while-serve loop (``serve_and_train``,
-``task=online``) is ROADMAP queue 1 item 15.
+CLI ``task=serve``; the train-while-serve loop (``online``:
+``serve_and_train``, ``task=online``) republishes through ``swap``.
 """
 from .registry import ModelRegistry, ResidentModel
 from .scheduler import Server, ServingClosed, ServingQueueFull

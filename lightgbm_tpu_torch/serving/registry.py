@@ -285,6 +285,17 @@ class ResidentModel:
             for b in buckets:
                 self.predict_contrib(
                     np.zeros((int(b), n_feat), dtype=np.float32))
+        # plan provenance (registry.py:288-292 of the JAX package): which
+        # plan sized the walk and the ladder this warm-up just ran
+        tele = _telemetry_active()
+        if tele is not None:
+            from ..plan import state as _plan_state
+            _plan_state.stamp(tele, "serving_warm",
+                              _plan_state.current_provenance(),
+                              key=str(self.name),
+                              buckets=",".join(str(int(b)) for b in buckets),
+                              precisions=",".join(str(p)
+                                                  for p in precisions))
 
     def quality_baseline(self):
         """Drift baseline of this resident generation (delegates to the

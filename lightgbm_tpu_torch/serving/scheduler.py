@@ -42,7 +42,7 @@ import numpy as np
 
 import torch
 
-from ..core.predict_fused import PREDICT_BUCKETS, shape_bucket
+from ..core.predict_fused import shape_bucket
 from ..device import DeviceLike
 from ..obs import active as _telemetry_active
 from ..obs import annotate as _annotate
@@ -525,8 +525,7 @@ class Server:
                          % key.precision).inc(int(nrows))
             if fast:
                 tele.counter("serve_single_row_fast").inc()
-            bucket = 1 if fast else min(shape_bucket(nrows),
-                                        PREDICT_BUCKETS[-1])
+            bucket = 1 if fast else shape_bucket(nrows)
             lat = tele.histogram("serve_latency_s_model_%s" % m)
             for req in batch:
                 lat.observe(done - req.t_submit)

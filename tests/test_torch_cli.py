@@ -16,7 +16,8 @@ config file with command-line overrides, ``main`` in a subprocess (and
 ``python -m lightgbm_tpu_torch``, which runs on CUDA and fails without it),
 ``task=convert_model`` compiled with ``g++`` and equal to ``predict`` to
 rtol 1e-10 on the f32 regime's rows, ``task=refit`` against the JAX
-package's refit, and the refused planes.
+package's refit, and the planes the CLI arms: ``task=online``,
+``plan_cache``, ``alert_rules`` and ``flight_recorder``.
 """
 import ctypes
 import os
@@ -345,12 +346,73 @@ def test_timer_scopes(data_files, one_thread):
     assert global_timer.totals() == {}
 
 
+def _cache_for(train, tmp_path):
+    """A tuned-plan cache keyed by the CLI learner's shape class."""
+    from lightgbm_tpu_torch.plan import cache, planner
+    X = parse_file(train, label_idx=0)[0]
+    ds = P.Dataset(X, np.zeros(len(X))).construct().handle
+    sc = planner.shape_class(ds.num_data, ds.num_features, 256,
+                             device_kind="cpu")
+    c = cache.PlanCache(device_kind="cpu")
+    c.put(sc, planner.analytic_plan(sc)._replace(part_block_bytes=64 << 10))
+    return c.save(str(tmp_path / "plans.json"))
+
+
 @pytest.mark.parametrize("arg", ["task=online", "task=serve_and_train",
                                  "plan_cache=plans.json",
                                  "alert_rules=rules.json",
                                  "flight_recorder=true"])
-def test_refused_planes(arg):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        Application(["data=x.train", arg], device="cpu")
-    with pytest.raises(SystemExit):
-        main(["data=x.train", arg], device="cpu")
+def test_planes_from_the_cli(arg, data_files, tmp_path):
+    """Each plane the CLI once refused runs: the online task (and its
+    ``serve_and_train`` alias) serves the feed while it trains and writes
+    the scores and the published model; ``plan_cache`` engages the tuned
+    plan, ``alert_rules`` the alert engine and ``flight_recorder`` the
+    incident capture, each into the run's summary."""
+    import json
+    from lightgbm_tpu_torch.plan import cache as plan_cache
+    from lightgbm_tpu_torch.plan import state as plan_state
+    _, train, test, X, y = data_files
+    out = str(tmp_path / "run.jsonl")
+    model = str(tmp_path / "model.txt")
+    argv = ["data=%s" % train, "num_trees=3", "num_leaves=7",
+            "objective=binary", "verbosity=-1", "output_model=%s" % model,
+            "telemetry_out=%s" % out]
+    key = arg.split("=")[0]
+    if key == "task":
+        result = str(tmp_path / "scores.txt")
+        argv += [arg, "online_feed=%s" % test, "online_rounds=2",
+                 "online_min_rows=100", "online_drift_trigger=false",
+                 "output_result=%s" % result, "max_batch_wait_us=0"]
+    elif key == "plan_cache":
+        argv.append("plan_cache=%s" % _cache_for(train, tmp_path))
+    elif key == "alert_rules":
+        rules = tmp_path / "rules.json"
+        rules.write_text(json.dumps([{"name": "bag", "kind": "gauge",
+                                      "gauge": "bag_data_cnt",
+                                      "max": 1e9}]))
+        argv.append("alert_rules=%s" % rules)
+    else:
+        argv.append(arg)
+    try:
+        run(argv)
+    finally:
+        plan_state.reset()
+        plan_cache.reset_fallbacks()
+    summary = json.load(open(out + ".summary.json"))
+    if key == "task":
+        scores = np.loadtxt(result)
+        assert scores.shape == (300,)
+        assert summary["online"]["cycles"] >= 1
+        assert summary["online"]["rows_behind"] == 0
+        published = P.Booster(model_file=model, device="cpu")
+        assert published.current_iteration() == 3 + 2 * summary[
+            "online"]["cycles"]
+    elif key == "plan_cache":
+        assert summary["plan"]["provenance"] == "tuned"
+        assert summary["plan"]["cache_fallbacks"] == 0
+    elif key == "alert_rules":
+        assert summary["alerts"]["enabled"] and summary["alerts"][
+            "rules"] == 1
+    else:
+        assert summary["profiling"]["flight_recorder_armed"] is True
+    assert os.path.exists(model)

@@ -217,13 +217,21 @@ def test_metric_names_and_values_like_jax(metric):
                                    b.eval(score, jax_objective), rtol=1e-12)
 
 
-def test_refusals():
-    # pandas input and cv are ported (tests/test_torch_python_api.py),
-    # preemption_checkpoint (tests/test_torch_resilience.py) and serve
-    # (tests/test_torch_serving.py); the train-while-serve loop stays
-    # refused
+def test_serve_and_train_from_the_engine():
+    """``engine.serve_and_train`` (once refused) serves a trained booster
+    and publishes a continued generation from ingested rows; the full
+    loop is in tests/test_torch_online.py."""
     X, y, _, _ = make_data()
-    for entry in (P.engine.serve_and_train,):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 15"):
-            entry(PARAMS, P.Dataset(X, y))
+    booster = P.train(PARAMS, P.Dataset(X, y), 3, device="cpu")
+    ctrl = P.engine.serve_and_train(
+        booster, params=dict(PARAMS, online_rounds=2, online_min_rows=0,
+                             online_drift_trigger=False),
+        device="cpu")
+    try:
+        assert ctrl.generation == 1 and ctrl.booster.iter_ == 3
+        ctrl.ingest(X[:300], y[:300])
+        assert ctrl.run_cycle("manual")
+        assert ctrl.generation == 2 and ctrl.booster.iter_ == 5
+        assert ctrl.predict(X[:4].astype(np.float32)).shape == (4,)
+    finally:
+        ctrl.close()

@@ -12,8 +12,9 @@ imported (JAX, the JAX package) cannot hide an import of the port:
 - with CUDA unavailable, an entry point called without ``device=`` raises
   instead of running on the CPU (the predictors of ``core/predict.py`` and
   ``core/predict_fused.py``, the CLI's ``Application`` and ``main``, ``cv``,
-  the sklearn estimators, ``serve``, the serving ``Server`` and
-  ``ModelRegistry`` and an unpickled CUDA booster too), and
+  the sklearn estimators, ``serve``, ``serve_and_train``, the serving
+  ``Server`` and ``ModelRegistry``, ``plan.autotune.TuneDriver`` and an
+  unpickled CUDA booster too), and
   ``device="cpu"`` is honoured, through training, ``pred_leaf``,
   ``pred_contrib`` and a checkpoint's round trip;
 - ``chip_smoke.py`` exits nonzero and prints no result without CUDA.
@@ -70,7 +71,11 @@ NEW_MODULES = ["cli", "__main__", "compat", "sklearn", "plotting",
                "obs", "obs.registry", "obs.trace", "obs.recompile",
                "obs.launches", "obs.hostmem", "obs.devmem", "obs.compile",
                "obs.spans", "obs.quality", "obs.exporter", "obs.report",
-               "serving", "serving.registry", "serving.scheduler"]
+               "serving", "serving.registry", "serving.scheduler",
+               "plan", "plan.autotune", "plan.cache", "plan.device_specs",
+               "plan.planner", "plan.state", "obs.mfu", "obs.alerts",
+               "obs.profiling", "core.compact", "online", "online.buffer",
+               "online.policy", "online.controller"]
 
 
 def test_every_module_imports_with_jax_blocked(host_api_child):
@@ -229,6 +234,15 @@ HOST_API_ENTRY_POINTS = {
     "model_registry": """
         from lightgbm_tpu_torch.serving import ModelRegistry
         ModelRegistry()
+    """,
+    "serve_and_train": """
+        import lightgbm_tpu_torch as lgb
+        lgb.serve_and_train("model.txt")
+    """,
+    "autotune": """
+        from lightgbm_tpu_torch.plan import autotune, planner
+        autotune.TuneDriver(planner.shape_class(1000, 4, 32,
+                                                device_kind="cpu"))
     """,
     "unpickle_cuda_booster": """
         import lightgbm_tpu_torch as lgb

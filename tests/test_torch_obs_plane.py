@@ -3,10 +3,11 @@
 sinks (an explicit rank, the env override and a gloo group of two
 processes), the streaming event reader, the histogram reservoir, the card's
 memory gauges (absent on a CPU run), the quality plane's scoring against the
-JAX package's, and the refusals of item 14 (``alert_rules``,
-``flight_recorder``).  Cases follow ``tests/test_obs_plane.py``; the JAX
-package's results are the oracle where a value can be compared (PSI, JS,
-the Prometheus exposition's metric names for the same registry).
+JAX package's, and the alert engine and flight recorder that
+``alert_rules`` and ``flight_recorder`` arm.  Cases follow
+``tests/test_obs_plane.py``; the JAX package's results are the oracle
+where a value can be compared (PSI, JS, the Prometheus exposition's metric
+names for the same registry).
 """
 import json
 import os
@@ -130,12 +131,15 @@ def test_metrics_renders_always_on_counters():
                  "predict_fallbacks_total", "io_retries_total",
                  "host_rss_bytes", "host_rss_high_water_bytes"):
         assert "# TYPE lgbm_tpu_%s" % name in text
-    assert "plan_cache" not in text and "alert" not in text
+    # the planner's fallback counter is always on; no alert engine, no
+    # alert state
+    assert "lgbm_tpu_plan_cache_fallbacks_total 0" in text
+    assert "alert" not in text
 
 
 @pytest.mark.parametrize("path,code", [("/summary.json", 200),
                                        ("/nope", 404),
-                                       ("/alerts", 404)])
+                                       ("/alerts", 200)])
 def test_exporter_paths(tmp_path, path, code):
     tele = obs.configure(out=str(tmp_path / "s.jsonl"), freq=1)
     tele.gauge("train_rows").set(42)
@@ -147,8 +151,11 @@ def test_exporter_paths(tmp_path, path, code):
         got, body = err.code, ""
     obs.disable()
     assert got == code
-    if code == 200:
+    if path == "/summary.json":
         assert json.loads(body)["rows"] == 42
+    elif path == "/alerts":
+        assert json.loads(body) == {"enabled": False, "series": [],
+                                    "firing": 0, "fired_total": 0}
 
 
 def test_exporter_stops_with_close_and_start_is_idempotent():
@@ -297,15 +304,35 @@ def test_metrics_params_validate():
 @pytest.mark.parametrize("kw", [dict(alert_rules="rules.json"),
                                 dict(flight_recorder=True)],
                          ids=["alert_rules", "flight_recorder"])
-def test_item_14_planes_refused(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
-        obs.configure(**kw)
+def test_alert_and_flight_recorder_planes_arm(kw, tmp_path):
+    """``obs.configure`` and ``train()``'s params arm the alert engine
+    (from a rules file) and the flight recorder on the run; the run owns
+    them and its close stops the engine's thread."""
+    if "alert_rules" in kw:
+        rules = tmp_path / kw["alert_rules"]
+        rules.write_text(json.dumps([{"name": "g", "kind": "gauge",
+                                      "gauge": "g", "max": 1.0}]))
+        kw = dict(kw, alert_rules=str(rules))
+    tele = obs.configure(**kw)
+    if "alert_rules" in kw:
+        assert tele.alerts is not None and tele.alerts._thread.is_alive()
+        thread = tele.alerts._thread
+    else:
+        assert tele.profiling.armed and not tele.profiling.auto_fired
+    obs.disable()
+    if "alert_rules" in kw:
+        assert not thread.is_alive()
     X = np.random.RandomState(0).normal(size=(200, 3))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        P.train(dict({"objective": "regression", "verbosity": -1,
-                      "telemetry_out": os.path.join(tempfile.mkdtemp(),
-                                                    "r.jsonl")}, **kw),
-                P.Dataset(X, X[:, 0]), 1, device=CPU)
+    out = os.path.join(tempfile.mkdtemp(), "r.jsonl")
+    P.train(dict({"objective": "regression", "verbosity": -1,
+                  "telemetry_out": out}, **kw),
+            P.Dataset(X, X[:, 0]), 1, device=CPU)
+    summary = json.load(open(out + ".summary.json"))
+    if "alert_rules" in kw:
+        assert summary["alerts"]["enabled"] and summary["alerts"][
+            "rules"] == 1
+    else:
+        assert summary["profiling"]["flight_recorder_armed"] is True
     assert obs.active() is None
 
 

@@ -163,9 +163,8 @@ def test_engine_train_events_equal_jax(tmp_path, one_thread):
             J.Dataset(X, label=y, params={"max_bin": 63}), 6)
     ev, jev = read_events(out), read_events(jout)
     kinds = {e["kind"] for e in ev}
-    # the JAX run's plan-provenance and MFU events come from modules of
-    # ROADMAP queue 1 item 14
-    assert kinds == {e["kind"] for e in jev} - {"plan", "mfu_estimate"}
+    # the plan provenance and MFU events included
+    assert kinds == {e["kind"] for e in jev}
     for k in ("iteration", "run_start", "run_end"):
         assert (sum(e["kind"] == k for e in ev)
                 == sum(e["kind"] == k for e in jev)), k
@@ -230,8 +229,14 @@ def test_summary_artifact_contents(tmp_path):
     assert summary["wall_s"] != 1.0
     assert summary["value"] == pytest.approx(
         booster.num_data * booster.iter_ / summary["wall_s"])
-    # absent until their modules are ported, never written as zeros
-    for key in ("mfu", "device_util", "plan", "alerts", "profiling"):
+    # the cost model's shares are None on the CPU (no peaks), never zeros;
+    # its byte and accumulation counts are recorded; the plan block says
+    # the trees ran under the analytic plan; no engine, no capture armed
+    assert summary["mfu"] is None and summary["device_util"] is None
+    assert summary["gauges"]["est_bytes"] > 0
+    assert summary["gauges"]["est_macs"] > 0
+    assert summary["plan"]["provenance"] == "analytic"
+    for key in ("alerts", "profiling"):
         assert key not in summary
     # the card's memory is absent on a CPU run
     assert "devmem" not in summary
