@@ -42,7 +42,12 @@ together) and runs these phases, each of which raises on failure:
    (the scal row's trailing ``hist_feature_begin``, a feature-parallel
    rank's block: the histogram over columns [0, 14) and [14, 28) of 28,
    over the same window sizes and routes, and over [1000, 2000) of 2000),
-   exact and quantized; and the batched split scan of a level of 256
+   exact and quantized; the fused chunk's carried row store at F = 112 u8
+   columns (plain W = 128, carried W = 256, the objective's aux and the
+   score after the order bytes), 262,144 rows: the histogram, split and
+   level kernels, exact and quantized, against their plain versions, and
+   the aux and score bytes moved with their rows byte for byte; and the
+   batched split scan of a level of 256
    children x 2000 features x 256 bins in one call, with its peak memory;
 4. the main paths, with the kernels' launch counts set to 0 just before each
    and read just after it: the Higgs-shaped binary GBDT of ``bench.py``
@@ -295,7 +300,28 @@ together) and runs these phases, each of which raises on failure:
    (``leaf_codes=255``): on 262,144 held-out rows ``max_score_delta`` at
    most the declared bound, the AUC delta and the reductions, the
    compacted generation swapped into (X3)'s server under load, its
-   responses within the f32 bound of its CPU predictions;
+   responses within the f32 bound of its CPU predictions; (Y) the fused
+   multi-iteration chunk (``GBDT.train_chunk``) through ``GBDT.train()``
+   with ``metric_freq=5`` and (A)'s held-out tenth as a validation set,
+   each run against the same task trained by ``train_one_iter``
+   (``fuse_iters=False``) in the same call: (Y1) leaf-wise exact on the
+   carried row store, 10 iterations in 2 chunks, every tree's split
+   features and thresholds equal, or equal up to a first split whose two
+   gains are a near tie (the f32 root and histogram sums run in the
+   store's permuted order), train and validation scores within 2e-4,
+   held-out AUC within 1e-4, the growth's fetches and the chunk's own
+   read-backs (one a chunk); (Y2) level, quantized, carried, 10
+   iterations, and (Y4) binary with sample weights (the plain fused
+   chunk), 5 iterations: model text and score bytes equal; (Y3) L2,
+   carried, quantized, bagging 0.8 every 2 iterations, 6 iterations:
+   bytes equal, every bag mask and count equal to the hash recomputed on
+   the host over the store's order bytes; (Y5) (Y2) with
+   ``nan_policy=skip_iter`` and iteration 6 (the second chunk) poisoned in
+   7 rows: one ``rollback_retry`` and one ``skip_iter`` ``nan_trip``, the
+   chunk again one iteration at a time, one constant tree, finite scores;
+   each run's s/iteration and peak device memory beside the per-iteration
+   run's, one root histogram a tree and one split (or level) pass a split
+   (or level);
 5. times of each kernel at the main paths' shapes beside its bound, its
    plain version and one PyTorch library call (``index_add_``; for a split
    pass, which has none, the window's device-to-device copy): the
@@ -332,6 +358,7 @@ level paths, the level pass's scatter time, and a failure if any
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -352,6 +379,9 @@ CONTRIB_SUM_ATOL = 1e-9       # phi rows vs the f64 raw score
 TRAIN_SCORE_ATOL = 1e-5       # f32 running sum of 6 terms of magnitude < 4
 VALID_SCORE_ATOL = 1e-5       # the same for the validation scores
 WIDE_F = 2000                 # Epsilon's dense feature count
+CARRIED_F = 112               # the carried store's contract: plain W = 128,
+                              # carried W = 256 (tree_learner.py:311-319)
+CARRIED_ROWS = 262_144
 
 
 def log(*args) -> None:
@@ -368,15 +398,18 @@ def gpu_name_and_power() -> str:
 # ---------------------------------------------------------------- inputs ----
 
 def make_store(n: int, F: int, B: int, *, bpc: int = 1, packed: bool = False,
-               quantized: bool = False, device, seed: int = 0) -> tuple:
+               quantized: bool = False, carried: bool = False, device,
+               seed: int = 0) -> tuple:
     """A random [n + 4096, W] row store (bins, f32 grad/hess, s32 order) made
     on ``device`` from ``seed``; returns (rows, voff).  ``quantized``: the
     grad/hess are integers in [-127, 127] and [0, 255], as
-    ``hist_precision=quantized`` stores them."""
+    ``hist_precision=quantized`` stores them.  ``carried``: the fused
+    chunk's layout, with random f32 aux and score columns after the
+    order."""
     from lightgbm_tpu_torch.core.tree_learner import CHUNK, row_layout
     g = torch.Generator(device=device).manual_seed(seed)
     ncols = (F + 1) // 2 if packed else F
-    lay = row_layout(ncols, bpc)
+    lay = row_layout(ncols, bpc, carried=carried)
     total = n + CHUNK
     rows = torch.zeros((total, lay.W), dtype=torch.uint8, device=device)
     hi = min(B, 16) if packed else B
@@ -402,6 +435,9 @@ def make_store(n: int, F: int, B: int, *, bpc: int = 1, packed: bool = False,
     order = torch.arange(total, dtype=torch.int32, device=device)
     rows[:, lay.voff + 8:lay.voff + 12] = order.view(torch.uint8).reshape(
         total, 4)
+    if carried:
+        cols = torch.randn((total, 2), generator=g, device=device)
+        rows[:, lay.aoff:lay.soff + 4] = cols.contiguous().view(torch.uint8)
     return rows, lay.voff
 
 
@@ -749,6 +785,80 @@ def phase_level_split(device, n: int) -> float:
             what = "level %s %s, %d windows" % (
                 "quantized" if quantized else "exact", name, len(scals))
             worst = max(worst, check_level(rows, scals, what, **kw))
+        del rows
+    return worst
+
+
+def carried_moved(before: torch.Tensor, after: torch.Tensor, lay,
+                  what: str) -> None:
+    """Every row of ``after`` carries the aux and score bytes of the row of
+    ``before`` with its order id (the ids of ``before`` are its positions):
+    the carried columns moved with their rows, byte for byte."""
+    order = after[:, lay.voff + 8:lay.voff + 12].contiguous().view(
+        torch.int32).reshape(-1).long()
+    cols = slice(lay.aoff, lay.soff + 4)
+    if not torch.equal(after[:, cols], before[order, cols]):
+        raise AssertionError(what + ": the aux and score bytes did not move "
+                             "with their rows")
+
+
+def phase_carried_contract(device, n: int) -> float:
+    """Phase 3, the fused chunk's store: at F = CARRIED_F u8 columns the
+    plain layout is 128 bytes wide and the carried one 256 (aux at voff+12,
+    score at voff+16).  On a carried store of random bytes: #1 and 1q
+    against their plain versions; #3/#4 and 3q/4q over four windows and two
+    routes, and 3L/4L over a level-7 frontier and the route matrix, each
+    against its plain version (rows and integer sums bit for bit) and
+    against single-window calls; in every output store the aux and score
+    bytes moved with their rows byte for byte."""
+    from lightgbm_tpu_torch.core import partition as P
+    from lightgbm_tpu_torch.core.tree_learner import row_layout
+    F, B = CARRIED_F, 256
+    lay = row_layout(F, 1, carried=True)
+    plain_w = row_layout(F, 1).W
+    if (plain_w, lay.W) != (128, 256):
+        raise AssertionError("F=%d: widths %d / %d, want 128 / 256"
+                             % (F, plain_w, lay.W))
+    rng = np.random.RandomState(12)
+    worst = 0.0
+    for quantized in (False, True):
+        rows, voff = make_store(n, F, B, quantized=quantized, carried=True,
+                                device=device, seed=13)
+        kind = "int" if quantized else "exact"
+        for start, count in [(0, n), (12345, 20000), (777, 100)]:
+            worst = max(worst, check_hist(
+                rows, B, start, count, "carried F=%d %s hist [%d, +%d)" % (
+                    F, kind, start, count), num_features=F, voff=voff,
+                quantized=quantized))
+        routes = split_routes(B, rng)
+        for wi, (wb, wc) in enumerate([(100, 900), (3001, 10000),
+                                       (4096, n // 2), (0, n)]):
+            for name in ("numerical", "categorical"):
+                route, words = routes[name]
+                scal = scal_row(wb, wc, route, words, wi % 2)
+                what = "carried F=%d %s split %s [%d, +%d)" % (
+                    F, kind, name, wb, wc)
+                worst = max(worst, check_split(rows, scal, F=F, B=B,
+                                               voff=voff, quantized=quantized,
+                                               what=what))
+                out, _, _ = P.partition_hist(rows.clone(), scal,
+                                             num_features=F, num_bins=B,
+                                             voff=voff, quantized=quantized)
+                carried_moved(rows, out, lay, what)
+        frontiers = level_frontiers(n, B, rng)
+        for name in ("level-7 frontier", "route matrix"):
+            scals = frontiers[name]
+            what = "carried F=%d %s level %s" % (F, kind, name)
+            worst = max(worst, check_level(rows, scals, what, num_features=F,
+                                           num_bins=B, voff=voff,
+                                           quantized=quantized))
+            dst = rows.clone()
+            P.partition_hist_level(rows, dst, scals, num_features=F,
+                                   num_bins=B, voff=voff,
+                                   quantized=quantized)
+            carried_moved(rows, dst, lay, what)
+        log("  carried F=%d %s: the aux and score bytes moved with their "
+            "rows in every split and level pass" % (F, kind))
         del rows
     return worst
 
@@ -1367,11 +1477,15 @@ def higgs_score(X, rng):
             + rng.normal(scale=0.5, size=len(X)))
 
 
-def bag_mask_host(n: int, seed: int, window: int, frac: float) -> np.ndarray:
+def bag_mask_host(n: int, seed: int, window: int, frac: float,
+                  ids=None) -> np.ndarray:
     """The bag mask recomputed on the host in numpy ``uint32`` arithmetic:
     the stateless hash of (row id, bagging window) of the JAX package's
-    ``_bag_uniforms``, its top as an f32 in [0, 1), below ``frac``."""
-    x = np.arange(n, dtype=np.uint32) * np.uint32(2654435761)
+    ``_bag_uniforms``, its top as an f32 in [0, 1), below ``frac``; over
+    the rows 0..n-1, or over the row ids ``ids`` (a carried store's order
+    bytes)."""
+    ids = np.arange(n) if ids is None else np.asarray(ids)
+    x = ids.astype(np.uint32) * np.uint32(2654435761)
     x ^= np.uint32((seed + window * 0x9E3779B9) & 0xFFFFFFFF)
     x ^= x >> np.uint32(16)
     x *= np.uint32(2246822519)
@@ -2999,6 +3113,332 @@ def phase_pool(device, eps: dict, profile: bool) -> dict:
     return r
 
 
+# ----------------------------------- path (Y): the fused multi-iteration
+
+CHUNK_METRIC_FREQ = 5         # (Y): train() evaluates, so chunks of 5
+CHUNK_SCORE_TOL = 2e-4        # tests/test_carried_rows.py: exact carried sums
+CHUNK_AUC_TOL = 1e-4
+NAN_AT, NAN_ROWS = 6, 7       # (Y5): the poisoned iteration, its NaN rows
+# (name, objective, params, iterations, weighted)
+CHUNK_RUNS = [
+    ("Y1", "binary", {}, 10, False),
+    ("Y2", "binary", dict(tree_grow_mode="level",
+                          hist_precision="quantized"), 10, False),
+    ("Y3", "regression", dict(metric="l2", bagging_fraction=0.8,
+                              bagging_freq=2, hist_precision="quantized"),
+     6, False),
+    ("Y4", "binary", {}, 5, True),
+]
+
+
+def chunk_train(ds, valid, objective: str, params: dict, iters: int,
+                fuse: bool, prep=None) -> dict:
+    """``GBDT.train()`` of one (Y) run on ``ds`` with ``valid`` attached,
+    fused (``fuse``) or one ``train_one_iter`` at a time: the launch counts
+    read around it, each tree's growth fetches, each chunk's (first
+    iteration, iterations, seconds ending in a synchronise), the chunk's
+    own read-backs and the peak device memory above what was allocated
+    before."""
+    from lightgbm_tpu_torch import Config, GBDT, create_objective
+    from lightgbm_tpu_torch import device as D
+    cfg = Config(dict(HIGGS_PARAMS, metric_freq=CHUNK_METRIC_FREQ,
+                      num_iterations=iters, **params))
+    b = GBDT(cfg, ds, create_objective(objective, cfg))
+    b.add_valid_data(valid, "valid_1")
+    b.fuse_iters = fuse
+    if prep is not None:
+        prep(b)
+    fetches, chunks = [], []
+    real_train, real_chunk = b.learner.train, b.train_chunk
+
+    def counted(*a, **k):
+        out = real_train(*a, **k)
+        fetches.append((out[0] if k.get("carried") else out).host_fetches)
+        return out
+
+    def timed(k):
+        t, it0 = time.perf_counter(), b.iter_
+        out = real_chunk(k)
+        torch.cuda.synchronize()
+        chunks.append((it0, b.iter_ - it0, time.perf_counter() - t))
+        return out
+    b.learner.train, b.train_chunk = counted, timed
+    # an earlier run's booster freed by the collector during this run would
+    # lower the allocation below the base and hide part of the peak
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    D.reset_launches()
+    b.train()
+    torch.cuda.synchronize()
+    counts = D.launches()
+    # the wrappers close over the booster's own methods: drop the cycle
+    del b.learner.train, b.train_chunk
+    iters_run = sum(c[1] for c in chunks)
+    return dict(booster=b, launches=counts, fetches=fetches, chunks=chunks,
+                reads=b.chunk_reads,
+                iter_s=sum(c[2] for c in chunks) / max(iters_run, 1),
+                peak_mib=(torch.cuda.max_memory_allocated() - base) / 2 ** 20)
+
+
+def trees_up_to_tie(what: str, got, want, booster) -> tuple:
+    """Each tree of ``got`` against ``want``'s, split for split (feature,
+    threshold bin, place): equal, or equal up to a first difference whose
+    two gains are a near tie (within SPLIT_GAIN_TIE_RTOL of the terms an
+    f32 gain is a difference of: the split leaf's G^2/H, from its value
+    before the split and its hessian sum, plus the gain), after which the
+    tree is not compared.  Returns (trees equal, trees equal up to a near
+    tie, the ties' relative gain gaps)."""
+    l2 = float(booster.config.lambda_l2)
+    init = booster.objective.boost_from_score(0)
+    equal, tied, gaps = 0, 0, []
+    for i, (ta, tb) in enumerate(zip(got, want)):
+        a = split_sequence(ta.split_feature_inner, ta.threshold_in_bin,
+                           ta.left_child, ta.right_child, ta.split_gain,
+                           ta.num_leaves)
+        b = split_sequence(tb.split_feature_inner, tb.threshold_in_bin,
+                           tb.left_child, tb.right_child, tb.split_gain,
+                           tb.num_leaves)
+        first = next((k for k, (x, y) in enumerate(zip(a, b))
+                      if x[:3] != y[:3]), None)
+        if first is None:
+            if len(a) != len(b):
+                raise AssertionError("%s: tree %d has %d splits, want %d"
+                                     % (what, i, len(a), len(b)))
+            equal += 1
+            continue
+        o = ((float(tb.internal_value[first]) - (init if i == 0 else 0.0))
+             / booster.shrinkage_rate)
+        term = o * o * (float(tb.internal_weight[first]) + l2)
+        ga, gb = a[first][3], b[first][3]
+        rel = abs(ga - gb) / (term + max(abs(ga), abs(gb)))
+        if not rel < SPLIT_GAIN_TIE_RTOL:
+            raise AssertionError("%s: tree %d split %d %s, want %s (rel "
+                                 "gain gap %.2g)" % (what, i, first,
+                                                     a[first], b[first], rel))
+        tied += 1
+        gaps.append(rel)
+        log("  %s: tree %d equal up to split %d, a near tie (gains %.9g vs "
+            "%.9g of terms %.6g, rel %.2g)" % (what, i, first, ga, gb, term,
+                                                rel))
+    if len(got) != len(want):
+        raise AssertionError("%s: %d trees, want %d" % (what, len(got),
+                                                          len(want)))
+    return equal, tied, gaps
+
+
+def score_bytes(b) -> bytes:
+    return b"".join(t.cpu().numpy().tobytes() for t in
+                    [b.train_score] + [vs["score"] for vs in b.valid_sets])
+
+
+def expect_chunk_launches(name: str, r: dict) -> None:
+    """One root histogram a tree built (the integer one when quantized) and
+    one split pass a split, or one level pass a level."""
+    b = r["booster"]
+    trees = len(r["fetches"])
+    root = ("histogram_int" if b.learner.quantized else "histogram")
+    if b.learner.effective_grow_mode() == "level":
+        want = {root: trees, "partition_level": trees
+                * b.learner.level_count()}
+    else:
+        want = {root: trees, "partition": sum(t.num_leaves - 1
+                                              for t in b.models)}
+    if r["launches"] != {k: want.get(k, 0) for k in r["launches"]}:
+        raise AssertionError("(%s) launches %s, want %s"
+                             % (name, r["launches"], want))
+
+
+def phase_chunk(device, data, ds) -> dict:
+    """Path (Y): the fused multi-iteration chunk (``GBDT.train_chunk``)
+    through ``GBDT.train()`` with ``metric_freq=5`` and (A)'s held-out tenth
+    as a validation set, each run held against the same task trained by
+    ``train_one_iter`` (``fuse_iters=False``) in the same call.  (Y1)
+    leaf-wise exact on the carried store, 10 iterations in 2 chunks:
+    every tree's split features and thresholds equal, or equal up to a
+    first near tie of two gains (``trees_up_to_tie``: its exact f32 sums
+    run in the store's permuted order), train and validation scores within
+    2e-4, held-out AUC within 1e-4; the growth's
+    fetches and the chunk's own read-backs (one a chunk).  (Y2) level,
+    quantized, carried, 10 iterations, and (Y4) binary with sample weights
+    (the plain fused chunk), 5 iterations: model text and score bytes
+    equal.  (Y3) L2, carried, quantized, with in-chunk bagging 0.8 every 2
+    iterations, 6 iterations: bytes equal, and every bag mask and count of
+    the chunk equal to the hash recomputed on the host over the store's
+    order bytes.  (Y5) (Y2)'s settings with ``nan_policy=skip_iter`` and
+    the gradients of iteration 6 (the second chunk) poisoned in 7 rows: one
+    ``rollback_retry`` and one ``skip_iter`` ``nan_trip``, the chunk again
+    one iteration at a time, one constant tree, finite scores.  Each run:
+    s/iteration and peak device memory beside the per-iteration run's;
+    one root histogram a tree and one split (or level) pass a split (or
+    level)."""
+    import lightgbm_tpu_torch.boosting.gbdt as gbdt_mod
+    from lightgbm_tpu_torch import BinnedDataset, obs
+    from lightgbm_tpu_torch.metric.binary import weighted_auc
+    X, y, X_test, y_test = data
+    n = len(y)
+    rng = np.random.RandomState(1)
+    y_reg, y_reg_test = higgs_score(X, rng), higgs_score(X_test, rng)
+    w = np.random.RandomState(11).uniform(0.5, 1.5, size=n)
+    sets = {"binary": (ds, BinnedDataset.from_matrix(
+        X_test, label=y_test, reference=ds)),
+            "regression": (relabel(ds, y_reg), BinnedDataset.from_matrix(
+                X_test, label=y_reg_test, reference=ds))}
+    weighted = relabel(ds, y)
+    weighted.metadata.set_weights(w)
+    out = {"launches": {}, "trees": 0, "runs": {}}
+
+    def add(r):
+        for k, v in r["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        out["trees"] += len(r["fetches"])
+
+    for name, objective, params, iters, wtd in CHUNK_RUNS:
+        train, valid = sets[objective]
+        if wtd:
+            train = weighted
+        bags = []
+        real_bag = gbdt_mod.bag_mask_for
+
+        def recorded(ids, seed, it, freq, frac, host_count=True):
+            mask, count = real_bag(ids, seed, it, freq, frac, host_count)
+            bags.append((ids.cpu().numpy(), seed, it - it % freq, frac,
+                         mask.cpu().numpy(), int(count)))
+            return mask, count
+        gbdt_mod.bag_mask_for = recorded
+        try:
+            fused = chunk_train(train, valid, objective, params, iters, True)
+        finally:
+            gbdt_mod.bag_mask_for = real_bag
+        single = chunk_train(train, valid, objective, params, iters, False)
+        fb, sb = fused["booster"], single["booster"]
+        for r in (fused, single):
+            expect_chunk_launches(name, r)
+            add(r)
+        if not (fb._can_fuse_iters() and not sb._can_fuse_iters()
+                and fb.iter_ == sb.iter_ == iters):
+            raise AssertionError("(%s) fused %s, iterations %d / %d"
+                                 % (name, fb._can_fuse_iters(), fb.iter_,
+                                    sb.iter_))
+        carried = fb._can_carry_rows()
+        chunks = [c[1] for c in fused["chunks"]]
+        growth = sum(fused["fetches"])
+        rec = dict(carried=carried, chunks=chunks, iter_s=fused["iter_s"],
+                   single_iter_s=single["iter_s"], peak_mib=fused["peak_mib"],
+                   single_peak_mib=single["peak_mib"], growth_fetches=growth,
+                   chunk_reads=fused["reads"], launches=fused["launches"])
+        log("  (%s) %s%s, %d iterations in chunks %s: %.4f s/iteration "
+            "(train_one_iter %.4f); peak device memory +%.1f MiB (+%.1f); "
+            "fetches: growth %d (%.1f a tree), the chunk's own %d; launches "
+            "%s" % (name, objective, " carried" if carried else
+                    " plain fused", iters, chunks, fused["iter_s"],
+                    single["iter_s"], fused["peak_mib"], single["peak_mib"],
+                    growth, growth / max(len(fused["fetches"]), 1),
+                    fused["reads"], fused["launches"]))
+        if fused["reads"] > len(chunks) or (name != "Y4") != carried:
+            raise AssertionError("(%s) %d chunk reads over %d chunks, "
+                                 "carried %s" % (name, fused["reads"],
+                                                 len(chunks), carried))
+        if name == "Y1":
+            equal, tied, gaps = trees_up_to_tie("(Y1)", fb.models, sb.models,
+                                                fb)
+            d_train = float((fb.train_score - sb.train_score).abs().max())
+            d_valid = float((fb.valid_sets[0]["score"]
+                             - sb.valid_sets[0]["score"]).abs().max())
+            aucs = [weighted_auc(y_test, b.valid_sets[0]["score"][0].cpu()
+                                 .numpy().astype(np.float64), None)
+                    for b in (fb, sb)]
+            rec.update(max_train_diff=d_train, max_valid_diff=d_valid,
+                       auc=aucs[0], single_auc=aucs[1], trees_equal=equal,
+                       trees_tied=tied, tie_gaps=gaps)
+            log("  (Y1) split features and thresholds: %d trees equal, %d "
+                "equal up to a near tie; max |train score diff| %.3g, "
+                "validation %.3g; held-out AUC %.6f vs %.6f"
+                % (equal, tied, d_train, d_valid, aucs[0], aucs[1]))
+            if not (d_train <= CHUNK_SCORE_TOL
+                    and d_valid <= CHUNK_SCORE_TOL
+                    and abs(aucs[0] - aucs[1]) <= CHUNK_AUC_TOL):
+                raise AssertionError("(Y1) the chunk differs from "
+                                     "train_one_iter")
+        else:
+            same = (trees_text(fb.save_model_to_string())
+                    == trees_text(sb.save_model_to_string())
+                    and score_bytes(fb) == score_bytes(sb))
+            log("  (%s) model text and score bytes %s" % (
+                name, "equal" if same else "DIFFERENT"))
+            if not same:
+                raise AssertionError("(%s) the chunk differs from "
+                                     "train_one_iter" % name)
+        if name == "Y3":
+            bad = [it for ids, seed, win, frac, mask, count in bags
+                   if not (np.array_equal(mask.view(np.uint32), bag_mask_host(
+                       len(ids), seed, win, frac, ids=ids).view(np.uint32))
+                           and count == max(int(mask.sum()), 1))]
+            log("  (Y3) %d bag masks of the chunk (original and store order) "
+                "equal to the host hash over the order bytes, counts %s"
+                % (len(bags) - len(bad), [b[5] for b in bags]))
+            if bad or len(bags) < iters:
+                raise AssertionError("(Y3) bag masks %s differ" % bad)
+            rec["bag_counts"] = [b[5] for b in bags]
+        out["runs"][name] = rec
+        del fused, single, fb, sb
+        torch.cuda.empty_cache()
+
+    # ---- (Y5) nan_policy=skip_iter ----
+    train, valid = sets["binary"]
+    retried = []
+
+    def poisoned(b):
+        obj = b.objective
+        for fn in ("get_gradients", "pointwise_gradients"):
+            real = getattr(obj, fn)
+
+            def bad(*a, _real=real):
+                g, h = _real(*a)
+                if b.iter_ == NAN_AT:
+                    g = g.clone()
+                    g.reshape(-1)[:NAN_ROWS] = float("nan")
+                return g, h
+            setattr(obj, fn, bad)
+        real_iter = b.train_one_iter
+
+        def one(*a, **k):
+            retried.append(b.iter_)
+            return real_iter(*a, **k)
+        b.train_one_iter = one
+    tele = obs.configure(freq=1)
+    try:
+        r = chunk_train(train, valid, "binary",
+                        dict(CHUNK_RUNS[1][2], nan_policy="skip_iter"), 10,
+                        True, prep=poisoned)
+        trips = [(e["iteration"], e["action"]) for e in tele.events
+                 if e["kind"] == "nan_trip"]
+    finally:
+        obs.disable()
+    b = r["booster"]
+    constant = [i for i, t in enumerate(b.models) if t.num_leaves == 1]
+    finite = bool(torch.isfinite(b.train_score).all()
+                  and torch.isfinite(b.valid_sets[0]["score"]).all())
+    add(r)
+    log("  (Y5) nan_policy=skip_iter, iteration %d poisoned in %d rows: "
+        "nan_trip %s; chunks %s; retried one at a time %s; constant trees "
+        "%s; scores finite %s; chunk reads %d" % (
+            NAN_AT, NAN_ROWS, trips, [c[1] for c in r["chunks"]], retried,
+            constant, finite, r["reads"]))
+    want = [(CHUNK_METRIC_FREQ, "rollback_retry"), (NAN_AT, "skip_iter")]
+    if (trips != want or retried != list(range(CHUNK_METRIC_FREQ, 10))
+            or constant != [NAN_AT] or not finite or b.iter_ != 10
+            or len(b.models) != 10 or b._fuse_failed):
+        raise AssertionError("(Y5) the chunk's guard did not roll back and "
+                             "retry")
+    out["runs"]["Y5"] = dict(trips=trips, retried=retried,
+                             constant=constant, chunk_reads=r["reads"])
+    del r, b
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------- path (V): the parallel tree learners ----
 
 PARALLEL_DIR = os.path.join("build", "parallel")
@@ -3519,11 +3959,14 @@ def trees_text(text: str) -> str:
 
 class IterationTimes:
     """Each ``GBDT.train_one_iter``'s wall seconds, ending in a device
-    synchronise, while installed (the CLI builds its booster inside)."""
+    synchronise, while installed (the CLI builds its booster inside); a
+    fused chunk (``GBDT.train_chunk`` that runs no ``train_one_iter``)
+    counts its seconds over its iterations."""
 
     def __init__(self) -> None:
         from lightgbm_tpu_torch.boosting.gbdt import GBDT
         self.cls, self.real, self.iter_s = GBDT, GBDT.train_one_iter, []
+        self.real_chunk = GBDT.train_chunk
 
     def __enter__(self):
         rec = self
@@ -3534,11 +3977,22 @@ class IterationTimes:
             torch.cuda.synchronize()
             rec.iter_s.append(time.perf_counter() - t)
             return out
+
+        def timed_chunk(booster, k):
+            t, it0, seen = time.perf_counter(), booster.iter_, len(rec.iter_s)
+            out = rec.real_chunk(booster, k)
+            torch.cuda.synchronize()
+            done = booster.iter_ - it0
+            if len(rec.iter_s) == seen and done > 0:
+                rec.iter_s.extend([(time.perf_counter() - t) / done] * done)
+            return out
         self.cls.train_one_iter = timed_iter
+        self.cls.train_chunk = timed_chunk
         return self
 
     def __exit__(self, *exc) -> None:
         self.cls.train_one_iter = self.real
+        self.cls.train_chunk = self.real_chunk
 
 
 def run_cli(argv, what: str) -> tuple:
@@ -4707,6 +5161,8 @@ ALERT_SWAP_REPEAT = 300         # (X3): (B)'s trees x300 stack in seconds
 # (X3): kernels a profiler capture during a train() must name
 CAPTURE_KERNELS = ("hist_seg_kernel", "part_count_kernel",
                    "part_scatter_kernel")
+CAPTURE_MAX_ITERS = 60          # (X3): that train() runs on until the
+                                # capture has returned, at most this long
 
 
 def _plan_recorder(booster):
@@ -5041,13 +5497,15 @@ def phase_alert_serving(device, data, ds, texts: dict) -> tuple:
 
 def phase_captures(device, data, ds, iters: int) -> dict:
     """(X3), the captures: ``/debug/profile?seconds=2`` during a
-    ``train()`` of (A)'s task writes a Chrome trace naming the port's
-    kernels (``CAPTURE_KERNELS``); two forced watchdog stalls fire the
-    flight recorder once (the second stall takes no capture)."""
+    ``train()`` of (A)'s task (``iters`` iterations, and on until the
+    capture returns) writes a Chrome trace naming the port's kernels
+    (``CAPTURE_KERNELS``); two forced watchdog stalls fire the flight
+    recorder once (the second stall takes no capture)."""
     import threading
     import urllib.request
     import lightgbm_tpu_torch as lgb
     from lightgbm_tpu_torch import obs, resilience
+    from lightgbm_tpu_torch.callback import EarlyStopException
     from lightgbm_tpu_torch.obs import profiling
     X, y, _, _ = data
     os.makedirs(SERVE_DIR, exist_ok=True)
@@ -5066,12 +5524,20 @@ def phase_captures(device, data, ds, iters: int) -> dict:
                     captured.update(json.loads(r.read()))
             captured["thread"] = threading.Thread(target=get)
             captured["thread"].start()
+        # training goes on until the capture has returned, so that its
+        # window lies inside the run however long the profiler takes to
+        # start (seconds on some hosts, longer than ``iters`` iterations)
+        thread = captured.get("thread")
+        if (env.iteration + 1 >= iters and thread is not None
+                and not thread.is_alive()):
+            raise EarlyStopException(env.iteration, [])
 
     train = lgb.Dataset(X, y)
     train.handle = ds
     lgb.train(dict(HIGGS_PARAMS, telemetry_out=prof_out,
                    metrics_port=prof_port), train,
-              num_boost_round=iters, verbose_eval=False, callbacks=[grab])
+              num_boost_round=CAPTURE_MAX_ITERS, verbose_eval=False,
+              callbacks=[grab])
     captured.pop("thread").join(120)
     names = set()
     if captured.get("trace"):
@@ -5335,10 +5801,12 @@ def phase_online(device, data) -> dict:
                 time.sleep(2.0)
             ctrl.update_mode = ("refit" if w == ONLINE_REFIT_WINDOW
                                 else "extend")
-            gen0 = ctrl.generation
+            # the cycle commits (the window's rows leave rows_behind) just
+            # after its publish flips the generation: wait for the commit
+            cycles0 = ctrl.cycles
             ctrl.ingest(Xw, y[lo:lo + ONLINE_WINDOW_ROWS])
             deadline = time.time() + 600
-            while ctrl.generation == gen0 and time.time() < deadline:
+            while ctrl.cycles == cycles0 and time.time() < deadline:
                 if ctrl.cycle_failures:
                     raise AssertionError("(X4) cycle failed: %s"
                                          % ctrl.last_error)
@@ -5906,6 +6374,8 @@ def main(argv=None) -> int:
     split_err_max = phase_split(device, args.rows)
     level_err_max = phase_level_split(device, args.rows)
     widef_split_err = phase_widef_split(device, nw)
+    carried_err = phase_carried_contract(device, CARRIED_ROWS)
+    split_err_max = max(split_err_max, carried_err)
     phase_scan_level(device)
     reset_launches()
     log("  phases 2-3 took %.1f s" % (time.perf_counter() - t))
@@ -5954,6 +6424,13 @@ def main(argv=None) -> int:
     log("  (N) forced splits + CEGB on (A)'s binned rows, leaf-wise, exact, "
         "%d iterations" % FORCED_ITERS)
     paths["N"] = phase_forced_cegb(device, data, ds, args.profile)
+    torch.cuda.empty_cache()
+    log("  (Y) the fused multi-iteration chunk: GBDT.train() with "
+        "metric_freq=%d and (A)'s held-out rows as a validation set, each "
+        "run against train_one_iter" % CHUNK_METRIC_FREQ)
+    t = time.perf_counter()
+    paths["Y"] = phase_chunk(device, data, ds)
+    log("  (Y) took %.1f s" % (time.perf_counter() - t))
     torch.cuda.empty_cache()
     log("  (V) the parallel tree learners on (A)'s task, %d iterations: "
         "(V1) each learner on a one-rank NCCL group, (V2) data, feature, "
@@ -6097,7 +6574,7 @@ def main(argv=None) -> int:
              replaces="lightgbm_tpu/core/histogram.py:743",
              max_abs_err=hist_err_max,
              **launches("histogram", "ABCGHIJRSTU", ("V1", "V2", "W1",
-                                                     "X")),
+                                                     "X", "Y")),
              groups_root=paths["I"]["times"]["histogram"],
              cli_root=paths["S"]["times"]["histogram"],
              expo_root=paths["J"]["times"]["histogram"],
@@ -6108,7 +6585,7 @@ def main(argv=None) -> int:
              also_replaces="lightgbm_tpu/core/partition.py:1130",
              max_abs_err=split_err_max,
              **launches("partition", "ABCFGHIJRSTU", ("V1", "V2", "W1",
-                                                      "X")),
+                                                      "X", "Y")),
              feature_window_launches=paths["V2"]["feature_window_launches"],
              cli_root=paths["S"]["times"]["split"],
              unfold_launches=paths["I"]["routes"]["partition"]["unfold"],

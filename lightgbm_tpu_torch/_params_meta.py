@@ -151,9 +151,10 @@ PARAMS = [
 #   leaves of a level split by at most one multi-window launch per kernel
 #   size class — <= depth * classes launches per tree; needs the fused TPU
 #   path and falls back to leaf with a warning otherwise)
-# - trees_per_chunk: boosting iterations grouped per fused-scan step so
-#   several small trees share one scan step's dispatch cost; results are
-#   bit-exact vs 1
+# - trees_per_chunk: boosting iterations grouped per step of a fused chunk
+#   (GBDT.train_chunk); the JAX package unrolls a group into one scan step
+#   to share its dispatch cost, the port runs the same calls in the same
+#   order, so results are bit-exact vs 1
 # - max_batch_wait_us: serving-tier coalescing window — how long the
 #   continuous-batching scheduler holds an open batch for compatible
 #   requests before padding to the shape-bucket ladder and dispatching

@@ -31,6 +31,10 @@ class DART(GBDT):
 
     lazy_trees = False
     keep_rollback_scores = False
+    # per-iteration drops on the host (dart.py:13), and they change older
+    # trees in place, so a non-finite chunk is not rolled back (:18)
+    fuse_iters = False
+    _prechunk_rollback_safe = False
 
     def __init__(self, config, train_data=None, objective=None,
                  device=None, group=None) -> None:

@@ -12,12 +12,16 @@ renewal of the percentile objectives (``_renew_tree_output``),
 ``train_score``, validation sets (``add_valid_data``), the score add of a
 host tree (``_add_tree_score_train`` / ``_add_tree_score_valid``, which
 DART's drops use), metrics and early stopping (``eval_train``,
-``eval_valid``, ``eval_and_check_early_stopping``), the host loop ``train``
+``eval_valid``, ``eval_and_check_early_stopping``), the fused
+multi-iteration chunk (``train_chunk``, gbdt.py:745-1100: carried row-store
+training, ``trees_per_chunk``, the per-chunk non-finite guard
+``_guard_chunk_scores`` and its rollback), the loop ``train`` over chunks
 with its snapshots (``snapshot_out``), the train state of a checkpoint
 (``capture_train_state`` / ``restore_train_state``, gbdt.py:1446-1615, and
 ``save_checkpoint`` / ``resume_from_checkpoint``), the preemption poll of
-``train`` (once an iteration; ``_preempt_exit`` writes the emergency
-checkpoint) and the watchdog section of every iteration (``watched_iter``),
+``train`` (at chunk boundaries; ``_preempt_exit`` writes the emergency
+checkpoint) and the watchdog sections (``watched_iter`` around an
+iteration, ``fused_train_chunk`` around a fused chunk),
 ``rollback_one_iter``, ``refit``, the online loop's warm start
 (``warm_start_continuation``), the model surgery of the C API
 (``merge_from``, ``shuffle_models``, ``set_leaf_value``), the replay of a
@@ -45,9 +49,13 @@ values scaled by the learning rate in f32, the class's train score updated
 through the tree's ``row_leaf`` and each validation score by routing the
 set's bins on the device (``route_binned``).  DART, GOSS and RF subclass
 this class (``boosting/dart.py``, ``goss.py``, ``rf.py``; built by
-``boosting.create_boosting``).  The loop stays one host iteration at a time:
-the JAX package's fused multi-iteration scan is an XLA program, whose
-counterpart on the card is a CUDA graph (ROADMAP queue 2 B).
+``boosting.create_boosting``).  ``train`` runs chunks of iterations
+(``train_chunk``): where the JAX package fuses a chunk into one XLA scan,
+the port runs the same iterations as host loops of kernel launches with
+nothing read back but the trees' own fetches and one guard verdict a
+chunk, and, for a single-model pointwise objective, with the boosting state
+carried in the tree learner's permuted row store (the section "the fused
+multi-iteration chunk" below).
 
 Prediction (gbdt.py:1999-2110): from 512 rows on, or in the bf16 tier, a
 class's trees go through the cached :class:`FusedPredictor` (f32 rows, f32
@@ -60,15 +68,16 @@ its device predictions are split over the ranks (``sharded_predict``,
 ``sharded_predict_contrib``, gbdt.py:2048-2162), and only the write leader
 (rank 0) writes snapshots (gbdt.py:1934-1941).
 
-Telemetry (``obs``): with a run active, :meth:`train` records each
-iteration as a chunk of one (``_record_chunk_telemetry``, gbdt.py:1101-1170:
-``chunk_*`` histograms, a ``train_chunk`` event and span, the quantized
-path's ``quant_*`` block, a ``devmem`` sample) and the run gauges
+Telemetry (``obs``): with a run active, :meth:`train` records each chunk
+(``_record_chunk_telemetry``, gbdt.py:1101-1170: ``chunk_*`` histograms, a
+``train_chunk`` event and span, the quantized path's ``quant_*`` block, a
+``devmem`` sample, and for a fused chunk the compile accountant's
+``fused_train`` key ``k=<length>``, whose first chunk of a length also
+counts in ``obs.recompile``) and the run gauges
 ``train_rows``/``train_iterations``/``train_wall_s``; evaluation emits
-``eval`` events, a non-finite guard trip ``nan_trip``, and the binned
-predict of an external dataset feeds the quality plane
-(``quality_baseline``, gbdt.py:2230-2310).  The JAX package's fused chunk
-(its compile key and the per-chunk non-finite rollback) has no counterpart.
+``eval`` events, a non-finite guard trip ``nan_trip`` (``rollback_retry``
+for a rolled-back chunk), and the binned predict of an external dataset
+feeds the quality plane (``quality_baseline``, gbdt.py:2230-2310).
 """
 from __future__ import annotations
 
@@ -84,13 +93,17 @@ from ..core.predict_fused import FusedPredictor, note_stack
 from ..core.quant import _M32, _mul32
 from ..core.tree import Tree
 from ..core.tree_learner import (TreeArrays, arrays_from_tree,
-                                 route_binned, tree_from_arrays)
+                                 route_binned, store_f32, store_order,
+                                 tree_from_arrays)
 from ..device import DeviceLike, resolve_device
 from ..io.dataset import BinnedDataset
 from ..metric.metric import Metric, create_metrics
 from ..objective import ObjectiveFunction, create_objective
 from ..obs import active as _telemetry_active
+from ..obs import annotate as _annotate
+from ..obs import compile as _compile
 from ..obs import devmem as _devmem
+from ..obs import recompile as _recompile
 from ..obs import spans as _spans
 from ..parallel.learners import (create_tree_learner, is_write_leader,
                                  sharded_predict, sharded_predict_contrib)
@@ -124,16 +137,41 @@ def _bag_uniforms(row_ids: torch.Tensor, seed: int,
 
 
 def bag_mask_for(row_ids: torch.Tensor, seed: int, it: int, freq: int,
-                 frac) -> Tuple[torch.Tensor, int]:
+                 frac, host_count: bool = True):
     """(mask f32 0/1, realised count) for iteration ``it``
     (``_bag_mask_for``, gbdt.py:111-122): rows whose uniform of the window
     ``it - it % freq`` is below ``frac`` (a float, or a per-row f32 tensor
-    for pos/neg balanced bagging); the count is at least 1."""
+    for pos/neg balanced bagging); the count is at least 1.  The mask is
+    keyed by the ids, so a permuted ``row_ids`` (the carried store's order
+    bytes) gives the same mask permuted.  ``host_count=False`` leaves the
+    count on the device, an f32 scalar, so that nothing is read back."""
     u = _bag_uniforms(row_ids, seed, it - it % freq)
     if not isinstance(frac, torch.Tensor):
         frac = torch.tensor(frac, dtype=torch.float32, device=u.device)
     mask = (u < frac).to(torch.float32)
-    return mask, max(int(mask.sum(dtype=torch.float32)), 1)
+    count = torch.clamp(mask.sum(dtype=torch.float32), min=1.0)
+    return mask, (int(count) if host_count else count)
+
+
+def _steps_grouped(step, its: Sequence[int], group: int) -> bool:
+    """Run ``step(it)`` over the iterations ``its`` in groups of ``group``
+    (``trees_per_chunk``; ``_scan_grouped``, gbdt.py:140-172): the whole
+    groups first, then the ungrouped tail, stopping at the first step that
+    returns True.  The steps are the same calls in the same order whatever
+    the group, so the trees are bit-identical; the JAX package unrolls a
+    group into one scan step to share its dispatch, while a step here is
+    already a host loop of kernel launches, so the group changes no launch.
+    Returns True when a step stopped the run."""
+    k = len(its)
+    g = min(max(int(group), 1), max(k, 1))
+    main = (k // g) * g
+    blocks = [its[i:i + g] for i in range(0, main, g)] + [[it] for it in
+                                                          its[main:]]
+    for block in blocks:
+        for it in block:
+            if step(it):
+                return True
+    return False
 
 
 class GBDT:
@@ -157,6 +195,13 @@ class GBDT:
     # path); DART sets False: its host trees shrink in f64 and its scores
     # take the f32 products (the JAX package's synchronous path)
     lazy_trees = True
+    # the fused chunk (train_chunk); subclasses with per-iteration host
+    # logic opt out (gbdt.py:758)
+    fuse_iters = True
+    # the scores and the model length before a chunk describe all that the
+    # chunk changed; DART's drops change older trees, so it stops at a
+    # non-finite chunk instead of rolling it back (gbdt.py:1273-1276)
+    _prechunk_rollback_safe = True
 
     def __init__(self, config: Config,
                  train_data: Optional[BinnedDataset] = None,
@@ -197,8 +242,32 @@ class GBDT:
         # training (0: it did not)
         self.best_iteration = 0
         self._es_state: Dict = {}
+        # the fused chunk: its state before the chunk (resilient nan_policy
+        # only), the device verdict of its gradients' finiteness, the chunk
+        # lengths run so far, and the read-backs its guard made
+        self._prechunk = None
+        self._chunk_grads_ok: Optional[torch.Tensor] = None
+        self._fused_keys = set()
+        self._fuse_failed = False
+        self._nan_refused_fuse = False
+        self._nan_rolled_back_at: Optional[int] = None
+        self._chunk_rolled_back = False
+        self.chunk_reads = 0
         if train_data is not None:
             self.reset_training_data(train_data, objective)
+
+    @property
+    def bag_data_cnt(self) -> int:
+        """The rows in the current bag.  A fused chunk leaves it on the
+        device; it is read back here, when it is asked for."""
+        cnt = self._bag_data_cnt
+        if isinstance(cnt, torch.Tensor):
+            cnt = self._bag_data_cnt = int(cnt)
+        return cnt
+
+    @bag_data_cnt.setter
+    def bag_data_cnt(self, value) -> None:
+        self._bag_data_cnt = value
 
     # ---- setup ----
 
@@ -246,6 +315,9 @@ class GBDT:
         self.bag_mask: Optional[torch.Tensor] = None
         self.bag_data_cnt = self.num_data
         self._train_bins: Optional[torch.Tensor] = None
+        # the chunk's gates may differ for the new data and objective
+        self._fused_keys = set()
+        self._fuse_failed = False
 
     def add_train_metrics(self, metrics: Sequence[Metric]) -> None:
         self.train_metrics = list(metrics)
@@ -326,10 +398,11 @@ class GBDT:
                 and (float(cfg.pos_bagging_fraction) < 1.0
                      or float(cfg.neg_bagging_fraction) < 1.0))
 
-    def _bagging(self, it: int) -> None:
+    def _bagging(self, it: int, host_count: bool = True) -> None:
         """A new bag mask every ``bagging_freq`` iterations (gbdt.py:
         583-610): each row an independent Bernoulli draw of the stateless
-        hash, at ``bagging_fraction`` or at the row's class fraction."""
+        hash, at ``bagging_fraction`` or at the row's class fraction
+        (``host_count=False``: the count stays on the device)."""
         cfg = self.config
         balanced = self._balanced_bagging()
         plain = cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0
@@ -348,7 +421,7 @@ class GBDT:
                 frac = float(cfg.bagging_fraction)
             self.bag_mask, self.bag_data_cnt = bag_mask_for(
                 self._row_ids, int(cfg.bagging_seed), int(it),
-                int(cfg.bagging_freq), frac)
+                int(cfg.bagging_freq), frac, host_count)
         elif self.bag_mask is None:
             self.bag_data_cnt = self.num_data
 
@@ -420,23 +493,43 @@ class GBDT:
         grad, hess, skip = self._guard_gradients(grad, hess)
         if skip:
             return self._skip_iteration(init_scores)
+        return self._grow_iteration(grad, hess, init_scores)
+
+    def _grow_iteration(self, grad: torch.Tensor, hess: torch.Tensor,
+                        init_scores: List[float],
+                        host_count: bool = True) -> bool:
+        """The rest of an iteration from its [K, N] gradients: bagging, the
+        feature mask, one tree per class; True when no tree could split.
+        ``host_count=False`` (the fused chunk) keeps the bag count on the
+        device, where the tree's root fetch reads it."""
         with FunctionTimer("GBDT::Bagging"):
-            self._bagging(self.iter_)
+            self._bagging(self.iter_, host_count)
             grad, hess = self._adjust_gradients_for_bagging(grad, hess)
         feature_mask = self._feature_mask()
+
+        def tree_of(k: int) -> TreeArrays:
+            gk, hk = grad[k], hess[k]
+            if self.bag_mask is not None:
+                gk = gk * self.bag_mask
+                hk = hk * self.bag_mask
+            with FunctionTimer("TreeLearner::Train"):
+                return self.learner.train(gk, hk, self._bag_data_cnt,
+                                          feature_mask, iteration=self.iter_)
+        return self._commit_iteration(tree_of, init_scores)
+
+    def _commit_iteration(self, tree_of, init_scores: List[float]) -> bool:
+        """Per class ``k``: the tree ``tree_of(k)`` grows (when the class
+        trains), goes into the scores and the model; then the iteration
+        ends, or, when no tree split, training stops with the iteration's
+        trees taken out again (kept as the model's constant first trees)."""
+        K = self.num_tree_per_iteration
+        self._last_iter_arrays = []
         should_continue = False
         for k in range(K):
             new_tree = Tree(1)
             self.last_arrays = None
             if self.class_need_train[k] and self.train_data.num_features > 0:
-                gk, hk = grad[k], hess[k]
-                if self.bag_mask is not None:
-                    gk = gk * self.bag_mask
-                    hk = hk * self.bag_mask
-                with FunctionTimer("TreeLearner::Train"):
-                    arrays = self.learner.train(gk, hk, self.bag_data_cnt,
-                                                feature_mask,
-                                                iteration=self.iter_)
+                arrays = tree_of(k)
                 if arrays.num_leaves > 1:
                     should_continue = True
                     with FunctionTimer("GBDT::UpdateScore"):
@@ -465,14 +558,16 @@ class GBDT:
         self.iter_ += 1
         return False
 
-    # ---- non-finite guards (nan_policy, gbdt.py:1268-1364) ----
+    # ---- non-finite guards (nan_policy, gbdt.py:1259-1443) ----
     #
     # ``raise`` (the default) fails naming the iteration, ``skip_iter``
     # advances the iteration with constant trees, ``clip`` sanitises (NaN ->
-    # 0, +-inf -> +-1e35; hessians have no negative clip) and trains on.  The
-    # JAX package's per-chunk score guard (``_guard_chunk_scores``) belongs
-    # to its fused multi-iteration chunk, which the port does not have
-    # (ROADMAP queue 2 B2): it is left out.
+    # 0, +-inf -> +-1e35; hessians have no negative clip) and trains on.  A
+    # single iteration checks its gradients (one read-back); a fused chunk
+    # checks once, at its end (``_guard_chunk_scores``), and under a
+    # resilient policy rolls back to the state before it and runs its
+    # iterations again one at a time, where the per-iteration guard can
+    # skip or clip the bad one.
 
     _NAN_CLIP = float(np.float32(1e35))
 
@@ -512,8 +607,84 @@ class GBDT:
         tele = _telemetry_active()
         if tele is not None:
             tele.counter("nan_policy_trips").inc()
+            if action == "rollback_retry":
+                tele.counter("nan_rollback_retries").inc()
             tele.event("nan_trip", iteration=int(iteration), policy=policy,
                        action=action)
+
+    def _chunk_read(self, t: torch.Tensor) -> bool:
+        """The fused chunk's own device->host read (its guard's verdict),
+        counted in ``chunk_reads``."""
+        self.chunk_reads += 1
+        return bool(t)
+
+    def _guard_chunk_scores(self) -> bool:
+        """The per-chunk non-finite guard (``_guard_chunk_scores``,
+        gbdt.py:1366-1422): one reduction over the training scores (and,
+        after a fused chunk, the verdict it kept of every iteration's
+        gradients, which would otherwise show only as a tree that cannot
+        split), read back once.  Returns True when training must stop at
+        the restored last good state.  ``raise`` raises.  On a first
+        non-finite chunk under a resilient policy the chunk is rolled back
+        (``_restore_prechunk``) and its iterations run again one at a time;
+        if the same iteration fails again training stops there.  A clean
+        chunk after a retry arms the fused path again."""
+        self._chunk_rolled_back = False
+        ok = torch.isfinite(self.train_score).all()
+        if self._chunk_grads_ok is not None:
+            ok = ok & self._chunk_grads_ok
+            self._chunk_grads_ok = None
+        if self._chunk_read(ok):
+            self._prechunk = None
+            if self._nan_refused_fuse:
+                # the retried window was clean: the fault was transient
+                self._fuse_failed = False
+                self._nan_refused_fuse = False
+            return False
+        policy = self._nan_policy
+        if policy == "raise":
+            self._nan_trip_telemetry(self.iter_, policy, "raise")
+            raise LightGBMError(
+                "non-finite gradients/hessians/scores at iteration %d "
+                "(nan_policy=raise); set nan_policy=skip_iter or clip to "
+                "degrade gracefully instead" % self.iter_)
+        if self._prechunk is None or not self._prechunk_rollback_safe:
+            Log.warning("non-finite training scores after iteration %d with "
+                        "no clean rollback state; stopping training",
+                        self.iter_)
+            return True
+        self._restore_prechunk()
+        self._chunk_rolled_back = True
+        if self._nan_rolled_back_at == self.iter_:
+            Log.warning("non-finite scores persist at iteration %d after a "
+                        "per-iteration retry; stopping training at the last "
+                        "good state (nan_policy=%s)", self.iter_, policy)
+            return True
+        Log.warning("non-finite training scores detected; rolled back to "
+                    "iteration %d and retrying per-iteration "
+                    "(nan_policy=%s)", self.iter_, policy)
+        self._nan_trip_telemetry(self.iter_, policy, "rollback_retry")
+        self._nan_rolled_back_at = self.iter_
+        self._fuse_failed = True
+        self._nan_refused_fuse = True
+        return False
+
+    def _restore_prechunk(self) -> None:
+        """Put back the state kept when the last chunk began
+        (``_restore_prechunk``, gbdt.py:1424-1443): the scores, the model's
+        length, the bag and the iteration."""
+        score, vscores, n_models, it, bag_mask, bag_cnt = self._prechunk
+        self._prechunk = None
+        self.train_score = score
+        for vs, v in zip(self.valid_sets, vscores):
+            vs["score"] = v
+        del self.models[n_models:]
+        self.bag_mask = bag_mask
+        self.bag_data_cnt = bag_cnt
+        self.iter_ = it
+        self._pre_iter_scores = None
+        self._last_iter_arrays = []
+        self._invalidate_predict_cache()
 
     def _skip_iteration(self, init_scores: Optional[List[float]] = None
                         ) -> bool:
@@ -553,7 +724,9 @@ class GBDT:
                      init_score: float) -> Tree:
         """Add a trained tree of class ``k`` to the train and validation
         scores and return its host tree (leaf values renewed for the
-        percentile objectives, then scaled by the learning rate)."""
+        percentile objectives, then scaled by the learning rate).  A tree of
+        the carried store (empty ``row_leaf``) already added itself to the
+        store's scores."""
         rate = np.float32(self.shrinkage_rate)
         renewed = self._renew_tree_output(arrays, k)
         if renewed is None and self.lazy_trees:
@@ -576,8 +749,9 @@ class GBDT:
             tree.shrink(self.shrinkage_rate)
             scaled = arrays._replace(leaf_value=arrays.leaf_value * rate)
             valid_lv = tree.leaf_value[:tree.num_leaves].astype(np.float32)
-        lv = torch.as_tensor(scaled.leaf_value, device=self.device)
-        self.train_score[k] += lv[arrays.row_leaf]
+        if arrays.row_leaf.numel():
+            lv = torch.as_tensor(scaled.leaf_value, device=self.device)
+            self.train_score[k] += lv[arrays.row_leaf]
         vlv = torch.as_tensor(valid_lv, device=self.device)
         for vs in self.valid_sets:
             vs["score"][k] += vlv[route_binned(vs["bins"], scaled,
@@ -617,16 +791,243 @@ class GBDT:
                     residual[r], None if weights is None else weights[r])
         return new_vals
 
-    # ---- the training loop (gbdt.py:1843, without fused chunks) ----
+    # ---- the fused multi-iteration chunk (gbdt.py:745-1100) ----
+    #
+    # Where an iteration makes no decision on the host (no feature sampling,
+    # no leaf renewal, gradients that are a function of the scores, the
+    # serial learner), ``train_chunk`` runs k iterations without reading
+    # anything back from the device but the trees' own fetches and one
+    # guard verdict at the end.  For a single-model pointwise objective
+    # without sample weights the chunk carries the objective's per-row value
+    # and the running score inside the tree learner's permuted row store
+    # (carried row-store training): each tree's gradients come from the
+    # store's columns, only their bytes are rewritten, and the tree adds
+    # its leaf values to the score column over its windows; the scores go
+    # back to original order once, at the chunk's end.  Otherwise
+    # (multiclass, sample weights, other objectives) the chunk runs the
+    # iteration of ``train_one_iter`` without its per-iteration read-back
+    # and score copies.  Bagging keys its mask by original row ids, the
+    # carried store's order bytes, so every path draws the same bag.
+    #
+    # The port's trees are host trees once grown, so a chunk ends at the
+    # first iteration that makes no split, with that iteration taken out:
+    # the state the JAX package's deferred stall poll trims back to
+    # (``_poll_stop``, gbdt.py:318-380).  The JAX traceability probe
+    # (``_fuse_failed`` on a trace error, gbdt.py:1036-1046) has no
+    # counterpart: every objective of the port is torch, and a Python
+    # ``fobj`` trains through ``train_one_iter``.
+
+    def _can_fuse_iters(self) -> bool:
+        """The chunk may fuse its iterations (gbdt.py:760-784)."""
+        obj = self.objective
+        if not (self.fuse_iters and self.lazy_trees and obj is not None
+                and not obj.is_renew_tree_output
+                and obj.deterministic_gradients):
+            return False
+        if not self.train_data.num_features or not all(self.class_need_train):
+            return False
+        if float(self.config.feature_fraction) < 1.0:
+            return False
+        if self._balanced_bagging():
+            # per-class fractions need the labels, which the permuted store
+            # does not carry
+            return False
+        learner = self.learner
+        if learner.comm is not None or learner.cegb is not None:
+            return False
+        return not self._fuse_failed
+
+    def _fused_bag(self):
+        """(fraction, freq) when bagging is on (gbdt.py:788-793)."""
+        cfg = self.config
+        if cfg.bagging_freq > 0 and float(cfg.bagging_fraction) < 1.0:
+            return float(cfg.bagging_fraction), int(cfg.bagging_freq)
+        return None
+
+    def _trees_per_chunk(self) -> int:
+        """``trees_per_chunk`` (gbdt.py:795-799): iterations grouped into
+        one step of the chunk (:func:`_steps_grouped`)."""
+        return max(1, int(getattr(self.config, "trees_per_chunk", 1) or 1))
+
+    def _can_carry_rows(self) -> bool:
+        """Carried row-store training (gbdt.py:801-812): one model per
+        iteration, an objective with a carried value (no sample weights)
+        and the serial learner."""
+        if self.num_tree_per_iteration != 1:
+            return False
+        if self.objective is None or self.objective.carry_aux() is None:
+            return False
+        return type(self.learner).__name__ == "SerialTreeLearner"
+
+    def train_chunk(self, num_iters: int) -> bool:
+        """Run up to ``num_iters`` iterations (gbdt.py:1003-1099): fused
+        when :meth:`_can_fuse_iters` holds, in one watchdog section
+        ``fused_train_chunk``, else one ``train_one_iter`` at a time.
+        Returns True when training stopped (no more splittable leaves)."""
+        if num_iters <= 0:
+            return False
+        self.trained_at = time.time()
+        self._prechunk = None
+        if self._nan_policy != "raise":
+            # the state the rollback of a non-finite chunk restores; the
+            # chunk writes the scores in place, so they are copied
+            self._prechunk = (self.train_score.clone(),
+                              [vs["score"].clone() for vs in self.valid_sets],
+                              len(self.models), self.iter_, self.bag_mask,
+                              self._bag_data_cnt)
+        tele = _telemetry_active()
+        t0 = time.perf_counter()
+        it0 = self.iter_
+        if not self._can_fuse_iters():
+            stopped = False
+            for _ in range(num_iters):
+                if self.watched_iter():
+                    stopped = True
+                    break
+            if tele is not None:
+                self._record_chunk_telemetry(tele, it0,
+                                             time.perf_counter() - t0,
+                                             fused=False)
+            return stopped
+        # the first chunk of each length is the port's counterpart of a new
+        # fused program (gbdt.py:1032-1050): a steady run repeats the
+        # config-aligned lengths, so the counter stays flat after warm-up
+        key = (num_iters, self.shrinkage_rate, self.num_tree_per_iteration,
+               len(self.valid_sets))
+        first = key not in self._fused_keys
+        if first:
+            self._fused_keys.add(key)
+            _recompile.record("fused_train", "k=%d" % num_iters)
+        body = (self._chunk_carried if self._can_carry_rows()
+                else self._chunk_plain)
+        its = list(range(it0, it0 + num_iters))
+        with FunctionTimer("GBDT::TrainChunk"), \
+                _annotate("fused_train_chunk"), \
+                watch("fused_train_chunk", builds=self.device.type == "cuda",
+                      compile_key=int(num_iters), first_iter=int(it0),
+                      iters=int(num_iters)):
+            stopped = body(its)
+        self._invalidate_predict_cache()
+        if tele is not None:
+            self._record_chunk_telemetry(tele, it0, time.perf_counter() - t0,
+                                         fused=True,
+                                         compile_key="k=%d" % num_iters,
+                                         compiles=int(first))
+        return stopped
+
+    def _note_grads(self, grad: torch.Tensor, hess: torch.Tensor) -> None:
+        """Fold one iteration's gradient finiteness into the chunk's verdict
+        on the device (read once, by ``_guard_chunk_scores``)."""
+        ok = torch.isfinite(grad).all() & torch.isfinite(hess).all()
+        prev = self._chunk_grads_ok
+        self._chunk_grads_ok = ok if prev is None else prev & ok
+
+    def _chunk_plain(self, its: List[int]) -> bool:
+        """The plain fused chunk (``_make_fused_train``, gbdt.py:927-1001):
+        each iteration as ``train_one_iter`` runs it, without its gradient
+        read-back, its score copies and the bag count's read-back; the
+        trees and scores equal the per-iteration path's bit for bit."""
+        K = self.num_tree_per_iteration
+
+        def step(it: int) -> bool:
+            self._pre_iter_scores = None
+            init_scores = [self._boost_from_average(k) for k in range(K)]
+            with FunctionTimer("GBDT::Boosting"):
+                grad, hess = self._get_gradients()
+            self._note_grads(grad, hess)
+            return self._grow_iteration(grad, hess, init_scores,
+                                        host_count=False)
+        return _steps_grouped(step, its, self._trees_per_chunk())
+
+    def _chunk_carried(self, its: List[int]) -> bool:
+        """The carried chunk (``_make_fused_train_carried``, gbdt.py:
+        814-925).  The first tree builds the carried store from the original
+        row order with the objective's value and the score; each later tree
+        takes its gradients (``pointwise_gradients``) from the store's
+        columns in the store's order, and its bag mask from the order
+        bytes.  At the end the score column goes back to original order in
+        ``train_score``."""
+        learner, obj = self.learner, self.objective
+        n = self.num_data
+        lay = learner.row_layout(carried=True)
+        rate = np.float32(self.shrinkage_rate)
+        aux = obj.carry_aux().to(torch.float32)
+        bag = self._fused_bag()
+        seed = int(self.config.bagging_seed)
+        store = {}
+
+        def step(it: int) -> bool:
+            self._pre_iter_scores = None
+            init_scores = [self._boost_from_average(0)]
+            rows = store.get("rows")
+            if rows is None:
+                score, auxv, ids = self.train_score[0], aux, self._row_ids
+            else:
+                score = store_f32(rows, lay.soff, n)
+                auxv = store_f32(rows, lay.aoff, n)
+                ids = store_order(rows, lay, n) if bag is not None else None
+            with FunctionTimer("GBDT::Boosting"):
+                g, h = obj.pointwise_gradients(score, auxv)
+            self._note_grads(g, h)
+            count = n
+            with FunctionTimer("GBDT::Bagging"):
+                if bag is not None:
+                    mask, count = bag_mask_for(ids, seed, it, bag[1], bag[0],
+                                               host_count=False)
+                    g, h = g * mask, h * mask
+            kw = (dict(extra=(aux, score)) if rows is None
+                  else dict(rows_carry=rows))
+
+            def tree_of(k: int) -> TreeArrays:
+                with FunctionTimer("TreeLearner::Train"):
+                    arrays, store["rows"] = learner.train(
+                        g, h, count, iteration=it, carried=True,
+                        score_rate=rate, **kw)
+                return arrays
+            return self._commit_iteration(tree_of, init_scores)
+
+        stopped = _steps_grouped(step, its, self._trees_per_chunk())
+        rows = store.get("rows")
+        if rows is not None:
+            score = torch.zeros(n, dtype=torch.float32, device=self.device)
+            score[store_order(rows, lay, n)] = store_f32(rows, lay.soff, n)
+            self.train_score = score[None]
+        if bag is not None:
+            # the bag of the window in progress, in original row order, for
+            # an iteration that runs outside a chunk next
+            last = self.iter_ - 1 if not stopped else self.iter_
+            self.bag_mask, self.bag_data_cnt = bag_mask_for(
+                self._row_ids, seed, max(last, 0), bag[1], bag[0],
+                host_count=False)
+        return stopped
+
+    def _gather_tree_output(self, arrays: TreeArrays) -> torch.Tensor:
+        """[N] f32: each training row's leaf value of ``arrays``
+        (gbdt.py:472-480), through its ``row_leaf``, or routed over the
+        training bins for a tree of the carried store, whose row_leaf is
+        empty."""
+        lv = torch.as_tensor(arrays.leaf_value, device=self.device)
+        if arrays.row_leaf is None or arrays.row_leaf.numel() == 0:
+            return lv[route_binned(self.train_bins(), arrays,
+                                   self.learner.feat_host)]
+        return lv[arrays.row_leaf]
+
+    # ---- the training loop (gbdt.py:1843-1908) ----
 
     def train(self, snapshot_out: Optional[str] = None) -> None:
         """Train up to ``num_iterations`` iterations (counting from this
-        booster's first; a restored booster goes on from its iteration),
-        evaluating every ``metric_freq`` iterations and stopping early when
-        ``eval_and_check_early_stopping`` says so.  With ``snapshot_out``,
-        every ``snapshot_freq`` iterations write the model to
-        ``<snapshot_out>.snapshot_iter_<n>`` and the train state to a
-        checkpoint beside it (gbdt.py:1917-1950)."""
+        booster's first; a restored booster goes on from its iteration) in
+        chunks (:meth:`train_chunk`), each ending at the next multiple of
+        ``metric_freq`` (when anything is evaluated) and of
+        ``snapshot_freq``, at most ``chunk_cap`` long: the chunks follow the
+        config, not ``snapshot_out``, so a resumed run cuts the iterations
+        as the uninterrupted one did (gbdt.py:1859-1864).  After each chunk:
+        the non-finite guard, the evaluation and early stopping, the
+        preemption poll (so a preempted run stops at a chunk boundary, with
+        its emergency checkpoint) and, with ``snapshot_out``, every
+        ``snapshot_freq`` iterations the model at
+        ``<snapshot_out>.snapshot_iter_<n>`` and a checkpoint beside it
+        (gbdt.py:1917-1950)."""
         t_start = time.perf_counter()
         it_start = self.iter_
         total = int(self.config.num_iterations)
@@ -634,12 +1035,20 @@ class GBDT:
         mf = int(self.config.metric_freq)
         sf = int(self.config.snapshot_freq)
         tele = _telemetry_active()
+        chunk_cap = int(max(1, min(64, (1 << 31) // max(4 * self.num_data,
+                                                          1))))
         while self.iter_ < total:
-            it0, t0 = self.iter_, time.perf_counter()
-            finished = self.watched_iter()
-            if tele is not None:
-                self._record_chunk_telemetry(tele, it0,
-                                             time.perf_counter() - t0)
+            it = self.iter_
+            nxt = total
+            if has_eval and mf > 0:
+                nxt = min(nxt, it + mf - it % mf)
+            if sf > 0:
+                nxt = min(nxt, it + sf - it % sf)
+            finished = self.train_chunk(min(nxt - it, chunk_cap))
+            if self._guard_chunk_scores():
+                break
+            if self._chunk_rolled_back:
+                continue  # the chunk again, one iteration at a time
             Log.info("%f seconds elapsed, finished iteration %d",
                      time.perf_counter() - t_start, self.iter_)
             if not finished and has_eval and mf > 0 and self.iter_ % mf == 0:
@@ -647,10 +1056,9 @@ class GBDT:
             if finished:
                 break
             if preemption_requested():
-                # polled once an iteration (the JAX package polls at its
-                # fused chunks' boundaries, gbdt.py:1880), after the eval,
-                # so the emergency checkpoint holds the same early-stopping
-                # state a periodic one would
+                # polled at the chunk boundary (gbdt.py:1879-1885), after
+                # the eval, so the emergency checkpoint holds the same
+                # early-stopping state a periodic one would
                 self._preempt_exit(snapshot_out)
             if snapshot_out and sf > 0 and self.iter_ % sf == 0:
                 self._write_snapshot(snapshot_out)
@@ -662,10 +1070,13 @@ class GBDT:
             tele.gauge("train_iterations").set(int(self.iter_ - it_start))
             tele.gauge("train_wall_s").set(time.perf_counter() - t_start)
 
-    def _record_chunk_telemetry(self, tele, first_iter: int,
-                                dt: float) -> None:
-        """One iteration's metrics and events (``_record_chunk_telemetry``
-        with ``fused=False``, gbdt.py:1101-1170); ``dt`` is its host wall."""
+    def _record_chunk_telemetry(self, tele, first_iter: int, dt: float,
+                                fused: bool = False, compile_key=None,
+                                compiles: int = 0) -> None:
+        """One chunk's metrics and events (``_record_chunk_telemetry``,
+        gbdt.py:1101-1170); ``dt`` is its host wall.  ``compile_key`` and
+        ``compiles`` feed the compile accountant (``obs/compile.py``): the
+        first chunk of a length is priced against the ones that follow."""
         iters = self.iter_ - first_iter
         if iters <= 0:
             return
@@ -677,8 +1088,11 @@ class GBDT:
             dt / rows * 1e9 if rows else 0.0)
         tele.gauge("bag_data_cnt").set(self.bag_data_cnt)
         tele.event("train_chunk", first_iter=int(first_iter),
-                   iters=int(iters), dt_s=dt, rows_per_s=rate, fused=False,
-                   bag_data_cnt=int(self.bag_data_cnt))
+                   iters=int(iters), dt_s=dt, rows_per_s=rate,
+                   fused=bool(fused), bag_data_cnt=int(self.bag_data_cnt))
+        if compile_key is not None:
+            _compile.note_dispatch(tele, "fused_train", compile_key, dt,
+                                   int(compiles))
         learner = getattr(self, "learner", None)
         if learner is not None and getattr(learner, "quantized", False):
             from ..core.quant import GRAD_LEVELS, HESS_LEVELS
@@ -699,7 +1113,7 @@ class GBDT:
         _spans.record_span(tele, "train_chunk", t0=time.time() - dt,
                            dur_s=dt, trace_id=tele.trace_id,
                            first_iter=int(first_iter), iters=int(iters),
-                           fused=False)
+                           fused=bool(fused))
 
     def watched_iter(self, gradients=None, hessians=None) -> bool:
         """:meth:`train_one_iter` inside a watchdog section (a no-op when
@@ -1122,10 +1536,11 @@ class GBDT:
     def rollback_one_iter(self) -> None:
         """Undo the last iteration (gbdt.cpp:454-470): its trees leave the
         model, and the scores go back to those it started from.  Where they
-        were not kept (DART, or the first iteration after a restore) the
-        last trees are taken out of the scores as gbdt.py:1705-1732 does,
-        through their ``row_leaf`` (or routed over the training bins when
-        that is gone); f32 ``(s + v) - v`` need not give back ``s``."""
+        were not kept (DART, a fused chunk, or the first iteration after a
+        restore) the last trees are taken out of the scores as
+        gbdt.py:1705-1732 does, through their ``row_leaf`` (routed over the
+        training bins for a tree of the carried store, or when the arrays
+        are gone); f32 ``(s + v) - v`` need not give back ``s``."""
         self._invalidate_predict_cache()
         if self.iter_ <= 0:
             return
@@ -1141,9 +1556,7 @@ class GBDT:
                 arrays = (self._last_iter_arrays[k]
                           if k < len(self._last_iter_arrays) else None)
                 if arrays is not None:
-                    lv = torch.as_tensor(arrays.leaf_value,
-                                         device=self.device)
-                    self.train_score[k] -= lv[arrays.row_leaf]
+                    self.train_score[k] -= self._gather_tree_output(arrays)
                 else:
                     self._add_tree_score_train(tree, k)
                 for vs in self.valid_sets:

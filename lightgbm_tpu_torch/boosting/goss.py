@@ -46,6 +46,9 @@ def goss_weights(key: torch.Tensor, top_k: int, sampled: np.ndarray,
 class GOSS(GBDT):
     """Gradient-based one-side sampling on top of :class:`GBDT`."""
 
+    # the sample is drawn on the host each iteration (goss.py:33)
+    fuse_iters = False
+
     def __init__(self, config, train_data=None, objective=None,
                  device=None, group=None) -> None:
         super().__init__(config, train_data, objective, device=device,
@@ -63,9 +66,10 @@ class GOSS(GBDT):
         # positions, kept for inspection
         self.goss_key = self.goss_weight = self.goss_sampled = None
 
-    def _bagging(self, it: int) -> None:
+    def _bagging(self, it: int, host_count: bool = True) -> None:
         """No bag mask; from iteration ``int(1 / learning_rate)`` on, every
-        iteration samples (goss.hpp:133-136)."""
+        iteration samples (goss.hpp:133-136).  GOSS never runs a fused
+        chunk, so ``host_count`` is not used."""
         self.bag_mask = None
         self.bag_data_cnt = self.num_data
         self._needs_goss = it >= int(1.0 / self.config.learning_rate)

@@ -28,6 +28,8 @@ class RF(GBDT):
     """Random forest on top of :class:`GBDT`."""
 
     average_output = True
+    # its own iteration: constant gradients, averaged scores (rf.py:16)
+    fuse_iters = False
 
     def __init__(self, config, train_data=None, objective=None,
                  device=None, group=None) -> None:

@@ -6,13 +6,15 @@ src/application/application.cpp): parameter precedence argv ``key=value``
 over config-file lines (:49-82), the tasks ``train``, ``predict``,
 ``convert_model`` and ``refit`` (:204-260), evaluation every
 ``metric_freq`` iterations, snapshots, and the ``LightGBM_predict_result.txt``
-format (predictor.hpp).  ``task=train`` with ``snapshot_freq`` or
+format (predictor.hpp).  ``task=train`` trains through ``GBDT.train``, in
+fused chunks cut at ``metric_freq`` and ``snapshot_freq`` (gbdt.py:1843-1900
+of the JAX package).  ``task=train`` with ``snapshot_freq`` or
 ``preemption_checkpoint=true`` resumes an interrupted run of the same
 command from its newest valid checkpoint and removes its checkpoints when it
 completes (``checkpoint.py``).  With ``preemption_checkpoint=true``, SIGTERM
 or SIGINT makes ``task=train`` write an emergency checkpoint at the next
-iteration end and exit with code 75 (``resilience.EXIT_PREEMPTED``);
-``watchdog_timeout_s`` aborts a stalled iteration with code 79
+chunk boundary and exit with code 75 (``resilience.EXIT_PREEMPTED``);
+``watchdog_timeout_s`` aborts a stalled chunk with code 79
 (cli.py:147-280 of the JAX package).  Under an initialized
 ``torch.distributed`` group each process loads as its rank (``num_machines``
 is the group's size, with a warning when the key says otherwise) and rank 0

@@ -182,19 +182,38 @@ class RowLayout(NamedTuple):
     nbytes_bins: int  # bin bytes per row
     voff: int         # f32 grad at voff, f32 hess at voff+4, s32 order at voff+8
     W: int            # row width, a multiple of 128
-    bitbytes: int = 0  # lazy CEGB paid bits at voff+12: bit f % 8 of byte
+    bitbytes: int = 0  # lazy CEGB paid bits at bitoff: bit f % 8 of byte
                        # f // 8 is feature f
+    carried: bool = False  # the fused chunk's store: the objective's f32 aux
+                           # at aoff and the f32 running score at soff
+
+    @property
+    def aoff(self) -> int:
+        return self.voff + 12
+
+    @property
+    def soff(self) -> int:
+        return self.voff + 16
 
     @property
     def bitoff(self) -> int:
-        return self.voff + 12
+        return self.voff + (20 if self.carried else 12)
 
 
-def row_layout(ncols: int, bpc: int, bitbytes: int = 0) -> RowLayout:
+def row_layout(ncols: int, bpc: int, bitbytes: int = 0,
+               carried: bool = False) -> RowLayout:
+    """The layout of ``ncols`` bin columns of ``bpc`` bytes; ``carried``
+    adds the aux and score columns after the order (tree_learner.py:
+    311-319), so a carried store may be one 128-byte block wider.  Lazy
+    CEGB's bits and the carried columns exclude each other (:309-310)."""
+    if carried and bitbytes:
+        raise ValueError("carried row-store training and lazy CEGB are "
+                         "mutually exclusive")
     nbytes = ncols * bpc
     voff = -(-nbytes // 4) * 4
-    return RowLayout(bpc, nbytes, voff,
-                     -(-(voff + 12 + bitbytes) // 128) * 128, bitbytes)
+    end = voff + (20 if carried else 12) + bitbytes
+    return RowLayout(bpc, nbytes, voff, -(-end // 128) * 128, bitbytes,
+                     carried)
 
 
 def bin_bytes(binned: np.ndarray) -> np.ndarray:
@@ -223,11 +242,52 @@ def fill_gradients(template: torch.Tensor, layout: RowLayout,
                    grad: torch.Tensor, hess: torch.Tensor) -> torch.Tensor:
     """A fresh row store: ``template`` with the f32 grad/hess bytes of the
     first N rows written at ``voff`` (the spare block keeps zeros)."""
-    n = grad.shape[0]
     rows = template.clone()
+    refresh_gradients(rows, layout, grad, hess)
+    return rows
+
+
+def refresh_gradients(rows: torch.Tensor, layout: RowLayout,
+                      grad: torch.Tensor, hess: torch.Tensor) -> None:
+    """Write the f32 grad/hess bytes of the first N rows of ``rows`` in
+    place, in the store's row order (tree_learner.py:357-368): the only
+    bytes a carried store's next tree changes before it grows."""
+    n = grad.shape[0]
     gh = torch.stack([grad.to(torch.float32), hess.to(torch.float32)], dim=1)
     rows[:n, layout.voff:layout.voff + 8] = gh.contiguous().view(torch.uint8)
+
+
+def carried_store(template: torch.Tensor, layout: RowLayout,
+                  carried: RowLayout, grad: torch.Tensor, hess: torch.Tensor,
+                  aux: torch.Tensor, score: torch.Tensor) -> torch.Tensor:
+    """A chunk's first store in the ``carried`` layout, from the plain
+    ``template`` (bins and order bytes) in original row order, with the
+    grad/hess, aux and score f32 columns of the first N rows
+    (tree_learner.py:370-402 with ``extra``); the spare block past row N
+    keeps zero values."""
+    n = grad.shape[0]
+    rows = torch.zeros((template.shape[0], carried.W), dtype=torch.uint8,
+                       device=template.device)
+    rows[:, :layout.voff + 12] = template[:, :layout.voff + 12]
+    refresh_gradients(rows, carried, grad, hess)
+    cols = torch.stack([aux.to(torch.float32), score.to(torch.float32)], 1)
+    rows[:n, carried.aoff:carried.soff + 4] = cols.contiguous().view(
+        torch.uint8)
     return rows
+
+
+def store_f32(rows: torch.Tensor, off: int, n: int) -> torch.Tensor:
+    """The f32 column at byte ``off`` of the first ``n`` rows, as a view
+    [n] into the store (writes go to the store)."""
+    return rows[:n, off:off + 4].view(torch.float32).reshape(n)
+
+
+def store_order(rows: torch.Tensor, layout: RowLayout, n: int
+                ) -> torch.Tensor:
+    """The original row id of each of the first ``n`` store positions (the
+    s32 order bytes), i64."""
+    return rows[:n, layout.voff + 8:layout.voff + 12].view(
+        torch.int32).reshape(n).long()
 
 
 _SCALAR_FIELDS = tuple(f for f in BestSplit._fields if f != "cat_bitset")
@@ -453,8 +513,12 @@ class _Growth:
             if striped:
                 ucnt0 = comm.ops.all_reduce_sum(ucnt0)
             ucnt0 = ucnt0.to(torch.float32)
-        best0, fb0 = self._best(hist0, sums[0], sums[1],
-                                torch.tensor(float(num_data), device=dev),
+        # the in-bag count: a host int, or (the fused chunk's bag mask) a
+        # device scalar that comes back with the root's fetch
+        count0 = (num_data.to(torch.float32).reshape(())
+                  if isinstance(num_data, torch.Tensor)
+                  else torch.tensor(float(num_data), device=dev))
+        best0, fb0 = self._best(hist0, sums[0], sums[1], count0,
                                 self.cmin[0], self.cmax[0], ucnt0)
         if fb0 is not None:
             # the per-(leaf, feature) candidates (splits_per_leaf_)
@@ -465,7 +529,8 @@ class _Growth:
                 for name, x in zip(FeatureBest._fields, fb0)])
             for x, v in zip(self.fbc, fb0):
                 x[0] = v
-        root, sums_host = self._fetch(best0, sums)
+        root, sums_host = self._fetch(best0, torch.cat([sums.to(
+            torch.float32), count0[None]]))
         sum_h = f32(sums_host[1])
 
         self.bests = {k: np.repeat(v, L, axis=0) for k, v in root.items()}
@@ -480,7 +545,7 @@ class _Growth:
         self.leaf_depth = zl(np.int32)
         self.cat_bitset = np.zeros_like(self.bests["cat_bitset"])
         self.leaf_weight[0] = sum_h
-        self.leaf_count[0] = f32(num_data)
+        self.leaf_count[0] = f32(sums_host[2])
         self.lsum_g, self.lsum_h = zl(), zl()
         self.lsum_g[0], self.lsum_h[0] = f32(sums_host[0]), sum_h
         self.begin = np.zeros(L, dtype=np.int64)
@@ -925,16 +990,54 @@ class _Growth:
         self.slot_of[leaf], self.slot_of[kid] = s_l, s_r
         return parent, np.asarray([s_l]), np.asarray([s_r])
 
-    def arrays(self) -> TreeArrays:
-        """The grown tree, with the per-row leaf read from the windows and
-        the order bytes: windows tile [0, n) in begin order; the spare block
-        stays past row n.  In level growth each position's order bytes are
-        read from the store of its leaf's depth parity.  Lazy CEGB's paid
-        bits come back in original row order."""
-        L, n, dev, layout = self.L, self.n, self.dev, self.layout
-        valid = np.flatnonzero((np.arange(L) < self.nl_leaves)
+    def _windows(self) -> np.ndarray:
+        """The leaves with rows, in the order of their windows, which tile
+        [0, n); the spare block stays past row n."""
+        valid = np.flatnonzero((np.arange(self.L) < self.nl_leaves)
                                & (self.wcount > 0))
-        valid = valid[np.argsort(self.begin[valid], kind="stable")]
+        return valid[np.argsort(self.begin[valid], kind="stable")]
+
+    def _per_position(self, per_leaf: np.ndarray, valid: np.ndarray
+                      ) -> torch.Tensor:
+        """[n] device tensor: each store position takes its window's value of
+        ``per_leaf`` (host counts, so no device read)."""
+        return torch.repeat_interleave(
+            torch.as_tensor(per_leaf[valid], device=self.dev),
+            torch.as_tensor(self.wcount[valid], device=self.dev),
+            output_size=self.n)
+
+    def fill_scores(self, score_rate) -> torch.Tensor:
+        """The carried store after the tree (tree_learner.py:1337-1351): one
+        store that holds every row, its score column plus its leaf's value
+        times ``score_rate`` (f32) over each window, as a forward fill with
+        no per-row gather.  In level growth a leaf's rows lie in the store
+        of its depth's parity, so the windows of the odd-depth leaves are
+        first copied into store 0 (the next tree's store)."""
+        n, rows = self.n, self.rows
+        if self.nl_leaves <= 1:
+            return rows         # a root-only tree moved and adds nothing
+        valid = self._windows()
+        if self.stores is not None:
+            spare = self.stores[1]
+            odd = self._per_position(self.leaf_depth % 2 == 1, valid)
+            rows[:n] = torch.where(odd[:, None], spare[:n], rows[:n])
+        lv = self.leaf_value * np.float32(score_rate)
+        store_f32(rows, self.layout.soff, n).add_(
+            self._per_position(lv, valid))
+        return rows
+
+    def arrays(self, carried: bool = False) -> TreeArrays:
+        """The grown tree, with the per-row leaf read from the windows and
+        the order bytes.  In level growth each position's order bytes are
+        read from the store of its leaf's depth parity.  Lazy CEGB's paid
+        bits come back in original row order.  ``carried``: ``row_leaf`` is
+        empty, as the JAX build returns it (the rows' state stays in the
+        permuted store; :meth:`fill_scores`)."""
+        n, dev, layout = self.n, self.dev, self.layout
+        if carried:
+            return self._tree(torch.zeros(0, dtype=torch.int64, device=dev),
+                              None)
+        valid = self._windows()
         leaf_of_pos = torch.repeat_interleave(
             torch.as_tensor(valid, device=dev),
             torch.as_tensor(self.wcount[valid], device=dev))
@@ -958,6 +1061,9 @@ class _Growth:
             paid = torch.empty((n, layout.bitbytes), dtype=torch.uint8,
                                device=dev)
             paid[order] = self.rows[:n, lo:lo + layout.bitbytes]
+        return self._tree(row_leaf, paid)
+
+    def _tree(self, row_leaf, paid) -> TreeArrays:
         return TreeArrays(
             split_feature=self.split_feature,
             threshold_bin=self.threshold_bin, split_gain=self.split_gain,
@@ -989,14 +1095,17 @@ def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
                            forced: Optional[tuple] = None,
                            cegb: Optional[CegbState] = None,
                            pool_slots: int = 0,
-                           comm: Optional[Comm] = None) -> TreeArrays:
+                           comm: Optional[Comm] = None,
+                           carried: bool = False, score_rate=None):
     """Grow one tree; ``rows`` is the filled row store (it is partitioned in
-    place on the card).  Level growth also writes ``spare``, a second store
-    of ``rows``' shape whose contents do not matter (required there, unused
-    leaf-wise).  ``feat_host`` holds the per-feature ``num_bin``,
-    ``missing_type``, ``default_bin``, ``is_cat`` and ``monotone`` as numpy
-    for the scal rows and the bookkeeping, and ``group``/``offset`` (None
-    when every feature has its own column).
+    place on the card).  ``num_data`` is the in-bag count, an int or a
+    device scalar (read back with the root's sums).  Level growth also
+    writes ``spare``, a second store of ``rows``' shape whose contents do
+    not matter (required there, unused leaf-wise).  ``feat_host`` holds
+    the per-feature ``num_bin``, ``missing_type``, ``default_bin``,
+    ``is_cat`` and ``monotone`` as numpy for the scal rows and the
+    bookkeeping, and ``group``/``offset`` (None when every feature has its
+    own column).
 
     ``grow_mode`` "leaf" splits the best leaf per step; "level" splits a
     whole depth per step (one level-batched split pass and one batched split
@@ -1016,7 +1125,20 @@ def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
     parallel learner, leaf-wise, from its rows ``rows`` (``num_data`` is the
     global count); forced splits and CEGB need the ``psum`` mode, whose
     ranks hold whole histograms.
+
+    ``carried`` (the fused chunk's carried row store, tree_learner.py:
+    311-318, :1337-1351): ``layout`` is a carried layout and ``rows`` holds
+    the objective's aux and the running score, which the split passes move
+    with their rows.  After the tree the score column takes the leaf values
+    times ``score_rate`` (:meth:`_Growth.fill_scores`), and the call returns
+    (the tree with an empty ``row_leaf``, the store holding every row);
+    otherwise it returns the tree alone.  Serial growth only, without lazy
+    CEGB.
     """
+    if carried and (comm is not None or not layout.carried
+                    or (cegb is not None and cegb.lazy is not None)):
+        raise ValueError("carried growth needs the serial learner, a carried "
+                         "layout and no lazy CEGB")
     if comm is not None:
         if comm.mode not in COMM_MODES:
             raise ValueError("unknown comm mode %r (%s)"
@@ -1052,6 +1174,8 @@ def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
                 break
     else:
         raise ValueError("unknown grow_mode %r (leaf or level)" % grow_mode)
+    if carried:
+        return g.arrays(carried=True), g.fill_scores(score_rate)
     return g.arrays()
 
 
@@ -1323,6 +1447,10 @@ class SerialTreeLearner:
         F = dataset.num_features
         self.layout = row_layout(bins_u8.shape[1] // bpc, bpc,
                                  -(-F // 8) if lazy else 0)
+        # the fused chunk's store: the same bytes plus the aux and score
+        # columns (None with lazy CEGB, which the chunk never runs)
+        self.carried_layout = (None if lazy else row_layout(
+            bins_u8.shape[1] // bpc, bpc, carried=True))
         self.template = row_store_template(bins_u8, self.layout, dev)
         # the dispatch plan every tree of this learner runs under
         # (plan/state.py: pinned > tuned > analytic), resolved once here as
@@ -1527,6 +1655,12 @@ class SerialTreeLearner:
             device_kind=current_device_kind(self.device),
             quantized=self.quantized)
 
+    def row_layout(self, carried: bool = False) -> RowLayout:
+        """The byte layout of this learner's row store, or of the fused
+        chunk's carried store (``row_layout``, tree_learner.py:1938-1947),
+        for the chunk's consumers."""
+        return self.carried_layout if carried else self.layout
+
     def level_count(self) -> int:
         """Level steps of a tree_grow_mode=level build (its schedule)."""
         return level_count(self.num_leaves, self.max_depth)
@@ -1540,31 +1674,62 @@ class SerialTreeLearner:
         return self.num_leaves - 1
 
     def train(self, grad: torch.Tensor, hess: torch.Tensor,
-              num_data_in_bag: int,
+              num_data_in_bag,
               feature_mask: Optional[torch.Tensor] = None, iteration: int = 0,
               hist_fn=histogram_rows, part_fn=partition_hist,
-              level_fn=partition_hist_level) -> TreeArrays:
-        """grad/hess: [N] f32 on the learner's device.  ``iteration`` keys
-        the quantized path's rounding hash (ignored when exact);
+              level_fn=partition_hist_level, *, carried: bool = False,
+              rows_carry: Optional[torch.Tensor] = None, extra=None,
+              score_rate=None):
+        """grad/hess: [N] f32 on the learner's device.  ``num_data_in_bag``
+        is an int or a device scalar.  ``iteration`` keys the quantized
+        path's rounding hash (ignored when exact);
         ``hist_fn``/``part_fn``/``level_fn`` as in
         :func:`build_tree_partitioned`.  With CEGB, the features this tree
-        splits on (and the lazy paid bits) carry over to the next call."""
+        splits on (and the lazy paid bits) carry over to the next call.
+
+        ``carried`` grows on the fused chunk's carried store
+        (:meth:`row_layout` ``(carried=True)``; gbdt.py:814-925): with
+        ``extra`` = (aux, score), [N] f32 in original row order, the store
+        is built from the template (a chunk's first tree); with
+        ``rows_carry``, the store the previous tree returned, grad/hess come
+        in its permuted row order and only their bytes are rewritten, and
+        the quantization hash takes each row's id from the order bytes
+        (tree_learner.py:342-347).  Returns (the tree with an empty
+        ``row_leaf``, the store after the score fill with ``score_rate``);
+        otherwise the tree."""
         if feature_mask is None:
             feature_mask = torch.ones(self.dataset.num_features, dtype=torch.bool,
                                       device=self.device)
         feature_mask = self._padded_feature_mask(feature_mask)
         grad, hess = self._local_rows(grad), self._local_rows(hess)
+        if carried and (self.carried_layout is None or self.comm is not None
+                        or (rows_carry is None) == (extra is None)):
+            raise ValueError("carried training needs the serial learner "
+                             "without lazy CEGB and one of rows_carry or "
+                             "extra")
+        layout = self.carried_layout if carried else self.layout
         qscale = None
         if self.quantized:
             # striped ranks quantize with the scales over every rank
             striped = self.comm is not None and self.comm.mode != "feature"
+            n = grad.shape[0]
+            ids = (store_order(rows_carry, layout, n)
+                   if rows_carry is not None else self._row_ids(n))
             grad, hess, qscale = quantize_gradients(
-                grad, hess, self._row_ids(grad.shape[0]), int(iteration),
+                grad, hess, ids, int(iteration),
                 self.quant_seed, self.comm.ops if striped else None)
-        rows = fill_gradients(self.template, self.layout, grad, hess)
+        if rows_carry is not None:
+            rows = rows_carry
+            refresh_gradients(rows, layout, grad, hess)
+        elif carried:
+            rows = carried_store(self.template, self.layout, layout, grad,
+                                 hess, *extra)
+        else:
+            rows = fill_gradients(self.template, self.layout, grad, hess)
         grow_mode = self.effective_grow_mode()
-        if grow_mode == "level" and self.spare is None:
-            self.spare = torch.empty_like(self.template)
+        if grow_mode == "level" and (self.spare is None
+                                     or self.spare.shape != rows.shape):
+            self.spare = torch.empty_like(rows)
         cegb = None
         if self.cegb is not None:
             cegb = CegbState(*self.cegb, self.cegb_used,
@@ -1575,7 +1740,10 @@ class SerialTreeLearner:
         with _annotate("tree_build"), _plan_state.dispatching(self.plan):
             arrays = self._build(rows, grad, hess, num_data_in_bag,
                                  feature_mask, grow_mode, qscale, hist_fn,
-                                 part_fn, level_fn, cegb)
+                                 part_fn, level_fn, cegb, layout, carried,
+                                 score_rate)
+        if carried:
+            arrays, rows = arrays
         # split passes this tree dispatched (obs/launches.py): one a split
         # leaf-wise, one a level in level mode
         passes = (arrays.levels if grow_mode == "level"
@@ -1602,18 +1770,22 @@ class SerialTreeLearner:
             self.cegb_used[arrays.split_feature[:arrays.num_leaves - 1]] = True
             if arrays.paid_bits is not None:
                 self.cegb_paid = arrays.paid_bits
-        return arrays
+        return (arrays, rows) if carried else arrays
 
     def _build(self, rows, grad, hess, num_data_in_bag, feature_mask,
-               grow_mode, qscale, hist_fn, part_fn, level_fn, cegb):
+               grow_mode, qscale, hist_fn, part_fn, level_fn, cegb,
+               layout, carried, score_rate):
+        if not isinstance(num_data_in_bag, torch.Tensor):
+            num_data_in_bag = int(num_data_in_bag)
         return build_tree_partitioned(
-            rows, grad, hess, int(num_data_in_bag), feature_mask, self.feat,
+            rows, grad, hess, num_data_in_bag, feature_mask, self.feat,
             self.feat_host, num_leaves=self.num_leaves,
             max_depth=self.max_depth, params=self.params,
-            num_bins=self.num_bins, layout=self.layout,
+            num_bins=self.num_bins, layout=layout,
             hist_features=self.hist_columns, packed=self.packed,
             grow_mode=grow_mode, qscale=qscale, hist_fn=hist_fn,
             part_fn=part_fn, level_fn=level_fn, spare=self.spare,
             categorical=self.has_categorical, monotone=self.has_monotone,
             lanes=self.lanes, forced=self.forced, cegb=cegb,
-            pool_slots=self.hist_pool_slots, comm=self.comm)
+            pool_slots=self.hist_pool_slots, comm=self.comm, carried=carried,
+            score_rate=score_rate)

@@ -25,6 +25,10 @@ class ObjectiveFunction:
     # prediction early stop is refused for objectives whose outputs need
     # every tree (predictor.hpp:38-47); the classifiers set False
     need_accurate_prediction: bool = True
+    # False for objectives that draw fresh randomness per gradient call: the
+    # fused chunk of ``boosting/gbdt.py`` runs only where the gradients are a
+    # function of the scores (base.py:27-29)
+    deterministic_gradients: bool = True
 
     def __init__(self, config, device: DeviceLike = None) -> None:
         self.config = config
@@ -51,6 +55,25 @@ class ObjectiveFunction:
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """score: [num_model_per_iteration, N] (or [N]) raw scores ->
         (grad, hess) f32 of the same shape."""
+        raise NotImplementedError
+
+    # ---- carried row-store training (the fused chunk of boosting/gbdt.py) --
+    # Where the gradients are a pointwise function of (score, one f32 per-row
+    # value), the chunk carries both inside the tree learner's permuted row
+    # store, so nothing per row is gathered or scattered between its
+    # iterations (base.py:55-70).
+
+    def carry_aux(self) -> Optional[torch.Tensor]:
+        """The [N] f32 per-row value that :meth:`pointwise_gradients` needs
+        beside the score, or None where the gradients need more (sample
+        weights, query groups, several classes)."""
+        return None
+
+    def pointwise_gradients(self, score: torch.Tensor, aux: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(grad, hess) of each row from its score and its carried value,
+        elementwise over [N] tensors in any row order, equal row for row to
+        :meth:`get_gradients`."""
         raise NotImplementedError
 
     def boost_from_score(self, class_id: int = 0) -> float:

@@ -72,6 +72,23 @@ class BinaryLogloss(ObjectiveFunction):
         hess = abs_resp * (self.sigmoid - abs_resp) * self._label_weight
         return self._apply_weights(grad, hess)
 
+    def carry_aux(self):
+        """y * label weight: its sign carries the class, its magnitude the
+        class re-weighting (binary.py:65-69); None with sample weights."""
+        if not self.need_train or self.weights is not None:
+            return None
+        return self._yval * self._label_weight
+
+    def pointwise_gradients(self, score, aux):
+        """:meth:`get_gradients` of rows carrying ``aux`` (binary.py:71-76):
+        the same f32 operations, ``|aux|`` the label weight."""
+        y = torch.sign(aux)
+        lw = torch.abs(aux)
+        response = -y * self.sigmoid / (1.0 + torch.exp(y * self.sigmoid
+                                                         * score))
+        abs_resp = torch.abs(response)
+        return response * lw, abs_resp * (self.sigmoid - abs_resp) * lw
+
     def boost_from_score(self, class_id: int = 0) -> float:
         pos = self._is_pos(self.label_np).astype(np.float64)
         if self.weights_np is not None:

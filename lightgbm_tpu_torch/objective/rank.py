@@ -208,6 +208,7 @@ class RankXENDCG(ObjectiveFunction):
     objective_seed + c), i)``, the JAX package's stream."""
     need_accurate_prediction = False
     name = "rank_xendcg"
+    deterministic_gradients = False  # fresh gammas every call (rank.py:210)
 
     def __init__(self, config, device: DeviceLike = None):
         super().__init__(config, device)

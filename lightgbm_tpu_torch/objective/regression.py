@@ -39,6 +39,16 @@ class RegressionL2Loss(ObjectiveFunction):
         hess = torch.ones_like(score)
         return self._apply_weights(grad, hess)
 
+    def carry_aux(self):
+        """The label, for plain unweighted L2 only (regression.py:39-42):
+        the subclasses' gradients are other functions."""
+        if type(self) is not RegressionL2Loss or self.weights is not None:
+            return None
+        return self.label
+
+    def pointwise_gradients(self, score, aux):
+        return score - aux, torch.ones_like(score)
+
     def boost_from_score(self, class_id: int = 0) -> float:
         if self.weights_np is not None:
             return float(np.average(self.label_np, weights=self.weights_np))

@@ -34,7 +34,7 @@ that thread's current stream, the default stream the serving dispatcher
 uses too: the trainer's kernels and the serving walk are ordered on the
 card, and neither needs an event to hand tensors to the other.
 
-Preemption (SIGTERM) rides the training runtime unchanged: the iteration
+Preemption (SIGTERM) rides the training runtime unchanged: the chunk
 boundary writes an emergency checkpoint and ``TrainingPreempted`` leaves
 the cycle; serving keeps draining, the driver exits ``EXIT_PREEMPTED``
 (75), and the rerun rebins the saved window, restores the checkpoint and
@@ -420,8 +420,8 @@ class OnlineController:
                     booster.train(snapshot_out=self.checkpoint_prefix)
                 else:
                     booster.refit(booster.predict_leaf_index_binned())
-                    # refit bypasses train_one_iter/train_chunk, which
-                    # stamp the freshness clock on the extend path
+                    # refit bypasses GBDT.train's chunks, which stamp the
+                    # freshness clock on the extend path
                     booster.trained_at = time.time()
             train_s = time.perf_counter() - t0
             self._state = "publishing"

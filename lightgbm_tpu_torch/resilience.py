@@ -6,9 +6,10 @@ imports nothing of the JAX package).  Checkpoints make a crashed run
 recoverable; this layer handles the faults that are not crashes:
 
 - **SIGTERM/SIGINT preemption** (:func:`install_preemption_handler`): the
-  signal handler only sets a flag, and the training loop polls it once an
-  iteration (the JAX package polls at its fused chunks' boundaries; the
-  port has no fused chunk, so every iteration end is a boundary).  On a
+  signal handler only sets a flag, and ``GBDT.train`` polls it at each
+  chunk boundary, as the JAX package does (a chunk of iterations runs
+  whole, so the model and the iteration stay aligned); ``engine.train``
+  polls it after every iteration.  On a
   set flag the loop synchronises the CUDA stream (the in-flight work
   drains), writes an emergency checkpoint through the ordinary
   ``checkpoint.py`` path and raises :class:`TrainingPreempted`; the CLI
@@ -42,7 +43,7 @@ Where the port differs from the JAX package:
   and :func:`fallback_counts` stays empty.
 
 Everything here is off until an entry point opts in; the poll is one
-``Event.is_set()`` an iteration, and :func:`watch` returns a shared
+``Event.is_set()`` a chunk or an iteration, and :func:`watch` returns a shared
 ``nullcontext`` when no watchdog is active.
 """
 from __future__ import annotations
@@ -94,8 +95,8 @@ _PREV_HANDLERS: Dict[int, Any] = {}
 
 def _on_preempt_signal(signum, frame) -> None:
     """The installed handler: it only sets the flag and notes the signal;
-    the checkpoint is written at the next iteration end, in the training
-    loop's own thread."""
+    the checkpoint is written at the next chunk or iteration end, in the
+    training loop's own thread."""
     global _PREEMPT_SIGNUM
     _PREEMPT_SIGNUM = signum
     _PREEMPT_FLAG.set()

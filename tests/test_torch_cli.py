@@ -8,7 +8,8 @@ counts equal; leaf values within ``test_torch_train.leaf_value_tolerance``,
 as f32 sums in another order give) and ``task=predict`` writes the same
 ``LightGBM_predict_result.txt`` within 1e-5, which equals
 ``Booster(model_file=...).predict`` within the ``%g`` print.  The CLI's
-model text equals ``lightgbm_tpu_torch.train``'s on the parsed matrix.
+model text equals ``GBDT.train``'s on the Python API's dataset of the
+parsed matrix.
 Also: auto-resume of ``task=train`` with ``snapshot_freq`` (a run killed in
 its final model write resumes from its newest checkpoint, removes its
 checkpoints when it completes, and writes the model a fresh run writes), a
@@ -129,18 +130,26 @@ def test_train_predict_match_jax_and_python(data_files, one_thread):
 
 
 def test_cli_equals_python_api(data_files, one_thread):
-    """The CLI's trees are ``lightgbm_tpu_torch.train``'s on the parsed
-    matrix with the same params."""
+    """The CLI's trees are those of the Python API's dataset of the parsed
+    matrix with the same params, trained by the loop ``task=train`` runs
+    (``GBDT.train``: nothing is evaluated, so its 20 iterations are one
+    fused chunk, whose carried exact sums round differently from 20 single
+    iterations; ``tests/test_torch_chunk.py`` holds the two paths to each
+    other)."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.objective import create_objective
     tmp, train, test, X, y = data_files
     model = str(tmp / "model_api.txt")
     run(TRAIN + ["data=%s" % train, "output_model=%s" % model])
     feats, label, _ = parse_file(train, label_idx=0)
     params = dict(objective="binary", num_leaves=15, verbosity=-1,
                   metric="binary_logloss", max_bin=63)
-    bst = P.train(params, P.Dataset(feats, label, params=params),
-                  num_boost_round=20,
-                  verbose_eval=False, device="cpu")
-    text = bst.model_to_string()
+    ds = P.Dataset(feats, label, params=params).construct().handle
+    cfg = Config(dict(params, num_iterations=20))
+    gbdt = GBDT(cfg, ds, create_objective("binary", cfg, device="cpu"),
+                device="cpu")
+    gbdt.train()
+    text = gbdt.save_model_to_string()
     assert trees_text(model) == text[:text.index("\nparameters:")]
 
 

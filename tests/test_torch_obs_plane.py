@@ -254,7 +254,10 @@ def test_exporter_scrape_does_not_block_training(tmp_path):
     th = threading.Thread(target=scraper)
     th.start()
     try:
-        booster.train()
+        # three fused chunks, as the JAX test runs them: the chunk metrics
+        # exist from the first chunk's end, while two more train
+        for _ in range(3):
+            booster.train_chunk(4)
     finally:
         stop.set()
         th.join(timeout=10)
@@ -411,7 +414,10 @@ def test_training_chunk_tree_and_checkpoint_spans(tmp_path):
     obs.disable()
     sp = [e for e in read_events(path) if e["kind"] == "span"]
     names = [e["name"] for e in sp]
-    assert names.count("train_chunk") == 4
+    # snapshot_freq=2 cuts the 4 iterations into 2 fused chunks of 2 trees
+    assert names.count("train_chunk") == 2
+    assert [e["iters"] for e in sp if e["name"] == "train_chunk"] == [2, 2]
+    assert all(e["fused"] for e in sp if e["name"] == "train_chunk")
     assert names.count("tree_build") == 4
     assert names.count("checkpoint_write") == 2
     assert all(e["trace_id"] == run_trace for e in sp

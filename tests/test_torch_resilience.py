@@ -3,11 +3,13 @@ the rest of ``utils/file_io.py``, on the CPU, after
 ``tests/test_resilience.py``.
 
 Carried over: the handler's per-signal ownership and restore; the
-preemption poll at an iteration boundary (the port has no fused chunk, so
-a flag set before training stops the loop after iteration 1, where the JAX
-package finishes its first chunk); an emergency resume byte-equal to the
-uninterrupted run for GBDT, DART, GOSS and RF, with bagging and a
-validation set; the early-stopping state in the emergency checkpoint;
+preemption poll at a chunk boundary (``GBDT.train`` runs chunks cut at
+``metric_freq``, so a flag set before training stops the loop after
+iteration 4, the end of the first chunk, as in the JAX package); an
+emergency resume byte-equal to the uninterrupted run for GBDT (a fused
+chunk), DART, GOSS and RF, with bagging and a validation set, preempted
+after the second chunk; the early-stopping state in the emergency
+checkpoint;
 ``train()`` and CLI preemption (exit 75, the rerun resumes); the watchdog
 (fires with its artifact, no false positive, the grace of the first kernel
 build, which in the port is per section rather than per compiled program,
@@ -109,19 +111,22 @@ def build_booster(params, n_iter, snapshot_freq=-1, valid=True):
     return booster
 
 
-def preempt_after(booster, n_iters):
-    """Set the preemption flag when iteration ``n_iters`` has been trained
-    (a signal may land at any time; the loop looks at the flag at the next
-    iteration end, so this is the earliest point it can be seen)."""
-    orig = booster.watched_iter
+def preempt_after_chunks(booster, n_chunks):
+    """Set the preemption flag when the ``n_chunks``-th chunk of
+    ``GBDT.train`` has run (a signal may land at any time; the loop looks
+    at the flag at the next chunk boundary, so this is the earliest point
+    it can be seen; ``preempt_after_chunks`` of tests/test_resilience.py)."""
+    orig = booster.train_chunk
+    state = {"n": 0}
 
-    def one(*a, **k):
-        r = orig(*a, **k)
-        if booster.iter_ == n_iters:
+    def chunk(k):
+        r = orig(k)
+        state["n"] += 1
+        if state["n"] == n_chunks:
             resilience.request_preemption()
         return r
 
-    booster.watched_iter = one
+    booster.train_chunk = chunk
 
 
 # ---- signal handling ----
@@ -163,18 +168,21 @@ def test_install_uninstall_restores_previous_handler():
 # ---- emergency checkpoints ----
 
 def test_preemption_polled_at_iteration_boundary(tmp_path, one_thread):
-    """A flag set before training stops the loop at the first iteration
-    end, with trees and iteration aligned and the emergency checkpoint at
-    that iteration."""
+    """A flag set before training stops the loop at the first chunk
+    boundary (metric_freq=4: iteration 4, as
+    ``test_preemption_polled_at_chunk_boundary_no_midchunk_tear`` of the
+    JAX package), the chunk run whole: trees and iteration aligned and the
+    emergency checkpoint at that iteration."""
     out = str(tmp_path / "model.txt")
     booster = build_booster(dict(BASE), 20, snapshot_freq=7)
+    assert booster._can_fuse_iters()
     resilience.request_preemption()
     with pytest.raises(resilience.TrainingPreempted) as exc:
         booster.train(snapshot_out=out)
-    assert exc.value.iteration == 1
-    assert booster.num_trees == 1
-    assert [i for i, _ in list_checkpoints(out)] == [1]
-    assert exc.value.checkpoint_path == out + ".ckpt_iter_1"
+    assert exc.value.iteration == 4
+    assert booster.num_trees == 4
+    assert [i for i, _ in list_checkpoints(out)] == [4]
+    assert exc.value.checkpoint_path == out + ".ckpt_iter_4"
     assert exc.value.checkpoint_seconds >= 0
     assert not resilience.preemption_requested()  # the flag was consumed
 
@@ -187,8 +195,10 @@ def test_preemption_polled_at_iteration_boundary(tmp_path, one_thread):
          feature_fraction=0.8),
 ], ids=["gbdt_bagging", "dart", "goss", "rf"])
 def test_emergency_resume_bit_exact(tmp_path, extra, one_thread):
-    """train(N) == train, preempted at iteration 5, resumed in a fresh
-    booster: the same model text and train score bytes."""
+    """train(N) == train, preempted after its second chunk (iteration 8),
+    resumed in a fresh booster: the same model text and train score
+    bytes; the resumed run cuts its chunks where the uninterrupted one
+    did."""
     params = dict(BASE, **extra)
     total = 12
     out = str(tmp_path / "model.txt")
@@ -196,14 +206,14 @@ def test_emergency_resume_bit_exact(tmp_path, extra, one_thread):
     full.train()
 
     pre = build_booster(params, total)
-    preempt_after(pre, 5)
+    preempt_after_chunks(pre, 2)
     with pytest.raises(resilience.TrainingPreempted) as exc:
         pre.train(snapshot_out=out)
-    assert exc.value.iteration == 5
+    assert exc.value.iteration == 8
     assert not resilience.preemption_requested()
 
     resumed = build_booster(params, total)
-    assert resumed.resume_from_checkpoint(out) == 5
+    assert resumed.resume_from_checkpoint(out) == 8
     resumed.train()
     assert resumed.save_model_to_string() == full.save_model_to_string()
     assert resumed.train_score.numpy().tobytes() == \
@@ -224,7 +234,7 @@ def test_emergency_checkpoint_carries_early_stopping_state(tmp_path,
     full.train()
 
     pre = build_booster(params, total)
-    preempt_after(pre, 6)
+    preempt_after_chunks(pre, 3)   # chunks of metric_freq=2: iteration 6
     with pytest.raises(resilience.TrainingPreempted) as exc:
         pre.train(snapshot_out=out)
     assert pre._es_state
@@ -314,7 +324,8 @@ def test_cli_preemption_exit_code_and_rerun_resumes(tmp_path, one_thread):
     with pytest.raises(SystemExit) as exc:
         Application(argv(out), device="cpu").run()
     assert exc.value.code == resilience.EXIT_PREEMPTED == 75
-    assert [i for i, _ in list_checkpoints(out)] == [1]
+    # the first chunk boundary: metric_freq=4 with a training metric
+    assert [i for i, _ in list_checkpoints(out)] == [4]
     assert not os.path.exists(out)
 
     assert main(argv(out), device="cpu") == 0  # resumes and completes
@@ -443,24 +454,28 @@ def test_watch_is_noop_without_watchdog():
 
 
 def test_every_iteration_runs_in_a_watch_section(one_thread):
-    """Booster.update (engine.train, the C ABI) and GBDT.train (the CLI)
-    both train inside a watchdog section."""
+    """Booster.update (engine.train, the C ABI) trains its iteration in a
+    ``train_one_iter`` section, GBDT.train (the CLI) a fused chunk in one
+    ``fused_train_chunk`` section (gbdt.py:1054-1057 of the JAX package):
+    every tree grows inside exactly one section."""
     resilience.start_watchdog(600.0, abort=False)
     X, y = make_data()
     bst = P.Booster(dict(BASE), P.Dataset(X, label=y), device="cpu")
     gbdt = bst._booster
     seen = []
-    orig = gbdt.train_one_iter
+    orig = gbdt.learner.train
 
     def one(*a, **k):
-        seen.append(resilience.watchdog_status()["open_sections"])
+        sections = resilience.watchdog_active()._sections.values()
+        seen.append([s[0] for s in sections])
         return orig(*a, **k)
 
-    gbdt.train_one_iter = one
+    gbdt.learner.train = one
     bst.update()
     gbdt.config.num_iterations = 3
-    gbdt.train()
-    assert seen == [1, 1, 1]
+    gbdt.train()   # iterations 1-2: one fused chunk
+    assert seen == [["train_one_iter"], ["fused_train_chunk"],
+                    ["fused_train_chunk"]]
 
 
 # ---- IO retries ----

@@ -217,11 +217,16 @@ def test_summary_artifact_contents(tmp_path):
                            iters=int(booster.iter_))
     for e in read_events(out):
         validate_event(e)
-    assert summary["rows_per_s"]["count"] == 6
+    # one rate a chunk: train() cuts its 6 iterations at snapshot_freq=2
+    # into 3 fused chunks, as the JAX package's driver does
+    assert summary["rows_per_s"]["count"] == 3
     assert "TreeLearner::Train" in summary["host_phases"]
+    assert "GBDT::TrainChunk" in summary["host_phases"]
     assert summary["histograms"]["checkpoint_write_s"]["count"] == 3
     assert "predict_dispatch_s_bucket_1024" in summary["histograms"]
-    assert summary["recompiles"] == {"predict_stack|raw:0-6:k0:exact": 1}
+    # the first chunk of length 2 is the fused path's one miss
+    assert summary["recompiles"] == {"predict_stack|raw:0-6:k0:exact": 1,
+                                     "fused_train|k=2": 1}
     res = summary["resilience"]
     assert res["preemptions"] == 0 and res["io_retries"] == 0
     assert res["checkpoint_skipped"] == 0
@@ -432,7 +437,9 @@ def test_quant_telemetry_counters(tmp_path):
     booster, _, _ = toy_booster(n=512, num_iterations=4,
                                 hist_precision="quantized")
     booster.train()
-    assert tele.counter("quant_chunks").value == 4
+    # nothing is evaluated, so train() runs the 4 iterations as one fused
+    # chunk (the JAX test's train_chunk(4), tests/test_telemetry.py:580)
+    assert tele.counter("quant_chunks").value == 1
     assert tele.counter("quant_iters").value == 4
     assert tele.gauge("quant_grad_levels").value == 127
     assert tele.gauge("quant_hess_levels").value == 255
@@ -508,17 +515,19 @@ def _counting(monkeypatch):
 
 def test_tree_kernel_launches_leaf_wise_equal_jax(monkeypatch):
     """A leaf-wise tree of L leaves makes L-1 split passes: the port's
-    count equals the JAX package's on the same training (its
-    per-iteration path) and the split-pass calls."""
+    count equals the JAX package's on the same training (both through
+    their fused chunk, train() running the 2 iterations as one) and the
+    split-pass calls."""
     from lightgbm_tpu.obs import launches as jax_launches
     from test_telemetry import _toy_booster as jax_toy
     jb, _, _ = jax_toy(num_iterations=2)
-    jb._fuse_failed = True
+    assert jb._can_fuse_iters()
     jax_launches.reset()
     jb.train_chunk(2)
     n = _counting(monkeypatch)
     launches.reset()
     b, _, _ = toy_booster(num_iterations=2)
+    assert b._can_fuse_iters() and b._can_carry_rows()
     b.train()
     assert all(t.num_leaves == 15 for t in b.models)
     assert launches.counts() == jax_launches.counts() == {"leaf": 2 * 14}
