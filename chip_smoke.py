@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with an NVIDIA H100::
 
-    python3 chip_smoke.py [--rows 1048576] [--iters 5] [--widef-rows 400000]
+    python3 chip_smoke.py [--rows 1048576] [--iters 3] [--widef-rows 400000]
                           [--widef-test-rows 100000] [--ltr-rows 2270296]
                           [--allstate-rows 1048576] [--expo-rows 11000000]
                           [--profile]
@@ -27,7 +27,12 @@ together) and runs these phases, each of which raises on failure:
    masked bins/values kernel (TPU kernel #5) at 1,048,576 rows, F=28,
    B=64, 128 and 256, with u8, i16, i32 and nibble-packed bins, full and
    mid windows;
-3. the fused split kernel against its plain version on the card, over window
+3. the split pass with its window in device memory (the leaf-wise device
+   build's launch) against its plain version and the host-window pass, bit
+   for bit, exact and quantized, at the root, 20,000, 900 and 0 rows, on
+   (A)'s shape and the carried store at F = 112, one scal row written by a
+   device op just before the launch; the fused split kernel against its
+   plain version on the card, over window
    sizes (<= 992 rows, ~10k, >= 500k, empty) and routes (numerical, NaN missing
    with default left and right, zero missing, categorical bitset, EFB unfold);
    the level-batched split kernel (from one row store into a second)
@@ -57,13 +62,20 @@ together) and runs these phases, each of which raises on failure:
    ``tree_grow_mode=level``, exact; (C) ``tree_grow_mode=level`` with
    ``hist_precision=quantized``; each path's predictions are held against
    the host trees' ``Tree.predict`` and its train scores, and its tree 0 is
-   rebuilt with the plain versions as a check; (D) the Epsilon-shaped
+   rebuilt with the plain versions as a check; (A) grows on the device (at
+   most 2 fetches and L - 1 = 254 split passes a tree), its first tree is
+   grown again with the host loop from the same gradients (model text
+   equal, or equal up to a near tie) and with its step captured once in a
+   CUDA graph and replayed 254 times (equal to the eager tree), and two
+   fresh boosters, one on each build, train 3 iterations in turns (their
+   s/iteration, median and range, and peak memory, unclaimed); (D) the
+   Epsilon-shaped
    binary GBDT (400,000 training and 100,000 held-out rows of 2000 dense
    features made from a seed; the reference's published GPU settings:
    max_bin=255, num_leaves=255, learning_rate=0.1, min_data_in_leaf=1,
    min_sum_hessian_in_leaf=100, metric=auc, leaf-wise, exact) trained
    through ``lightgbm_tpu_torch.train`` with the held-out set as a
-   validation set: 1 root histogram and 1 split pass per split, log loss
+   validation set: 1 root histogram and L - 1 split passes a tree, log loss
    falling every iteration, the held-out AUC of every iteration, the
    validation scores of training equal to ``Booster.predict``, tree 0 equal
    to its plain rebuild; (F) L2 regression on (A)'s binned features with a
@@ -71,14 +83,14 @@ together) and runs these phases, each of which raises on failure:
    reference's examples/regression/train.conf (``bagging_fraction=0.8``,
    ``bagging_freq=5``, ``feature_fraction=0.9``) and
    ``hist_precision=quantized``, leaf-wise: one integer root histogram per
-   tree and one quantized split pass per split, the bag mask equal byte for
+   tree and L - 1 quantized split passes a tree, the bag mask equal byte for
    byte to the hash recomputed on the host in numpy, l2 falling every
    iteration, tree 0 equal to its plain rebuild (strict); (G) 5-class
    softmax (``multiclass``, the reference's multiclass example), 3
    iterations, on (A)'s
    binned features through ``lightgbm_tpu_torch.train`` with (A)'s held-out
    rows as a validation set (``metric=multi_logloss,multi_error``): 5 trees
-   an iteration, one root histogram per tree and one split pass per split,
+   an iteration, one root histogram per tree and L - 1 split passes a tree,
    the train multi_logloss falling every iteration, ``Booster.predict``
    [n, 5] rows summing to 1 and equal to the validation scores of training,
    tree 0 of class 0 equal to its plain rebuild; (H) ``lambdarank`` at the
@@ -87,7 +99,7 @@ together) and runs these phases, each of which raises on failure:
    ``metric=ndcg``, ``eval_at=1,3,5,10`` and (D)'s published settings)
    through ``lightgbm_tpu_torch.train``: the training NDCG@10 not falling
    over the run, the gradient step's device time and peak memory, one root
-   histogram per tree and one split pass per split, tree 0 equal to its
+   histogram per tree and L - 1 split passes a tree, tree 0 equal to its
    plain rebuild; (I) EFB on Allstate-shaped sparse data (the reference's
    Allstate row: 4,228 binary features, the one-hot codes of 30
    Zipf-skewed categorical columns made from a seed; 1,048,576 + 104,858
@@ -96,7 +108,7 @@ together) and runs these phases, each of which raises on failure:
    columns) and ``lightgbm_tpu_torch.train`` with a CSR validation set at
    (D)'s settings: the root histogram over the group columns, one split
    pass per split, each unfolding its feature's group codes; (J)
-   categorical features at the Expo shape, 3 iterations (the reference's
+   categorical features at the Expo shape, 2 iterations (the reference's
    Expo row, 11M +
    100,000 rows of the airline columns Month, DayofMonth, DayOfWeek,
    UniqueCarrier, Origin and Dest, categorical, and DepTime and Distance,
@@ -116,8 +128,9 @@ together) and runs these phases, each of which raises on failure:
    ``Booster.predict`` (within 1e-5) and tree 0 against its plain rebuild
    (category bitsets included), and checks the histogram, split and level
    kernels against their plain versions on the path's own row store and
-   route; (K) GOSS (``top_rate=0.2``, ``other_rate=0.1``) on (A)'s
-   binned rows, 12 iterations, the last two sampled: each sampled
+   route; (K) GOSS (``top_rate=0.2``, ``other_rate=0.1``,
+   ``learning_rate=0.25``) on (A)'s binned rows, 6 iterations, the last
+   two sampled: each sampled
    iteration's device row weights equal byte for byte to the host's stable
    argsort of the fetched key with the sampling stream replayed from a
    fresh ``RandomState(bagging_seed)``, top_k + other_k of them nonzero;
@@ -128,13 +141,13 @@ together) and runs these phases, each of which raises on failure:
    to the sum of the model's trees routed over the training bins (within
    1e-5 of its largest value), the validation scores equal to ``predict``;
    (M) random forest (``bagging_fraction=0.632``, ``bagging_freq=1``,
-   ``feature_fraction=0.8``), 5 iterations: ``average_output`` in the
+   ``feature_fraction=0.8``), 2 iterations: ``average_output`` in the
    model text, ``predict`` the mean of the trees, the first and last trees
    equal to plain rebuilds on the gradients of the constant initial score;
    (N) forced splits (a three-split schedule written to a temporary file:
    the root on feature 25, both children on feature 26, at the features'
    medians) and the split, coupled and lazy CEGB penalties, leaf-wise,
-   exact, 5 iterations: every tree's first three splits the forced ones,
+   exact, 2 iterations: every tree's first three splits the forced ones,
    the lazy paid bits equal to a recompute from the trees and the rows'
    leaves, tree 0 equal to its plain rebuild; (O) (D)'s binned rows with
    ``histogram_pool_size=125`` (32 slots of 255 leaves), 2 iterations:
@@ -143,7 +156,7 @@ together) and runs these phases, each of which raises on failure:
    trees matched to the JAX package's bounds for a pooled build (98% of
    the split features and of the rows' leaves, sorted leaf values within
    rtol 1e-4); (P) prediction on (A)'s data with (A)'s trees each repeated
-   100 times (500 trees at 5 iterations): the f32 regime over the training
+   100 times (200 trees at 2 iterations): the f32 regime over the training
    rows, the f64 regime on 511 rows, the binned path over (A)'s row store,
    ``pred_leaf`` on 65,536 rows, prediction early stop (freq 10, margin
    4.0) and the bf16 tier, each timed with its peak device memory; the
@@ -170,11 +183,11 @@ together) and runs these phases, each of which raises on failure:
    millionths in the fixed decimal form ``sDD.DDDDDD`` (so every correctly
    rounding parser reads it exactly), with a ``.weight`` side file and the
    held-out tenth as a validation file, trained by ``task=train``
-   (``metric=auc``, (A)'s settings, 5 iterations): the loaded dataset
+   (``metric=auc``, (A)'s settings, 2 iterations): the loaded dataset
    byte-equal to ``BinnedDataset.from_matrix`` of the file's values (bin
    mappers, packed store, labels, weights, raw values), the model's trees
    equal to ``lightgbm_tpu_torch.train``'s on that matrix, one root
-   histogram per tree and one split pass per split, and the kernels held
+   histogram per tree and L - 1 split passes a tree, and the kernels held
    to their plain versions on the CLI's row store (a numerical route);
    (S2) the file loaded one-shot, with ``data_chunk_rows=65536`` and with
    ``two_round``, one after another, each in a process of its own: each
@@ -188,7 +201,7 @@ together) and runs these phases, each of which raises on failure:
    examples and the LibSVM ``sparse_binary`` override through the CLI at
    ``test_parity.py``'s iteration counts, each within its windows around
    the reference CLI's metrics (``tests/data/golden_metrics.json``), one
-   root histogram per tree and one split pass per split; (T) the C ABI:
+   root histogram per tree and L - 1 split passes a tree; (T) the C ABI:
    ``lib_lightgbm_tpu_torch.so`` (built by ``capi_build`` with ``gcc``
    into ``build/capi``) loaded with ctypes in this process, (A)'s rows as
    f64 row-major with f32 labels and the held-out rows as a validation
@@ -198,15 +211,15 @@ together) and runs these phases, each of which raises on failure:
    and ``LGBM_BoosterPredictForCSR`` on 1,000 rows: the model text
    byte-equal to ``lightgbm_tpu_torch.train``'s on the same data in the
    same run, the predictions equal to ``Booster.predict``'s to the last
-   bit, one root histogram per tree and one split pass per split, and
+   bit, one root histogram per tree and L - 1 split passes a tree, and
    s/iteration beside ``train()``'s; (T2) a second C booster with
    ``tree_grow_mode=level hist_precision=quantized``: the integer root
    histogram and the level pass, its model equal to ``train()``'s; (U)
    preemption and the watchdog: ``train()`` at (A)'s shape with
    ``preemption_checkpoint``, ``watchdog_timeout_s=120`` and a checkpoint
    prefix under ``build/``, SIGTERM sent to this process after iteration
-   2: ``TrainingPreempted`` and the emergency checkpoint (its write
-   seconds and bytes); the same call resumed to 5 iterations with (T)'s
+   1: ``TrainingPreempted`` and the emergency checkpoint (its write
+   seconds and bytes); the same call resumed to 2 iterations with (T)'s
    trees and no watchdog stall; the CLI on ``tests/data``'s binary
    example with ``preemption_checkpoint=true snapshot_freq=1`` in a child
    process sent SIGTERM once its first checkpoint exists, which exits 75,
@@ -220,10 +233,10 @@ together) and runs these phases, each of which raises on failure:
    one root histogram per tree and one split pass per split, the comm's
    calls and bytes per split; (V2) two processes of a gloo group, both on
    the one card (NCCL cannot put two ranks on one GPU), each binning (A)'s
-   task and training 2 iterations through the factory ``tree_learner=data``,
+   task and training 1 iteration through the factory ``tree_learner=data``,
    ``feature``, ``voting`` (``top_k=20``: every feature elected) and
    ``data`` with ``hist_precision=quantized``: both ranks' models equal,
-   ``feature``'s trees equal to (A)'s first two (it sums nothing across
+   ``feature``'s tree equal to (A)'s first (it sums nothing across
    the ranks) or, where they are not, the first difference printed beside
    the count of features whose best split differs bitwise when (A)'s root
    histogram is scanned whole and in the ranks' two blocks (alone and as a
@@ -270,7 +283,7 @@ together) and runs these phases, each of which raises on failure:
    kernel planner, MFU, alerts and captures, the online loop and
    compaction (``phase_path_x``, the kernels' launch counts read around
    it): (X1) ``resolve`` at (A)'s and (C)'s shape classes gives the
-   analytic plan, ``plan.autotune.run_sweep`` tunes both (4 reps, CUDA
+   analytic plan, ``plan.autotune.run_sweep`` tunes both (2 reps, CUDA
    events: a 15-leaf tree of a synthetic set of the class's shape under
    each split-pass block size and integer block target, a walk of 128
    trees over 524,288 rows under each walk budget) and writes the cache
@@ -290,7 +303,7 @@ together) and runs these phases, each of which raises on failure:
    two forced watchdog stalls fire the flight recorder once; (X4)
    ``serve_and_train`` of (A)'s task trained on 524,288 rows for 10
    iterations, 8 client threads, the other 524,288 rows as 4 windows
-   (``online_min_rows=131072``, ``online_rounds=5``, the third window
+   (``online_min_rows=131072``, ``online_rounds=2``, the third window
    refit, the last with feature 0 shifted by 4 and served before it is
    ingested): at least 3 generations, no drop, every response equal to a
    generation live while it was in flight, each extended generation
@@ -305,14 +318,14 @@ together) and runs these phases, each of which raises on failure:
    with ``metric_freq=5`` and (A)'s held-out tenth as a validation set,
    each run against the same task trained by ``train_one_iter``
    (``fuse_iters=False``) in the same call: (Y1) leaf-wise exact on the
-   carried row store, 10 iterations in 2 chunks, every tree's split
+   carried row store, 6 iterations in 2 chunks, every tree's split
    features and thresholds equal, or equal up to a first split whose two
    gains are a near tie (the f32 root and histogram sums run in the
    store's permuted order), train and validation scores within 2e-4,
-   held-out AUC within 1e-4, the growth's fetches and the chunk's own
-   read-backs (one a chunk); (Y2) level, quantized, carried, 10
+   held-out AUC within 1e-4, the growth's fetches (at most 2 a tree, the
+   device build) and the chunk's own read-backs (one a chunk); (Y2) level, quantized, carried, 10
    iterations, and (Y4) binary with sample weights (the plain fused
-   chunk), 5 iterations: model text and score bytes equal; (Y3) L2,
+   chunk), 3 iterations: model text and score bytes equal; (Y3) L2,
    carried, quantized, bagging 0.8 every 2 iterations, 6 iterations:
    bytes equal, every bag mask and count equal to the hash recomputed on
    the host over the store's order bytes; (Y5) (Y2) with
@@ -382,6 +395,9 @@ WIDE_F = 2000                 # Epsilon's dense feature count
 CARRIED_F = 112               # the carried store's contract: plain W = 128,
                               # carried W = 256 (tree_learner.py:311-319)
 CARRIED_ROWS = 262_144
+# iterations of the main paths (--iters): 5 until PR 15, 2 since PR 16 to
+# keep the script within its time on a slow host (PERF.md section 4)
+ITERS = 2
 
 
 def log(*args) -> None:
@@ -686,6 +702,89 @@ def phase_split(device, n: int) -> float:
                         rows, scal, F=14, B=B, voff=voff,
                         quantized=quantized, what=what))
         del rows
+    return worst
+
+
+def check_window_split(rows, scal, work, *, F, B, voff, bpc=1, packed=False,
+                       quantized=False, what="",
+                       written_on_device=False) -> float:
+    """The split pass with its window in device memory
+    (``partition_hist_window``) against its plain version (the store and
+    nl equal, the histogram within HIST_RTOL, or equal when ``quantized``)
+    and against the host-window pass on the same window, bit for bit.
+    ``written_on_device``: the scal row's window is written by a device op
+    (a copy between two device tensors) just before the launch, with no
+    host copy in between."""
+    from lightgbm_tpu_torch.core import partition as P
+    kw = dict(num_features=F, num_bins=B, voff=voff, bpc=bpc, packed=packed,
+              quantized=quantized)
+    r_plain, h_plain, nl_plain = P.partition_hist_plain(rows, scal, **kw)
+    r_host, h_host, nl_host = P.partition_hist(rows.clone(), scal, **kw)
+    s_dev = torch.tensor(scal, dtype=torch.int32, device=rows.device)
+    win = s_dev[:2].clone()
+    outs = []
+    for _ in range(2):
+        r_win = rows.clone()
+        if written_on_device:
+            s_dev[:2] = 0
+            torch.cuda.synchronize()
+            s_dev[:2].copy_(win)
+        h_win, nl_win = P.partition_hist_window(r_win, s_dev, work, **kw)
+        outs.append((r_win, h_win, nl_win))
+    (r_win, h_win, nl_win), again = outs
+    if not torch.equal(r_win, r_plain):
+        raise AssertionError(what + ": rows differ from the plain version")
+    if int(nl_win[0]) != int(nl_plain[0]):
+        raise AssertionError("%s: nl %d != plain %d"
+                             % (what, int(nl_win[0]), int(nl_plain[0])))
+    if quantized:
+        if not torch.equal(h_win, h_plain):
+            raise AssertionError(what + ": integer histogram differs from "
+                                 "the plain version")
+        err = 0.0
+    else:
+        err = hist_err(h_win, h_plain, what)
+    if not (torch.equal(r_win, r_host) and torch.equal(h_win, h_host)
+            and torch.equal(nl_win, nl_host)):
+        raise AssertionError(what + ": differs from the host-window pass")
+    if not all(torch.equal(a, b) for a, b in zip(outs[0], again)):
+        raise AssertionError(what + ": two runs differ")
+    log("  %-48s nl %7d  max|diff| %.3g  = host-window pass"
+        % (what, int(nl_win[0]), err))
+    return err
+
+
+def phase_window_split(device, n: int) -> float:
+    """Phase 3, the split pass with its window in device memory (the
+    leaf-wise device build's): exact and quantized, at the root, 20,000,
+    900 and 0 rows of an n-row store (F = 28, B = 256; numerical and
+    categorical routes, one window written on the device) and of the
+    carried store at F = CARRIED_F, each against its plain version and the
+    host-window pass, on one workspace sized for the store."""
+    from lightgbm_tpu_torch.core.partition import window_workspace
+    rng = np.random.RandomState(16)
+    worst = 0.0
+    for F, m, carried in ((28, n, False), (CARRIED_F, CARRIED_ROWS, True)):
+        for quantized in (False, True):
+            rows, voff = make_store(m, F, 256, quantized=quantized,
+                                    carried=carried, device=device, seed=17)
+            work = window_workspace(rows, m, num_features=F, num_bins=256,
+                                    quantized=quantized)
+            routes = split_routes(256, rng)
+            kind = "int" if quantized else "exact"
+            for wi, (wb, wc) in enumerate([(0, m), (3001, 20000), (100, 900),
+                                           (50, 0)]):
+                for name in ("numerical", "categorical"):
+                    route, words = routes[name]
+                    scal = scal_row(wb, wc, route, words, wi % 2)
+                    what = "window F=%d %s %s [%d, +%d)" % (F, kind, name,
+                                                            wb, wc)
+                    worst = max(worst, check_window_split(
+                        rows, scal, work, F=F, B=256, voff=voff,
+                        quantized=quantized, what=what,
+                        written_on_device=name == "numerical" and wi == 1))
+            del rows, work
+            torch.cuda.empty_cache()
     return worst
 
 
@@ -1107,8 +1206,13 @@ def phase_main_path(device, data, ds, path: str, iters: int,
     if not auc > 0.75:
         raise AssertionError("held-out AUC %.4f" % auc)
     check_predictions(booster, X, X_test, raw)
-    expect_launches(path, counts, trees, splits, sum(levels),
-                    booster.learner.level_count())
+    expect_launches(path, counts, trees,
+                    split_passes(booster.learner, booster.models),
+                    sum(levels), booster.learner.level_count())
+    if path == "A" and not (booster.learner.grows_on_device()
+                            and max(fetches) <= 2):
+        raise AssertionError("(A): device build %s, fetches per tree %s"
+                             % (booster.learner.grows_on_device(), fetches))
     check_tree0(booster, n, strict=path == "C")
     busy_ms = None
     if profile:
@@ -1122,14 +1226,25 @@ def phase_main_path(device, data, ds, path: str, iters: int,
             "losses": losses}
 
 
-def expect_launches(path: str, counts: dict, trees: int, splits: int,
+def split_passes(learner, models) -> int:
+    """The split passes a leaf-wise training launched: L - 1 a tree in the
+    device build (``learner.grows_on_device()``: dead steps included), one a
+    split in the host loop (forced splits, CEGB, the histogram pool, the
+    parallel learners)."""
+    if learner.grows_on_device():
+        return len(models) * (learner.num_leaves - 1)
+    return sum(t.num_leaves - 1 for t in models)
+
+
+def expect_launches(path: str, counts: dict, trees: int, passes: int,
                     levels: int, level_count: int) -> None:
     """Each path must run through its kernels and no other: (A) one root
-    histogram per tree and one split pass per split; (B) and (C) one root
-    histogram (the integer one in (C)) per tree and one level-batched split
-    pass per level, ``level_count`` levels per tree."""
+    histogram per tree and ``passes`` split passes (L - 1 a tree, the device
+    build); (B) and (C) one root histogram (the integer one in (C)) per tree
+    and one level-batched split pass per level, ``level_count`` levels per
+    tree."""
     if path == "A":
-        want = {"histogram": trees, "partition": splits}
+        want = {"histogram": trees, "partition": passes}
     else:
         if levels != level_count * trees:
             raise AssertionError("%d level steps for %d trees, want %d per "
@@ -1203,6 +1318,173 @@ def check_predictions(booster, X, X_test, raw, k: int = 2000) -> None:
         % (k, float(err.max()), float(bound.max()), k, err_t))
 
 
+def initial_gradients(booster, n: int) -> tuple:
+    """Class 0's gradients and hessians at the constant initial scores: what
+    the first tree of a training grows from."""
+    K = booster.num_tree_per_iteration
+    score0 = torch.zeros((K, n), dtype=torch.float32, device=booster.device)
+    for c in range(K):
+        score0[c] += booster.objective.boost_from_score(c)
+    grad, hess = booster.objective.get_gradients(score0[0] if K == 1
+                                                 else score0)
+    return grad.reshape(K, n)[0], hess.reshape(K, n)[0]
+
+
+DEVICE_BUILD_TURNS = 3      # (A): iterations of each build, in turns
+
+
+def host_tree(booster, arrays):
+    """A learner's first tree as the booster keeps it: shrunk, with the
+    initial score added."""
+    from lightgbm_tpu_torch.core.tree_learner import tree_from_arrays
+    tree = tree_from_arrays(arrays, booster.train_data, 1.0)
+    tree.shrink(booster.shrinkage_rate)
+    init = booster.objective.boost_from_score(0)
+    if abs(init) > 1e-15:
+        tree.add_bias(init)
+    return tree
+
+
+def same_arrays(a, b) -> bool:
+    """Two TreeArrays equal in every host field and in row_leaf."""
+    for f in a._fields:
+        if f in ("host_fetches", "split_passes", "paid_bits"):
+            continue
+        x, y = getattr(a, f), getattr(b, f)
+        if isinstance(x, torch.Tensor):
+            if not torch.equal(x, y):
+                return False
+        elif not np.array_equal(x, y):
+            return False
+    return True
+
+
+def phase_device_build(device, ds, booster) -> dict:
+    """(A)'s leaf-wise device build (no host round trip between splits)
+    against the host loop it replaced, on (A)'s bins: (a) the first tree
+    grown again with the host loop from the same gradients, its model text
+    equal to the device build's or equal up to a near tie
+    (``trees_up_to_tie``), at most 2 device->host transfers a device-built
+    tree and L - 1 split passes; (b) the step captured once in a CUDA graph
+    and replayed L - 1 times, equal to the eager device build's tree (a
+    capture that meets a read-back raises, so the step reads nothing
+    back); (c) two fresh boosters of (A)'s settings, one on each build,
+    trained DEVICE_BUILD_TURNS iterations in turns: their s/iteration
+    (median, range) and peak device memory, and their trees held to each
+    other as in (a).  Nothing here is claimed."""
+    import functools
+    from lightgbm_tpu_torch import Config, GBDT, create_objective
+    from lightgbm_tpu_torch import device as D
+    from lightgbm_tpu_torch.core import tree_learner as TL
+    learner = booster.learner
+    if not learner.grows_on_device():
+        raise AssertionError("(A) does not grow on the device")
+    n = ds.num_data
+    L = learner.num_leaves
+    grad, hess = initial_gradients(booster, n)
+    D.reset_launches()
+    eager = learner.train(grad, hess, n)
+    torch.cuda.synchronize()
+    counts = D.launches()
+    host = learner.train(grad, hess, n, host_loop=True)
+    if eager.host_fetches > 2 or eager.split_passes != L - 1 or \
+            counts["partition"] != L - 1:
+        raise AssertionError("(A) device build: %d fetches, %d split "
+                             "passes, launches %s"
+                             % (eager.host_fetches, eager.split_passes,
+                                counts))
+    a, b = host_tree(booster, eager), host_tree(booster, host)
+    if a.to_string() == b.to_string():
+        log("  (A) device build: tree 0 regrown by the host loop from the "
+            "same gradients: model text equal; fetches %d (host loop %d), "
+            "split passes %d" % (eager.host_fetches, host.host_fetches,
+                                 eager.split_passes))
+    else:
+        equal, tied, _ = trees_up_to_tie("(A) device build vs host loop",
+                                         [a], [b], booster)
+        log("  (A) device build: tree 0 vs the host loop's: equal up to a "
+            "near tie (%d tie); fetches %d (host loop %d)"
+            % (tied, eager.host_fetches, host.host_fetches))
+    # (b) the step captured once, replayed L - 1 times
+    real_grow = TL._DeviceGrowth.grow
+
+    def grow_captured(g):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            g.step()
+        for _ in range(1, g.L):
+            graph.replay()
+    TL._DeviceGrowth.grow = grow_captured
+    try:
+        captured = learner.train(grad, hess, n)
+    finally:
+        TL._DeviceGrowth.grow = real_grow
+    torch.cuda.synchronize()
+    if not same_arrays(captured, eager):
+        raise AssertionError("(A) the captured step's tree differs from the "
+                             "eager device build's")
+    log("  (A) the step captured once in a CUDA graph and replayed %d times:"
+        " the tree equal to the eager build's" % (L - 1))
+    # (c) both builds in turns
+    cfg = Config(objective="binary", num_leaves=255, learning_rate=0.1,
+                 max_bin=255, verbosity=-1)
+    builds = {name: GBDT(cfg, ds, create_objective("binary", cfg))
+              for name in ("device", "host loop")}
+    hl = builds["host loop"].learner
+    hl.train = functools.partial(hl.train, host_loop=True)
+    iter_s = {k: [] for k in builds}
+    for _ in range(DEVICE_BUILD_TURNS):
+        for name, b in builds.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            b.train_one_iter()
+            torch.cuda.synchronize()
+            iter_s[name].append(time.perf_counter() - t)
+    work = builds["device"].learner._window_work
+    work_bytes = 0 if work is None else sum(
+        t.numel() * t.element_size() for t in
+        (work.scratch, work.blk, work.win, work.partial) if t is not None)
+    got, want = builds["device"].models, builds["host loop"].models
+    texts = [t.to_string() for t in got] == [t.to_string() for t in want]
+    if not texts:
+        trees_up_to_tie("(A) in turns, device vs host loop", got, want,
+                        builds["device"])
+    log("  (A) in turns: the two builds' %d trees %s" % (
+        len(got), "equal" if texts else "equal up to near ties"))
+    del builds, got, want, hl
+    gc.collect()
+    out = {}
+    for name in ("device", "host loop"):
+        # each build alone: the peak over a booster's making and its first
+        # iteration, above what was allocated before it
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        b = GBDT(cfg, ds, create_objective("binary", cfg))
+        if name == "host loop":
+            b.learner.train = functools.partial(b.learner.train,
+                                                host_loop=True)
+        b.train_one_iter()
+        torch.cuda.synchronize()
+        peak_mib = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        del b
+        gc.collect()
+        v = iter_s[name]
+        out[name] = dict(iter_s=v, median=float(np.median(v)),
+                         range=[min(v), max(v)], peak_mib=peak_mib)
+        log("  (A) %-9s s/iteration %s: median %.4f, range %.4f-%.4f; peak "
+            "device memory %.1f MiB (a booster made and trained 1 "
+            "iteration, alone)" % (name, ["%.4f" % x for x in v],
+                                    out[name]["median"], min(v), max(v),
+                                    peak_mib))
+    out["workspace_mib"] = work_bytes / 2 ** 20
+    log("  (A) the device build's split-pass workspace, kept by its learner "
+        "between trees: %.1f MiB" % out["workspace_mib"])
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_tree0(booster, n: int, strict: bool, bag=None,
                 feature_mask=None, index: int = 0, learner=None) -> None:
     """Rebuild tree 0 (class 0's first tree) on the card with the plain
@@ -1215,15 +1497,10 @@ def check_tree0(booster, n: int, strict: bool, bag=None,
     learner other than the booster's (one in its initial state where the
     booster's carries state between trees)."""
     from lightgbm_tpu_torch.core.histogram import histogram_rows_plain
-    from lightgbm_tpu_torch.core.partition import (partition_hist_level_plain,
-                                                   partition_hist_plain)
-    K = booster.num_tree_per_iteration
-    score0 = torch.zeros((K, n), dtype=torch.float32, device=booster.device)
-    for c in range(K):
-        score0[c] += booster.objective.boost_from_score(c)
-    grad, hess = booster.objective.get_gradients(score0[0] if K == 1
-                                                 else score0)
-    grad, hess = grad.reshape(K, n)[0], hess.reshape(K, n)[0]
+    from lightgbm_tpu_torch.core.partition import (
+        partition_hist_level_plain, partition_hist_plain,
+        partition_hist_window_plain)
+    grad, hess = initial_gradients(booster, n)
     count = n
     if bag is not None:
         grad, hess, count = grad * bag[0], hess * bag[0], bag[1]
@@ -1231,7 +1508,8 @@ def check_tree0(booster, n: int, strict: bool, bag=None,
     plain = (learner or booster.learner).train(
         grad, hess, count, feature_mask, iteration=0,
         hist_fn=histogram_rows_plain, part_fn=partition_hist_plain,
-        level_fn=partition_hist_level_plain)
+        level_fn=partition_hist_level_plain,
+        window_fn=partition_hist_window_plain)
     torch.cuda.synchronize()
     log("  tree %d rebuilt with the plain versions in %.3f s"
         % (index, time.perf_counter() - t))
@@ -1327,6 +1605,9 @@ def epsilon_task(n: int, n_test: int, device, f: int = WIDE_F,
     return X[:n], y[:n], X[n:], y[n:]
 
 
+# (D)'s bin boundaries come from this many sampled rows (the default
+# 200,000 spent ~95 s of host time finding 2000 features' bins)
+EPSILON_BIN_SAMPLE = 25_000
 EPSILON_PARAMS = dict(objective="binary", max_bin=255, num_leaves=255,
                       learning_rate=0.1, min_data_in_leaf=1,
                       min_sum_hessian_in_leaf=100, metric="auc",
@@ -1376,11 +1657,13 @@ def phase_epsilon(device, n: int, n_test: int, iters: int,
     t0 = time.perf_counter()
     X, y, X_test, y_test = epsilon_task(n, n_test, device)
     t1 = time.perf_counter()
-    train = lgb.Dataset(X, y).construct()
+    train = lgb.Dataset(X, y, params=dict(
+        bin_construct_sample_cnt=EPSILON_BIN_SAMPLE)).construct()
     valid = lgb.Dataset(X_test, y_test, reference=train).construct()
     t2 = time.perf_counter()
-    log("  set-up: data %.2f s, binning %.2f s (%d + %d rows x %d features)"
-        % (t1 - t0, t2 - t1, n, n_test, X.shape[1]))
+    log("  set-up: data %.2f s, binning %.2f s (%d + %d rows x %d features,"
+        " bins from %d sampled rows)" % (t1 - t0, t2 - t1, n, n_test,
+                                         X.shape[1], EPSILON_BIN_SAMPLE))
     if train.handle.is_bundled or valid.handle.is_bundled:
         raise AssertionError("the Epsilon-shaped dataset came out bundled")
     label = torch.as_tensor(y, device=device)
@@ -1442,8 +1725,10 @@ def phase_epsilon(device, n: int, n_test: int, iters: int,
         log("  device busy %.1f%% and idle %.1f%% of the median unprofiled "
             "iteration (%.4f s)" % (busy_ms / med / 10,
                                     100 - busy_ms / med / 10, med))
-    # one root histogram per tree and one split pass per split, nothing else
-    want = {"histogram": trees, "partition": splits}
+    # one root histogram per tree and L - 1 split passes a tree (the device
+    # build), nothing else
+    want = {"histogram": trees,
+            "partition": split_passes(gbdt.learner, gbdt.models)}
     if counts != {k: want.get(k, 0) for k in counts}:
         raise AssertionError("path (D): launches %s, want %s" % (counts,
                                                                  want))
@@ -1583,8 +1868,10 @@ def phase_regression_bagging(device, data, ds, iters: int,
     check_tree0(booster, n, strict=True, bag=(mask0, int(want.sum())),
                 feature_mask=first_feature_mask(cfg, ds.num_features,
                                                 booster.device))
-    # one integer root histogram per tree, one quantized split pass per split
-    want_l = {"histogram_int": trees, "partition": splits}
+    # one integer root histogram per tree, L - 1 quantized split passes a
+    # tree
+    want_l = {"histogram_int": trees,
+              "partition": split_passes(booster.learner, booster.models)}
     if counts != {k: want_l.get(k, 0) for k in counts}:
         raise AssertionError("path (F): launches %s, want %s"
                              % (counts, want_l))
@@ -1602,8 +1889,8 @@ def phase_regression_bagging(device, data, ds, iters: int,
 NUM_CLASS = 5
 # (G)'s and (J)'s iterations: 5-class trees take ~6 s an iteration and 11M
 # categorical rows ~3 s; 3 make room for path (X)
-MULTICLASS_ITERS = 3
-EXPO_ITERS = 3
+MULTICLASS_ITERS = 1
+EXPO_ITERS = 2
 MULTICLASS_PARAMS = dict(objective="multiclass", num_class=NUM_CLASS,
                          metric="multi_logloss,multi_error", num_leaves=255,
                          max_bin=255, learning_rate=0.1, verbosity=-1)
@@ -1684,7 +1971,8 @@ def phase_multiclass(device, data, ds, iters: int, profile: bool) -> dict:
         % (prob.shape + (err_sum, err_v, err_p)))
     check_predictions(gbdt, X, X_test, raw)
     check_tree0(gbdt, n, strict=False)
-    want = {"histogram": trees, "partition": splits}
+    want = {"histogram": trees,
+            "partition": split_passes(gbdt.learner, gbdt.models)}
     if counts != {k: want.get(k, 0) for k in counts}:
         raise AssertionError("path (G): launches %s, want %s" % (counts,
                                                                  want))
@@ -1808,7 +2096,8 @@ def phase_lambdarank(device, n: int, iters: int, profile: bool) -> dict:
         "%.1f MB above its inputs"
         % (len(obj._buckets), grad_ms, grad_dev, peak / 2 ** 20))
     check_tree0(gbdt, n, strict=False)
-    want = {"histogram": trees, "partition": splits}
+    want = {"histogram": trees,
+            "partition": split_passes(gbdt.learner, gbdt.models)}
     if counts != {k: want.get(k, 0) for k in counts}:
         raise AssertionError("path (H): launches %s, want %s" % (counts,
                                                                  want))
@@ -2033,8 +2322,9 @@ def phase_allstate(device, n: int, n_test: int, iters: int,
     not cut): scipy CSR -> ``Dataset`` -> ``BinnedDataset.from_csr`` (never
     densified; its EFB bundles the features into group columns), through
     ``lightgbm_tpu_torch.train`` with a CSR validation set at (D)'s
-    published settings: the root histogram over the group columns and one
-    split pass per split that unfolds the split feature's group codes."""
+    published settings: the root histogram over the group columns and L - 1
+    split passes a tree, each split's unfolding the split feature's group
+    codes."""
     import lightgbm_tpu_torch as lgb
     t0 = time.perf_counter()
     tr, te, y, y_test = allstate_task(n, n_test, device)
@@ -2081,7 +2371,8 @@ def phase_allstate(device, n: int, n_test: int, iters: int,
     check_predictions(gbdt, Xt, Xv[:2000].toarray(), raw[:2000])
     check_tree0(gbdt, n, strict=False)
     times = check_path_kernels(gbdt.learner, "I", unfold=True)
-    want = {"histogram": trees, "partition": splits}
+    want = {"histogram": trees,
+            "partition": split_passes(gbdt.learner, gbdt.models)}
     if counts != {k: want.get(k, 0) for k in counts}:
         raise AssertionError("path (I): launches %s, want %s" % (counts,
                                                                  want))
@@ -2148,7 +2439,8 @@ def phase_expo(device, n: int, n_test: int, iters: int,
     check_predictions(gbdt, X, X_test, raw)
     check_tree0(gbdt, n, strict=False)
     times = check_path_kernels(gbdt.learner, "J", categorical=True)
-    want = {"histogram": trees, "partition": splits}
+    want = {"histogram": trees,
+            "partition": split_passes(gbdt.learner, gbdt.models)}
     if counts != {k: want.get(k, 0) for k in counts}:
         raise AssertionError("path (J): launches %s, want %s" % (counts,
                                                                  want))
@@ -2314,6 +2606,13 @@ def check_path_kernels(learner, path: str, unfold: bool = False,
         check_split(rows, scal, F=F, B=B, voff=lay.voff, bpc=lay.bpc,
                     packed=learner.packed, quantized=quantized,
                     what="(%s) %s split %s" % (path, tag, name))
+        if not level:
+            # the leaf-wise build's launch, its scal row in device memory
+            check_window_split(rows, scal, None, F=F, B=B, voff=lay.voff,
+                               bpc=lay.bpc, packed=learner.packed,
+                               quantized=quantized,
+                               what="(%s) %s window split %s"
+                               % (path, tag, name))
         if level:
             check_level(rows, scals, "(%s) %s level, 8 windows" % (path, tag),
                         num_bins=B, quantized=quantized, **kw)
@@ -2405,9 +2704,10 @@ def phase_build_histogram(device, R: int) -> dict:
 
 HIGGS_PARAMS = dict(objective="binary", num_leaves=255, learning_rate=0.1,
                     max_bin=255, verbosity=-1)
-GOSS_ITERS = 12     # 1 / learning_rate = 10 warm-up iterations, then 2
-RF_ITERS = 5
-FORCED_ITERS = 5
+GOSS_RATE = 0.25    # (K)'s learning rate: 1 / 0.25 = 4 warm-up iterations
+GOSS_ITERS = 6      # then 2 sampled ones
+RF_ITERS = 2
+FORCED_ITERS = 2
 POOL_ITERS = 2
 POOL_MB = 125       # 32 slots of 2000 x 2 x 256 f32 at (D)'s shape
 
@@ -2448,10 +2748,12 @@ def report_path(path: str, r: dict, n: int, loss_name: str = "logloss"):
     return med
 
 
-def expect_leafwise_launches(path: str, r: dict, rebuilt: int = 0) -> None:
-    """One root histogram per tree (plus the pool's rebuilt parents) and one
-    split pass per split, nothing else."""
-    want = {"histogram": r["trees"] + rebuilt, "partition": r["splits"]}
+def expect_leafwise_launches(path: str, r: dict, booster,
+                             rebuilt: int = 0) -> None:
+    """One root histogram per tree (plus the pool's rebuilt parents) and
+    ``booster``'s split passes (``split_passes``), nothing else."""
+    want = {"histogram": r["trees"] + rebuilt,
+            "partition": split_passes(booster.learner, booster.models)}
     if r["launches"] != {k: want.get(k, 0) for k in r["launches"]}:
         raise AssertionError("path (%s): launches %s, want %s"
                              % (path, r["launches"], want))
@@ -2481,16 +2783,17 @@ def goss_weights_host(key: np.ndarray, top_k: int, sampled: np.ndarray,
 
 def phase_goss(device, data, ds, profile: bool) -> dict:
     """Path (K): GOSS (``top_rate=0.2``, ``other_rate=0.1``) on (A)'s
-    binned rows, 12 iterations: the first ``1 / learning_rate`` = 10
-    without sampling, then two sampled ones, whose device row weights must
-    equal the host's stable argsort of the fetched key with the stream's
-    draws replayed from a fresh ``RandomState(bagging_seed)``."""
+    binned rows at ``learning_rate=GOSS_RATE`` (0.25), 6 iterations: the
+    first ``1 / learning_rate`` = 4 without sampling, then two sampled
+    ones, whose device row weights must equal the host's stable argsort
+    of the fetched key with the stream's draws replayed from a fresh
+    ``RandomState(bagging_seed)``."""
     from lightgbm_tpu_torch import Config, create_objective
     from lightgbm_tpu_torch.boosting import create_boosting
     X, y, X_test, _ = data
     n = len(y)
     cfg = Config(boosting="goss", top_rate=0.2, other_rate=0.1,
-                 **HIGGS_PARAMS)
+                 **dict(HIGGS_PARAMS, learning_rate=GOSS_RATE))
     booster = create_boosting("goss", cfg, ds,
                               create_objective("binary", cfg))
     label = torch.as_tensor(y, device=booster.device)
@@ -2543,7 +2846,7 @@ def phase_goss(device, data, ds, profile: bool) -> dict:
     raw = booster.predict(X_test, raw_score=True)
     check_predictions(booster, X, X_test, raw)
     check_tree0(booster, n, strict=False)
-    expect_leafwise_launches("K", r)
+    expect_leafwise_launches("K", r, booster)
     profile_path(r, booster, profile)
     r["warm_s"] = r["iter_s"][:warm]
     return r
@@ -2644,7 +2947,7 @@ def phase_dart(device, data, ds, profile: bool) -> dict:
     raw = check_validation_scores(gbdt, booster, X_test)
     check_predictions(gbdt, X, X_test, raw)
     check_tree0(gbdt, n, strict=False)
-    expect_leafwise_launches("L", r)
+    expect_leafwise_launches("L", r, gbdt)
     profile_path(r, gbdt, profile)
     r["drops"] = drops
     return r
@@ -2692,7 +2995,7 @@ def phase_rf(device, data, ds, profile: bool) -> dict:
         check_tree0(booster, n, strict=False, index=i, feature_mask=masks[i],
                     bag=(torch.as_tensor(bag, device=booster.device),
                          int(bag.sum())))
-    expect_leafwise_launches("M", r)
+    expect_leafwise_launches("M", r, booster)
     profile_path(r, booster, profile)
     return r
 
@@ -2784,7 +3087,7 @@ def phase_forced_cegb(device, data, ds, profile: bool) -> dict:
     check_predictions(booster, X, X_test, raw)
     check_tree0(booster, n, strict=False, learner=fresh)
     del fresh
-    expect_leafwise_launches("N", r)
+    expect_leafwise_launches("N", r, booster)
     profile_path(r, booster, profile)
     return r
 
@@ -3107,7 +3410,7 @@ def phase_pool(device, eps: dict, profile: bool) -> dict:
             % (i, 100 * same, 100 * rows, float(np.abs(va - vb).max())))
         if not (same >= 0.98 and rows >= 0.98 and close):
             raise AssertionError("pooled tree %d differs from (D)'s" % i)
-    expect_leafwise_launches("O", r, rebuilt=misses)
+    expect_leafwise_launches("O", r, booster, rebuilt=misses)
     profile_path(r, booster, profile)
     r["peak_bytes"], r["cache_bytes"] = peak, hist_cache_bytes(learner, K)
     return r
@@ -3121,13 +3424,13 @@ CHUNK_AUC_TOL = 1e-4
 NAN_AT, NAN_ROWS = 6, 7       # (Y5): the poisoned iteration, its NaN rows
 # (name, objective, params, iterations, weighted)
 CHUNK_RUNS = [
-    ("Y1", "binary", {}, 10, False),
+    ("Y1", "binary", {}, 6, False),
     ("Y2", "binary", dict(tree_grow_mode="level",
                           hist_precision="quantized"), 10, False),
     ("Y3", "regression", dict(metric="l2", bagging_fraction=0.8,
                               bagging_freq=2, hist_precision="quantized"),
      6, False),
-    ("Y4", "binary", {}, 5, True),
+    ("Y4", "binary", {}, 3, True),
 ]
 
 
@@ -3235,7 +3538,7 @@ def score_bytes(b) -> bytes:
 
 def expect_chunk_launches(name: str, r: dict) -> None:
     """One root histogram a tree built (the integer one when quantized) and
-    one split pass a split, or one level pass a level."""
+    its split passes (``split_passes``), or one level pass a level."""
     b = r["booster"]
     trees = len(r["fetches"])
     root = ("histogram_int" if b.learner.quantized else "histogram")
@@ -3243,26 +3546,25 @@ def expect_chunk_launches(name: str, r: dict) -> None:
         want = {root: trees, "partition_level": trees
                 * b.learner.level_count()}
     else:
-        want = {root: trees, "partition": sum(t.num_leaves - 1
-                                              for t in b.models)}
+        want = {root: trees, "partition": split_passes(b.learner, b.models)}
     if r["launches"] != {k: want.get(k, 0) for k in r["launches"]}:
         raise AssertionError("(%s) launches %s, want %s"
                              % (name, r["launches"], want))
 
 
-def phase_chunk(device, data, ds) -> dict:
+def phase_chunk(device, data, ds, only=None) -> dict:
     """Path (Y): the fused multi-iteration chunk (``GBDT.train_chunk``)
     through ``GBDT.train()`` with ``metric_freq=5`` and (A)'s held-out tenth
     as a validation set, each run held against the same task trained by
     ``train_one_iter`` (``fuse_iters=False``) in the same call.  (Y1)
-    leaf-wise exact on the carried store, 10 iterations in 2 chunks:
+    leaf-wise exact on the carried store, 6 iterations in 2 chunks:
     every tree's split features and thresholds equal, or equal up to a
     first near tie of two gains (``trees_up_to_tie``: its exact f32 sums
     run in the store's permuted order), train and validation scores within
     2e-4, held-out AUC within 1e-4; the growth's
     fetches and the chunk's own read-backs (one a chunk).  (Y2) level,
     quantized, carried, 10 iterations, and (Y4) binary with sample weights
-    (the plain fused chunk), 5 iterations: model text and score bytes
+    (the plain fused chunk), 3 iterations: model text and score bytes
     equal.  (Y3) L2, carried, quantized, with in-chunk bagging 0.8 every 2
     iterations, 6 iterations: bytes equal, and every bag mask and count of
     the chunk equal to the hash recomputed on the host over the store's
@@ -3271,8 +3573,9 @@ def phase_chunk(device, data, ds) -> dict:
     ``rollback_retry`` and one ``skip_iter`` ``nan_trip``, the chunk again
     one iteration at a time, one constant tree, finite scores.  Each run:
     s/iteration and peak device memory beside the per-iteration run's;
-    one root histogram a tree and one split (or level) pass a split (or
-    level)."""
+    one root histogram a tree and L - 1 split passes a tree (or one level
+    pass a level).  ``only``: the names of the runs to make (all when
+    None)."""
     import lightgbm_tpu_torch.boosting.gbdt as gbdt_mod
     from lightgbm_tpu_torch import BinnedDataset, obs
     from lightgbm_tpu_torch.metric.binary import weighted_auc
@@ -3295,6 +3598,8 @@ def phase_chunk(device, data, ds) -> dict:
         out["trees"] += len(r["fetches"])
 
     for name, objective, params, iters, wtd in CHUNK_RUNS:
+        if only is not None and name not in only:
+            continue
         train, valid = sets[objective]
         if wtd:
             train = weighted
@@ -3341,6 +3646,10 @@ def phase_chunk(device, data, ds) -> dict:
                                  "carried %s" % (name, fused["reads"],
                                                  len(chunks), carried))
         if name == "Y1":
+            if max(fused["fetches"]) > 2 or not fb.learner.grows_on_device():
+                raise AssertionError("(Y1) growth fetches per tree %s, want "
+                                     "at most 2 (the device build)"
+                                     % fused["fetches"])
             equal, tied, gaps = trees_up_to_tie("(Y1)", fb.models, sb.models,
                                                 fb)
             d_train = float((fb.train_score - sb.train_score).abs().max())
@@ -3385,6 +3694,8 @@ def phase_chunk(device, data, ds) -> dict:
         del fused, single, fb, sb
         torch.cuda.empty_cache()
 
+    if only is not None and "Y5" not in only:
+        return out
     # ---- (Y5) nan_policy=skip_iter ----
     train, valid = sets["binary"]
     retried = []
@@ -3448,7 +3759,7 @@ QUANT_LOSS_RTOL = 5e-2        # tests/test_hist_quant.py:272-297's band
 # (V2)'s iterations: two processes time-slice the one card, so an iteration
 # takes seconds (2.5-4.5 s at (A)'s rows on the H100); 2 keep (V) near its
 # time and the width whole, and make room for path (X)
-V2_ITERS = 2
+V2_ITERS = 1
 # (V2): tree_learner and its extra parameters, one run each
 V2_RUNS = (("data", {}), ("feature", {}), ("voting", {"top_k": 20}),
            ("data_quantized", {"hist_precision": "quantized"}))
@@ -3620,7 +3931,7 @@ def phase_parallel_nccl(device, data, ds, iters: int, a_text: str) -> dict:
                     a_text):
                 raise AssertionError("(V1) %s: the model differs from (A)'s"
                                      % mode)
-            expect_leafwise_launches("V1 " + mode, r)
+            expect_leafwise_launches("V1 " + mode, r, booster)
             if mode == "feature" and routes["feature_window"] != r["splits"]:
                 raise AssertionError("(V1) feature: %d windowed split passes "
                                      "of %d" % (routes["feature_window"],
@@ -3840,7 +4151,7 @@ def phase_parallel_gloo(device, n: int, iters: int, a: dict,
 
 CLI_DIR = os.path.join("build", "cli")
 CLI_ROWS = 1 << 20                # (A)'s rows
-CLI_ITERS = 5
+CLI_ITERS = 2
 CLI_CHUNK = 65_536
 CLI_PARAMS = ["objective=binary", "num_leaves=255", "max_bin=255",
               "metric=auc", "verbosity=-1"]
@@ -4015,10 +4326,12 @@ def run_cli(argv, what: str) -> tuple:
 
 def expect_cli_launches(what: str, booster, counts: dict) -> tuple:
     """The CLI's training went through the root histogram (#1) once per
-    tree and the split pass (#3/#4) once per split, and nothing else."""
+    tree and the split pass (#3/#4) L - 1 times a tree (the device build),
+    and nothing else."""
     trees = len(booster.models)
     splits = sum(t.num_leaves - 1 for t in booster.models)
-    want = {"histogram": trees, "partition": splits}
+    want = {"histogram": trees,
+            "partition": split_passes(booster.learner, booster.models)}
     if counts != {k: want.get(k, 0) for k in counts}:
         raise AssertionError("(%s): launches %s, want %s"
                              % (what, counts, want))
@@ -4027,25 +4340,37 @@ def expect_cli_launches(what: str, booster, counts: dict) -> tuple:
 
 def run_loaders(path: str, params: dict, out_dir: str) -> dict:
     """One-shot, ``data_chunk_rows`` and ``two_round`` loads of ``path``,
-    one after another, each in a process of its own: seconds, peak RSS and
-    the dataset written back in binary."""
+    the three at once, each in a process of its own (its seconds taken
+    beside the other two; its peak RSS its own): seconds, peak RSS and the
+    dataset written back in binary."""
     from lightgbm_tpu_torch.io.dataset import BinnedDataset
     root = os.path.dirname(os.path.abspath(__file__))
     modes = {"one-shot": {}, "data_chunk_rows=%d" % CLI_CHUNK:
              {"data_chunk_rows": CLI_CHUNK}, "two_round": {"two_round": True}}
     no_pandas = "pandas" in sys.modules and sys.modules["pandas"] is None
+    procs = {}
+    try:
+        for i, (name, extra) in enumerate(modes.items()):
+            out = os.path.join(out_dir, "load%d.bin" % i)
+            procs[name] = (out, subprocess.Popen(
+                [sys.executable, "-c", LOAD_CHILD, path,
+                 json.dumps(dict(params, **extra)), out, root,
+                 "1" if no_pandas else "0"],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        done = {name: proc.communicate(timeout=600)
+                for name, (_, proc) in procs.items()}
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     res = {}
-    for i, (name, extra) in enumerate(modes.items()):
-        out = os.path.join(out_dir, "load%d.bin" % i)
-        proc = subprocess.run(
-            [sys.executable, "-c", LOAD_CHILD, path,
-             json.dumps(dict(params, **extra)), out, root,
-             "1" if no_pandas else "0"],
-            capture_output=True, text=True, timeout=600)
+    for name, (out, proc) in procs.items():
+        stdout, stderr = done[name]
         if proc.returncode != 0:
             raise AssertionError("%s load failed: %s"
-                                 % (name, proc.stderr[-2000:]))
-        r = json.loads(proc.stdout.strip().splitlines()[-1])
+                                 % (name, stderr[-2000:]))
+        r = json.loads(stdout.strip().splitlines()[-1])
         r["ds"] = BinnedDataset.load_binary(out)
         mib = 1 << 20
         log("  %-22s load %.2f s, peak RSS during it %.0f MiB (%.0f MiB "
@@ -4279,9 +4604,9 @@ CAPI_PARAMS = ("objective=binary num_leaves=255 max_bin=255 "
 CAPI_LEVEL = " tree_grow_mode=level hist_precision=quantized"
 CAPI_CSR_ROWS = 1000
 RESIL_DIR = os.path.join("build", "resil")
-PREEMPT_AT = 2                # (U) SIGTERM after this iteration
+PREEMPT_AT = 1                # (U) SIGTERM after this iteration
 WATCHDOG_S = 120.0
-RESIL_CLI_ITERS = 30          # long enough for SIGTERM to land mid-run
+RESIL_CLI_ITERS = 10          # long enough for SIGTERM to land mid-run
 
 
 def capi_params(iters: int, extra: str = "") -> dict:
@@ -4460,7 +4785,8 @@ def phase_capi(device, data, iters: int) -> dict:
             csr, ref.predict(Xt64[:CAPI_CSR_ROWS])),
         "AUC equal": auc[0] == ref.best_score["valid_0"]["auc"],
         "launches": counts == {k: {"histogram": trees,
-                                   "partition": splits}.get(k, 0)
+                                   "partition": split_passes(
+                                       gbdt.learner, gbdt.models)}.get(k, 0)
                                for k in counts},
         "no fallback": fallbacks.value == 0,
     }
@@ -4595,7 +4921,9 @@ def phase_resilience(device, data, iters: int, uninterrupted: str) -> dict:
                                  ["%.4f" % s for s in rec.iter_s],
                                  "equal to" if same else "DIFFERENT from",
                                  stall, counts))
-        want = {"histogram": trees, "partition": splits}
+        want = {"histogram": trees,
+                "partition": split_passes(resumed._booster.learner,
+                                          resumed._booster.models)}
         if not same or stall is not None or list_checkpoints(prefix) or \
                 counts != {k: want.get(k, 0) for k in counts}:
             raise AssertionError("(U2) resume: same %s, stall %s, launches "
@@ -4736,19 +5064,21 @@ def phase_telemetry_train(device, data, ds, iters: int, a_text: str) -> dict:
     passes = summary["tree_kernel_launch_total"]
     kernel_passes = counts["partition"] + counts["partition_level"]
     splits = sum(t.num_leaves - 1 for t in gbdt.models)
+    want_passes = split_passes(gbdt.learner, gbdt.models)
     dm_peak = summary.get("devmem", {}).get("peak_bytes_max")
     log("  (W1) train() with telemetry_out and metrics_port=%d: %.2f s, "
         "launches %s" % (port, secs, counts))
     log("  summary: tree_kernel_launches %s, total %d; the kernels' split "
-        "passes %d; splits %d" % (summary["tree_kernel_launches"], passes,
-                                  kernel_passes, splits))
+        "passes %d; splits %d, L - 1 a tree %d"
+        % (summary["tree_kernel_launches"], passes, kernel_passes, splits,
+           want_passes))
     log("  %d events of kinds %s, all schema-valid; scrapes %s; devmem "
         "peak %s vs torch.cuda.max_memory_allocated %d" % (
             len(events), kinds, codes, dm_peak, peak))
-    if not (passes == kernel_passes == splits and passes > 0):
+    if not (passes == kernel_passes == want_passes and passes > 0):
         raise AssertionError("(W1) the summary's split passes %d, the "
-                             "kernels' %d, the trees' splits %d"
-                             % (passes, kernel_passes, splits))
+                             "kernels' %d, L - 1 a tree %d"
+                             % (passes, kernel_passes, want_passes))
     if counts["histogram"] != len(gbdt.models):
         raise AssertionError("(W1) %d root histograms for %d trees"
                              % (counts["histogram"], len(gbdt.models)))
@@ -5120,8 +5450,9 @@ def profile_iteration(booster) -> float:
                sum(v for k, v in device.items() if "lvl_scatter" in k),
                sum(v for k, v in device.items() if "hist_int" in k)))
     # leaf-wise paths: each split pass's scatter against its own copy-back,
-    # the device-to-device copy that comes next on the device
-    # (csrc/partition.cu)
+    # the device-to-device copy that comes next on the device (the host
+    # loop's cudaMemcpyAsync, or the device build's part_copyback_kernel;
+    # csrc/partition.cu)
     work = sorted((e for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False)),
@@ -5130,11 +5461,11 @@ def profile_iteration(booster) -> float:
     for e, after in zip(work, work[1:]):
         if "part_scatter_kernel" in e.name:
             scatter.append(e.time_range.elapsed_us() / 1e3)
-            if "Memcpy DtoD" in after.name:
+            if "Memcpy DtoD" in after.name or "copyback" in after.name:
                 copy.append(after.time_range.elapsed_us() / 1e3)
     if scatter:
         log("  part_scatter_kernel %d launches %.3f ms, their copy-backs "
-            "(Memcpy DtoD) %d copies %.3f ms%s"
+            "(Memcpy DtoD or part_copyback_kernel) %d copies %.3f ms%s"
             % (len(scatter), sum(scatter), len(copy), sum(copy),
                ": ratio %.2f" % (sum(scatter) / sum(copy)) if copy else ""))
     return busy_ms
@@ -5145,12 +5476,12 @@ def profile_iteration(booster) -> float:
 
 PLAN_DIR = os.path.join("build", "plan")
 ONLINE_DIR = os.path.join("build", "online")
-TUNE_REPS = 4
+TUNE_REPS = 2
 ONLINE_BASE_ROWS = 524_288      # (X4): the base model's rows of (A)'s task
-ONLINE_BASE_ITERS = 10
+ONLINE_BASE_ITERS = 3
 ONLINE_WINDOW_ROWS = 131_072    # the other 524,288 rows, 4 windows
 ONLINE_WINDOWS = 4
-ONLINE_ROUNDS = 5
+ONLINE_ROUNDS = 2
 ONLINE_REFIT_WINDOW = 2         # (X4): the 0-based window refit, not extended
 ONLINE_SHIFT = 4.0              # (X4): feature 0 of the last window, shifted
 ONLINE_CLIENTS = 8
@@ -5185,9 +5516,15 @@ def _plan_recorder(booster):
         rec["store"] = dst
         return out
 
+    def window(rows, scal, work, **kw):
+        out = PT.partition_hist_window(rows, scal, work, **kw)
+        rec["nl"].append(out[1])
+        rec["store"] = rows
+        return out
+
     learner = booster.learner
     learner.train = functools.partial(learner.train, part_fn=part,
-                                      level_fn=level)
+                                      level_fn=level, window_fn=window)
     return rec
 
 
@@ -6024,11 +6361,15 @@ def split_pass_sizes(rows, voff, F, B, route, words, counts,
     wc of ``counts`` (the first one first), each beside its bound, its
     plain version and the window's device-to-device copy of wc * W bytes
     (2 * wc * W bytes read and written: the least data movement of a
-    partition, and the copy-back inside the pass); the first size's numbers,
-    with the others under ``sizes``."""
+    partition, and the copy-back inside the pass), and the same window
+    through the device-window launch (``partition_hist_window``, its scal
+    row in device memory, sized for the whole store: the leaf-wise build's
+    pass); the first size's numbers, with the others under ``sizes``."""
     from lightgbm_tpu_torch.core import partition as P
+    from lightgbm_tpu_torch.core.tree_learner import CHUNK
     W = rows.shape[1]
     out = []
+    bound_rows = rows.shape[0] - CHUNK
     for wc in counts:
         scal = scal_row(0, wc, route, words, 1)
         kw = dict(num_features=F, num_bins=B, voff=voff, quantized=quantized)
@@ -6036,7 +6377,14 @@ def split_pass_sizes(rows, voff, F, B, route, words, counts,
         ms = cuda_ms(lambda: P.partition_hist(work, scal, **kw), reps=reps)
         dev = queued_ms(lambda: P.partition_hist(work, scal, **kw),
                         reps=reps)
-        del work
+        ws = P.window_workspace(work, bound_rows, num_features=F,
+                                num_bins=B, quantized=quantized)
+        s_dev = torch.tensor(scal, dtype=torch.int32, device=rows.device)
+        win_ms = cuda_ms(lambda: P.partition_hist_window(work, s_dev, ws,
+                                                         **kw), reps=reps)
+        win_dev = queued_ms(lambda: P.partition_hist_window(work, s_dev, ws,
+                                                            **kw), reps=reps)
+        del work, ws
         plain = cuda_ms(lambda: P.partition_hist_plain(rows, scal, **kw),
                         reps=3 if F > 100 else 20, warmup=1)
         dst = torch.empty((wc, W), dtype=torch.uint8, device=rows.device)
@@ -6047,13 +6395,15 @@ def split_pass_sizes(rows, voff, F, B, route, words, counts,
         # adds are two per (row, feature) of the smaller child
         b_ms, b_by = bound(2.0 * wc * W, 2.0 * (wc / 2) * F)
         log("  %ssplit pass F=%d %8d rows: kernel %.4f ms (queued %.4f), "
-            "bound %.4f ms (%s), plain %.4f ms, copy of the window %.4f ms "
-            "(queued %.4f), no single library call"
-            % ("quantized " if quantized else "", F, wc, ms, dev, b_ms, b_by,
-               plain, copy, copy_dev))
+            "device-window launch %.4f ms (queued %.4f), bound %.4f ms (%s), "
+            "plain %.4f ms, copy of the window %.4f ms (queued %.4f), no "
+            "single library call"
+            % ("quantized " if quantized else "", F, wc, ms, dev, win_ms,
+               win_dev, b_ms, b_by, plain, copy, copy_dev))
         out.append(dict(rows=wc, ms=ms, queued_ms=dev, plain_ms=plain,
                         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                        copy_ms=copy, copy_queued_ms=copy_dev))
+                        copy_ms=copy, copy_queued_ms=copy_dev,
+                        window_ms=win_ms, window_queued_ms=win_dev))
         torch.cuda.empty_cache()
     return dict(out[0], sizes=out[1:])
 
@@ -6318,7 +6668,7 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", type=int, default=1 << 20,
                     help="training rows of the main paths (A)-(C) (10500000 "
                          "is the published Higgs size)")
-    ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--iters", type=int, default=ITERS)
     ap.add_argument("--widef-rows", type=int, default=400_000,
                     help="training rows of path (D) and of the wide-F "
                          "kernel phases (400000 is the published Epsilon "
@@ -6351,6 +6701,9 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = gpu_name_and_power()
     t_start = time.perf_counter()
+
+    def mark() -> None:
+        log("  [%.1f s into the script]" % (time.perf_counter() - t_start))
     log("[1] environment")
     log("  %s" % card)
     log("  python %s, torch %s, CUDA %s, %s x%d"
@@ -6375,7 +6728,8 @@ def main(argv=None) -> int:
     level_err_max = phase_level_split(device, args.rows)
     widef_split_err = phase_widef_split(device, nw)
     carried_err = phase_carried_contract(device, CARRIED_ROWS)
-    split_err_max = max(split_err_max, carried_err)
+    window_err = phase_window_split(device, args.rows)
+    split_err_max = max(split_err_max, carried_err, window_err)
     phase_scan_level(device)
     reset_launches()
     log("  phases 2-3 took %.1f s" % (time.perf_counter() - t))
@@ -6395,12 +6749,20 @@ def main(argv=None) -> int:
         if path != "A":
             del paths[path]["booster"]
         torch.cuda.empty_cache()
+    mark()
+    log("  (A) the device build against the host loop; the step in a CUDA "
+        "graph; both builds in turns, %d iterations each"
+        % DEVICE_BUILD_TURNS)
+    paths["A"]["device_build"] = phase_device_build(device, ds,
+                                                    paths["A"]["booster"])
+    mark()
     log("  (F) regression on (A)'s features: bagging_fraction=0.8, "
         "bagging_freq=5, feature_fraction=0.9, hist_precision=quantized, "
         "leaf-wise, %d iterations" % args.iters)
     paths["F"] = phase_regression_bagging(device, data, ds, args.iters,
                                           args.profile)
     torch.cuda.empty_cache()
+    mark()
     log("  (G) multiclass softmax (num_class=%d) on (A)'s features, "
         "lightgbm_tpu_torch.train with the held-out rows as a validation set,"
         " %d iterations" % (NUM_CLASS, min(args.iters, MULTICLASS_ITERS)))
@@ -6408,23 +6770,29 @@ def main(argv=None) -> int:
                                   min(args.iters, MULTICLASS_ITERS),
                                   args.profile)
     torch.cuda.empty_cache()
+    mark()
     log("  (K) GOSS on (A)'s binned rows: top_rate=0.2, other_rate=0.1, %d "
-        "iterations (the first 10 without sampling)" % GOSS_ITERS)
+        "iterations at learning_rate=%g (the first %d without sampling)"
+        % (GOSS_ITERS, GOSS_RATE, int(1 / GOSS_RATE)))
     paths["K"] = phase_goss(device, data, ds, args.profile)
     torch.cuda.empty_cache()
+    mark()
     log("  (L) DART on (A)'s binned rows at its defaults, "
         "lightgbm_tpu_torch.train with the held-out rows as a validation "
         "set")
     paths["L"] = phase_dart(device, data, ds, args.profile)
     torch.cuda.empty_cache()
+    mark()
     log("  (M) random forest on (A)'s binned rows: bagging_fraction=0.632, "
         "bagging_freq=1, feature_fraction=0.8, %d iterations" % RF_ITERS)
     paths["M"] = phase_rf(device, data, ds, args.profile)
     torch.cuda.empty_cache()
+    mark()
     log("  (N) forced splits + CEGB on (A)'s binned rows, leaf-wise, exact, "
         "%d iterations" % FORCED_ITERS)
     paths["N"] = phase_forced_cegb(device, data, ds, args.profile)
     torch.cuda.empty_cache()
+    mark()
     log("  (Y) the fused multi-iteration chunk: GBDT.train() with "
         "metric_freq=%d and (A)'s held-out rows as a validation set, each "
         "run against train_one_iter" % CHUNK_METRIC_FREQ)
@@ -6432,6 +6800,7 @@ def main(argv=None) -> int:
     paths["Y"] = phase_chunk(device, data, ds)
     log("  (Y) took %.1f s" % (time.perf_counter() - t))
     torch.cuda.empty_cache()
+    mark()
     log("  (V) the parallel tree learners on (A)'s task, %d iterations: "
         "(V1) each learner on a one-rank NCCL group, (V2) data, feature, "
         "voting and quantized data on 2 gloo ranks" % args.iters)
@@ -6448,6 +6817,7 @@ def main(argv=None) -> int:
     log("  (V) took %.1f s" % (time.perf_counter() - t))
     torch.cuda.empty_cache()
     from lightgbm_tpu_torch import device as D
+    mark()
     log("  (P) prediction on (A)'s data: (A)'s %d trees each repeated %d "
         "times (%d trees)" % (args.iters, PREDICT_REPEAT,
                               args.iters * PREDICT_REPEAT))
@@ -6455,6 +6825,7 @@ def main(argv=None) -> int:
     paths["P"] = phase_predict(device, data, ds, paths["A"]["booster"])
     paths["P"]["launches"] = D.launches()
     torch.cuda.empty_cache()
+    mark()
     log("  (Q) SHAP contributions of (A)'s model: %d held-out rows raw, %d "
         "training rows binned" % (CONTRIB_ROWS, CONTRIB_ROWS))
     D.reset_launches()
@@ -6463,9 +6834,11 @@ def main(argv=None) -> int:
     log("  predict and SHAP launched none of the kernels: %s, %s"
         % (paths["P"]["launches"], paths["Q"]["launches"]))
     torch.cuda.empty_cache()
+    mark()
     log("  (R) checkpoint and resume on (A)'s bins")
     paths["R"] = phase_checkpoint(device, data, ds)
     torch.cuda.empty_cache()
+    mark()
     log("  (W) telemetry and the serving tier: (W1) train() of (A)'s task "
         "with telemetry_out and metrics_port, (W2) serving (A)'s trees x%d "
         "to %d client threads with (C)'s resident beside it and a swap to "
@@ -6482,6 +6855,7 @@ def main(argv=None) -> int:
     del w_gbdt
     torch.cuda.empty_cache()
     log("  (W) took %.1f s" % (time.perf_counter() - t))
+    mark()
     log("  (X) the kernel planner and autotuner, MFU, alerts and profiler "
         "captures, the online train-while-serve loop (%d + %d x %d rows) "
         "and compaction of (A)'s trees x%d" % (
@@ -6491,34 +6865,40 @@ def main(argv=None) -> int:
                               paths["W1"])
     torch.cuda.empty_cache()
     del ds
+    mark()
     log("  (T) the C ABI at (A)'s shape through raw LGBM_* calls: %d rows x "
         "28 f64 features, (A)'s parameters, %d iterations" % (args.rows,
                                                                args.iters))
     capi = phase_capi(device, data, args.iters)
     paths["T"], paths["T2"] = capi["T"], capi["T2"]
+    mark()
     log("  (U) preemption and the watchdog: train() at (A)'s shape, "
         "SIGTERM after iteration %d, resumed; the CLI in a child process"
         % PREEMPT_AT)
     paths["U"] = phase_resilience(device, data, args.iters, capi.pop("text"))
     torch.cuda.empty_cache()
     del data
+    mark()
     log("  (D) Epsilon-shaped, lightgbm_tpu_torch.train with a validation "
         "set: %d + %d rows x %d features, max_bin=255, num_leaves=255, %d "
         "iterations" % (nw, args.widef_test_rows, WIDE_F, args.iters))
     paths["D"] = phase_epsilon(device, nw, args.widef_test_rows, args.iters,
                                args.profile)
     torch.cuda.empty_cache()
+    mark()
     log("  (O) histogram pool on (D)'s binned rows: histogram_pool_size=%d, "
         "%d iterations" % (POOL_MB, POOL_ITERS))
     paths["O"] = phase_pool(device, paths["D"], args.profile)
     del paths["D"]["train"], paths["D"]["models"]
     torch.cuda.empty_cache()
+    mark()
     log("  (H) lambdarank, MS LTR-shaped: %d rows x %d features, metric=ndcg,"
         " eval_at=1,3,5,10, max_bin=255, num_leaves=255, %d iterations"
         % (args.ltr_rows, LTR_F, args.iters))
     paths["H"] = phase_lambdarank(device, args.ltr_rows, args.iters,
                                   args.profile)
     torch.cuda.empty_cache()
+    mark()
     log("  (I) EFB, Allstate-shaped sparse data from CSR, "
         "lightgbm_tpu_torch.train with a validation set: %d + %d rows x %d "
         "features, (D)'s settings, %d iterations"
@@ -6526,6 +6906,7 @@ def main(argv=None) -> int:
     paths["I"] = phase_allstate(device, args.allstate_rows,
                                 ALLSTATE_TEST_ROWS, args.iters, args.profile)
     torch.cuda.empty_cache()
+    mark()
     log("  (J) categorical features, Expo-shaped: %d + %d rows x %d columns "
         "(%d categorical), (D)'s settings, %d iterations"
         % (args.expo_rows, EXPO_TEST_ROWS, len(EXPO_COLUMNS), len(EXPO_CATS),
@@ -6535,6 +6916,7 @@ def main(argv=None) -> int:
                                        min(args.iters, EXPO_ITERS),
                                        args.profile)
     torch.cuda.empty_cache()
+    mark()
     log("  (J2) (J)'s binned data: tree_grow_mode=level, "
         "hist_precision=quantized, monotone +1 on DepTime, extra_trees, "
         "max_cat_to_onehot=8, %d iterations" % J2_ITERS)
@@ -6542,9 +6924,11 @@ def main(argv=None) -> int:
                                       args.profile)
     del expo_sets
     torch.cuda.empty_cache()
+    mark()
     log("  (E) build_histogram")
     paths["E"] = phase_build_histogram(device, 1 << 20)
     torch.cuda.empty_cache()
+    mark()
     log("  (S) the CLI from text files: %d rows x 28 features, "
         "max_bin=255, num_leaves=255, %d iterations; the reference's "
         "example configs" % (CLI_ROWS, CLI_ITERS))
@@ -6554,6 +6938,7 @@ def main(argv=None) -> int:
         "(%s) %.4f" % (p, float(np.median(r["iter_s"])))
         for p, r in paths.items() if "iter_s" in r))
 
+    mark()
     log("[5] times (CUDA events, median)")
     times = phase_times(device, args.rows)
     times.update(times_widef(device, nw))
@@ -6600,6 +6985,9 @@ def main(argv=None) -> int:
              quantized_bound_ms=times["partition_q"]["bound_ms"],
              quantized_copy_ms=times["partition_q"]["copy_ms"],
              quantized_copy_queued_ms=times["partition_q"]["copy_queued_ms"],
+             quantized_window_ms=times["partition_q"]["window_ms"],
+             quantized_window_queued_ms=times["partition_q"][
+                 "window_queued_ms"],
              quantized_sizes=times["partition_q"]["sizes"],
              **times["partition"]),
         dict(name="histogram_int", route="cuda",

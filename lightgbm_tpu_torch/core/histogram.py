@@ -164,12 +164,21 @@ def histogram_rows_plain(rows: torch.Tensor, num_bins: int, start: int,
                       rows.device)
 
 
+def segment_cap(num_features: int, num_bins: int) -> int:
+    """The most row segments a launch over F features of B bins takes: at
+    most ``_MAX_SEGMENTS``, and as many as keep the f64 partials within
+    ``_PARTIAL_BUDGET``."""
+    cap = _PARTIAL_BUDGET // (num_features * 2 * num_bins * 8)
+    return max(1, min(_MAX_SEGMENTS, cap))
+
+
 def _segments(count: int, num_features: int, num_bins: int) -> int:
     """Row segments of a kernel launch over ``count`` rows: a function of
-    (count, F, B) only, so every launch of a window sums in the same order."""
-    cap = _PARTIAL_BUDGET // (num_features * 2 * num_bins * 8)
-    cap = max(1, min(_MAX_SEGMENTS, cap))
-    return max(1, min(cap, -(-count // _SEG_ROWS)))
+    (count, F, B) only, so every launch of a window sums in the same order
+    (``hist_window_segments`` in csrc/hist_common.cuh computes it on the
+    card from a window's count in device memory)."""
+    return max(1, min(segment_cap(num_features, num_bins),
+                      -(-count // _SEG_ROWS)))
 
 
 # rows one block of the integer kernel can sum: its int32 partial holds

@@ -33,7 +33,26 @@ Two versions of the one function:
   never written.
 
 :func:`partition_hist` takes the plain version only for a CPU tensor; for a
-CUDA tensor it launches the kernel or raises.  With ``quantized=True``
+CUDA tensor it launches the kernel or raises.
+
+The leaf-wise build keeps its whole state on the card, so its split pass
+takes the window as the TPU kernel takes it (scalar prefetch,
+partition.py:1090-1093 and :1130-1133), from a scal row in device memory
+that the host never reads::
+
+    partition_hist_window(rows, scal, work, ...) -> (hist [F, 2, B], nl [1])
+
+``scal`` is an int32 tensor on the store's device (no feature window), and
+``rows`` is partitioned in place.  :func:`window_workspace` sizes the
+launch's buffers once for the largest window (``work``): the grid, the
+scratch window, the tile counts and the histogram's partials.  A window of
+``wc = 0`` (a dead step of the build) leaves the store as it is, with a
+zero histogram and ``nl = 0``.  On the same window it equals
+:func:`partition_hist` bit for bit: the exact child histogram's blocks take
+from ``wc`` the segments that ``_segments`` gives the host-window launch.
+Its plain version, :func:`partition_hist_window_plain`, is
+:func:`partition_hist_plain` on the window's rows, which reads the scal
+row on the host.  With ``quantized=True``
 (``hist_precision=quantized``) the child histogram is the exact integer sum of
 the integer-valued g/h (``histogram.histogram_plain_int``, or the integer
 kernel ``csrc/hist_int.cuh`` on the card).
@@ -60,19 +79,20 @@ model and have no counterpart here.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Union
+from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from ..device import check_tensor, count_launch, count_routes, cuda_stream_ptr
+from ..device import (check_tensor, count_launch, count_routes,
+                      cuda_stream_ptr, route_counter)
 from ..io.binning import MissingType
 from ..plan import planner as _planner
 from ..plan import state as _plan_state
 from .histogram import (_segments, check_hist_shape,
                         check_int_segments, data_ptr, exact_partials,
                         histogram_rows_plain, int_accumulator, int_hist_grid,
-                        int_hist_grids)
+                        int_hist_grids, segment_cap)
 
 SCAL_HEAD = 12
 
@@ -271,6 +291,135 @@ def partition_hist(rows: torch.Tensor, scal: ScalLike, *, num_features: int,
     fn = partition_hist_cuda if rows.is_cuda else partition_hist_plain
     return fn(rows, scal, num_features=num_features, num_bins=num_bins,
               voff=voff, bpc=bpc, packed=packed, quantized=quantized)
+
+
+# ---- the window in device memory ----
+
+class WindowWork(NamedTuple):
+    """The buffers of :func:`partition_hist_window_cuda`, sized for windows
+    of up to ``bound`` rows of a ``[>= bound, W]`` store (one leaf-wise tree,
+    or a learner's trees, reuse them)."""
+    bound: int
+    tile: int                 # rows a tile (part_tile_rows of W)
+    nblk: int                 # tiles of a bound-row window
+    seg_cap: int              # exact: the most segments (segment_cap)
+    nseg: int                 # exact: segments of a bound-row window;
+    ft: int                   # quantized: the integer grid of the bound
+    quantized: bool
+    scratch: torch.Tensor     # [bound, W] u8
+    blk: torch.Tensor         # [nblk] i32 tile counts
+    win: torch.Tensor         # [2] i32, the child's {start, count}
+    partial: Optional[torch.Tensor]  # f64 partials or the int64 accumulator
+
+
+def window_workspace(rows: torch.Tensor, bound: int, *, num_features: int,
+                     num_bins: int, quantized: bool = False) -> WindowWork:
+    """The device-window split pass's buffers for windows of at most
+    ``bound`` rows of ``rows``' width, on its device, under the active
+    plan's tile (``part_tile_rows``)."""
+    W, dev = rows.shape[1], rows.device
+    F, B = num_features, num_bins
+    tile = part_tile_rows(W)
+    nblk = max(1, part_blocks(bound, W))
+    if quantized:
+        ft, nseg = int_hist_grid(max(bound, 1), F, B)
+        check_int_segments(bound, nseg)
+        cap, partial = 1, int_accumulator(nseg, F, B, dev)
+    else:
+        ft, nseg, cap = 0, _segments(bound, F, B), segment_cap(F, B)
+        partial = exact_partials(nseg, F, B, dev)
+    return WindowWork(
+        bound, tile, nblk, cap, nseg, ft, quantized,
+        torch.empty((max(bound, 1), W), dtype=torch.uint8, device=dev),
+        torch.empty((nblk,), dtype=torch.int32, device=dev),
+        torch.empty((2,), dtype=torch.int32, device=dev), partial)
+
+
+def partition_hist_window_plain(rows: torch.Tensor, scal: torch.Tensor,
+                                work: Optional[WindowWork] = None, *,
+                                num_features: int, num_bins: int, voff: int,
+                                bpc: int = 1, packed: bool = False,
+                                quantized: bool = False):
+    """Plain version: :func:`partition_hist_plain` on the rows of the
+    window ``scal`` names, written back over them (no other row is
+    written); reads ``scal`` on the host.  ``work`` is not used."""
+    s = _scal_host(scal, num_bins)
+    wb, wc = int(s[0]), int(s[1])
+    if not 0 <= wb <= wb + wc <= rows.shape[0]:
+        raise ValueError("window [%d, %d) outside %d rows"
+                         % (wb, wb + wc, rows.shape[0]))
+    local = s.clone()
+    local[0] = 0
+    part, hist, nl = partition_hist_plain(
+        rows[wb:wb + wc], local, num_features=num_features,
+        num_bins=num_bins, voff=voff, bpc=bpc, packed=packed,
+        quantized=quantized)
+    rows[wb:wb + wc] = part
+    return hist, nl
+
+
+def partition_hist_window_cuda(rows: torch.Tensor, scal: torch.Tensor,
+                               work: Optional[WindowWork] = None, *,
+                               num_features: int, num_bins: int, voff: int,
+                               bpc: int = 1, packed: bool = False,
+                               quantized: bool = False):
+    """Launch the split pass with its window in device memory
+    (``lgbt_partition_window``, ``csrc/partition.cu``); partitions
+    ``rows`` in place.  Reads nothing back and copies nothing to the card,
+    so a CUDA graph can capture it.  Every window must lie in the first
+    ``work.bound`` rows (the kernel does not check); ``work`` None makes
+    one for the whole store."""
+    from .. import kernels
+    _check_store(rows, voff, num_features, num_bins)
+    check_tensor(scal, "scal", torch.int32, ndim=1)
+    if scal.numel() != SCAL_HEAD + num_bins // 32:
+        raise ValueError("scal needs %d entries (12 + num_bins // 32, no "
+                         "feature window), got %d"
+                         % (SCAL_HEAD + num_bins // 32, scal.numel()))
+    if scal.device != rows.device:
+        raise ValueError("scal on %s, rows on %s" % (scal.device,
+                                                     rows.device))
+    check_feature_window(0, num_features, voff, bpc, packed)
+    n, W = rows.shape
+    if work is None:
+        work = window_workspace(rows, n, num_features=num_features,
+                                num_bins=num_bins, quantized=quantized)
+    if (work.scratch.shape[1] != W or work.bound > n
+            or work.quantized != quantized
+            or work.scratch.device != rows.device):
+        raise ValueError("the workspace was made for another store or "
+                         "precision")
+    dev = rows.device
+    hist = torch.empty((num_features, 2, num_bins), dtype=torch.float32,
+                       device=dev)
+    nl = torch.empty((1,), dtype=torch.int32, device=dev)
+    err = kernels.library("partition").lgbt_partition_window(
+        rows.data_ptr(), work.scratch.data_ptr(), W, scal.data_ptr(),
+        work.bound, bpc, int(packed), num_bins // 32, num_features, num_bins,
+        voff, work.nblk, work.tile, work.blk.data_ptr(), work.win.data_ptr(),
+        nl.data_ptr(), work.seg_cap, work.nseg, work.ft, int(quantized),
+        data_ptr(work.partial), hist.data_ptr(),
+        route_counter(dev).data_ptr(), cuda_stream_ptr(rows))
+    count_launch("partition")
+    kernels.check(err, "partition kernel")
+    return hist, nl
+
+
+def partition_hist_window(rows: torch.Tensor, scal: torch.Tensor,
+                          work: Optional[WindowWork] = None, *,
+                          num_features: int, num_bins: int, voff: int,
+                          bpc: int = 1, packed: bool = False,
+                          quantized: bool = False):
+    """Split pass of the window the scal tensor names -> (hist [F, 2, B]
+    f32, nl [1] i32), ``rows`` partitioned in place.
+
+    A CUDA tensor goes through the kernel (one launch, sized by ``work``)
+    or raises; a CPU tensor through the plain version."""
+    fn = (partition_hist_window_cuda if rows.is_cuda
+          else partition_hist_window_plain)
+    return fn(rows, scal, work, num_features=num_features,
+              num_bins=num_bins, voff=voff, bpc=bpc, packed=packed,
+              quantized=quantized)
 
 
 # ---- level-batched pass ----

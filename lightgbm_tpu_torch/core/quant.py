@@ -61,7 +61,7 @@ def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
     f32 = torch.float32
     grad = grad.to(f32)
     hess = hess.to(f32)
-    tiny = torch.tensor(1e-30, dtype=f32, device=grad.device)
+    tiny = torch.full((), 1e-30, dtype=f32, device=grad.device)
     maxima = torch.stack([grad.abs().max(), hess.max()])
     if comm is not None:
         maxima = comm.all_reduce_max(maxima)
@@ -69,7 +69,8 @@ def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
     s_h = torch.maximum(maxima[1], tiny) / HESS_LEVELS
     u_g = quant_uniforms(row_ids, seed, it)
     # the hessian reuses the grad stream reflected: 1 - 2**-24 - u_g
-    u_h = torch.tensor(1.0 - 2.0 ** -24, dtype=f32, device=grad.device) - u_g
+    u_h = torch.full((), 1.0 - 2.0 ** -24, dtype=f32,
+                     device=grad.device) - u_g
     q_g = torch.clamp(torch.floor(grad / s_g + u_g), -GRAD_LEVELS, GRAD_LEVELS)
     q_h = torch.clamp(torch.floor(hess / s_h + u_h), 0, HESS_LEVELS)
     zero = torch.zeros((), dtype=f32, device=grad.device)

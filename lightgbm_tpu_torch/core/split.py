@@ -194,9 +194,9 @@ def _extra_trees_mask(feat: FeatureInfo, sum_grad, sum_hess, t,
     F = feat.num_bin.shape[0]
     fid = torch.arange(F, dtype=torch.int64, device=t.device)
     x = _mul32(fid, 2654435761)
-    seed = _mul32(torch.tensor(params.extra_seed & _M32, dtype=torch.int64),
-                  0x9E3779B9)
-    x = x ^ ((salt[..., None] + seed.to(t.device)) & _M32)
+    # a host int: no host->device copy inside a split step
+    seed = (params.extra_seed & _M32) * 0x9E3779B9 & _M32
+    x = x ^ ((salt[..., None] + seed) & _M32)
     x = _avalanche_u32(x)
     ncand = torch.clamp(feat.num_bin - 1, min=1).to(torch.int64)
     rbin = torch.remainder(x, ncand)
@@ -519,8 +519,8 @@ def per_feature_best_categorical(hist: torch.Tensor, feat: FeatureInfo,
     l_g = torch.where(oh, torch.gather(g, -1, oh_t)[..., 0], so_lg)
     l_h = torch.where(oh, torch.gather(h, -1, oh_t)[..., 0] + K_EPSILON, so_lh)
     l_c = torch.where(oh, torch.gather(cnt, -1, oh_t)[..., 0], so_lc)
-    eff_l2 = torch.where(oh, torch.tensor(p.lambda_l2, dtype=f32, device=dev),
-                         torch.tensor(l2c, dtype=f32, device=dev))
+    eff_l2 = torch.where(oh, torch.full((), p.lambda_l2, dtype=f32, device=dev),
+                         torch.full((), l2c, dtype=f32, device=dev))
     r_g = total_g - l_g
     r_h = total_h - l_h
     r_c = num_data_f - l_c

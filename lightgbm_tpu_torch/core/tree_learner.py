@@ -9,7 +9,15 @@ Two growth modes:
   best cached split, run the fused split pass on its window (route + stable
   partition + smaller child's histogram, ``core/partition.py``), derive the
   sibling's histogram by subtraction (serial_tree_learner.cpp:347-356), and
-  cache both children's best splits.
+  cache both children's best splits.  Serial leaf-wise growth runs on the
+  device (:class:`_DeviceGrowth`), as the JAX package compiles it into one
+  ``fori_loop`` with no host round trip between splits
+  (tree_learner.py:9-13, :852-1351): L - 1 steps whose state stays in
+  device tensors, the leaf chosen by an ``argmax`` there, the split pass
+  reading its window from a scal row in device memory
+  (``partition_hist_window``), a step whose leaf cannot split run on an
+  empty window with every write dropped, and the tree read back once at
+  its end.
 - ``tree_grow_mode=level`` (``level_step``, tree_learner.py:1122-1324):
   per depth, split every leaf of the frontier with a positive gain through
   one level-batched split pass over all their windows and one batched split
@@ -25,12 +33,16 @@ iteration's stochastically rounded integer gradients; every histogram is an
 exact integer sum, dequantized before it is cached, so the subtraction trick
 and the split scan run on real f32 sums.
 
-Where the JAX package compiles the whole tree into one program, growth here
-is a host loop with device tensors: the row store, the per-leaf histogram
-cache and the split scans live on the device, and each step brings back one
-small tensor (the children's best splits and the left counts) that the host
-bookkeeping needs.  The tree arrays themselves are host numpy arrays in
-f32/i32, so the bookkeeping does the JAX program's f32 arithmetic.
+Which build runs when (:func:`grows_on_device`): the device build for
+serial leaf-wise growth; the host loop (:class:`_Growth`) for forced splits,
+CEGB, the histogram pool and the parallel learners, whose steps take host
+decisions (the forced schedule, the CEGB refund, the pool's slots) or run
+collectives, and for level growth (8 steps a 255-leaf tree).  The host loop
+keeps the row store, the per-leaf histogram cache and the split scans on
+the device, brings back one small tensor a step (the children's best
+splits and the left counts) and does the bookkeeping in host numpy f32/i32;
+the device build does the same f32 operations in the same order on the
+device, so both give the same trees byte for byte.
 
 On an EFB-bundled dataset the row store holds the group columns
 (``dataset.binned``) and the histograms, the per-leaf cache among them, are
@@ -95,8 +107,9 @@ from ..device import DeviceLike, resolve_device
 from ..io.binning import BinType, MissingType
 from ..io.dataset import BinnedDataset
 from .histogram import histogram_rows, pad_bins_pow2
-from .partition import (SCAL_HEAD, partition_hist, partition_hist_level,
-                        scal_missing_code)
+from .partition import (SCAL_HEAD, part_tile_rows, partition_hist,
+                        partition_hist_level, partition_hist_window,
+                        scal_missing_code, window_workspace)
 from .quant import quantize_gradients
 from .split import (K_MIN_SCORE, BestSplit, FeatureBest, FeatureInfo,
                     SplitParams, apply_feature_contri, best_split,
@@ -149,7 +162,13 @@ class TreeArrays(NamedTuple):
 
     Host numpy arrays, except ``row_leaf``: the final leaf of every row, a
     device tensor [N] i64.  ``host_fetches`` counts the device->host
-    transfers the build made, ``levels`` its level steps (0 leaf-wise)."""
+    transfers the build made: one for a tree of the device build (its
+    arrays, in one packed transfer at its end; nothing between splits), one
+    a split (and one for the root) in the host loop, one a level (and one
+    for the root) in level growth.  ``levels`` counts its level steps (0
+    leaf-wise), ``split_passes`` its split passes: L - 1 in the device build
+    (dead steps included), one a split in the host loop, one a level in
+    level growth."""
     split_feature: np.ndarray    # [L] i32, inner feature index
     threshold_bin: np.ndarray    # [L] i32
     split_gain: np.ndarray       # [L] f32
@@ -174,6 +193,7 @@ class TreeArrays(NamedTuple):
     # lazy CEGB: the paid bits after this tree, [N, ceil(F / 8)] u8 in
     # original row order
     paid_bits: Optional[torch.Tensor] = None
+    split_passes: int = 0
 
 
 class RowLayout(NamedTuple):
@@ -293,13 +313,21 @@ def store_order(rows: torch.Tensor, layout: RowLayout, n: int
 _SCALAR_FIELDS = tuple(f for f in BestSplit._fields if f != "cat_bitset")
 
 
+def _pack_best(best: BestSplit) -> torch.Tensor:
+    """A (batched) BestSplit as f64 rows [..., 12 + words]: the scalar
+    fields in ``_SCALAR_FIELDS`` order, then the bitset words.  The scalars
+    are stacked as f32 (the ids and thresholds, below 2**24, and the flags
+    are exact there), the 32-bit words in f64."""
+    return torch.cat([torch.stack([getattr(best, f) for f in _SCALAR_FIELDS],
+                                  dim=-1).double(),
+                      best.cat_bitset.double()], dim=-1)
+
+
 def _to_host(best: BestSplit, extra: torch.Tensor):
     """One device->host transfer of a (batched) BestSplit, f32 exact, plus
     the values of ``extra`` (integers, 32-bit bitset words and f32 are exact
     in f64)."""
-    packed = torch.cat([torch.stack([getattr(best, f).to(torch.float64)
-                                     for f in _SCALAR_FIELDS], dim=-1),
-                        best.cat_bitset.to(torch.float64)], dim=-1)
+    packed = _pack_best(best)
     width = packed.shape[-1]
     packed = torch.cat([packed.reshape(-1),
                         extra.to(torch.float64).reshape(-1)])
@@ -369,6 +397,42 @@ def unpack_groups(hist: torch.Tensor, group: torch.Tensor, lanes: tuple,
     return hf
 
 
+def scan_best(sc: SplitScan, hist: torch.Tensor, sum_grad, sum_hess, count,
+              cmin=None, cmax=None) -> BestSplit:
+    """The serial learner's best splits of leaves (the JAX learner's
+    ``best_of`` without CEGB): the group histograms unpacked on a bundled
+    dataset, then :func:`best_split` with the monotone bounds (when a
+    feature is constrained) and ``feature_contri``.  The totals, counts and
+    bounds are f32 tensors [...]."""
+    if sc.lanes is not None:
+        hist = unpack_groups(hist, sc.feat.group, sc.lanes, sum_grad, sum_hess)
+    bounds = dict(cmin=cmin, cmax=cmax) if sc.monotone else {}
+    return best_split(hist, sc.feat, sc.feature_mask, sum_grad, sum_hess,
+                      count, sc.params, any_categorical=sc.categorical,
+                      contri=sc.contri, **bounds)
+
+
+def scal_table(feat_host: dict) -> np.ndarray:
+    """[F, 12] int64: each feature's own entries of a scal row (its column,
+    or its group's with ``use_unfold`` and its first group code, the scal
+    missing code, ``num_bin``, ``default_bin``, ``is_cat``), 0 at the
+    split's entries (the window, threshold, default_left and the
+    histogrammed side; tree_learner.py:893-907)."""
+    fh = feat_host
+    F = len(fh["num_bin"])
+    t = np.zeros((F, SCAL_HEAD), dtype=np.int64)
+    grouped = fh["group"] is not None
+    t[:, 2] = fh["group"] if grouped else np.arange(F)
+    t[:, 5] = [scal_missing_code(m) for m in fh["missing_type"]]
+    t[:, 6] = fh["num_bin"]
+    t[:, 7] = fh["default_bin"]
+    t[:, 8] = fh["is_cat"]
+    if grouped:
+        t[:, 10] = 1
+        t[:, 11] = fh["offset"]
+    return t
+
+
 class CegbState(NamedTuple):
     """The CEGB penalties of one tree (``_init_cegb``, tree_learner.py:
     1706-1732, scaled by ``cegb_tradeoff``, over the used features) and the
@@ -427,6 +491,7 @@ class _Growth:
         # growth partitions ``rows`` alone
         self.stores = None if spare is None else (rows, spare)
         self.scan, self.feat_host = scan, feat_host
+        self.table = scal_table(feat_host)
         self.layout, self.qscale = layout, qscale
         self.hist_fn, self.part_fn, self.level_fn = hist_fn, part_fn, level_fn
         self.comm = comm
@@ -598,16 +663,14 @@ class _Growth:
         sh = torch.as_tensor(sum_hess, dtype=torch.float32, device=dev)
         if self.shard is not None or self.mode == "voting":
             return self._parallel_best(hist, sg, sh, count, cmin, cmax), None
-        if sc.lanes is not None:
-            hist = unpack_groups(hist, sc.feat.group, sc.lanes, sg, sh)
         bounds = {}
         if sc.monotone:
             bounds = dict(cmin=torch.as_tensor(cmin, device=dev),
                           cmax=torch.as_tensor(cmax, device=dev))
         if self.cegb is None:
-            return best_split(hist, sc.feat, sc.feature_mask, sg, sh, count,
-                              sc.params, any_categorical=sc.categorical,
-                              contri=sc.contri, **bounds), None
+            return scan_best(sc, hist, sg, sh, count, **bounds), None
+        if sc.lanes is not None:
+            hist = unpack_groups(hist, sc.feat.group, sc.lanes, sg, sh)
         fb = apply_feature_contri(per_feature_best_combined(
             hist, sc.feat, sc.feature_mask, sg, sh, count, sc.params,
             sc.categorical, **bounds), sc.contri)
@@ -691,7 +754,6 @@ class _Growth:
         split feature's column (its group's on a bundled dataset, with
         ``use_unfold`` and its first group code), route and bitset words
         (tree_learner.py:890-910)."""
-        fh = self.feat_host
         fid = np.asarray(b["feature"], np.int64)
         # feature mode: the trailing hist_feature_begin (tree_learner.py:
         # 908-912)
@@ -700,20 +762,12 @@ class _Growth:
                         dtype=np.int64)
         if window:
             scal[:, -1] = self.f0
-        grouped = fh["group"] is not None
+        scal[:, :SCAL_HEAD] = self.table[fid]
         scal[:, 0] = wb
         scal[:, 1] = wc
-        scal[:, 2] = fh["group"][fid] if grouped else fid
         scal[:, 3] = b["threshold"]
         scal[:, 4] = b["default_left"]
-        scal[:, 5] = [scal_missing_code(m) for m in fh["missing_type"][fid]]
-        scal[:, 6] = fh["num_bin"][fid]
-        scal[:, 7] = fh["default_bin"][fid]
-        scal[:, 8] = fh["is_cat"][fid]
         scal[:, 9] = left_smaller
-        if grouped:
-            scal[:, 10] = 1
-            scal[:, 11] = fh["offset"][fid]
         # the words as the int32 bit patterns the kernels read
         words = b["cat_bitset"]
         words = np.where(words >= 2 ** 31, words - 2 ** 32, words)
@@ -1076,7 +1130,262 @@ class _Growth:
             leaf_parent=self.leaf_parent, leaf_depth=self.leaf_depth,
             cat_bitset=self.cat_bitset, num_leaves=self.nl_leaves,
             row_leaf=row_leaf, host_fetches=self.fetches,
-            levels=self.levels, pool_misses=self.misses, paid_bits=paid)
+            levels=self.levels, pool_misses=self.misses, paid_bits=paid,
+            split_passes=(self.levels if self.stores is not None
+                          else self.nl_leaves - 1))
+
+
+# columns of the device build's records: a packed BestSplit (_pack_best),
+# then per node and per leaf (_DeviceGrowth)
+_B = {f: i for i, f in enumerate(_SCALAR_FIELDS)}
+_WORDS = len(_SCALAR_FIELDS)           # the bitset words start here
+_NODE_IV, _NODE_WORDS = 4, 7           # node: gain, feature, threshold,
+                                       # default_left, internal value, weight,
+                                       # count, then the words
+_LEAF = ("value", "weight", "count", "parent", "depth")
+_PARENT, _DEPTH = _LEAF.index("parent"), _LEAF.index("depth")
+
+
+class _DeviceGrowth:
+    """One leaf-wise tree grown on the device, with no host round trip
+    between splits: the JAX build's ``fori_loop`` (``body``,
+    tree_learner.py:852-1309).  Each :meth:`step` picks the leaf of best
+    cached gain with an ``argmax`` on the device (masked by ``max_depth``),
+    builds the split pass's scal row there from the learner's per-feature
+    table (:func:`scal_table`), runs the split pass on the window that row
+    names (``window_fn``, :func:`partition_hist_window`), derives the
+    sibling by subtraction and scans both children.  The state lives in
+    device tensors with one row per leaf (or node) and a last row, L, that
+    a dead step writes instead (the JAX build's masked ``sel``, as its
+    level step drops writes at index L): a step whose leaf cannot split
+    still runs, on an empty window, and changes nothing.  ``cont`` makes a
+    failed step final, as the host loop's ``break`` does.  Every update is
+    in place, so one step can be captured in a CUDA graph and replayed.
+
+    The records: ``best`` the leaves' cached best splits
+    (:func:`_pack_best` rows, f64), ``node`` [L + 1, 7 + words] f64 (gain,
+    feature, threshold, default_left, internal value, weight and count, the
+    bitset words), ``leaf`` [L + 1, 5] f64 (``_LEAF``), ``child`` [L + 1, 2]
+    i64, ``win`` [L + 1, 2] i64 (window begin, count), ``cmin``/``cmax``
+    the monotone bounds, ``hist`` the per-leaf histogram cache.  The f32
+    bookkeeping is the host loop's, in the same order (``internal_count``
+    as ``left_count + right_count``, ``(lo + ro) * 0.5``, ``nan_to_num`` of
+    the outputs), so both builds give the same bytes.  :meth:`finish` reads
+    the tree back in one transfer."""
+
+    def __init__(self, rows, grad, hess, num_data, scan: SplitScan,
+                 table: torch.Tensor, *, num_leaves, max_depth, num_bins,
+                 layout, hist_features, packed, qscale, hist_fn, window_fn,
+                 work):
+        n = grad.shape[0]
+        L = num_leaves
+        dev = rows.device
+        f32, f64, i64 = torch.float32, torch.float64, torch.int64
+        self.rows, self.n, self.L, self.B, self.dev = rows, n, L, num_bins, dev
+        self.scan, self.table, self.layout = scan, table, layout
+        self.max_depth, self.qscale = max_depth, qscale
+        self.window_fn, self.work = window_fn, work
+        self.hkw = dict(num_features=hist_features, voff=layout.voff,
+                        bpc=layout.bpc, packed=packed,
+                        quantized=qscale is not None)
+        hist0 = hist_fn(rows, num_bins, 0, n, **self.hkw)
+        if qscale is None:
+            sums = torch.stack([grad.sum(), hess.sum()]).to(f32)
+        else:
+            hist0 = dequantize_hist(hist0, qscale)
+            sums = torch.stack([grad.double().sum(),
+                                hess.double().sum()]).float() * qscale
+        count0 = (num_data.to(f32).reshape(())
+                  if isinstance(num_data, torch.Tensor)
+                  else torch.full((), float(num_data), dtype=f32,
+                                  device=dev))
+        self.cmin = torch.full((L + 1,), -np.inf, dtype=f32, device=dev)
+        self.cmax = torch.full((L + 1,), np.inf, dtype=f32, device=dev)
+        best0 = scan_best(scan, hist0, sums[0], sums[1], count0,
+                          self.cmin[0], self.cmax[0])
+        words = best0.cat_bitset.shape[-1]
+        # no leaf but the root has a split until its best is cached
+        self.best = torch.zeros((L + 1, _WORDS + words), dtype=f64,
+                                device=dev)
+        self.best[:, _B["gain"]] = K_MIN_SCORE
+        self.best[0] = _pack_best(best0)
+        self.hist = torch.zeros((L + 1,) + tuple(hist0.shape), dtype=f32,
+                                device=dev)
+        self.hist[0] = hist0
+        self.node = torch.zeros((L + 1, _NODE_WORDS + words), dtype=f64,
+                                device=dev)
+        self.leaf = torch.zeros((L + 1, len(_LEAF)), dtype=f64, device=dev)
+        self.leaf[:, _PARENT] = -1
+        self.leaf[0, 1] = sums[1]           # the root's weight and count
+        self.leaf[0, 2] = count0
+        self.child = torch.zeros((L + 1, 2), dtype=i64, device=dev)
+        self.win = torch.zeros((L + 1, 2), dtype=i64, device=dev)
+        self.win[0, 1] = n
+        # the scal row's bitset words past the scan's (a group histogram
+        # may be wider than any feature's)
+        self.pad = torch.zeros(num_bins // 32 - words, dtype=i64, device=dev)
+        self.k = torch.ones((), dtype=i64, device=dev)      # this step's kid
+        self.leaves = torch.ones((), dtype=i64, device=dev)
+        self.cont = torch.ones((), dtype=torch.bool, device=dev)
+        self.pair = torch.arange(2, device=dev)
+
+    def step(self) -> None:
+        """One split, or a dead step (tree_learner.py:852-1309).  Device
+        indices are 1-element tensors: indexing with a 0-d CUDA tensor
+        would read it back."""
+        L, sc = self.L, self.scan
+        f32 = torch.float32
+        gains = self.best[:L, _B["gain"]]
+        if self.max_depth > 0:
+            gains = torch.where(self.leaf[:L, _DEPTH] < self.max_depth,
+                                gains, K_MIN_SCORE)
+        gmax, leaf = gains.max(0)               # the first of the best
+        ok = (gmax > 0.0) & self.cont
+        self.cont.copy_(ok)
+        k = self.k
+        li = leaf.view(1)
+        # the rows this step writes: the sink row L on a dead step
+        kids = torch.where(ok, torch.stack([leaf, k]), L)
+        node_w = torch.where(ok, k - 1, L).view(1)
+        b = self.best[li][0]
+        w = self.win[li][0] * ok                # (wb, wc); (0, 0) when dead
+        left_smaller = b[_B["left_count"]] <= b[_B["right_count"]]
+        fid = b[_B["feature"]].long().view(1)
+        head = self.table[fid][0]
+        words = b[_WORDS:].long()
+        words = words - ((words >> 31) << 32)  # the int32 bit patterns
+        scal = torch.cat([w, head[2:3], b[2:4].long(), head[5:9],
+                          left_smaller.long()[None], head[10:12], words,
+                          self.pad]).to(torch.int32)
+        hist_small, nl = self.window_fn(self.rows, scal, self.work,
+                                        num_bins=self.B, **self.hkw)
+        if self.qscale is not None:
+            hist_small = dequantize_hist(hist_small, self.qscale)
+        hist_larger = self.hist[li][0] - hist_small
+        hist_left = torch.where(left_smaller, hist_small, hist_larger)
+        hist_right = torch.where(left_smaller, hist_larger, hist_small)
+        self.hist[kids] = torch.stack([hist_left, hist_right])
+
+        bounds = (None, None)
+        if sc.monotone:
+            # tree_learner.py:984-997
+            pmin, pmax = self.cmin[li], self.cmax[li]
+            mono = sc.feat.monotone[fid]
+            is_num = ~sc.feat.is_categorical[fid]
+            out = b[_B["left_output"]:_B["right_output"] + 1].to(f32)
+            mid = (out[0] + out[1]) * 0.5
+            lo, hi = is_num & (mono < 0), is_num & (mono > 0)
+            bounds = (torch.cat([torch.where(lo, torch.maximum(pmin, mid),
+                                             pmin),
+                                 torch.where(hi, torch.maximum(pmin, mid),
+                                             pmin)]),
+                      torch.cat([torch.where(hi, torch.minimum(pmax, mid),
+                                             pmax),
+                                 torch.where(lo, torch.minimum(pmax, mid),
+                                             pmax)]))
+            self.cmin[kids] = bounds[0]
+            self.cmax[kids] = bounds[1]
+        # (left, right) of the children's sums and counts
+        sg, sh, cnt = (b[_B[f]:_B[f] + 4:3].to(f32)
+                       for f in ("left_sum_grad", "left_sum_hess",
+                                 "left_count"))
+        child = scan_best(sc, torch.stack([hist_left, hist_right]), sg, sh,
+                          cnt, *bounds)
+        self.best[kids] = _pack_best(child)
+
+        # parent child-pointer fixup (tree.h:338-346)
+        rec = self.leaf[li][0]
+        par = rec[_PARENT].long().view(1)
+        pidx = par.clamp(min=0)
+        fix = ok & (par >= 0) & (self.child[pidx][0] == ~leaf)
+        self.child[torch.where(fix, pidx, L), self.pair] = k - 1
+        self.child[node_w] = torch.stack([~leaf, ~k])[None]
+        icount = (b[_B["left_count"]].to(f32) + b[_B["right_count"]].to(f32))
+        # the node: the split, the leaf's value and weight, the count
+        self.node[node_w] = torch.cat([b[:_NODE_IV], rec[:2],
+                                       icount.double()[None],
+                                       b[_WORDS:]])[None]
+        outs = torch.nan_to_num(b[_B["left_output"]:_B["right_output"] + 1]
+                                .to(f32)).double()
+        self.leaf[kids] = torch.stack([
+            outs, sh.double(), cnt.double(), (k - 1).double().expand(2),
+            (rec[_DEPTH] + 1).expand(2)], 1)
+        # the left child keeps the parent's window start
+        nl = nl.reshape(()).long()
+        self.win[kids] = torch.stack([w[0], nl, w[0] + nl,
+                                      w[1] - nl]).reshape(2, 2)
+        self.leaves.add_(ok.long())
+        self.k.add_(1)
+
+    def grow(self) -> None:
+        """The tree's L - 1 steps (each a split pass), dead ones
+        included."""
+        for _ in range(1, self.L):
+            self.step()
+
+    def finish(self, carried: bool = False, score_rate=None):
+        """The grown tree: the per-row leaf from the window marks and a
+        forward fill over the store positions (tree_learner.py:1328-1336),
+        and with ``carried`` the score column plus each window's leaf value
+        times ``score_rate`` instead (:1337-1351; a tree that did not split
+        adds nothing).  Then the tree arrays in one transfer.  Returns the
+        TreeArrays (``row_leaf`` empty when ``carried``), and the store with
+        ``carried``."""
+        n, L, dev, layout = self.n, self.L, self.dev, self.layout
+        begin, count = self.win[:L, 0], self.win[:L, 1]
+        marks = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+        marks[torch.where(count > 0, begin, n)] = torch.arange(
+            1, L + 1, device=dev)
+        marks = marks[:n]
+        pos = torch.arange(n, device=dev)
+        last = torch.cummax(torch.where(marks > 0, pos, 0), 0).values
+        leaf_of_pos = marks[last] - 1
+        if carried:
+            lv = (self.leaf[:L, 0].to(torch.float32)
+                  * float(np.float32(score_rate)))
+            store_f32(self.rows, layout.soff, n).add_(torch.where(
+                self.leaves > 1, lv[leaf_of_pos], -0.0))
+            row_leaf = torch.zeros(0, dtype=torch.int64, device=dev)
+        else:
+            row_leaf = torch.empty(n, dtype=torch.int64, device=dev)
+            row_leaf[store_order(self.rows, layout, n)] = leaf_of_pos
+        # the tree's one device->host transfer
+        host = torch.cat([self.node[:L].reshape(-1), self.leaf[:L].reshape(-1),
+                          self.child[:L].double().reshape(-1),
+                          self.leaves.double()[None]]).cpu().numpy()
+        nodes, rest = np.split(host, [self.node[:L].numel()])
+        nodes = nodes.reshape(L, -1)
+        leaves = rest[:L * len(_LEAF)].reshape(L, -1)
+        child = rest[L * len(_LEAF):-1].reshape(L, 2)
+        f32, i32 = np.float32, np.int32
+        arrays = TreeArrays(
+            split_feature=nodes[:, 1].astype(i32),
+            threshold_bin=nodes[:, 2].astype(i32),
+            split_gain=nodes[:, 0].astype(f32),
+            default_left=nodes[:, 3] != 0,
+            left_child=child[:, 0].astype(i32),
+            right_child=child[:, 1].astype(i32),
+            internal_value=nodes[:, 4].astype(f32),
+            internal_weight=nodes[:, 5].astype(f32),
+            internal_count=nodes[:, 6].astype(f32),
+            leaf_value=leaves[:, 0].astype(f32),
+            leaf_weight=leaves[:, 1].astype(f32),
+            leaf_count=leaves[:, 2].astype(f32),
+            leaf_parent=leaves[:, 3].astype(i32),
+            leaf_depth=leaves[:, 4].astype(i32),
+            cat_bitset=nodes[:, _NODE_WORDS:].astype(np.int64),
+            num_leaves=int(host[-1]), row_leaf=row_leaf, host_fetches=1,
+            split_passes=L - 1)
+        return (arrays, self.rows) if carried else arrays
+
+
+def grows_on_device(grow_mode: str, forced=None, cegb=None,
+                    pool_slots: int = 0, comm: Optional[Comm] = None) -> bool:
+    """Whether :func:`build_tree_partitioned` grows the tree on the device
+    (:class:`_DeviceGrowth`): serial leaf-wise growth with no forced
+    splits, CEGB or histogram pool, whose steps take no host decision."""
+    return (grow_mode == "leaf" and comm is None and forced is None
+            and cegb is None and pool_slots <= 0)
 
 
 def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
@@ -1096,7 +1405,10 @@ def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
                            cegb: Optional[CegbState] = None,
                            pool_slots: int = 0,
                            comm: Optional[Comm] = None,
-                           carried: bool = False, score_rate=None):
+                           carried: bool = False, score_rate=None,
+                           window_fn=partition_hist_window,
+                           table: Optional[torch.Tensor] = None,
+                           work=None, host_loop: bool = False):
     """Grow one tree; ``rows`` is the filled row store (it is partitioned in
     place on the card).  ``num_data`` is the in-bag count, an int or a
     device scalar (read back with the root's sums).  Level growth also
@@ -1134,6 +1446,20 @@ def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
     (the tree with an empty ``row_leaf``, the store holding every row);
     otherwise it returns the tree alone.  Serial growth only, without lazy
     CEGB.
+
+    Which build runs: serial leaf-wise growth with no forced splits, CEGB
+    or histogram pool grows on the device (:class:`_DeviceGrowth`, the JAX
+    build's loop): L - 1 steps that read nothing back, the split passes
+    through ``window_fn`` (:func:`partition_hist_window` or a plain
+    version) on ``work`` (:func:`window_workspace` for the store; None on
+    the CPU), the scal rows gathered from ``table`` (the device form of
+    :func:`scal_table`), and the tree read back once.  The other builds
+    take neither.
+    Forced splits, CEGB, the pool and the parallel learners take decisions
+    on the host inside a step (or collectives), so they grow in the host
+    loop (:class:`_Growth`, one read-back a split, ``part_fn``), and so
+    does level growth.  ``host_loop`` forces the host loop: for checks
+    only, which rebuild a device-built tree with it.
     """
     if carried and (comm is not None or not layout.carried
                     or (cegb is not None and cegb.lazy is not None)):
@@ -1157,6 +1483,19 @@ def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
                          "leaf-wise only")
     scan = SplitScan(feat, feature_mask, params, categorical, monotone,
                      contri_scale(params, feature_mask.device), lanes)
+    if not host_loop and grows_on_device(grow_mode, forced, cegb,
+                                         pool_slots, comm):
+        if table is None or (work is None and rows.is_cuda):
+            raise ValueError("the device build needs the learner's scal "
+                             "table and, on the card, its window workspace")
+        g = _DeviceGrowth(rows, grad, hess, num_data, scan, table,
+                          num_leaves=num_leaves, max_depth=max_depth,
+                          num_bins=num_bins, layout=layout,
+                          hist_features=hist_features, packed=packed,
+                          qscale=qscale, hist_fn=hist_fn, window_fn=window_fn,
+                          work=work)
+        g.grow()
+        return g.finish(carried, score_rate)
     g = _Growth(rows, grad, hess, num_data, scan, feat_host,
                 num_leaves=num_leaves, num_bins=num_bins, layout=layout,
                 hist_features=hist_features, packed=packed, qscale=qscale,
@@ -1423,6 +1762,11 @@ class SerialTreeLearner:
             monotone=t(mono), group=t(fh["group"]), offset=t(fh["offset"]))
         self.lanes = (unpack_lanes(dataset, self.num_bins, self.feat_bins,
                                    dev) if self.grouped else None)
+        # the device build's per-feature scal entries (scal_table)
+        self.scal_table = torch.as_tensor(scal_table(self.feat_host),
+                                          device=dev)
+        # its split pass's buffers (window_workspace), kept between trees
+        self._window_work = None
         matrix = self._route_matrix(dataset)
         self.num_columns = matrix.shape[1]
         # this process's rows and columns of the row store
@@ -1665,10 +2009,16 @@ class SerialTreeLearner:
         """Level steps of a tree_grow_mode=level build (its schedule)."""
         return level_count(self.num_leaves, self.max_depth)
 
+    def grows_on_device(self) -> bool:
+        """Whether this learner's trees grow on the device
+        (:func:`grows_on_device` of its configuration)."""
+        return grows_on_device(self.effective_grow_mode(), self.forced,
+                               self.cegb, self.hist_pool_slots, self.comm)
+
     def launches_per_tree(self) -> int:
         """Split-pass launches one tree makes at most: one per level in
-        level mode (whatever the window sizes), L - 1 leaf-wise
-        (tree_learner.py:1834-1848)."""
+        level mode (whatever the window sizes), L - 1 leaf-wise, exactly
+        so in the device build (tree_learner.py:1834-1848)."""
         if self.effective_grow_mode() == "level":
             return self.level_count()
         return self.num_leaves - 1
@@ -1679,13 +2029,15 @@ class SerialTreeLearner:
               hist_fn=histogram_rows, part_fn=partition_hist,
               level_fn=partition_hist_level, *, carried: bool = False,
               rows_carry: Optional[torch.Tensor] = None, extra=None,
-              score_rate=None):
+              score_rate=None, window_fn=partition_hist_window,
+              host_loop: bool = False):
         """grad/hess: [N] f32 on the learner's device.  ``num_data_in_bag``
         is an int or a device scalar.  ``iteration`` keys the quantized
         path's rounding hash (ignored when exact);
-        ``hist_fn``/``part_fn``/``level_fn`` as in
-        :func:`build_tree_partitioned`.  With CEGB, the features this tree
-        splits on (and the lazy paid bits) carry over to the next call.
+        ``hist_fn``/``part_fn``/``level_fn``/``window_fn`` and
+        ``host_loop`` (checks only) as in :func:`build_tree_partitioned`.
+        With CEGB, the features this tree splits on (and the lazy paid
+        bits) carry over to the next call.
 
         ``carried`` grows on the fused chunk's carried store
         (:meth:`row_layout` ``(carried=True)``; gbdt.py:814-925): with
@@ -1741,13 +2093,13 @@ class SerialTreeLearner:
             arrays = self._build(rows, grad, hess, num_data_in_bag,
                                  feature_mask, grow_mode, qscale, hist_fn,
                                  part_fn, level_fn, cegb, layout, carried,
-                                 score_rate)
+                                 score_rate, window_fn, host_loop)
         if carried:
             arrays, rows = arrays
-        # split passes this tree dispatched (obs/launches.py): one a split
-        # leaf-wise, one a level in level mode
-        passes = (arrays.levels if grow_mode == "level"
-                  else max(int(arrays.num_leaves) - 1, 0))
+        # split passes this tree dispatched (obs/launches.py): L - 1 in the
+        # device build, one a split in the host loop, one a level in level
+        # mode
+        passes = arrays.split_passes
         _launches.record(grow_mode, passes)
         if tele is not None:
             # which plan the tree dispatched under (gbdt.py:1130-1139 of
@@ -1774,9 +2126,12 @@ class SerialTreeLearner:
 
     def _build(self, rows, grad, hess, num_data_in_bag, feature_mask,
                grow_mode, qscale, hist_fn, part_fn, level_fn, cegb,
-               layout, carried, score_rate):
+               layout, carried, score_rate, window_fn=partition_hist_window,
+               host_loop=False):
         if not isinstance(num_data_in_bag, torch.Tensor):
             num_data_in_bag = int(num_data_in_bag)
+        # the device build's buffers, made only for a tree that uses them
+        on_device = not host_loop and self.grows_on_device()
         return build_tree_partitioned(
             rows, grad, hess, num_data_in_bag, feature_mask, self.feat,
             self.feat_host, num_leaves=self.num_leaves,
@@ -1788,4 +2143,25 @@ class SerialTreeLearner:
             categorical=self.has_categorical, monotone=self.has_monotone,
             lanes=self.lanes, forced=self.forced, cegb=cegb,
             pool_slots=self.hist_pool_slots, comm=self.comm, carried=carried,
-            score_rate=score_rate)
+            score_rate=score_rate, window_fn=window_fn,
+            table=self.scal_table if on_device else None,
+            work=self.window_work(rows, grad.shape[0]) if on_device else None,
+            host_loop=host_loop)
+
+    def window_work(self, rows: torch.Tensor, bound: int):
+        """The device build's split-pass buffers for windows of up to
+        ``bound`` rows of ``rows`` (:func:`window_workspace`), made once and
+        kept while the store's width, the plan's tile and the precision
+        stay; None on the CPU."""
+        if not rows.is_cuda:
+            return None
+        w = self._window_work
+        W = rows.shape[1]
+        if (w is None or w.bound != bound or w.scratch.shape[1] != W
+                or w.quantized != self.quantized
+                or w.scratch.device != rows.device
+                or w.tile != part_tile_rows(W)):
+            w = self._window_work = window_workspace(
+                rows, bound, num_features=self.hist_columns,
+                num_bins=self.num_bins, quantized=self.quantized)
+        return w

@@ -90,6 +90,8 @@ constexpr int kHistThreads = 32 * kHistWarps;
 constexpr int kHistChunk = 128;
 constexpr int kHistMaxChunk = 512;
 constexpr int kHistFillBlocks = 2 * 132;  // blocks that fill an H100
+// rows a segment (core/histogram.py `_SEG_ROWS`)
+constexpr int kHistSegRows = 2048;
 
 // Bin code of column `col` of one row's bin bytes, whose byte `off` is at
 // `row`: nibble-packed, or `bpc` little-endian bytes (1: u8, 2: u16/i16,
@@ -143,6 +145,12 @@ struct HistArgs {
   int grid_y;            // grid rows: nseg, or the length of seg_map
   int nwin;              // windows of the output [nwin, F, 2, B]
   double* partial;       // [rows of partials, F, 2, B] (exact kernel)
+  // The split pass's device window (launch_hist_window): the parent
+  // window's row count in device memory, from which every block derives
+  // the child's segments (at most seg_cap) and its feature tile (the
+  // widest is ft_wide); nullptr otherwise.
+  const int* dyn_wc;
+  int seg_cap, ft_wide;
 };
 
 // Window, segment, segment count and partial row of grid row blockIdx.y.
@@ -219,7 +227,8 @@ __host__ __device__ __forceinline__ int hist_stage_bytes(int sstride,
 // Bytes per staged row for a tile of `ft` features: the tile's bin bytes
 // plus the slack of aligning their start to 16, rounded to an odd multiple
 // of 16 so that the 32 rows a warp reads spread over eight banks.
-inline int hist_stage_stride(int ft, int bpc, int packed) {
+__host__ __device__ __forceinline__ int hist_stage_stride(int ft, int bpc,
+                                                          int packed) {
   const int bytes = packed ? (ft >> 1) + 1 : ft * bpc;
   int s = (bytes + 30) & ~15;
   if ((s >> 4) % 2 == 0) s += 16;
@@ -319,22 +328,83 @@ __device__ __forceinline__ void add_staged(const HistArgs& a,
   }
 }
 
-template <bool kU8>
+// Bytes per staging buffer's rows for a tile of `ft` features: what the
+// budget leaves after the accumulators and lane masks, within
+// [kHistChunk, kHistMaxChunk] rows.
+__host__ __device__ __forceinline__ int hist_chunk_rows(int ft, int B,
+                                                       int sstride) {
+  int c = (kHistSmemBudget - hist_stage_offset(ft, B)) / (2 * (sstride + 8)) /
+          32 * 32;
+  if (c < kHistChunk) c = kHistChunk;
+  if (c > kHistMaxChunk) c = kHistMaxChunk;
+  return c;
+}
+
+// Row segments of a split pass's child histogram: core/histogram.py
+// `_segments` of the parent window's `wc` rows, at most `cap`.
+__host__ __device__ __forceinline__ int hist_window_segments(long long wc,
+                                                            int cap) {
+  long long s = (wc + kHistSegRows - 1) / kHistSegRows;
+  if (s > cap) s = cap;
+  return s < 1 ? 1 : (int)s;
+}
+
+// launch_hist's feature tile for a grid of `nseg` segments: the widest tile
+// `ft_wide`, narrowed until the grid has kHistFillBlocks blocks.  Returns
+// the tile's features; *ntiles is the tile count.
+__host__ __device__ __forceinline__ int hist_fill_tile(int F, int ft_wide,
+                                                      int nseg, int* ntiles) {
+  int nt = (F + ft_wide - 1) / ft_wide;
+  const int fill = (kHistFillBlocks + nseg - 1) / nseg;
+  if (nt < fill) nt = fill < F ? fill : F;
+  const int ft = (F + nt - 1) / nt;
+  *ntiles = (F + ft - 1) / ft;
+  return ft;
+}
+
+// kDyn: the split pass's device window (HistArgs::dyn_wc).  The grid is one
+// row of blocks sized for the largest window; each block derives the
+// window's segments and feature tile from the row count it reads, takes
+// (tile, segment) = (x % tiles, x / tiles), and a block past them exits.
+// A window of one segment is written by its blocks, as launch_hist writes
+// it: each bin's sum is the same sequence of f64 additions as a launch of
+// the host-sized grid, so the two give the same bits.
+template <bool kU8, bool kDyn>
 __global__ void __launch_bounds__(kHistThreads, 2)
     hist_seg_kernel(HistArgs a) {
   extern __shared__ __align__(16) uint8_t smem[];
+  SegPos p;
+  int tile = blockIdx.x;
+  if (kDyn) {
+    int ntiles;
+    p.nseg = hist_window_segments(*a.dyn_wc, a.seg_cap);
+    a.ft = hist_fill_tile(a.F, a.ft_wide, p.nseg, &ntiles);
+    if ((int)blockIdx.x >= ntiles * p.nseg) return;
+    tile = blockIdx.x % ntiles;
+    p.g = 0;
+    p.seg = blockIdx.x / ntiles;
+    p.prow = p.seg;
+    p.start = a.win[0];
+    p.count = a.win[1];
+    a.sstride = hist_stage_stride(a.ft, a.bpc, a.packed);
+    a.chunk = hist_chunk_rows(a.ft, a.B, a.sstride);
+  } else {
+    p = seg_pos(a);
+  }
   double2* acc = reinterpret_cast<double2*>(smem);  // [nf, B] (grad, hess)
   unsigned* masks = reinterpret_cast<unsigned*>(acc + a.ft * a.B);  // [nw, B]
   uint8_t* stage = smem + hist_stage_offset(a.ft, a.B);
   const int bufsz = hist_stage_bytes(a.sstride, a.chunk);
   const long long chunk = a.chunk;
-  const SegPos p = seg_pos(a);
-  const int f0 = blockIdx.x * a.ft;
+  const int f0 = tile * a.ft;
   const int nf = min(a.ft, a.F - f0);
   const int B = a.B;
+  // the lane masks of the tile's warps (a kDyn block may have more warps
+  // than its tile has features; the others never touch a mask)
+  const int nmask = kDyn ? min(a.ft, kHistWarps) : (int)(blockDim.x >> 5);
   for (int i = threadIdx.x; i < nf * B; i += blockDim.x)
     acc[i] = make_double2(0.0, 0.0);
-  for (int i = threadIdx.x; i < (int)(blockDim.x >> 5) * B; i += blockDim.x)
+  for (int i = threadIdx.x; i < nmask * B; i += blockDim.x)
     masks[i] = 0u;
 
   const long long seglen = (p.count + p.nseg - 1) / p.nseg;
@@ -371,10 +441,11 @@ __global__ void __launch_bounds__(kHistThreads, 2)
   // (pass 2 would round 0.0 + the partial: the same f32)
   double* part = a.partial + (size_t)p.prow * a.F * 2 * B + (size_t)f0 * 2 * B;
   float* out = a.out + (size_t)f0 * 2 * B;
+  const bool direct = kDyn ? p.nseg == 1 : a.out != nullptr;
   for (int i = threadIdx.x; i < nf * 2 * B; i += blockDim.x) {
     const int f = i / (2 * B), c = (i / B) & 1, b = i % B;
     const double2 v = acc[f * B + b];
-    if (a.out != nullptr)
+    if (direct)
       out[i] = static_cast<float>(c ? v.y : v.x);
     else
       part[i] = c ? v.y : v.x;
@@ -408,6 +479,20 @@ __global__ void hist_reduce_kernel(const double* __restrict__ partial,
   out[(size_t)blockIdx.y * total + i] = static_cast<float>(s);
 }
 
+// hist_reduce_kernel for the device window: the segments come from the
+// parent's row count; a window of one segment was written by its blocks.
+__global__ void hist_reduce_window_kernel(const double* __restrict__ partial,
+                                          const int* __restrict__ dyn_wc,
+                                          int seg_cap, int total,
+                                          float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = hist_window_segments(*dyn_wc, seg_cap);
+  if (i >= total || n == 1) return;
+  double s = 0.0;
+  for (int k = 0; k < n; ++k) s += partial[(size_t)k * total + i];
+  out[i] = static_cast<float>(s);
+}
+
 // Let `kernel` take up to kHistSmemMax of shared memory.
 static inline cudaError_t hist_configure(void (*kernel)(HistArgs)) {
   cudaError_t e = cudaFuncSetAttribute(
@@ -416,6 +501,42 @@ static inline cudaError_t hist_configure(void (*kernel)(HistArgs)) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
+}
+
+// The widest feature tile whose block fits kHistSmemBudget (one feature at
+// least).
+inline int hist_wide_tile(const HistArgs& a) {
+  int ft = kHistSmemBudget / (a.B * (int)sizeof(double2));
+  if (ft > a.F) ft = a.F;
+  while (ft > 1 && hist_block_smem(ft, a.B, a.bpc, a.packed) > kHistSmemBudget)
+    --ft;
+  return ft;
+}
+
+// Bytes per staged copy: 16, 4 or 1, as the bins' base and stride allow.
+inline int hist_copy_unit(const HistArgs& a) {
+  const uintptr_t base = reinterpret_cast<uintptr_t>(a.bins);
+  return (base % 16 == 0 && a.bstride % 16 == 0)  ? 16
+         : (base % 4 == 0 && a.bstride % 4 == 0) ? 4
+                                                 : 1;
+}
+
+// Set the kernels' shared-memory attributes once per device and process
+// (`configured`: one bit a device, each library its own).
+static inline cudaError_t hist_configure_once(unsigned long long* configured,
+                                              void (*k0)(HistArgs),
+                                              void (*k1)(HistArgs)) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!(*configured >> dev & 1ull)) {
+    if ((e = hist_configure(k0)) != cudaSuccess ||
+        (e = hist_configure(k1)) != cudaSuccess)
+      return e;
+    *configured |= 1ull << dev;
+  }
+  return cudaSuccess;
 }
 
 // Launch both passes on `stream`; `partial` holds grid_y * F * 2 * B
@@ -433,60 +554,101 @@ static inline cudaError_t launch_hist(HistArgs a, float* out,
   // tiles; a grid of few segments (a small window) gets narrower tiles,
   // down to one feature a block, so that it still fills the card (a
   // feature's sums do not depend on its tile)
-  int ft = kHistSmemBudget / (a.B * (int)sizeof(double2));
-  if (ft > a.F) ft = a.F;
-  while (ft > 1 && hist_block_smem(ft, a.B, a.bpc, a.packed) > kHistSmemBudget)
-    --ft;
+  const int ft = hist_wide_tile(a);
   int ntiles = (a.F + ft - 1) / ft;
-  if (a.grid_y > 0) {
-    const int fill = (kHistFillBlocks + a.grid_y - 1) / a.grid_y;
-    if (ntiles < fill) ntiles = fill < a.F ? fill : a.F;
-  }
-  a.ft = (a.F + ntiles - 1) / ntiles;
-  ntiles = (a.F + a.ft - 1) / a.ft;
+  a.ft = ft;
+  if (a.grid_y > 0) a.ft = hist_fill_tile(a.F, ft, a.grid_y, &ntiles);
   // one warp per feature of the tile, at most kHistWarps
   const int threads = 32 * (a.ft < kHistWarps ? a.ft : kHistWarps);
   const bool u8 = a.bpc == 1 && !a.packed;
   a.sstride = hist_stage_stride(a.ft, a.bpc, a.packed);
-  const uintptr_t base = reinterpret_cast<uintptr_t>(a.bins);
-  a.unit = (base % 16 == 0 && a.bstride % 16 == 0)  ? 16
-           : (base % 4 == 0 && a.bstride % 4 == 0) ? 4
-                                                   : 1;
+  a.unit = hist_copy_unit(a);
   // staging buffers grown into what the budget leaves (a small tile's
   // segment then takes few round trips to device memory)
-  a.chunk = (kHistSmemBudget - hist_stage_offset(a.ft, a.B)) /
-            (2 * (a.sstride + 8)) / 32 * 32;
-  if (a.chunk < kHistChunk) a.chunk = kHistChunk;
-  if (a.chunk > kHistMaxChunk) a.chunk = kHistMaxChunk;
+  a.chunk = hist_chunk_rows(a.ft, a.B, a.sstride);
   const int smem = hist_stage_offset(a.ft, a.B) +
                    2 * hist_stage_bytes(a.sstride, a.chunk);
   // one segment of one window: the kernel writes the histogram
   const bool direct = a.nseg == 1 && a.seg_map == nullptr;
   a.out = direct ? out : nullptr;
-  // once per device and process
   static unsigned long long configured = 0;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  cudaError_t e = hist_configure_once(&configured,
+                                      hist_seg_kernel<true, false>,
+                                      hist_seg_kernel<false, false>);
   if (e != cudaSuccess) return e;
-  if (dev >= 64) return cudaErrorInvalidDevice;
-  if (!(configured >> dev & 1ull)) {
-    if ((e = hist_configure(hist_seg_kernel<true>)) != cudaSuccess ||
-        (e = hist_configure(hist_seg_kernel<false>)) != cudaSuccess)
-      return e;
-    configured |= 1ull << dev;
-  }
   if (a.grid_y > 0) {
     const dim3 grid(ntiles, a.grid_y);
     if (u8)
-      hist_seg_kernel<true><<<grid, threads, smem, stream>>>(a);
+      hist_seg_kernel<true, false><<<grid, threads, smem, stream>>>(a);
     else
-      hist_seg_kernel<false><<<grid, threads, smem, stream>>>(a);
+      hist_seg_kernel<false, false><<<grid, threads, smem, stream>>>(a);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
   if (direct) return cudaSuccess;
   const int total = a.F * 2 * a.B;
   hist_reduce_kernel<<<dim3((total + 255) / 256, a.nwin), 256, 0, stream>>>(
       a.partial, a.seg_info, a.nseg, total, out);
+  return cudaGetLastError();
+}
+
+// The child histogram of the split pass's device window: `a.win` holds the
+// child's {start, count} and `a.dyn_wc` the parent's row count, both in
+// device memory, and no window holds more than `bound` rows.  The grid,
+// the threads and the shared memory are sized for the largest window; the
+// blocks size themselves (hist_seg_kernel<., true>).  `a.partial` holds
+// the segments of a `bound`-row window, `a.seg_cap` is `_segments`' cap;
+// `out` F * 2 * B floats.
+static inline cudaError_t launch_hist_window(HistArgs a, long long bound,
+                                             float* out,
+                                             cudaStream_t stream) {
+  if (a.F < 1 || a.B < 1 || a.dyn_wc == nullptr || a.win == nullptr ||
+      hist_block_smem(1, a.B, a.bpc, a.packed) > kHistSmemMax)
+    return cudaErrorInvalidValue;
+  a.ft_wide = hist_wide_tile(a);
+  a.unit = hist_copy_unit(a);
+  a.out = out;
+  // The launch's shape depends on (bound, F, B, bpc, packed, seg_cap)
+  // only, which a tree's launches share: found for the first of them and
+  // kept, one entry a host thread.
+  struct Shape {
+    long long bound;
+    int F, B, bpc, packed, seg_cap, nseg_max, blocks, threads, smem;
+  };
+  static thread_local Shape k = {-1, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+  if (k.bound != bound || k.F != a.F || k.B != a.B || k.bpc != a.bpc ||
+      k.packed != a.packed || k.seg_cap != a.seg_cap) {
+    const int nseg_max = hist_window_segments(bound, a.seg_cap);
+    int blocks = 1, ft_max = 1, smem = 0;
+    for (int s = 1; s <= nseg_max; ++s) {
+      int ntiles;
+      const int ft = hist_fill_tile(a.F, a.ft_wide, s, &ntiles);
+      const int ss = hist_stage_stride(ft, a.bpc, a.packed);
+      const int need = hist_stage_offset(ft, a.B) +
+                       2 * hist_stage_bytes(ss, hist_chunk_rows(ft, a.B, ss));
+      if (ntiles * s > blocks) blocks = ntiles * s;
+      if (ft > ft_max) ft_max = ft;
+      if (need > smem) smem = need;
+    }
+    if (smem > kHistSmemMax) return cudaErrorInvalidValue;
+    k = {bound, a.F, a.B, a.bpc, a.packed, a.seg_cap, nseg_max, blocks,
+         32 * (ft_max < kHistWarps ? ft_max : kHistWarps), smem};
+  }
+  const int nseg_max = k.nseg_max, blocks = k.blocks, threads = k.threads,
+            smem = k.smem;
+  static unsigned long long configured = 0;
+  cudaError_t e = hist_configure_once(&configured,
+                                      hist_seg_kernel<true, true>,
+                                      hist_seg_kernel<false, true>);
+  if (e != cudaSuccess) return e;
+  if (a.bpc == 1 && !a.packed)
+    hist_seg_kernel<true, true><<<blocks, threads, smem, stream>>>(a);
+  else
+    hist_seg_kernel<false, true><<<blocks, threads, smem, stream>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if (nseg_max == 1) return cudaSuccess;
+  const int total = a.F * 2 * a.B;
+  hist_reduce_window_kernel<<<(total + 255) / 256, 256, 0, stream>>>(
+      a.partial, a.dyn_wc, a.seg_cap, total, out);
   return cudaGetLastError();
 }
 
@@ -520,6 +682,9 @@ inline HistArgs hist_args_window(int bpc, int packed, int F, int B,
   a.grid_y = nseg;
   a.nwin = 1;
   a.partial = nullptr;
+  a.dyn_wc = nullptr;
+  a.seg_cap = 1;
+  a.ft_wide = 1;
   return a;
 }
 

@@ -56,6 +56,16 @@
 //   own from the parent window's size) instead of the f64 one; it replaces
 //   the quantized child histogram of `_partition_call(quantized=True)`
 //   (partition.py:1080).
+// - The device window (lgbt_partition_window, the leaf-wise build of
+//   core/tree_learner.py): the TPU kernel takes its window through scalar
+//   prefetch and the host never learns it.  Here too: every launch is sized
+//   once for the largest window (the store's rows), so nothing the host
+//   passes depends on wb or wc.  Tiles past wc return at once, the copy
+//   back is a kernel that reads wb and wc from the scal row, and the exact
+//   child histogram's blocks derive from wc the segments (and feature tile)
+//   the host-window launch gives the same window, so the f64 sums are
+//   added in the same order and the two launches agree bit for bit.  A dead
+//   step (wc = 0) moves no row, writes a zero histogram and nl = 0.
 // - The steps are device functions in part_common.cuh, which the level pass
 //   (partition_level.cu) runs over every window of a tree level at once.
 #include "hist_int.cuh"
@@ -63,21 +73,35 @@
 
 namespace lgbt {
 
+// A tile past the window's end (a device-window launch is sized for the
+// largest window) counts no row and returns at once.
 __global__ void part_count_kernel(const uint8_t* __restrict__ rows, int W,
                                   const int* __restrict__ scal, int bpc,
                                   int packed, int nw, int tile,
                                   int* __restrict__ blk) {
-  const int s = count_tile(rows, W, scal, bpc, packed, nw,
-                           (long long)blockIdx.x * tile, tile);
+  const long long r0 = (long long)blockIdx.x * tile;
+  if (r0 >= scal[1]) {
+    if (threadIdx.x == 0) blk[blockIdx.x] = 0;
+    return;
+  }
+  const int s = count_tile(rows, W, scal, bpc, packed, nw, r0, tile);
   if (threadIdx.x == 0) blk[blockIdx.x] = s;
 }
 
 // One block: blk[] counts -> exclusive prefixes in place, nl = the total,
-// win = the smaller child's {start, count}.
+// win = the smaller child's {start, count}.  `routes` (the device-window
+// launch, else null): a live window adds one to routes[0] when it unfolds
+// a group column and to routes[1] when it routes by a bitset, the counts
+// that device.route_launches reports.
 __global__ void part_scan_kernel(const int* __restrict__ scal, int nblk,
                                  int* __restrict__ blk, int* __restrict__ nl,
-                                 int* __restrict__ win) {
+                                 int* __restrict__ win,
+                                 long long* __restrict__ routes) {
   scan_window(scal, nblk, blk, nl, win);
+  if (routes != nullptr && threadIdx.x == 0 && scal[1] > 0) {
+    routes[0] += scal[10] == 1;
+    routes[1] += scal[8] == 1;
+  }
 }
 
 __global__ void part_scatter_kernel(const uint8_t* __restrict__ rows,
@@ -86,8 +110,38 @@ __global__ void part_scatter_kernel(const uint8_t* __restrict__ rows,
                                     int packed, int nw, int tile,
                                     const int* __restrict__ blk,
                                     const int* __restrict__ nl_ptr) {
-  scatter_tile(rows, scratch, W, scal, bpc, packed, nw,
-               (long long)blockIdx.x * tile, tile, blk[blockIdx.x], nl_ptr[0]);
+  const long long r0 = (long long)blockIdx.x * tile;
+  if (r0 >= scal[1]) return;
+  scatter_tile(rows, scratch, W, scal, bpc, packed, nw, r0, tile,
+               blk[blockIdx.x], nl_ptr[0]);
+}
+
+// The device window's copy back: tile x of the scratch window over rows
+// [wb + x * tile, ...) of the store, wb and wc read from the scal row (the
+// host-window launch copies with cudaMemcpyAsync, whose size it knows).
+__global__ void part_copyback_kernel(uint8_t* __restrict__ rows,
+                                     const uint8_t* __restrict__ scratch,
+                                     int W, const int* __restrict__ scal,
+                                     int tile) {
+  const long long wb = scal[0], wc = scal[1];
+  const long long r0 = (long long)blockIdx.x * tile;
+  if (r0 >= wc) return;
+  const int n16 = (int)min((long long)tile, wc - r0) * (W / 16);
+  const uint4* src = reinterpret_cast<const uint4*>(scratch + (size_t)r0 * W);
+  uint4* dst = reinterpret_cast<uint4*>(rows + (size_t)(wb + r0) * W);
+  for (int i0 = threadIdx.x; i0 < n16; i0 += kPartThreads * kCopyUnroll) {
+    uint4 v[kCopyUnroll];
+#pragma unroll
+    for (int k = 0; k < kCopyUnroll; ++k) {
+      const int i = i0 + k * kPartThreads;
+      if (i < n16) v[k] = src[i];
+    }
+#pragma unroll
+    for (int k = 0; k < kCopyUnroll; ++k) {
+      const int i = i0 + k * kPartThreads;
+      if (i < n16) dst[i] = v[k];
+    }
+  }
 }
 
 }  // namespace lgbt
@@ -118,7 +172,7 @@ extern "C" int lgbt_partition_hist(void* rows, void* scratch, int W,
                                                    tile, bk);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  part_scan_kernel<<<1, kScanThreads, 0, st>>>(sc, nblk, bk, nlp, wn);
+  part_scan_kernel<<<1, kScanThreads, 0, st>>>(sc, nblk, bk, nlp, wn, nullptr);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   part_scatter_kernel<<<nblk, kPartThreads, 0, st>>>(r, s, W, sc, bpc, packed,
                                                      nw, tile, bk, nlp);
@@ -136,4 +190,59 @@ extern "C" int lgbt_partition_hist(void* rows, void* scratch, int W,
   }
   a.partial = static_cast<double*>(partial);
   return (int)launch_hist(a, static_cast<float*>(hist), st);
+}
+
+// The split pass with its window in device memory: the scal row's wb and
+// wc are never read on the host, so the host can queue the pass before the
+// step that writes its scal row has run.  Every launch is sized for the
+// largest window, `bound` rows: `nblk` tiles of `tile` rows (tiles past
+// wc return at once), `scratch` bound * W bytes, and the child histogram's
+// grid (launch_hist_window, whose blocks take the segments `_segments`
+// gives the parent's wc, at most `seg_cap`; or, when `quantized`, the
+// integer kernel's grid of the bound, `nseg` segments of `ft` features,
+// since integer sums do not depend on the grid).  `partial`: the exact
+// kernel's f64 partials of a bound-row window, or the integer kernel's
+// int64 accumulator row.  wc = 0 leaves the store as it is, writes a zero
+// histogram and nl = 0.  No feature window: the histogram covers columns
+// [0, F).  `routes`: two int64 counters (part_scan_kernel).
+extern "C" int lgbt_partition_window(void* rows, void* scratch, int W,
+                                     const void* scal, long long bound,
+                                     int bpc, int packed, int nw, int F,
+                                     int B, int voff, int nblk, int tile,
+                                     void* blk, void* win, void* nl,
+                                     int seg_cap, int nseg, int ft,
+                                     int quantized, void* partial,
+                                     void* hist, void* routes, void* stream) {
+  using namespace lgbt;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  uint8_t* r = static_cast<uint8_t*>(rows);
+  uint8_t* s = static_cast<uint8_t*>(scratch);
+  const int* sc = static_cast<const int*>(scal);
+  int* bk = static_cast<int*>(blk);
+  int* wn = static_cast<int*>(win);
+  int* nlp = static_cast<int*>(nl);
+  part_count_kernel<<<nblk, kPartThreads, 0, st>>>(r, W, sc, bpc, packed, nw,
+                                                   tile, bk);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  part_scan_kernel<<<1, kScanThreads, 0, st>>>(
+      sc, nblk, bk, nlp, wn, static_cast<long long*>(routes));
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  part_scatter_kernel<<<nblk, kPartThreads, 0, st>>>(r, s, W, sc, bpc, packed,
+                                                     nw, tile, bk, nlp);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  part_copyback_kernel<<<nblk, kPartThreads, 0, st>>>(r, s, W, sc, tile);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  HistArgs a = hist_args_one(r, W, voff, bpc, packed, F, B, 0, 0, 0, wn,
+                             nseg);
+  if (quantized) {
+    IntGrid q = int_grid_one(nseg, ft);
+    q.acc = static_cast<unsigned long long*>(partial);
+    return (int)launch_hist_int(a, q, 0, nseg > 1, static_cast<float*>(hist),
+                                st);
+  }
+  a.partial = static_cast<double*>(partial);
+  a.dyn_wc = sc + 1;
+  a.seg_cap = seg_cap;
+  return (int)launch_hist_window(a, bound, static_cast<float*>(hist), st);
 }

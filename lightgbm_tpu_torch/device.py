@@ -14,7 +14,11 @@ split passes also count, at the same place, the routes their scal rows take
 (:func:`route_launches`): launches with a window that unfolds an EFB group
 column (``use_unfold``), routes by a category bitset (``is_cat``) or
 histograms a feature window (the trailing ``hist_feature_begin`` of a
-feature-parallel rank), and the number of such windows.
+feature-parallel rank), and the number of such windows.  The split pass
+with its window in device memory (``core/partition.py``
+``partition_hist_window``) cannot read its scal row on the host, so its
+kernel adds its routes to two counters on the card
+(:func:`route_counter`), which :func:`route_launches` reads back.
 """
 from __future__ import annotations
 
@@ -33,6 +37,9 @@ ROUTES = ("unfold", "categorical", "feature_window")
 _ROUTES: Dict[str, Dict[str, int]] = {
     k: {c: 0 for r in ROUTES for c in (r, r + "_windows")}
     for k in SPLIT_KERNELS}
+# per CUDA device: int64 [2], the device-window launches that unfolded a
+# group column and that routed by a bitset
+_ROUTE_COUNTERS: Dict[torch.device, torch.Tensor] = {}
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -67,6 +74,18 @@ def count_routes(kernel: str, unfold: int, categorical: int,
         _ROUTES[kernel][route + "_windows"] += int(windows)
 
 
+def route_counter(device: torch.device) -> torch.Tensor:
+    """The device-window split pass's route counters on CUDA ``device``
+    (int64 [2]: launches of a live window with ``use_unfold = 1``, with
+    ``is_cat = 1``), which its kernel increments; made at the first call
+    (so before any CUDA graph capture of a step)."""
+    t = _ROUTE_COUNTERS.get(device)
+    if t is None:
+        t = _ROUTE_COUNTERS[device] = torch.zeros(2, dtype=torch.int64,
+                                                  device=device)
+    return t
+
+
 def launches() -> Dict[str, int]:
     """Launch counts since the last :func:`reset_launches`."""
     return dict(_LAUNCHES)
@@ -75,8 +94,16 @@ def launches() -> Dict[str, int]:
 def route_launches() -> Dict[str, Dict[str, int]]:
     """Per split pass: launches that unfolded a group column, routed by a
     bitset or histogrammed a feature window, and their windows, since the
-    last :func:`reset_launches`."""
-    return {k: dict(v) for k, v in _ROUTES.items()}
+    last :func:`reset_launches`.  Reads the device-window counters back
+    (:func:`route_counter`): a device->host transfer per card."""
+    out = {k: dict(v) for k, v in _ROUTES.items()}
+    for t in _ROUTE_COUNTERS.values():
+        unfold, categorical = (int(v) for v in t.cpu())
+        part = out["partition"]
+        for route, n in (("unfold", unfold), ("categorical", categorical)):
+            part[route] += n
+            part[route + "_windows"] += n
+    return out
 
 
 def reset_launches() -> None:
@@ -85,6 +112,8 @@ def reset_launches() -> None:
     for counts in _ROUTES.values():
         for c in counts:
             counts[c] = 0
+    for t in _ROUTE_COUNTERS.values():
+        t.zero_()
 
 
 def cuda_stream_ptr(t: torch.Tensor) -> int:

@@ -37,7 +37,10 @@ SIGNATURES = {
                                      _I, _P, _P, _P]},
     "partition": {"lgbt_partition_hist": [_P, _P, _I, _P, _LL, _LL, _I, _I, _I,
                                           _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                                          _I, _I, _I, _P, _P, _P]},
+                                          _I, _I, _I, _P, _P, _P],
+                  "lgbt_partition_window": [_P, _P, _I, _P, _LL, _I, _I, _I,
+                                            _I, _I, _I, _I, _I, _P, _P, _P,
+                                            _I, _I, _I, _I, _P, _P, _P, _P]},
     "histogram_int": {"lgbt_hist_rows_int": [_P, _I, _I, _I, _I, _I, _I, _I,
                                              _LL, _LL, _I, _I, _P, _P, _P]},
     "partition_level": {"lgbt_partition_level": [_P, _P, _I, _P, _I, _I, _I,

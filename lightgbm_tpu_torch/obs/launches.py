@@ -3,11 +3,13 @@
 The counterpart of ``lightgbm_tpu/obs/launches.py`` (:1-86).  The JAX
 package records the builder's trace-static launch budget per tree (its
 leaf-wise ``fori_loop`` always runs L-1 passes, dead ones included).  The
-port's builder stops when no leaf can split, so the port records what the
-build dispatched: ``SerialTreeLearner.train`` (and through it every parallel
-learner) records each tree's split passes, read from the tree it built: L-1
-for a leaf-wise tree of L leaves (one ``partition_hist`` a split), one a
-level for ``tree_grow_mode=level`` (one ``partition_hist_level`` a level).
+port records what the build dispatched: ``SerialTreeLearner.train`` (and
+through it every parallel learner) records each tree's split passes, read
+from the tree it built (``TreeArrays.split_passes``): L-1 for a tree of the
+device build (num_leaves = L; one ``partition_hist_window`` a step, dead
+steps included, as the JAX loop), one ``partition_hist`` a split in the host
+loop, one a level for ``tree_grow_mode=level`` (one ``partition_hist_level``
+a level).
 On the card each pass is one launch of the split-pass kernel, so this count
 equals the kernels' own launch counters (``device.launches()["partition"]``
 plus ``["partition_level"]``), which the card's path (W1) checks; on the CPU

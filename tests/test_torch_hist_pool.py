@@ -117,14 +117,17 @@ def test_pooled_tree_matches_jax_pooled_tree(slots, one_thread):
 
 def test_pool_cache_is_k_slots(monkeypatch, one_thread):
     """The cache tensor is [K, columns, 2, B], independent of num_leaves;
-    without a pool it is [num_leaves, columns, 2, B]."""
+    without a pool (the device build) it is [num_leaves + 1, columns, 2,
+    B]: a row a leaf and the row that dead steps write."""
     shapes = []
-    arrays = port_tl._Growth.arrays
+    for cls, name in ((port_tl._Growth, "arrays"),
+                      (port_tl._DeviceGrowth, "finish")):
+        real = getattr(cls, name)
 
-    def spy(self):
-        shapes.append(tuple(self.hist.shape))
-        return arrays(self)
-    monkeypatch.setattr(port_tl._Growth, "arrays", spy)
+        def spy(self, *a, _real=real, **k):
+            shapes.append(tuple(self.hist.shape))
+            return _real(self, *a, **k)
+        monkeypatch.setattr(cls, name, spy)
     X, y, grad, hess = problem(f=12)
     for pool in (False, True):
         lrn = port_learner(X, y, num_leaves=255, min_data_in_leaf=2,
@@ -133,7 +136,7 @@ def test_pool_cache_is_k_slots(monkeypatch, one_thread):
             lrn.hist_pool_slots = 8
         port_tree(lrn, grad, hess)
     cols, B = lrn.num_columns, lrn.num_bins
-    assert shapes == [(255, cols, 2, B), (8, cols, 2, B)]
+    assert shapes == [(256, cols, 2, B), (8, cols, 2, B)]
 
 
 def test_pool_is_ignored_with_forced_splits_or_cegb(tmp_path):

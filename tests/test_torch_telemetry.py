@@ -495,6 +495,7 @@ def _counting(monkeypatch):
     from lightgbm_tpu_torch.core import tree_learner as tl
     n = {"partition": 0, "partition_level": 0}
     for name, key in (("partition_hist", "partition"),
+                      ("partition_hist_window", "partition"),
                       ("partition_hist_level", "partition_level")):
         real = getattr(tl, name)
 
@@ -507,6 +508,7 @@ def _counting(monkeypatch):
 
     def train(self, *a, **k):
         k.setdefault("part_fn", tl.partition_hist)
+        k.setdefault("window_fn", tl.partition_hist_window)
         k.setdefault("level_fn", tl.partition_hist_level)
         return real_train(self, *a, **k)
     monkeypatch.setattr(tl.SerialTreeLearner, "train", train)
