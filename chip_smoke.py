@@ -26,12 +26,18 @@ together) and runs these phases, each of which raises on failure:
    nibble-packed at B=32, full, mid, 100-row and empty windows); and the
    masked bins/values kernel (TPU kernel #5) at 1,048,576 rows, F=28,
    B=64, 128 and 256, with u8, i16, i32 and nibble-packed bins, full and
-   mid windows;
+   mid windows; the row-store histogram with its window in device memory
+   (``histogram_rows_window``, the pool's rebuilt parent in the device
+   build) against ``histogram_rows`` on the same window bit for bit and
+   its plain version, exact at F = 28 and 2000 and integer, on the
+   store, 20,000, 1,000 and 0 rows, with its event and queued times;
 3. the split pass with its window in device memory (the leaf-wise device
    build's launch) against its plain version and the host-window pass, bit
    for bit, exact and quantized, at the root, 20,000, 900 and 0 rows, on
    (A)'s shape and the carried store at F = 112, one scal row written by a
-   device op just before the launch; the fused split kernel against its
+   device op just before the launch, and with the feature window (the
+   trailing ``hist_feature_begin`` read on the device) at (V2)'s blocks
+   [0, 14) and [14, 28); the fused split kernel against its
    plain version on the card, over window
    sizes (<= 992 rows, ~10k, >= 500k, empty) and routes (numerical, NaN missing
    with default left and right, zero missing, categorical bitset, EFB unfold);
@@ -64,10 +70,10 @@ together) and runs these phases, each of which raises on failure:
    the host trees' ``Tree.predict`` and its train scores, and its tree 0 is
    rebuilt with the plain versions as a check; (A) grows on the device (at
    most 2 fetches and L - 1 = 254 split passes a tree), its first tree is
-   grown again with the host loop from the same gradients (model text
-   equal, or equal up to a near tie) and with its step captured once in a
+   grown again by both builds from the same gradients (``regrow_tree0``:
+   model text equal, 1 fetch) and with its step captured once in a
    CUDA graph and replayed 254 times (equal to the eager tree), and two
-   fresh boosters, one on each build, train 3 iterations in turns (their
+   fresh boosters, one on each build, train 2 iterations in turns (their
    s/iteration, median and range, and peak memory, unclaimed); (D) the
    Epsilon-shaped
    binary GBDT (400,000 training and 100,000 held-out rows of 2000 dense
@@ -147,16 +153,23 @@ together) and runs these phases, each of which raises on failure:
    (N) forced splits (a three-split schedule written to a temporary file:
    the root on feature 25, both children on feature 26, at the features'
    medians) and the split, coupled and lazy CEGB penalties, leaf-wise,
-   exact, 2 iterations: every tree's first three splits the forced ones,
-   the lazy paid bits equal to a recompute from the trees and the rows'
-   leaves, tree 0 equal to its plain rebuild; (O) (D)'s binned rows with
-   ``histogram_pool_size=125`` (32 slots of 255 leaves), 2 iterations:
-   the cache's bytes against the per-leaf cache's, the peak device memory,
-   the rebuilt parents (one histogram launch each), and (D)'s first two
+   exact, 2 iterations, on the device build (one fetch a tree): every
+   tree's first three splits the forced ones, the lazy paid bits equal to
+   a recompute from the trees and the rows' leaves, tree 0 regrown by the
+   host loop in the same CEGB state (model text and paid bits equal) and
+   with its step captured in a CUDA graph (equal to the eager tree), tree
+   0 equal to its plain rebuild, and both builds 2 iterations in turns
+   (s/iteration, peak memory); (O) (D)'s binned rows with
+   ``histogram_pool_size=125`` (32 slots of 255 leaves), 2 iterations on
+   the device build: the cache's bytes against the per-leaf cache's, the
+   peak device memory, the rebuilt parents (the rebuild launched every
+   step, on 0 rows when the slot holds the parent), (D)'s first two
    trees matched to the JAX package's bounds for a pooled build (98% of
    the split features and of the rows' leaves, sorted leaf values within
-   rtol 1e-4); (P) prediction on (A)'s data with (A)'s trees each repeated
-   100 times (200 trees at 2 iterations): the f32 regime over the training
+   rtol 1e-4), tree 0 regrown by the host loop (model text and rebuilt
+   parents equal) and in a CUDA graph, and both builds in turns; (P)
+   prediction on (A)'s data with (A)'s trees each repeated 100 times (200
+   trees at 2 iterations): the f32 regime over the training
    rows, the f64 regime on 511 rows, the binned path over (A)'s row store,
    ``pred_leaf`` on 65,536 rows, prediction early stop (freq 10, margin
    4.0) and the bf16 tier, each timed with its peak device memory; the
@@ -228,10 +241,12 @@ together) and runs these phases, each of which raises on failure:
    at (A)'s shape and settings: (V1) ``DataParallelTreeLearner``,
    ``FeatureParallelTreeLearner``, ``VotingParallelTreeLearner`` and
    ``PartitionedDataParallelTreeLearner`` built directly on a one-rank
-   NCCL group (the factory gives the serial learner there) and trained
-   through ``GBDT`` on (A)'s bins: each model's trees byte-equal to (A)'s,
-   one root histogram per tree and one split pass per split, the comm's
-   calls and bytes per split; (V2) two processes of a gloo group, both on
+   NCCL group (the factory gives the serial learner there) and trained 1
+   iteration through ``GBDT`` on (A)'s bins: each model's tree byte-equal
+   to (A)'s first, one fetch, one root histogram and L - 1 split passes a
+   tree, tree 0 regrown by the host loop (model text equal), the comm's
+   calls and bytes per split, and ``data`` on both builds in turns; (V2)
+   two processes of a gloo group, both on
    the one card (NCCL cannot put two ranks on one GPU), each binning (A)'s
    task and training 1 iteration through the factory ``tree_learner=data``,
    ``feature``, ``voting`` (``top_k=20``: every feature elected) and
@@ -249,8 +264,10 @@ together) and runs these phases, each of which raises on failure:
    within 2e-4 relative of (A)'s after as many iterations
    (``tests/test_parallel.py:151-152``), the quantized run's within 5e-2 of
    (C)'s, ``sharded_predict`` equal to one
-   rank's predictor bit for bit, only rank 0 writing model files, and
-   every ``feature`` split pass launched with the feature window; each
+   rank's predictor bit for bit, only rank 0 writing model files,
+   every ``feature`` split pass launched with the feature window, one
+   fetch a tree, and each rank's tree 0 regrown by the host loop with
+   equal model text; each
    run prints its s/iteration, train log loss, held-out AUC, the comm's
    calls and bytes per split and each rank's launches; the ranks are
    killed past a join deadline; (W) telemetry and the serving tier
@@ -594,6 +611,95 @@ def phase_histogram_int(device, n: int) -> float:
     return 0.0
 
 
+def phase_window_hist(device, n: int, nw: int) -> tuple:
+    """Phase 2, the histogram with its window in device memory
+    (``histogram_rows_window``: the pool's rebuilt parent in the leaf-wise
+    device build): exact at F = 28 over n rows and at F = 2000 over nw
+    rows, and integer at F = 28, on windows of the whole store, 20,000,
+    1,000 and 0 rows, each launch on a workspace sized for the store (as
+    the device build's): equal bit for bit to ``histogram_rows`` (the
+    host-sized launch) on the same window, within HIST_RTOL of the plain
+    version (equal when integer; whether exact ones are also bit-equal is
+    printed), and a count of 0 a zero histogram.  Then its event and
+    queued times beside the host-sized launch's queued time and the bound,
+    the plain version's and one ``index_add_``'s at the root.  Returns
+    (worst max|diff|, times)."""
+    from lightgbm_tpu_torch import device as D
+    from lightgbm_tpu_torch.core import histogram as H
+    from lightgbm_tpu_torch.core.partition import window_workspace
+    worst, times = 0.0, {}
+    for F, m, quantized in ((28, n, False), (28, n, True),
+                            (WIDE_F, nw, False)):
+        B = 256
+        rows, voff = make_store(m, F, B, quantized=quantized, device=device,
+                                seed=61)
+        work = window_workspace(rows, m, num_features=F, num_bins=B,
+                                quantized=quantized)
+        kw = dict(num_features=F, voff=voff, quantized=quantized)
+        kind = "int" if quantized else "exact"
+        sizes, bitwise = [], 0
+        for start, count in ((0, m), (4321, 20000), (99, 1000), (7, 0)):
+            win = torch.tensor([start, count], dtype=torch.int32,
+                               device=device)
+            D.reset_launches()
+            got = H.histogram_rows_window(rows, win, work, num_bins=B, **kw)
+            torch.cuda.synchronize()
+            if D.launches()["histogram_window"] != 1:
+                raise AssertionError("histogram_rows_window launched %s"
+                                     % D.launches())
+            host = H.histogram_rows(rows, B, start, count, **kw)
+            plain = H.histogram_rows_plain(rows, B, start, count, **kw)
+            what = "window hist F=%d %s [%d, +%d)" % (F, kind, start, count)
+            if not torch.equal(got, host):
+                raise AssertionError(what + ": differs from histogram_rows")
+            if quantized and not torch.equal(got, plain):
+                raise AssertionError(what + ": differs from the plain "
+                                     "version")
+            err = hist_err(got, plain, what)
+            worst = max(worst, err)
+            bitwise += bool(torch.equal(got, plain))
+            if count == 0 and got.any():
+                raise AssertionError(what + ": not zero")
+            log("  %-40s max|diff| %.3g  = histogram_rows%s"
+                % (what, err, ", = plain" if torch.equal(got, plain) else ""))
+            ms = cuda_ms(lambda: H.histogram_rows_window(
+                rows, win, work, num_bins=B, **kw), reps=10 if count == m
+                else 25)
+            dev = queued_ms(lambda: H.histogram_rows_window(
+                rows, win, work, num_bins=B, **kw), reps=5 if count == m
+                and F > 100 else 25)
+            host_dev = (queued_ms(lambda: H.histogram_rows(
+                rows, B, start, count, **kw), reps=5 if count == m and F > 100
+                else 25) if count else None)
+            b_ms, b_by = bound(count * row_bytes(F) + F * 2 * B * 4,
+                               2.0 * count * F)
+            entry = dict(rows=count, ms=ms, queued_ms=dev,
+                         host_window_queued_ms=host_dev, bound_ms=b_ms,
+                         bound_by=b_by)
+            if count == m:
+                entry["plain_ms"] = cuda_ms(lambda: H.histogram_rows_plain(
+                    rows, B, start, count, **kw), reps=3, warmup=1)
+                lib, lib_dev = hist_index_add_ms(rows, voff, F, B, count,
+                                                 quantized)
+                entry.update(library_ms=lib, library_queued_ms=lib_dev)
+            else:
+                entry.update(plain_ms=None, library_ms=None)
+            log("    kernel %.4f ms (queued %.4f; host-sized launch queued "
+                "%s), bound %.4f ms (%s)%s"
+                % (ms, dev, "-" if host_dev is None else "%.4f" % host_dev,
+                   b_ms, b_by, "" if count != m else
+                   ", plain %.4f ms, index_add_ %.4f ms (queued %.4f)"
+                   % (entry["plain_ms"], entry["library_ms"],
+                      entry["library_queued_ms"])))
+            sizes.append(entry)
+        key = "F%d_%s" % (F, kind)
+        times[key] = dict(sizes[0], sizes=sizes[1:],
+                          exact_bitwise_plain=None if quantized else bitwise)
+        del rows, work
+        torch.cuda.empty_cache()
+    return worst, times
+
+
 def split_routes(B: int, rng: np.random.RandomState) -> dict:
     """scal rows 2..11 and bitset words of each route to cover
     (partition.py:1030-1037)."""
@@ -786,6 +892,66 @@ def phase_window_split(device, n: int) -> float:
             del rows, work
             torch.cuda.empty_cache()
     return worst
+
+
+def phase_window_feature_split(device, n: int) -> tuple:
+    """Phase 3, the device-window split pass with the feature window (the
+    scal row's trailing ``hist_feature_begin``, read on the device: a
+    feature-parallel rank's block in the device build), at (V2)'s blocks
+    [0, 14) and [14, 28) of an n-row F = 28 store, exact and quantized, at
+    the root, 20,000, 900 and 0 rows and both routes: against its plain
+    version and the host-window pass with the same row, bit for bit (the
+    histogram over the block), on a workspace sized for the store and
+    14 columns; then its event and queued times at block [14, 28) on
+    windows of n, 20,000 and 900 rows beside the host-window pass's queued
+    time and the bound.  Returns (worst max|diff|, times)."""
+    from lightgbm_tpu_torch.core import partition as P
+    from lightgbm_tpu_torch.core.partition import window_workspace
+    rng = np.random.RandomState(18)
+    worst, times = 0.0, {}
+    for quantized in (False, True):
+        rows, voff = make_store(n, 28, 256, quantized=quantized,
+                                device=device, seed=19)
+        work = window_workspace(rows, n, num_features=14, num_bins=256,
+                                quantized=quantized)
+        routes = split_routes(256, rng)
+        kind = "int" if quantized else "exact"
+        for f_begin in (0, 14):
+            for wi, (wb, wc) in enumerate([(0, n), (3001, 20000), (100, 900),
+                                           (50, 0)]):
+                for name in ("numerical", "categorical"):
+                    route, words = routes[name]
+                    scal = scal_row(wb, wc, route, words, wi % 2) + [f_begin]
+                    what = "window [%d, %d) %s %s [%d, +%d)" % (
+                        f_begin, f_begin + 14, kind, name, wb, wc)
+                    worst = max(worst, check_window_split(
+                        rows, scal, work, F=14, B=256, voff=voff,
+                        quantized=quantized, what=what))
+        route, words = routes["numerical"]
+        kw = dict(num_features=14, num_bins=256, voff=voff,
+                  quantized=quantized)
+        W, sizes = rows.shape[1], []
+        for wc in (n, 20000, 900):
+            scal = scal_row(0, wc, route, words, 1) + [14]
+            s_dev = torch.tensor(scal, dtype=torch.int32, device=device)
+            ms = cuda_ms(lambda: P.partition_hist_window(rows, s_dev, work,
+                                                         **kw))
+            dev = queued_ms(lambda: P.partition_hist_window(rows, s_dev,
+                                                            work, **kw))
+            host = queued_ms(lambda: P.partition_hist(rows, scal, **kw))
+            b_ms, b_by = bound(2.0 * wc * W, 2.0 * (wc / 2) * 14)
+            log("  %sdevice-window pass, feature window [14, 28), %8d rows: "
+                "%.4f ms (queued %.4f; host-window pass queued %.4f), bound "
+                "%.4f ms (%s)" % ("quantized " if quantized else "", wc, ms,
+                                  dev, host, b_ms, b_by))
+            sizes.append(dict(rows=wc, ms=ms, queued_ms=dev,
+                              host_window_queued_ms=host, bound_ms=b_ms,
+                              bound_by=b_by))
+        times["quantized" if quantized else "exact"] = dict(
+            sizes[0], sizes=sizes[1:])
+        del rows, work
+        torch.cuda.empty_cache()
+    return worst, times
 
 
 def level_frontiers(n: int, B: int, rng: np.random.RandomState) -> dict:
@@ -1228,9 +1394,8 @@ def phase_main_path(device, data, ds, path: str, iters: int,
 
 def split_passes(learner, models) -> int:
     """The split passes a leaf-wise training launched: L - 1 a tree in the
-    device build (``learner.grows_on_device()``: dead steps included), one a
-    split in the host loop (forced splits, CEGB, the histogram pool, the
-    parallel learners)."""
+    device build (``learner.grows_on_device()``: every leaf-wise tree, dead
+    steps included), one a split in the host loop."""
     if learner.grows_on_device():
         return len(models) * (learner.num_leaves - 1)
     return sum(t.num_leaves - 1 for t in models)
@@ -1330,7 +1495,8 @@ def initial_gradients(booster, n: int) -> tuple:
     return grad.reshape(K, n)[0], hess.reshape(K, n)[0]
 
 
-DEVICE_BUILD_TURNS = 3      # (A): iterations of each build, in turns
+DEVICE_BUILD_TURNS = 2      # (A): iterations of each build, in turns
+TURNS_ITERS = 2             # (N), (O), (V1): the same
 
 
 def host_tree(booster, arrays):
@@ -1359,87 +1525,114 @@ def same_arrays(a, b) -> bool:
     return True
 
 
-def phase_device_build(device, ds, booster) -> dict:
-    """(A)'s leaf-wise device build (no host round trip between splits)
-    against the host loop it replaced, on (A)'s bins: (a) the first tree
-    grown again with the host loop from the same gradients, its model text
-    equal to the device build's or equal up to a near tie
-    (``trees_up_to_tie``), at most 2 device->host transfers a device-built
-    tree and L - 1 split passes; (b) the step captured once in a CUDA graph
-    and replayed L - 1 times, equal to the eager device build's tree (a
-    capture that meets a read-back raises, so the step reads nothing
-    back); (c) two fresh boosters of (A)'s settings, one on each build,
-    trained DEVICE_BUILD_TURNS iterations in turns: their s/iteration
-    (median, range) and peak device memory, and their trees held to each
-    other as in (a).  Nothing here is claimed."""
-    import functools
-    from lightgbm_tpu_torch import Config, GBDT, create_objective
+def regrow_tree0(booster, learner=None, reset=None, graph=False) -> dict:
+    """Tree 0 of ``booster`` (class 0's first tree) grown again from the
+    initial gradients by the device build and by the host loop
+    (``host_loop=True``) on ``learner`` (the booster's unless given),
+    ``reset`` called before each to put it back in its initial state
+    (CEGB's carried features and paid bits): the two TreeArrays equal in
+    every field (the pool's misses included) and in the lazy paid bits,
+    their model text equal, the device build's one fetch and L - 1 split
+    passes, and its kernel launches (one root histogram, L - 1 split
+    passes, under the pool L - 1 rebuild launches).  With ``graph``, the
+    step is captured once in a CUDA graph and replayed L - 1 times (a
+    capture that meets a read-back raises), and that tree is held to the
+    eager one.  Raises on a difference; returns what it saw."""
     from lightgbm_tpu_torch import device as D
     from lightgbm_tpu_torch.core import tree_learner as TL
-    learner = booster.learner
-    if not learner.grows_on_device():
-        raise AssertionError("(A) does not grow on the device")
-    n = ds.num_data
+    learner = learner or booster.learner
+    n = booster.train_data.num_data
     L = learner.num_leaves
     grad, hess = initial_gradients(booster, n)
-    D.reset_launches()
-    eager = learner.train(grad, hess, n)
-    torch.cuda.synchronize()
-    counts = D.launches()
-    host = learner.train(grad, hess, n, host_loop=True)
-    if eager.host_fetches > 2 or eager.split_passes != L - 1 or \
-            counts["partition"] != L - 1:
-        raise AssertionError("(A) device build: %d fetches, %d split "
-                             "passes, launches %s"
-                             % (eager.host_fetches, eager.split_passes,
-                                counts))
-    a, b = host_tree(booster, eager), host_tree(booster, host)
-    if a.to_string() == b.to_string():
-        log("  (A) device build: tree 0 regrown by the host loop from the "
-            "same gradients: model text equal; fetches %d (host loop %d), "
-            "split passes %d" % (eager.host_fetches, host.host_fetches,
-                                 eager.split_passes))
-    else:
-        equal, tied, _ = trees_up_to_tie("(A) device build vs host loop",
-                                         [a], [b], booster)
-        log("  (A) device build: tree 0 vs the host loop's: equal up to a "
-            "near tie (%d tie); fetches %d (host loop %d)"
-            % (tied, eager.host_fetches, host.host_fetches))
-    # (b) the step captured once, replayed L - 1 times
-    real_grow = TL._DeviceGrowth.grow
 
-    def grow_captured(g):
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            g.step()
-        for _ in range(1, g.L):
-            graph.replay()
-    TL._DeviceGrowth.grow = grow_captured
-    try:
-        captured = learner.train(grad, hess, n)
-    finally:
-        TL._DeviceGrowth.grow = real_grow
+    def grow(**kw):
+        if reset is not None:
+            reset()
+        return learner.train(grad, hess, n, **kw)
+
+    def same(a, b):
+        return same_arrays(a, b) and (
+            (a.paid_bits is None) == (b.paid_bits is None)) and (
+            a.paid_bits is None or torch.equal(a.paid_bits, b.paid_bits))
+    D.reset_launches()
+    eager = grow()
     torch.cuda.synchronize()
-    if not same_arrays(captured, eager):
-        raise AssertionError("(A) the captured step's tree differs from the "
-                             "eager device build's")
-    log("  (A) the step captured once in a CUDA graph and replayed %d times:"
-        " the tree equal to the eager build's" % (L - 1))
-    # (c) both builds in turns
-    cfg = Config(objective="binary", num_leaves=255, learning_rate=0.1,
-                 max_bin=255, verbosity=-1)
-    builds = {name: GBDT(cfg, ds, create_objective("binary", cfg))
-              for name in ("device", "host loop")}
-    hl = builds["host loop"].learner
-    hl.train = functools.partial(hl.train, host_loop=True)
-    iter_s = {k: [] for k in builds}
-    for _ in range(DEVICE_BUILD_TURNS):
-        for name, b in builds.items():
+    counts = {k: v for k, v in D.launches().items() if v}
+    host = grow(host_loop=True)
+    want = {"partition": L - 1,
+            ("histogram_int" if learner.quantized else "histogram"): 1}
+    if learner.hist_pool_slots and learner.grows_on_device():
+        want["histogram_window"] = L - 1
+    text = host_tree(booster, eager).to_string()
+    if not same(eager, host) or text != host_tree(booster, host).to_string():
+        raise AssertionError("tree 0 regrown: the device build differs from "
+                             "the host loop (%d vs %d leaves)"
+                             % (eager.num_leaves, host.num_leaves))
+    if (eager.host_fetches != 1 or eager.split_passes != L - 1
+            or counts != want):
+        raise AssertionError("tree 0 regrown: %d fetches, %d split passes, "
+                             "launches %s, want 1, %d, %s"
+                             % (eager.host_fetches, eager.split_passes,
+                                counts, L - 1, want))
+    out = dict(leaves=eager.num_leaves, fetches=eager.host_fetches,
+               host_fetches=host.host_fetches, passes=eager.split_passes,
+               misses=eager.pool_misses, host_misses=host.pool_misses,
+               launches=counts, graph=False)
+    if graph:
+        real_grow = TL._DeviceGrowth.grow
+
+        def grow_captured(g):
+            steps = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(steps):
+                g.step()
+            for _ in range(1, g.L):
+                steps.replay()
+        TL._DeviceGrowth.grow = grow_captured
+        try:
+            captured = grow()
+        finally:
+            TL._DeviceGrowth.grow = real_grow
+        torch.cuda.synchronize()
+        if not same(captured, eager):
+            raise AssertionError("the captured step's tree differs from the "
+                                 "eager device build's")
+        out["graph"] = True
+    if reset is not None:
+        reset()
+    return out
+
+
+def builds_in_turns(what: str, make, turns: int, ties=None) -> dict:
+    """Two fresh boosters from ``make()``, one on the device build and one
+    in the host loop (its learner's ``train`` with ``host_loop=True``),
+    trained ``turns`` iterations in turns: their s/iteration (median,
+    range), the peak device memory of each booster's making and first
+    iteration above what was allocated before it, and their trees (model
+    text equal, or, with ``ties`` a booster-like for ``trees_up_to_tie``,
+    equal up to near ties); and the device build's split-pass workspace.
+    Nothing here is claimed."""
+    import functools
+    builds = {}
+    iter_s = {"device": [], "host loop": []}
+    peak = {}
+    for it in range(turns):
+        for name in iter_s:
             torch.cuda.synchronize()
+            if it == 0:
+                gc.collect()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                b = builds[name] = make()
+                if name == "host loop":
+                    b.learner.train = functools.partial(b.learner.train,
+                                                        host_loop=True)
             t = time.perf_counter()
-            b.train_one_iter()
+            builds[name].train_one_iter()
             torch.cuda.synchronize()
             iter_s[name].append(time.perf_counter() - t)
+            if it == 0:
+                peak[name] = (torch.cuda.max_memory_allocated()
+                              - base) / 2 ** 20
     work = builds["device"].learner._window_work
     work_bytes = 0 if work is None else sum(
         t.numel() * t.element_size() for t in
@@ -1447,42 +1640,60 @@ def phase_device_build(device, ds, booster) -> dict:
     got, want = builds["device"].models, builds["host loop"].models
     texts = [t.to_string() for t in got] == [t.to_string() for t in want]
     if not texts:
-        trees_up_to_tie("(A) in turns, device vs host loop", got, want,
-                        builds["device"])
-    log("  (A) in turns: the two builds' %d trees %s" % (
-        len(got), "equal" if texts else "equal up to near ties"))
-    del builds, got, want, hl
+        if ties is None:
+            raise AssertionError("(%s) in turns: the device build's trees "
+                                 "differ from the host loop's" % what)
+        trees_up_to_tie("(%s) in turns, device vs host loop" % what, got,
+                        want, ties)
+    log("  (%s) in turns: the two builds' %d trees %s" % (
+        what, len(got), "equal" if texts else "equal up to near ties"))
+    del builds, got, want
     gc.collect()
     out = {}
-    for name in ("device", "host loop"):
-        # each build alone: the peak over a booster's making and its first
-        # iteration, above what was allocated before it
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        b = GBDT(cfg, ds, create_objective("binary", cfg))
-        if name == "host loop":
-            b.learner.train = functools.partial(b.learner.train,
-                                                host_loop=True)
-        b.train_one_iter()
-        torch.cuda.synchronize()
-        peak_mib = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-        del b
-        gc.collect()
-        v = iter_s[name]
+    for name, v in iter_s.items():
         out[name] = dict(iter_s=v, median=float(np.median(v)),
-                         range=[min(v), max(v)], peak_mib=peak_mib)
-        log("  (A) %-9s s/iteration %s: median %.4f, range %.4f-%.4f; peak "
-            "device memory %.1f MiB (a booster made and trained 1 "
-            "iteration, alone)" % (name, ["%.4f" % x for x in v],
-                                    out[name]["median"], min(v), max(v),
-                                    peak_mib))
+                         range=[min(v), max(v)], peak_mib=peak[name])
+        log("  (%s) %-9s s/iteration %s: median %.4f, range %.4f-%.4f; peak "
+            "device memory %.1f MiB (the booster made and trained 1 "
+            "iteration, above what was allocated before it)"
+            % (what, name, ["%.4f" % x for x in v], out[name]["median"],
+               min(v), max(v), peak[name]))
     out["workspace_mib"] = work_bytes / 2 ** 20
-    log("  (A) the device build's split-pass workspace, kept by its learner "
-        "between trees: %.1f MiB" % out["workspace_mib"])
+    over = out["device"]["peak_mib"] - out["host loop"]["peak_mib"]
+    log("  (%s) the device build's split-pass workspace, kept by its "
+        "learner between trees: %.1f MiB; its peak %s the host loop's by "
+        "%.1f MiB (%s the workspace)"
+        % (what, out["workspace_mib"], "above" if over > 0 else "below",
+           abs(over), "within" if over <= out["workspace_mib"]
+           else "MORE THAN"))
     torch.cuda.empty_cache()
     return out
+
+
+def phase_device_build(device, ds, booster) -> dict:
+    """(A)'s leaf-wise device build (no host round trip between splits)
+    against the host loop it replaced, on (A)'s bins (``regrow_tree0``:
+    the first tree grown again by both builds from the same gradients,
+    model text equal, 1 fetch and L - 1 split passes; the step captured
+    once in a CUDA graph and replayed L - 1 times, equal to the eager
+    tree), then two fresh boosters of (A)'s settings, one on each build,
+    trained DEVICE_BUILD_TURNS iterations in turns (``builds_in_turns``:
+    s/iteration, peak device memory, trees equal or equal up to near
+    ties).  Nothing here is claimed."""
+    from lightgbm_tpu_torch import Config, GBDT, create_objective
+    if not booster.learner.grows_on_device():
+        raise AssertionError("(A) does not grow on the device")
+    r = regrow_tree0(booster, graph=True)
+    log("  (A) device build: tree 0 regrown by the host loop from the "
+        "same gradients: model text equal; fetches %d (host loop %d), split "
+        "passes %d; the step captured once in a CUDA graph and replayed %d "
+        "times: the tree equal to the eager build's"
+        % (r["fetches"], r["host_fetches"], r["passes"], r["passes"]))
+    cfg = Config(objective="binary", num_leaves=255, learning_rate=0.1,
+                 max_bin=255, verbosity=-1)
+    return builds_in_turns(
+        "A", lambda: GBDT(cfg, ds, create_objective("binary", cfg)),
+        DEVICE_BUILD_TURNS, ties=booster)
 
 
 def check_tree0(booster, n: int, strict: bool, bag=None,
@@ -1496,7 +1707,8 @@ def check_tree0(booster, n: int, strict: bool, bag=None,
     gradients of the initial scores (a random forest's), ``learner`` a
     learner other than the booster's (one in its initial state where the
     booster's carries state between trees)."""
-    from lightgbm_tpu_torch.core.histogram import histogram_rows_plain
+    from lightgbm_tpu_torch.core.histogram import (
+        histogram_rows_plain, histogram_rows_window_plain)
     from lightgbm_tpu_torch.core.partition import (
         partition_hist_level_plain, partition_hist_plain,
         partition_hist_window_plain)
@@ -1509,7 +1721,8 @@ def check_tree0(booster, n: int, strict: bool, bag=None,
         grad, hess, count, feature_mask, iteration=0,
         hist_fn=histogram_rows_plain, part_fn=partition_hist_plain,
         level_fn=partition_hist_level_plain,
-        window_fn=partition_hist_window_plain)
+        window_fn=partition_hist_window_plain,
+        rebuild_fn=histogram_rows_window_plain)
     torch.cuda.synchronize()
     log("  tree %d rebuilt with the plain versions in %.3f s"
         % (index, time.perf_counter() - t))
@@ -2748,12 +2961,15 @@ def report_path(path: str, r: dict, n: int, loss_name: str = "logloss"):
     return med
 
 
-def expect_leafwise_launches(path: str, r: dict, booster,
-                             rebuilt: int = 0) -> None:
-    """One root histogram per tree (plus the pool's rebuilt parents) and
-    ``booster``'s split passes (``split_passes``), nothing else."""
-    want = {"histogram": r["trees"] + rebuilt,
-            "partition": split_passes(booster.learner, booster.models)}
+def expect_leafwise_launches(path: str, r: dict, booster) -> None:
+    """One root histogram per tree and ``booster``'s split passes
+    (``split_passes``), and under the histogram pool as many parent
+    rebuilds (``histogram_rows_window``, on a window of 0 rows when the
+    parent's slot holds it), nothing else."""
+    passes = split_passes(booster.learner, booster.models)
+    want = {"histogram": r["trees"], "partition": passes}
+    if booster.learner.hist_pool_slots:
+        want["histogram_window"] = passes
     if r["launches"] != {k: want.get(k, 0) for k in r["launches"]}:
         raise AssertionError("path (%s): launches %s, want %s"
                              % (path, r["launches"], want))
@@ -3048,12 +3264,25 @@ def phase_forced_cegb(device, data, ds, profile: bool) -> dict:
                  cegb_penalty_feature_lazy=[1e-5] * F, **HIGGS_PARAMS)
     try:
         booster = GBDT(cfg, ds, create_objective("binary", cfg))
-        # tree 0's plain rebuild needs a learner in the initial CEGB state
+        # tree 0's regrowth and plain rebuild need a learner in the
+        # initial CEGB state
         fresh = SerialTreeLearner(ds, cfg, booster.device)
+        r = _forced_cegb_path(booster, fresh, cfg, data, ds, profile)
     finally:
         os.remove(fname)
         os.rmdir(tmp)
+    return r
+
+
+def _forced_cegb_path(booster, fresh, cfg, data, ds, profile) -> dict:
+    """(N)'s run and checks, while its schedule's file exists (the
+    in-turns boosters read it)."""
+    from lightgbm_tpu_torch import GBDT, create_objective
+    X, y, X_test, _ = data
+    n, F = len(y), ds.num_features
     learner = booster.learner
+    if not learner.grows_on_device():
+        raise AssertionError("(N) does not grow on the device")
     label = torch.as_tensor(y, device=booster.device)
     r = run_iterations(booster, FORCED_ITERS, label)
     report_path("N", r, n)
@@ -3085,10 +3314,26 @@ def phase_forced_cegb(device, data, ds, profile: bool) -> dict:
         raise AssertionError("train log loss %s" % r["losses"])
     raw = booster.predict(X_test, raw_score=True)
     check_predictions(booster, X, X_test, raw)
+
+    def reset():
+        fresh.restore_cegb_state(np.zeros(F, bool), np.zeros(
+            (n, fresh.layout.bitbytes), np.uint8))
+    r["device_build"] = regrow_tree0(booster, learner=fresh, reset=reset,
+                                     graph=True)
+    log("  (N) device build: tree 0 regrown by the host loop from the same "
+        "gradients and CEGB state: model text and paid bits equal; fetches "
+        "%d (host loop %d, with its forced and refund fetches), split passes"
+        " %d; the step captured once in a CUDA graph and replayed %d times: "
+        "the tree equal to the eager build's"
+        % (r["device_build"]["fetches"], r["device_build"]["host_fetches"],
+           r["device_build"]["passes"], r["device_build"]["passes"]))
     check_tree0(booster, n, strict=False, learner=fresh)
     del fresh
     expect_leafwise_launches("N", r, booster)
     profile_path(r, booster, profile)
+    r["in_turns"] = builds_in_turns(
+        "N", lambda: GBDT(cfg, ds, create_objective("binary", cfg)),
+        TURNS_ITERS)
     return r
 
 
@@ -3393,6 +3638,8 @@ def phase_pool(device, eps: dict, profile: bool) -> dict:
            eps["peak_bytes"] / 1e6, r["misses"]))
     if K != 32 or misses == 0:
         raise AssertionError("%d slots (want 32), %d rebuilds" % (K, misses))
+    if not learner.grows_on_device():
+        raise AssertionError("(O) does not grow on the device")
     bins = booster.train_bins()
     fh = learner.feat_host
     for i, (a, b) in enumerate(zip(eps["models"], booster.models)):
@@ -3410,9 +3657,29 @@ def phase_pool(device, eps: dict, profile: bool) -> dict:
             % (i, 100 * same, 100 * rows, float(np.abs(va - vb).max())))
         if not (same >= 0.98 and rows >= 0.98 and close):
             raise AssertionError("pooled tree %d differs from (D)'s" % i)
-    expect_leafwise_launches("O", r, booster, rebuilt=misses)
+    expect_leafwise_launches("O", r, booster)
     profile_path(r, booster, profile)
     r["peak_bytes"], r["cache_bytes"] = peak, hist_cache_bytes(learner, K)
+    r["device_build"] = regrow_tree0(booster, graph=True)
+    d = r["device_build"]
+    if d["misses"] != d["host_misses"] or d["misses"] == 0:
+        raise AssertionError("(O) tree 0: %d rebuilt parents on the device, "
+                             "%d in the host loop" % (d["misses"],
+                                                      d["host_misses"]))
+    log("  (O) device build: tree 0 regrown by the host loop from the same "
+        "gradients: model text equal, %d rebuilt parents in both (%d "
+        "rebuild launches on the device, %d of them on a window of 0 "
+        "rows); fetches %d (host loop %d), split passes %d; the step "
+        "captured once in a CUDA graph and replayed %d times: the tree "
+        "equal to the eager build's"
+        % (d["misses"], d["passes"], d["passes"] - d["misses"], d["fetches"],
+           d["host_fetches"], d["passes"], d["passes"]))
+    del booster
+    gc.collect()
+    torch.cuda.empty_cache()
+    r["in_turns"] = builds_in_turns(
+        "O", lambda: GBDT(cfg, ds, create_objective("binary", cfg)),
+        TURNS_ITERS)
     return r
 
 
@@ -3759,6 +4026,7 @@ QUANT_LOSS_RTOL = 5e-2        # tests/test_hist_quant.py:272-297's band
 # (V2)'s iterations: two processes time-slice the one card, so an iteration
 # takes seconds (2.5-4.5 s at (A)'s rows on the H100); 2 keep (V) near its
 # time and the width whole, and make room for path (X)
+V1_ITERS = 1                  # (V1): iterations of each learner
 V2_ITERS = 1
 # (V2): tree_learner and its extra parameters, one run each
 V2_RUNS = (("data", {}), ("feature", {}), ("voting", {"top_k": 20}),
@@ -3898,10 +4166,12 @@ def first_text_difference(got: str, want: str) -> str:
 def phase_parallel_nccl(device, data, ds, iters: int, a_text: str) -> dict:
     """Path (V1): the four parallel learners built directly on a one-rank
     NCCL group (the factory would give the serial learner, as the JAX one
-    does at d = 1), each trained through ``GBDT`` on (A)'s binned rows:
-    every model's trees byte-equal to (A)'s, one root histogram per tree and
-    one split pass per split (each over the whole feature window in
-    ``feature`` mode), and the comm's calls and bytes per split."""
+    does at d = 1), each trained through ``GBDT`` on (A)'s binned rows on
+    the device build: every model's trees byte-equal to (A)'s, one fetch,
+    one root histogram and L - 1 split passes a tree (each over the whole
+    feature window in ``feature`` mode), tree 0 regrown by the host loop
+    (``regrow_tree0``), the comm's calls and bytes per split; then
+    ``data`` on both builds in turns (``builds_in_turns``)."""
     import torch.distributed as dist
 
     from lightgbm_tpu_torch import Config, GBDT, create_objective
@@ -3913,7 +4183,7 @@ def phase_parallel_nccl(device, data, ds, iters: int, a_text: str) -> dict:
     backend = "nccl" if device.type == "cuda" else "gloo"
     dist.init_process_group(backend, init_method="tcp://127.0.0.1:%d"
                             % free_port(), rank=0, world_size=1)
-    out = {"launches": {}, "trees": 0}
+    out = {"launches": {}, "trees": 0, "feature_window_launches": 0}
     try:
         for cls in (DataParallelTreeLearner, FeatureParallelTreeLearner,
                     VotingParallelTreeLearner,
@@ -3927,8 +4197,8 @@ def phase_parallel_nccl(device, data, ds, iters: int, a_text: str) -> dict:
             mode = booster.learner.mode
             r = run_iterations(booster, iters, label)
             routes = D.route_launches()["partition"]
-            if trees_text(booster.save_model_to_string()) != trees_text(
-                    a_text):
+            if tree_blocks(booster.save_model_to_string()) != tree_blocks(
+                    a_text)[:iters]:
                 raise AssertionError("(V1) %s: the model differs from (A)'s"
                                      % mode)
             expect_leafwise_launches("V1 " + mode, r, booster)
@@ -3936,17 +4206,38 @@ def phase_parallel_nccl(device, data, ds, iters: int, a_text: str) -> dict:
                 raise AssertionError("(V1) feature: %d windowed split passes "
                                      "of %d" % (routes["feature_window"],
                                                 r["splits"]))
+            out["feature_window_launches"] += routes["feature_window"]
             ops = booster.learner.comm.ops
-            log("  (V1) %s (%s, %s, 1 rank): trees equal to (A)'s byte for "
-                "byte; s/iteration %s; comm per split %s"
-                % (cls.__name__, mode, backend,
-                   ["%.4f" % v for v in r["iter_s"]],
+            log("  (V1) %s (%s, %s, 1 rank): trees equal to (A)'s first %d "
+                "byte for byte; s/iteration %s; fetches per tree %s; comm per "
+                "split %s"
+                % (cls.__name__, mode, backend, iters,
+                   ["%.4f" % v for v in r["iter_s"]], r["fetches"],
                    json.dumps(comm_per_split(ops.summary(), r["splits"]))))
+            if not booster.learner.grows_on_device() or \
+                    set(r["fetches"]) != {1}:
+                raise AssertionError("(V1) %s: fetches per tree %s"
+                                     % (mode, r["fetches"]))
+            d = regrow_tree0(booster)
+            log("  (V1) %s: tree 0 regrown by the host loop from the same "
+                "gradients: model text equal; fetches %d (host loop %d), "
+                "split passes %d" % (mode, d["fetches"], d["host_fetches"],
+                                     d["passes"]))
+            out.setdefault("device_build", {})[mode] = d
             for k, v in r["launches"].items():
                 out["launches"][k] = out["launches"].get(k, 0) + v
             out["trees"] += r["trees"]
             del booster
             torch.cuda.empty_cache()
+
+        def make():
+            cfg = Config(objective="binary", num_leaves=255,
+                         learning_rate=0.1, max_bin=255, verbosity=-1)
+            b = GBDT(cfg, ds, create_objective("binary", cfg, device=device),
+                     device=device)
+            b.learner = DataParallelTreeLearner(ds, cfg, device)
+            return b
+        out["in_turns"] = builds_in_turns("V1 data", make, TURNS_ITERS)
     finally:
         dist.destroy_process_group()
     return out
@@ -4002,9 +4293,15 @@ def _parallel_rank(rank: int, port: int, n: int, iters: int,
             r["text"] = booster.save_model_to_string()
             r["tree0"] = tree0_sequence(booster)
             r["class"] = type(booster.learner).__name__
+            r["passes"] = split_passes(booster.learner, booster.models)
             booster._write_snapshot(os.path.join(out_dir, "%s_r%d"
                                                  % (name, rank)))
             r["run_s"] = time.perf_counter() - t0
+            # tree 0 grown again by both builds (the ranks' collectives in
+            # step); raises on a difference
+            t0 = time.perf_counter()
+            r["device_build"] = regrow_tree0(booster)
+            r["device_build"]["s"] = time.perf_counter() - t0
             res[name] = r
             del booster
             torch.cuda.empty_cache()
@@ -4079,7 +4376,10 @@ def phase_parallel_gloo(device, n: int, iters: int, a: dict,
                json.dumps(comm_per_split(r0["comm"], r0["splits"]))))
         for rank, r in enumerate((r0, r1)):
             root = "histogram_int" if quantized else "histogram"
-            want = {root: r["trees"], "partition": r["splits"]}
+            want = {root: r["trees"], "partition": r["passes"]}
+            if set(r["fetches"]) != {1}:
+                raise AssertionError("(V2) %s rank %d: fetches per tree %s"
+                                     % (name, rank, r["fetches"]))
             if r["launches"] != {k: want.get(k, 0) for k in r["launches"]}:
                 raise AssertionError("(V2) %s rank %d: launches %s, want %s"
                                      % (name, rank, r["launches"], want))
@@ -4095,8 +4395,13 @@ def phase_parallel_gloo(device, n: int, iters: int, a: dict,
                 out["launches"][k] = out["launches"].get(k, 0) + v
             out["trees"] += r["trees"]
             out["feature_window_launches"] += windowed
+            d = r["device_build"]
             log("  (V2) %s rank %d: launches %s, split passes with the "
-                "feature window %d" % (name, rank, r["launches"], windowed))
+                "feature window %d; tree 0 regrown by the host loop: model "
+                "text equal, fetches %d (host loop %d; the gloo collectives "
+                "stage CUDA tensors through host memory, not counted), %.1f "
+                "s" % (name, rank, r["launches"], windowed, d["fetches"],
+                       d["host_fetches"], d["s"]))
         if name == "feature" and (tree_blocks(r0["text"])
                                   == tree_blocks(a["text"])[:iters]):
             # every rank holds every row and sums nothing across the ranks
@@ -6721,6 +7026,8 @@ def main(argv=None) -> int:
     log("[2] histogram kernels vs plain versions")
     hist_err_max = phase_histogram(device, args.rows)
     hist_int_err = phase_histogram_int(device, args.rows)
+    window_hist_err, window_hist_times = phase_window_hist(device, args.rows,
+                                                           nw)
     widef_err = phase_widef_hist(device, nw)
     masked_err = phase_masked_hist(device, 1 << 20)
     log("[3] split kernels vs plain versions")
@@ -6729,6 +7036,8 @@ def main(argv=None) -> int:
     widef_split_err = phase_widef_split(device, nw)
     carried_err = phase_carried_contract(device, CARRIED_ROWS)
     window_err = phase_window_split(device, args.rows)
+    fwin_err, fwin_times = phase_window_feature_split(device, args.rows)
+    window_err = max(window_err, fwin_err)
     split_err_max = max(split_err_max, carried_err, window_err)
     phase_scan_level(device)
     reset_launches()
@@ -6801,15 +7110,17 @@ def main(argv=None) -> int:
     log("  (Y) took %.1f s" % (time.perf_counter() - t))
     torch.cuda.empty_cache()
     mark()
-    log("  (V) the parallel tree learners on (A)'s task, %d iterations: "
+    log("  (V) the parallel tree learners on (A)'s task, %d iteration(s): "
         "(V1) each learner on a one-rank NCCL group, (V2) data, feature, "
-        "voting and quantized data on 2 gloo ranks" % args.iters)
+        "voting and quantized data on 2 gloo ranks"
+        % min(args.iters, V1_ITERS, V2_ITERS))
     a_path = paths["A"]
     a_path["text"] = a_path["booster"].save_model_to_string()
     a_path["tree0"] = tree0_sequence(a_path["booster"])
     a_path["tree0_terms"] = tree0_split_terms(a_path["booster"])
     t = time.perf_counter()
-    paths["V1"] = phase_parallel_nccl(device, data, ds, args.iters,
+    paths["V1"] = phase_parallel_nccl(device, data, ds,
+                                      min(args.iters, V1_ITERS),
                                       a_path["text"])
     paths["V2"] = phase_parallel_gloo(device, args.rows,
                                       min(args.iters, V2_ITERS), a_path,
@@ -6971,7 +7282,10 @@ def main(argv=None) -> int:
              max_abs_err=split_err_max,
              **launches("partition", "ABCFGHIJRSTU", ("V1", "V2", "W1",
                                                       "X", "Y")),
-             feature_window_launches=paths["V2"]["feature_window_launches"],
+             feature_window_launches=(
+                 paths["V1"]["feature_window_launches"]
+                 + paths["V2"]["feature_window_launches"]),
+             feature_window_device_window=fwin_times,
              cli_root=paths["S"]["times"]["split"],
              unfold_launches=paths["I"]["routes"]["partition"]["unfold"],
              categorical_launches=paths["J"]["routes"]["partition"][
@@ -7029,6 +7343,18 @@ def main(argv=None) -> int:
              replaces="lightgbm_tpu/core/histogram.py:303",
              max_abs_err=masked_err, **launches("histogram_masked"),
              **times["histogram_masked"]),
+        # the pool's rebuilt parent, its window in device memory: (O)'s
+        # shape first (F = 2000), F = 28 exact and integer under "shapes"
+        dict(name="histogram_window", route="cuda",
+             source="lightgbm_tpu_torch/csrc/histogram.cu",
+             also_source="lightgbm_tpu_torch/csrc/histogram_int.cu",
+             replaces="lightgbm_tpu/core/histogram.py:774",
+             also_replaces="lightgbm_tpu/core/histogram.py:743",
+             max_abs_err=window_hist_err, **launches("histogram_window"),
+             rebuilt_parents=sum(paths["O"]["misses"]),
+             shapes={k: v for k, v in window_hist_times.items()
+                     if k != "F%d_exact" % WIDE_F},
+             **window_hist_times["F%d_exact" % WIDE_F]),
     ]}
     for k in kernels_line["kernels"]:
         if k["launches"] == 0:

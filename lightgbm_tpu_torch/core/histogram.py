@@ -29,6 +29,14 @@ own (:func:`int_hist_grid`).
 channel-major ``values`` [2, R], with the kernel ``csrc/histogram_masked.cu``;
 :func:`build_histogram` (over all rows) is its entry point.
 
+:func:`histogram_rows_window` is :func:`histogram_rows` with the window in
+device memory (an int32 ``(begin, count)`` tensor the host never reads),
+on a grid sized for a bound: the histogram pool's rebuilt parent in the
+leaf-wise build on the device (the JAX pool's ``_miss``,
+lightgbm_tpu/core/tree_learner.py:955-956), ``csrc/histogram.cu``
+``lgbt_hist_rows_window`` and ``csrc/histogram_int.cu``
+``lgbt_hist_rows_int_window``.
+
 Each dispatcher takes the plain version only for a tensor on the CPU; for a
 CUDA tensor it launches the kernel or raises.  The TPU's one-hot MXU
 contraction, bf16 hi/lo split and factored accumulator layout are TPU-only and
@@ -291,6 +299,23 @@ def data_ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
 
 
+def _check_rows(rows: torch.Tensor, num_features: int, num_bins: int,
+                voff: int, bpc: int, packed: bool, f_begin: int) -> None:
+    """Refuse a row store the row-store kernels cannot read: not u8 [R, W],
+    the values at ``voff`` misaligned or past W, or the histogram's bin
+    columns reaching the values."""
+    check_tensor(rows, "rows", torch.uint8, ndim=2)
+    W = rows.shape[1]
+    if voff % 4 or voff + 8 > W:
+        raise ValueError("voff %d must be 4-aligned with 8 bytes inside W=%d"
+                         % (voff, W))
+    ncol = ((num_features + f_begin + 1) // 2 if packed
+            else (num_features + f_begin) * bpc)
+    if f_begin < 0 or ncol > voff:
+        raise ValueError("bin columns overlap the values at voff")
+    check_hist_shape(num_features, num_bins)
+
+
 def histogram_rows_cuda(rows: torch.Tensor, num_bins: int, start: int,
                         count: int, *, num_features: int, voff: int,
                         bpc: int = 1, packed: bool = False,
@@ -299,19 +324,11 @@ def histogram_rows_cuda(rows: torch.Tensor, num_bins: int, start: int,
     """Launch the hand-written histogram kernel (``csrc/histogram.cu``), or
     the integer one (``csrc/histogram_int.cu``) when ``quantized``."""
     from .. import kernels
-    check_tensor(rows, "rows", torch.uint8, ndim=2)
+    _check_rows(rows, num_features, num_bins, voff, bpc, packed, f_begin)
     n, W = rows.shape
     if not 0 <= start <= start + count <= n:
         raise ValueError("window [%d, %d) outside %d rows"
                          % (start, start + count, n))
-    if voff % 4 or voff + 8 > W:
-        raise ValueError("voff %d must be 4-aligned with 8 bytes inside W=%d"
-                         % (voff, W))
-    ncol = ((num_features + f_begin + 1) // 2 if packed
-            else (num_features + f_begin) * bpc)
-    if ncol > voff:
-        raise ValueError("bin columns overlap the values at voff")
-    check_hist_shape(num_features, num_bins)
     out = torch.empty((num_features, 2, num_bins), dtype=torch.float32,
                       device=rows.device)
     args = (rows.data_ptr(), W, voff, bpc, int(packed), num_features,
@@ -348,6 +365,111 @@ def histogram_rows(rows: torch.Tensor, num_bins: int, start: int, count: int,
     return fn(rows, num_bins, int(start), int(count),
               num_features=num_features, voff=voff, bpc=bpc, packed=packed,
               f_begin=f_begin, quantized=quantized)
+
+
+# ---- the window in device memory ----
+
+def _window_host(win: torch.Tensor, n: int) -> Tuple[int, int]:
+    w = torch.as_tensor(win).reshape(-1).cpu()
+    if w.numel() != 2:
+        raise ValueError("win holds (begin, count), got %d entries"
+                         % w.numel())
+    start, count = int(w[0]), int(w[1])
+    if not 0 <= start <= start + count <= n:
+        raise ValueError("window [%d, %d) outside %d rows"
+                         % (start, start + count, n))
+    return start, count
+
+
+def histogram_rows_window_plain(rows: torch.Tensor, win: torch.Tensor,
+                                work=None, *, num_bins: int,
+                                num_features: int, voff: int, bpc: int = 1,
+                                packed: bool = False, f_begin: int = 0,
+                                quantized: bool = False) -> torch.Tensor:
+    """Plain version: reads ``win`` on the host and calls
+    :func:`histogram_rows_plain`; ``work`` is not used."""
+    start, count = _window_host(win, rows.shape[0])
+    return histogram_rows_plain(rows, num_bins, start, count,
+                                num_features=num_features, voff=voff,
+                                bpc=bpc, packed=packed, f_begin=f_begin,
+                                quantized=quantized)
+
+
+def histogram_rows_window_cuda(rows: torch.Tensor, win: torch.Tensor,
+                               work=None, *, num_bins: int,
+                               num_features: int, voff: int, bpc: int = 1,
+                               packed: bool = False, f_begin: int = 0,
+                               quantized: bool = False) -> torch.Tensor:
+    """Launch the histogram kernel on the window ``win`` names
+    (``lgbt_hist_rows_window``, or ``lgbt_hist_rows_int_window`` when
+    ``quantized``).  Reads nothing back and copies nothing to the card, so
+    a CUDA graph can capture it.  The window must lie in the first
+    ``work.bound`` rows (the kernel does not check).  ``work`` holds the
+    launch's buffers, sized for that bound (``partition.window_workspace``:
+    the split pass's own, which a launch on the same stream may share);
+    None makes them for the whole store."""
+    from .. import kernels
+    _check_rows(rows, num_features, num_bins, voff, bpc, packed, f_begin)
+    check_tensor(win, "win", torch.int32, ndim=1)
+    if win.numel() != 2 or win.device != rows.device:
+        raise ValueError("win must be 2 int32 (begin, count) on the rows' "
+                         "device")
+    n, W = rows.shape
+    dev = rows.device
+    if work is None:
+        bound = n
+        if quantized:
+            ft, nseg = int_hist_grid(max(n, 1), num_features, num_bins)
+            check_int_segments(n, nseg)
+            partial = int_accumulator(nseg, num_features, num_bins, dev)
+        else:
+            ft, nseg = 0, _segments(n, num_features, num_bins)
+            partial = exact_partials(nseg, num_features, num_bins, dev)
+        cap = segment_cap(num_features, num_bins)
+    else:
+        bound, ft, nseg, cap, partial = (work.bound, work.ft, work.nseg,
+                                         work.seg_cap, work.partial)
+        if work.quantized != quantized or bound > n:
+            raise ValueError("the workspace was made for another store or "
+                             "precision")
+        want = (nseg, num_features, 2, num_bins)
+        if partial is not None and not quantized and \
+                tuple(partial.shape) != want:
+            raise ValueError("the workspace's partials are %s, not %s"
+                             % (tuple(partial.shape), want))
+    out = torch.empty((num_features, 2, num_bins), dtype=torch.float32,
+                      device=dev)
+    args = (rows.data_ptr(), W, voff, bpc, int(packed), num_features,
+            num_bins, f_begin, win.data_ptr())
+    if quantized:
+        err = kernels.library("histogram_int").lgbt_hist_rows_int_window(
+            *args, nseg, ft, data_ptr(partial), out.data_ptr(),
+            cuda_stream_ptr(rows))
+    else:
+        err = kernels.library("histogram").lgbt_hist_rows_window(
+            *args, bound, cap, data_ptr(partial), out.data_ptr(),
+            cuda_stream_ptr(rows))
+    count_launch("histogram_window")
+    kernels.check(err, "histogram_window kernel")
+    return out
+
+
+def histogram_rows_window(rows: torch.Tensor, win: torch.Tensor, work=None,
+                          *, num_bins: int, num_features: int, voff: int,
+                          bpc: int = 1, packed: bool = False,
+                          f_begin: int = 0,
+                          quantized: bool = False) -> torch.Tensor:
+    """Histogram of the window that ``win`` (int32 [2]: begin, count, on the
+    store's device) names -> [F, 2, B] f32, equal bit for bit to
+    :func:`histogram_rows` on that window; a count of 0 gives zeros.
+
+    A CUDA tensor goes through the kernel (one launch, sized by ``work``)
+    or raises; a CPU tensor through the plain version."""
+    fn = (histogram_rows_window_cuda if rows.is_cuda
+          else histogram_rows_window_plain)
+    return fn(rows, win, work, num_bins=num_bins, num_features=num_features,
+              voff=voff, bpc=bpc, packed=packed, f_begin=f_begin,
+              quantized=quantized)
 
 
 # ---- separate bins and values (``histogram_pallas_masked``) ----

@@ -42,9 +42,11 @@ that the host never reads::
 
     partition_hist_window(rows, scal, work, ...) -> (hist [F, 2, B], nl [1])
 
-``scal`` is an int32 tensor on the store's device (no feature window), and
-``rows`` is partitioned in place.  :func:`window_workspace` sizes the
-launch's buffers once for the largest window (``work``): the grid, the
+``scal`` is an int32 tensor on the store's device, with or without the
+trailing ``hist_feature_begin`` (the kernel's child histogram reads it on
+the device, as it reads the window), and ``rows`` is partitioned in
+place.  :func:`window_workspace` sizes the launch's buffers once for the
+largest window (``work``): the grid, the
 scratch window, the tile counts and the histogram's partials.  A window of
 ``wc = 0`` (a dead step of the build) leaves the store as it is, with a
 zero histogram and ``nl = 0``.  On the same window it equals
@@ -367,18 +369,22 @@ def partition_hist_window_cuda(rows: torch.Tensor, scal: torch.Tensor,
     (``lgbt_partition_window``, ``csrc/partition.cu``); partitions
     ``rows`` in place.  Reads nothing back and copies nothing to the card,
     so a CUDA graph can capture it.  Every window must lie in the first
-    ``work.bound`` rows (the kernel does not check); ``work`` None makes
-    one for the whole store."""
+    ``work.bound`` rows, and a trailing ``hist_feature_begin`` must keep
+    the columns ``[f_begin, f_begin + num_features)`` inside the bin bytes
+    (the kernel reads both on the device and checks neither); ``work``
+    None makes one for the whole store."""
     from .. import kernels
     _check_store(rows, voff, num_features, num_bins)
     check_tensor(scal, "scal", torch.int32, ndim=1)
-    if scal.numel() != SCAL_HEAD + num_bins // 32:
-        raise ValueError("scal needs %d entries (12 + num_bins // 32, no "
-                         "feature window), got %d"
-                         % (SCAL_HEAD + num_bins // 32, scal.numel()))
+    base = SCAL_HEAD + num_bins // 32
+    if scal.numel() not in (base, base + 1):
+        raise ValueError("scal needs %d entries (12 + num_bins // 32), or %d "
+                         "with the feature window, got %d"
+                         % (base, base + 1, scal.numel()))
     if scal.device != rows.device:
         raise ValueError("scal on %s, rows on %s" % (scal.device,
                                                      rows.device))
+    fwin = int(scal.numel() == base + 1)
     check_feature_window(0, num_features, voff, bpc, packed)
     n, W = rows.shape
     if work is None:
@@ -396,7 +402,8 @@ def partition_hist_window_cuda(rows: torch.Tensor, scal: torch.Tensor,
     err = kernels.library("partition").lgbt_partition_window(
         rows.data_ptr(), work.scratch.data_ptr(), W, scal.data_ptr(),
         work.bound, bpc, int(packed), num_bins // 32, num_features, num_bins,
-        voff, work.nblk, work.tile, work.blk.data_ptr(), work.win.data_ptr(),
+        voff, fwin, work.nblk, work.tile, work.blk.data_ptr(),
+        work.win.data_ptr(),
         nl.data_ptr(), work.seg_cap, work.nseg, work.ft, int(quantized),
         data_ptr(work.partial), hist.data_ptr(),
         route_counter(dev).data_ptr(), cuda_stream_ptr(rows))

@@ -34,15 +34,15 @@ exact integer sum, dequantized before it is cached, so the subtraction trick
 and the split scan run on real f32 sums.
 
 Which build runs when (:func:`grows_on_device`): the device build for
-serial leaf-wise growth; the host loop (:class:`_Growth`) for forced splits,
-CEGB, the histogram pool and the parallel learners, whose steps take host
-decisions (the forced schedule, the CEGB refund, the pool's slots) or run
-collectives, and for level growth (8 steps a 255-leaf tree).  The host loop
-keeps the row store, the per-leaf histogram cache and the split scans on
-the device, brings back one small tensor a step (the children's best
-splits and the left counts) and does the bookkeeping in host numpy f32/i32;
-the device build does the same f32 operations in the same order on the
-device, so both give the same trees byte for byte.
+every leaf-wise tree, forced splits, CEGB, the histogram pool and the
+parallel learners' comms included; the host loop (:class:`_Growth`) for
+level growth (8 steps a 255-leaf tree) and for a check that asks for it
+(``host_loop``).  The host loop keeps the row store, the histogram cache
+and the split scans on the device, brings back one small tensor a step
+(the children's best splits and the left counts) and does the bookkeeping
+in host numpy f32/i32; the device build does the same f32 operations in
+the same order on the device, and both run their collectives through one
+:class:`_LeafScan`, so both give the same trees byte for byte.
 
 On an EFB-bundled dataset the row store holds the group columns
 (``dataset.binned``) and the histograms, the per-leaf cache among them, are
@@ -84,12 +84,13 @@ The parallel learners (``parallel/learners.py``) grow through the same
 a ``torch.distributed`` group, each holding a contiguous stripe of the rows
 (or, in ``feature`` mode, every row), with the collectives where the JAX
 build puts them (``reduce_hist``, tree_learner.py:490-516; ``best_of``,
-:582-647; the root sums, :769-773).  Every host decision that feeds a
-collective comes from replicated data: the chosen leaf (the gains of the
-synced best splits), the smaller side (the global counts), the pool's hits
-and misses (its slots follow the leaves chosen), the forced-split schedule.
-Only the window offsets and the left counts ``nl`` are the rank's own.  A
-rank that decided alone would leave the others waiting in a collective.
+:582-647; the root sums, :769-773).  Every decision that feeds a collective
+comes from replicated data: the chosen leaf (the gains of the synced best
+splits), the smaller side (the global counts), the pool's hits and misses
+(its slots follow the leaves chosen), the forced-split schedule.  Only the
+window offsets and the left counts ``nl`` are the rank's own.  The device
+build takes no branch on them at all: each step runs the same collectives,
+a pool hit reducing a zero histogram (the JAX comment at :944-949).
 Level growth stays serial: under a comm the learner grows leaf-wise with one
 warning, as the JAX learner does.
 """
@@ -106,7 +107,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..io.binning import BinType, MissingType
 from ..io.dataset import BinnedDataset
-from .histogram import histogram_rows, pad_bins_pow2
+from .histogram import histogram_rows, histogram_rows_window, pad_bins_pow2
 from .partition import (SCAL_HEAD, part_tile_rows, partition_hist,
                         partition_hist_level, partition_hist_window,
                         scal_missing_code, window_workspace)
@@ -462,45 +463,32 @@ def level_count(num_leaves: int, max_depth: int) -> int:
     return max(1, int(np.ceil(np.log2(num_leaves))))
 
 
-class _Growth:
-    """One tree while it grows: the device row store and per-leaf histogram
-    cache, and the host bookkeeping in numpy f32/i32 (so it does the JAX
-    program's f32 arithmetic), the monotone bounds ``cmin``/``cmax`` and the
-    leaf totals ``lsum_g``/``lsum_h`` among it.  With ``pool_slots`` the
-    cache holds that many LRU slots (``slot_of`` per leaf, ``stamps`` per
-    slot); ``forced`` is the forced-split schedule, ``cegb`` the tree's CEGB
-    state.  ``fetches`` counts the device->host transfers, ``levels`` the
-    level steps, ``misses`` the pool's rebuilt parents.  With ``comm`` (a
-    :class:`Comm`) the rank's rows are ``rows`` and the collectives of its
-    mode run where the JAX build runs them; the cache then holds the rank's
-    F/d block in ``rs`` and ``feature`` mode."""
+class _LeafScan:
+    """What the two leaf-wise builds share: the root's sums and histogram,
+    the collectives of a parallel learner's mode where the JAX build runs
+    them (``reduce_hist``, tree_learner.py:490-516; the root sums and the
+    lazy counts, :769-773, :932-934) and the best-split scans of leaves
+    (``best_of``, :582-647) with CEGB's penalties.  It holds no tree state,
+    so the host loop and the device build run the same collectives in the
+    same order and the same f32 operations on the same tensors.
 
-    def __init__(self, rows, grad, hess, num_data, scan: SplitScan,
-                 feat_host, *, num_leaves, num_bins, layout, hist_features,
-                 packed, qscale, hist_fn, part_fn, level_fn, spare=None,
-                 forced=None, cegb: Optional[CegbState] = None,
-                 pool_slots: int = 0, comm: Optional[Comm] = None):
-        n = grad.shape[0]
-        L = num_leaves
-        B = num_bins
-        dev = rows.device
-        f32 = np.float32
-        self.rows, self.n, self.L, self.B, self.dev = rows, n, L, B, dev
-        # level growth: the leaves of depth d live in stores[d % 2] (the
-        # level pass reads one store and writes the other); leaf-wise
-        # growth partitions ``rows`` alone
-        self.stores = None if spare is None else (rows, spare)
-        self.scan, self.feat_host = scan, feat_host
-        self.table = scal_table(feat_host)
-        self.layout, self.qscale = layout, qscale
-        self.hist_fn, self.part_fn, self.level_fn = hist_fn, part_fn, level_fn
-        self.comm = comm
+    With ``comm`` (a :class:`Comm`) the rank's rows are its store, and the
+    histograms it caches hold the rank's F/d block in ``rs`` and
+    ``feature`` mode (``cache_features``); ``f0`` is the first histogram
+    column (the feature window of ``feature`` mode) and ``shard`` the
+    (first, count) of the features the rank scans in ``rs`` and
+    ``feature`` mode (tree_learner.py:458-488)."""
+
+    def __init__(self, scan: SplitScan, comm: Optional[Comm],
+                 cegb: Optional[CegbState], layout: RowLayout, qscale,
+                 num_bins: int, hist_features: int, packed: bool, dev):
+        self.scan, self.comm, self.cegb = scan, comm, cegb
+        self.layout, self.qscale, self.B, self.dev = (layout, qscale,
+                                                      num_bins, dev)
         self.mode = "serial" if comm is None else comm.mode
         F = scan.feat.num_bin.shape[0]
-        # the first histogram column (the feature window of ``feature``
-        # mode); ``shard`` is the (first, count) of the features the rank
-        # scans in ``rs`` and ``feature`` mode (tree_learner.py:458-488)
-        self.f0, self.shard, cache_features = 0, None, hist_features
+        self.num_features = F
+        self.f0, self.shard, self.cache_features = 0, None, hist_features
         if self.mode in ("rs", "feature"):
             d = comm.num_shards
             if F % d or hist_features != F:
@@ -510,7 +498,7 @@ class _Growth:
                                  % (d, F, hist_features))
             chunk = F // d
             self.shard = (comm.rank * chunk, chunk)
-            cache_features = chunk
+            self.cache_features = chunk
             if self.mode == "feature":
                 hist_features, self.f0 = chunk, comm.rank * chunk
             cut = slice(self.shard[0], self.shard[0] + chunk)
@@ -527,98 +515,50 @@ class _Growth:
             self.vote_params = p._replace(
                 min_data_in_leaf=max(p.min_data_in_leaf // d, 1),
                 min_sum_hessian_in_leaf=p.min_sum_hessian_in_leaf / d)
+        # the rows are striped over the ranks in every mode but feature
+        self.striped = comm is not None and self.mode != "feature"
+        self.lazy = cegb is not None and cegb.lazy is not None
         self.hkw = dict(num_features=hist_features, voff=layout.voff,
                         bpc=layout.bpc, packed=packed,
                         quantized=qscale is not None)
         # the histogram kernel takes the window as an argument, the split
-        # pass as the scal row's trailing element (``_scal``)
+        # pass as the scal row's trailing element
         self.hist_kw = dict(self.hkw, f_begin=self.f0)
-        self.fetches = 0
-        self.levels = 0
-        self.misses = 0
-        self.cmin = np.full(L, -np.inf, dtype=f32)
-        self.cmax = np.full(L, np.inf, dtype=f32)
-        self.forced, self.force_on = forced, True
-        self.cegb = cegb
-        self.lazy = cegb is not None and cegb.lazy is not None
-        self.num_features = F
-        if self.lazy:
-            # rows that paid a feature's lazy cost in earlier trees
-            lo = layout.bitoff
-            rows[:n, lo:lo + layout.bitbytes] = cegb.paid
-        self.feat_used = None if cegb is None else cegb.used.copy()
 
-        # ---- root ----
-        hist0 = self._reduce(hist_fn(rows, B, 0, n, **self.hist_kw))
-        self.pool = max(2, min(pool_slots, L)) if pool_slots > 0 else 0
-        self.hist = torch.zeros((self.pool or L, cache_features, 2, B),
-                                dtype=torch.float32, device=dev)
-        self.hist[0] = hist0
-        if self.pool:
-            self.slot_of = np.full(L, -1, np.int64)
-            self.slot_of[0] = 0
-            self.stamps = np.full(self.pool, -1, np.int64)
-            self.stamps[0] = 0
-        # the root sums are all-reduced unless every rank holds every row
-        # (tree_learner.py:769-773)
-        striped = comm is not None and self.mode != "feature"
-        if qscale is None:
-            sums = torch.stack([grad.sum(), hess.sum()]).to(torch.float32)
-            if striped:
-                sums = comm.ops.all_reduce_sum(sums)
+    def root(self, rows, grad, hess, num_data, hist_fn):
+        """The root's cached histogram, its (grad, hess) sums [2] f32 (all
+        reduced where rows are striped), its in-bag count (a host int, or
+        a device scalar from the fused chunk's bag mask: f32 0-d) and, with
+        lazy CEGB, the rows that paid each feature [F] f32 (after writing
+        the paid bits of earlier trees into ``rows``)."""
+        n, dev = grad.shape[0], rows.device
+        if self.lazy:
+            lo = self.layout.bitoff
+            rows[:n, lo:lo + self.layout.bitbytes] = self.cegb.paid
+        hist0 = self.reduce(hist_fn(rows, self.B, 0, n, **self.hist_kw))
+        if self.qscale is None:
+            sums = self.psum_rows(torch.stack([grad.sum(), hess.sum()]).to(
+                torch.float32))
         else:
             # the integer sums (exact in f64) times the iteration's scales
-            sums = torch.stack([grad.double().sum(), hess.double().sum()])
-            if striped:
-                sums = comm.ops.all_reduce_sum(sums)
-            sums = sums.float() * qscale
+            sums = self.psum_rows(torch.stack([grad.double().sum(),
+                                               hess.double().sum()]))
+            sums = sums.float() * self.qscale
         ucnt0 = None
         if self.lazy:
-            ucnt0 = self._paid_counts(rows[:n]).sum(0, dtype=torch.int32)
-            if striped:
-                ucnt0 = comm.ops.all_reduce_sum(ucnt0)
-            ucnt0 = ucnt0.to(torch.float32)
-        # the in-bag count: a host int, or (the fused chunk's bag mask) a
-        # device scalar that comes back with the root's fetch
+            ucnt0 = self.psum_rows(self.paid_counts(rows[:n]).sum(
+                0, dtype=torch.int32)).to(torch.float32)
         count0 = (num_data.to(torch.float32).reshape(())
                   if isinstance(num_data, torch.Tensor)
                   else torch.tensor(float(num_data), device=dev))
-        best0, fb0 = self._best(hist0, sums[0], sums[1], count0,
-                                self.cmin[0], self.cmax[0], ucnt0)
-        if fb0 is not None:
-            # the per-(leaf, feature) candidates (splits_per_leaf_)
-            self.fbc = FeatureBest(*[
-                torch.full((L,) + x.shape,
-                           K_MIN_SCORE if name == "gain" else 0,
-                           dtype=x.dtype, device=dev)
-                for name, x in zip(FeatureBest._fields, fb0)])
-            for x, v in zip(self.fbc, fb0):
-                x[0] = v
-        root, sums_host = self._fetch(best0, torch.cat([sums.to(
-            torch.float32), count0[None]]))
-        sum_h = f32(sums_host[1])
+        return hist0, sums, count0, ucnt0
 
-        self.bests = {k: np.repeat(v, L, axis=0) for k, v in root.items()}
-        zl = lambda dt=f32: np.zeros(L, dtype=dt)  # noqa: E731
-        self.split_feature, self.threshold_bin = zl(np.int32), zl(np.int32)
-        self.split_gain, self.default_left = zl(), zl(bool)
-        self.left_child, self.right_child = zl(np.int32), zl(np.int32)
-        self.internal_value, self.internal_weight = zl(), zl()
-        self.internal_count = zl()
-        self.leaf_value, self.leaf_weight, self.leaf_count = zl(), zl(), zl()
-        self.leaf_parent = np.full(L, -1, dtype=np.int32)
-        self.leaf_depth = zl(np.int32)
-        self.cat_bitset = np.zeros_like(self.bests["cat_bitset"])
-        self.leaf_weight[0] = sum_h
-        self.leaf_count[0] = f32(sums_host[2])
-        self.lsum_g, self.lsum_h = zl(), zl()
-        self.lsum_g[0], self.lsum_h[0] = f32(sums_host[0]), sum_h
-        self.begin = np.zeros(L, dtype=np.int64)
-        self.wcount = np.zeros(L, dtype=np.int64)
-        self.wcount[0] = n
-        self.nl_leaves = 1
+    def psum_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the ranks where each holds a stripe of the
+        rows."""
+        return self.comm.ops.all_reduce_sum(t) if self.striped else t
 
-    def _reduce(self, hist: torch.Tensor) -> torch.Tensor:
+    def reduce(self, hist: torch.Tensor) -> torch.Tensor:
         """A freshly built histogram [..., F, 2, B] -> what the cache holds
         (``reduce_hist``, tree_learner.py:490-516): reduce-scattered over
         the features (``rs``) or all-reduced (``psum``) across the ranks,
@@ -642,7 +582,7 @@ class _Growth:
         return hist if self.qscale is None else dequantize_hist(hist,
                                                                 self.qscale)
 
-    def _paid_counts(self, window: torch.Tensor) -> torch.Tensor:
+    def paid_counts(self, window: torch.Tensor) -> torch.Tensor:
         """[R, F] bools of the rows of ``window`` (row-store rows) that
         paid each feature's lazy cost, unpacked from their bit bytes."""
         lo = self.layout.bitoff
@@ -651,22 +591,24 @@ class _Growth:
         return ((bits[..., None] >> shifts) & 1).reshape(
             bits.shape[0], -1)[:, :self.num_features].bool()
 
-    def _best(self, hist, sum_grad, sum_hess, count, cmin, cmax, ucnt=None):
-        """Best splits of leaves from their cached (group) histograms, leaf
-        totals and monotone bounds (host f32): the JAX learner's ``best_of``
-        on the unpacked histograms.  Returns (BestSplit, the per-feature
-        candidates with the CEGB penalties, or None without CEGB);
-        ``ucnt`` [..., F] counts the leaves' rows that paid each feature's
+    def best(self, hist, sg, sh, count, cmin, cmax, used=None, ucnt=None):
+        """Best splits of leaves from their cached (group) histograms, the
+        f32 leaf totals and counts [...] and the monotone bounds [...]
+        (host or device; read only with a monotone feature): the JAX
+        learner's ``best_of`` on the unpacked histograms.  Returns
+        (BestSplit, the per-feature candidates with the CEGB penalties, or
+        None without CEGB); ``used`` [F] bool holds the features split on
+        so far, ``ucnt`` [..., F] the leaves' rows that paid each feature's
         lazy cost."""
         sc, dev = self.scan, self.dev
-        sg = torch.as_tensor(sum_grad, dtype=torch.float32, device=dev)
-        sh = torch.as_tensor(sum_hess, dtype=torch.float32, device=dev)
-        if self.shard is not None or self.mode == "voting":
-            return self._parallel_best(hist, sg, sh, count, cmin, cmax), None
+        sg = torch.as_tensor(sg, dtype=torch.float32, device=dev)
+        sh = torch.as_tensor(sh, dtype=torch.float32, device=dev)
         bounds = {}
         if sc.monotone:
             bounds = dict(cmin=torch.as_tensor(cmin, device=dev),
                           cmax=torch.as_tensor(cmax, device=dev))
+        if self.shard is not None or self.mode == "voting":
+            return self._parallel_best(hist, sg, sh, count, bounds), None
         if self.cegb is None:
             return scan_best(sc, hist, sg, sh, count, **bounds), None
         if sc.lanes is not None:
@@ -678,7 +620,7 @@ class _Growth:
         cg = self.cegb
         cnt = torch.as_tensor(count, dtype=torch.float32, device=dev)[...,
                                                                       None]
-        used = torch.as_tensor(self.feat_used, device=dev)
+        used = torch.as_tensor(used, device=dev)
         penalty = cg.split_pen * cnt + torch.where(
             used, torch.zeros_like(cg.coupled), cg.coupled)
         if cg.lazy is not None:
@@ -687,7 +629,7 @@ class _Growth:
                                           fb.gain - penalty, fb.gain))
         return reduce_feature_best(fb), fb
 
-    def _parallel_best(self, hist, sg, sh, count, cmin, cmax) -> BestSplit:
+    def _parallel_best(self, hist, sg, sh, count, bounds) -> BestSplit:
         """``best_of`` of the ``rs``/``feature`` and ``voting`` modes
         (tree_learner.py:586-627).  ``rs``/``feature``: the scan of the
         rank's F/d block with ``feature_contri`` by global id, then the best
@@ -701,10 +643,6 @@ class _Growth:
         ones alone."""
         sc, dev, ops = self.scan, self.dev, self.comm.ops
         f32 = torch.float32
-        bounds = {}
-        if sc.monotone:
-            bounds = dict(cmin=torch.as_tensor(cmin, device=dev),
-                          cmax=torch.as_tensor(cmax, device=dev))
         cnt = torch.as_tensor(count, dtype=f32, device=dev)
         if self.shard is not None:
             c = self.scan_c
@@ -745,6 +683,104 @@ class _Growth:
         return reduce_feature_best(fb._replace(gain=torch.where(
             won, fb.gain, torch.full_like(fb.gain, K_MIN_SCORE))))
 
+
+class _Growth:
+    """One tree while it grows in the host loop: the device row store and
+    per-leaf histogram cache, and the host bookkeeping in numpy f32/i32 (so
+    it does the JAX program's f32 arithmetic), the monotone bounds
+    ``cmin``/``cmax`` and the leaf totals ``lsum_g``/``lsum_h`` among it.
+    With ``pool_slots`` the cache holds that many LRU slots (``slot_of`` per
+    leaf, ``stamps`` per slot); ``forced`` is the forced-split schedule,
+    ``cegb`` the tree's CEGB state.  ``fetches`` counts the device->host
+    transfers, ``levels`` the level steps, ``misses`` the pool's rebuilt
+    parents.  With ``comm`` (a :class:`Comm`) the collectives of its mode
+    run where the JAX build runs them (:class:`_LeafScan`)."""
+
+    def __init__(self, rows, grad, hess, num_data, scan: SplitScan,
+                 feat_host, *, num_leaves, num_bins, layout, hist_features,
+                 packed, qscale, hist_fn, part_fn, level_fn, spare=None,
+                 forced=None, cegb: Optional[CegbState] = None,
+                 pool_slots: int = 0, comm: Optional[Comm] = None):
+        n = grad.shape[0]
+        L = num_leaves
+        B = num_bins
+        dev = rows.device
+        f32 = np.float32
+        self.rows, self.n, self.L, self.B, self.dev = rows, n, L, B, dev
+        # level growth: the leaves of depth d live in stores[d % 2] (the
+        # level pass reads one store and writes the other); leaf-wise
+        # growth partitions ``rows`` alone
+        self.stores = None if spare is None else (rows, spare)
+        self.scan, self.feat_host = scan, feat_host
+        self.table = scal_table(feat_host)
+        self.layout, self.qscale = layout, qscale
+        self.hist_fn, self.part_fn, self.level_fn = hist_fn, part_fn, level_fn
+        self.sx = sx = _LeafScan(scan, comm, cegb, layout, qscale, B,
+                                 hist_features, packed, dev)
+        self.mode = sx.mode
+        self.hkw, self.hist_kw = sx.hkw, sx.hist_kw
+        self.fetches = 0
+        self.levels = 0
+        self.misses = 0
+        self.cmin = np.full(L, -np.inf, dtype=f32)
+        self.cmax = np.full(L, np.inf, dtype=f32)
+        self.forced, self.force_on = forced, True
+        self.cegb = cegb
+        self.lazy = sx.lazy
+        self.feat_used = None if cegb is None else cegb.used.copy()
+
+        # ---- root ----
+        hist0, sums, count0, ucnt0 = sx.root(rows, grad, hess, num_data,
+                                             hist_fn)
+        self.pool = max(2, min(pool_slots, L)) if pool_slots > 0 else 0
+        self.hist = torch.zeros((self.pool or L, sx.cache_features, 2, B),
+                                dtype=torch.float32, device=dev)
+        self.hist[0] = hist0
+        if self.pool:
+            self.slot_of = np.full(L, -1, np.int64)
+            self.slot_of[0] = 0
+            self.stamps = np.full(self.pool, -1, np.int64)
+            self.stamps[0] = 0
+        best0, fb0 = self._best(hist0, sums[0], sums[1], count0,
+                                self.cmin[0], self.cmax[0], ucnt0)
+        if fb0 is not None:
+            # the per-(leaf, feature) candidates (splits_per_leaf_)
+            self.fbc = FeatureBest(*[
+                torch.full((L,) + x.shape,
+                           K_MIN_SCORE if name == "gain" else 0,
+                           dtype=x.dtype, device=dev)
+                for name, x in zip(FeatureBest._fields, fb0)])
+            for x, v in zip(self.fbc, fb0):
+                x[0] = v
+        root, sums_host = self._fetch(best0, torch.cat([sums.to(
+            torch.float32), count0[None]]))
+        sum_h = f32(sums_host[1])
+
+        self.bests = {k: np.repeat(v, L, axis=0) for k, v in root.items()}
+        zl = lambda dt=f32: np.zeros(L, dtype=dt)  # noqa: E731
+        self.split_feature, self.threshold_bin = zl(np.int32), zl(np.int32)
+        self.split_gain, self.default_left = zl(), zl(bool)
+        self.left_child, self.right_child = zl(np.int32), zl(np.int32)
+        self.internal_value, self.internal_weight = zl(), zl()
+        self.internal_count = zl()
+        self.leaf_value, self.leaf_weight, self.leaf_count = zl(), zl(), zl()
+        self.leaf_parent = np.full(L, -1, dtype=np.int32)
+        self.leaf_depth = zl(np.int32)
+        self.cat_bitset = np.zeros_like(self.bests["cat_bitset"])
+        self.leaf_weight[0] = sum_h
+        self.leaf_count[0] = f32(sums_host[2])
+        self.lsum_g, self.lsum_h = zl(), zl()
+        self.lsum_g[0], self.lsum_h[0] = f32(sums_host[0]), sum_h
+        self.begin = np.zeros(L, dtype=np.int64)
+        self.wcount = np.zeros(L, dtype=np.int64)
+        self.wcount[0] = n
+        self.nl_leaves = 1
+
+    def _best(self, hist, sum_grad, sum_hess, count, cmin, cmax, ucnt=None):
+        """:meth:`_LeafScan.best` with the features split on so far."""
+        return self.sx.best(hist, sum_grad, sum_hess, count, cmin, cmax,
+                            self.feat_used, ucnt)
+
     def _fetch(self, best: BestSplit, extra: torch.Tensor):
         self.fetches += 1
         return _to_host(best, extra)
@@ -761,7 +797,7 @@ class _Growth:
         scal = np.zeros((fid.size, SCAL_HEAD + self.B // 32 + window),
                         dtype=np.int64)
         if window:
-            scal[:, -1] = self.f0
+            scal[:, -1] = self.sx.f0
         scal[:, :SCAL_HEAD] = self.table[fid]
         scal[:, 0] = wb
         scal[:, 1] = wc
@@ -990,7 +1026,7 @@ class _Growth:
             hist_small = hist_small[None]
         # the smaller child is chosen from the replicated global counts, so
         # every rank streams the same child into the collective
-        hist_small = self._reduce(hist_small)
+        hist_small = self.sx.reduce(hist_small)
         if self.pool:
             parent, dst_l, dst_r = self._pool_slots(int(leaf[0]), int(kid[0]),
                                                     int(wb[0]), int(wc[0]))
@@ -999,15 +1035,13 @@ class _Growth:
             dst_l, dst_r = leaf, kid
         ucnt = None
         if self.lazy:
-            paid = self._paid_counts(self.rows[wb[0]:wb[0] + wc[0]])
+            paid = self.sx.paid_counts(self.rows[wb[0]:wb[0] + wc[0]])
             in_left = (torch.arange(int(wc[0]), device=self.dev)
                        < nl_t.reshape(-1)[0])[:, None]
             used_l = (paid & in_left).sum(0, dtype=torch.int32)
             used_r = paid.sum(0, dtype=torch.int32) - used_l
-            ucnt = torch.stack([used_l, used_r])
-            if self.comm is not None:
-                ucnt = self.comm.ops.all_reduce_sum(ucnt)
-            ucnt = ucnt.to(torch.float32)
+            ucnt = self.sx.psum_rows(torch.stack([used_l, used_r])).to(
+                torch.float32)
         bounds = self._bounds(leaf, b)
         child, child_fb = self._children(hist_small, parent, dst_l, dst_r,
                                          left_smaller, b, bounds, ucnt)
@@ -1033,8 +1067,8 @@ class _Growth:
             parent = self.hist[ps:ps + 1]
         else:
             self.misses += 1
-            parent = self._reduce(self.hist_fn(self.rows, self.B, wb, wc,
-                                               **self.hist_kw))[None]
+            parent = self.sx.reduce(self.hist_fn(self.rows, self.B, wb, wc,
+                                                 **self.hist_kw))[None]
         s_l = ps if ps >= 0 else int(np.argmin(self.stamps))
         stamps = self.stamps.copy()
         stamps[s_l] = 2 ** 30
@@ -1149,11 +1183,13 @@ _PARENT, _DEPTH = _LEAF.index("parent"), _LEAF.index("depth")
 class _DeviceGrowth:
     """One leaf-wise tree grown on the device, with no host round trip
     between splits: the JAX build's ``fori_loop`` (``body``,
-    tree_learner.py:852-1309).  Each :meth:`step` picks the leaf of best
+    tree_learner.py:852-1120).  Each :meth:`step` picks the leaf of best
     cached gain with an ``argmax`` on the device (masked by ``max_depth``),
-    builds the split pass's scal row there from the learner's per-feature
-    table (:func:`scal_table`), runs the split pass on the window that row
-    names (``window_fn``, :func:`partition_hist_window`), derives the
+    or the next forced split while the schedule holds, builds the split
+    pass's scal row there from the learner's per-feature table
+    (:func:`scal_table`), runs the split pass on the window that row names
+    (``window_fn``, :func:`partition_hist_window`), takes the parent's
+    histogram from the cache (or, under the pool, rebuilds it), derives the
     sibling by subtraction and scans both children.  The state lives in
     device tensors with one row per leaf (or node) and a last row, L, that
     a dead step writes instead (the JAX build's masked ``sel``, as its
@@ -1165,18 +1201,48 @@ class _DeviceGrowth:
     The records: ``best`` the leaves' cached best splits
     (:func:`_pack_best` rows, f64), ``node`` [L + 1, 7 + words] f64 (gain,
     feature, threshold, default_left, internal value, weight and count, the
-    bitset words), ``leaf`` [L + 1, 5] f64 (``_LEAF``), ``child`` [L + 1, 2]
-    i64, ``win`` [L + 1, 2] i64 (window begin, count), ``cmin``/``cmax``
-    the monotone bounds, ``hist`` the per-leaf histogram cache.  The f32
-    bookkeeping is the host loop's, in the same order (``internal_count``
-    as ``left_count + right_count``, ``(lo + ro) * 0.5``, ``nan_to_num`` of
-    the outputs), so both builds give the same bytes.  :meth:`finish` reads
-    the tree back in one transfer."""
+    bitset words), ``leaf`` [L + 1, 5] f64 (``_LEAF``), ``lsum`` [L + 1, 2]
+    f32 (the leaves' grad and hess sums), ``child`` [L + 1, 2] i64, ``win``
+    [L + 1, 2] i64 (window begin, count), ``cmin``/``cmax`` the monotone
+    bounds, ``hist`` the histogram cache.  The f32 bookkeeping is the host
+    loop's, in the same order (``internal_count`` as ``left_count +
+    right_count``, ``(lo + ro) * 0.5``, ``nan_to_num`` of the outputs), so
+    both builds give the same bytes.
+
+    The leaf-wise options (tree_learner.py:634-690, :940-1054):
+
+    - ``forced``: the schedule as device tensors; each step gathers the
+      stats of entry ``k`` (``forced_best``, the index clamped to the
+      schedule) from its leaf's cached histogram, unpacked from its group
+      on bundled data; while ``force_on`` holds and the entry is valid it
+      replaces the step's leaf and split (masked selects), and a failed
+      entry switches the rest of the schedule off;
+    - ``cegb``: the per-(leaf, feature) candidates ``fbc`` [L + 1, F, ...]
+      and ``feat_used`` [F] bool; the first use of a feature refunds its
+      coupled penalty in every leaf's candidate and promotes those that now
+      win, as masked writes; with lazy penalties the split leaf's rows get
+      the feature's paid bit and the children's paid counts come from
+      masked sums over the store positions, before and after the split pass
+      (no kernel, as the JAX build runs lazy CEGB outside its Pallas pass,
+      :324);
+    - ``pool_slots``: K LRU slots (``slot_of`` [L + 1], ``stamps`` [K]);
+      every step launches the parent's rebuild (``rebuild_fn``,
+      :func:`histogram_rows_window`) on its window with a count of 0 when
+      the parent's slot holds it, so the host takes no branch (the JAX
+      ``lax.cond``), and the slots' writes are masked selects: the cache
+      stays K slots;
+    - ``comm``: the collectives of :class:`_LeafScan`, every rank running
+      the same ones in the same order (a pool hit reduces a zero
+      histogram).
+
+    :meth:`finish` reads the tree back in one transfer."""
 
     def __init__(self, rows, grad, hess, num_data, scan: SplitScan,
                  table: torch.Tensor, *, num_leaves, max_depth, num_bins,
                  layout, hist_features, packed, qscale, hist_fn, window_fn,
-                 work):
+                 work, rebuild_fn=histogram_rows_window, forced=None,
+                 cegb: Optional[CegbState] = None, pool_slots: int = 0,
+                 comm: Optional[Comm] = None):
         n = grad.shape[0]
         L = num_leaves
         dev = rows.device
@@ -1184,56 +1250,126 @@ class _DeviceGrowth:
         self.rows, self.n, self.L, self.B, self.dev = rows, n, L, num_bins, dev
         self.scan, self.table, self.layout = scan, table, layout
         self.max_depth, self.qscale = max_depth, qscale
-        self.window_fn, self.work = window_fn, work
-        self.hkw = dict(num_features=hist_features, voff=layout.voff,
-                        bpc=layout.bpc, packed=packed,
-                        quantized=qscale is not None)
-        hist0 = hist_fn(rows, num_bins, 0, n, **self.hkw)
-        if qscale is None:
-            sums = torch.stack([grad.sum(), hess.sum()]).to(f32)
-        else:
-            hist0 = dequantize_hist(hist0, qscale)
-            sums = torch.stack([grad.double().sum(),
-                                hess.double().sum()]).float() * qscale
-        count0 = (num_data.to(f32).reshape(())
-                  if isinstance(num_data, torch.Tensor)
-                  else torch.full((), float(num_data), dtype=f32,
-                                  device=dev))
+        self.window_fn, self.rebuild_fn = window_fn, rebuild_fn
+        self.work = work
+        self.sx = sx = _LeafScan(scan, comm, cegb, layout, qscale, num_bins,
+                                 hist_features, packed, dev)
+        self.cegb = cegb
+        self.feat_used = (None if cegb is None else
+                          torch.as_tensor(np.asarray(cegb.used, bool),
+                                          device=dev).clone())
         self.cmin = torch.full((L + 1,), -np.inf, dtype=f32, device=dev)
         self.cmax = torch.full((L + 1,), np.inf, dtype=f32, device=dev)
-        best0 = scan_best(scan, hist0, sums[0], sums[1], count0,
-                          self.cmin[0], self.cmax[0])
+        hist0, sums, count0, ucnt0 = sx.root(rows, grad, hess, num_data,
+                                             hist_fn)
+        best0, fb0 = sx.best(hist0, sums[0], sums[1], count0, self.cmin[0],
+                             self.cmax[0], self.feat_used, ucnt0)
         words = best0.cat_bitset.shape[-1]
         # no leaf but the root has a split until its best is cached
         self.best = torch.zeros((L + 1, _WORDS + words), dtype=f64,
                                 device=dev)
         self.best[:, _B["gain"]] = K_MIN_SCORE
         self.best[0] = _pack_best(best0)
-        self.hist = torch.zeros((L + 1,) + tuple(hist0.shape), dtype=f32,
-                                device=dev)
+        self.pool = max(2, min(pool_slots, L)) if pool_slots > 0 else 0
+        self.hist = torch.zeros((self.pool or L + 1,) + tuple(hist0.shape),
+                                dtype=f32, device=dev)
         self.hist[0] = hist0
+        if self.pool:
+            self.slot_of = torch.full((L + 1,), -1, dtype=i64, device=dev)
+            self.slot_of[0] = 0
+            self.stamps = torch.full((self.pool,), -1, dtype=i64, device=dev)
+            self.stamps[0] = 0
+            self.misses = torch.zeros((), dtype=i64, device=dev)
+        self.fbc = None
+        if fb0 is not None:
+            # the per-(leaf, feature) candidates (splits_per_leaf_)
+            self.fbc = FeatureBest(*[
+                torch.full((L + 1,) + x.shape,
+                           K_MIN_SCORE if name == "gain" else 0,
+                           dtype=x.dtype, device=dev)
+                for name, x in zip(FeatureBest._fields, fb0)])
+            for x, v in zip(self.fbc, fb0):
+                x[0] = v
+        self.forced = None
+        if forced is not None:
+            self.forced = tuple(torch.as_tensor(np.asarray(a, np.int64),
+                                                device=dev) for a in forced)
+            self.force_on = torch.ones((), dtype=torch.bool, device=dev)
         self.node = torch.zeros((L + 1, _NODE_WORDS + words), dtype=f64,
                                 device=dev)
         self.leaf = torch.zeros((L + 1, len(_LEAF)), dtype=f64, device=dev)
         self.leaf[:, _PARENT] = -1
         self.leaf[0, 1] = sums[1]           # the root's weight and count
         self.leaf[0, 2] = count0
+        self.lsum = torch.zeros((L + 1, 2), dtype=f32, device=dev)
+        self.lsum[0] = sums
         self.child = torch.zeros((L + 1, 2), dtype=i64, device=dev)
         self.win = torch.zeros((L + 1, 2), dtype=i64, device=dev)
         self.win[0, 1] = n
         # the scal row's bitset words past the scan's (a group histogram
-        # may be wider than any feature's)
+        # may be wider than any feature's), and the feature window of a
+        # feature-parallel rank (tree_learner.py:908-911)
         self.pad = torch.zeros(num_bins // 32 - words, dtype=i64, device=dev)
+        self.fwin = (torch.full((1,), sx.f0, dtype=i64, device=dev)
+                     if sx.mode == "feature" else None)
         self.k = torch.ones((), dtype=i64, device=dev)      # this step's kid
         self.leaves = torch.ones((), dtype=i64, device=dev)
         self.cont = torch.ones((), dtype=torch.bool, device=dev)
         self.pair = torch.arange(2, device=dev)
+        if sx.lazy:
+            # the store positions, the paid-bit bytes, the bits of a byte
+            self.pos = torch.arange(n, device=dev)
+            self.bytes = torch.arange(layout.bitbytes, device=dev)
+            self.shifts = torch.arange(8, dtype=torch.uint8, device=dev)
 
-    def step(self) -> None:
-        """One split, or a dead step (tree_learner.py:852-1309).  Device
+    def _forced_best(self):
+        """The k-th entry of the forced schedule (``forced_best``,
+        tree_learner.py:662-690): its leaf [1], its split as a packed best
+        row, and whether it applies (0-d bool): the scan of the leaf's
+        cached histogram for its feature restricted to its threshold bin
+        (no feature mask, ``feature_contri`` or CEGB penalty), valid while
+        the schedule holds, inside the schedule, with a split and under
+        ``max_depth``.  A failed entry switches the rest off."""
+        sc = self.scan
+        fl, ff, ft = self.forced
+        S = fl.numel()
+        k = self.k
+        idx = torch.clamp(k - 1, max=S - 1).view(1)
+        fleaf, ffeat, fthr = fl[idx], ff[idx], ft[idx]
+        sg = self.lsum[fleaf][0, 0]
+        sh = self.lsum[fleaf][0, 1]
+        cnt = self.leaf[fleaf][0, 2].to(torch.float32)
+        feat1 = FeatureInfo(*[None if a is None else a[ffeat]
+                              for a in sc.feat])
+        if sc.lanes is not None:
+            hist = unpack_groups(self.hist[fleaf][0], feat1.group,
+                                 tuple(x[ffeat] for x in sc.lanes), sg, sh)
+        else:
+            hist = self.hist[fleaf][0][ffeat]
+        bounds = {}
+        if sc.monotone:
+            bounds = dict(cmin=self.cmin[fleaf][0], cmax=self.cmax[fleaf][0])
+        tmask = torch.arange(hist.shape[-1], device=self.dev) == fthr
+        fb = per_feature_best(hist, feat1,
+                              torch.ones(1, dtype=torch.bool, device=self.dev),
+                              sg, sh, cnt, sc.params, threshold_mask=tmask,
+                              **bounds)
+        best = reduce_feature_best(fb)._replace(feature=ffeat[0])
+        in_sched = k <= S
+        valid = in_sched & (best.gain > K_MIN_SCORE) & self.force_on
+        if self.max_depth > 0:
+            valid = valid & (self.leaf[fleaf][0, _DEPTH] < self.max_depth)
+        self.force_on.copy_(self.force_on & (~in_sched | valid))
+        return fleaf[0], _pack_best(best), valid
+
+    def step(self, i: Optional[int] = None) -> None:
+        """One split, or a dead step (tree_learner.py:852-1120).  Device
         indices are 1-element tensors: indexing with a 0-d CUDA tensor
-        would read it back."""
-        L, sc = self.L, self.scan
+        would read it back.  ``i``, the step's number (1 .. L - 1, what
+        the device counter ``k`` holds), lets the host skip the forced
+        entry past the schedule, where it cannot apply; None runs it
+        (a step that serves any ``i``, as a captured graph replays it)."""
+        L, sc, sx = self.L, self.scan, self.sx
         f32 = torch.float32
         gains = self.best[:L, _B["gain"]]
         if self.max_depth > 0:
@@ -1241,30 +1377,54 @@ class _DeviceGrowth:
                                 gains, K_MIN_SCORE)
         gmax, leaf = gains.max(0)               # the first of the best
         ok = (gmax > 0.0) & self.cont
+        b = self.best[leaf.view(1)][0]
+        if self.forced is not None and (
+                i is None or i <= self.forced[0].numel()):
+            fleaf, fbest, fvalid = self._forced_best()
+            leaf = torch.where(fvalid, fleaf, leaf)
+            ok = torch.where(fvalid, self.cont, ok)
+            b = torch.where(fvalid, fbest, b)
         self.cont.copy_(ok)
         k = self.k
         li = leaf.view(1)
         # the rows this step writes: the sink row L on a dead step
         kids = torch.where(ok, torch.stack([leaf, k]), L)
         node_w = torch.where(ok, k - 1, L).view(1)
-        b = self.best[li][0]
         w = self.win[li][0] * ok                # (wb, wc); (0, 0) when dead
         left_smaller = b[_B["left_count"]] <= b[_B["right_count"]]
         fid = b[_B["feature"]].long().view(1)
+        if sx.lazy:
+            inw = (self.pos >= w[0]) & (self.pos < w[0] + w[1])
+            self._pay(fid, inw)
         head = self.table[fid][0]
         words = b[_WORDS:].long()
         words = words - ((words >> 31) << 32)  # the int32 bit patterns
-        scal = torch.cat([w, head[2:3], b[2:4].long(), head[5:9],
-                          left_smaller.long()[None], head[10:12], words,
-                          self.pad]).to(torch.int32)
+        parts = [w, head[2:3], b[2:4].long(), head[5:9],
+                 left_smaller.long()[None], head[10:12], words, self.pad]
+        if self.fwin is not None:
+            parts.append(self.fwin)
+        scal = torch.cat(parts).to(torch.int32)
         hist_small, nl = self.window_fn(self.rows, scal, self.work,
-                                        num_bins=self.B, **self.hkw)
-        if self.qscale is not None:
-            hist_small = dequantize_hist(hist_small, self.qscale)
-        hist_larger = self.hist[li][0] - hist_small
+                                        num_bins=self.B, **sx.hkw)
+        # the smaller child is chosen from the replicated global counts, so
+        # every rank streams the same child into the collective
+        hist_small = sx.reduce(hist_small)
+        if self.pool:
+            parent, sl, sr = self._pool_parent(li, w, ok)
+        else:
+            parent = self.hist[li][0]
+        hist_larger = parent - hist_small
         hist_left = torch.where(left_smaller, hist_small, hist_larger)
         hist_right = torch.where(left_smaller, hist_larger, hist_small)
-        self.hist[kids] = torch.stack([hist_left, hist_right])
+        if self.pool:
+            for slot, h in ((sl, hist_left), (sr, hist_right)):
+                self.hist[slot] = torch.where(ok, h, self.hist[slot][0])[None]
+        else:
+            self.hist[kids] = torch.stack([hist_left, hist_right])
+        nl = nl.reshape(()).long()
+        ucnt = self._child_paid(inw, w, nl) if sx.lazy else None
+        if self.cegb is not None:
+            self._refund(fid, ok)
 
         bounds = (None, None)
         if sc.monotone:
@@ -1289,9 +1449,13 @@ class _DeviceGrowth:
         sg, sh, cnt = (b[_B[f]:_B[f] + 4:3].to(f32)
                        for f in ("left_sum_grad", "left_sum_hess",
                                  "left_count"))
-        child = scan_best(sc, torch.stack([hist_left, hist_right]), sg, sh,
-                          cnt, *bounds)
+        child, child_fb = sx.best(torch.stack([hist_left, hist_right]), sg,
+                                  sh, cnt, *bounds, self.feat_used, ucnt)
         self.best[kids] = _pack_best(child)
+        if child_fb is not None:
+            for x, v in zip(self.fbc, child_fb):
+                x[kids] = v
+        self.lsum[kids] = torch.stack([sg, sh], 1)
 
         # parent child-pointer fixup (tree.h:338-346)
         rec = self.leaf[li][0]
@@ -1311,26 +1475,104 @@ class _DeviceGrowth:
             outs, sh.double(), cnt.double(), (k - 1).double().expand(2),
             (rec[_DEPTH] + 1).expand(2)], 1)
         # the left child keeps the parent's window start
-        nl = nl.reshape(()).long()
         self.win[kids] = torch.stack([w[0], nl, w[0] + nl,
                                       w[1] - nl]).reshape(2, 2)
         self.leaves.add_(ok.long())
         self.k.add_(1)
 
+    def _pool_parent(self, li, w, ok):
+        """The histogram pool's part of a step (tree_learner.py:940-971):
+        the parent's histogram from its slot, or rebuilt from its window
+        (after the split pass it still holds exactly the parent's rows) by
+        a launch on a window of count 0 when the slot holds it; the misses
+        counted; the left child keeps the parent's slot (or the least
+        recently used one on a miss), the right child evicts the next least
+        recently used; the stamps and the leaves' slots updated where the
+        step is live.  Returns (parent, left slot [1], right slot [1])."""
+        ps = self.slot_of[li]
+        hit = (ps >= 0)[0]
+        win = torch.stack([w[0], w[1] * ~hit]).to(torch.int32)
+        rebuilt = self.sx.reduce(self.rebuild_fn(
+            self.rows, win, self.work, num_bins=self.B, **self.sx.hist_kw))
+        parent = torch.where(hit, self.hist[ps.clamp(min=0)][0], rebuilt)
+        self.misses.add_((~hit & ok).long())
+        sl = torch.where(hit, ps, torch.argmin(self.stamps).view(1))
+        sr = torch.argmin(self.stamps.index_fill(0, sl, 2 ** 30)).view(1)
+        stamps = self.stamps.clone()
+        stamps[sl] = self.k
+        stamps[sr] = self.k
+        self.stamps.copy_(torch.where(ok, stamps, self.stamps))
+        slot_of = torch.where((self.slot_of == sl) | (self.slot_of == sr),
+                              -1, self.slot_of)
+        slot_of[li] = sl
+        slot_of[self.k.view(1)] = sr
+        self.slot_of.copy_(torch.where(ok, slot_of, self.slot_of))
+        return parent, sl, sr
+
+    def _pay(self, fid, inw) -> None:
+        """Lazy CEGB: every row of the split leaf's window (the positions
+        ``inw`` [n] bool) pays feature ``fid``'s cost, its bit set in the
+        store before the split pass moves the rows (tree_learner.py:
+        728-735)."""
+        lo, nb = self.layout.bitoff, self.layout.bitbytes
+        byte = torch.where(self.bytes == fid // 8,
+                           (torch.ones_like(fid) << (fid % 8)), 0).to(
+                               torch.uint8)                      # [nb]
+        self.rows[:self.n, lo:lo + nb].bitwise_or_(
+            inw[:, None].to(torch.uint8) * byte)
+
+    def _child_paid(self, inw, w, nl) -> torch.Tensor:
+        """[2, F] f32: the rows of each child (after the split pass) that
+        paid each feature, summed over the ranks (tree_learner.py:749-756,
+        :932-934).  The sums are one f32 product of the children's 0/1
+        row masks with the rows' 0/1 bits, exact below 2**24 rows, taken
+        as int32 as the host loop sums them."""
+        n, lo = self.n, self.layout.bitoff
+        inl = inw & (self.pos < w[0] + nl)
+        masks = torch.stack([inl, inw & ~inl]).to(torch.float32)  # [2, n]
+        bits = (self.rows[:n, lo:lo + self.layout.bitbytes, None]
+                >> self.shifts) & 1                               # [n, nb, 8]
+        paid = bits.reshape(n, -1)[:, :self.sx.num_features]
+        counts = torch.mm(masks, paid.to(torch.float32))
+        return self.sx.psum_rows(counts.to(torch.int32)).to(torch.float32)
+
+    def _refund(self, fid, ok) -> None:
+        """The first use of feature ``fid`` in this training: its coupled
+        penalty refunded in every leaf's cached candidate for it, and a
+        leaf whose refunded candidate beats its cached best takes it
+        (UpdateLeafBestSplits, tree_learner.py:1000-1054), as masked
+        writes; then ``fid`` counts as used."""
+        fbc = self.fbc
+        newly = ok & ~self.feat_used[fid][0]
+        col = fbc.gain[:, fid]
+        fbc.gain[:, fid] = torch.where(newly, col + self.cegb.coupled[fid],
+                                       col)
+        cand = _pack_best(BestSplit(
+            feature=fid.expand(fbc.gain.shape[0]),
+            **{name: getattr(fbc, name)[:, fid][:, 0]
+               for name in FeatureBest._fields}))
+        old = self.best[:, _B["gain"]]
+        promote = newly & (old > K_MIN_SCORE) & (cand[:, _B["gain"]] > old)
+        self.best.copy_(torch.where(promote[:, None], cand, self.best))
+        self.feat_used.copy_(self.feat_used | (
+            (torch.arange(self.feat_used.numel(), device=self.dev) == fid)
+            & ok))
+
     def grow(self) -> None:
         """The tree's L - 1 steps (each a split pass), dead ones
         included."""
-        for _ in range(1, self.L):
-            self.step()
+        for i in range(1, self.L):
+            self.step(i)
 
     def finish(self, carried: bool = False, score_rate=None):
         """The grown tree: the per-row leaf from the window marks and a
         forward fill over the store positions (tree_learner.py:1328-1336),
         and with ``carried`` the score column plus each window's leaf value
         times ``score_rate`` instead (:1337-1351; a tree that did not split
-        adds nothing).  Then the tree arrays in one transfer.  Returns the
-        TreeArrays (``row_leaf`` empty when ``carried``), and the store with
-        ``carried``."""
+        adds nothing).  Lazy CEGB's paid bits come back in original row
+        order.  Then the tree arrays and the pool's misses in one transfer.
+        Returns the TreeArrays (``row_leaf`` empty when ``carried``), and
+        the store with ``carried``."""
         n, L, dev, layout = self.n, self.L, self.dev, self.layout
         begin, count = self.win[:L, 0], self.win[:L, 1]
         marks = torch.zeros(n + 1, dtype=torch.int64, device=dev)
@@ -1340,6 +1582,7 @@ class _DeviceGrowth:
         pos = torch.arange(n, device=dev)
         last = torch.cummax(torch.where(marks > 0, pos, 0), 0).values
         leaf_of_pos = marks[last] - 1
+        paid = None
         if carried:
             lv = (self.leaf[:L, 0].to(torch.float32)
                   * float(np.float32(score_rate)))
@@ -1347,16 +1590,25 @@ class _DeviceGrowth:
                 self.leaves > 1, lv[leaf_of_pos], -0.0))
             row_leaf = torch.zeros(0, dtype=torch.int64, device=dev)
         else:
+            order = store_order(self.rows, layout, n)
             row_leaf = torch.empty(n, dtype=torch.int64, device=dev)
-            row_leaf[store_order(self.rows, layout, n)] = leaf_of_pos
+            row_leaf[order] = leaf_of_pos
+            if self.sx.lazy:
+                lo = layout.bitoff
+                paid = torch.empty((n, layout.bitbytes), dtype=torch.uint8,
+                                   device=dev)
+                paid[order] = self.rows[:n, lo:lo + layout.bitbytes]
+        misses = (self.misses if self.pool
+                  else torch.zeros((), dtype=torch.int64, device=dev))
         # the tree's one device->host transfer
         host = torch.cat([self.node[:L].reshape(-1), self.leaf[:L].reshape(-1),
                           self.child[:L].double().reshape(-1),
-                          self.leaves.double()[None]]).cpu().numpy()
+                          torch.stack([self.leaves, misses]).double()]
+                         ).cpu().numpy()
         nodes, rest = np.split(host, [self.node[:L].numel()])
         nodes = nodes.reshape(L, -1)
         leaves = rest[:L * len(_LEAF)].reshape(L, -1)
-        child = rest[L * len(_LEAF):-1].reshape(L, 2)
+        child = rest[L * len(_LEAF):-2].reshape(L, 2)
         f32, i32 = np.float32, np.int32
         arrays = TreeArrays(
             split_feature=nodes[:, 1].astype(i32),
@@ -1374,18 +1626,17 @@ class _DeviceGrowth:
             leaf_parent=leaves[:, 3].astype(i32),
             leaf_depth=leaves[:, 4].astype(i32),
             cat_bitset=nodes[:, _NODE_WORDS:].astype(np.int64),
-            num_leaves=int(host[-1]), row_leaf=row_leaf, host_fetches=1,
-            split_passes=L - 1)
+            num_leaves=int(host[-2]), row_leaf=row_leaf, host_fetches=1,
+            pool_misses=int(host[-1]), paid_bits=paid, split_passes=L - 1)
         return (arrays, self.rows) if carried else arrays
 
 
-def grows_on_device(grow_mode: str, forced=None, cegb=None,
-                    pool_slots: int = 0, comm: Optional[Comm] = None) -> bool:
+def grows_on_device(grow_mode: str) -> bool:
     """Whether :func:`build_tree_partitioned` grows the tree on the device
-    (:class:`_DeviceGrowth`): serial leaf-wise growth with no forced
-    splits, CEGB or histogram pool, whose steps take no host decision."""
-    return (grow_mode == "leaf" and comm is None and forced is None
-            and cegb is None and pool_slots <= 0)
+    (:class:`_DeviceGrowth`): every leaf-wise build, with forced splits,
+    CEGB, the histogram pool or a parallel learner's comm or without;
+    level growth keeps the host loop."""
+    return grow_mode == "leaf"
 
 
 def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
@@ -1408,7 +1659,8 @@ def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
                            carried: bool = False, score_rate=None,
                            window_fn=partition_hist_window,
                            table: Optional[torch.Tensor] = None,
-                           work=None, host_loop: bool = False):
+                           work=None, host_loop: bool = False,
+                           rebuild_fn=histogram_rows_window):
     """Grow one tree; ``rows`` is the filled row store (it is partitioned in
     place on the card).  ``num_data`` is the in-bag count, an int or a
     device scalar (read back with the root's sums).  Level growth also
@@ -1447,19 +1699,20 @@ def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
     otherwise it returns the tree alone.  Serial growth only, without lazy
     CEGB.
 
-    Which build runs: serial leaf-wise growth with no forced splits, CEGB
-    or histogram pool grows on the device (:class:`_DeviceGrowth`, the JAX
-    build's loop): L - 1 steps that read nothing back, the split passes
-    through ``window_fn`` (:func:`partition_hist_window` or a plain
-    version) on ``work`` (:func:`window_workspace` for the store; None on
-    the CPU), the scal rows gathered from ``table`` (the device form of
-    :func:`scal_table`), and the tree read back once.  The other builds
-    take neither.
-    Forced splits, CEGB, the pool and the parallel learners take decisions
-    on the host inside a step (or collectives), so they grow in the host
-    loop (:class:`_Growth`, one read-back a split, ``part_fn``), and so
-    does level growth.  ``host_loop`` forces the host loop: for checks
-    only, which rebuild a device-built tree with it.
+    Which build runs: every leaf-wise tree grows on the device
+    (:class:`_DeviceGrowth`, the JAX build's loop), with forced splits,
+    CEGB, the pool and a comm as without: L - 1 steps that read nothing
+    back, the split passes through ``window_fn``
+    (:func:`partition_hist_window` or a plain version) on ``work``
+    (:func:`window_workspace` for the store, sized for the split pass's
+    histogram columns; None on the CPU), the pool's rebuilt parents through
+    ``rebuild_fn`` (:func:`histogram_rows_window` or its plain version) on
+    the same ``work``, the scal rows gathered from ``table`` (the device
+    form of :func:`scal_table`), and the tree read back once.  Level growth
+    grows in the host loop (:class:`_Growth`: one read-back a level,
+    ``level_fn``), and so does a leaf-wise tree with ``host_loop`` (one
+    read-back a split, ``part_fn``): for checks only, which rebuild a
+    device-built tree with it.
     """
     if carried and (comm is not None or not layout.carried
                     or (cegb is not None and cegb.lazy is not None)):
@@ -1481,10 +1734,13 @@ def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
                                  or pool_slots > 0):
         raise ValueError("forced splits, CEGB and the histogram pool grow "
                          "leaf-wise only")
+    if pool_slots > 0 and (forced is not None or cegb is not None):
+        raise ValueError("the histogram pool needs the per-leaf cache off: "
+                         "forced splits and CEGB read every leaf's "
+                         "histogram (tree_learner.py:826-828)")
     scan = SplitScan(feat, feature_mask, params, categorical, monotone,
                      contri_scale(params, feature_mask.device), lanes)
-    if not host_loop and grows_on_device(grow_mode, forced, cegb,
-                                         pool_slots, comm):
+    if not host_loop and grows_on_device(grow_mode):
         if table is None or (work is None and rows.is_cuda):
             raise ValueError("the device build needs the learner's scal "
                              "table and, on the card, its window workspace")
@@ -1493,7 +1749,8 @@ def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
                           num_bins=num_bins, layout=layout,
                           hist_features=hist_features, packed=packed,
                           qscale=qscale, hist_fn=hist_fn, window_fn=window_fn,
-                          work=work)
+                          work=work, rebuild_fn=rebuild_fn, forced=forced,
+                          cegb=cegb, pool_slots=pool_slots, comm=comm)
         g.grow()
         return g.finish(carried, score_rate)
     g = _Growth(rows, grad, hess, num_data, scan, feat_host,
@@ -2011,9 +2268,8 @@ class SerialTreeLearner:
 
     def grows_on_device(self) -> bool:
         """Whether this learner's trees grow on the device
-        (:func:`grows_on_device` of its configuration)."""
-        return grows_on_device(self.effective_grow_mode(), self.forced,
-                               self.cegb, self.hist_pool_slots, self.comm)
+        (:func:`grows_on_device` of its growth mode)."""
+        return grows_on_device(self.effective_grow_mode())
 
     def launches_per_tree(self) -> int:
         """Split-pass launches one tree makes at most: one per level in
@@ -2030,12 +2286,13 @@ class SerialTreeLearner:
               level_fn=partition_hist_level, *, carried: bool = False,
               rows_carry: Optional[torch.Tensor] = None, extra=None,
               score_rate=None, window_fn=partition_hist_window,
-              host_loop: bool = False):
+              host_loop: bool = False, rebuild_fn=histogram_rows_window):
         """grad/hess: [N] f32 on the learner's device.  ``num_data_in_bag``
         is an int or a device scalar.  ``iteration`` keys the quantized
         path's rounding hash (ignored when exact);
-        ``hist_fn``/``part_fn``/``level_fn``/``window_fn`` and
-        ``host_loop`` (checks only) as in :func:`build_tree_partitioned`.
+        ``hist_fn``/``part_fn``/``level_fn``/``window_fn``/``rebuild_fn``
+        and ``host_loop`` (checks only) as in
+        :func:`build_tree_partitioned`.
         With CEGB, the features this tree splits on (and the lazy paid
         bits) carry over to the next call.
 
@@ -2093,7 +2350,8 @@ class SerialTreeLearner:
             arrays = self._build(rows, grad, hess, num_data_in_bag,
                                  feature_mask, grow_mode, qscale, hist_fn,
                                  part_fn, level_fn, cegb, layout, carried,
-                                 score_rate, window_fn, host_loop)
+                                 score_rate, window_fn, host_loop,
+                                 rebuild_fn)
         if carried:
             arrays, rows = arrays
         # split passes this tree dispatched (obs/launches.py): L - 1 in the
@@ -2127,7 +2385,7 @@ class SerialTreeLearner:
     def _build(self, rows, grad, hess, num_data_in_bag, feature_mask,
                grow_mode, qscale, hist_fn, part_fn, level_fn, cegb,
                layout, carried, score_rate, window_fn=partition_hist_window,
-               host_loop=False):
+               host_loop=False, rebuild_fn=histogram_rows_window):
         if not isinstance(num_data_in_bag, torch.Tensor):
             num_data_in_bag = int(num_data_in_bag)
         # the device build's buffers, made only for a tree that uses them
@@ -2146,13 +2404,20 @@ class SerialTreeLearner:
             score_rate=score_rate, window_fn=window_fn,
             table=self.scal_table if on_device else None,
             work=self.window_work(rows, grad.shape[0]) if on_device else None,
-            host_loop=host_loop)
+            host_loop=host_loop, rebuild_fn=rebuild_fn)
+
+    def pass_columns(self) -> int:
+        """The histogram columns of this learner's split passes: every
+        column of its store (a feature-parallel rank's F/d block, its
+        feature window)."""
+        return self.hist_columns
 
     def window_work(self, rows: torch.Tensor, bound: int):
         """The device build's split-pass buffers for windows of up to
-        ``bound`` rows of ``rows`` (:func:`window_workspace`), made once and
-        kept while the store's width, the plan's tile and the precision
-        stay; None on the CPU."""
+        ``bound`` rows of ``rows`` (:func:`window_workspace` over
+        :meth:`pass_columns`), which the pool's rebuilds share; made once
+        and kept while the store's width, the plan's tile and the
+        precision stay; None on the CPU."""
         if not rows.is_cuda:
             return None
         w = self._window_work
@@ -2162,6 +2427,6 @@ class SerialTreeLearner:
                 or w.scratch.device != rows.device
                 or w.tile != part_tile_rows(W)):
             w = self._window_work = window_workspace(
-                rows, bound, num_features=self.hist_columns,
+                rows, bound, num_features=self.pass_columns(),
                 num_bins=self.num_bins, quantized=self.quantized)
         return w

@@ -151,6 +151,10 @@ struct HistArgs {
   // widest is ft_wide); nullptr otherwise.
   const int* dyn_wc;
   int seg_cap, ft_wide;
+  // The feature window's first column in device memory (the split pass's
+  // scal row's trailing hist_feature_begin), read by every block in place
+  // of f_begin; nullptr: f_begin.
+  const int* dyn_fbegin;
 };
 
 // Window, segment, segment count and partial row of grid row blockIdx.y.
@@ -373,6 +377,7 @@ template <bool kU8, bool kDyn>
 __global__ void __launch_bounds__(kHistThreads, 2)
     hist_seg_kernel(HistArgs a) {
   extern __shared__ __align__(16) uint8_t smem[];
+  if (a.dyn_fbegin != nullptr) a.f_begin = *a.dyn_fbegin;
   SegPos p;
   int tile = blockIdx.x;
   if (kDyn) {
@@ -683,6 +688,7 @@ inline HistArgs hist_args_window(int bpc, int packed, int F, int B,
   a.nwin = 1;
   a.partial = nullptr;
   a.dyn_wc = nullptr;
+  a.dyn_fbegin = nullptr;
   a.seg_cap = 1;
   a.ft_wide = 1;
   return a;

@@ -130,6 +130,7 @@ template <bool kU8>
 __global__ void __launch_bounds__(kHistIntThreads)
     hist_int_kernel(HistArgs a, IntGrid q, float* __restrict__ out) {
   extern __shared__ __align__(16) uint8_t smem[];
+  if (a.dyn_fbegin != nullptr) a.f_begin = *a.dyn_fbegin;
   // this block's window, segment and feature tile
   int g = 0, nseg = q.nseg, ft = q.ft, tile = blockIdx.x, seg = blockIdx.y;
   long long arow = 0;  // the window's accumulator row

@@ -51,6 +51,9 @@
 //   launch (HistArgs.f_begin, whose column offset the row-store kernels
 //   already take); the route, count, scan and scatter kernels are the same
 //   with or without it, and f_begin = 0 is the launch without a window.
+//   The device-window launch never reads the scal row on the host, so
+//   there the child histogram's blocks read f_begin from the row on the
+//   device (HistArgs.dyn_fbegin), as they read wb and wc.
 // - Under hist_precision=quantized (`quantized` = 1) the child histogram is
 //   the integer kernel of hist_int.cuh (exact integer sums, on a grid of its
 //   own from the parent window's size) instead of the f64 one; it replaces
@@ -91,16 +94,18 @@ __global__ void part_count_kernel(const uint8_t* __restrict__ rows, int W,
 // One block: blk[] counts -> exclusive prefixes in place, nl = the total,
 // win = the smaller child's {start, count}.  `routes` (the device-window
 // launch, else null): a live window adds one to routes[0] when it unfolds
-// a group column and to routes[1] when it routes by a bitset, the counts
-// that device.route_launches reports.
+// a group column, to routes[1] when it routes by a bitset and, when the
+// scal row has a feature window (`fwin`), to routes[2]: the counts that
+// device.route_launches reports.
 __global__ void part_scan_kernel(const int* __restrict__ scal, int nblk,
                                  int* __restrict__ blk, int* __restrict__ nl,
                                  int* __restrict__ win,
-                                 long long* __restrict__ routes) {
+                                 long long* __restrict__ routes, int fwin) {
   scan_window(scal, nblk, blk, nl, win);
   if (routes != nullptr && threadIdx.x == 0 && scal[1] > 0) {
     routes[0] += scal[10] == 1;
     routes[1] += scal[8] == 1;
+    routes[2] += fwin != 0;
   }
 }
 
@@ -172,7 +177,8 @@ extern "C" int lgbt_partition_hist(void* rows, void* scratch, int W,
                                                    tile, bk);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  part_scan_kernel<<<1, kScanThreads, 0, st>>>(sc, nblk, bk, nlp, wn, nullptr);
+  part_scan_kernel<<<1, kScanThreads, 0, st>>>(sc, nblk, bk, nlp, wn, nullptr,
+                                              0);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   part_scatter_kernel<<<nblk, kPartThreads, 0, st>>>(r, s, W, sc, bpc, packed,
                                                      nw, tile, bk, nlp);
@@ -203,12 +209,17 @@ extern "C" int lgbt_partition_hist(void* rows, void* scratch, int W,
 // since integer sums do not depend on the grid).  `partial`: the exact
 // kernel's f64 partials of a bound-row window, or the integer kernel's
 // int64 accumulator row.  wc = 0 leaves the store as it is, writes a zero
-// histogram and nl = 0.  No feature window: the histogram covers columns
-// [0, F).  `routes`: two int64 counters (part_scan_kernel).
+// histogram and nl = 0.  `fwin` = 1: the scal row carries the feature
+// window's first column after its bitset words (scal[12 + nw], the
+// trailing hist_feature_begin), which the child histogram's blocks read
+// on the device, so the histogram covers columns [f_begin, f_begin + F)
+// (not checked here, as the window is not); 0: columns [0, F).  `routes`:
+// three int64 counters (part_scan_kernel).
 extern "C" int lgbt_partition_window(void* rows, void* scratch, int W,
                                      const void* scal, long long bound,
                                      int bpc, int packed, int nw, int F,
-                                     int B, int voff, int nblk, int tile,
+                                     int B, int voff, int fwin, int nblk,
+                                     int tile,
                                      void* blk, void* win, void* nl,
                                      int seg_cap, int nseg, int ft,
                                      int quantized, void* partial,
@@ -226,7 +237,7 @@ extern "C" int lgbt_partition_window(void* rows, void* scratch, int W,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   part_scan_kernel<<<1, kScanThreads, 0, st>>>(
-      sc, nblk, bk, nlp, wn, static_cast<long long*>(routes));
+      sc, nblk, bk, nlp, wn, static_cast<long long*>(routes), fwin);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   part_scatter_kernel<<<nblk, kPartThreads, 0, st>>>(r, s, W, sc, bpc, packed,
                                                      nw, tile, bk, nlp);
@@ -235,6 +246,7 @@ extern "C" int lgbt_partition_window(void* rows, void* scratch, int W,
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   HistArgs a = hist_args_one(r, W, voff, bpc, packed, F, B, 0, 0, 0, wn,
                              nseg);
+  if (fwin) a.dyn_fbegin = sc + 12 + nw;
   if (quantized) {
     IntGrid q = int_grid_one(nseg, ft);
     q.acc = static_cast<unsigned long long*>(partial);

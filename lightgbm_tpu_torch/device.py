@@ -17,7 +17,7 @@ histograms a feature window (the trailing ``hist_feature_begin`` of a
 feature-parallel rank), and the number of such windows.  The split pass
 with its window in device memory (``core/partition.py``
 ``partition_hist_window``) cannot read its scal row on the host, so its
-kernel adds its routes to two counters on the card
+kernel adds its routes to three counters on the card
 (:func:`route_counter`), which :func:`route_launches` reads back.
 """
 from __future__ import annotations
@@ -28,8 +28,10 @@ import torch
 
 DeviceLike = Union[str, torch.device, None]
 
+# "histogram_window": the row-store histogram with its window in device
+# memory (exact or integer), the histogram pool's rebuilt parent
 KERNELS = ("histogram", "partition", "histogram_int", "partition_level",
-           "histogram_masked")
+           "histogram_masked", "histogram_window")
 
 _LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 SPLIT_KERNELS = ("partition", "partition_level")
@@ -37,8 +39,9 @@ ROUTES = ("unfold", "categorical", "feature_window")
 _ROUTES: Dict[str, Dict[str, int]] = {
     k: {c: 0 for r in ROUTES for c in (r, r + "_windows")}
     for k in SPLIT_KERNELS}
-# per CUDA device: int64 [2], the device-window launches that unfolded a
-# group column and that routed by a bitset
+# per CUDA device: int64 [3], the device-window launches that unfolded a
+# group column, that routed by a bitset and that histogrammed a feature
+# window
 _ROUTE_COUNTERS: Dict[torch.device, torch.Tensor] = {}
 
 
@@ -76,12 +79,12 @@ def count_routes(kernel: str, unfold: int, categorical: int,
 
 def route_counter(device: torch.device) -> torch.Tensor:
     """The device-window split pass's route counters on CUDA ``device``
-    (int64 [2]: launches of a live window with ``use_unfold = 1``, with
-    ``is_cat = 1``), which its kernel increments; made at the first call
-    (so before any CUDA graph capture of a step)."""
+    (int64 [3]: launches of a live window with ``use_unfold = 1``, with
+    ``is_cat = 1``, with a feature window), which its kernel increments;
+    made at the first call (so before any CUDA graph capture of a step)."""
     t = _ROUTE_COUNTERS.get(device)
     if t is None:
-        t = _ROUTE_COUNTERS[device] = torch.zeros(2, dtype=torch.int64,
+        t = _ROUTE_COUNTERS[device] = torch.zeros(3, dtype=torch.int64,
                                                   device=device)
     return t
 
@@ -98,9 +101,10 @@ def route_launches() -> Dict[str, Dict[str, int]]:
     (:func:`route_counter`): a device->host transfer per card."""
     out = {k: dict(v) for k, v in _ROUTES.items()}
     for t in _ROUTE_COUNTERS.values():
-        unfold, categorical = (int(v) for v in t.cpu())
+        unfold, categorical, fwin = (int(v) for v in t.cpu())
         part = out["partition"]
-        for route, n in (("unfold", unfold), ("categorical", categorical)):
+        for route, n in (("unfold", unfold), ("categorical", categorical),
+                         ("feature_window", fwin)):
             part[route] += n
             part[route + "_windows"] += n
     return out

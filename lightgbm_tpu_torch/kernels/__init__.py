@@ -34,15 +34,21 @@ _LL = ctypes.c_longlong
 # ctypes would cut an untyped pointer to 32 bits)
 SIGNATURES = {
     "histogram": {"lgbt_hist_rows": [_P, _I, _I, _I, _I, _I, _I, _I, _LL, _LL,
-                                     _I, _P, _P, _P]},
+                                     _I, _P, _P, _P],
+                  "lgbt_hist_rows_window": [_P, _I, _I, _I, _I, _I, _I, _I,
+                                            _P, _LL, _I, _P, _P, _P]},
     "partition": {"lgbt_partition_hist": [_P, _P, _I, _P, _LL, _LL, _I, _I, _I,
                                           _I, _I, _I, _I, _I, _I, _P, _P, _P,
                                           _I, _I, _I, _P, _P, _P],
                   "lgbt_partition_window": [_P, _P, _I, _P, _LL, _I, _I, _I,
-                                            _I, _I, _I, _I, _I, _P, _P, _P,
-                                            _I, _I, _I, _I, _P, _P, _P, _P]},
+                                            _I, _I, _I, _I, _I, _I, _P, _P,
+                                            _P, _I, _I, _I, _I, _P, _P, _P,
+                                            _P]},
     "histogram_int": {"lgbt_hist_rows_int": [_P, _I, _I, _I, _I, _I, _I, _I,
-                                             _LL, _LL, _I, _I, _P, _P, _P]},
+                                             _LL, _LL, _I, _I, _P, _P, _P],
+                      "lgbt_hist_rows_int_window": [_P, _I, _I, _I, _I, _I,
+                                                    _I, _I, _P, _I, _I, _P,
+                                                    _P, _P]},
     "partition_level": {"lgbt_partition_level": [_P, _P, _I, _P, _I, _I, _I,
                                                  _I, _I, _I, _I, _I, _I, _I,
                                                  _I, _I, _I, _I, _I, _P, _P,

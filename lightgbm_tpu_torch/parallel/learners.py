@@ -208,6 +208,13 @@ class _ParallelTreeLearner(SerialTreeLearner):
         self.local_rows = per
         return np.ascontiguousarray(matrix[r * per:(r + 1) * per])
 
+    def pass_columns(self) -> int:
+        """A feature-parallel rank histograms its F/d block (the split
+        pass's feature window); the other modes every column."""
+        if self.mode == "feature":
+            return self.hist_columns // self.num_shards
+        return self.hist_columns
+
     def _padded_feature_mask(self, mask: torch.Tensor) -> torch.Tensor:
         if not self.feature_pad:
             return mask

@@ -74,9 +74,9 @@ def test_rs_reduce_scatters_the_child_histograms(d, tmp_path_factory):
     splits = rec["num_leaves"] - 1
     rs = records(rec, "reduce_scatter")
     assert len(rs) == 1 + splits
-    assert rs[0][1:] == ((fp, 2, B), (fp // d, 2, B), "float32")
-    for r in rs[1:]:
-        assert r[1:] == ((1, fp, 2, B), (1, fp // d, 2, B), "float32")
+    # the device build reduces each step's one child histogram
+    for r in rs:
+        assert r[1:] == ((fp, 2, B), (fp // d, 2, B), "float32")
     assert rec["bytes"]["reduce_scatter"] == (1 + splits) * fp * 2 * B * 4
     # one best-split all-gather per scan, and the rows' leaves at the end
     ag = records(rec, "all_gather")

@@ -8,9 +8,17 @@ in one transfer.  The host loop reads each split's results back and does the
 bookkeeping in numpy f32.  Both do the same f32 operations in the same
 order, so on the same gradients they must give the same bytes in every
 ``TreeArrays`` field and the same ``row_leaf`` (and, on the fused chunk's
-carried store, the same store).  Inputs: 3,000 rows made from a numpy seed,
-63 bins, 8-31 leaves, one torch thread.
+carried store, the same store; with lazy CEGB the same paid bits; under
+the histogram pool the same rebuilt parents).  Every leaf-wise option
+grows on the device: forced splits, CEGB (split, coupled, lazy) and the
+pool, held to the host loop and to the JAX build; the histogram with its
+window in device memory (the pool's rebuild) and the split pass with the
+feature window are held, on their plain versions, to the host-window
+launches.  Inputs: 3,000 rows made from a numpy seed, 63 bins, 8-31
+leaves, one torch thread.
 """
+import json
+
 import numpy as np
 import pytest
 import scipy.sparse as sps
@@ -95,6 +103,31 @@ def multiclass_grads(y, k=1, K=3):
     return g.astype(np.float32), h.astype(np.float32)
 
 
+def coupled(seed=6):
+    """test_torch_forced_cegb.py's coupled-refund problem: 4 features, the
+    label a sine of the first."""
+    rng = np.random.RandomState(seed)
+    X = rng.normal(size=(N, 4)).astype(np.float32)
+    y = np.sin(2 * X[:, 0]) * 2 + 0.2 * X[:, 1] + rng.normal(scale=0.2,
+                                                             size=N)
+    return X, y
+
+
+# forced-split schedules (BFS JSON, LightGBM's forcedsplits_filename): three
+# splits whose third entry cannot split (every row goes left), which
+# switches the rest off; three whose third lies at depth 2, under
+# max_depth=2; and, on bundled data, a numerical root whose children split
+# on one-hot columns that EFB bundled
+FORCED_FAIL = {"feature": 0, "threshold": 0.0,
+               "left": {"feature": 1, "threshold": 0.0},
+               "right": {"feature": 2, "threshold": 1e6}}
+FORCED_DEPTH = {"feature": 0, "threshold": 0.0,
+                "left": {"feature": 1, "threshold": 0.0,
+                         "left": {"feature": 2, "threshold": 0.0}}}
+FORCED_EFB = {"feature": 24, "threshold": 0.0,
+              "left": {"feature": 1, "threshold": 0.0},
+              "right": {"feature": 9, "threshold": 0.0}}
+
 CASES = {
     "binary": (dense, binary_grads, {}),
     "l2": (dense, l2_grads, {}),
@@ -113,7 +146,26 @@ CASES = {
     "stops_early": (dense, l2_grads, dict(min_data_in_leaf=400)),
     "two_leaves": (dense, l2_grads, dict(num_leaves=2)),
     "carried": (dense, l2_grads, {}),
+    "forced": (dense, l2_grads, dict(forced=FORCED_FAIL)),
+    "forced_max_depth": (dense, l2_grads, dict(forced=FORCED_DEPTH,
+                                               max_depth=2)),
+    "forced_efb": (bundled, l2_grads, dict(forced=FORCED_EFB)),
+    "cegb_split": (dense, l2_grads, dict(cegb_penalty_split=0.002)),
+    "cegb_coupled": (coupled, l2_grads,
+                     dict(num_leaves=15,
+                          cegb_penalty_feature_coupled=[3.0] * 4)),
+    "cegb_lazy": (dense, l2_grads,
+                  dict(cegb_penalty_feature_lazy=[0.05] * 8,
+                       cegb_penalty_feature_coupled=[1.0] * 8)),
+    "pool": (dense, l2_grads, dict(histogram_pool_size=0.02)),
+    "pool_quantized": (dense, binary_grads,
+                       dict(histogram_pool_size=0.02,
+                            hist_precision="quantized")),
 }
+# the leaf-wise options that grew in the host loop before the device build
+# took them
+OPTIONS = ("forced", "forced_max_depth", "forced_efb", "cegb_split",
+           "cegb_coupled", "cegb_lazy", "pool", "pool_quantized")
 
 
 def port_dataset(make, extra):
@@ -128,12 +180,24 @@ def port_dataset(make, extra):
                                      categorical_feature=cats), y
 
 
-def setup(name):
+def case_params(name, tmp=None) -> dict:
+    """The case's learner parameters; a forced schedule is written to
+    ``tmp`` / forced.json."""
+    extra = dict(CASES[name][2])
+    extra.pop("categorical_feature", None)
+    spec = extra.pop("forced", None)
+    if spec is not None:
+        path = tmp / "forced.json"
+        path.write_text(json.dumps(spec))
+        extra["forcedsplits_filename"] = str(path)
+    return dict(BASE, **extra)
+
+
+def setup(name, tmp=None):
     make, grads, extra = CASES[name]
     ds, y = port_dataset(make, extra)
-    params = dict(BASE, **{k: v for k, v in extra.items()
-                           if k != "categorical_feature"})
-    learner = tl.SerialTreeLearner(ds, Config(**params), device="cpu")
+    learner = tl.SerialTreeLearner(ds, Config(**case_params(name, tmp)),
+                                   device="cpu")
     g, h = (torch.from_numpy(a) for a in grads(y))
     count = N
     if name == "bagging":
@@ -167,14 +231,36 @@ def assert_same_tree(got, want):
             assert a.dtype == b.dtype, field
         np.testing.assert_array_equal(a, b, err_msg=field)
     assert torch.equal(got.row_leaf, want.row_leaf)
+    assert (got.paid_bits is None) == (want.paid_bits is None)
+    if got.paid_bits is not None:
+        assert torch.equal(got.paid_bits, want.paid_bits)
+
+
+def _promotions(monkeypatch):
+    """Count the leaves whose cached best a coupled refund replaced (a spy
+    on ``_DeviceGrowth._refund``)."""
+    promoted = []
+    refund = tl._DeviceGrowth._refund
+
+    def spy(self, fid, ok):
+        before = self.best[:self.L].clone()
+        refund(self, fid, ok)
+        promoted.append(int((self.best[:self.L] != before).any(1).sum()))
+    monkeypatch.setattr(tl._DeviceGrowth, "_refund", spy)
+    return promoted
 
 
 @pytest.mark.parametrize("name", list(CASES))
-def test_device_build_equals_host_loop(name, one_thread):
-    """Byte-equal trees, row_leaf and (carried) store: the device build
-    and the host loop on the same gradients."""
-    _, learner, g, h, count = setup(name)
+def test_device_build_equals_host_loop(name, one_thread, tmp_path,
+                                       monkeypatch):
+    """Byte-equal trees, row_leaf, paid bits, pool misses and (carried)
+    store: the device build and the host loop on the same gradients (with
+    CEGB, each from a fresh learner, whose state a tree changes)."""
+    promoted = _promotions(monkeypatch)
+    _, learner, g, h, count = setup(name, tmp_path)
     got = grow(name, learner, g, h, count)
+    if learner.cegb is not None:
+        learner = setup(name, tmp_path)[1]
     want = grow(name, learner, g, h, count, host_loop=True)
     if name == "carried":
         (got, got_rows), (want, want_rows) = got, want
@@ -183,12 +269,35 @@ def test_device_build_equals_host_loop(name, one_thread):
     assert_same_tree(got, want)
     assert got.host_fetches == 1
     assert got.split_passes == learner.num_leaves - 1
-    assert want.host_fetches == want.num_leaves
+    # one a split (and the root), and in the host loop one more a forced
+    # entry it scans and a coupled refund
+    if learner.forced is not None or learner.cegb is not None:
+        assert want.host_fetches > want.num_leaves
+    else:
+        assert want.host_fetches == want.num_leaves
     if name == "stops_early":
         # the dead steps ran and changed nothing
         assert got.num_leaves < learner.num_leaves - 1
     if name in ("binary", "two_leaves"):
         assert got.num_leaves == learner.num_leaves
+    if name.startswith("forced"):
+        # the applied entries, then the schedule switched off
+        sched = learner.forced
+        applied = 3 if name == "forced_efb" else 2
+        np.testing.assert_array_equal(got.split_feature[:applied],
+                                      sched[1][:applied])
+        np.testing.assert_array_equal(got.threshold_bin[:applied],
+                                      sched[2][:applied])
+        assert got.num_leaves >= 4
+    if name == "forced_max_depth":
+        assert got.leaf_depth[:got.num_leaves].max() <= 2
+    if name == "cegb_coupled":
+        assert sum(promoted) > 0
+    if name == "cegb_lazy":
+        assert got.paid_bits.any()
+    if name.startswith("pool"):
+        assert learner.hist_pool_slots < learner.num_leaves
+        assert got.pool_misses > 0
 
 
 @pytest.mark.parametrize("name", ["binary", "onehot", "many_vs_many", "efb",
@@ -347,12 +456,13 @@ def _built_on_device(monkeypatch):
 @pytest.mark.parametrize("case", ["forced", "cegb", "pool", "level",
                                   "parallel", "host_loop", "serial"])
 def test_which_build_runs(case, monkeypatch, tmp_path, one_thread):
-    """Forced splits, CEGB, the histogram pool, level growth and the
-    parallel learners grow in the host loop (one read-back a split or a
-    level), as does a serial tree that a check sends there (``host_loop``);
-    the serial leaf-wise learner grows on the device.  Only the device
-    build asks the learner for its split-pass workspace (a bound-sized
-    store on the card), so the host loop holds no such buffer."""
+    """Every leaf-wise tree grows on the device, with one read-back a
+    tree: serial, forced splits, CEGB, the histogram pool and a parallel
+    learner's comm alike; level growth (one read-back a level) and a
+    serial tree that a check sends there (``host_loop``, one a split)
+    grow in the host loop.  Only the device build asks the learner for
+    its split-pass workspace (a bound-sized store on the card), so the
+    host loop holds no such buffer."""
     X, y = dense(seed=7)
     g, h = (torch.from_numpy(a) for a in l2_grads(y))
     extra = {}
@@ -380,10 +490,12 @@ def test_which_build_runs(case, monkeypatch, tmp_path, one_thread):
     if case == "parallel":
         learner.comm = tl.Comm(ops=_OneRank(), mode="psum")
     arrays = learner.train(g, h, N, host_loop=case == "host_loop")
-    assert bool(used) == (case == "serial")
-    assert work == ([N] if case == "serial" else [])
-    if case == "serial":
+    on_device = case not in ("level", "host_loop")
+    assert bool(used) == on_device
+    assert work == ([N] if on_device else [])
+    if on_device:
         assert arrays.host_fetches == 1
+        assert arrays.num_leaves > 2
     elif case == "level":
         assert arrays.host_fetches == arrays.levels + 1
     else:
@@ -392,3 +504,158 @@ def test_which_build_runs(case, monkeypatch, tmp_path, one_thread):
         learner.comm = None
         serial = learner.train(g, h, N)
         assert_same_tree(arrays, serial)
+
+
+def _jax_tree(ref_ds, params, g, h):
+    ref = JaxLearner(ref_ds, JaxConfig(**params))
+    return jax.tree_util.tree_map(np.asarray, ref.train(
+        jnp.asarray(g), jnp.asarray(h), N))
+
+
+@pytest.mark.parametrize("name", OPTIONS)
+def test_options_match_jax_build(name, tmp_path, one_thread):
+    """Forced splits, CEGB and the pool through the device build against
+    the JAX package's build_tree_partitioned on the same bins and
+    gradients: equal splits, structure, leaf counts and row_leaf, leaf
+    values within test_torch_forced_cegb's L2 bound (the quantized pool:
+    test_torch_train's bound on binary gradients, as
+    test_device_build_matches_jax_build holds them)."""
+    from test_torch_forced_cegb import l2_leaf_tolerance
+    make, grads, extra = CASES[name]
+    X, y = make()
+    g, h = grads(y)
+    params = case_params(name, tmp_path)
+    if sps.issparse(X):
+        ref_ds = JaxDataset.from_csr(X.indptr, X.indices, X.data, X.shape[1],
+                                     label=y, max_bin=63)
+        ds = BinnedDataset.from_csr(X.indptr, X.indices, X.data, X.shape[1],
+                                    label=y, max_bin=63)
+    else:
+        ref_ds = JaxDataset.from_matrix(X, label=y, max_bin=63)
+        ds = dataset_from_arrays(
+            ref_ds.binned, ref_ds.num_bin_per_feature,
+            ref_ds.missing_types(), ref_ds.default_bins(),
+            ref_ds.feature_is_categorical(), y,
+            mapper_state=[m.to_dict() for m in ref_ds.bin_mappers])
+    want = _jax_tree(ref_ds, params, g, h)
+    learner = tl.SerialTreeLearner(ds, Config(**params), device="cpu")
+    assert learner.grows_on_device()
+    got = learner.train(torch.from_numpy(g), torch.from_numpy(h), N)
+    assert got.host_fetches == 1
+    nl = int(want.num_leaves)
+    assert got.num_leaves == nl > 2
+    for field in ("split_feature", "threshold_bin", "left_child",
+                  "right_child", "leaf_parent", "leaf_depth"):
+        np.testing.assert_array_equal(getattr(got, field)[:nl],
+                                      getattr(want, field)[:nl],
+                                      err_msg=field)
+    np.testing.assert_array_equal(got.leaf_count[:nl], want.leaf_count[:nl])
+    np.testing.assert_array_equal(got.row_leaf.numpy(), want.row_leaf[:N])
+    if grads is binary_grads:
+        lr = TRAIN_PARAMS["learning_rate"]
+        tree = type("T", (), dict(num_leaves=nl,
+                                  leaf_value=lr * want.leaf_value,
+                                  leaf_weight=want.leaf_weight,
+                                  leaf_depth=want.leaf_depth))
+        np.testing.assert_array_less(
+            lr * np.abs(got.leaf_value[:nl] - want.leaf_value[:nl]),
+            leaf_value_tolerance(tree, N))
+    else:
+        np.testing.assert_array_less(
+            np.abs(got.leaf_value[:nl] - want.leaf_value[:nl]),
+            l2_leaf_tolerance(want, N, float(np.abs(g).max()), 1.0))
+
+
+def test_lazy_cegb_over_three_trees(tmp_path, one_thread):
+    """Lazy CEGB over 3 trees, the paid bits and the features used carried
+    from tree to tree by the learner: each device-built tree equals the
+    host loop's (a second learner's) byte for byte, paid bits included,
+    and the bits grow from tree to tree."""
+    _, dev_l, g, h, count = setup("cegb_lazy", tmp_path)
+    host_l = setup("cegb_lazy", tmp_path)[1]
+    paid = []
+    for it in range(3):
+        scale = 1.0 - 0.25 * it
+        got = dev_l.train(g * scale, h, count)
+        want = host_l.train(g * scale, h, count, host_loop=True)
+        assert_same_tree(got, want)
+        assert got.host_fetches == 1
+        np.testing.assert_array_equal(dev_l.cegb_used, host_l.cegb_used)
+        assert torch.equal(dev_l.cegb_paid, host_l.cegb_paid)
+        paid.append(int(sum(((dev_l.cegb_paid >> b) & 1).sum()
+                            for b in range(8))))
+    assert 0 < paid[0] < paid[1] <= paid[2]
+
+
+@pytest.mark.parametrize("window", list(WINDOWS))
+@pytest.mark.parametrize("precision", ["exact", "quantized"])
+def test_histogram_window_equals_histogram_rows(window, precision):
+    """The histogram with its window in device memory
+    (``histogram_rows_window``): its plain version, and the dispatcher on
+    a CPU tensor, equal ``histogram_rows_plain`` on the window the int32
+    pair names, bit for bit; a count of 0 gives zeros."""
+    from lightgbm_tpu_torch.core.histogram import (
+        histogram_rows, histogram_rows_plain, histogram_rows_window,
+        histogram_rows_window_plain)
+    ds, learner, g, h, _ = setup("l2")
+    if precision == "quantized":
+        g, h = torch.round(g * 40), torch.round(h * 7)
+    rows = tl.fill_gradients(learner.template, learner.layout, g, h)
+    wb, wc = WINDOWS[window]
+    win = torch.tensor([wb, wc], dtype=torch.int32)
+    for f_begin, F in ((0, learner.hist_columns), (2, 4)):
+        kw = dict(num_features=F, voff=learner.layout.voff, f_begin=f_begin,
+                  quantized=precision == "quantized")
+        want = histogram_rows_plain(rows, learner.num_bins, wb, wc, **kw)
+        got = histogram_rows_window_plain(rows, win,
+                                          num_bins=learner.num_bins, **kw)
+        assert torch.equal(got, want)
+        assert torch.equal(histogram_rows_window(
+            rows, win, None, num_bins=learner.num_bins, **kw), want)
+        assert torch.equal(histogram_rows(rows, learner.num_bins, wb, wc,
+                                          **kw), want)
+        assert bool(want.any()) == (wc > 0)
+    with pytest.raises(ValueError, match="outside"):
+        histogram_rows_window_plain(
+            rows, torch.tensor([rows.shape[0] - 5, 10], dtype=torch.int32),
+            num_bins=learner.num_bins, num_features=learner.hist_columns,
+            voff=learner.layout.voff)
+
+
+@pytest.mark.parametrize("window", list(WINDOWS))
+@pytest.mark.parametrize("precision", ["exact", "quantized"])
+def test_window_pass_feature_window(window, precision):
+    """The device-window split pass with the feature window (the scal
+    row's trailing ``hist_feature_begin``, a feature-parallel rank's F/d
+    block): its plain version on an int32 scal tensor equals the
+    host-window pass (``partition_hist_plain``, ``partition_hist``) with
+    the same row, at the blocks [0, 4) and [4, 8): the store, the child
+    histogram over the block and nl."""
+    ds, learner, g, h, _ = setup("l2")
+    if precision == "quantized":
+        g, h = torch.round(g * 40), torch.round(h * 7)
+    rows = tl.fill_gradients(learner.template, learner.layout, g, h)
+    wb, wc = WINDOWS[window]
+    for f_begin in (0, 4):
+        kw = dict(num_features=4, num_bins=learner.num_bins,
+                  voff=learner.layout.voff,
+                  quantized=precision == "quantized")
+        for feature, threshold, side in ((0, 30, 1), (5, 12, 0)):
+            scal = np.append(scal_row(wb, wc, learner, feature, threshold,
+                                      side, learner.num_bins), f_begin)
+            want_rows, want_hist, want_nl = partition_hist_plain(
+                rows, scal.tolist(), **kw)
+            got_rows = rows.clone()
+            got_hist, got_nl = partition_hist_window(
+                got_rows, torch.from_numpy(scal).to(torch.int32), None, **kw)
+            assert torch.equal(got_rows, want_rows)
+            assert torch.equal(got_hist, want_hist)
+            assert torch.equal(got_nl, want_nl)
+            r2, h2, n2 = partition_hist(rows.clone(), scal.tolist(), **kw)
+            assert torch.equal(r2, want_rows) and torch.equal(h2, want_hist)
+            # the block's columns of the whole histogram
+            full = partition_hist_plain(rows, scal[:-1].tolist(),
+                                        **dict(kw, num_features=8))[1]
+            assert torch.equal(want_hist, full[f_begin:f_begin + 4])
+            if wc == 0:
+                assert not got_hist.any() and int(got_nl) == 0

@@ -194,21 +194,23 @@ def test_cegb_coupled_refund_promotes_cached_candidates(monkeypatch,
                                                         one_thread):
     """A coupled penalty on every feature: the first split on feature 0
     refunds its penalty in the other leaves' cached candidates, some of
-    which then win (counted by a spy on ``_Growth._refund``), so feature 0
-    splits several nodes.  Trees equal the JAX package's."""
+    which then win (counted by a spy on ``_DeviceGrowth._refund``, the
+    build that grows these trees), so feature 0 splits several nodes.
+    Trees equal the JAX package's."""
     rng = np.random.RandomState(6)
     n = 4000
     X = rng.normal(size=(n, 4)).astype(np.float32)
     y = np.sin(2 * X[:, 0]) * 2 + 0.2 * X[:, 1] + rng.normal(scale=0.2,
                                                              size=n)
     promoted = []
-    refund = port_tl._Growth._refund
+    refund = port_tl._DeviceGrowth._refund
+    col = port_tl._B["feature"]
 
-    def spy(self, f):
-        before = self.bests["feature"].copy()
-        refund(self, f)
-        promoted.append(int((self.bests["feature"] != before).sum()))
-    monkeypatch.setattr(port_tl._Growth, "_refund", spy)
+    def spy(self, fid, ok):
+        before = self.best[:self.L, col].clone()
+        refund(self, fid, ok)
+        promoted.append(int((self.best[:self.L, col] != before).sum()))
+    monkeypatch.setattr(port_tl._DeviceGrowth, "_refund", spy)
     params = dict(objective="regression", num_leaves=15, learning_rate=0.2,
                   max_bin=63, verbosity=-1,
                   cegb_penalty_feature_coupled=[3.0, 3.0, 3.0, 3.0])

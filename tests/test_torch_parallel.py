@@ -27,7 +27,14 @@ run in this process.  On ``tests/test_parallel.py``'s problem (4000 x 11,
 - ``sharded_predict`` / ``sharded_predict_contrib`` equal one rank's
   predictor bit for bit, and the contributions equal the JAX package's
   (with the ``enable_x64`` shim of ``tests/test_torch_contrib.py``);
-- only the write leader writes snapshots and emergency checkpoints.
+- only the write leader writes snapshots and emergency checkpoints;
+- every rank's tree from the device build (``_DeviceGrowth``, one fetch a
+  tree) equals its tree from the host loop (``host_loop=True``) byte for
+  byte, two trees in a row, for ``data``, ``feature``, ``voting`` and
+  ``psum``, exact and quantized, ``psum`` with forced splits and with CEGB
+  (split, coupled and lazy penalties), and ``data`` with the histogram
+  pool, whose device build reduces a histogram every step (zeros on a
+  hit) where the host loop reduces only its misses.
 """
 import jax
 import jax.numpy as jnp
@@ -348,3 +355,46 @@ def test_only_the_write_leader_writes(d, tmp_path_factory):
         assert res[r]["emergency_path"] is None
         assert not any(f.startswith(("snap_r%d" % r, "emergency_r%d" % r))
                        for f in files), files
+
+
+DEVICE_CASES = list(R.DEVICE_CASES)
+
+
+@pytest.mark.parametrize("case", DEVICE_CASES,
+                         ids=["-".join(c) for c in DEVICE_CASES])
+@pytest.mark.parametrize("d", DS)
+def test_device_build_equals_host_loop_on_every_rank(d, case,
+                                                     tmp_path_factory):
+    """Each rank's device-built trees equal its host-loop trees byte for
+    byte (every TreeArrays field, the gathered row leaves, the lazy paid
+    bits and the pool's misses), with one fetch and L - 1 split passes a
+    tree where the host loop fetched once a split; both builds run the same
+    collectives, but for the pool's rebuilds."""
+    L = R.LEARNER_PARAMS["num_leaves"]
+    for rank, res in enumerate(ranks("device_vs_host", d, tmp_path_factory)):
+        r = res[case]
+        assert r["equal"] == [True, True], (rank, r)
+        assert r["fetches"] == [1, 1] and r["passes"] == [L - 1] * 2
+        assert all(h >= n > 2 for h, n in zip(r["host_fetches"],
+                                               r["num_leaves"]))
+        dev, host = r["calls"]
+        if case == ("data", "pool"):
+            # a reduce-scatter every step on the device, a miss's alone in
+            # the host loop
+            assert sum(r["misses"]) > 0 and r["pool_slots"] >= 2
+            assert dev["reduce_scatter"] == 2 * (1 + 2 * (L - 1))
+            assert host["reduce_scatter"] == 2 * L + sum(r["misses"])
+            fp = R.F + (-R.F) % d
+            extra = dev["reduce_scatter"] - host["reduce_scatter"]
+            assert (r["bytes"][0]["reduce_scatter"]
+                    - r["bytes"][1]["reduce_scatter"]) == extra * fp * 2 \
+                * 64 * 4
+        else:
+            assert dev == host
+        if case == ("psum", "forced"):
+            assert r["class"] == "PartitionedDataParallelTreeLearner"
+            # the root takes the schedule's threshold, not the scan's
+            assert {f for f, _ in r["roots"]} == {0}
+            assert r["roots"] != res[("psum", "exact")]["roots"]
+        if case == ("psum", "cegb"):
+            assert all(p > 0 for p in r["paid"])

@@ -112,7 +112,8 @@ def learners(rank, d, arg):
     # the kernels' calls of feature mode, through recording plain versions:
     # the root histogram and every split pass over the rank's F/d window
     from lightgbm_tpu_torch.core.histogram import histogram_rows_plain
-    from lightgbm_tpu_torch.core.partition import partition_hist_plain
+    from lightgbm_tpu_torch.core.partition import (
+        partition_hist_window_plain)
     from lightgbm_tpu_torch.parallel import FeatureParallelTreeLearner
     calls = []
 
@@ -121,15 +122,14 @@ def learners(rank, d, arg):
         calls.append(("hist", kw.get("f_begin", 0), tuple(h.shape)))
         return h
 
-    def part_fn(rows, scal, **kw):
-        res = partition_hist_plain(rows, scal, **kw)
-        calls.append(("part", list(scal)[-1], len(scal),
-                      tuple(res[1].shape)))
+    def window_fn(rows, scal, work=None, **kw):
+        res = partition_hist_window_plain(rows, scal, work, **kw)
+        calls.append(("part", int(scal[-1]), len(scal), tuple(res[0].shape)))
         return res
     learner = FeatureParallelTreeLearner(ds, Config(**LEARNER_PARAMS),
                                          device="cpu")
     rec = tree_fields(learner.train(g, h, N, hist_fn=hist_fn,
-                                    part_fn=part_fn))
+                                    window_fn=window_fn))
     rec["kernel_calls"] = calls
     out[("feature", "recorded")] = rec
     return out
@@ -352,9 +352,101 @@ def telemetry_shards(rank, d, arg):
             "launches": obs.launches.counts()}
 
 
+def _same_arrays(a, b) -> bool:
+    """Two TreeArrays equal in every field the builds share (the per-row
+    tensors included), byte for byte."""
+    import torch
+    for f in a._fields:
+        if f in ("host_fetches", "split_passes"):
+            continue
+        x, y = getattr(a, f), getattr(b, f)
+        if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
+            if (x is None) != (y is None) or (x is not None
+                                              and not torch.equal(x, y)):
+                return False
+        elif isinstance(x, np.ndarray):
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+# the device build against the host loop: (learner, precision, extra
+# params); the forced schedule is tests/test_forced_cegb.py's
+DEVICE_CASES = {
+    **{(name, prec): (name, prec, {})
+       for name in ("data", "feature", "voting", "psum")
+       for prec in ("exact", "quantized")},
+    ("psum", "forced"): ("psum", "exact", {"forced": True}),
+    ("psum", "cegb"): ("psum", "exact", {
+        "cegb_penalty_split": 0.002,
+        "cegb_penalty_feature_coupled": [3.0] * F,
+        "cegb_penalty_feature_lazy": [0.05] * F}),
+    ("data", "pool"): ("data", "exact", {"histogram_pool_size": 0.02}),
+}
+FORCED_SPEC = {"feature": 0, "threshold": 0.0,
+               "left": {"feature": 1, "threshold": 0.5},
+               "right": {"feature": 1, "threshold": 0.5}}
+
+
+def device_vs_host(rank, d, arg):
+    """Every learner's tree from the device build and from the host loop
+    (``host_loop=True``, a fresh learner each, so CEGB's state starts
+    alike), two trees in a row: whether they are equal byte for byte, the
+    fetches of each, the pool's misses and the comm's counts of each."""
+    import torch
+
+    from lightgbm_tpu_torch import BinnedDataset, Config
+    X, y, grad = problem()
+    ds = BinnedDataset.from_matrix(X, label=y, max_bin=63)
+    g = torch.as_tensor(grad)
+    h = torch.ones(N)
+    forced = os.path.join(arg, "forced_r%d.json" % rank)
+    with open(forced, "w") as fh:
+        json.dump(FORCED_SPEC, fh)
+    classes = _learner_classes()
+    out = {}
+    for key, (name, prec, extra) in DEVICE_CASES.items():
+        cls, base = classes[name]
+        params = dict(LEARNER_PARAMS, hist_precision=prec, **base)
+        for k, v in extra.items():
+            if k == "forced":
+                params["forcedsplits_filename"] = forced
+            else:
+                params[k] = v
+        builds = {}
+        for build in ("device", "host"):
+            learner = cls(ds, Config(**params), device="cpu")
+            learner.comm.ops.reset()
+            trees = [learner.train(g * s, h, N,
+                                   host_loop=build == "host")
+                     for s in (1.0, 0.5)]
+            builds[build] = (trees, dict(learner.comm.ops.calls),
+                             dict(learner.comm.ops.bytes),
+                             type(learner).__name__,
+                             learner.hist_pool_slots)
+        dev, host = builds["device"], builds["host"]
+        out[key] = {
+            "equal": [_same_arrays(a, b) for a, b in zip(dev[0], host[0])],
+            "fetches": [t.host_fetches for t in dev[0]],
+            "host_fetches": [t.host_fetches for t in host[0]],
+            "passes": [t.split_passes for t in dev[0]],
+            "num_leaves": [t.num_leaves for t in dev[0]],
+            "misses": [t.pool_misses for t in dev[0]],
+            "paid": [None if t.paid_bits is None
+                     else int(t.paid_bits.bool().sum()) for t in dev[0]],
+            "calls": (dev[1], host[1]), "bytes": (dev[2], host[2]),
+            "class": dev[3], "pool_slots": dev[4],
+            "roots": [(int(t.split_feature[0]), int(t.threshold_bin[0]))
+                      for t in dev[0]]}
+    return out
+
+
 SCENARIOS = {"learners": learners, "boosting": boosting,
              "world_one": world_one, "comm_and_data": comm_and_data,
-             "telemetry_shards": telemetry_shards}
+             "telemetry_shards": telemetry_shards,
+             "device_vs_host": device_vs_host}
 
 
 # ---- process plumbing ----
