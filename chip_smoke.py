@@ -46,7 +46,15 @@ together) and runs these phases, each of which raises on failure:
    exact and quantized, with every row outside the windows untouched in
    both stores, over frontiers: one
    whole-store window, a full level-7 frontier of 127 adjacent windows, a
-   mix of small, ~10k-row and empty windows, and the route matrix; both
+   mix of small, ~10k-row and empty windows, and the route matrix; on the
+   same frontiers (and on (J2)'s bitset windows) the level pass with its
+   windows in device memory (``partition_hist_level_window``, level
+   growth's launch: the scal rows a device tensor, the maps built on the
+   card, every launch sized for the store) bit for bit against the
+   host-map launch, under both integer grids when quantized, its maps
+   against ``level_meta_device``, its route counters against the windows'
+   routes, the integer accumulator left zero, and against its plain
+   version; both
    split kernels again at F=2000 (the single-window one over five windows
    and two routes, the level one over one window and a level-7 frontier),
    exact and quantized; the single-window kernel with the feature window
@@ -74,7 +82,12 @@ together) and runs these phases, each of which raises on failure:
    model text equal, 1 fetch) and with its step captured once in a
    CUDA graph and replayed 254 times (equal to the eager tree), and two
    fresh boosters, one on each build, train 2 iterations in turns (their
-   s/iteration, median and range, and peak memory, unclaimed); (D) the
+   s/iteration, median and range, and peak memory, unclaimed); (B) and (C)
+   grow on the device too (one fetch a tree, ``level_count`` level passes
+   a tree), each with its first tree regrown by both builds (model text
+   equal), (B)'s whole tree (root and 8 levels) captured in one CUDA graph
+   and replayed (equal to the eager tree), and both builds 2 iterations in
+   turns (s/iteration, peak memory against the level workspace); (D) the
    Epsilon-shaped
    binary GBDT (400,000 training and 100,000 held-out rows of 2000 dense
    features made from a seed; the reference's published GPU settings:
@@ -125,7 +138,9 @@ together) and runs these phases, each of which raises on failure:
    DepTime, ``extra_trees`` and ``max_cat_to_onehot=8`` (one-hot and
    many-vs-many splits), 2 iterations: the integer root histogram and one
    level pass per level, its windows routed by bitsets, every DepTime split
-   with its left leaves at or below its right ones.  Each of (I), (J) and
+   with its left leaves at or below its right ones, grown on the device
+   (one fetch a tree) with its first tree regrown by the host loop (model
+   text equal).  Each of (I), (J) and
    (J2) prints its binning seconds, s/iteration, train log loss and
    held-out AUC per iteration, the split passes' route counts
    (``device.route_launches``: launches with ``use_unfold = 1`` and with
@@ -227,7 +242,8 @@ together) and runs these phases, each of which raises on failure:
    bit, one root histogram per tree and L - 1 split passes a tree, and
    s/iteration beside ``train()``'s; (T2) a second C booster with
    ``tree_grow_mode=level hist_precision=quantized``: the integer root
-   histogram and the level pass, its model equal to ``train()``'s; (U)
+   histogram and the level pass, its model equal to ``train()``'s, grown
+   on the device with its first tree regrown by the host loop; (U)
    preemption and the watchdog: ``train()`` at (A)'s shape with
    ``preemption_checkpoint``, ``watchdog_timeout_s=120`` and a checkpoint
    prefix under ``build/``, SIGTERM sent to this process after iteration
@@ -351,7 +367,8 @@ together) and runs these phases, each of which raises on failure:
    chunk again one iteration at a time, one constant tree, finite scores;
    each run's s/iteration and peak device memory beside the per-iteration
    run's, one root histogram a tree and one split (or level) pass a split
-   (or level);
+   (or level); (Y2) and (Y5) grown on the device, one fetch a tree, each
+   first tree regrown by the host loop (model text equal);
 5. times of each kernel at the main paths' shapes beside its bound, its
    plain version and one PyTorch library call (``index_add_``; for a split
    pass, which has none, the window's device-to-device copy): the
@@ -362,12 +379,14 @@ together) and runs these phases, each of which raises on failure:
    one call when 25 calls are queued behind a sleeping kernel and run back
    to back; the quantized split pass also beside its window's copy.  The
    level pass is also timed (queued) at each depth 0-7 of a tree over the
-   whole store: 2**d equal windows.
+   whole store: 2**d equal windows, through the host-map launch and the
+   device-window launch (when quantized, under both integer grids).
 
 Tolerances: a histogram may differ from the plain version's only by float
 summation order, so ``max|diff| <= 1e-5 * max|bin sum|``; integer histograms
 (quantized gradients), row stores and left counts must be equal bit for bit;
-the level-batched pass must equal G single-window kernel calls bit for bit;
+the level-batched pass must equal G single-window kernel calls bit for bit,
+and its device-window launch the host-map launch bit for bit;
 two launches on the same input must give the same bits.
 
 The line before the last is the card's name and power limit as ``nvidia-smi``
@@ -1028,10 +1047,69 @@ def check_level(rows, scals, what, **kw) -> float:
     if not (torch.equal(r1, r2) and torch.equal(h1, h2)
             and torch.equal(nl1, nl2)):
         raise AssertionError(what + ": two runs differ")
+    err = max(err, check_level_window(rows, scals, what, r1, h1, nl1, dst0,
+                                      **kw))
     log("  %-46s nl sum %8d  = %d single-window calls bit for bit, rows "
         "outside untouched in both stores; vs plain max|diff| %.3g"
         % (what, int(nl1.sum()), len(scals), err))
     return err
+
+
+def check_level_window(rows, scals, what, r_host, h_host, nl_host, dst0,
+                       **kw) -> float:
+    """The level pass with its windows in device memory
+    (``partition_hist_level_window``: the scal rows a device tensor, the
+    maps built on the card, every launch sized for the store's rows) against
+    the host-map launch's destination, histograms and left counts
+    (``r_host``, ``h_host``, ``nl_host``), bit for bit, under both integer
+    grids when quantized; its maps equal to ``level_meta_device``'s; its
+    route counters equal to the windows' routes; the integer accumulator
+    left zero; and against its plain version (rows and nl bit for bit, the
+    histograms bit for bit when quantized, else within HIST_RTOL)."""
+    from lightgbm_tpu_torch import device as D
+    from lightgbm_tpu_torch.core import partition as P
+    device = rows.device
+    n, W = rows.shape
+    q = bool(kw.get("quantized"))
+    F, B = kw["num_features"], kw["num_bins"]
+    sdev = torch.as_tensor(scals, dtype=torch.int32, device=device)
+    live = scals[:, 1] > 0
+    routes = D.level_route_counter(device)
+    for grid in (("device", "bound") if q else ("device",)):
+        work = P.level_workspace(n, len(scals), W, F, B, q, device=device,
+                                 int_grid=grid)
+        before = routes.clone()
+        r_w = dst0.clone()
+        h_w, nl_w = P.partition_hist_level_window(rows, r_w, sdev, work,
+                                                  **kw)
+        torch.cuda.synchronize()
+        tag = "%s: device-window level pass (%s grid)" % (what, grid)
+        if not (torch.equal(r_w, r_host) and torch.equal(h_w, h_host)
+                and torch.equal(nl_w, nl_host)):
+            raise AssertionError(tag + " differs from the host-map launch")
+        want_maps = P.level_meta_device(sdev, F, B, W, bound_rows=n,
+                                        quantized=q, int_grid=grid).flat()
+        if not torch.equal(work.maps[:want_maps.numel()], want_maps):
+            raise AssertionError(tag + ": its maps differ from "
+                                 "level_meta_device's")
+        unfold = int((live & (scals[:, 10] == 1)).sum())
+        cat = int((live & (scals[:, 8] == 1)).sum())
+        got = (routes - before).tolist()
+        if got != [int(unfold > 0), unfold, int(cat > 0), cat]:
+            raise AssertionError(tag + ": route counts %s" % got)
+        if q and bool(work.partial.any()):
+            raise AssertionError(tag + ": the accumulator was left nonzero")
+    r_p = dst0.clone()
+    h_p, nl_p = P.partition_hist_level_window_plain(rows, r_p, sdev, **kw)
+    if not (torch.equal(r_p, r_host) and torch.equal(nl_p, nl_host)):
+        raise AssertionError(what + ": the device-window plain version's "
+                             "rows or nl differ")
+    if q:
+        if not torch.equal(h_p, h_host):
+            raise AssertionError(what + ": the device-window plain "
+                                 "version's histograms differ")
+        return 0.0
+    return hist_err(h_host, h_p, what + " (device-window plain)")
 
 
 def phase_level_split(device, n: int) -> float:
@@ -1379,6 +1457,12 @@ def phase_main_path(device, data, ds, path: str, iters: int,
                             and max(fetches) <= 2):
         raise AssertionError("(A): device build %s, fetches per tree %s"
                              % (booster.learner.grows_on_device(), fetches))
+    if path != "A" and not (booster.learner.grows_on_device()
+                            and fetches == [1] * iters):
+        raise AssertionError("(%s): device build %s, fetches per tree %s, "
+                             "want 1" % (path,
+                                         booster.learner.grows_on_device(),
+                                         fetches))
     check_tree0(booster, n, strict=path == "C")
     busy_ms = None
     if profile:
@@ -1407,7 +1491,8 @@ def expect_launches(path: str, counts: dict, trees: int, passes: int,
     histogram per tree and ``passes`` split passes (L - 1 a tree, the device
     build); (B) and (C) one root histogram (the integer one in (C)) per tree
     and one level-batched split pass per level, ``level_count`` levels per
-    tree."""
+    tree (the device build launches every level; each of these trees splits
+    at every level)."""
     if path == "A":
         want = {"histogram": trees, "partition": passes}
     else:
@@ -1415,7 +1500,7 @@ def expect_launches(path: str, counts: dict, trees: int, passes: int,
             raise AssertionError("%d level steps for %d trees, want %d per "
                                  "tree" % (levels, trees, level_count))
         root = "histogram_int" if path == "C" else "histogram"
-        want = {root: trees, "partition_level": levels}
+        want = {root: trees, "partition_level": level_count * trees}
     for k, v in counts.items():
         if v != want.get(k, 0):
             raise AssertionError("path %s: %s launched %d times, want %d"
@@ -1537,29 +1622,40 @@ def regrow_tree0(booster, learner=None, reset=None, graph=False) -> dict:
     passes, under the pool L - 1 rebuild launches).  With ``graph``, the
     step is captured once in a CUDA graph and replayed L - 1 times (a
     capture that meets a read-back raises), and that tree is held to the
-    eager one.  Raises on a difference; returns what it saw."""
+    eager one.  A level tree (``tree_grow_mode=level``): ``level_count``
+    level passes, and with ``graph`` the whole tree, the root and every
+    level step, captured in one CUDA graph and replayed once (the count a
+    device scalar, so that the capture copies nothing to the card).
+    Raises on a difference; returns what it saw."""
     from lightgbm_tpu_torch import device as D
     from lightgbm_tpu_torch.core import tree_learner as TL
     learner = learner or booster.learner
     n = booster.train_data.num_data
     L = learner.num_leaves
+    level = learner.effective_grow_mode() == "level"
+    passes = learner.level_count() if level else L - 1
     grad, hess = initial_gradients(booster, n)
 
-    def grow(**kw):
+    def grow(count=n, **kw):
         if reset is not None:
             reset()
-        return learner.train(grad, hess, n, **kw)
+        return learner.train(grad, hess, count, **kw)
 
     def same(a, b):
         return same_arrays(a, b) and (
             (a.paid_bits is None) == (b.paid_bits is None)) and (
             a.paid_bits is None or torch.equal(a.paid_bits, b.paid_bits))
     D.reset_launches()
+    t = time.perf_counter()
     eager = grow()
     torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t
     counts = {k: v for k, v in D.launches().items() if v}
+    t = time.perf_counter()
     host = grow(host_loop=True)
-    want = {"partition": L - 1,
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t
+    want = {("partition_level" if level else "partition"): passes,
             ("histogram_int" if learner.quantized else "histogram"): 1}
     if learner.hist_pool_slots and learner.grows_on_device():
         want["histogram_window"] = L - 1
@@ -1568,17 +1664,51 @@ def regrow_tree0(booster, learner=None, reset=None, graph=False) -> dict:
         raise AssertionError("tree 0 regrown: the device build differs from "
                              "the host loop (%d vs %d leaves)"
                              % (eager.num_leaves, host.num_leaves))
-    if (eager.host_fetches != 1 or eager.split_passes != L - 1
+    if (eager.host_fetches != 1 or eager.split_passes != passes
             or counts != want):
         raise AssertionError("tree 0 regrown: %d fetches, %d split passes, "
                              "launches %s, want 1, %d, %s"
                              % (eager.host_fetches, eager.split_passes,
-                                counts, L - 1, want))
+                                counts, passes, want))
     out = dict(leaves=eager.num_leaves, fetches=eager.host_fetches,
                host_fetches=host.host_fetches, passes=eager.split_passes,
                misses=eager.pool_misses, host_misses=host.pool_misses,
-               launches=counts, graph=False)
-    if graph:
+               launches=counts, graph=False, eager_s=eager_s, host_s=host_s)
+    if graph and level:
+        real_cls = TL._DeviceGrowth
+
+        class WholeTree:
+            """The root and every level step in one CUDA graph, replayed
+            once; ``finish`` (the one read-back) runs after it."""
+
+            def __init__(self, *a, **k):
+                self.graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(self.graph):
+                    self.g = real_cls(*a, **k)
+                    self.g.grow()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+                ev[0].record()
+                self.graph.replay()
+                ev[1].record()
+                ev[1].synchronize()
+                out["graph_ms"] = ev[0].elapsed_time(ev[1])
+
+            def grow(self):
+                pass
+
+            def finish(self, *a, **k):
+                return self.g.finish(*a, **k)
+        TL._DeviceGrowth = WholeTree
+        try:
+            captured = grow(torch.tensor(float(n), device=learner.device))
+        finally:
+            TL._DeviceGrowth = real_cls
+        torch.cuda.synchronize()
+        if not same(captured, eager):
+            raise AssertionError("the captured tree differs from the eager "
+                                 "device build's")
+        out["graph"] = True
+    elif graph:
         real_grow = TL._DeviceGrowth.grow
 
         def grow_captured(g):
@@ -1637,6 +1767,8 @@ def builds_in_turns(what: str, make, turns: int, ties=None) -> dict:
     work_bytes = 0 if work is None else sum(
         t.numel() * t.element_size() for t in
         (work.scratch, work.blk, work.win, work.partial) if t is not None)
+    if builds["device"].learner._level_work is not None:
+        work_bytes += builds["device"].learner._level_work.nbytes()
     got, want = builds["device"].models, builds["host loop"].models
     texts = [t.to_string() for t in got] == [t.to_string() for t in want]
     if not texts:
@@ -1696,6 +1828,41 @@ def phase_device_build(device, ds, booster) -> dict:
         DEVICE_BUILD_TURNS, ties=booster)
 
 
+LEVEL_TURNS = 2             # (B), (C): iterations of each build, in turns
+
+
+def phase_level_device_build(device, ds, booster, path: str) -> dict:
+    """(B)'s or (C)'s level growth on the device against the host loop it
+    replaced, on (A)'s bins (``regrow_tree0``: the first tree grown again
+    by both builds from the same gradients, model text equal, 1 fetch and
+    ``level_count`` level passes; for (B) the whole tree, root and 8
+    levels, captured in one CUDA graph and replayed, equal to the eager
+    tree), then two fresh boosters of the path's settings, one on each
+    build, trained LEVEL_TURNS iterations in turns (``builds_in_turns``:
+    s/iteration, peak device memory against the level workspace, trees
+    equal).  Nothing here is claimed."""
+    from lightgbm_tpu_torch import Config, GBDT, create_objective
+    if not booster.learner.grows_on_device():
+        raise AssertionError("(%s) does not grow on the device" % path)
+    r = regrow_tree0(booster, graph=path == "B")
+    log("  (%s) level growth on the device: tree 0 regrown by the host loop "
+        "from the same gradients: model text equal; fetches %d (host loop "
+        "%d), level passes %d; one tree each: device build %.4f s, host "
+        "loop %.4f s%s"
+        % (path, r["fetches"], r["host_fetches"], r["passes"], r["eager_s"],
+           r["host_s"],
+           "; the whole tree captured in one CUDA graph and replayed in "
+           "%.4f ms (events): equal to the eager build's" % r["graph_ms"]
+           if r["graph"] else ""))
+    cfg = Config(objective="binary", num_leaves=255, learning_rate=0.1,
+                 max_bin=255, verbosity=-1, **PATHS[path][1])
+    out = builds_in_turns(
+        path, lambda: GBDT(cfg, ds, create_objective("binary", cfg)),
+        LEVEL_TURNS)
+    out["regrown"] = r
+    return out
+
+
 def check_tree0(booster, n: int, strict: bool, bag=None,
                 feature_mask=None, index: int = 0, learner=None) -> None:
     """Rebuild tree 0 (class 0's first tree) on the card with the plain
@@ -1710,8 +1877,8 @@ def check_tree0(booster, n: int, strict: bool, bag=None,
     from lightgbm_tpu_torch.core.histogram import (
         histogram_rows_plain, histogram_rows_window_plain)
     from lightgbm_tpu_torch.core.partition import (
-        partition_hist_level_plain, partition_hist_plain,
-        partition_hist_window_plain)
+        partition_hist_level_plain, partition_hist_level_window_plain,
+        partition_hist_plain, partition_hist_window_plain)
     grad, hess = initial_gradients(booster, n)
     count = n
     if bag is not None:
@@ -1722,7 +1889,8 @@ def check_tree0(booster, n: int, strict: bool, bag=None,
         hist_fn=histogram_rows_plain, part_fn=partition_hist_plain,
         level_fn=partition_hist_level_plain,
         window_fn=partition_hist_window_plain,
-        rebuild_fn=histogram_rows_window_plain)
+        rebuild_fn=histogram_rows_window_plain,
+        level_window_fn=partition_hist_level_window_plain)
     torch.cuda.synchronize()
     log("  tree %d rebuilt with the plain versions in %.3f s"
         % (index, time.perf_counter() - t))
@@ -2728,6 +2896,7 @@ def phase_expo_variants(device, sets, iters: int, profile: bool) -> dict:
         raise AssertionError("train logloss did not fall every iteration")
     check_validation_scores(gbdt, booster, X_test)
     check_tree0(gbdt, n, strict=True)
+    regrown = regrow_level_tree0("J2", gbdt, rec.fetches)
     times = check_path_kernels(gbdt.learner, "J2", categorical=True)
     levels = gbdt.learner.level_count() * trees
     want = {"histogram_int": trees, "partition_level": levels}
@@ -2752,7 +2921,27 @@ def phase_expo_variants(device, sets, iters: int, profile: bool) -> dict:
                                     100 - busy_ms / med / 10, med))
     return {"launches": counts, "routes": routes, "iter_s": rec.iter_s,
             "auc": aucs, "trees": trees, "splits": splits, "modes": modes,
-            "busy_ms": busy_ms, "times": times}
+            "busy_ms": busy_ms, "times": times, "regrown": regrown}
+
+
+def regrow_level_tree0(path: str, gbdt, fetches) -> dict:
+    """A level path grown on the device: one fetch a tree (``fetches``,
+    each tree's ``host_fetches``), and its first tree regrown by both
+    builds from the initial gradients (``regrow_tree0``), model text
+    equal."""
+    if not (gbdt.learner.grows_on_device()
+            and gbdt.learner.effective_grow_mode() == "level"
+            and fetches and set(fetches) == {1}):
+        raise AssertionError("(%s) level growth on the device %s, fetches "
+                             "per tree %s" % (path,
+                                              gbdt.learner.grows_on_device(),
+                                              fetches))
+    r = regrow_tree0(gbdt)
+    log("  (%s) grown on the device, 1 fetch a tree; tree 0 regrown by the "
+        "host loop from the same gradients: model text equal (%d leaves, "
+        "%d level passes, host loop %d fetches)"
+        % (path, r["leaves"], r["passes"], r["host_fetches"]))
+    return r
 
 
 def check_path_kernels(learner, path: str, unfold: bool = False,
@@ -2842,7 +3031,8 @@ def path_times(rows, path, name, route, words, scals, B, quantized,
     """Times of the path's kernels on its whole row store (the root
     window): the histogram (beside ``index_add_``) and the split pass with
     the path's route, or in level mode the level pass over ``scals``
-    (beside the store's copy)."""
+    (the device-window launch that level growth runs, the host-map launch
+    beside it; beside the store's copy)."""
     from lightgbm_tpu_torch.core import histogram as H
     from lightgbm_tpu_torch.core import partition as P
     n = int(scals[:, 1].sum())
@@ -2863,11 +3053,22 @@ def path_times(rows, path, name, route, words, scals, B, quantized,
                               ms, dev, b_ms, b_by, plain, lib, lib_dev))
     pk = dict(hk, num_bins=B)
     dst = torch.empty_like(rows)
+    host_map = {}
     if len(scals) > 1 and quantized:
-        fn = lambda: P.partition_hist_level(rows, dst, scals, **pk)  # noqa
-        pfn = lambda: P.partition_hist_level_plain(rows, dst, scals,  # noqa
-                                                   **pk)
-        what = "level pass, 8 windows"
+        # the path's launch (level growth on the device), the host-map
+        # launch beside it
+        sdev = torch.as_tensor(scals, dtype=torch.int32, device=rows.device)
+        lw = P.level_workspace(n, len(scals), W, F, B, True,
+                               device=rows.device)
+        fn = lambda: P.partition_hist_level_window(  # noqa: E731
+            rows, dst, sdev, lw, **pk)
+        pfn = lambda: P.partition_hist_level_window_plain(  # noqa: E731
+            rows, dst, sdev, **pk)
+        hfn = lambda: P.partition_hist_level(rows, dst, scals,  # noqa
+                                             **pk)
+        host_map = dict(host_map_ms=cuda_ms(hfn, reps=10),
+                        host_map_queued_ms=queued_ms(hfn, reps=10))
+        what = "level pass (device windows), 8 windows"
     else:
         scal = scal_row(0, n, route, words, 1)
         work = rows.clone()
@@ -2882,11 +3083,14 @@ def path_times(rows, path, name, route, words, scals, B, quantized,
     b_ms, b_by = bound(2.0 * n * W, 2.0 * (n / 2) * F)
     log("  (%s) %s %s route %d rows: kernel %.4f ms (queued %.4f), bound "
         "%.4f ms (%s), plain %.4f ms, copy of the store %.4f ms (queued "
-        "%.4f)" % (path, what, name, n, ms, dev, b_ms, b_by, plain, copy,
-                   copy_dev))
+        "%.4f)%s" % (path, what, name, n, ms, dev, b_ms, b_by, plain, copy,
+                     copy_dev,
+                     "; host-map launch %.4f ms (queued %.4f)"
+                     % (host_map["host_map_ms"],
+                        host_map["host_map_queued_ms"]) if host_map else ""))
     split = dict(rows=n, ms=ms, queued_ms=dev, plain_ms=plain, bound_ms=b_ms,
                  bound_by=b_by, library_ms=None, copy_ms=copy,
-                 copy_queued_ms=copy_dev)
+                 copy_queued_ms=copy_dev, **host_map)
     torch.cuda.empty_cache()
     return {"histogram": hist, "split": split}
 
@@ -3912,6 +4116,8 @@ def phase_chunk(device, data, ds, only=None) -> dict:
             raise AssertionError("(%s) %d chunk reads over %d chunks, "
                                  "carried %s" % (name, fused["reads"],
                                                  len(chunks), carried))
+        if fb.learner.effective_grow_mode() == "level":
+            rec["regrown"] = regrow_level_tree0(name, fb, fused["fetches"])
         if name == "Y1":
             if max(fused["fetches"]) > 2 or not fb.learner.grows_on_device():
                 raise AssertionError("(Y1) growth fetches per tree %s, want "
@@ -3995,6 +4201,7 @@ def phase_chunk(device, data, ds, only=None) -> dict:
     finally:
         obs.disable()
     b = r["booster"]
+    regrown5 = regrow_level_tree0("Y5", b, r["fetches"])
     constant = [i for i, t in enumerate(b.models) if t.num_leaves == 1]
     finite = bool(torch.isfinite(b.train_score).all()
                   and torch.isfinite(b.valid_sets[0]["score"]).all())
@@ -4011,7 +4218,8 @@ def phase_chunk(device, data, ds, only=None) -> dict:
         raise AssertionError("(Y5) the chunk's guard did not roll back and "
                              "retry")
     out["runs"]["Y5"] = dict(trips=trips, retried=retried,
-                             constant=constant, chunk_reads=r["reads"])
+                             constant=constant, chunk_reads=r["reads"],
+                             regrown=regrown5)
     del r, b
     torch.cuda.empty_cache()
     return out
@@ -5111,19 +5319,22 @@ def phase_capi(device, data, iters: int) -> dict:
     bst2 = lib.booster(train, CAPI_PARAMS % iters + CAPI_LEVEL)
     D.reset_launches()
     fin = ct.c_int()
-    iter2_s, levels = [], 0
+    iter2_s, levels, fetches2 = [], 0, []
     for _ in range(iters):
         t = time.perf_counter()
         lib("LGBM_BoosterUpdateOneIter", bst2, ct.byref(fin))
         torch.cuda.synchronize()
         iter2_s.append(time.perf_counter() - t)
         levels += gbdt_of(bst2).last_arrays.levels
+        fetches2.append(gbdt_of(bst2).last_arrays.host_fetches)
     counts2 = D.launches()
+    regrown2 = regrow_level_tree0("T2", gbdt_of(bst2), fetches2)
     text2 = lib.model(bst2)
     ref2 = lgb.train(capi_params(iters, CAPI_LEVEL), ref_set,
                      num_boost_round=iters, verbose_eval=False)
     trees2 = len(gbdt_of(bst2).models)
-    want2 = {"histogram_int": trees2, "partition_level": levels}
+    want2 = {"histogram_int": trees2,
+             "partition_level": trees2 * gbdt_of(bst2).learner.level_count()}
     same2 = text2 == ref2.model_to_string()
     log("  (T2) C ABI, level + quantized: iterations %s (median %.4f s); "
         "%d level steps; launches %s; model text %s train()'s"
@@ -5141,7 +5352,7 @@ def phase_capi(device, data, iters: int) -> dict:
                       iter_s=iter_s, train_iter_s=rec.iter_s,
                       auc=float(auc[0]), bin_s=bin_s, build_s=build_s),
             "T2": dict(launches=counts2, trees=trees2, levels=levels,
-                       iter_s=iter2_s),
+                       iter_s=iter2_s, regrown=regrown2),
             "text": text}
 
 
@@ -5827,9 +6038,17 @@ def _plan_recorder(booster):
         rec["store"] = rows
         return out
 
+    def level_window(src, dst, scals, work, **kw):
+        out = PT.partition_hist_level_window(src, dst, scals, work, **kw)
+        # nl is a view into the workspace, which the next level rewrites
+        rec["nl"].append(out[1].clone())
+        rec["store"] = dst
+        return out
+
     learner = booster.learner
     learner.train = functools.partial(learner.train, part_fn=part,
-                                      level_fn=level, window_fn=window)
+                                      level_fn=level, window_fn=window,
+                                      level_window_fn=level_window)
     return rec
 
 
@@ -6919,6 +7138,16 @@ def times_quantized_and_level(device, n: int) -> dict:
             seq = cuda_ms(sequential, reps=5, warmup=1)
             plain = cuda_ms(lambda: P.partition_hist_level_plain(
                 rows, dst, scals, **kw), reps=3, warmup=1)
+            sdev = torch.as_tensor(scals, dtype=torch.int32, device=device)
+            lw = P.level_workspace(n, len(scals), rows.shape[1], F, B,
+                                   quantized, device=device)
+            win_ms = cuda_ms(lambda: P.partition_hist_level_window(
+                rows, dst, sdev, lw, **kw))
+            win_dev = queued_ms(lambda: P.partition_hist_level_window(
+                rows, dst, sdev, lw, **kw))
+            wplain = cuda_ms(lambda: P.partition_hist_level_window_plain(
+                rows, dst, sdev, **kw), reps=3, warmup=1)
+            del lw
             # every window row read once and written once; two adds per
             # (row, feature) of the smaller children
             sum_wc = float(scals[:, 1].sum())
@@ -6926,17 +7155,23 @@ def times_quantized_and_level(device, n: int) -> dict:
                                2.0 * (sum_wc / 2) * F)
             what = "%s, %s" % ("quantized" if quantized else "exact", name)
             log("  level split pass %-30s (%d windows, %d rows): kernel "
-                "%.4f ms (queued %.4f), bound %.4f ms (%s), %d single-window "
-                "calls %.4f ms, plain %.4f ms, copy of the windows %.4f ms "
-                "(queued %.4f), no single library call"
-                % (what, len(scals), sum_wc, ms, dev, b_ms, b_by, len(scals),
-                   seq, plain, copy, copy_dev))
+                "%.4f ms (queued %.4f), device-window launch %.4f ms (queued "
+                "%.4f), bound %.4f ms (%s), %d single-window calls %.4f ms, "
+                "plain %.4f ms (device-window plain %.4f ms), copy of the "
+                "windows %.4f ms (queued %.4f), no single library call"
+                % (what, len(scals), sum_wc, ms, dev, win_ms, win_dev, b_ms,
+                   b_by, len(scals), seq, plain, wplain, copy, copy_dev))
             if name == "level-7 frontier":
                 key = "partition_level_q" if quantized else "partition_level"
-                out[key] = dict(ms=ms, queued_ms=dev, plain_ms=plain,
-                                bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                                copy_ms=copy, copy_queued_ms=copy_dev,
-                                sequential_ms=seq, windows=len(scals))
+                # the main paths' launch (the device-window one) first,
+                # the host-map launch (the host loop's) beside it
+                out[key] = dict(ms=win_ms, queued_ms=win_dev,
+                                plain_ms=wplain, bound_ms=b_ms, bound_by=b_by,
+                                library_ms=None, copy_ms=copy,
+                                copy_queued_ms=copy_dev, sequential_ms=seq,
+                                windows=len(scals), host_map_ms=ms,
+                                host_map_queued_ms=dev,
+                                host_map_plain_ms=plain)
             del work
         out["depths_q" if quantized else "depths"] = level_depth_ms(
             rows, dst, kw)
@@ -6944,25 +7179,46 @@ def times_quantized_and_level(device, n: int) -> dict:
     return out
 
 
-def level_depth_ms(rows, dst, kw) -> list:
+def level_depth_ms(rows, dst, kw) -> dict:
     """Queued device times of the level pass at each depth d = 0..7 of a
-    tree over every row of ``rows``: 2**d equal windows, random routes."""
+    tree over every row of ``rows``: 2**d equal windows, random routes;
+    the host-map launch (``host``) and the device-window launch on a
+    workspace of the last level's 128 slots, sized for the store's rows (the
+    learner's; ``window``, and when quantized ``window_bound``, the bound's
+    fixed integer grid)."""
     from lightgbm_tpu_torch.core import partition as P
     n = rows.shape[0] - 4096
     F, B = kw["num_features"], kw["num_bins"]
+    q = bool(kw["quantized"])
     rng = np.random.RandomState(16)
-    times = []
+    grids = ("device", "bound") if q else ("device",)
+    works = {g: P.level_workspace(n, 128, rows.shape[1], F, B, q,
+                                  device=rows.device, int_grid=g)
+             for g in grids}
+    times = {"host": [], "window": []}
+    if q:
+        times["window_bound"] = []
     for d in range(8):
         bounds = np.linspace(0, n, 2 ** d + 1).astype(np.int64)
         scals = np.asarray([scal_row(
             int(a), int(b - a), (int(rng.randint(F)), int(rng.randint(B)), 0,
                                  0, B, 0, 0, 0, 0), [0] * (B // 32),
             int(rng.randint(2))) for a, b in zip(bounds, bounds[1:])])
-        times.append(queued_ms(lambda: P.partition_hist_level(rows, dst,
-                                                              scals, **kw)))
-    log("  level pass %s at depths 0-7 of a %d-row tree (queued ms): %s; "
-        "sum %.4f" % ("quantized" if kw["quantized"] else "exact", n,
-                      " ".join("%.4f" % t for t in times), sum(times)))
+        sdev = torch.as_tensor(scals, dtype=torch.int32, device=rows.device)
+        times["host"].append(queued_ms(lambda: P.partition_hist_level(
+            rows, dst, scals, **kw)))
+        for g in grids:
+            key = "window" if g == "device" else "window_bound"
+            times[key].append(queued_ms(lambda: P.partition_hist_level_window(
+                rows, dst, sdev, works[g], **kw)))
+    for key, t in times.items():
+        log("  level pass %s, %s launch, at depths 0-7 of a %d-row tree "
+            "(queued ms): %s; sum %.4f"
+            % ("quantized" if q else "exact", {
+                "host": "host-map", "window": "device-window",
+                "window_bound": "device-window bound-grid"}[key], n,
+               " ".join("%.4f" % x for x in t), sum(t)))
+    del works
     return times
 
 
@@ -7056,7 +7312,13 @@ def main(argv=None) -> int:
                                       args.profile)
         texts[path] = paths[path]["booster"].save_model_to_string()
         if path != "A":
-            del paths[path]["booster"]
+            mark()
+            log("  (%s) the level device build against the host loop; %s"
+                "both builds in turns, %d iterations each"
+                % (path, "the whole tree in a CUDA graph; " if path == "B"
+                   else "", LEVEL_TURNS))
+            paths[path]["level_build"] = phase_level_device_build(
+                device, ds, paths[path].pop("booster"), path)
         torch.cuda.empty_cache()
     mark()
     log("  (A) the device build against the host loop; the step in a CUDA "
@@ -7311,9 +7573,14 @@ def main(argv=None) -> int:
              max_abs_err=hist_int_err, **launches("histogram_int"),
              expo_root=paths["J2"]["times"]["histogram"],
              **times["histogram_int"]),
+        # the launches of level growth on the device
+        # (lgbt_partition_level_window, its windows and maps in device
+        # memory); its host-map form lgbt_partition_level under "host_map_*"
         dict(name="partition_level", route="cuda",
              source="lightgbm_tpu_torch/csrc/partition_level.cu",
              replaces="lightgbm_tpu/core/partition.py:1191",
+             entry="lgbt_partition_level_window",
+             also_entry="lgbt_partition_level",
              max_abs_err=level_err_max, **launches("partition_level"),
              categorical_launches=paths["J2"]["routes"]["partition_level"][
                  "categorical"],
@@ -7322,6 +7589,10 @@ def main(argv=None) -> int:
              categorical_level=paths["J2"]["times"]["split"],
              quantized_ms=times["partition_level_q"]["ms"],
              quantized_queued_ms=times["partition_level_q"]["queued_ms"],
+             quantized_host_map_ms=times["partition_level_q"]["host_map_ms"],
+             quantized_host_map_queued_ms=times["partition_level_q"][
+                 "host_map_queued_ms"],
+             device_window_trees=paths["B"]["level_build"]["regrown"],
              depths_queued_ms=times["depths"],
              quantized_depths_queued_ms=times["depths_q"],
              **times["partition_level"]),

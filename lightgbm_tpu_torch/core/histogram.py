@@ -109,26 +109,38 @@ def _row_chunks(n: int, num_features: int):
 
 
 def _hist_sums(chunks, num_features: int, num_bins: int, quantized: bool,
-               device) -> torch.Tensor:
+               device, num_windows: Optional[int] = None) -> torch.Tensor:
     """[F, 2, B] sums of ``values`` [2, n] by ``bins`` [n, F] over the
     (bins, values) ``chunks`` in row order: f64 (or int64 of the rounded
     values when ``quantized``), rounded to f32 once.  One index_add_ per
     chunk over flattened (feature, bin) ids; out-of-range bins are dropped
-    like a segment sum drops them."""
+    like a segment sum drops them.  With ``num_windows`` G each chunk is
+    (bins, values, window [n]) and the sums are [G, F, 2, B], each row added
+    to its window's histogram (a window of -1 drops it): each window's bins
+    take the same additions in the same order as a call over its rows
+    alone."""
     f = num_features
+    G = 1 if num_windows is None else num_windows
     dtype = torch.int64 if quantized else torch.float64
-    out = torch.zeros((f * num_bins + 1, 2), dtype=dtype, device=device)
+    out = torch.zeros((G * f * num_bins + 1, 2), dtype=dtype, device=device)
     offs = torch.arange(f, device=device)[None, :] * num_bins
-    for bins, values in chunks:
+    for chunk in chunks:
+        bins, values = chunk[0], chunk[1]
         n = bins.shape[0]
         b = bins.long()
-        ids = torch.where((b >= 0) & (b < num_bins), b + offs, f * num_bins)
+        ok = (b >= 0) & (b < num_bins)
+        if num_windows is not None:
+            win = chunk[2].long()[:, None]
+            ok = ok & (win >= 0)
+            b = b + win * (f * num_bins)
+        ids = torch.where(ok, b + offs, G * f * num_bins)
         vals = values.t().round() if quantized else values.t()
         out.index_add_(0, ids.reshape(-1),
                        vals.to(dtype)[:, None, :].expand(n, f, 2)
                        .reshape(n * f, 2))
-    return out[:-1].reshape(f, num_bins, 2).permute(0, 2, 1).float() \
+    out = out[:-1].reshape(G, f, num_bins, 2).permute(0, 1, 3, 2).float() \
         .contiguous()
+    return out if num_windows is not None else out[0]
 
 
 def histogram_plain(bins: torch.Tensor, values: torch.Tensor,

@@ -78,6 +78,23 @@ each; :func:`partition_hist_level_cuda` is the wrapper of
 The TPU's per-level bucket classes (``level_plan``/``fused_bucket_plan``) and
 the per-class window masking (tree_learner.py:1176-1202) were a TPU cost
 model and have no counterpart here.
+
+Level growth on the device takes its windows as the TPU kernel takes them,
+from scal rows in device memory that the host never reads::
+
+    partition_hist_level_window(src, dst, scals, work, ...)
+        -> (hist [G, F, 2, B], nl [G])
+
+``scals`` is an int32 [G, S] tensor on the stores' device.  The kernel
+(``lgbt_partition_level_window``) builds on the card the block and
+histogram maps that :func:`level_meta` builds on the host, and every launch
+is sized once for a bound (:func:`level_bounds`, :func:`level_workspace`),
+so a CUDA graph can capture it; exact, each window keeps ``_segments`` of
+its rows, so it equals :func:`partition_hist_level` bit for bit.  Its plain
+version, :func:`partition_hist_level_window_plain`, reads no scal row on
+the host either: each position finds its window through
+:func:`level_meta_device`'s block map, and each window's histogram is
+summed as :func:`partition_hist_level_plain` sums it.
 """
 from __future__ import annotations
 
@@ -87,14 +104,17 @@ import numpy as np
 import torch
 
 from ..device import (check_tensor, count_launch, count_routes,
-                      cuda_stream_ptr, route_counter)
+                      cuda_stream_ptr, level_route_counter, route_counter)
 from ..io.binning import MissingType
 from ..plan import planner as _planner
 from ..plan import state as _plan_state
-from .histogram import (_segments, check_hist_shape,
+from ..utils.log import Log
+from .histogram import (_INT_BLOCK_ROWS, _INT_HIST_SMEM, _INT_SEG_ROWS,
+                        _INT_SMALL_ROWS, _INT_SMALL_SEG_ROWS, _SEG_ROWS,
+                        _hist_sums, _row_chunks, _segments, check_hist_shape,
                         check_int_segments, data_ptr, exact_partials,
                         histogram_rows_plain, int_accumulator, int_hist_grid,
-                        int_hist_grids, segment_cap)
+                        int_hist_grids, rows_split, segment_cap)
 
 SCAL_HEAD = 12
 
@@ -461,6 +481,13 @@ def check_windows(wb: np.ndarray, wc: np.ndarray, n: int) -> None:
 def check_stores(src: torch.Tensor, dst: torch.Tensor, s: np.ndarray) -> None:
     """Refuse a level pass whose stores are one buffer, or differ in shape,
     type or device, or whose windows leave the stores or overlap."""
+    check_store_pair(src, dst)
+    check_windows(s[:, 0], s[:, 1], src.shape[0])
+
+
+def check_store_pair(src: torch.Tensor, dst: torch.Tensor) -> None:
+    """Refuse two stores that are one buffer, or differ in shape, type or
+    device."""
     if src.untyped_storage().data_ptr() == dst.untyped_storage().data_ptr():
         raise ValueError("the level pass reads src and writes dst: they must "
                          "be two row stores, not one")
@@ -469,7 +496,6 @@ def check_stores(src: torch.Tensor, dst: torch.Tensor, s: np.ndarray) -> None:
         raise ValueError("src %s %s on %s and dst %s %s on %s must match"
                          % (tuple(src.shape), src.dtype, src.device,
                             tuple(dst.shape), dst.dtype, dst.device))
-    check_windows(s[:, 0], s[:, 1], src.shape[0])
 
 
 def partition_hist_level_plain(src: torch.Tensor, dst: torch.Tensor, scals,
@@ -651,3 +677,413 @@ def partition_hist_level(src: torch.Tensor, dst: torch.Tensor, scals, *,
           else partition_hist_level_plain)
     return fn(src, dst, scals, num_features=num_features, num_bins=num_bins,
               voff=voff, bpc=bpc, packed=packed, quantized=quantized)
+
+
+# ---- the level pass with its windows in device memory ----
+
+LEVEL_INT_GRIDS = ("device", "bound")
+
+
+class LevelBounds(NamedTuple):
+    """The launch sizes of :func:`partition_hist_level_window_cuda` for G
+    windows of at most ``n`` rows in all: ``NB`` count and scatter blocks,
+    ``NH`` histogram grid rows (exact) or blocks (quantized), and what the
+    kernel's maps need besides (``csrc/partition_level.cu``)."""
+    tile: int           # rows a count/scatter tile (part_tile_rows)
+    NB: int             # ceil(n / tile) + G
+    NH: int
+    seg_cap: int        # exact: the most segments a window takes
+    fill: int           # quantized: the blocks a level's windows share
+    ft_b: int           # quantized, the bound's grid: features a block,
+    nseg_b: int         # segments a window
+    ft_max: int         # quantized: the widest feature tile
+
+
+def level_bounds(n: int, G: int, num_features: int, num_bins: int,
+                 row_width: int, quantized: bool = False,
+                 int_grid: str = "device",
+                 fill: Optional[int] = None) -> LevelBounds:
+    """Sizes that hold for any G disjoint windows of ``n`` rows in all.
+
+    Tiles: a window of wc rows has ceil(wc / tile) <= wc / tile + 1.
+    Exact segments: ``_segments`` gives min(seg_cap, ceil(wc / 2048)) <=
+    wc / 2048 + 1.  Quantized, ``int_grid`` "device" (``int_hist_grids`` of
+    each window aiming at its share ceil(fill * wc / sum(wc)) of ``fill``
+    blocks, as ``level_meta`` does): a window's blocks are at most its
+    share + (wide + 1) * need + wide * ceil(wc / _INT_BLOCK_ROWS), where
+    ``wide`` is the fewest tiles of F features and ``need`` <= wc / 4096 +
+    1 the segments a small window takes; summed over the windows that is
+    ``NH`` below.  "bound": every window takes the grid of an n-row window
+    (``int_hist_grid(n)``)."""
+    if int_grid not in LEVEL_INT_GRIDS:
+        raise ValueError("int_grid %r (device or bound)" % (int_grid,))
+    F, B = num_features, num_bins
+    tile = part_tile_rows(row_width)
+    NB = -(-n // tile) + G
+    seg_cap = segment_cap(F, B)
+    fill = _plan_state.int_fill_blocks() if fill is None else int(fill)
+    ft_b = nseg_b = ft_max = 0
+    if not quantized:
+        NH = max(1, min(G * seg_cap, -(-n // _SEG_ROWS) + G))
+    else:
+        ft_smem = max(1, min(F, _INT_HIST_SMEM // (8 * B)))
+        wide = -(-F // ft_smem)
+        if int_grid == "device":
+            NH = (fill + G + (wide + 1) * (-(-n // _INT_SMALL_SEG_ROWS) + G)
+                  + wide * (-(-n // _INT_BLOCK_ROWS) + G))
+            ft_max = -(-F // wide)
+        else:
+            ft_b, nseg_b = int_hist_grid(max(n, 1), F, B, fill)
+            NH = G * nseg_b * -(-F // ft_b)
+            ft_max = ft_b
+    return LevelBounds(tile, NB, NH, seg_cap, fill, ft_b, nseg_b, ft_max)
+
+
+def _map_sizes(G: int, bd: LevelBounds, quantized: bool) -> int:
+    """int32 entries of the kernel's maps: window rows, block map, the
+    histogram's window rows and map."""
+    return 2 * G + 2 * bd.NB + (4 if quantized else 2) * G + (
+        1 if quantized else 2) * bd.NH
+
+
+class LevelWork(NamedTuple):
+    """The buffers of :func:`partition_hist_level_window_cuda`, sized once
+    for up to ``G`` windows of at most ``n`` rows in all of a ``W``-byte
+    store (a learner's level trees reuse them; a level of fewer windows
+    launches on a part of them)."""
+    n: int
+    G: int
+    W: int
+    num_features: int
+    num_bins: int
+    quantized: bool
+    int_grid: str
+    fill: int
+    tile: int
+    maps: torch.Tensor                # int32, the maps the kernel builds
+    work: torch.Tensor                # int32: tile prefixes, nl, windows
+    partial: torch.Tensor             # exact: f64 [NH, F, 2, B] partials;
+                                      # quantized: int64 [G, F, 2, B], zero
+
+    def bounds(self, G: int) -> LevelBounds:
+        return level_bounds(self.n, G, self.num_features, self.num_bins,
+                            self.W, self.quantized, self.int_grid, self.fill)
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.maps, self.work, self.partial))
+
+
+def level_workspace(n: int, G: int, W: int, num_features: int,
+                    num_bins: int, quantized: bool = False, *, device,
+                    int_grid: str = "device") -> LevelWork:
+    """The device-window level pass's buffers for up to ``G`` windows of
+    at most ``n`` rows in all of ``W``-byte rows, on ``device``, under the
+    active plan's tile and integer fill.  At 1,048,576 rows, 28 features,
+    256 bins and G = 128 (a 255-leaf tree's last level) the exact partials
+    are 640 x 28 x 2 x 256 f64, 73.4 MB, and the rest a few tens of
+    KB."""
+    if n >= 2 ** 31:
+        raise ValueError("a level's windows hold 2**31 rows or more")
+    if G > _MAX_GRID_Y:
+        raise ValueError("%d windows exceed the grid's %d rows"
+                         % (G, _MAX_GRID_Y))
+    F, B = num_features, num_bins
+    check_hist_shape(F, B)
+    bd = level_bounds(n, G, F, B, W, quantized, int_grid)
+    if not quantized and bd.NH > _MAX_GRID_Y:
+        raise ValueError("%d histogram segments exceed the grid's %d rows"
+                         % (bd.NH, _MAX_GRID_Y))
+    i32 = dict(dtype=torch.int32, device=device)
+    if quantized:
+        partial = torch.zeros((max(G, 1), F, 2, B), dtype=torch.int64,
+                              device=device)
+    else:
+        partial = torch.empty((bd.NH, F, 2, B), dtype=torch.float64,
+                              device=device)
+    w = LevelWork(n, G, W, F, B, quantized, int_grid, bd.fill, bd.tile,
+                  torch.empty((_map_sizes(G, bd, quantized),), **i32),
+                  torch.empty((bd.NB + 3 * G,), **i32), partial)
+    Log.debug("level workspace: %d windows of %d rows, %.1f MiB",
+              G, n, w.nbytes() / 2 ** 20)
+    return w
+
+
+class LevelMapsDevice(NamedTuple):
+    """The maps of one level pass, as ``csrc/partition_level.cu``'s
+    lvl_meta_kernel writes them for a bound (:class:`LevelBounds`): int32
+    device tensors, entries past the level's blocks -1."""
+    wmeta: torch.Tensor    # [G, 2] first block, blocks
+    blkmap: torch.Tensor   # [NB, 2] (window, tile)
+    hinfo: torch.Tensor    # exact [G, 2] (segments, first partial row);
+                           # quantized [G, 4] (segments, accumulator row,
+                           # features a block, first block)
+    hmap: torch.Tensor     # exact [NH, 2] (window, segment); quantized [NH]
+
+    def flat(self) -> torch.Tensor:
+        """In the order of the kernel's ``maps`` buffer."""
+        return torch.cat([t.reshape(-1) for t in self])
+
+
+def _int_grids_device(count: torch.Tensor, num_features: int, num_bins: int,
+                      blocks: torch.Tensor):
+    """``histogram.int_hist_grids`` in torch ops on int64 tensors."""
+    f = num_features
+    ft_max = max(1, min(f, _INT_HIST_SMEM // (8 * num_bins)))
+    wide = -(-f // ft_max)
+    row_segs = -(-count // _INT_SEG_ROWS)
+    small = count <= _INT_SMALL_ROWS
+    one = torch.ones_like(count)
+    need = torch.where(small, torch.clamp(-(-count // _INT_SMALL_SEG_ROWS),
+                                          min=1), one)
+    narrowest = torch.where(row_segs <= 1, one * f, one * -(-f // 2))
+    narrow = torch.clamp(torch.minimum(narrowest, -(-blocks // need)),
+                         min=wide)
+    ntiles = torch.where(small, narrow, one * wide)
+    nseg = torch.maximum(torch.maximum(torch.minimum(row_segs,
+                                                     blocks // ntiles), need),
+                         -(-count // _INT_BLOCK_ROWS))
+    return -(-f // ntiles), nseg
+
+
+def _entry_map(first: torch.Tensor, count: torch.Tensor, size: int):
+    """For each entry b < ``size``: the window g whose entries [first[g],
+    first[g] + count[g]) hold it and b - first[g], or (-1, -1) past them
+    all."""
+    dev = first.device
+    b = torch.arange(size, dtype=torch.int64, device=dev)
+    if first.numel() == 0:
+        neg = torch.full_like(b, -1)
+        return neg, neg
+    g = torch.searchsorted(first, b, right=True) - 1
+    inside = b < first[-1] + count[-1]
+    return (torch.where(inside, g, -1),
+            torch.where(inside, b - first[g.clamp(min=0)], -1))
+
+
+def level_meta_device(scals: torch.Tensor, num_features: int, num_bins: int,
+                      row_width: int, *, bound_rows: int,
+                      quantized: bool = False,
+                      int_grid: str = "device") -> LevelMapsDevice:
+    """:func:`level_meta`'s block and histogram maps in plain torch ops over
+    ``scals[:, 1]`` on its device (no host read), padded to the bounds of
+    G windows of ``bound_rows`` rows in all, as the kernel builds them."""
+    G = scals.shape[0]
+    F, B = num_features, num_bins
+    bd = level_bounds(bound_rows, G, F, B, row_width, quantized, int_grid)
+    wc = scals[:, 1].long().clamp(min=0)
+    live = wc > 0
+    nblk = -(-wc // bd.tile)
+    first = torch.cumsum(nblk, 0) - nblk
+    blkmap = torch.stack(_entry_map(first, nblk, bd.NB), 1)
+    zero = torch.zeros_like(wc)
+    if not quantized:
+        nseg = torch.where(live, torch.clamp(-(-wc // _SEG_ROWS), 1,
+                                             bd.seg_cap), zero)
+        poff = torch.cumsum(nseg, 0) - nseg
+        hinfo = torch.stack([nseg, poff], 1)
+        hmap = torch.stack(_entry_map(poff, nseg, bd.NH), 1)
+    else:
+        if int_grid == "device":
+            share = -(-bd.fill * wc // wc.sum().clamp(min=1))
+            ft, nseg = _int_grids_device(wc, F, B, share)
+        else:
+            ft, nseg = zero + bd.ft_b, zero + bd.nseg_b
+        ft = torch.where(live, ft, zero + F)
+        nseg = torch.where(live, nseg, zero)
+        nhb = nseg * -(-F // ft)
+        hfirst = torch.cumsum(nhb, 0) - nhb
+        shared = (nseg > 1).long()
+        arow = torch.cumsum(shared, 0) - shared
+        hinfo = torch.stack([nseg, arow, ft, hfirst], 1)
+        hmap = _entry_map(hfirst, nhb, bd.NH)[0]
+    i32 = torch.int32
+    return LevelMapsDevice(torch.stack([first, nblk], 1).to(i32),
+                           blkmap.to(i32), hinfo.to(i32), hmap.to(i32))
+
+
+def _check_level_window(src: torch.Tensor, dst: torch.Tensor,
+                        scals: torch.Tensor, num_bins: int) -> None:
+    """The checks a level pass with its windows in device memory can make
+    on shapes alone: the store pair, the scal rows' width and type, G."""
+    check_store_pair(src, dst)
+    S = SCAL_HEAD + num_bins // 32
+    if scals.dim() != 2 or scals.shape[1] != S or scals.dtype != torch.int32:
+        raise ValueError("scals must be int32 [G, %d], got %s %s"
+                         % (S, scals.dtype, tuple(scals.shape)))
+    if scals.device != src.device:
+        raise ValueError("scals on %s, the stores on %s"
+                         % (scals.device, src.device))
+    if scals.shape[0] > _MAX_GRID_Y:
+        raise ValueError("%d windows exceed the grid's %d rows"
+                         % (scals.shape[0], _MAX_GRID_Y))
+    if src.shape[0] >= 2 ** 31:
+        raise ValueError("a level's windows hold 2**31 rows or more")
+
+
+def _route_rows(rows: torch.Tensor, sc: torch.Tensor, num_bins: int,
+                bpc: int, packed: bool) -> torch.Tensor:
+    """:func:`route_left` of each row of ``rows`` [n, W] by its own scal row
+    ``sc`` [n, S] (int64)."""
+    gcol = sc[:, 2]
+
+    def byte(i):
+        return torch.gather(rows, 1, i[:, None])[:, 0].long()
+    if packed:
+        b = byte(gcol // 2)
+        col = torch.where(gcol % 2 == 1, b >> 4, b) & 15
+    elif bpc == 2:
+        col = byte(2 * gcol) | (byte(2 * gcol + 1) << 8)
+    else:
+        col = byte(gcol)
+    thr, dleft, mt, nb, dbin, is_cat, unf, eoff = (
+        sc[:, i] for i in (3, 4, 5, 6, 7, 8, 10, 11))
+    col = torch.where(unf == 1, torch.where(
+        (col >= eoff) & (col <= eoff + nb - 2), col - eoff + 1,
+        torch.zeros_like(col)), col)
+    nw = num_bins // 32
+    cat_left = torch.zeros_like(col, dtype=torch.bool)
+    if nw:
+        words = sc[:, SCAL_HEAD:SCAL_HEAD + nw] & 0xFFFFFFFF
+        word = torch.gather(words, 1, torch.clamp(col >> 5, 0, nw - 1)[:, None]
+                            )[:, 0]
+        cat_left = ((word >> (col & 31)) & 1) == 1
+    missing = torch.where(mt == SCAL_MISSING_NAN, col == nb - 1,
+                          (mt == SCAL_MISSING_ZERO) & (col == dbin))
+    num_left = torch.where(missing, dleft == 1, col <= thr)
+    return torch.where(is_cat == 1, cat_left, num_left)
+
+
+def partition_hist_level_window_plain(src: torch.Tensor, dst: torch.Tensor,
+                                      scals: torch.Tensor,
+                                      work: Optional[LevelWork] = None, *,
+                                      num_features: int, num_bins: int,
+                                      voff: int, bpc: int = 1,
+                                      packed: bool = False,
+                                      quantized: bool = False):
+    """Plain version: reads no scal row on the host.  Each position finds
+    its window through the block map of :func:`level_meta_device` (its
+    tile's start, forward filled), routes by its window's scal row, takes
+    its rank among its window's left or right rows and moves to that row
+    of ``dst`` (rows outside the windows are written back as ``dst`` held
+    them); each window's left count is the sum of its tiles' counts.  The
+    histograms sum each window's smaller side over ``src`` in row order in
+    one f64 (or int64) sequence, as :func:`partition_hist_level_plain`'s
+    single-window calls do, so the two agree bit for bit.  ``work`` is not
+    used."""
+    _check_level_window(src, dst, scals, num_bins)
+    n, W = src.shape
+    G, F, dev = scals.shape[0], num_features, src.device
+    maps = level_meta_device(scals, F, num_bins, W, bound_rows=n)
+    tile = part_tile_rows(W)
+    sl = scals.long()
+    wb, wc = sl[:, 0], sl[:, 1].clamp(min=0)
+    gb, tb = maps.blkmap[:, 0].long(), maps.blkmap[:, 1].long()
+    NB = gb.numel()
+    pos = torch.arange(n, device=dev)
+    # each position's tile: marks at the tiles' first rows, forward filled
+    marks = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    if G:
+        start = torch.where(gb >= 0, wb[gb.clamp(min=0)] + tb * tile, n)
+        marks[start] = torch.arange(1, NB + 1, device=dev)
+    last = torch.cummax(torch.where(marks[:n] > 0, pos, 0), 0).values
+    blk = marks[last] - 1
+    g = gb[blk.clamp(min=0)].clamp(min=0) if G else torch.zeros_like(pos)
+    inw = (blk >= 0) & (pos < wb[g] + wc[g]) if G else pos < 0
+    sc = sl[g] if G else torch.zeros((n, scals.shape[1]), dtype=torch.int64,
+                                     device=dev)
+    gl = _route_rows(src, sc, num_bins, bpc, packed)
+    left, right = gl & inw, ~gl & inw
+    # the count kernel's tile sums, and each window's left total
+    tiles = torch.zeros(max(NB, 1), dtype=torch.int64, device=dev)
+    tiles.index_add_(0, blk.clamp(min=0), left.long())
+    nl = torch.zeros(G, dtype=torch.int64, device=dev)
+    if G:
+        nl.index_add_(0, gb.clamp(min=0), tiles[:NB] * (gb >= 0))
+    cl = torch.cumsum(left.long(), 0) - left.long()
+    cr = torch.cumsum(right.long(), 0) - right.long()
+    first = wb[g].clamp(max=n - 1) if n else wb[g]
+    dest = torch.where(left, wb[g] + cl - cl[first],
+                       wb[g] + nl[g] + cr - cr[first]) if n else pos
+    dest = torch.where(inw, dest, pos)
+    dst.index_copy_(0, dest, torch.where(inw[:, None], src, dst))
+    side = torch.where(sc[:, 9] == 1, left, right)
+    window = torch.where(side, g, -1)
+
+    def chunks():
+        for a, b in _row_chunks(n, F):
+            bins, values = rows_split(src[a:b], F, voff, bpc, packed)
+            yield bins, values, window[a:b]
+    hist = _hist_sums(chunks(), F, num_bins, quantized, dev, num_windows=G)
+    return hist, nl.to(torch.int32)
+
+
+def partition_hist_level_window_cuda(src: torch.Tensor, dst: torch.Tensor,
+                                     scals: torch.Tensor,
+                                     work: Optional[LevelWork] = None, *,
+                                     num_features: int, num_bins: int,
+                                     voff: int, bpc: int = 1,
+                                     packed: bool = False,
+                                     quantized: bool = False):
+    """Launch the level pass with its windows in device memory
+    (``lgbt_partition_level_window``, ``csrc/partition_level.cu``): from
+    ``src`` into ``dst``, the G scal rows ``scals`` [G, S] int32 on the
+    card.  Reads nothing back and copies nothing to the card, so a CUDA
+    graph can capture it.  The windows must be disjoint and lie in the
+    first ``work.n`` rows (the kernel reads them on the device and checks
+    neither); ``work`` None makes one for the whole store.  Returns (hist
+    [G, F, 2, B], nl [G] i32, a view into ``work``)."""
+    from .. import kernels
+    _check_store(src, voff, num_features, num_bins)
+    check_tensor(dst, "dst", torch.uint8, ndim=2)
+    check_tensor(scals, "scals", torch.int32, ndim=2)
+    _check_level_window(src, dst, scals, num_bins)
+    check_feature_window(0, num_features, voff, bpc, packed)
+    n, W = src.shape
+    G, S = scals.shape
+    dev = src.device
+    if work is None:
+        work = level_workspace(n, G, W, num_features, num_bins, quantized,
+                               device=dev)
+    if (work.W != W or work.n > n or work.G < G
+            or work.quantized != quantized
+            or work.num_features != num_features
+            or work.num_bins != num_bins or work.maps.device != dev
+            or work.tile != part_tile_rows(W)):
+        raise ValueError("the level workspace was made for another store, "
+                         "width, precision or frontier")
+    hist = torch.empty((G, num_features, 2, num_bins), dtype=torch.float32,
+                       device=dev)
+    if G == 0:
+        return hist, work.work[:0]
+    bd = work.bounds(G)
+    err = kernels.library("partition_level").lgbt_partition_level_window(
+        src.data_ptr(), dst.data_ptr(), W, scals.data_ptr(), G, S, bd.NB,
+        bd.NH, bd.tile, bpc, int(packed), num_bins // 32, num_features,
+        num_bins, voff, bd.seg_cap, int(quantized),
+        LEVEL_INT_GRIDS.index(work.int_grid), bd.fill, bd.ft_b, bd.nseg_b,
+        bd.ft_max, work.maps.data_ptr(), work.work.data_ptr(),
+        work.partial.data_ptr(), hist.data_ptr(),
+        level_route_counter(dev).data_ptr(), cuda_stream_ptr(src))
+    count_launch("partition_level")
+    kernels.check(err, "partition_level kernel")
+    return hist, work.work[bd.NB:bd.NB + G]
+
+
+def partition_hist_level_window(src: torch.Tensor, dst: torch.Tensor,
+                                scals: torch.Tensor,
+                                work: Optional[LevelWork] = None, *,
+                                num_features: int, num_bins: int, voff: int,
+                                bpc: int = 1, packed: bool = False,
+                                quantized: bool = False):
+    """Level pass over the G windows the scal tensor ``scals`` [G, S] names
+    -> (hist [G, F, 2, B] f32, nl [G] i32): each window's rows of ``src``
+    stably partitioned into the same rows of ``dst``.
+
+    A CUDA tensor goes through the kernel (one call, sized by ``work``) or
+    raises; a CPU tensor through the plain version."""
+    fn = (partition_hist_level_window_cuda if src.is_cuda
+          else partition_hist_level_window_plain)
+    return fn(src, dst, scals, work, num_features=num_features,
+              num_bins=num_bins, voff=voff, bpc=bpc, packed=packed,
+              quantized=quantized)

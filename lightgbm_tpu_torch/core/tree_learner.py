@@ -25,6 +25,12 @@ Two growth modes:
   254.  Every window of one level holds leaves of one depth, so the pass
   reads depth d from row store d % 2 and writes store 1 - d % 2: no row is
   copied back, and a leaf's rows stay in the store of its depth's parity.
+  Level growth runs on the device too (:meth:`_DeviceGrowth.level_step`),
+  as the JAX build unrolls it: the frontier compacted on the device into
+  the level's ``min(2**d, L - 1)`` slots, dead slots on (0, 0) windows
+  writing the sink row L, the level pass reading its windows from scal rows
+  in device memory and building its block and histogram maps from their
+  counts there (``partition_hist_level_window``), and one fetch a tree.
   The port runs it on the CPU (plain versions) and on the card (kernels)
   alike and never falls back to leaf-wise growth.
 
@@ -34,15 +40,16 @@ exact integer sum, dequantized before it is cached, so the subtraction trick
 and the split scan run on real f32 sums.
 
 Which build runs when (:func:`grows_on_device`): the device build for
-every leaf-wise tree, forced splits, CEGB, the histogram pool and the
-parallel learners' comms included; the host loop (:class:`_Growth`) for
-level growth (8 steps a 255-leaf tree) and for a check that asks for it
-(``host_loop``).  The host loop keeps the row store, the histogram cache
-and the split scans on the device, brings back one small tensor a step
-(the children's best splits and the left counts) and does the bookkeeping
-in host numpy f32/i32; the device build does the same f32 operations in
-the same order on the device, and both run their collectives through one
-:class:`_LeafScan`, so both give the same trees byte for byte.
+every tree, leaf-wise (forced splits, CEGB, the histogram pool and the
+parallel learners' comms included) and level-wise; the host loop
+(:class:`_Growth`) only for a check that asks for it (``host_loop``).  The
+host loop keeps the row store, the histogram cache and the split scans on
+the device, brings back one small tensor a step (the children's best splits
+and the left counts) and does the bookkeeping in host numpy f32/i32; the
+device build does the same f32 operations in the same order on the device,
+and both run their collectives and scans through one :class:`_LeafScan`
+(a level's scan over the same padded slots), so both give the same trees
+byte for byte.
 
 On an EFB-bundled dataset the row store holds the group columns
 (``dataset.binned``) and the histograms, the per-leaf cache among them, are
@@ -108,8 +115,9 @@ from ..device import DeviceLike, resolve_device
 from ..io.binning import BinType, MissingType
 from ..io.dataset import BinnedDataset
 from .histogram import histogram_rows, histogram_rows_window, pad_bins_pow2
-from .partition import (SCAL_HEAD, part_tile_rows, partition_hist,
-                        partition_hist_level, partition_hist_window,
+from .partition import (SCAL_HEAD, level_workspace, part_tile_rows,
+                        partition_hist, partition_hist_level,
+                        partition_hist_level_window, partition_hist_window,
                         scal_missing_code, window_workspace)
 from .quant import quantize_gradients
 from .split import (K_MIN_SCORE, BestSplit, FeatureBest, FeatureInfo,
@@ -164,12 +172,12 @@ class TreeArrays(NamedTuple):
     Host numpy arrays, except ``row_leaf``: the final leaf of every row, a
     device tensor [N] i64.  ``host_fetches`` counts the device->host
     transfers the build made: one for a tree of the device build (its
-    arrays, in one packed transfer at its end; nothing between splits), one
-    a split (and one for the root) in the host loop, one a level (and one
-    for the root) in level growth.  ``levels`` counts its level steps (0
-    leaf-wise), ``split_passes`` its split passes: L - 1 in the device build
-    (dead steps included), one a split in the host loop, one a level in
-    level growth."""
+    arrays, in one packed transfer at its end; nothing between splits or
+    levels), one a split or a level (and one for the root) in the host
+    loop.  ``levels`` counts its level steps that split (0 leaf-wise),
+    ``split_passes`` its split passes: L - 1 leaf-wise and ``level_count``
+    level-wise in the device build (dead steps included), one a split or a
+    live level in the host loop."""
     split_feature: np.ndarray    # [L] i32, inner feature index
     threshold_bin: np.ndarray    # [L] i32
     split_gain: np.ndarray       # [L] f32
@@ -461,6 +469,13 @@ def level_count(num_leaves: int, max_depth: int) -> int:
     if max_depth > 0:
         return min(max_depth, num_leaves - 1)
     return max(1, int(np.ceil(np.log2(num_leaves))))
+
+
+def level_slots(num_leaves: int, d: int) -> int:
+    """The frontier slots of level ``d`` (``Fcap``, tree_learner.py:
+    1131-1132): ``min(2**d, L - 1)``, the most leaves of depth d that can
+    split."""
+    return min(1 << d, num_leaves - 1)
 
 
 class _LeafScan:
@@ -830,12 +845,16 @@ class _Growth:
         return lmin, lmax, rmin, rmax
 
     def _children(self, hist_small, parent, dst_left, dst_right,
-                  left_smaller, b, bounds, ucnt=None):
+                  left_smaller, b, bounds, ucnt=None, slots: int = 0):
         """Subtraction trick and the children's best splits, batched over
         the G splits of a step: the larger child is ``parent`` (the parents'
         histograms [G, ...]) minus the smaller; both are cached at cache
         rows ``dst_left`` / ``dst_right``.  Returns the batched BestSplit
-        over the 2G children (all left children first)."""
+        over the 2G children (all left children first).  ``slots`` > G (a
+        level's frontier slots): the scan runs on 2 * ``slots`` children,
+        each half padded with zero ones, the shape of the device build's
+        scan of its dead slots, so that the two builds' scans are one
+        computation."""
         dev = self.dev
         hist_larger = parent - hist_small
         ls = torch.as_tensor(left_smaller, device=dev)[:, None, None, None]
@@ -848,12 +867,31 @@ class _Growth:
             return torch.as_tensor(np.concatenate([b[lf], b[rf]]),
                                    dtype=torch.float32, device=dev)
         lmin, lmax, rmin, rmax = bounds
-        return self._best(
-            torch.cat([hist_left, hist_right]),
-            pair("left_sum_grad", "right_sum_grad"),
-            pair("left_sum_hess", "right_sum_hess"),
-            pair("left_count", "right_count"),
-            np.concatenate([lmin, rmin]), np.concatenate([lmax, rmax]), ucnt)
+        G = len(left_smaller)
+        pad = max(slots - G, 0)
+
+        def halves(lo, hi, fill=0.0):
+            z = torch.full((pad,) + tuple(lo.shape[1:]), fill,
+                           dtype=lo.dtype, device=dev)
+            return torch.cat([lo, z, hi, z])
+        f32 = np.float32
+        args = [halves(hist_left, hist_right)]
+        for lf, rf in (("left_sum_grad", "right_sum_grad"),
+                       ("left_sum_hess", "right_sum_hess"),
+                       ("left_count", "right_count")):
+            args.append(halves(*(torch.as_tensor(b[f], dtype=torch.float32,
+                                                 device=dev)
+                                 for f in (lf, rf))))
+        for lo, hi, fill in ((lmin, rmin, -np.inf), (lmax, rmax, np.inf)):
+            args.append(halves(*(torch.as_tensor(np.asarray(x, f32),
+                                                 device=dev)
+                                 for x in (lo, hi)), fill)
+                        if pad else np.concatenate([lo, hi]))
+        best, fb = self._best(*args, ucnt)
+        if pad:
+            keep = np.r_[0:G, G + pad:2 * G + pad]
+            best = BestSplit(*[x[keep] for x in best])
+        return best, fb
 
     def _apply(self, leaf, kid, node, b, nl, wb, wc, fetched,
                bounds) -> None:
@@ -1043,8 +1081,9 @@ class _Growth:
             ucnt = self.sx.psum_rows(torch.stack([used_l, used_r])).to(
                 torch.float32)
         bounds = self._bounds(leaf, b)
-        child, child_fb = self._children(hist_small, parent, dst_l, dst_r,
-                                         left_smaller, b, bounds, ucnt)
+        child, child_fb = self._children(
+            hist_small, parent, dst_l, dst_r, left_smaller, b, bounds, ucnt,
+            0 if depth is None else level_slots(self.L, depth))
         if child_fb is not None:
             for x, v in zip(self.fbc, child_fb):
                 x[torch.as_tensor(leaf, device=self.dev)] = v[:G]
@@ -1181,9 +1220,11 @@ _PARENT, _DEPTH = _LEAF.index("parent"), _LEAF.index("depth")
 
 
 class _DeviceGrowth:
-    """One leaf-wise tree grown on the device, with no host round trip
-    between splits: the JAX build's ``fori_loop`` (``body``,
-    tree_learner.py:852-1120).  Each :meth:`step` picks the leaf of best
+    """One tree grown on the device, with no host round trip between
+    splits: the JAX build's ``fori_loop`` (``body``, tree_learner.py:
+    852-1120), or with ``spare`` (a second row store) its unrolled level
+    schedule (:meth:`level_step`, :1122-1324) over the same records.
+    Each :meth:`step` picks the leaf of best
     cached gain with an ``argmax`` on the device (masked by ``max_depth``),
     or the next forced split while the schedule holds, builds the split
     pass's scal row there from the learner's per-feature table
@@ -1235,6 +1276,12 @@ class _DeviceGrowth:
       the same ones in the same order (a pool hit reduces a zero
       histogram).
 
+    Level growth: ``stores`` holds the two row stores, depth d's leaves in
+    store d % 2; each level pass (``level_window_fn``,
+    :func:`partition_hist_level_window`, on ``level_work``) reads its
+    windows from a [fcap, S] scal tensor gathered on the device;
+    ``live_levels`` counts the levels that split.
+
     :meth:`finish` reads the tree back in one transfer."""
 
     def __init__(self, rows, grad, hess, num_data, scan: SplitScan,
@@ -1242,12 +1289,18 @@ class _DeviceGrowth:
                  layout, hist_features, packed, qscale, hist_fn, window_fn,
                  work, rebuild_fn=histogram_rows_window, forced=None,
                  cegb: Optional[CegbState] = None, pool_slots: int = 0,
-                 comm: Optional[Comm] = None):
+                 comm: Optional[Comm] = None, spare=None, level_work=None,
+                 level_window_fn=partition_hist_level_window):
         n = grad.shape[0]
         L = num_leaves
         dev = rows.device
         f32, f64, i64 = torch.float32, torch.float64, torch.int64
         self.rows, self.n, self.L, self.B, self.dev = rows, n, L, num_bins, dev
+        # level growth: the leaves of depth d live in stores[d % 2]
+        self.stores = None if spare is None else (rows, spare)
+        self.level_work, self.level_window_fn = level_work, level_window_fn
+        self.ids = torch.arange(L, device=dev)
+        self.live_levels = torch.zeros((), dtype=i64, device=dev)
         self.scan, self.table, self.layout = scan, table, layout
         self.max_depth, self.qscale = max_depth, qscale
         self.window_fn, self.rebuild_fn = window_fn, rebuild_fn
@@ -1276,9 +1329,9 @@ class _DeviceGrowth:
         self.hist[0] = hist0
         if self.pool:
             self.slot_of = torch.full((L + 1,), -1, dtype=i64, device=dev)
-            self.slot_of[0] = 0
+            self.slot_of[0].fill_(0)
             self.stamps = torch.full((self.pool,), -1, dtype=i64, device=dev)
-            self.stamps[0] = 0
+            self.stamps[0].fill_(0)
             self.misses = torch.zeros((), dtype=i64, device=dev)
         self.fbc = None
         if fb0 is not None:
@@ -1305,7 +1358,9 @@ class _DeviceGrowth:
         self.lsum[0] = sums
         self.child = torch.zeros((L + 1, 2), dtype=i64, device=dev)
         self.win = torch.zeros((L + 1, 2), dtype=i64, device=dev)
-        self.win[0, 1] = n
+        # fills, not copies of a host scalar: the whole tree can be captured
+        # in a CUDA graph
+        self.win[0, 1].fill_(n)
         # the scal row's bitset words past the scan's (a group histogram
         # may be wider than any feature's), and the feature window of a
         # feature-parallel rank (tree_learner.py:908-911)
@@ -1558,9 +1613,125 @@ class _DeviceGrowth:
             (torch.arange(self.feat_used.numel(), device=self.dev) == fid)
             & ok))
 
+    def level_step(self, d: int, fcap: int) -> None:
+        """One level (``level_step``, tree_learner.py:1122-1309): every
+        depth-``d`` leaf with a positive gain splits, in ascending id order,
+        as far as the leaf budget allows, through one level pass from store
+        d % 2 into store 1 - d % 2.  The frontier is compacted on the device
+        into ``fcap`` slots (a cumsum rank, then a scatter into fcap + 1
+        slots whose last takes every leaf past them); a slot past the
+        frontier or the budget is dead: its window is (0, 0), the pass moves
+        no row for it, and each of its writes goes to the sink row L.  The
+        bookkeeping is the host loop's in its order, over the slots: the
+        subtraction, the monotone bounds, both children's batched scan, the
+        parent child-pointer fix-up (siblings fix one parent through its two
+        slots), the node, leaf and window records."""
+        L, sc, sx, dev = self.L, self.scan, self.sx, self.dev
+        f32 = torch.float32
+        gains = self.best[:L, _B["gain"]]
+        mask = ((self.leaf[:L, _DEPTH] == d) & (self.ids < self.leaves)
+                & (gains > 0.0))
+        rank = torch.cumsum(mask.long(), 0) - 1
+        found = torch.full((fcap + 1,), L, dtype=torch.int64, device=dev)
+        found.scatter_(0, torch.where(mask & (rank < fcap), rank, fcap),
+                       self.ids)
+        found = found[:fcap]
+        r = self.ids[:fcap]
+        active = (found < L) & (r < L - self.leaves)
+        lsafe = found.clamp(max=L - 1)
+        leaf = torch.where(active, found, L)
+        kid = torch.where(active, self.leaves + r, L)
+        node = torch.where(active, self.leaves - 1 + r, L)
+        b = self.best[lsafe]                            # [fcap, 12 + words]
+        w = self.win[lsafe] * active[:, None]           # (wb, wc); dead: 0
+        left_smaller = b[:, _B["left_count"]] <= b[:, _B["right_count"]]
+        fid = b[:, _B["feature"]].long()
+        head = self.table[fid]
+        words = b[:, _WORDS:].long()
+        words = words - ((words >> 31) << 32)  # the int32 bit patterns
+        scal = torch.cat([w, head[:, 2:3], b[:, 2:4].long(), head[:, 5:9],
+                          left_smaller.long()[:, None], head[:, 10:12], words,
+                          self.pad[None].expand(fcap, -1)], 1).to(torch.int32)
+        hist_small, nl = self.level_window_fn(
+            self.stores[d % 2], self.stores[1 - d % 2], scal,
+            self.level_work, num_bins=self.B, **sx.hkw)
+        hist_small = sx.reduce(hist_small)
+        parent = self.hist[lsafe]
+        hist_larger = parent - hist_small
+        ls = left_smaller[:, None, None, None]
+        hist_left = torch.where(ls, hist_small, hist_larger)
+        hist_right = torch.where(ls, hist_larger, hist_small)
+        self.hist[leaf] = hist_left
+        self.hist[kid] = hist_right
+
+        bounds = (None, None)
+        if sc.monotone:
+            # tree_learner.py:1220-1230
+            pmin, pmax = self.cmin[lsafe], self.cmax[lsafe]
+            mono = sc.feat.monotone[fid]
+            is_num = ~sc.feat.is_categorical[fid]
+            out = b[:, _B["left_output"]:_B["right_output"] + 1].to(f32)
+            mid = (out[:, 0] + out[:, 1]) * 0.5
+            lo, hi = is_num & (mono < 0), is_num & (mono > 0)
+            lmin = torch.where(lo, torch.maximum(pmin, mid), pmin)
+            lmax = torch.where(hi, torch.minimum(pmax, mid), pmax)
+            rmin = torch.where(hi, torch.maximum(pmin, mid), pmin)
+            rmax = torch.where(lo, torch.minimum(pmax, mid), pmax)
+            self.cmin[leaf], self.cmax[leaf] = lmin, lmax
+            self.cmin[kid], self.cmax[kid] = rmin, rmax
+            bounds = (torch.cat([lmin, rmin]), torch.cat([lmax, rmax]))
+        # [left children, right children] of the sums and counts
+        sg, sh, cnt = (torch.cat([b[:, _B["left_" + f]],
+                                  b[:, _B["right_" + f]]]).to(f32)
+                       for f in ("sum_grad", "sum_hess", "count"))
+        child, _ = sx.best(torch.cat([hist_left, hist_right]), sg, sh, cnt,
+                           *bounds)
+        packed = _pack_best(child)
+        self.best[leaf] = packed[:fcap]
+        self.best[kid] = packed[fcap:]
+        self.lsum[leaf] = torch.stack([sg[:fcap], sh[:fcap]], 1)
+        self.lsum[kid] = torch.stack([sg[fcap:], sh[fcap:]], 1)
+
+        # parent child-pointer fixup (tree_learner.py:1247-1260)
+        rec = self.leaf[lsafe]
+        par = rec[:, _PARENT].long()
+        pidx = par.clamp(min=0)
+        upd = (active & (par >= 0))[:, None] & (self.child[pidx]
+                                                == ~lsafe[:, None])
+        self.child[torch.where(upd[:, 0], pidx, L), 0] = node
+        self.child[torch.where(upd[:, 1], pidx, L), 1] = node
+        self.child[node] = torch.stack([~lsafe, ~kid], 1)
+        icount = (b[:, _B["left_count"]].to(f32)
+                  + b[:, _B["right_count"]].to(f32))
+        self.node[node] = torch.cat([b[:, :_NODE_IV], rec[:, :2],
+                                     icount.double()[:, None],
+                                     b[:, _WORDS:]], 1)
+        outs = torch.nan_to_num(b[:, _B["left_output"]:_B["right_output"] + 1]
+                                .to(f32)).double()
+        depth = rec[:, _DEPTH] + 1
+        for i, rows_of in enumerate((leaf, kid)):
+            half = slice(i * fcap, (i + 1) * fcap)
+            self.leaf[rows_of] = torch.stack([
+                outs[:, i], sh[half].double(), cnt[half].double(),
+                node.double(), depth], 1)
+        nl = nl.long()
+        # the left child keeps the parent's window start
+        self.win[leaf] = torch.stack([w[:, 0], nl], 1)
+        self.win[kid] = torch.stack([w[:, 0] + nl, w[:, 1] - nl], 1)
+        nact = active.sum()
+        self.leaves.add_(nact)
+        self.live_levels.add_((nact > 0).long())
+
     def grow(self) -> None:
-        """The tree's L - 1 steps (each a split pass), dead ones
-        included."""
+        """The tree's L - 1 steps (each a split pass), dead ones included;
+        in level growth its ``level_count`` level steps (each a level
+        pass), dead ones included, as the JAX schedule unrolls them
+        (tree_learner.py:1311-1324)."""
+        if self.stores is not None:
+            if self.L > 1:
+                for d in range(level_count(self.L, self.max_depth)):
+                    self.level_step(d, level_slots(self.L, d))
+            return
         for i in range(1, self.L):
             self.step(i)
 
@@ -1570,9 +1741,14 @@ class _DeviceGrowth:
         and with ``carried`` the score column plus each window's leaf value
         times ``score_rate`` instead (:1337-1351; a tree that did not split
         adds nothing).  Lazy CEGB's paid bits come back in original row
-        order.  Then the tree arrays and the pool's misses in one transfer.
-        Returns the TreeArrays (``row_leaf`` empty when ``carried``), and
-        the store with ``carried``."""
+        order.  In level growth a leaf's rows lie in the store of its
+        depth's parity: each position's order bytes are read from that
+        store, and with ``carried`` the odd-depth windows are first copied
+        into store 0 (the store returned, the next tree's;
+        :meth:`_Growth.fill_scores`).  Then the tree arrays, the pool's
+        misses and the levels that split, in one transfer.  Returns the
+        TreeArrays (``row_leaf`` empty when ``carried``), and the store with
+        ``carried``."""
         n, L, dev, layout = self.n, self.L, self.dev, self.layout
         begin, count = self.win[:L, 0], self.win[:L, 1]
         marks = torch.zeros(n + 1, dtype=torch.int64, device=dev)
@@ -1582,8 +1758,14 @@ class _DeviceGrowth:
         pos = torch.arange(n, device=dev)
         last = torch.cummax(torch.where(marks > 0, pos, 0), 0).values
         leaf_of_pos = marks[last] - 1
+        odd = None
+        if self.stores is not None:
+            odd = self.leaf[leaf_of_pos, _DEPTH] % 2 == 1
         paid = None
         if carried:
+            if odd is not None:
+                self.rows[:n] = torch.where(odd[:, None], self.stores[1][:n],
+                                            self.rows[:n])
             lv = (self.leaf[:L, 0].to(torch.float32)
                   * float(np.float32(score_rate)))
             store_f32(self.rows, layout.soff, n).add_(torch.where(
@@ -1591,6 +1773,9 @@ class _DeviceGrowth:
             row_leaf = torch.zeros(0, dtype=torch.int64, device=dev)
         else:
             order = store_order(self.rows, layout, n)
+            if odd is not None:
+                order = torch.where(odd, store_order(self.stores[1], layout,
+                                                     n), order)
             row_leaf = torch.empty(n, dtype=torch.int64, device=dev)
             row_leaf[order] = leaf_of_pos
             if self.sx.lazy:
@@ -1603,12 +1788,14 @@ class _DeviceGrowth:
         # the tree's one device->host transfer
         host = torch.cat([self.node[:L].reshape(-1), self.leaf[:L].reshape(-1),
                           self.child[:L].double().reshape(-1),
-                          torch.stack([self.leaves, misses]).double()]
+                          torch.stack([self.leaves, misses,
+                                       self.live_levels]).double()]
                          ).cpu().numpy()
         nodes, rest = np.split(host, [self.node[:L].numel()])
         nodes = nodes.reshape(L, -1)
         leaves = rest[:L * len(_LEAF)].reshape(L, -1)
-        child = rest[L * len(_LEAF):-2].reshape(L, 2)
+        child = rest[L * len(_LEAF):-3].reshape(L, 2)
+        level = self.stores is not None
         f32, i32 = np.float32, np.int32
         arrays = TreeArrays(
             split_feature=nodes[:, 1].astype(i32),
@@ -1626,17 +1813,19 @@ class _DeviceGrowth:
             leaf_parent=leaves[:, 3].astype(i32),
             leaf_depth=leaves[:, 4].astype(i32),
             cat_bitset=nodes[:, _NODE_WORDS:].astype(np.int64),
-            num_leaves=int(host[-2]), row_leaf=row_leaf, host_fetches=1,
-            pool_misses=int(host[-1]), paid_bits=paid, split_passes=L - 1)
+            num_leaves=int(host[-3]), row_leaf=row_leaf, host_fetches=1,
+            levels=int(host[-1]), pool_misses=int(host[-2]), paid_bits=paid,
+            split_passes=((level_count(L, self.max_depth) if level
+                           else L - 1) if L > 1 else 0))
         return (arrays, self.rows) if carried else arrays
 
 
 def grows_on_device(grow_mode: str) -> bool:
     """Whether :func:`build_tree_partitioned` grows the tree on the device
     (:class:`_DeviceGrowth`): every leaf-wise build, with forced splits,
-    CEGB, the histogram pool or a parallel learner's comm or without;
-    level growth keeps the host loop."""
-    return grow_mode == "leaf"
+    CEGB, the histogram pool or a parallel learner's comm or without, and
+    every level-wise build."""
+    return grow_mode in ("leaf", "level")
 
 
 def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
@@ -1660,7 +1849,9 @@ def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
                            window_fn=partition_hist_window,
                            table: Optional[torch.Tensor] = None,
                            work=None, host_loop: bool = False,
-                           rebuild_fn=histogram_rows_window):
+                           rebuild_fn=histogram_rows_window,
+                           level_window_fn=partition_hist_level_window,
+                           level_work=None):
     """Grow one tree; ``rows`` is the filled row store (it is partitioned in
     place on the card).  ``num_data`` is the in-bag count, an int or a
     device scalar (read back with the root's sums).  Level growth also
@@ -1699,20 +1890,24 @@ def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
     otherwise it returns the tree alone.  Serial growth only, without lazy
     CEGB.
 
-    Which build runs: every leaf-wise tree grows on the device
-    (:class:`_DeviceGrowth`, the JAX build's loop), with forced splits,
-    CEGB, the pool and a comm as without: L - 1 steps that read nothing
+    Which build runs: every tree grows on the device (:class:`_DeviceGrowth`,
+    the JAX build's loop and level schedule), with forced splits, CEGB, the
+    pool and a comm as without.  Leaf-wise: L - 1 steps that read nothing
     back, the split passes through ``window_fn``
     (:func:`partition_hist_window` or a plain version) on ``work``
     (:func:`window_workspace` for the store, sized for the split pass's
     histogram columns; None on the CPU), the pool's rebuilt parents through
     ``rebuild_fn`` (:func:`histogram_rows_window` or its plain version) on
-    the same ``work``, the scal rows gathered from ``table`` (the device
-    form of :func:`scal_table`), and the tree read back once.  Level growth
-    grows in the host loop (:class:`_Growth`: one read-back a level,
-    ``level_fn``), and so does a leaf-wise tree with ``host_loop`` (one
-    read-back a split, ``part_fn``): for checks only, which rebuild a
-    device-built tree with it.
+    the same ``work``.  Level-wise: the root, then ``level_count`` level
+    steps that read nothing back (dead ones included), each one level pass
+    through ``level_window_fn`` (:func:`partition_hist_level_window` or its
+    plain version) on ``level_work`` (:func:`level_workspace`; None on the
+    CPU) from one store into the other.  Both gather the scal rows from
+    ``table`` (the device form of :func:`scal_table`) and read the tree back
+    once.  With ``host_loop`` the tree grows in the host loop
+    (:class:`_Growth`: one read-back a split, ``part_fn``, or a level,
+    ``level_fn``): for checks only, which rebuild a device-built tree with
+    it.
     """
     if carried and (comm is not None or not layout.carried
                     or (cegb is not None and cegb.lazy is not None)):
@@ -1741,16 +1936,22 @@ def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
     scan = SplitScan(feat, feature_mask, params, categorical, monotone,
                      contri_scale(params, feature_mask.device), lanes)
     if not host_loop and grows_on_device(grow_mode):
-        if table is None or (work is None and rows.is_cuda):
+        level = grow_mode == "level"
+        if table is None or (rows.is_cuda
+                             and (level_work if level else work) is None):
             raise ValueError("the device build needs the learner's scal "
-                             "table and, on the card, its window workspace")
+                             "table and, on the card, its split-pass "
+                             "workspace")
         g = _DeviceGrowth(rows, grad, hess, num_data, scan, table,
                           num_leaves=num_leaves, max_depth=max_depth,
                           num_bins=num_bins, layout=layout,
                           hist_features=hist_features, packed=packed,
                           qscale=qscale, hist_fn=hist_fn, window_fn=window_fn,
                           work=work, rebuild_fn=rebuild_fn, forced=forced,
-                          cegb=cegb, pool_slots=pool_slots, comm=comm)
+                          cegb=cegb, pool_slots=pool_slots, comm=comm,
+                          spare=spare if level else None,
+                          level_work=level_work,
+                          level_window_fn=level_window_fn)
         g.grow()
         return g.finish(carried, score_rate)
     g = _Growth(rows, grad, hess, num_data, scan, feat_host,
@@ -2022,8 +2223,10 @@ class SerialTreeLearner:
         # the device build's per-feature scal entries (scal_table)
         self.scal_table = torch.as_tensor(scal_table(self.feat_host),
                                           device=dev)
-        # its split pass's buffers (window_workspace), kept between trees
+        # its split pass's buffers (window_workspace) and, in level growth,
+        # its level pass's (level_workspace), kept between trees
         self._window_work = None
+        self._level_work = None
         matrix = self._route_matrix(dataset)
         self.num_columns = matrix.shape[1]
         # this process's rows and columns of the row store
@@ -2286,13 +2489,15 @@ class SerialTreeLearner:
               level_fn=partition_hist_level, *, carried: bool = False,
               rows_carry: Optional[torch.Tensor] = None, extra=None,
               score_rate=None, window_fn=partition_hist_window,
-              host_loop: bool = False, rebuild_fn=histogram_rows_window):
+              host_loop: bool = False, rebuild_fn=histogram_rows_window,
+              level_window_fn=partition_hist_level_window):
         """grad/hess: [N] f32 on the learner's device.  ``num_data_in_bag``
         is an int or a device scalar.  ``iteration`` keys the quantized
         path's rounding hash (ignored when exact);
-        ``hist_fn``/``part_fn``/``level_fn``/``window_fn``/``rebuild_fn``
-        and ``host_loop`` (checks only) as in
-        :func:`build_tree_partitioned`.
+        ``hist_fn``/``part_fn``/``level_fn``/``window_fn``/``rebuild_fn``/
+        ``level_window_fn`` and ``host_loop`` (checks only) as in
+        :func:`build_tree_partitioned`.  Level growth's second row store
+        (``spare``) is made at the first level tree and kept.
         With CEGB, the features this tree splits on (and the lazy paid
         bits) carry over to the next call.
 
@@ -2351,12 +2556,12 @@ class SerialTreeLearner:
                                  feature_mask, grow_mode, qscale, hist_fn,
                                  part_fn, level_fn, cegb, layout, carried,
                                  score_rate, window_fn, host_loop,
-                                 rebuild_fn)
+                                 rebuild_fn, level_window_fn)
         if carried:
             arrays, rows = arrays
         # split passes this tree dispatched (obs/launches.py): L - 1 in the
-        # device build, one a split in the host loop, one a level in level
-        # mode
+        # device build, level_count in its level growth, one a split or a
+        # level in the host loop
         passes = arrays.split_passes
         _launches.record(grow_mode, passes)
         if tele is not None:
@@ -2385,11 +2590,14 @@ class SerialTreeLearner:
     def _build(self, rows, grad, hess, num_data_in_bag, feature_mask,
                grow_mode, qscale, hist_fn, part_fn, level_fn, cegb,
                layout, carried, score_rate, window_fn=partition_hist_window,
-               host_loop=False, rebuild_fn=histogram_rows_window):
+               host_loop=False, rebuild_fn=histogram_rows_window,
+               level_window_fn=partition_hist_level_window):
         if not isinstance(num_data_in_bag, torch.Tensor):
             num_data_in_bag = int(num_data_in_bag)
         # the device build's buffers, made only for a tree that uses them
         on_device = not host_loop and self.grows_on_device()
+        level = grow_mode == "level"
+        n = grad.shape[0]
         return build_tree_partitioned(
             rows, grad, hess, num_data_in_bag, feature_mask, self.feat,
             self.feat_host, num_leaves=self.num_leaves,
@@ -2403,8 +2611,12 @@ class SerialTreeLearner:
             pool_slots=self.hist_pool_slots, comm=self.comm, carried=carried,
             score_rate=score_rate, window_fn=window_fn,
             table=self.scal_table if on_device else None,
-            work=self.window_work(rows, grad.shape[0]) if on_device else None,
-            host_loop=host_loop, rebuild_fn=rebuild_fn)
+            work=(self.window_work(rows, n) if on_device and not level
+                  else None),
+            host_loop=host_loop, rebuild_fn=rebuild_fn,
+            level_window_fn=level_window_fn,
+            level_work=self.level_work(rows, n) if on_device and level
+            else None)
 
     def pass_columns(self) -> int:
         """The histogram columns of this learner's split passes: every
@@ -2429,4 +2641,29 @@ class SerialTreeLearner:
             w = self._window_work = window_workspace(
                 rows, bound, num_features=self.pass_columns(),
                 num_bins=self.num_bins, quantized=self.quantized)
+        return w
+
+    def level_work(self, rows: torch.Tensor, bound: int):
+        """The device build's level-pass buffers for the frontiers of this
+        learner's level trees (:func:`level_workspace` for windows of up to
+        ``bound`` rows in all, sized for the last level's slots,
+        ``level_slots``; a shallower level launches on a part of them);
+        made at the first level tree and kept while the store's width, the
+        plan's tile and integer fill and the precision stay; None on the
+        CPU."""
+        if not rows.is_cuda:
+            return None
+        G = max(level_slots(self.num_leaves, d)
+                for d in range(self.level_count()))
+        w = self._level_work
+        W = rows.shape[1]
+        if (w is None or w.n != bound or w.G != G or w.W != W
+                or w.quantized != self.quantized
+                or w.maps.device != rows.device
+                or w.tile != part_tile_rows(W)
+                or w.fill != _plan_state.int_fill_blocks()):
+            self._level_work = None
+            w = self._level_work = level_workspace(
+                bound, G, W, self.hist_columns, self.num_bins,
+                self.quantized, device=rows.device)
         return w

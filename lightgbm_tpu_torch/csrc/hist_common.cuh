@@ -157,7 +157,9 @@ struct HistArgs {
   const int* dyn_fbegin;
 };
 
-// Window, segment, segment count and partial row of grid row blockIdx.y.
+// Window, segment, segment count and partial row of grid row blockIdx.y;
+// g = -1 for a grid row past the map's segments (the level pass's
+// device-window launch, partition_level.cu, sizes its grid for a bound).
 struct SegPos {
   int g, seg, nseg;
   long long prow, start, count;
@@ -171,6 +173,8 @@ __device__ __forceinline__ SegPos seg_pos(const HistArgs& a) {
   p.prow = blockIdx.y;
   if (a.seg_map != nullptr) {
     p.g = a.seg_map[2 * blockIdx.y];
+    // past the level's segments (a device-built map sized for a bound)
+    if (p.g < 0) return p;
     p.seg = a.seg_map[2 * blockIdx.y + 1];
     p.nseg = a.seg_info[2 * p.g];
     p.prow = (long long)a.seg_info[2 * p.g + 1] + p.seg;
@@ -395,6 +399,7 @@ __global__ void __launch_bounds__(kHistThreads, 2)
     a.chunk = hist_chunk_rows(a.ft, a.B, a.sstride);
   } else {
     p = seg_pos(a);
+    if (p.g < 0) return;
   }
   double2* acc = reinterpret_cast<double2*>(smem);  // [nf, B] (grad, hess)
   unsigned* masks = reinterpret_cast<unsigned*>(acc + a.ft * a.B);  // [nw, B]

@@ -65,7 +65,9 @@ constexpr int kIntInfo = 4;  // per window: segments, accumulator row, ft,
 
 // How a launch cuts its windows.  One window (map == nullptr): blockIdx.x
 // is the feature tile of `ft` features, blockIdx.y the segment of `nseg`.
-// A level launch: block b works on window map[b], whose info row holds its
+// A level launch: block b works on window map[b] (-1: past the level's
+// blocks, when the device-window level pass sizes the grid for a bound,
+// partition_level.cu), whose info row holds its
 // segment count (0 for an empty window, which pass 2 zeroes), its
 // accumulator row (when it has several segments), its tile width and its
 // first block; the window's blocks are (segment, tile) in order, tiles
@@ -136,6 +138,7 @@ __global__ void __launch_bounds__(kHistIntThreads)
   long long arow = 0;  // the window's accumulator row
   if (q.map != nullptr) {
     g = q.map[blockIdx.x];
+    if (g < 0) return;  // past the level's blocks (a bound-sized grid)
     const int* in = q.info + kIntInfo * g;
     nseg = in[0];
     ft = in[2];

@@ -18,7 +18,9 @@ feature-parallel rank), and the number of such windows.  The split pass
 with its window in device memory (``core/partition.py``
 ``partition_hist_window``) cannot read its scal row on the host, so its
 kernel adds its routes to three counters on the card
-(:func:`route_counter`), which :func:`route_launches` reads back.
+(:func:`route_counter`), which :func:`route_launches` reads back; the level
+pass with its windows in device memory (``partition_hist_level_window``)
+adds its launches and windows to four (:func:`level_route_counter`).
 """
 from __future__ import annotations
 
@@ -43,6 +45,9 @@ _ROUTES: Dict[str, Dict[str, int]] = {
 # group column, that routed by a bitset and that histogrammed a feature
 # window
 _ROUTE_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+# per CUDA device: int64 [4], the device-window level passes that unfolded
+# a group column and their windows, that routed by a bitset and theirs
+_LEVEL_ROUTE_COUNTERS: Dict[torch.device, torch.Tensor] = {}
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -89,6 +94,18 @@ def route_counter(device: torch.device) -> torch.Tensor:
     return t
 
 
+def level_route_counter(device: torch.device) -> torch.Tensor:
+    """The device-window level pass's route counters on CUDA ``device``
+    (int64 [4]: launches with a live window of ``use_unfold = 1`` and such
+    windows, launches with a live window of ``is_cat = 1`` and such
+    windows), which its kernel increments; made at the first call."""
+    t = _LEVEL_ROUTE_COUNTERS.get(device)
+    if t is None:
+        t = _LEVEL_ROUTE_COUNTERS[device] = torch.zeros(
+            4, dtype=torch.int64, device=device)
+    return t
+
+
 def launches() -> Dict[str, int]:
     """Launch counts since the last :func:`reset_launches`."""
     return dict(_LAUNCHES)
@@ -98,7 +115,8 @@ def route_launches() -> Dict[str, Dict[str, int]]:
     """Per split pass: launches that unfolded a group column, routed by a
     bitset or histogrammed a feature window, and their windows, since the
     last :func:`reset_launches`.  Reads the device-window counters back
-    (:func:`route_counter`): a device->host transfer per card."""
+    (:func:`route_counter`, :func:`level_route_counter`): a device->host
+    transfer per counter."""
     out = {k: dict(v) for k, v in _ROUTES.items()}
     for t in _ROUTE_COUNTERS.values():
         unfold, categorical, fwin = (int(v) for v in t.cpu())
@@ -107,6 +125,12 @@ def route_launches() -> Dict[str, Dict[str, int]]:
                          ("feature_window", fwin)):
             part[route] += n
             part[route + "_windows"] += n
+    for t in _LEVEL_ROUTE_COUNTERS.values():
+        counts = [int(v) for v in t.cpu()]
+        level = out["partition_level"]
+        for i, route in enumerate(("unfold", "categorical")):
+            level[route] += counts[2 * i]
+            level[route + "_windows"] += counts[2 * i + 1]
     return out
 
 
@@ -116,7 +140,8 @@ def reset_launches() -> None:
     for counts in _ROUTES.values():
         for c in counts:
             counts[c] = 0
-    for t in _ROUTE_COUNTERS.values():
+    for t in list(_ROUTE_COUNTERS.values()) + list(
+            _LEVEL_ROUTE_COUNTERS.values()):
         t.zero_()
 
 

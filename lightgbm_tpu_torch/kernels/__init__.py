@@ -52,7 +52,9 @@ SIGNATURES = {
     "partition_level": {"lgbt_partition_level": [_P, _P, _I, _P, _I, _I, _I,
                                                  _I, _I, _I, _I, _I, _I, _I,
                                                  _I, _I, _I, _I, _I, _P, _P,
-                                                 _P, _P]},
+                                                 _P, _P],
+                        "lgbt_partition_level_window": [_P, _P, _I, _P]
+                        + [_I] * 18 + [_P] * 6},
     "histogram_masked": {"lgbt_hist_masked": [_P, _LL, _I, _I, _P, _LL, _I,
                                               _I, _LL, _LL, _I, _P, _P, _P]},
 }

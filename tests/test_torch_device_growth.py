@@ -456,13 +456,13 @@ def _built_on_device(monkeypatch):
 @pytest.mark.parametrize("case", ["forced", "cegb", "pool", "level",
                                   "parallel", "host_loop", "serial"])
 def test_which_build_runs(case, monkeypatch, tmp_path, one_thread):
-    """Every leaf-wise tree grows on the device, with one read-back a
-    tree: serial, forced splits, CEGB, the histogram pool and a parallel
-    learner's comm alike; level growth (one read-back a level) and a
-    serial tree that a check sends there (``host_loop``, one a split)
-    grow in the host loop.  Only the device build asks the learner for
-    its split-pass workspace (a bound-sized store on the card), so the
-    host loop holds no such buffer."""
+    """Every tree grows on the device, with one read-back a tree:
+    serial, forced splits, CEGB, the histogram pool, a parallel learner's
+    comm and level growth alike; a serial tree that a check sends to the
+    host loop (``host_loop``, one read-back a split) grows there.  Only the
+    device build asks the learner for its split-pass workspace (a
+    bound-sized store on the card; level growth its level-pass workspace),
+    so the host loop holds no such buffer."""
     X, y = dense(seed=7)
     g, h = (torch.from_numpy(a) for a in l2_grads(y))
     extra = {}
@@ -481,23 +481,27 @@ def test_which_build_runs(case, monkeypatch, tmp_path, one_thread):
                                    device="cpu")
     used = _built_on_device(monkeypatch)
     work = []
-    real_work = learner.window_work
+    real_work, real_level = learner.window_work, learner.level_work
 
     def window_work(rows, bound):
         work.append(bound)
         return real_work(rows, bound)
+
+    def level_work(rows, bound):
+        work.append(("level", bound))
+        return real_level(rows, bound)
     monkeypatch.setattr(learner, "window_work", window_work)
+    monkeypatch.setattr(learner, "level_work", level_work)
     if case == "parallel":
         learner.comm = tl.Comm(ops=_OneRank(), mode="psum")
     arrays = learner.train(g, h, N, host_loop=case == "host_loop")
-    on_device = case not in ("level", "host_loop")
+    on_device = case != "host_loop"
     assert bool(used) == on_device
-    assert work == ([N] if on_device else [])
+    assert work == ([("level", N)] if case == "level"
+                    else [N] if on_device else [])
     if on_device:
         assert arrays.host_fetches == 1
         assert arrays.num_leaves > 2
-    elif case == "level":
-        assert arrays.host_fetches == arrays.levels + 1
     else:
         assert arrays.host_fetches >= arrays.num_leaves > 2
     if case == "parallel":

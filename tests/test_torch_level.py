@@ -194,10 +194,10 @@ def test_complete_tree_level_equals_leaf(ds, precision):
             sorted(b.split_feature[:7].tolist())
         np.testing.assert_array_equal(np.sort(a.leaf_value[:8]),
                                       np.sort(b.leaf_value[:8]))
-    # level mode: 3 level steps and 1 + 3 device->host fetches per tree;
-    # leaf-wise growth builds on the device and reads each tree back once
+    # level mode: 3 level steps a tree; both modes build on the device and
+    # read each tree back once
     assert [a.levels for a in level_arrays] == [3, 3]
-    assert [a.host_fetches for a in level_arrays] == [4, 4]
+    assert [a.host_fetches for a in level_arrays] == [1, 1]
     assert [a.host_fetches for a in leaf_arrays] == [1, 1]
     assert level.learner.level_count() == 3
     assert level.learner.launches_per_tree() == 3

@@ -496,7 +496,8 @@ def _counting(monkeypatch):
     n = {"partition": 0, "partition_level": 0}
     for name, key in (("partition_hist", "partition"),
                       ("partition_hist_window", "partition"),
-                      ("partition_hist_level", "partition_level")):
+                      ("partition_hist_level", "partition_level"),
+                      ("partition_hist_level_window", "partition_level")):
         real = getattr(tl, name)
 
         def wrapped(*a, _real=real, _key=key, **k):
@@ -510,6 +511,7 @@ def _counting(monkeypatch):
         k.setdefault("part_fn", tl.partition_hist)
         k.setdefault("window_fn", tl.partition_hist_window)
         k.setdefault("level_fn", tl.partition_hist_level)
+        k.setdefault("level_window_fn", tl.partition_hist_level_window)
         return real_train(self, *a, **k)
     monkeypatch.setattr(tl.SerialTreeLearner, "train", train)
     return n
