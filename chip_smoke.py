@@ -368,7 +368,26 @@ together) and runs these phases, each of which raises on failure:
    each run's s/iteration and peak device memory beside the per-iteration
    run's, one root histogram a tree and one split (or level) pass a split
    (or level); (Y2) and (Y5) grown on the device, one fetch a tree, each
-   first tree regrown by the host loop (model text equal);
+   first tree regrown by the host loop (model text equal); (Z) the
+   asynchronous training loop (``phase_async``, the kernels' launch counts
+   read around it): under ``torch.cuda.set_sync_debug_mode("warn")``, every
+   synchronising call recorded with its line in the package (``SyncCheck``),
+   (B) and (C) each train 20 iterations of ``train_one_iter`` and the
+   trailing poll and materialization: no synchronising call outside the
+   booster's counted reads, which are 2 stall polls and 1 materialization,
+   against 40 for the same booster with ``_poll_freq = 1`` and ``models``
+   read after every iteration (forced materialization), run in turns
+   beside it (lazy, forced, forced, lazy twice, 5 iterations a turn), its
+   model text and score bytes equal; (A) with the held-out tenth as a
+   validation set, lazy and forced in turns of 2 iterations, the lazy
+   turns under the same check: s/iteration of each, the pending window's
+   bytes (records and ``row_leaf``) and the allocator's peak over a lazy
+   turn, then the model text and the train and validation score bytes
+   equal; (Y1)'s carried chunk through ``train()`` (6 iterations,
+   ``metric_freq=5``, the validation set) under the same check: its
+   synchronising calls only in the chunk's guard reads, the evaluation
+   and the loop's counted reads; each path after one warm-up iteration of
+   a throwaway booster, so that no turn holds a kernel's first launch;
 5. times of each kernel at the main paths' shapes beside its bound, its
    plain version and one PyTorch library call (``index_add_``; for a split
    pass, which has none, the window's device-to-device copy): the
@@ -3506,7 +3525,7 @@ def _forced_cegb_path(booster, fresh, cfg, data, ds, profile) -> dict:
     if not torch.equal(got, want):
         raise AssertionError("paid bits differ from the host recompute in "
                              "%d rows" % int((got != want).any(1).sum()))
-    used = np.flatnonzero(learner.cegb_used)
+    used = np.flatnonzero(learner.cegb_used.cpu().numpy())
     log("  paid bits equal to the recompute from the trees and the rows' "
         "leaves (%d of %d rows x features paid); features used %s"
         % (int(sum(int(((got >> b) & 1).sum()) for b in range(8))), n * F,
@@ -4226,6 +4245,263 @@ def phase_chunk(device, data, ds, only=None) -> dict:
 
 
 # ------------------------------- path (V): the parallel tree learners ----
+
+ASYNC_ITERS = 20             # (Z): (B) and (C), each run, in 4 turns
+ASYNC_TURNS = ("lazy", "forced", "forced", "lazy")
+ASYNC_A_TURN_ITERS = 2       # (Z): (A)'s iterations a turn (2 turns a run)
+
+
+class SyncCheck:
+    """Every synchronising CUDA call inside the block, through
+    ``torch.cuda.set_sync_debug_mode("warn")``, with those made inside one
+    of ``booster``'s counted reads (``_host_read``: its polls and
+    materializations; ``_chunk_read``: a fused chunk's guard) or an
+    evaluation (``_eval``) told apart from the others (``stray``: each
+    one's innermost line in the package, from the stack at the call)."""
+
+    READS = ("_host_read", "_chunk_read", "_eval")
+
+    def __init__(self, booster):
+        self.booster = booster
+
+    def __enter__(self):
+        import traceback
+        import warnings
+        self._cm = warnings.catch_warnings()
+        self._cm.__enter__()
+        warnings.simplefilter("always")
+        self.rec, self.depth = [], 0
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if "called a synchronizing CUDA operation" not in str(message):
+                return
+            stack = traceback.extract_stack()[:-1]
+            frames = [f for f in stack if "lightgbm_tpu_torch" in f.filename]
+            if not frames:
+                # not the package's: the last frames of the stack
+                frames = stack[-4:]
+            self.rec.append((self.depth > 0, " < ".join(
+                "%s:%d" % (os.path.basename(f.filename), f.lineno)
+                for f in frames[::-1][:4])))
+        warnings.showwarning = show
+        b = self.booster
+        for name in self.READS:
+            real = getattr(b, name)
+
+            def wrapped(*a, _real=real, **k):
+                self.depth += 1
+                try:
+                    return _real(*a, **k)
+                finally:
+                    self.depth -= 1
+            setattr(b, name, wrapped)
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        for name in self.READS:
+            delattr(self.booster, name)
+        self._cm.__exit__(*exc)
+        self.syncs = len(self.rec)
+        self.stray = [where for inside, where in self.rec if not inside]
+        return False
+
+
+def async_booster(ds, extra: dict, forced: bool, valid=None):
+    """(A)'s binary GBDT with ``extra`` on ``ds``; ``forced``: the stall
+    poll every iteration (``_poll_freq = 1``), and the caller reads
+    ``models`` after each one (forced materialization)."""
+    from lightgbm_tpu_torch import Config, GBDT, create_objective
+    cfg = Config(objective="binary", num_leaves=255, learning_rate=0.1,
+                 max_bin=255, verbosity=-1, **extra)
+    b = GBDT(cfg, ds, create_objective("binary", cfg))
+    if valid is not None:
+        b.add_valid_data(valid, "valid_1")
+    if forced:
+        b._poll_freq = 1
+    return b
+
+
+def warm_up(ds, extra: dict, valid=None) -> None:
+    """One iteration of a throwaway booster of the path, so that the turns
+    hold no first launch of a kernel."""
+    b = async_booster(ds, extra, False, valid)
+    b.train_one_iter()
+    b.models
+    torch.cuda.synchronize()
+
+
+def async_iters(b, iters: int, forced: bool) -> None:
+    for _ in range(iters):
+        b.train_one_iter()
+        if forced:
+            b.models
+
+
+def phase_async(device, data, ds) -> dict:
+    """Path (Z), the asynchronous loop: no iteration reads anything back
+    between the stall polls.  (B) and (C): ``ASYNC_ITERS`` iterations of
+    ``train_one_iter``, then the trailing poll and the materialization,
+    under ``SyncCheck``: no synchronising call outside the booster's
+    counted reads, which are 2 polls and 1 materialization; the model text
+    and the train score's bytes equal to the forced-materialization run's
+    (``_poll_freq = 1``, ``models`` read after every iteration).  (A) with
+    (A)'s held-out tenth as a validation set: the lazy and the forced run
+    in turns of 2 iterations (lazy, forced, forced, lazy), the lazy turns
+    under ``SyncCheck`` too; s/iteration of each (each turn ends in a
+    synchronise), the pending window's bytes (records and ``row_leaf``)
+    and the allocator's peak over the lazy turns, then the model text, the
+    train and validation scores' bytes equal.  (Y1)'s carried chunk
+    through ``train()`` (6 iterations, metric_freq=5, the validation set)
+    under ``SyncCheck``: syncs only in the chunk's guard reads, the
+    evaluation and the loop's counted reads."""
+    from lightgbm_tpu_torch import BinnedDataset, Config, GBDT, \
+        create_objective
+    from lightgbm_tpu_torch import device as D
+    X, y, X_test, y_test = data
+    out, failed = {}, []
+    D.reset_launches()
+    for path in ("B", "C"):
+        extra = PATHS[path][1]
+        warm_up(ds, extra)
+        runs = {"lazy": async_booster(ds, extra, False),
+                "forced": async_booster(ds, extra, True)}
+        secs, syncs, stray = {"lazy": 0.0, "forced": 0.0}, 0, []
+        turns = []
+        for name in ASYNC_TURNS * 2:
+            b = runs[name]
+            t = time.perf_counter()
+            if name == "lazy":
+                with SyncCheck(b) as chk:
+                    async_iters(b, ASYNC_ITERS // 4, False)
+                syncs, stray = syncs + chk.syncs, stray + chk.stray
+            else:
+                async_iters(b, ASYNC_ITERS // 4, True)
+            torch.cuda.synchronize()
+            turns.append(time.perf_counter() - t)
+            secs[name] += turns[-1]
+        lazy, forced = runs["lazy"], runs["forced"]
+        lazy_freq = lazy._poll_freq
+        t = time.perf_counter()
+        with SyncCheck(lazy) as chk:
+            # the trailing poll of train() and the materialization
+            stalled = bool(lazy._nl_handles) and lazy._poll_stop()
+            lazy.models
+        secs["lazy"] += time.perf_counter() - t
+        syncs, stray = syncs + chk.syncs, stray + chk.stray
+        same = (lazy.save_model_to_string() == forced.save_model_to_string()
+                and torch.equal(lazy.train_score, forced.train_score))
+        out[path] = dict(syncs=syncs, stray=stray,
+                         host_reads=lazy.host_reads,
+                         forced_reads=forced.host_reads, stalled=stalled,
+                         lazy_s=secs["lazy"] / ASYNC_ITERS,
+                         forced_s=secs["forced"] / ASYNC_ITERS, same=same,
+                         turns_s=turns)
+        log("  (Z/%s) %d iterations in turns: %d synchronising calls, %d "
+            "of them outside the counted reads %s; host reads %d (forced "
+            "run %d); s/iteration lazy %.4f, forced %.4f (turns %s, s); "
+            "model text and scores equal: %s"
+            % (path, ASYNC_ITERS, syncs, len(stray), stray[:8],
+               lazy.host_reads, forced.host_reads, out[path]["lazy_s"],
+               out[path]["forced_s"], ["%s %.4f" % (n[0], v) for n, v in
+                                       zip(ASYNC_TURNS * 2, turns)], same))
+        del runs, lazy, forced
+        torch.cuda.empty_cache()
+        # a poll every _poll_freq iterations and the trailing one, then
+        # the materialization: 2 + 1 at 20 iterations
+        want = -(-ASYNC_ITERS // lazy_freq) + 1
+        if stray or out[path]["host_reads"] != want or not same:
+            failed.append("(Z/%s): stray syncs %s, host reads %d (want %d: "
+                          "the polls and 1 materialization), equal to "
+                          "forced %s" % (path, stray, out[path]["host_reads"],
+                                         want, same))
+    valid = BinnedDataset.from_matrix(X_test, label=y_test, reference=ds)
+    warm_up(ds, {}, valid)
+    runs = {"lazy": async_booster(ds, {}, False, valid),
+            "forced": async_booster(ds, {}, True, valid)}
+    secs = {"lazy": 0.0, "forced": 0.0}
+    stray, syncs, window_bytes, peak = [], 0, 0, 0
+    for name in ASYNC_TURNS:
+        b = runs[name]
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        if name == "lazy":
+            with SyncCheck(b) as chk:
+                async_iters(b, ASYNC_A_TURN_ITERS, False)
+            stray += chk.stray
+            syncs += chk.syncs
+        else:
+            async_iters(b, ASYNC_A_TURN_ITERS, True)
+        torch.cuda.synchronize()
+        secs[name] += time.perf_counter() - t
+        if name == "lazy":
+            peak = max(peak, torch.cuda.max_memory_allocated() - base)
+            recs = list(b._pending.values()) + list(b._window.values())
+            window_bytes = max(window_bytes, sum(
+                r.dtree.record.numel() * 8
+                + (r.row_leaf.numel() * r.row_leaf.element_size()
+                   if r.row_leaf is not None else 0) for r in recs))
+            pending = len(b._pending)
+    lazy, forced = runs["lazy"], runs["forced"]
+    same = (lazy.save_model_to_string() == forced.save_model_to_string()
+            and torch.equal(lazy.train_score, forced.train_score)
+            and torch.equal(lazy.valid_sets[0]["score"],
+                            forced.valid_sets[0]["score"]))
+    iters = 2 * ASYNC_A_TURN_ITERS
+    out["A"] = dict(lazy_s=secs["lazy"] / iters,
+                    forced_s=secs["forced"] / iters, syncs=syncs,
+                    stray=stray, window_bytes=window_bytes,
+                    window_trees=pending, peak_bytes=peak, same=same,
+                    tree_bytes=window_bytes / max(pending, 1))
+    log("  (Z/A) %d iterations with a validation set, in turns: s/iteration "
+        "lazy %.4f, forced %.4f; lazy turns %d synchronising calls, stray "
+        "%s; pending window %d trees, %.1f MiB (%.2f MiB a tree: record and "
+        "row_leaf; 16 trees %.1f MiB), allocator peak over a lazy turn "
+        "%.1f MiB; model text and scores equal: %s"
+        % (iters, out["A"]["lazy_s"], out["A"]["forced_s"], syncs,
+           stray[:8], pending, window_bytes / 2 ** 20,
+           out["A"]["tree_bytes"] / 2 ** 20,
+           16 * out["A"]["tree_bytes"] / 2 ** 20, peak / 2 ** 20, same))
+    del runs, lazy, forced
+    torch.cuda.empty_cache()
+    if not same or stray:
+        failed.append("(Z/A): equal to forced %s, stray syncs %s"
+                      % (same, stray))
+    cfg = Config(dict(HIGGS_PARAMS, metric_freq=CHUNK_METRIC_FREQ,
+                      num_iterations=CHUNK_RUNS[0][3]))
+    b = GBDT(cfg, ds, create_objective("binary", cfg))
+    b.add_valid_data(valid, "valid_1")
+    t = time.perf_counter()
+    with SyncCheck(b) as chk:
+        b.train()
+    torch.cuda.synchronize()
+    out["Y1"] = dict(syncs=chk.syncs, stray=chk.stray,
+                     host_reads=b.host_reads, chunk_reads=b.chunk_reads,
+                     iters=b.iter_, s=time.perf_counter() - t)
+    log("  (Z/Y1) %d iterations through train(): %d synchronising calls, "
+        "stray %s; host reads %d, chunk guard reads %d"
+        % (b.iter_, chk.syncs, chk.stray[:8], b.host_reads, b.chunk_reads))
+    del b
+    torch.cuda.empty_cache()
+    if out["Y1"]["stray"]:
+        failed.append("(Z/Y1): stray syncs %s" % out["Y1"]["stray"])
+    out["launches"] = counts = D.launches()
+    # the warm-ups' trees, the runs' and (Y1)'s
+    out["trees"] = 2 * (1 + 2 * ASYNC_ITERS) + 1 + 4 * ASYNC_A_TURN_ITERS \
+        + out["Y1"]["iters"]
+    log("  (Z) launches %s over %d trees" % (counts, out["trees"]))
+    missing = [k for k in ("histogram", "histogram_int", "partition",
+                           "partition_level") if not counts.get(k)]
+    if missing:
+        failed.append("(Z): kernels not launched: %s" % missing)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return out
+
 
 PARALLEL_DIR = os.path.join("build", "parallel")
 PARALLEL_DEADLINE_S = 600.0   # (V2)'s ranks are killed past this
@@ -7372,6 +7648,15 @@ def main(argv=None) -> int:
     log("  (Y) took %.1f s" % (time.perf_counter() - t))
     torch.cuda.empty_cache()
     mark()
+    log("  (Z) the asynchronous loop: (B) and (C) %d iterations each, (A) "
+        "%d with a validation set, lazy against forced materialization in "
+        "turns, every synchronising call recorded; (Y1) under the same check"
+        % (ASYNC_ITERS, 2 * ASYNC_A_TURN_ITERS))
+    t = time.perf_counter()
+    paths["Z"] = phase_async(device, data, ds)
+    log("  (Z) took %.1f s" % (time.perf_counter() - t))
+    torch.cuda.empty_cache()
+    mark()
     log("  (V) the parallel tree learners on (A)'s task, %d iteration(s): "
         "(V1) each learner on a one-rank NCCL group, (V2) data, feature, "
         "voting and quantized data on 2 gloo ranks"
@@ -7532,7 +7817,7 @@ def main(argv=None) -> int:
              replaces="lightgbm_tpu/core/histogram.py:743",
              max_abs_err=hist_err_max,
              **launches("histogram", "ABCGHIJRSTU", ("V1", "V2", "W1",
-                                                     "X", "Y")),
+                                                     "X", "Y", "Z")),
              groups_root=paths["I"]["times"]["histogram"],
              cli_root=paths["S"]["times"]["histogram"],
              expo_root=paths["J"]["times"]["histogram"],
@@ -7543,7 +7828,7 @@ def main(argv=None) -> int:
              also_replaces="lightgbm_tpu/core/partition.py:1130",
              max_abs_err=split_err_max,
              **launches("partition", "ABCFGHIJRSTU", ("V1", "V2", "W1",
-                                                      "X", "Y")),
+                                                      "X", "Y", "Z")),
              feature_window_launches=(
                  paths["V1"]["feature_window_launches"]
                  + paths["V2"]["feature_window_launches"]),

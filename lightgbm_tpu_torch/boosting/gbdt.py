@@ -4,10 +4,14 @@ Counterpart of ``lightgbm_tpu/boosting/gbdt.py`` (the reference ``GBDT``,
 src/boosting/gbdt.cpp, gbdt.h): ``__init__``, ``_boost_from_average``,
 bagging (``_bagging``: the JAX package's stateless per-row hash, plain and
 pos/neg balanced; ``_bag_rng``, the sequential stream GOSS samples from) and
-``feature_fraction`` (``_feature_mask``), ``train_one_iter`` (synchronous:
-one host tree per class and iteration; with ``gradients``/``hessians`` for a
-custom objective; the hooks ``_get_gradients`` and
-``_adjust_gradients_for_bagging`` that DART and GOSS override), the leaf
+``feature_fraction`` (``_feature_mask``), ``train_one_iter`` (the
+asynchronous loop, gbdt.py:196-205 and :655-743, below; with
+``gradients``/``hessians`` for a custom objective; the hooks
+``_get_gradients`` and ``_adjust_gradients_for_bagging`` that DART and GOSS
+override) and ``_train_one_iter_sync`` (one host tree per class and
+iteration, for DART and the renewing objectives), the lazy trees
+(``models``, ``_materialize_pending``, the stall poll ``_poll_stop``, the
+deferred non-finite checks ``_drain_nonfinite_checks``), the leaf
 renewal of the percentile objectives (``_renew_tree_output``),
 ``train_score``, validation sets (``add_valid_data``), the score add of a
 host tree (``_add_tree_score_train`` / ``_add_tree_score_valid``, which
@@ -44,18 +48,39 @@ gradients on the device, the bag mask and feature mask, then per class one
 tree from the learner that ``parallel.create_tree_learner`` chose for
 ``tree_learner`` (the serial one at a world size of 1; ``group`` is the
 process group of a parallel learner, as the JAX ``mesh`` is) on the masked
-gradients, the tree's leaf
-values scaled by the learning rate in f32, the class's train score updated
-through the tree's ``row_leaf`` and each validation score by routing the
-set's bins on the device (``route_binned``).  DART, GOSS and RF subclass
-this class (``boosting/dart.py``, ``goss.py``, ``rf.py``; built by
+gradients, the tree's leaf values scaled by the learning rate in f32, the
+class's train score updated through the tree's ``row_leaf``.
+
+The iteration is asynchronous, as the JAX package's default path is: it
+only queues work on the card and reads nothing back.  Its trees stay on the
+device (``core/tree_learner.py`` ``DeviceTree``: the device build's packed
+record, not yet fetched) as pending entries of the model; the bag count
+stays on the device; under ``nan_policy=raise`` its gradients' isfinite
+verdict waits on the device.  The host trees are materialized, every
+pending tree in one transfer, when something first reads ``models``
+(saving, predicting, evaluating, a checkpoint); every ``_poll_freq`` = 16
+iterations the stall poll reads every pending leaf count and verdict in one
+transfer, raises for a non-finite iteration and trims everything from the
+first iteration whose trees could not split, as the synchronous loop would
+have stopped there (``train`` polls once more at its end, before a snapshot
+and before a preemption's checkpoint; ``engine.train`` drains the verdicts
+after its loop).  A validation score takes a tree when it is materialized,
+in tree order, through ``route_binned`` on the set's bins: the bytes of
+adding it at dispatch, without routing over a tree whose depth the host
+does not know; reading a validation set's ``"score"`` settles them.
+``host_reads`` counts the loop's device->host reads: 2 polls and 1
+materialization for 20 iterations without evaluation.  DART
+(``lazy_trees = False``) and the objectives that renew leaf outputs on the
+host run the synchronous iteration; RF's own iteration reads its trees as
+the JAX package's does.  DART, GOSS and RF subclass this class
+(``boosting/dart.py``, ``goss.py``, ``rf.py``; built by
 ``boosting.create_boosting``).  ``train`` runs chunks of iterations
 (``train_chunk``): where the JAX package fuses a chunk into one XLA scan,
-the port runs the same iterations as host loops of kernel launches with
-nothing read back but the trees' own fetches and one guard verdict a
-chunk, and, for a single-model pointwise objective, with the boosting state
-carried in the tree learner's permuted row store (the section "the fused
-multi-iteration chunk" below).
+the port runs the same iterations as host loops of kernel launches that
+leave their trees pending, with one guard verdict read a chunk, and, for a
+single-model pointwise objective, with the boosting state carried in the
+tree learner's permuted row store (the section "the fused multi-iteration
+chunk" below).
 
 Prediction (gbdt.py:1999-2110): from 512 rows on, or in the bf16 tier, a
 class's trees go through the cached :class:`FusedPredictor` (f32 rows, f32
@@ -92,10 +117,10 @@ from ..core.predict import StackedTrees
 from ..core.predict_fused import FusedPredictor, note_stack
 from ..core.quant import _M32, _mul32
 from ..core.tree import Tree
-from ..core.tree_learner import (TreeArrays, arrays_from_tree,
+from ..core.tree_learner import (DeviceTree, TreeArrays, arrays_from_tree,
                                  route_binned, store_f32, store_order,
                                  tree_from_arrays)
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device, to_device_async
 from ..io.dataset import BinnedDataset
 from ..metric.metric import Metric, create_metrics
 from ..objective import ObjectiveFunction, create_objective
@@ -147,21 +172,66 @@ def bag_mask_for(row_ids: torch.Tensor, seed: int, it: int, freq: int,
     count on the device, an f32 scalar, so that nothing is read back."""
     u = _bag_uniforms(row_ids, seed, it - it % freq)
     if not isinstance(frac, torch.Tensor):
-        frac = torch.tensor(frac, dtype=torch.float32, device=u.device)
+        # a fill, not a copy of a host scalar (which would wait for the card)
+        frac = torch.full((), frac, dtype=torch.float32, device=u.device)
     mask = (u < frac).to(torch.float32)
     count = torch.clamp(mask.sum(dtype=torch.float32), min=1.0)
     return mask, (int(count) if host_count else count)
 
 
-def _steps_grouped(step, its: Sequence[int], group: int) -> bool:
+class _ValidSet(dict):
+    """A validation set's entry of ``GBDT.valid_sets``: reading its
+    ``"score"`` first adds the trees still queued for the validation scores
+    (``GBDT._settle_valid``), so that every reader sees every tree trained
+    so far; the booster's own updates go through :func:`_raw_score`."""
+
+    def __init__(self, settle, **fields) -> None:
+        super().__init__(**fields)
+        self.settle = settle
+
+    def __getitem__(self, key):
+        if key == "score":
+            self.settle()
+        return dict.__getitem__(self, key)
+
+
+def _raw_score(vs: dict) -> torch.Tensor:
+    """A validation set's score tensor as it stands, without settling the
+    queued trees (the booster's own reads and writes)."""
+    return dict.__getitem__(vs, "score")
+
+
+class _PendingTree:
+    """One tree of the asynchronous loop (the JAX package's ``_pending``
+    record, gbdt.py:241-309): the device tree, its class, the
+    boost-from-average bias its host tree takes, its learning rate, and,
+    once read back, its scaled host arrays."""
+
+    __slots__ = ("dtree", "k", "init", "rate", "arrays")
+
+    def __init__(self, dtree: DeviceTree, k: int, init: float,
+                 rate: np.float32) -> None:
+        self.dtree, self.k, self.init, self.rate = dtree, k, init, rate
+        self.arrays: Optional[TreeArrays] = None
+
+    @property
+    def row_leaf(self) -> Optional[torch.Tensor]:
+        return self.dtree.row_leaf
+
+    def leaf_output(self) -> torch.Tensor:
+        """[L] f32 scaled leaf values on the device: the bytes of the host
+        arrays' ``leaf_value * rate``."""
+        return self.dtree.leaf_value() * float(self.rate)
+
+
+def _steps_grouped(step, its: Sequence[int], group: int) -> None:
     """Run ``step(it)`` over the iterations ``its`` in groups of ``group``
     (``trees_per_chunk``; ``_scan_grouped``, gbdt.py:140-172): the whole
-    groups first, then the ungrouped tail, stopping at the first step that
-    returns True.  The steps are the same calls in the same order whatever
-    the group, so the trees are bit-identical; the JAX package unrolls a
-    group into one scan step to share its dispatch, while a step here is
-    already a host loop of kernel launches, so the group changes no launch.
-    Returns True when a step stopped the run."""
+    groups first, then the ungrouped tail.  The steps are the same calls in
+    the same order whatever the group, so the trees are bit-identical; the
+    JAX package unrolls a group into one scan step to share its dispatch,
+    while a step here is already a host loop of kernel launches, so the
+    group changes no launch."""
     k = len(its)
     g = min(max(int(group), 1), max(k, 1))
     main = (k // g) * g
@@ -169,9 +239,7 @@ def _steps_grouped(step, its: Sequence[int], group: int) -> bool:
                                                           its[main:]]
     for block in blocks:
         for it in block:
-            if step(it):
-                return True
-    return False
+            step(it)
 
 
 class GBDT:
@@ -198,6 +266,9 @@ class GBDT:
     # the fused chunk (train_chunk); subclasses with per-iteration host
     # logic opt out (gbdt.py:758)
     fuse_iters = True
+    # the asynchronous loop's stall poll: every this many iterations
+    # (gbdt.py:654)
+    _poll_freq = 16
     # the scores and the model length before a chunk describe all that the
     # chunk changed; DART's drops change older trees, so it stops at a
     # non-finite chunk instead of rolling it back (gbdt.py:1273-1276)
@@ -210,6 +281,11 @@ class GBDT:
         self.device = resolve_device(device)
         self.config = config
         self.group = group
+        # the fused chunk's state and the device->host reads of the
+        # asynchronous loop (its polls and materializations)
+        self._prechunk = None
+        self._valid_queue: List[Tuple[int, _PendingTree]] = []
+        self.host_reads = 0
         self.models: List[Tree] = []
         self.iter_ = 0
         self.num_init_iteration = 0
@@ -245,7 +321,6 @@ class GBDT:
         # the fused chunk: its state before the chunk (resilient nan_policy
         # only), the device verdict of its gradients' finiteness, the chunk
         # lengths run so far, and the read-backs its guard made
-        self._prechunk = None
         self._chunk_grads_ok: Optional[torch.Tensor] = None
         self._fused_keys = set()
         self._fuse_failed = False
@@ -269,6 +344,213 @@ class GBDT:
     def bag_data_cnt(self, value) -> None:
         self._bag_data_cnt = value
 
+    # ---- the asynchronous loop's lazy trees (gbdt.py:241-380) ----
+    #
+    # An iteration of the lazy path only queues work on the card: the
+    # gradients, the tree build, the train score's update.  Its trees stay
+    # on the device as ``_pending`` records (a ``None`` in ``_models``) and
+    # their leaf counts as ``_nl_handles``; under nan_policy=raise each
+    # iteration's isfinite verdict waits in ``_fin_handles``.  Host trees
+    # are materialized, every pending tree in one transfer, when something
+    # first reads ``models``; the stall poll reads every pending leaf count
+    # and verdict in one transfer every ``_poll_freq`` iterations.  The
+    # validation scores take a tree when it is materialized, in tree order
+    # (``_valid_queue``): the same f32 adds in the same order as adding it
+    # at dispatch, without routing the validation bins over a tree whose
+    # depth the host does not know.  Reading a validation set's ``"score"``
+    # settles them first (``_ValidSet``).  ``host_reads`` counts the loop's
+    # device->host reads.
+
+    @property
+    def last_arrays(self) -> Optional[TreeArrays]:
+        """The scaled arrays of the last tree trained (None when its class
+        trained none); a pending tree's are read back here, when asked
+        for."""
+        a = self._last_arrays
+        if isinstance(a, _PendingTree):
+            self._resolve_records([a])
+            return a.arrays
+        return a
+
+    @last_arrays.setter
+    def last_arrays(self, value) -> None:
+        self._last_arrays = value
+
+    @property
+    def models(self) -> List[Tree]:
+        """The host trees; materializes the pending device trees first
+        (one transfer)."""
+        self._settle_valid()
+        return self._models
+
+    @models.setter
+    def models(self, value) -> None:
+        self._invalidate_predict_cache()
+        self._models: List[Optional[Tree]] = list(value)
+        self._pending: Dict[int, _PendingTree] = {}
+        # trees materialized since the last poll, kept so that a stall trim
+        # can still take them out of the scores
+        self._window: Dict[int, _PendingTree] = {}
+        self._nl_handles: List[Tuple[int, int, torch.Tensor]] = []
+        self._fin_handles: List[Tuple[int, torch.Tensor]] = []
+        self._valid_queue = []
+        self._last_poll = 0
+        self._prechunk = None
+
+    def _host_read(self, t: torch.Tensor) -> np.ndarray:
+        """The asynchronous loop's device->host read, counted in
+        ``host_reads``."""
+        self.host_reads += 1
+        return t.cpu().numpy()
+
+    def _resolve_records(self, recs: Sequence[_PendingTree]) -> None:
+        """The scaled host arrays of ``recs`` that lack them, from one
+        transfer of their records (``row_leaf`` stays on the device)."""
+        todo = [r for r in recs if r.arrays is None]
+        if not todo:
+            return
+        host = self._host_read(torch.cat([r.dtree.record for r in todo]))
+        off = 0
+        for r in todo:
+            size = r.dtree.record.numel()
+            a = r.dtree.resolve(host[off:off + size])
+            off += size
+            # leaf values scaled by the learning rate in f32, as the
+            # reference's binary path does before its score update
+            r.arrays = a._replace(leaf_value=a.leaf_value * r.rate,
+                                  internal_value=a.internal_value * r.rate)
+
+    def _materialize_pending(self) -> None:
+        """Every pending tree to a host tree, in one transfer
+        (``_materialize_pending``, gbdt.py:278-309), then the validation
+        scores of the queued trees, in tree order."""
+        idxs = sorted(self._pending)
+        recs = [self._pending[i] for i in idxs]
+        self._pending = {}
+        self._resolve_records(recs)
+        for i, r in zip(idxs, recs):
+            tree = tree_from_arrays(r.arrays, self.train_data, 1.0)
+            if abs(r.init) > K_EPSILON:
+                tree.add_bias(r.init)
+            self._models[i] = tree
+            self._window[i] = r
+        queue, self._valid_queue = self._valid_queue, []
+        self._resolve_records([r for _, r in queue])
+        for _, r in queue:
+            self._route_valid(r, 1.0)
+
+    def _route_valid(self, r: _PendingTree, sign: float) -> None:
+        """Every validation score of class ``r.k`` plus (``sign`` 1) or
+        minus (-1) the tree's scaled leaf values over the set's bins."""
+        lv = to_device_async(r.arrays.leaf_value, self.device)
+        if sign < 0:
+            lv = -lv
+        for vs in self.valid_sets:
+            _raw_score(vs)[r.k] += lv[route_binned(vs["bins"], r.arrays,
+                                                   self.learner.feat_host)]
+
+    def _settle_valid(self) -> None:
+        """Materialize the pending trees and add the queued ones to the
+        validation scores: before the host trees or a validation score are
+        read."""
+        if self._valid_queue or self._pending:
+            self._materialize_pending()
+
+    def _pending_output(self, r: _PendingTree) -> torch.Tensor:
+        """[N] f32: each training row's scaled leaf value of ``r``, from
+        its device ``row_leaf``, or routed over the training bins for a tree
+        of the carried store."""
+        row_leaf = r.row_leaf
+        if row_leaf is not None and row_leaf.numel():
+            return r.leaf_output()[row_leaf]
+        self._resolve_records([r])
+        return self._gather_tree_output(r.arrays)
+
+    def _poll_stop(self) -> bool:
+        """The deferred stall check (``_poll_stop``, gbdt.py:317-380): one
+        read of every pending leaf count and isfinite verdict.  A verdict
+        that failed raises, naming the first bad iteration.  When an
+        iteration's trees all failed to split, everything from that
+        iteration on is trimmed, as the synchronous loop would have stopped
+        there: those trees leave the model and the train and validation
+        scores, and ``iter_`` goes back to it."""
+        self._last_poll = self.iter_
+        if not self._nl_handles and not self._fin_handles:
+            return False
+        with watch("poll_stop", iteration=int(self.iter_)):
+            vals = self._host_read(torch.stack(
+                [h.to(torch.float64) for _, _, h in self._nl_handles]
+                + [f.to(torch.float64) for _, f in self._fin_handles]))
+        nls = vals[:len(self._nl_handles)]
+        fins = vals[len(self._nl_handles):]
+        bad = [it for (it, _), ok in zip(self._fin_handles, fins) if not ok]
+        self._fin_handles = []
+        if bad:
+            self._raise_nonfinite(bad[0])
+        if not self._nl_handles:
+            return False
+        by_iter: Dict[int, List[int]] = {}
+        first_idx: Dict[int, int] = {}
+        for (it, idx, _), nl in zip(self._nl_handles, nls):
+            by_iter.setdefault(it, []).append(int(nl))
+            first_idx[it] = min(first_idx.get(it, idx), idx)
+        stalled = sorted(it for it, v in by_iter.items() if max(v) <= 1)
+        self._nl_handles = []
+        if not stalled:
+            self._window = {}
+            return False
+        first = stalled[0]
+        cut = first_idx[first]
+        trimmed = {i: r for i, r in self._window.items() if i >= cut}
+        trimmed.update((i, r) for i, r in self._pending.items() if i >= cut)
+        for idx in [i for i in self._pending if i >= cut]:
+            self._pending.pop(idx)
+        # a queued tree never reached the validation scores
+        queued = {i for i, _ in self._valid_queue if i >= cut}
+        self._valid_queue = [e for e in self._valid_queue if e[0] < cut]
+        # the host arrays that routing needs, in one transfer: the trees
+        # to take out of the validation scores and the carried store's
+        self._resolve_records([
+            r for i, r in sorted(trimmed.items())
+            if (self.valid_sets and i not in queued)
+            or r.row_leaf is None or not r.row_leaf.numel()])
+        for idx in sorted(trimmed):
+            r = trimmed[idx]
+            self.train_score[r.k] -= self._pending_output(r)
+            if self.valid_sets and idx not in queued:
+                self._route_valid(r, -1.0)
+        del self._models[cut:]
+        self._window = {}
+        self._last_iter_arrays = []
+        self._pre_iter_scores = None
+        self.iter_ = first
+        self._invalidate_predict_cache()
+        Log.warning("Stopped training because there are no more leaves "
+                    "that meet the split requirements")
+        return True
+
+    def _drain_nonfinite_checks(self) -> None:
+        """Read the pending isfinite verdicts (nan_policy=raise) without
+        the stall poll (``_drain_nonfinite_checks``, gbdt.py:1299-1313):
+        for loops that do not end in ``train`` (``engine.train``'s update
+        loop), and for the trailing iterations after the last poll."""
+        if not self._fin_handles:
+            return
+        fins = self._host_read(torch.stack(
+            [f.to(torch.float64) for _, f in self._fin_handles]))
+        bad = [it for (it, _), ok in zip(self._fin_handles, fins) if not ok]
+        self._fin_handles = []
+        if bad:
+            self._raise_nonfinite(bad[0])
+
+    @staticmethod
+    def _raise_nonfinite(iteration: int) -> None:
+        GBDT._nan_trip_telemetry(iteration, "raise", "raise")
+        raise LightGBMError(
+            "non-finite gradients/hessians/scores at iteration %d "
+            "(nan_policy=raise); set nan_policy=skip_iter or clip to "
+            "degrade gracefully instead" % iteration)
+
     # ---- setup ----
 
     def reset_training_data(self, train_data: BinnedDataset,
@@ -276,6 +558,14 @@ class GBDT:
         if objective is not None and objective.device != self.device:
             raise ValueError("objective is on %s, booster on %s"
                              % (objective.device, self.device))
+        if self.train_data is not None:
+            # the pending trees and the stall poll belong to the old data:
+            # settle them against it first
+            if self._nl_handles:
+                self._poll_stop()
+            self._drain_nonfinite_checks()
+            self._settle_valid()
+            self._window = {}
         cfg = self.config
         self.train_data = train_data
         self.objective = objective
@@ -341,9 +631,9 @@ class GBDT:
             init = np.asarray(valid_data.metadata.init_score, np.float32)
             score[:] = torch.as_tensor(init.reshape(K, valid_data.num_data),
                                        device=self.device)
-        vs = {"name": name, "data": valid_data,
-              "bins": self.learner.valid_bins(valid_data),
-              "metrics": list(metrics), "score": score}
+        vs = _ValidSet(self._settle_valid, name=name, data=valid_data,
+                       bins=self.learner.valid_bins(valid_data),
+                       metrics=list(metrics), score=score)
         for i, tree in enumerate(self.models):
             self._add_tree_score_valid(tree, i % K, vs)
         self.valid_sets.append(vs)
@@ -437,7 +727,7 @@ class GBDT:
         chosen = self._feat_rng.choice(nf, size=used, replace=False)
         mask = np.zeros(nf, dtype=bool)
         mask[chosen] = True
-        return torch.as_tensor(mask, device=self.device)
+        return to_device_async(mask, self.device)
 
     # ---- boosting (gbdt.cpp:143-158, 322-368) ----
 
@@ -445,7 +735,7 @@ class GBDT:
                             update_scorer: bool = True) -> float:
         """The first iteration's constant score of ``class_id``, added to
         the scores when ``update_scorer`` (RF takes it without adding it)."""
-        if (not self.models and not self._has_init_score
+        if (not self._models and not self._has_init_score
                 and self.objective is not None):
             if self.config.boost_from_average \
                     or self.train_data.num_features == 0:
@@ -463,7 +753,7 @@ class GBDT:
     def _add_constant_score(self, value: float, class_id: int) -> None:
         self.train_score[class_id] += value
         for vs in self.valid_sets:
-            vs["score"][class_id] += value
+            _raw_score(vs)[class_id] += value
 
     def _get_gradients(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """[K, N] gradients and hessians of the current train scores."""
@@ -472,13 +762,57 @@ class GBDT:
             return g[None, :], h[None, :]
         return self.objective.get_gradients(self.train_score)
 
+    def _lazy_path(self) -> bool:
+        """The iteration runs asynchronously (gbdt.py:661-665): not for
+        DART (``lazy_trees = False``) or the objectives that renew leaf
+        outputs on the host."""
+        return self.lazy_trees and not (self.objective is not None and
+                                        self.objective.is_renew_tree_output)
+
     def train_one_iter(self, gradients=None, hessians=None) -> bool:
         """One boosting iteration: one tree per class.  ``gradients`` and
         ``hessians`` ([K * N], class-major) replace the objective's, as a
         custom objective's (``Booster.update(fobj=...)``).  Returns True
-        when training cannot continue (no splittable leaves)."""
-        K = self.num_tree_per_iteration
+        when training cannot continue (no splittable leaves).
+
+        The asynchronous iteration (gbdt.py:655-743) reads nothing back:
+        its trees stay pending on the device, the bag count stays there,
+        its gradients' isfinite verdict waits for the poll (nan_policy
+        raise), and every ``_poll_freq`` iterations the stall poll reads
+        the leaf counts, trims a stall and returns its verdict.  DART and
+        the renewing objectives run :meth:`_train_one_iter_sync`."""
         self.trained_at = time.time()
+        if not self._lazy_path():
+            return self._train_one_iter_sync(gradients, hessians)
+        K = self.num_tree_per_iteration
+        self._keep_pre_iter_scores()
+        init_scores = [0.0] * K
+        if gradients is None or hessians is None:
+            for k in range(K):
+                init_scores[k] = self._boost_from_average(k)
+            with FunctionTimer("GBDT::Boosting"):
+                grad, hess = self._get_gradients()
+        else:
+            grad, hess = (np.asarray(a, dtype=np.float32).reshape(
+                K, self.num_data) for a in (gradients, hessians))
+        grad, hess, skip = self._guard_gradients(grad, hess)
+        if skip:
+            return self._skip_iteration(init_scores)
+        if isinstance(grad, np.ndarray):
+            grad, hess = (to_device_async(a, self.device)
+                          for a in (grad, hess))
+        elif self._nan_policy == "raise":
+            # the verdict rides the device queue to the next poll
+            self._fin_handles.append(
+                (self.iter_,
+                 torch.isfinite(grad).all() & torch.isfinite(hess).all()))
+        return self._grow_iteration(grad, hess, init_scores, lazy=True)
+
+    def _train_one_iter_sync(self, gradients=None, hessians=None) -> bool:
+        """The synchronous iteration (``_train_one_iter_sync``,
+        gbdt.py:1174-1254): one host tree per class, the gradients checked
+        at once, the stop decided this iteration."""
+        K = self.num_tree_per_iteration
         self._keep_pre_iter_scores()
         init_scores = [0.0] * K
         if gradients is None or hessians is None:
@@ -490,32 +824,89 @@ class GBDT:
             grad, hess = (torch.as_tensor(
                 np.asarray(a, dtype=np.float32).reshape(K, self.num_data),
                 device=self.device) for a in (gradients, hessians))
-        grad, hess, skip = self._guard_gradients(grad, hess)
+        grad, hess, skip = self._guard_gradients(grad, hess, force_check=True)
         if skip:
             return self._skip_iteration(init_scores)
         return self._grow_iteration(grad, hess, init_scores)
 
     def _grow_iteration(self, grad: torch.Tensor, hess: torch.Tensor,
-                        init_scores: List[float],
-                        host_count: bool = True) -> bool:
+                        init_scores: List[float], lazy: bool = False,
+                        poll: bool = True) -> bool:
         """The rest of an iteration from its [K, N] gradients: bagging, the
         feature mask, one tree per class; True when no tree could split.
-        ``host_count=False`` (the fused chunk) keeps the bag count on the
-        device, where the tree's root fetch reads it."""
+        ``lazy`` (the asynchronous loop and the fused chunk) keeps the bag
+        count and the trees on the device (:meth:`_commit_lazy`, which
+        polls unless ``poll`` is False)."""
         with FunctionTimer("GBDT::Bagging"):
-            self._bagging(self.iter_, host_count)
+            self._bagging(self.iter_, host_count=not lazy)
             grad, hess = self._adjust_gradients_for_bagging(grad, hess)
         feature_mask = self._feature_mask()
 
-        def tree_of(k: int) -> TreeArrays:
+        def tree_of(k: int):
             gk, hk = grad[k], hess[k]
             if self.bag_mask is not None:
                 gk = gk * self.bag_mask
                 hk = hk * self.bag_mask
             with FunctionTimer("TreeLearner::Train"):
                 return self.learner.train(gk, hk, self._bag_data_cnt,
-                                          feature_mask, iteration=self.iter_)
+                                          feature_mask, iteration=self.iter_,
+                                          lazy=lazy)
+        if lazy:
+            return self._commit_lazy(tree_of, init_scores, poll)
         return self._commit_iteration(tree_of, init_scores)
+
+    def _commit_lazy(self, tree_of, init_scores: List[float],
+                     poll: bool = True) -> bool:
+        """The asynchronous commit (gbdt.py:694-743): per class ``k`` the
+        device tree ``tree_of(k)`` adds its scaled leaf values to the train
+        score through its ``row_leaf`` (a tree of the carried store added
+        itself to the store's scores) and waits in ``_pending``; its
+        validation scores wait in ``_valid_queue``.  A class that trains no
+        tree keeps a constant, as the synchronous commit does.  True only
+        when no class trains; a stall shows at the next poll."""
+        K = self.num_tree_per_iteration
+        self._last_iter_arrays = []
+        rate = np.float32(self.shrinkage_rate)
+        any_trained = False
+        for k in range(K):
+            self.last_arrays = None
+            if self.class_need_train[k] and self.train_data.num_features > 0:
+                any_trained = True
+                r = self.last_arrays = _PendingTree(tree_of(k), k,
+                                                    init_scores[k], rate)
+                row_leaf = r.row_leaf
+                with FunctionTimer("GBDT::UpdateScore"):
+                    if row_leaf is not None and row_leaf.numel():
+                        self.train_score[k] += r.leaf_output()[row_leaf]
+                    idx = len(self._models)
+                    self._models.append(None)
+                    self._pending[idx] = r
+                    self._nl_handles.append((self.iter_, idx,
+                                             r.dtree.num_leaves))
+                    if self.valid_sets:
+                        self._valid_queue.append((idx, r))
+                self._last_iter_arrays.append(r)
+                continue
+            new_tree = Tree(1)
+            if len(self._models) < K:
+                output = (self.objective.boost_from_score(k)
+                          if (not self.class_need_train[k]
+                              and self.objective is not None)
+                          else init_scores[k])
+                new_tree.leaf_value[0] = output
+                if abs(output) > K_EPSILON:
+                    self._add_constant_score(output, k)
+            self._models.append(new_tree)
+            self._last_iter_arrays.append(None)
+        self._invalidate_predict_cache()
+        if not any_trained:
+            Log.warning("Stopped training because there are no more leaves "
+                        "that meet the split requirements")
+            return True
+        self.iter_ += 1
+        if poll and self.iter_ - self._last_poll >= self._poll_freq:
+            return self._poll_stop()
+        return False
 
     def _commit_iteration(self, tree_of, init_scores: List[float]) -> bool:
         """Per class ``k``: the tree ``tree_of(k)`` grows (when the class
@@ -562,12 +953,14 @@ class GBDT:
     #
     # ``raise`` (the default) fails naming the iteration, ``skip_iter``
     # advances the iteration with constant trees, ``clip`` sanitises (NaN ->
-    # 0, +-inf -> +-1e35; hessians have no negative clip) and trains on.  A
-    # single iteration checks its gradients (one read-back); a fused chunk
-    # checks once, at its end (``_guard_chunk_scores``), and under a
-    # resilient policy rolls back to the state before it and runs its
-    # iterations again one at a time, where the per-iteration guard can
-    # skip or clip the bad one.
+    # 0, +-inf -> +-1e35; hessians have no negative clip) and trains on.
+    # Under ``raise`` the asynchronous iteration keeps its verdict on the
+    # device for the next poll (``_fin_handles``); a resilient policy, the
+    # synchronous iteration and a custom objective's host gradients check
+    # at once.  A fused chunk checks once, at its end
+    # (``_guard_chunk_scores``), and under a resilient policy rolls back to
+    # the state before it and runs its iterations again one at a time,
+    # where the per-iteration guard can skip or clip the bad one.
 
     _NAN_CLIP = float(np.float32(1e35))
 
@@ -575,19 +968,27 @@ class GBDT:
     def _nan_policy(self) -> str:
         return str(getattr(self.config, "nan_policy", "raise"))
 
-    def _guard_gradients(self, grad: torch.Tensor, hess: torch.Tensor):
-        """(grad, hess, skip) of one iteration's [K, N] device gradients
-        (``_guard_gradients``, gbdt.py:1315-1346): one isfinite reduction
-        on the device, whose verdict is the only value read back."""
-        if bool(torch.isfinite(grad).all() & torch.isfinite(hess).all()):
-            return grad, hess, False
+    def _guard_gradients(self, grad, hess, force_check: bool = False):
+        """(grad, hess, skip) of one iteration's [K, N] gradients
+        (``_guard_gradients``, gbdt.py:1315-1346).  Host arrays (a custom
+        objective's) are always checked on the host.  Device gradients are
+        checked, one isfinite reduction read back, under a resilient policy
+        or with ``force_check`` (the synchronous iteration); under
+        ``raise`` the asynchronous iteration reads nothing here."""
         policy = self._nan_policy
-        self._nan_trip_telemetry(self.iter_, policy, policy)
+        host = isinstance(grad, np.ndarray)
+        if not host and policy == "raise" and not force_check:
+            return grad, hess, False
+        if host:
+            finite = bool(np.isfinite(grad).all() and np.isfinite(hess).all())
+        else:
+            finite = bool(torch.isfinite(grad).all()
+                          & torch.isfinite(hess).all())
+        if finite:
+            return grad, hess, False
         if policy == "raise":
-            raise LightGBMError(
-                "non-finite gradients/hessians at iteration %d "
-                "(nan_policy=raise); set nan_policy=skip_iter or clip to "
-                "degrade gracefully instead" % self.iter_)
+            self._raise_nonfinite(self.iter_)
+        self._nan_trip_telemetry(self.iter_, policy, policy)
         if policy == "skip_iter":
             Log.warning("non-finite gradients/hessians at iteration %d; "
                         "skipping the iteration (nan_policy=skip_iter)",
@@ -596,8 +997,9 @@ class GBDT:
         Log.warning("non-finite gradients/hessians at iteration %d; "
                     "clipping (nan_policy=clip)", self.iter_)
         clip = self._NAN_CLIP
-        grad = torch.nan_to_num(grad, nan=0.0, posinf=clip, neginf=-clip)
-        hess = torch.nan_to_num(hess, nan=0.0, posinf=clip, neginf=0.0)
+        nan_to_num = np.nan_to_num if host else torch.nan_to_num
+        grad = nan_to_num(grad, nan=0.0, posinf=clip, neginf=-clip)
+        hess = nan_to_num(hess, nan=0.0, posinf=clip, neginf=0.0)
         return grad, hess, False
 
     @staticmethod
@@ -673,12 +1075,20 @@ class GBDT:
         """Put back the state kept when the last chunk began
         (``_restore_prechunk``, gbdt.py:1424-1443): the scores, the model's
         length, the bag and the iteration."""
-        score, vscores, n_models, it, bag_mask, bag_cnt = self._prechunk
+        (score, vscores, queue, n_models, it, bag_mask,
+         bag_cnt) = self._prechunk
         self._prechunk = None
         self.train_score = score
         for vs, v in zip(self.valid_sets, vscores):
             vs["score"] = v
-        del self.models[n_models:]
+        self._valid_queue = queue
+        for idx in [i for i in self._pending if i >= n_models]:
+            self._pending.pop(idx)
+        del self._models[n_models:]
+        self._window = {i: r for i, r in self._window.items()
+                        if i < n_models}
+        self._nl_handles = [h for h in self._nl_handles if h[1] < n_models]
+        self._fin_handles = []
         self.bag_mask = bag_mask
         self.bag_data_cnt = bag_cnt
         self.iter_ = it
@@ -693,12 +1103,12 @@ class GBDT:
         iteration the trees carry the boost-from-average offset, which is
         already in the scores."""
         K = self.num_tree_per_iteration
-        first = len(self.models) < K
+        first = len(self._models) < K
         for k in range(K):
             tree = Tree(1)
             if init_scores is not None and first:
                 tree.leaf_value[0] = init_scores[k]
-            self.models.append(tree)
+            self._models.append(tree)
         self._last_iter_arrays = [None] * K
         self._invalidate_predict_cache()
         self.iter_ += 1
@@ -707,11 +1117,12 @@ class GBDT:
     def _keep_pre_iter_scores(self) -> None:
         """Keep the scores this iteration starts from, for
         ``rollback_one_iter`` (one [K, N] f32 copy and one per validation
-        set)."""
+        set, with the trees still queued for the validation scores)."""
         self._last_iter_arrays = []
         self._pre_iter_scores = (
             (self.train_score.clone(),
-             [vs["score"].clone() for vs in self.valid_sets])
+             [_raw_score(vs).clone() for vs in self.valid_sets],
+             list(self._valid_queue))
             if self.keep_rollback_scores else None)
 
     def _adjust_gradients_for_bagging(self, grad: torch.Tensor,
@@ -796,8 +1207,8 @@ class GBDT:
     # Where an iteration makes no decision on the host (no feature sampling,
     # no leaf renewal, gradients that are a function of the scores, the
     # serial learner), ``train_chunk`` runs k iterations without reading
-    # anything back from the device but the trees' own fetches and one
-    # guard verdict at the end.  For a single-model pointwise objective
+    # anything back from the device but one guard verdict at the end.  For
+    # a single-model pointwise objective
     # without sample weights the chunk carries the objective's per-row value
     # and the running score inside the tree learner's permuted row store
     # (carried row-store training): each tree's gradients come from the
@@ -805,14 +1216,16 @@ class GBDT:
     # its leaf values to the score column over its windows; the scores go
     # back to original order once, at the chunk's end.  Otherwise
     # (multiclass, sample weights, other objectives) the chunk runs the
-    # iteration of ``train_one_iter`` without its per-iteration read-back
-    # and score copies.  Bagging keys its mask by original row ids, the
-    # carried store's order bytes, so every path draws the same bag.
+    # asynchronous iteration of ``train_one_iter`` without its score
+    # copies.  Bagging keys its mask by original row ids, the carried
+    # store's order bytes, so every path draws the same bag.
     #
-    # The port's trees are host trees once grown, so a chunk ends at the
-    # first iteration that makes no split, with that iteration taken out:
-    # the state the JAX package's deferred stall poll trims back to
-    # (``_poll_stop``, gbdt.py:318-380).  The JAX traceability probe
+    # The chunk runs all k iterations and leaves their trees pending, as
+    # the JAX package leaves its scan's stacked trees (gbdt.py:1071-1098):
+    # an iteration that made no split is found by the stall poll, which
+    # trims it and everything after it (``_poll_stop``), and the poll runs
+    # at the chunk's end once ``_poll_freq`` iterations have passed since
+    # the last one.  The JAX traceability probe
     # (``_fuse_failed`` on a trace error, gbdt.py:1036-1046) has no
     # counterpart: every objective of the port is torch, and a Python
     # ``fobj`` trains through ``train_one_iter``.
@@ -863,7 +1276,9 @@ class GBDT:
         """Run up to ``num_iters`` iterations (gbdt.py:1003-1099): fused
         when :meth:`_can_fuse_iters` holds, in one watchdog section
         ``fused_train_chunk``, else one ``train_one_iter`` at a time.
-        Returns True when training stopped (no more splittable leaves)."""
+        Returns True when training stopped (no more splittable leaves, found
+        by the stall poll that ends a fused chunk once ``_poll_freq``
+        iterations have passed since the last poll)."""
         if num_iters <= 0:
             return False
         self.trained_at = time.time()
@@ -872,9 +1287,10 @@ class GBDT:
             # the state the rollback of a non-finite chunk restores; the
             # chunk writes the scores in place, so they are copied
             self._prechunk = (self.train_score.clone(),
-                              [vs["score"].clone() for vs in self.valid_sets],
-                              len(self.models), self.iter_, self.bag_mask,
-                              self._bag_data_cnt)
+                              [_raw_score(vs).clone()
+                               for vs in self.valid_sets],
+                              list(self._valid_queue), len(self._models),
+                              self.iter_, self.bag_mask, self._bag_data_cnt)
         tele = _telemetry_active()
         t0 = time.perf_counter()
         it0 = self.iter_
@@ -906,14 +1322,16 @@ class GBDT:
                 watch("fused_train_chunk", builds=self.device.type == "cuda",
                       compile_key=int(num_iters), first_iter=int(it0),
                       iters=int(num_iters)):
-            stopped = body(its)
+            body(its)
         self._invalidate_predict_cache()
         if tele is not None:
             self._record_chunk_telemetry(tele, it0, time.perf_counter() - t0,
                                          fused=True,
                                          compile_key="k=%d" % num_iters,
                                          compiles=int(first))
-        return stopped
+        if self.iter_ - self._last_poll >= self._poll_freq:
+            return self._poll_stop()
+        return False
 
     def _note_grads(self, grad: torch.Tensor, hess: torch.Tensor) -> None:
         """Fold one iteration's gradient finiteness into the chunk's verdict
@@ -922,24 +1340,24 @@ class GBDT:
         prev = self._chunk_grads_ok
         self._chunk_grads_ok = ok if prev is None else prev & ok
 
-    def _chunk_plain(self, its: List[int]) -> bool:
+    def _chunk_plain(self, its: List[int]) -> None:
         """The plain fused chunk (``_make_fused_train``, gbdt.py:927-1001):
-        each iteration as ``train_one_iter`` runs it, without its gradient
-        read-back, its score copies and the bag count's read-back; the
-        trees and scores equal the per-iteration path's bit for bit."""
+        each iteration as the asynchronous ``train_one_iter`` runs it,
+        without its score copies and its poll; the trees and scores equal
+        the per-iteration path's bit for bit."""
         K = self.num_tree_per_iteration
 
-        def step(it: int) -> bool:
+        def step(it: int) -> None:
             self._pre_iter_scores = None
             init_scores = [self._boost_from_average(k) for k in range(K)]
             with FunctionTimer("GBDT::Boosting"):
                 grad, hess = self._get_gradients()
             self._note_grads(grad, hess)
-            return self._grow_iteration(grad, hess, init_scores,
-                                        host_count=False)
-        return _steps_grouped(step, its, self._trees_per_chunk())
+            self._grow_iteration(grad, hess, init_scores, lazy=True,
+                                 poll=False)
+        _steps_grouped(step, its, self._trees_per_chunk())
 
-    def _chunk_carried(self, its: List[int]) -> bool:
+    def _chunk_carried(self, its: List[int]) -> None:
         """The carried chunk (``_make_fused_train_carried``, gbdt.py:
         814-925).  The first tree builds the carried store from the original
         row order with the objective's value and the score; each later tree
@@ -956,7 +1374,7 @@ class GBDT:
         seed = int(self.config.bagging_seed)
         store = {}
 
-        def step(it: int) -> bool:
+        def step(it: int) -> None:
             self._pre_iter_scores = None
             init_scores = [self._boost_from_average(0)]
             rows = store.get("rows")
@@ -978,15 +1396,15 @@ class GBDT:
             kw = (dict(extra=(aux, score)) if rows is None
                   else dict(rows_carry=rows))
 
-            def tree_of(k: int) -> TreeArrays:
+            def tree_of(k: int) -> DeviceTree:
                 with FunctionTimer("TreeLearner::Train"):
-                    arrays, store["rows"] = learner.train(
+                    tree, store["rows"] = learner.train(
                         g, h, count, iteration=it, carried=True,
-                        score_rate=rate, **kw)
-                return arrays
-            return self._commit_iteration(tree_of, init_scores)
+                        score_rate=rate, lazy=True, **kw)
+                return tree
+            self._commit_lazy(tree_of, init_scores, poll=False)
 
-        stopped = _steps_grouped(step, its, self._trees_per_chunk())
+        _steps_grouped(step, its, self._trees_per_chunk())
         rows = store.get("rows")
         if rows is not None:
             score = torch.zeros(n, dtype=torch.float32, device=self.device)
@@ -995,11 +1413,9 @@ class GBDT:
         if bag is not None:
             # the bag of the window in progress, in original row order, for
             # an iteration that runs outside a chunk next
-            last = self.iter_ - 1 if not stopped else self.iter_
             self.bag_mask, self.bag_data_cnt = bag_mask_for(
-                self._row_ids, seed, max(last, 0), bag[1], bag[0],
+                self._row_ids, seed, max(self.iter_ - 1, 0), bag[1], bag[0],
                 host_count=False)
-        return stopped
 
     def _gather_tree_output(self, arrays: TreeArrays) -> torch.Tensor:
         """[N] f32: each training row's leaf value of ``arrays``
@@ -1061,7 +1477,17 @@ class GBDT:
                 # early-stopping state a periodic one would
                 self._preempt_exit(snapshot_out)
             if snapshot_out and sf > 0 and self.iter_ % sf == 0:
+                # the stall poll first (gbdt.py:1886-1894): a snapshot never
+                # holds iterations a later poll would trim; a trim ends
+                # training after the snapshot of its state
+                finished = bool(self._nl_handles) and self._poll_stop()
                 self._write_snapshot(snapshot_out)
+                if finished:
+                    break
+        if self._nl_handles:
+            self._poll_stop()   # trims trailing stalled iterations
+        elif self._fin_handles:
+            self._drain_nonfinite_checks()
         if tele is not None:
             # the run gauges report.summarize folds into row-trees/s; the
             # iterations are this call's (a resumed run's wall covers only
@@ -1123,10 +1549,15 @@ class GBDT:
             return self.train_one_iter(gradients, hessians)
 
     def _preempt_exit(self, snapshot_out: Optional[str]) -> None:
-        """The preemption flag is set: let the queued device work finish,
-        write the emergency checkpoint through the ordinary atomic path,
-        consume the flag and raise :class:`TrainingPreempted`, which the
-        entry points turn into the resumable exit (gbdt.py:1910-1930)."""
+        """The preemption flag is set: settle the stall poll and the
+        pending isfinite verdicts, let the queued device work finish, write
+        the emergency checkpoint through the ordinary atomic path, consume
+        the flag and raise :class:`TrainingPreempted`, which the entry
+        points turn into the resumable exit (gbdt.py:1910-1930)."""
+        if self._nl_handles:
+            self._poll_stop()
+        if self._fin_handles:
+            self._drain_nonfinite_checks()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         path = seconds = None
@@ -1154,13 +1585,14 @@ class GBDT:
                         snap, exc)
         save_checkpoint_best_effort(self, snapshot_out)
 
+    # the model's length needs no materialization
     @property
     def num_trees(self) -> int:
-        return len(self.models)
+        return len(self._models)
 
     @property
     def current_iteration(self) -> int:
-        return len(self.models) // max(self.num_tree_per_iteration, 1)
+        return len(self._models) // max(self.num_tree_per_iteration, 1)
 
     # ---- evaluation (gbdt.py:1952-1994) ----
 
@@ -1535,34 +1967,51 @@ class GBDT:
 
     def rollback_one_iter(self) -> None:
         """Undo the last iteration (gbdt.cpp:454-470): its trees leave the
-        model, and the scores go back to those it started from.  Where they
-        were not kept (DART, a fused chunk, or the first iteration after a
-        restore) the last trees are taken out of the scores as
-        gbdt.py:1705-1732 does, through their ``row_leaf`` (routed over the
-        training bins for a tree of the carried store, or when the arrays
-        are gone); f32 ``(s + v) - v`` need not give back ``s``."""
+        model, and the scores go back to those it started from (with the
+        trees then still queued for the validation scores, which are added
+        now).  Where they were not kept (DART, a fused chunk, or the first
+        iteration after a restore) the last trees are taken out of the
+        scores as gbdt.py:1705-1732 does, through their ``row_leaf``
+        (routed over the training bins for a tree of the carried store, or
+        when the arrays are gone); f32 ``(s + v) - v`` need not give back
+        ``s``.  The removed trees' stall and isfinite handles go too, so a
+        later poll cannot meet them."""
         self._invalidate_predict_cache()
         if self.iter_ <= 0:
             return
         K = self.num_tree_per_iteration
+        cut = len(self._models) - K
         if self._pre_iter_scores is not None:
-            self.train_score, valid = self._pre_iter_scores
+            self.train_score, valid, queue = self._pre_iter_scores
             for vs, score in zip(self.valid_sets, valid):
                 vs["score"] = score
+            # the last iteration's own trees never need reading back
+            for idx in [i for i in self._pending if i >= cut]:
+                self._pending.pop(idx)
+            self._valid_queue = queue
+            self._settle_valid()
         else:
+            models = self.models
             for k in range(K):
-                tree = self.models[len(self.models) - K + k]
+                tree = models[cut + k]
                 tree.shrink(-1.0)
                 arrays = (self._last_iter_arrays[k]
                           if k < len(self._last_iter_arrays) else None)
-                if arrays is not None:
+                if isinstance(arrays, _PendingTree):
+                    self.train_score[k] -= self._pending_output(arrays)
+                elif arrays is not None:
                     self.train_score[k] -= self._gather_tree_output(arrays)
                 else:
                     self._add_tree_score_train(tree, k)
                 for vs in self.valid_sets:
                     self._add_tree_score_valid(tree, k, vs)
-        del self.models[-K:]
+        del self._models[cut:]
+        self._window = {i: r for i, r in self._window.items() if i < cut}
+        self._nl_handles = [h for h in self._nl_handles if h[1] < cut]
         self.iter_ -= 1
+        # the removed iteration's isfinite verdict must not raise later
+        self._fin_handles = [h for h in self._fin_handles
+                             if h[0] < self.iter_]
         self._pre_iter_scores = None
         self._last_iter_arrays = []
 
@@ -1626,6 +2075,13 @@ class GBDT:
         (``checkpoint.py``): the RNG streams, the early-stopping state, the
         f32 scores as binary arrays and CEGB's state, beside the model."""
         from ..checkpoint import dataset_fingerprint, encode_rng_state
+        if self._nl_handles:
+            # settle the stall poll first (gbdt.py:1455-1462): a stalled
+            # trailing iteration captured here would be trimmed by the
+            # uninterrupted run's next poll, and the resumed run could
+            # never trim below its checkpoint
+            self._poll_stop()
+        model_str = self.save_model_to_string()
         meta = {
             "boosting": type(self).__name__.lower(),
             "iteration": int(self.iter_),
@@ -1649,10 +2105,10 @@ class GBDT:
             arrays["valid_score_%d" % i] = vs["score"].cpu().numpy()
         ln = self.learner
         if ln.cegb_used is not None:
-            arrays["cegb_used"] = np.asarray(ln.cegb_used)
+            arrays["cegb_used"] = ln.cegb_used.cpu().numpy()
         if ln.cegb_paid is not None:
             arrays["cegb_paid"] = ln.cegb_paid.cpu().numpy()
-        return meta, arrays, self.save_model_to_string()
+        return meta, arrays, model_str
 
     def restore_train_state(self, meta, arrays, model_str) -> None:
         """Inverse of :meth:`capture_train_state`, on a booster with the

@@ -11,8 +11,11 @@ The order is a stable descending sort on the device (``torch.sort(...,
 stable=True)``: ties go to the lower row index, as ``lax.top_k`` and
 ``np.argsort(-key, kind="stable")`` break them).  The positions of the
 sampled rows within the rest come from the booster's sequential
-``_bag_rng``, the same ``choice`` call as the JAX package's.  There is one
-selection path: a failure in it raises.
+``_bag_rng``, the same ``choice`` call as the JAX package's, and go to the
+card from pinned memory without a wait: the sample is drawn on the host
+and nothing is read back, so GOSS runs the asynchronous iteration of
+``GBDT.train_one_iter`` (only its fused chunk is off, goss.py:33).  There
+is one selection path: a failure in it raises.
 With a telemetry run active the selection sets ``goss_top_k`` and
 ``goss_other_k``, and every ``telemetry_freq``-th iteration emits
 ``goss_select`` (goss.py:113-123).
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from .gbdt import GBDT
+from ..device import to_device_async
 from ..obs import active as _telemetry_active
 from ..utils.log import Log
 
@@ -37,8 +41,7 @@ def goss_weights(key: torch.Tensor, top_k: int, sampled: np.ndarray,
     w = torch.zeros(n, dtype=torch.float32, device=key.device)
     w[order[:top_k]] = 1.0
     if len(sampled):
-        idx = torch.as_tensor(np.asarray(sampled, np.int64),
-                              device=key.device)
+        idx = to_device_async(np.asarray(sampled, np.int64), key.device)
         w[order[top_k:][idx]] = float(np.float32(multiply))
     return w
 

@@ -9,7 +9,10 @@ iterations).  The running average keeps the JAX package's f32 order: the
 score times ``it``, plus the tree, times ``1 / (it + 1)``.  Custom
 objectives are refused.  A checkpoint carries the constant init scores the
 gradients are taken at (``_extra_train_state``, rf.py:36-50): after a resume
-the model is not empty, and ``_boost_from_average`` would give 0.
+the model is not empty, and ``_boost_from_average`` would give 0.  The
+iteration is RF's own and reads its trees as the JAX package's does
+(rf.py:95-104: ``int(arrays.num_leaves)`` and the host tree); its gradients
+are guarded once, when first computed (``force_check``).
 """
 from __future__ import annotations
 
@@ -73,7 +76,8 @@ class RF(GBDT):
                 grad, hess = self.objective.get_gradients(scores)
             # the gradients never change: guarded once, and the sanitised
             # pair and the skip verdict kept (rf.py:77-86)
-            grad, hess, self._rf_skip = self._guard_gradients(grad, hess)
+            grad, hess, self._rf_skip = self._guard_gradients(
+                grad, hess, force_check=True)
             self._rf_grad = (grad, hess)
         return self._rf_grad
 

@@ -111,7 +111,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device, to_device_async
 from ..io.binning import BinType, MissingType
 from ..io.dataset import BinnedDataset
 from .histogram import histogram_rows, histogram_rows_window, pad_bins_pow2
@@ -177,7 +177,8 @@ class TreeArrays(NamedTuple):
     loop.  ``levels`` counts its level steps that split (0 leaf-wise),
     ``split_passes`` its split passes: L - 1 leaf-wise and ``level_count``
     level-wise in the device build (dead steps included), one a split or a
-    live level in the host loop."""
+    live level in the host loop.  A device-built tree that the booster has
+    not read back yet is a :class:`DeviceTree`."""
     split_feature: np.ndarray    # [L] i32, inner feature index
     threshold_bin: np.ndarray    # [L] i32
     split_gain: np.ndarray       # [L] f32
@@ -565,7 +566,8 @@ class _LeafScan:
                 0, dtype=torch.int32)).to(torch.float32)
         count0 = (num_data.to(torch.float32).reshape(())
                   if isinstance(num_data, torch.Tensor)
-                  else torch.tensor(float(num_data), device=dev))
+                  else torch.full((), float(num_data), dtype=torch.float32,
+                                  device=dev))
         return hist0, sums, count0, ucnt0
 
     def psum_rows(self, t: torch.Tensor) -> torch.Tensor:
@@ -1308,9 +1310,7 @@ class _DeviceGrowth:
         self.sx = sx = _LeafScan(scan, comm, cegb, layout, qscale, num_bins,
                                  hist_features, packed, dev)
         self.cegb = cegb
-        self.feat_used = (None if cegb is None else
-                          torch.as_tensor(np.asarray(cegb.used, bool),
-                                          device=dev).clone())
+        self.feat_used = None if cegb is None else cegb.used.clone()
         self.cmin = torch.full((L + 1,), -np.inf, dtype=f32, device=dev)
         self.cmax = torch.full((L + 1,), np.inf, dtype=f32, device=dev)
         hist0, sums, count0, ucnt0 = sx.root(rows, grad, hess, num_data,
@@ -1345,7 +1345,8 @@ class _DeviceGrowth:
                 x[0] = v
         self.forced = None
         if forced is not None:
-            self.forced = tuple(torch.as_tensor(np.asarray(a, np.int64),
+            self.forced = tuple(a if isinstance(a, torch.Tensor) else
+                                torch.as_tensor(np.asarray(a, np.int64),
                                                 device=dev) for a in forced)
             self.force_on = torch.ones((), dtype=torch.bool, device=dev)
         self.node = torch.zeros((L + 1, _NODE_WORDS + words), dtype=f64,
@@ -1746,9 +1747,9 @@ class _DeviceGrowth:
         store, and with ``carried`` the odd-depth windows are first copied
         into store 0 (the store returned, the next tree's;
         :meth:`_Growth.fill_scores`).  Then the tree arrays, the pool's
-        misses and the levels that split, in one transfer.  Returns the
-        TreeArrays (``row_leaf`` empty when ``carried``), and the store with
-        ``carried``."""
+        misses and the levels that split, packed into one record that stays
+        on the device.  Returns the :class:`DeviceTree` (``row_leaf`` empty
+        when ``carried``), and the store with ``carried``."""
         n, L, dev, layout = self.n, self.L, self.dev, self.layout
         begin, count = self.win[:L, 0], self.win[:L, 1]
         marks = torch.zeros(n + 1, dtype=torch.int64, device=dev)
@@ -1785,19 +1786,104 @@ class _DeviceGrowth:
                 paid[order] = self.rows[:n, lo:lo + layout.bitbytes]
         misses = (self.misses if self.pool
                   else torch.zeros((), dtype=torch.int64, device=dev))
-        # the tree's one device->host transfer
-        host = torch.cat([self.node[:L].reshape(-1), self.leaf[:L].reshape(-1),
-                          self.child[:L].double().reshape(-1),
-                          torch.stack([self.leaves, misses,
-                                       self.live_levels]).double()]
-                         ).cpu().numpy()
-        nodes, rest = np.split(host, [self.node[:L].numel()])
+        # the packed record, left on the device: read back by
+        # DeviceTree.resolve (the tree's one device->host transfer) or with
+        # the other pending trees in one transfer by the booster
+        record = torch.cat([self.node[:L].reshape(-1),
+                            self.leaf[:L].reshape(-1),
+                            self.child[:L].double().reshape(-1),
+                            torch.stack([self.leaves, misses,
+                                         self.live_levels]).double()])
+        tree = DeviceTree(record, L, row_leaf, paid,
+                          (level_count(L, self.max_depth)
+                           if self.stores is not None else L - 1)
+                          if L > 1 else 0)
+        return (tree, self.rows) if carried else tree
+
+
+class DeviceTree:
+    """A tree of the device build before it is read back (the port's
+    counterpart of the JAX build's device ``TreeArrays`` and of
+    ``_LazyTreeSlice``, gbdt.py:174-190): the packed record
+    :meth:`_DeviceGrowth.finish` writes, [R] f64 on the device (per node
+    gain, feature, threshold, default_left, internal value, weight, count
+    and the bitset words; per leaf ``_LEAF``; the children; then the
+    leaves, the pool's misses and the levels that split), ``num_leaves``
+    (a 0-d view into it), ``row_leaf`` (empty for a tree of the carried
+    store), lazy CEGB's ``paid_bits`` and the static ``split_passes``.
+    Nothing here reads the card: :meth:`resolve` decodes the host
+    :class:`TreeArrays` from a host copy of the record, fetching it itself
+    when none is given."""
+
+    __slots__ = ("record", "L", "row_leaf", "paid_bits", "split_passes")
+    # the one transfer that reads the tree back (TreeArrays.host_fetches):
+    # resolve's, or the booster's materialization, which reads every
+    # pending tree's record in one transfer
+    host_fetches = 1
+
+    def __init__(self, record: torch.Tensor, L: int,
+                 row_leaf: Optional[torch.Tensor],
+                 paid_bits: Optional[torch.Tensor],
+                 split_passes: int) -> None:
+        self.record = record
+        self.L = L
+        self.row_leaf = row_leaf
+        self.paid_bits = paid_bits
+        self.split_passes = split_passes
+
+    @classmethod
+    def from_arrays(cls, a: TreeArrays, device) -> "DeviceTree":
+        """A host-loop tree in the device build's record (every field is an
+        f32, i32, bool or 32-bit word, so f64 holds it exactly), sent to
+        ``device`` without a wait: the booster's asynchronous loop takes a
+        tree of either build."""
+        f64 = np.float64
+        nodes = np.concatenate([
+            np.stack([a.split_gain, a.split_feature, a.threshold_bin,
+                      a.default_left, a.internal_value, a.internal_weight,
+                      a.internal_count], 1).astype(f64),
+            np.asarray(a.cat_bitset, f64)], 1)
+        leaves = np.stack([a.leaf_value, a.leaf_weight, a.leaf_count,
+                           a.leaf_parent, a.leaf_depth], 1).astype(f64)
+        child = np.stack([a.left_child, a.right_child], 1).astype(f64)
+        record = np.concatenate([nodes.ravel(), leaves.ravel(), child.ravel(),
+                                 [a.num_leaves, a.pool_misses, a.levels]])
+        return cls(to_device_async(record, device), len(a.leaf_value),
+                   a.row_leaf, a.paid_bits, a.split_passes)
+
+    @property
+    def num_leaves(self) -> torch.Tensor:
+        """The tree's leaf count, a 0-d f64 device tensor."""
+        return self.record[-3]
+
+    def _node_width(self) -> int:
+        return (self.record.numel() - 3) // self.L - len(_LEAF) - 2
+
+    def leaf_value(self) -> torch.Tensor:
+        """[L] f32 leaf values on the device (the host decode's
+        ``leaf_value``: the same f64 -> f32 rounding)."""
+        L, nw = self.L, self._node_width()
+        return self.record[L * nw:L * (nw + len(_LEAF))].view(
+            L, len(_LEAF))[:, 0].to(torch.float32)
+
+    def split_features(self) -> torch.Tensor:
+        """[L] i64 split features on the device (node i valid for i <
+        num_leaves - 1)."""
+        return self.record[:self.L * self._node_width()].view(
+            self.L, -1)[:, 1].long()
+
+    def resolve(self, host: Optional[np.ndarray] = None) -> TreeArrays:
+        """The host :class:`TreeArrays` of ``host``, a host copy of
+        ``record`` (fetched here when None; ``host_fetches`` = 1)."""
+        if host is None:
+            host = self.record.cpu().numpy()
+        L = self.L
+        nodes, rest = np.split(host, [L * self._node_width()])
         nodes = nodes.reshape(L, -1)
         leaves = rest[:L * len(_LEAF)].reshape(L, -1)
         child = rest[L * len(_LEAF):-3].reshape(L, 2)
-        level = self.stores is not None
         f32, i32 = np.float32, np.int32
-        arrays = TreeArrays(
+        return TreeArrays(
             split_feature=nodes[:, 1].astype(i32),
             threshold_bin=nodes[:, 2].astype(i32),
             split_gain=nodes[:, 0].astype(f32),
@@ -1813,11 +1899,9 @@ class _DeviceGrowth:
             leaf_parent=leaves[:, 3].astype(i32),
             leaf_depth=leaves[:, 4].astype(i32),
             cat_bitset=nodes[:, _NODE_WORDS:].astype(np.int64),
-            num_leaves=int(host[-3]), row_leaf=row_leaf, host_fetches=1,
-            levels=int(host[-1]), pool_misses=int(host[-2]), paid_bits=paid,
-            split_passes=((level_count(L, self.max_depth) if level
-                           else L - 1) if L > 1 else 0))
-        return (arrays, self.rows) if carried else arrays
+            num_leaves=int(host[-3]), row_leaf=self.row_leaf,
+            host_fetches=1, levels=int(host[-1]), pool_misses=int(host[-2]),
+            paid_bits=self.paid_bits, split_passes=self.split_passes)
 
 
 def grows_on_device(grow_mode: str) -> bool:
@@ -1851,7 +1935,7 @@ def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
                            work=None, host_loop: bool = False,
                            rebuild_fn=histogram_rows_window,
                            level_window_fn=partition_hist_level_window,
-                           level_work=None):
+                           level_work=None, lazy: bool = False):
     """Grow one tree; ``rows`` is the filled row store (it is partitioned in
     place on the card).  ``num_data`` is the in-bag count, an int or a
     device scalar (read back with the root's sums).  Level growth also
@@ -1904,7 +1988,9 @@ def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
     plain version) on ``level_work`` (:func:`level_workspace`; None on the
     CPU) from one store into the other.  Both gather the scal rows from
     ``table`` (the device form of :func:`scal_table`) and read the tree back
-    once.  With ``host_loop`` the tree grows in the host loop
+    once, or with ``lazy`` not at all: the call then returns the
+    :class:`DeviceTree` in place of the TreeArrays.  With ``host_loop`` the
+    tree grows in the host loop
     (:class:`_Growth`: one read-back a split, ``part_fn``, or a level,
     ``level_fn``): for checks only, which rebuild a device-built tree with
     it.
@@ -1953,7 +2039,12 @@ def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
                           level_work=level_work,
                           level_window_fn=level_window_fn)
         g.grow()
-        return g.finish(carried, score_rate)
+        out = g.finish(carried, score_rate)
+        if lazy:
+            return out
+        if carried:
+            return out[0].resolve(), out[1]
+        return out.resolve()
     g = _Growth(rows, grad, hess, num_data, scan, feat_host,
                 num_leaves=num_leaves, num_bins=num_bins, layout=layout,
                 hist_features=hist_features, packed=packed, qscale=qscale,
@@ -1989,7 +2080,7 @@ def route_binned(bins: torch.Tensor, tree: TreeArrays,
         return torch.zeros(n, dtype=torch.int64, device=dev)
     m = tree.num_leaves - 1
     sf = tree.split_feature[:m].astype(np.int64)
-    t = lambda a: torch.as_tensor(np.asarray(a), device=dev)  # noqa: E731
+    t = lambda a: to_device_async(np.asarray(a), dev)  # noqa: E731
     thr = t(tree.threshold_bin[:m].astype(np.int64))
     dl = t(tree.default_left[:m])
     lc = t(tree.left_child[:m].astype(np.int64))
@@ -2280,8 +2371,9 @@ class SerialTreeLearner:
         # (is_feature_used_in_split_) and, for lazy penalties, every
         # (row, feature)'s paid bit in original row order
         # (feature_used_in_data_)
-        self.cegb_used = (np.zeros(F, bool) if self.cegb is not None
-                          else None)
+        self.cegb_used = (torch.zeros(F, dtype=torch.bool, device=dev)
+                          if self.cegb is not None else None)
+        self._forced_dev = None
         self.cegb_paid = (torch.zeros((self.num_data, self.layout.bitbytes),
                                       dtype=torch.uint8, device=dev)
                           if lazy else None)
@@ -2425,7 +2517,8 @@ class SerialTreeLearner:
         original row order; a JAX checkpoint's padded rows are cut), which
         the next tree writes into its row store."""
         if self.cegb_used is not None and used is not None:
-            self.cegb_used = np.array(used, dtype=bool)
+            self.cegb_used = torch.as_tensor(np.array(used, dtype=bool),
+                                             device=self.cegb_used.device)
         if self.cegb_paid is not None and paid is not None:
             paid = np.array(np.asarray(paid, dtype=np.uint8)
                             [:self.num_data, :self.cegb_paid.shape[1]])
@@ -2490,7 +2583,8 @@ class SerialTreeLearner:
               rows_carry: Optional[torch.Tensor] = None, extra=None,
               score_rate=None, window_fn=partition_hist_window,
               host_loop: bool = False, rebuild_fn=histogram_rows_window,
-              level_window_fn=partition_hist_level_window):
+              level_window_fn=partition_hist_level_window,
+              lazy: bool = False):
         """grad/hess: [N] f32 on the learner's device.  ``num_data_in_bag``
         is an int or a device scalar.  ``iteration`` keys the quantized
         path's rounding hash (ignored when exact);
@@ -2510,7 +2604,15 @@ class SerialTreeLearner:
         the quantization hash takes each row's id from the order bytes
         (tree_learner.py:342-347).  Returns (the tree with an empty
         ``row_leaf``, the store after the score fill with ``score_rate``);
-        otherwise the tree."""
+        otherwise the tree.
+
+        The tree is host :class:`TreeArrays` after one fetch, or with
+        ``lazy`` (the booster's asynchronous loop) the device build's
+        :class:`DeviceTree`, nothing read back (a host-loop tree packed
+        into one).  The telemetry span reads nothing: its
+        ``launches`` and, level-wise, ``levels`` are the static schedule
+        (tree_learner.py:1878-1882), and CEGB's used features are updated
+        on the device from the tree's record."""
         if feature_mask is None:
             feature_mask = torch.ones(self.dataset.num_features, dtype=torch.bool,
                                       device=self.device)
@@ -2544,9 +2646,12 @@ class SerialTreeLearner:
         if grow_mode == "level" and (self.spare is None
                                      or self.spare.shape != rows.shape):
             self.spare = torch.empty_like(rows)
+        on_device = not host_loop and self.grows_on_device()
         cegb = None
         if self.cegb is not None:
-            cegb = CegbState(*self.cegb, self.cegb_used,
+            # the host loop (checks only) takes the used features as numpy
+            cegb = CegbState(*self.cegb, self.cegb_used if on_device
+                             else self.cegb_used.cpu().numpy(),
                              self._local_rows(self.cegb_paid))
         tele = _telemetry_active()
         t0, pc0 = ((time.time(), time.perf_counter()) if tele is not None
@@ -2561,7 +2666,7 @@ class SerialTreeLearner:
             arrays, rows = arrays
         # split passes this tree dispatched (obs/launches.py): L - 1 in the
         # device build, level_count in its level growth, one a split or a
-        # level in the host loop
+        # level in the host loop (a host-known count either way)
         passes = arrays.split_passes
         _launches.record(grow_mode, passes)
         if tele is not None:
@@ -2572,20 +2677,50 @@ class SerialTreeLearner:
                                                int(self.num_bins)),
                               mode=grow_mode)
             from ..obs import spans as _spans
+            fields = dict(mode=grow_mode, launches=int(passes))
+            if grow_mode == "level":
+                fields["levels"] = self.level_count()
             _spans.record_span(tele, "tree_build", t0=t0,
                                dur_s=time.perf_counter() - pc0,
-                               trace_id=tele.trace_id, mode=grow_mode,
-                               launches=int(passes),
-                               levels=int(arrays.levels),
-                               leaves=int(arrays.num_leaves))
-        arrays = arrays._replace(row_leaf=self._gather_rows(arrays.row_leaf),
-                                 paid_bits=self._gather_rows(arrays.paid_bits))
+                               trace_id=tele.trace_id, **fields)
+        if isinstance(arrays, DeviceTree):
+            arrays.row_leaf = self._gather_rows(arrays.row_leaf)
+            arrays.paid_bits = self._gather_rows(arrays.paid_bits)
+        else:
+            arrays = arrays._replace(
+                row_leaf=self._gather_rows(arrays.row_leaf),
+                paid_bits=self._gather_rows(arrays.paid_bits))
         if cegb is not None:
             # tree_learner.py:1930-1937 _update_cegb_used, and the paid bits
-            self.cegb_used[arrays.split_feature[:arrays.num_leaves - 1]] = True
+            self._update_cegb_used(arrays)
             if arrays.paid_bits is not None:
                 self.cegb_paid = arrays.paid_bits
+        if not lazy and isinstance(arrays, DeviceTree):
+            arrays = arrays.resolve()
+        elif lazy and not isinstance(arrays, DeviceTree):
+            arrays = DeviceTree.from_arrays(arrays, self.device)
         return (arrays, rows) if carried else arrays
+
+    def _update_cegb_used(self, tree) -> None:
+        """Mark the features ``tree`` split on in ``cegb_used`` ([F] bool
+        on the device): from the record of a :class:`DeviceTree`, the
+        nodes past its leaf count sent to a sink column."""
+        used = self.cegb_used
+        F = used.shape[0]
+        if isinstance(tree, DeviceTree):
+            if tree.L < 2:
+                return
+            feats = tree.split_features()[:tree.L - 1]
+            live = (torch.arange(tree.L - 1, device=used.device)
+                    < tree.num_leaves.long() - 1)
+            flags = torch.zeros(F + 1, dtype=torch.bool, device=used.device)
+            flags[torch.where(live, feats, F)] = True
+            used |= flags[:F]
+            return
+        nl = int(tree.num_leaves)
+        if nl > 1:
+            used[torch.as_tensor(tree.split_feature[:nl - 1].astype(np.int64),
+                                 device=used.device)] = True
 
     def _build(self, rows, grad, hess, num_data_in_bag, feature_mask,
                grow_mode, qscale, hist_fn, part_fn, level_fn, cegb,
@@ -2596,6 +2731,14 @@ class SerialTreeLearner:
             num_data_in_bag = int(num_data_in_bag)
         # the device build's buffers, made only for a tree that uses them
         on_device = not host_loop and self.grows_on_device()
+        forced = self.forced
+        if on_device and forced is not None:
+            if self._forced_dev is None:
+                # the schedule on the device once, not a copy a tree
+                self._forced_dev = tuple(
+                    torch.as_tensor(np.asarray(a, np.int64),
+                                    device=self.device) for a in forced)
+            forced = self._forced_dev
         level = grow_mode == "level"
         n = grad.shape[0]
         return build_tree_partitioned(
@@ -2607,7 +2750,7 @@ class SerialTreeLearner:
             grow_mode=grow_mode, qscale=qscale, hist_fn=hist_fn,
             part_fn=part_fn, level_fn=level_fn, spare=self.spare,
             categorical=self.has_categorical, monotone=self.has_monotone,
-            lanes=self.lanes, forced=self.forced, cegb=cegb,
+            lanes=self.lanes, forced=forced, cegb=cegb,
             pool_slots=self.hist_pool_slots, comm=self.comm, carried=carried,
             score_rate=score_rate, window_fn=window_fn,
             table=self.scal_table if on_device else None,
@@ -2616,7 +2759,7 @@ class SerialTreeLearner:
             host_loop=host_loop, rebuild_fn=rebuild_fn,
             level_window_fn=level_window_fn,
             level_work=self.level_work(rows, n) if on_device and level
-            else None)
+            else None, lazy=True)
 
     def pass_columns(self) -> int:
         """The histogram columns of this learner's split passes: every

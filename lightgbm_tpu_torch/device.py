@@ -64,6 +64,18 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def to_device_async(a, device: torch.device) -> torch.Tensor:
+    """The numpy array ``a`` on ``device`` without the host waiting for
+    the card: on CUDA through a pinned staging copy and a non-blocking
+    transfer (a copy from pageable memory blocks the host until the card
+    has run everything queued before it)."""
+    import numpy as np
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def count_launch(kernel: str) -> None:
     """Record one launch of ``kernel`` (called by its wrapper only)."""
     _LAUNCHES[kernel] += 1

@@ -248,6 +248,10 @@ def train(params: Dict[str, Any], train_set: Dataset,
                 gbdt._preempt_exit(checkpoint_prefix)
             if finished:
                 break
+        # the isfinite verdicts (nan_policy=raise) of the iterations since
+        # the last stall poll: a bad batch near the end still raises
+        # (engine.py:282-285)
+        gbdt._drain_nonfinite_checks()
         if checkpoint_prefix is not None and write_ckpt:
             # the call completed: a rerun with the same prefix trains afresh
             cleanup_checkpoints(checkpoint_prefix)
@@ -584,6 +588,8 @@ def cv(params, train_set, num_boost_round=100, folds=None, nfold=5,
             for k in results:
                 results[k] = results[k][:cvfolds.best_iteration]
             break
+    for b in cvfolds.boosters:
+        b._booster._drain_nonfinite_checks()
     if return_cvbooster:
         results["cvbooster"] = cvfolds
     return dict(results)

@@ -443,10 +443,49 @@ def device_vs_host(rank, d, arg):
     return out
 
 
+def lazy_loop(rank, d, arg):
+    """The asynchronous loop on the ``rs`` learner (``tree_learner=data``,
+    built directly, as at world size 1 the factory gives the serial one):
+    ``arg`` iterations of ``train_one_iter`` with a validation set, lazy and
+    with forced materialization (the stall poll every iteration, ``models``
+    read after each), then the trailing poll; each run's model text, score
+    bytes, host reads and iteration, so that the ranks can be held to one
+    poll schedule."""
+    from lightgbm_tpu_torch import BinnedDataset, Config, GBDT
+    from lightgbm_tpu_torch.objective import create_objective
+    from lightgbm_tpu_torch.parallel.learners import DataParallelTreeLearner
+    X, y, _ = problem()
+    yb = (y > np.median(y)).astype(np.float64)
+    ds = BinnedDataset.from_matrix(X, label=yb, max_bin=63)
+    vds = BinnedDataset.from_matrix(X[:300], label=yb[:300], reference=ds)
+    cfg = Config(objective="binary", num_leaves=7, learning_rate=0.2,
+                 tree_learner="data", verbosity=-1)
+    out = {}
+    for forced in (False, True):
+        b = GBDT(cfg, ds, create_objective("binary", cfg, device="cpu"),
+                 device="cpu")
+        b.learner = DataParallelTreeLearner(ds, cfg, device="cpu")
+        b.add_valid_data(vds, "valid_1")
+        if forced:
+            b._poll_freq = 1
+        for _ in range(arg):
+            b.train_one_iter()
+            if forced:
+                b.models
+        if b._nl_handles:
+            b._poll_stop()      # the trailing poll, as train() ends
+        text = b.save_model_to_string()
+        out["forced" if forced else "lazy"] = dict(
+            text=text, reads=b.host_reads, iter=b.iter_,
+            score=b.train_score.numpy().tobytes(),
+            valid=b.valid_sets[0]["score"].numpy().tobytes())
+    return out
+
+
 SCENARIOS = {"learners": learners, "boosting": boosting,
              "world_one": world_one, "comm_and_data": comm_and_data,
              "telemetry_shards": telemetry_shards,
-             "device_vs_host": device_vs_host}
+             "device_vs_host": device_vs_host, "lazy_loop": lazy_loop}
 
 
 # ---- process plumbing ----
