@@ -206,7 +206,7 @@ together) and runs these phases, each of which raises on failure:
    to ``Tree.predict`` within that f32 bound; (E) ``build_histogram``
    (kernel #5's caller) over 1,048,576 rows x 28 features; (S) the CLI
    from text files (``python -m lightgbm_tpu_torch``'s ``Application``,
-   no pandas on the card): (S1) (A)'s task written to a CSV of 1,048,576
+   no pandas on the card): (S1) (A)'s task written to a CSV of 524,288
    rows x 28 features and a label, each value in
    millionths in the fixed decimal form ``sDD.DDDDDD`` (so every correctly
    rounding parser reads it exactly), with a ``.weight`` side file and the
@@ -334,9 +334,9 @@ together) and runs these phases, each of which raises on failure:
    ?seconds=2`` during a ``train()`` writes a Chrome trace naming
    ``hist_seg_kernel``, ``part_count_kernel`` and ``part_scatter_kernel``;
    two forced watchdog stalls fire the flight recorder once; (X4)
-   ``serve_and_train`` of (A)'s task trained on 524,288 rows for 10
-   iterations, 8 client threads, the other 524,288 rows as 4 windows
-   (``online_min_rows=131072``, ``online_rounds=2``, the third window
+   ``serve_and_train`` of (A)'s task trained on 524,288 rows for 3
+   iterations, 8 client threads, 262,144 of the other rows as 2 windows
+   (``online_min_rows=131072``, ``online_rounds=2``, the first window
    refit, the last with feature 0 shifted by 4 and served before it is
    ingested): at least 3 generations, no drop, every response equal to a
    generation live while it was in flight, each extended generation
@@ -388,6 +388,33 @@ together) and runs these phases, each of which raises on failure:
    synchronising calls only in the chunk's guard reads, the evaluation
    and the loop's counted reads; each path after one warm-up iteration of
    a throwaway booster, so that no turn holds a kernel's first launch;
+   and the JAX package's paths that had run only on the CPU, each on an
+   earlier path's bins or rows, each with its first tree regrown by the
+   host loop (model text equal), its split or level passes counted, its
+   predictions on 2,000 held-out rows bit-equal to its CPU twin, its loss
+   falling and its seconds (``hold_path``, ``finish_path``): (F2) leaf
+   renewal (``regression_l1``, ``quantile``, ``mape``) on (A)'s bins,
+   each renewed leaf equal to its recomputation on the host from the
+   card's ``row_leaf`` and scores, no pending tree; (S5) ``cv`` on (A)'s
+   task, 3 stratified folds, each fold's booster bit-equal to its CPU twin
+   on its own held-out fold, each round's mean and stdv those of the
+   folds' own evaluations, the folds' peak memory; (U2) the watchdog's
+   abort in a child process on the card: exit code 79 from the watchdog,
+   its artifact (section, ``stall_s``, ``recompiles``, the child's
+   launches), no process of its session left; (D2) level growth at the
+   Epsilon width on (D)'s bins, exact and quantized, the level workspace
+   and peak memory beside their reckoning; (K2) GOSS on (D)'s bins, its
+   sampled weights byte-equal to the host's; (I2) level growth on (I)'s
+   EFB bundles, the level route counters counting unfold windows; (L2)
+   DART on (I)'s bins until its first drop, held as (L); (H2)
+   ``rank_xendcg`` on (H)'s bins, the first gradients within 1e-5 of the
+   CPU objective's from the same scores; (S6) ``LGBMClassifier``,
+   ``LGBMRegressor`` on (A)'s rows and ``LGBMRanker`` on (H)'s first
+   twentieth of the queries, each equal to a ``train()`` Booster; (T3)
+   inside (S):
+   a C program (``capi_host.c``, built with ``gcc``, linked to
+   ``lib_lightgbm_tpu_torch.so``) trains from (S)'s CSV on the card, its
+   model text byte-equal to ``train()``'s on the same file;
 5. times of each kernel at the main paths' shapes beside its bound, its
    plain version and one PyTorch library call (``index_add_``; for a split
    pass, which has none, the window's device-to-device copy): the
@@ -1600,7 +1627,7 @@ def initial_gradients(booster, n: int) -> tuple:
 
 
 DEVICE_BUILD_TURNS = 2      # (A): iterations of each build, in turns
-TURNS_ITERS = 2             # (N), (O), (V1): the same
+TURNS_ITERS = 1             # (N), (O), (V1): the same
 
 
 def host_tree(booster, arrays):
@@ -2134,7 +2161,8 @@ def phase_epsilon(device, n: int, n_test: int, iters: int,
                                                                  want))
     return {"launches": counts, "iter_s": rec.iter_s, "auc": aucs,
             "trees": trees, "splits": splits, "busy_ms": busy_ms,
-            "peak_bytes": peak, "train": train, "models": gbdt.models[:2]}
+            "peak_bytes": peak, "train": train, "models": gbdt.models[:2],
+            "rows": (X[:HOLD_ROWS], X_test[:HOLD_ROWS])}
 
 
 def hist_cache_bytes(learner, rows: int) -> int:
@@ -2510,7 +2538,9 @@ def phase_lambdarank(device, n: int, iters: int, profile: bool) -> dict:
     return {"launches": counts, "iter_s": rec.iter_s, "trees": trees,
             "splits": splits, "busy_ms": busy_ms, "ndcg": rec.losses,
             "grad_ms": grad_ms, "grad_graph_ms": grad_dev,
-            "grad_peak_mb": peak / 2 ** 20}
+            "grad_peak_mb": peak / 2 ** 20,
+            "ltr": dict(train=train, initial=initial, rows=X, label=y,
+                        group=group)}
 
 
 # ------------------------------------------ sparse and categorical data ----
@@ -2787,7 +2817,7 @@ def phase_allstate(device, n: int, n_test: int, iters: int,
     return {"launches": counts, "routes": routes, "iter_s": rec.iter_s,
             "auc": aucs, "trees": trees, "splits": splits,
             "busy_ms": busy_ms, "groups": G, "binning_s": t2 - t1,
-            "times": times}
+            "times": times, "sets": (train, valid, Xt, Xv)}
 
 
 def phase_expo(device, n: int, n_test: int, iters: int,
@@ -3152,10 +3182,12 @@ def run_iterations(booster, iters: int, label, loss=None) -> dict:
     """``train_one_iter`` ``iters`` times with the launch counts read
     around the loop: each iteration's seconds (ending in a synchronise),
     the train loss after it (binary log loss unless ``loss``), its last
-    tree's device->host fetches and the pool's rebuilt parents."""
+    tree's device->host fetches, the pool's rebuilt parents and its
+    level steps."""
     from lightgbm_tpu_torch import device as D
     loss = loss or (lambda: logloss(booster.train_score[0], label))
-    out = {"iter_s": [], "losses": [], "fetches": [], "misses": []}
+    out = {"iter_s": [], "losses": [], "fetches": [], "misses": [],
+           "levels": []}
     D.reset_launches()
     for _ in range(iters):
         t = time.perf_counter()
@@ -3165,6 +3197,7 @@ def run_iterations(booster, iters: int, label, loss=None) -> dict:
         out["losses"].append(loss())
         out["fetches"].append(booster.last_arrays.host_fetches)
         out["misses"].append(booster.last_arrays.pool_misses)
+        out["levels"].append(booster.last_arrays.levels)
     out["launches"] = D.launches()
     out["trees"] = len(booster.models)
     out["splits"] = sum(t.num_leaves - 1 for t in booster.models)
@@ -4807,7 +4840,13 @@ def phase_parallel_gloo(device, n: int, iters: int, a: dict,
     ``tree_learner=data``, ``feature``, ``voting`` (``top_k=20``: every
     feature elected) and ``data`` with ``hist_precision=quantized``.  The
     ranks run under a join deadline and are killed past it."""
-    import pickle
+    return finish_parallel_gloo(start_parallel_gloo(device, n, iters),
+                                a, c_losses)
+
+
+def start_parallel_gloo(device, n: int, iters: int) -> dict:
+    """(V2)'s two ranks, started: they train beside the parent's next
+    paths until :func:`finish_parallel_gloo` joins them."""
     import shutil
 
     import torch.multiprocessing as mp
@@ -4821,6 +4860,17 @@ def phase_parallel_gloo(device, n: int, iters: int, a: dict,
              for r in range(2)]
     for p in procs:
         p.start()
+    return dict(procs=procs, t0=t0, iters=iters, device=device)
+
+
+def finish_parallel_gloo(run: dict, a: dict, c_losses: list) -> dict:
+    """(V2)'s checks, once its ranks have ended (see
+    :func:`phase_parallel_gloo`); ``a`` is (A)'s record (its booster, text
+    and first tree), ``c_losses`` (C)'s train losses."""
+    import pickle
+    import shutil
+    procs, t0, iters, device = (run["procs"], run["t0"], run["iters"],
+                                run["device"])
     end = time.monotonic() + PARALLEL_DEADLINE_S
     for p in procs:
         p.join(max(0.0, end - time.monotonic()))
@@ -4939,7 +4989,7 @@ def phase_parallel_gloo(device, n: int, iters: int, a: dict,
 
 
 CLI_DIR = os.path.join("build", "cli")
-CLI_ROWS = 1 << 20                # (A)'s rows
+CLI_ROWS = 1 << 19                # half of (A)'s rows
 CLI_ITERS = 2
 CLI_CHUNK = 65_536
 CLI_PARAMS = ["objective=binary", "num_leaves=255", "max_bin=255",
@@ -5197,6 +5247,7 @@ def phase_cli(device, n: int) -> dict:
         shutil.rmtree(CLI_DIR)
     os.makedirs(CLI_DIR)
     out = {"launches": {}, "trees": 0, "splits": 0}
+    host = None
 
     def add(counts, trees, splits):
         for k, v in counts.items():
@@ -5220,6 +5271,8 @@ def phase_cli(device, n: int) -> dict:
         log("  (S1) wrote %d + %d rows x %d columns (%.1f MiB of CSV) and a "
             ".weight file in %.2f s" % (n, len(y_test), X.shape[1] + 1, mb,
                                         secs))
+        # (T3): the C program trains from the same file beside (S1)-(S3)
+        host = start_capi_host(train_f)
         Xq, Xq_test, wq = millionths(X), millionths(X_test), millionths(w)
         argv = (["task=train", "data=%s" % train_f, "valid=%s" % valid_f,
                  "num_iterations=%d" % CLI_ITERS, "output_model=%s" % model_f]
@@ -5273,7 +5326,7 @@ def phase_cli(device, n: int) -> dict:
                             "peak_rss_mib": v["peak"] / (1 << 20),
                             "growth_mib": (v["peak"] - v["base"]) / (1 << 20)}
                         for k, v in loads.items()}
-        del loads, train_ds
+        del loads
 
         # ---- (S3) ----
         result_f = os.path.join(CLI_DIR, "predict.txt")
@@ -5338,6 +5391,10 @@ def phase_cli(device, n: int) -> dict:
                                  "launched kernels: %s" % s3_counts)
         del model, refit
 
+        # ---- (T3) ----
+        out["T3"] = finish_capi_host(host, train_ds)
+        del train_ds
+
         # ---- (S4) ----
         here = os.path.dirname(os.path.abspath(__file__))
         data_dir = os.path.join(here, "tests", "data")
@@ -5381,6 +5438,9 @@ def phase_cli(device, n: int) -> dict:
         log("  (S) launches %s over %d trees and %d splits"
             % (out["launches"], out["trees"], out["splits"]))
     finally:
+        if host is not None and host["proc"].poll() is None:
+            host["proc"].kill()
+            host["proc"].wait()
         Log.reset_level(Log.level_from_verbosity(-1))
         shutil.rmtree(CLI_DIR, ignore_errors=True)
     return out
@@ -6268,13 +6328,13 @@ def profile_iteration(booster) -> float:
 
 PLAN_DIR = os.path.join("build", "plan")
 ONLINE_DIR = os.path.join("build", "online")
-TUNE_REPS = 2
+TUNE_REPS = 1
 ONLINE_BASE_ROWS = 524_288      # (X4): the base model's rows of (A)'s task
 ONLINE_BASE_ITERS = 3
-ONLINE_WINDOW_ROWS = 131_072    # the other 524,288 rows, 4 windows
-ONLINE_WINDOWS = 4
+ONLINE_WINDOW_ROWS = 131_072    # 262,144 of the other rows, 2 windows
+ONLINE_WINDOWS = 2
 ONLINE_ROUNDS = 2
-ONLINE_REFIT_WINDOW = 2         # (X4): the 0-based window refit, not extended
+ONLINE_REFIT_WINDOW = 0         # (X4): the 0-based window refit, not extended
 ONLINE_SHIFT = 4.0              # (X4): feature 0 of the last window, shifted
 ONLINE_CLIENTS = 8
 COMPACT_ROWS = 262_144          # (X5): held-out rows
@@ -7080,6 +7140,916 @@ def phase_path_x(device, data, ds, texts: dict, iters: int,
 
 # ---------------------------------------------------------------- times ----
 
+# -------------------------------------------- paths new to the card ----
+#
+# (F2), (S5), (D2), (K2), (I2), (L2), (H2), (S6), (U2), and (T3) inside
+# (S): the JAX package's paths that had run only in the CPU tests.  Each
+# reuses an earlier path's bins or rows, regrows its first tree with the
+# host loop from the same gradients (model text equal), counts its split or
+# level passes against the kernels' counters, holds its predictions on
+# 2,000 held-out rows bit-equal to its CPU twin and its objective's loss
+# falling, and prints its seconds.
+
+HOLD_ROWS = 2000                 # the held-out rows every new path predicts
+RENEW_OBJECTIVES = (("regression_l1", {}), ("quantile", dict(alpha=0.9)),
+                    ("mape", {}))
+RENEW_ITERS = 2
+RENEW_ROWS = 131_072             # (F2): an eighth of (A)'s bins (a subset)
+LEVEL_WIDE_ITERS = 2             # (D2): exact, then quantized
+# (K2): 1 / 0.5 = 2 unsampled iterations, then 1 sampled one
+GOSS_WIDE_RATE = 0.5
+GOSS_WIDE_ITERS = 3
+# (L2): test_torch_boosters' DART (every iteration may drop), run until
+# its host plan drops a tree (iteration 2 at drop_seed 4: the tree of
+# iteration 1; a drop of tree 0 would also halve the initial score that
+# tree 0 carries, as in the reference)
+DART_BUNDLED = dict(boosting="dart", drop_rate=0.5, skip_drop=0.0,
+                    metric="binary_logloss")
+BUNDLED_ITERS = 2                # (I2)
+XENDCG_ITERS = 2
+RANK_GRAD_RTOL = 1e-5            # tests/test_torch_rank.py: of max|g|
+CV_FOLDS = 3
+CV_ROUNDS = 2
+CV_ROWS = 262_144                # (S5): a quarter of (A)'s bins (a subset)
+SKLEARN_ROWS = 65_536            # (S6): of (A)'s rows, binned twice
+SKLEARN_ITERS = 2
+RANKER_QUERY_SHARE = 0.05        # (S6): (H)'s first twentieth of the queries
+ABORT_ROWS = 65_536              # (U2)
+ABORT_TIMEOUT_S = 3.0
+ABORT_CHILD = r"""
+import sys, time
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as C
+import lightgbm_tpu_torch as lgb
+from lightgbm_tpu_torch import resilience
+n, timeout, prefix = int(sys.argv[2]), float(sys.argv[3]), sys.argv[4]
+X, y, _, _ = C.synthetic_task(n)
+
+
+def stall(env):
+    # a section that makes no progress: the watchdog must end the process
+    with resilience.watch("stall_probe", iteration=env.iteration):
+        time.sleep(100 * timeout)
+stall.order = 30
+lgb.train(dict(C.HIGGS_PARAMS, watchdog_timeout_s=timeout),
+          lgb.Dataset(X, y), num_boost_round=3, callbacks=[stall],
+          checkpoint_prefix=prefix)
+print("the watchdog did not abort", flush=True)
+"""
+
+
+def held_out_rows(n: int, f: int, seed: int, device) -> np.ndarray:
+    """``n`` standard normal f32 rows of ``f`` features made on ``device``
+    from ``seed``, for the prediction checks of a path whose data has no
+    held-out rows."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((n, f), generator=g, device=device).cpu().numpy()
+
+
+def hold_path(path: str, gbdt, r: dict, X, X_test,
+              regrow: bool = True) -> dict:
+    """What every new path holds: predictions on ``HOLD_ROWS`` held-out
+    rows bit-equal to the CPU twin (``check_predictions``, which also holds
+    the train score to ``predict`` on the first training rows ``X``), one
+    fetch a tree, the first tree regrown by the host loop (model text
+    equal; once a path, ``regrow``, where a path trains several boosters on
+    one learner code), and the split or level passes of ``r``'s launches:
+    one root histogram a tree, L - 1 split passes or ``level_count`` level
+    passes a tree, nothing else."""
+    m = HOLD_ROWS
+    raw = gbdt.predict(X_test[:m], raw_score=True)
+    check_predictions(gbdt, X[:m], X_test[:m], raw, m)
+    learner = gbdt.learner
+    regrown = {}
+    if learner.effective_grow_mode() == "level":
+        regrown = regrow_level_tree0(path, gbdt, r["fetches"])
+        root = "histogram_int" if learner.quantized else "histogram"
+        want = {root: r["trees"],
+                "partition_level": learner.level_count() * r["trees"]}
+        if r["launches"] != {k: want.get(k, 0) for k in r["launches"]}:
+            raise AssertionError("path (%s): launches %s, want %s"
+                                 % (path, r["launches"], want))
+    else:
+        if not (learner.grows_on_device() and set(r["fetches"]) == {1}):
+            raise AssertionError("(%s): device build %s, fetches per tree "
+                                 "%s" % (path, learner.grows_on_device(),
+                                         r["fetches"]))
+        if regrow:
+            regrown = regrow_tree0(gbdt)
+            log("  (%s) tree 0 regrown by the host loop from the same "
+                "gradients: model text equal (%d leaves, %d split passes, 1 "
+                "fetch; host loop %d fetches)" % (path, regrown["leaves"],
+                                                  regrown["passes"],
+                                                  regrown["host_fetches"]))
+        want = {("histogram_int" if learner.quantized else "histogram"):
+                r["trees"], "partition": split_passes(learner, gbdt.models)}
+        if r["launches"] != {k: want.get(k, 0) for k in r["launches"]}:
+            raise AssertionError("path (%s): launches %s, want %s"
+                                 % (path, r["launches"], want))
+    return regrown
+
+
+def finish_path(path: str, r: dict, t0: float) -> dict:
+    r["seconds"] = time.perf_counter() - t0
+    log("  (%s) took %.1f s" % (path, r["seconds"]))
+    torch.cuda.empty_cache()
+    return r
+
+
+def renew_loss(name: str, alpha: float, score, label) -> float:
+    """The objective's own loss of [N] scores: mean |y - s| (L1), the
+    pinball loss at ``alpha`` (quantile), mean |y - s| / max(1, |y|)
+    (MAPE)."""
+    d = label.double() - score.double()
+    if name == "quantile":
+        return float(torch.maximum(alpha * d, (alpha - 1.0) * d).mean())
+    if name == "mape":
+        return float((d.abs() / label.double().abs().clamp(min=1.0)).mean())
+    return float(d.abs().mean())
+
+
+def renewed_on_host(obj, rec: dict) -> np.ndarray:
+    """A renewal recomputed on the host from what the card gave it: each
+    leaf's in-bag rows (the card's ``row_leaf``), their residuals label -
+    score (the card's train score before the tree), the objective's
+    percentile of them (weighted by the MAPE label weights); a leaf
+    without rows keeps its value (gbdt.py:1176-1196 of the JAX
+    package)."""
+    n = len(rec["row_leaf"])
+    rows = (np.arange(n) if rec["bag"] is None
+            else np.flatnonzero(rec["bag"] > 0))
+    leaf = rec["row_leaf"][rows]
+    nl = rec["nl"]
+    by_leaf = np.split(rows[np.argsort(leaf, kind="stable")],
+                       np.cumsum(np.bincount(leaf, minlength=nl))[:-1])
+    residual = obj.label_np - rec["score"]
+    weights = obj.label_weight_np if obj.name == "mape" else obj.weights_np
+    out = rec["leaf_value"].copy()
+    for i, r in enumerate(by_leaf):
+        if r.size:
+            out[i] = obj.renew_tree_output(
+                residual[r], None if weights is None else weights[r])
+    return out
+
+
+def phase_renewal(device, data, ds) -> dict:
+    """Path (F2): the objectives that renew their leaves
+    (``regression_l1``, ``quantile`` at alpha 0.9, ``mape``), unweighted,
+    on the first RENEW_ROWS rows of (A)'s bins with (F)'s real-valued
+    target, leaf-wise, RENEW_ITERS iterations each.  Each renewal (``_renew_tree_output``: the card's
+    ``row_leaf`` and scores read back, each leaf's percentile of its
+    residuals) is held to its recomputation on the host from the same
+    reads, and every leaf of the model to the renewed value shrunk (and,
+    in the first tree, biased by the initial score); the iterations stay
+    synchronous (no pending tree)."""
+    from lightgbm_tpu_torch import Config, GBDT, create_objective
+    from lightgbm_tpu_torch import device as D
+    t0 = time.perf_counter()
+    m = RENEW_ROWS
+    X, X_test = data[0][:m], data[2]
+    y = higgs_score(X, np.random.RandomState(1))
+    sub = ds.subset(np.arange(m))
+    out = {"launches": {}, "trees": 0, "iter_s": [], "objectives": {}}
+    for name, extra in RENEW_OBJECTIVES:
+        cfg = Config(objective=name, num_leaves=255, max_bin=255,
+                     learning_rate=0.1, verbosity=-1, **extra)
+        booster = GBDT(cfg, relabel(sub, y), create_objective(name, cfg))
+        label = torch.as_tensor(y, device=booster.device)
+        alpha = float(extra.get("alpha", 0.0))
+        calls = []
+        renew = booster._renew_tree_output
+
+        def spy(arrays, k, booster=booster, renew=renew, calls=calls):
+            nl = int(arrays.num_leaves)
+            # copies: on the CPU .numpy() would share the updated tensors
+            rec = dict(row_leaf=arrays.row_leaf.cpu().numpy().copy(),
+                       score=booster.train_score[k].cpu().numpy().copy(),
+                       bag=(None if booster.bag_mask is None
+                            else booster.bag_mask.cpu().numpy().copy()),
+                       nl=nl,
+                       leaf_value=np.asarray(arrays.leaf_value[:nl],
+                                             np.float64).copy())
+            rec["out"] = renew(arrays, k)
+            calls.append(rec)
+            return rec["out"]
+        booster._renew_tree_output = spy
+        r = {"iter_s": [], "losses": [], "fetches": []}
+        D.reset_launches()
+        for _ in range(RENEW_ITERS):
+            t = time.perf_counter()
+            booster.train_one_iter()
+            torch.cuda.synchronize()
+            r["iter_s"].append(time.perf_counter() - t)
+            if booster._pending:
+                raise AssertionError("(F2) %s left a pending tree: renewal "
+                                     "must stay synchronous" % name)
+            r["losses"].append(renew_loss(name, alpha,
+                                          booster.train_score[0], label))
+            r["fetches"].append(booster.last_arrays.host_fetches)
+        r.update(launches=D.launches(), trees=len(booster.models))
+        booster._renew_tree_output = renew
+        start = renew_loss(name, alpha, torch.full_like(
+            label, booster.objective.boost_from_score(0)), label)
+        log("  (F2) %s: seconds per iteration %s; train loss per iteration "
+            "%s (from %.6f); leaves %s" % (
+                name, ["%.4f" % v for v in r["iter_s"]],
+                ["%.6f" % v for v in r["losses"]], start,
+                [t.num_leaves for t in booster.models]))
+        if not falls(r["losses"], start):
+            raise AssertionError("(F2) %s: the loss did not fall" % name)
+        if len(calls) != RENEW_ITERS:
+            raise AssertionError("(F2) %s: %d renewals in %d iterations"
+                                 % (name, len(calls), RENEW_ITERS))
+        init = booster.objective.boost_from_score(0)
+        for i, rec in enumerate(calls):
+            host = renewed_on_host(booster.objective, rec)
+            if not np.array_equal(rec["out"], host):
+                raise AssertionError(
+                    "(F2) %s tree %d: %d renewed leaves differ from the "
+                    "host's recomputation" % (name, i, int(
+                        (rec["out"] != host).sum())))
+            want = host.copy()
+            want *= booster.shrinkage_rate
+            if i == 0 and abs(init) > 1e-15:
+                want += init
+            tree = booster.models[i]
+            if not np.array_equal(tree.leaf_value[:tree.num_leaves], want):
+                raise AssertionError("(F2) %s tree %d: the model's leaves "
+                                     "are not the renewed values" % (name,
+                                                                     i))
+        log("  (F2) %s: every renewed leaf (%s) equal to the host's "
+            "recomputation from the card's row_leaf and scores, and to the "
+            "model's leaves" % (name, [c["nl"] for c in calls]))
+        hold_path("F2", booster, r, X, X_test,
+                  regrow=name == RENEW_OBJECTIVES[0][0])
+        out["objectives"][name] = dict(losses=r["losses"], start=start,
+                                       iter_s=r["iter_s"])
+        for k, v in r["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        out["trees"] += r["trees"]
+        out["iter_s"] += r["iter_s"]
+        del booster
+        torch.cuda.empty_cache()
+    return finish_path("F2", out, t0)
+
+
+def phase_cv(device, data, ds) -> dict:
+    """Path (S5): ``lightgbm_tpu_torch.cv`` on (A)'s task and bins (their
+    first CV_ROWS rows), ``nfold=CV_FOLDS``, stratified, CV_ROUNDS rounds, the fold boosters
+    returned: each fold's booster predicts HOLD_ROWS rows of its own
+    held-out fold bit-equal to its CPU twin (and is held as every new path
+    is), and each round's mean and stdv equal those of the fold boosters'
+    own evaluations in that round; the peak device memory of the folds'
+    row stores and workspaces, all on the card at once."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch import device as D
+    t0 = time.perf_counter()
+    X, y = data[0][:CV_ROWS], data[1][:CV_ROWS]
+    params = dict(HIGGS_PARAMS, metric="binary_logloss")
+    train = lgb.Dataset(X, y)
+    train.handle = ds.subset(np.arange(CV_ROWS))
+    rounds = []
+
+    class Folds:
+        order = 40
+        before_iteration = False
+
+        def __call__(self, env):
+            rounds.append([b.eval_valid() for b in env.model.boosters])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    D.reset_launches()
+    res = lgb.cv(params, train, num_boost_round=CV_ROUNDS, nfold=CV_FOLDS,
+                 stratified=True, return_cvbooster=True,
+                 callbacks=[Folds()])
+    torch.cuda.synchronize()
+    launches = D.launches()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    cvb = res.pop("cvbooster")
+    means = res["binary_logloss-mean"]
+    stdvs = res["binary_logloss-stdv"]
+    log("  (S5) %d folds x %d rounds: binary_logloss mean %s, stdv %s; "
+        "peak device memory %.1f MiB above what was allocated before "
+        "(%d folds' row stores and workspaces at once); launches %s"
+        % (CV_FOLDS, CV_ROUNDS, ["%.6f" % v for v in means],
+           ["%.6f" % v for v in stdvs], peak, CV_FOLDS, launches))
+    if len(rounds) != CV_ROUNDS or len(means) != CV_ROUNDS:
+        raise AssertionError("(S5) %d rounds recorded, %d means"
+                             % (len(rounds), len(means)))
+    for i, evals in enumerate(rounds):
+        vals = [e[0][2] for e in evals]
+        if not (float(np.mean(vals)) == means[i]
+                and float(np.std(vals)) == stdvs[i]):
+            raise AssertionError("(S5) round %d: mean %r stdv %r, from the "
+                                 "folds %r" % (i, means[i], stdvs[i], vals))
+    if not all(b < a for a, b in zip(means, means[1:])):
+        raise AssertionError("(S5) the mean loss did not fall: %s" % means)
+    order = np.argsort(np.asarray(y), kind="stable")
+    trees = 0
+    fetches = []
+    for f, b in enumerate(cvb.boosters):
+        gbdt = b._booster
+        test_idx = np.sort(order[f::CV_FOLDS])
+        fold = dict(fetches=[gbdt.last_arrays.host_fetches],
+                    trees=len(gbdt.models))
+        raw = gbdt.predict(X[test_idx[:HOLD_ROWS]], raw_score=True)
+        cpu = cpu_twin(gbdt).predict(X[test_idx[:HOLD_ROWS]],
+                                     raw_score=True)
+        if not np.array_equal(raw, cpu):
+            raise AssertionError("(S5) fold %d: predict differs from its "
+                                 "CPU twin in %d of %d rows"
+                                 % (f, int((raw != cpu).sum()), len(raw)))
+        if gbdt.num_data != len(y) - len(test_idx):
+            raise AssertionError("(S5) fold %d trained on %d rows"
+                                 % (f, gbdt.num_data))
+        trees += fold["trees"]
+        fetches += fold["fetches"]
+    log("  (S5) each fold's booster predicts %d rows of its own held-out "
+        "fold bit-equal to its CPU twin; each round's mean and stdv equal "
+        "the folds' own evaluations" % HOLD_ROWS)
+    r = dict(launches=launches, trees=trees, fetches=fetches,
+             means=means, stdvs=stdvs, peak_mib=peak)
+    first = cvb.boosters[0]._booster
+    want = {"histogram": trees,
+            "partition": CV_FOLDS * split_passes(first.learner,
+                                                 first.models)}
+    if launches != {k: want.get(k, 0) for k in launches}:
+        raise AssertionError("(S5) launches %s, want %s" % (launches, want))
+    rr = regrow_tree0(first)
+    log("  (S5) fold 0's tree 0 regrown by the host loop from the same "
+        "gradients: model text equal (%d leaves, %d split passes)"
+        % (rr["leaves"], rr["passes"]))
+    del cvb, res
+    return finish_path("S5", r, t0)
+
+
+def phase_epsilon_level(device, eps: dict) -> dict:
+    """Path (D2): level growth at the Epsilon width on (D)'s bins (400,000
+    rows x 2000 features, W = 2048), exact then quantized,
+    LEVEL_WIDE_ITERS iterations each at (D)'s settings: 1 fetch and 8
+    level passes a tree, the first tree regrown by the host loop; the
+    level workspace's bytes and the peak device memory of the booster's
+    making and training beside their reckoning (the second row store and
+    the level workspace)."""
+    from lightgbm_tpu_torch import Config, GBDT, create_objective
+    from lightgbm_tpu_torch import device as D
+    t0 = time.perf_counter()
+    train = eps["train"]
+    X, X_test = eps["rows"]
+    label = torch.as_tensor(np.asarray(train.handle.metadata.label),
+                            device=device)
+    out = {"launches": {}, "trees": 0, "iter_s": [], "runs": {}}
+    for quantized in (False, True):
+        name = "quantized" if quantized else "exact"
+        extra = dict(tree_grow_mode="level")
+        if quantized:
+            extra["hist_precision"] = "quantized"
+        cfg = Config(**dict(EPSILON_PARAMS, **extra))
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        booster = GBDT(cfg, train.handle, create_objective("binary", cfg))
+        r = run_iterations(booster, LEVEL_WIDE_ITERS, label)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        learner = booster.learner
+        work = learner._level_work
+        if work is None and booster.device.type == "cuda":
+            raise AssertionError("(D2) %s: no level workspace" % name)
+        wbytes, slots, partial = (
+            (0, 0, 0) if work is None else
+            (work.nbytes(), work.G,
+             work.partial.numel() * work.partial.element_size()))
+        spare = learner.spare.numel() * learner.spare.element_size()
+        store = learner.template.numel() * learner.template.element_size()
+        start = logloss(torch.full_like(
+            label, booster.objective.boost_from_score(0)), label)
+        log("  (D2) level, %s: seconds per iteration %s; train logloss %s "
+            "(from %.6f); levels that split per tree %s; fetches per tree %s; "
+            "launches %s" % (name, ["%.4f" % v for v in r["iter_s"]],
+                             ["%.6f" % v for v in r["losses"]], start,
+                             r["levels"], r["fetches"], r["launches"]))
+        log("  (D2) level, %s: level workspace %.1f MB (%d slots, its %s "
+            "partials %.1f MB), second row store %.1f MB (%d x %d B), "
+            "first %.1f MB; reckoned %.1f MB (second store + workspace), "
+            "peak device memory %.1f MB above what was allocated before "
+            "the booster" % (name, wbytes / 1e6, slots,
+                             "int64" if quantized else "f64",
+                             partial / 1e6, spare / 1e6,
+                             learner.spare.shape[0], learner.spare.shape[1],
+                             store / 1e6, (spare + wbytes) / 1e6,
+                             peak / 1e6))
+        if not falls(r["losses"], start):
+            raise AssertionError("(D2) %s: train logloss did not fall" % name)
+        # and hold_path: level_count level passes a tree, dead levels
+        # included
+        if r["fetches"] != [1] * LEVEL_WIDE_ITERS:
+            raise AssertionError("(D2) %s: fetches per tree %s, want 1"
+                                 % (name, r["fetches"]))
+        hold_path("D2", booster, r, X, X_test)
+        out["runs"][name] = dict(iter_s=r["iter_s"], losses=r["losses"],
+                                 workspace_bytes=wbytes,
+                                 partial_bytes=partial, spare_bytes=spare,
+                                 peak_bytes=peak)
+        for k, v in r["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        out["trees"] += r["trees"]
+        out["iter_s"] += r["iter_s"]
+        del booster, learner, work
+    return finish_path("D2", out, t0)
+
+
+def _goss_path(path: str, ds, X, X_test, cfg, iters: int) -> dict:
+    """GOSS at ``cfg`` on the binned rows ``ds`` (its label), ``iters``
+    iterations: the first ``1 / learning_rate`` without sampling, then
+    sampled ones whose device row weights must equal the host's stable
+    argsort of the fetched key with the stream's draws replayed from a
+    fresh ``RandomState(bagging_seed)``.  Returns the iterations' record
+    and the booster."""
+    from lightgbm_tpu_torch import create_objective
+    from lightgbm_tpu_torch import device as D
+    from lightgbm_tpu_torch.boosting import create_boosting
+    n = ds.num_data
+    booster = create_boosting("goss", cfg, ds,
+                              create_objective("binary", cfg))
+    label = torch.as_tensor(np.asarray(ds.metadata.label),
+                            device=booster.device)
+    warm = int(1.0 / cfg.learning_rate)
+    top_k, other_k = int(n * 0.2), int(n * 0.1)
+    replay = np.random.RandomState(int(cfg.bagging_seed))
+    r = {"iter_s": [], "losses": [], "fetches": []}
+    D.reset_launches()
+    for it in range(iters):
+        t = time.perf_counter()
+        booster.train_one_iter()
+        torch.cuda.synchronize()
+        r["iter_s"].append(time.perf_counter() - t)
+        r["losses"].append(logloss(booster.train_score[0], label))
+        r["fetches"].append(booster.last_arrays.host_fetches)
+        if it < warm:
+            if booster.goss_weight is not None:
+                raise AssertionError("GOSS sampled in warm-up iteration %d"
+                                     % it)
+            continue
+        sampled = replay.choice(n - top_k, size=other_k, replace=False)
+        key = booster.goss_key.cpu().numpy()
+        want = goss_weights_host(key, top_k, sampled, (n - top_k) / other_k)
+        got = booster.goss_weight.cpu().numpy()
+        nz = int(np.count_nonzero(got))
+        if not (np.array_equal(got.view(np.uint32), want.view(np.uint32))
+                and nz == top_k + other_k
+                and booster.bag_data_cnt == top_k + other_k):
+            raise AssertionError(
+                "iteration %d: GOSS weights differ from the host's in %d "
+                "rows; %d nonzero, bag_data_cnt %d, want %d"
+                % (it, int((got != want).sum()), nz, booster.bag_data_cnt,
+                   top_k + other_k))
+        log("  iteration %d: device weights equal the host argsort and "
+            "replayed draws byte for byte; %d nonzero (top %d + other %d, "
+            "x%.1f)" % (it, nz, top_k, other_k, (n - top_k) / other_k))
+    r.update(launches=D.launches(), trees=len(booster.models),
+             splits=sum(t.num_leaves - 1 for t in booster.models))
+    report_path(path, r, n)
+    start = logloss(torch.full_like(label,
+                                    booster.objective.boost_from_score(0)),
+                    label)
+    if not (falls(r["losses"][:warm], start) and r["losses"][-1]
+            < r["losses"][warm - 1] and np.isfinite(r["losses"]).all()):
+        raise AssertionError("GOSS train log loss %s" % r["losses"])
+    r["warm_s"] = r["iter_s"][:warm]
+    return r, booster
+
+
+def phase_goss_wide(device, eps: dict) -> dict:
+    """Path (K2): GOSS on (D)'s bins at (D)'s settings and
+    ``learning_rate=GOSS_WIDE_RATE``: held as (K) is (the sampled
+    iteration's row weights byte for byte against the host's), and as
+    every new path is."""
+    from lightgbm_tpu_torch import Config
+    t0 = time.perf_counter()
+    cfg = Config(boosting="goss", top_rate=0.2, other_rate=0.1,
+                 **dict(EPSILON_PARAMS, learning_rate=GOSS_WIDE_RATE))
+    X, X_test = eps["rows"]
+    r, booster = _goss_path("K2", eps["train"].handle, X, X_test, cfg,
+                            GOSS_WIDE_ITERS)
+    hold_path("K2", booster, r, X, X_test)
+    del booster
+    return finish_path("K2", r, t0)
+
+
+def phase_allstate_variants(device, sets) -> dict:
+    """Paths (I2) and (L2) on (I)'s bins (4,228 sparse features in EFB
+    groups): (I2) level growth, exact, BUNDLED_ITERS iterations at (D)'s
+    settings, its level passes unfolding the split feature's group codes
+    (the device-window level pass's route counters count the unfold
+    windows); (L2) DART (``DART_BUNDLED``) through
+    ``lightgbm_tpu_torch.train`` with (I)'s validation set, as many
+    iterations as the host's drop plan needs for one dropping iteration,
+    held as (L) is: the drops equal the host's plan, the train score the
+    sum of the trees, the validation scores ``predict``, the last loss
+    below the initial score's."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch import Config, GBDT, create_objective
+    from lightgbm_tpu_torch import device as D
+    train, valid, Xt, Xv = sets
+    Xh = Xv[:HOLD_ROWS].toarray()
+    ds = train.handle
+    label = torch.as_tensor(np.asarray(ds.metadata.label), device=device)
+    out = {}
+    # ---- (I2) ----
+    t0 = time.perf_counter()
+    cfg = Config(**dict(SPARSE_CAT_PARAMS, tree_grow_mode="level"))
+    booster = GBDT(cfg, ds, create_objective("binary", cfg))
+    r = run_iterations(booster, BUNDLED_ITERS, label)
+    routes = D.route_launches()["partition_level"]
+    start = logloss(torch.full_like(
+        label, booster.objective.boost_from_score(0)), label)
+    levels = booster.learner.level_count()
+    log("  (I2) level on %d group columns: seconds per iteration %s; train "
+        "logloss %s (from %.6f); levels that split %s; fetches %s; "
+        "launches %s; level "
+        "routes %s" % (ds.binned.shape[1], ["%.4f" % v for v in r["iter_s"]],
+                       ["%.6f" % v for v in r["losses"]], start, r["levels"],
+                       r["fetches"], r["launches"], routes))
+    if not falls(r["losses"], start):
+        raise AssertionError("(I2) train logloss did not fall")
+    if r["fetches"] != [1] * BUNDLED_ITERS:
+        raise AssertionError("(I2) fetches per tree %s, want 1"
+                             % r["fetches"])
+    if not (0 < routes["unfold"] <= levels * r["trees"]
+            and routes["unfold_windows"] >= routes["unfold"]
+            and routes["categorical"] == 0):
+        raise AssertionError("(I2) level routes %s" % routes)
+    log("  (I2) level passes that unfolded a group column: %d of %d, %d "
+        "windows" % (routes["unfold"], levels * r["trees"],
+                     routes["unfold_windows"]))
+    hold_path("I2", booster, r, Xt, Xh)
+    r["routes"] = routes
+    del booster
+    out["I2"] = finish_path("I2", r, t0)
+    # ---- (L2) ----
+    t0 = time.perf_counter()
+    params = dict(SPARSE_CAT_PARAMS, **DART_BUNDLED)
+    plan = dart_drop_plan(Config(**params), 64)
+    iters = [i for i, d in enumerate(plan) if d][0] + 1
+    plan = plan[:iters]
+    log("  (L2) host drop plan of %d iterations: %s" % (iters, plan))
+    drops = []
+
+    class Drops:
+        order = 6
+        before_iteration = False
+
+        def __call__(self, env):
+            drops.append(list(env.model._booster.drop_index))
+    rec = IterationRecorder(label)
+    evals = {}
+    D.reset_launches()
+    bst = lgb.train(params, train, num_boost_round=iters,
+                    valid_sets=[valid], valid_names=["test"],
+                    evals_result=evals, verbose_eval=False,
+                    callbacks=[rec, rec.start, Drops()])
+    gbdt = bst._booster
+    r = {"iter_s": rec.iter_s, "losses": rec.losses, "fetches": rec.fetches,
+         "launches": D.launches(), "trees": len(gbdt.models),
+         "splits": sum(t.num_leaves - 1 for t in gbdt.models)}
+    report_path("L2", r, ds.num_data)
+    log("  (L2) dropped iterations per iteration %s; held-out log loss %s"
+        % (drops, ["%.6f" % v for v in evals["test"]["binary_logloss"]]))
+    if drops != plan:
+        raise AssertionError("(L2) drops %s, host plan %s" % (drops, plan))
+    start = logloss(torch.full_like(
+        label, gbdt.objective.boost_from_score(0)), label)
+    if not (np.isfinite(r["losses"]).all() and r["losses"][-1] < start):
+        raise AssertionError("(L2) DART train log loss %s" % r["losses"])
+    acc = torch.zeros(ds.num_data, dtype=torch.float64, device=device)
+    for tree in gbdt.models:
+        gbdt._add_tree_score(tree, gbdt.train_bins(), acc)
+    score = gbdt.train_score[0].double()
+    err = float((score - acc).abs().max())
+    tol = 1e-5 * float(score.abs().max())
+    if not err <= tol:
+        raise AssertionError("(L2) train score vs the sum of the trees: "
+                             "max|diff| %.3g > %.3g" % (err, tol))
+    log("  (L2) train score vs the sum of the model's %d trees routed over "
+        "the training bins: max|diff| %.3g (bound %.3g)"
+        % (len(gbdt.models), err, tol))
+    check_validation_scores(gbdt, bst, Xv, 20_000)
+    hold_path("L2", gbdt, r, Xt, Xh)
+    r["drops"] = drops
+    del bst, gbdt
+    out["L2"] = finish_path("L2", r, t0)
+    return out
+
+
+def phase_xendcg(device, ltr: dict) -> dict:
+    """Path (H2): ``rank_xendcg`` on (H)'s bins (the MS LTR shape,
+    2,270,296 x 137, not cut) at (H)'s settings, XENDCG_ITERS iterations:
+    the first iteration's gradients within RANK_GRAD_RTOL (of their
+    largest magnitude) of the same objective on the CPU from the same
+    scores (the same threefry gammas), training NDCG@10 not falling, and
+    held as every new path is, on held-out rows of the same
+    distribution."""
+    from lightgbm_tpu_torch import Config, GBDT, create_objective
+    from lightgbm_tpu_torch.metric.rank import NDCGMetric
+    t0 = time.perf_counter()
+    train = ltr["train"]
+    ds = train.handle
+    n = ds.num_data
+    cfg = Config(**dict(LAMBDARANK_PARAMS, objective="rank_xendcg"))
+    booster = GBDT(cfg, ds, create_objective("rank_xendcg", cfg))
+    obj = booster.objective
+    first = {}
+    real = obj.get_gradients
+
+    def spy(score):
+        g, h = real(score)
+        if not first:
+            first.update(score=score.detach().clone(), grad=g.clone(),
+                         hess=h.clone())
+        return g, h
+    obj.get_gradients = spy
+    ndcg = NDCGMetric(Config(**LAMBDARANK_PARAMS))
+    ndcg.init(ds.metadata, n)
+    r = run_iterations(booster, XENDCG_ITERS, None, loss=lambda: ndcg.eval(
+        booster.train_score[0].double().cpu().numpy())[3])
+    obj.get_gradients = real
+    at10 = r["losses"]
+    log("  (H2) rank_xendcg: seconds per iteration %s; training NDCG@10 %s "
+        "(%.6f at the initial score); fetches %s; launches %s"
+        % (["%.4f" % v for v in r["iter_s"]], ["%.6f" % v for v in at10],
+           ltr["initial"][3], r["fetches"], r["launches"]))
+    if not (at10[-1] >= at10[0] and at10[-1] > ltr["initial"][3]):
+        raise AssertionError("(H2) training NDCG@10 fell: %s from %.6f"
+                             % (at10, ltr["initial"][3]))
+    t = time.perf_counter()
+    twin = create_objective("rank_xendcg", cfg, device="cpu")
+    twin.init(ds.metadata, n)
+    g, h = twin.get_gradients(first["score"].cpu())
+    err_g = float((first["grad"].cpu() - g).abs().max())
+    err_h = float((first["hess"].cpu() - h).abs().max())
+    tol_g = RANK_GRAD_RTOL * float(g.abs().max())
+    tol_h = RANK_GRAD_RTOL * float(h.abs().max())
+    log("  (H2) the first iteration's gradients vs the CPU objective from "
+        "the same scores: max|diff| %.3g (tolerance %.3g), hessians %.3g "
+        "(%.3g); the CPU's call %.2f s" % (err_g, tol_g, err_h, tol_h,
+                                           time.perf_counter() - t))
+    if not (err_g <= tol_g and err_h <= tol_h):
+        raise AssertionError("(H2) gradients differ from the CPU's")
+    X = ltr["rows"]
+    X_test = held_out_rows(HOLD_ROWS, X.shape[1], 5, device)
+    hold_path("H2", booster, r, X, X_test)
+    del booster
+    return finish_path("H2", r, t0)
+
+
+def phase_sklearn(device, data, ltr: dict) -> dict:
+    """Path (S6): the scikit-learn estimators on the card, on compat.py's
+    base classes where the card has no sklearn: ``LGBMClassifier`` and
+    ``LGBMRegressor`` on SKLEARN_ROWS of (A)'s rows (the Higgs label and
+    (F)'s real-valued target), ``LGBMRanker`` on (H)'s first
+    RANKER_QUERY_SHARE of the queries at the full width of 137; each estimator's ``predict`` (and
+    ``predict_proba``) on held-out rows bit-equal to a ``train()`` Booster
+    with the same parameters on the same rows, its launches one root
+    histogram a tree and L - 1 split passes, and held as every new path
+    is."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch import compat
+    from lightgbm_tpu_torch import device as D
+    from lightgbm_tpu_torch.sklearn import (LGBMClassifier, LGBMRanker,
+                                            LGBMRegressor)
+    t0 = time.perf_counter()
+    log("  (S6) estimator base classes from %s (sklearn %s)"
+        % ("sklearn" if compat.SKLEARN_INSTALLED else "compat.py",
+           "installed" if compat.SKLEARN_INSTALLED else "absent"))
+    X, y, X_test, _ = data
+    m = SKLEARN_ROWS
+    Xs, Xh = X[:m], X_test[:HOLD_ROWS]
+    z = higgs_score(X[:m], np.random.RandomState(1))
+    Xr, yr, group = ltr["rows"], ltr["label"], ltr["group"]
+    q = int(len(group) * RANKER_QUERY_SHARE)
+    nr = int(group[:q].sum())
+    Xr, yr, gr = Xr[:nr], yr[:nr], group[:q]
+    Xrh = held_out_rows(HOLD_ROWS, Xr.shape[1], 6, device)
+    kw = dict(n_estimators=SKLEARN_ITERS, num_leaves=255, max_bin=255,
+              learning_rate=0.1, verbose=-1)
+    out = {"launches": {}, "trees": 0, "estimators": {}}
+    for name, est, Xe, ye, fit_kw, Xp in (
+            ("LGBMClassifier", LGBMClassifier(**kw), Xs, y[:m], {}, Xh),
+            ("LGBMRegressor", LGBMRegressor(**kw), Xs, z, {}, Xh),
+            ("LGBMRanker", LGBMRanker(min_child_samples=1,
+                                      min_child_weight=100, **kw),
+             Xr, yr, dict(group=gr), Xrh)):
+        t = time.perf_counter()
+        D.reset_launches()
+        est.fit(Xe, ye, **fit_kw)
+        torch.cuda.synchronize()
+        launches = D.launches()
+        fit_s = time.perf_counter() - t
+        gbdt = est.booster_._booster
+        params = est._process_params()
+        params["objective"] = est._objective
+        ref = lgb.train(params, lgb.Dataset(Xe, ye, params=params, **fit_kw),
+                        num_boost_round=SKLEARN_ITERS, verbose_eval=False)
+        same = {"model text": est.booster_.model_to_string()
+                == ref.model_to_string()}
+        if name == "LGBMClassifier":
+            p = ref.predict(Xp)
+            same["predict_proba"] = np.array_equal(
+                est.predict_proba(Xp), np.vstack((1.0 - p, p)).T)
+            same["predict"] = np.array_equal(est.predict(Xp),
+                                             (p > 0.5).astype(int))
+        else:
+            same["predict"] = np.array_equal(est.predict(Xp),
+                                             ref.predict(Xp))
+        log("  (S6) %s on %d rows x %d features (objective %s), fit %.2f s: "
+            "%s; launches %s" % (
+                name, len(Xe), Xe.shape[1], params["objective"], fit_s,
+                ", ".join("%s %s train()'s" % (k, "equal to" if v
+                                              else "DIFFERENT from")
+                          for k, v in same.items()), launches))
+        if not all(same.values()):
+            raise AssertionError("(S6) %s differs from train(): %s"
+                                 % (name, same))
+        r = dict(launches=launches, trees=len(gbdt.models),
+                 fetches=[gbdt.last_arrays.host_fetches])
+        hold_path("S6", gbdt, r, Xe, Xp, regrow=name == "LGBMClassifier")
+        out["estimators"][name] = dict(fit_s=fit_s, rows=len(Xe))
+        for k, v in launches.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        out["trees"] += r["trees"]
+        del est, ref, gbdt
+        torch.cuda.empty_cache()
+    return finish_path("S6", out, t0)
+
+
+def session_processes(sid: int) -> list:
+    """PIDs of the processes of session ``sid`` (``/proc/<pid>/stat``)."""
+    found = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open("/proc/%s/stat" % name) as fh:
+                stat = fh.read()
+        except OSError:
+            continue
+        if int(stat[stat.rindex(")") + 2:].split()[3]) == sid:
+            found.append(int(name))
+    return found
+
+
+def phase_watchdog_abort(device) -> dict:
+    """Path (U2): the watchdog with ``abort=True`` (what
+    ``watchdog_timeout_s`` arms in ``train()``) in a child process on the
+    card, in a session of its own: (A)'s task at ABORT_ROWS rows, a
+    callback that sleeps past ABORT_TIMEOUT_S inside a watched section
+    after the first iteration.  The child must end with ``EXIT_STALLED``
+    (79), from the watchdog's ``os._exit`` (a ``SystemExit`` would run the
+    child's last line); its artifact names the section, holds ``stall_s``
+    >= the timeout, the ``recompiles`` and the first iteration's kernel
+    launches; no process of its session is left."""
+    return finish_watchdog_abort(start_watchdog_abort())
+
+
+def start_watchdog_abort() -> dict:
+    """(U2)'s child process, started: it runs beside the parent's next
+    path until :func:`finish_watchdog_abort` waits for it."""
+    import shutil
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(RESIL_DIR, "abort")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    prefix = os.path.join(work, "run")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", ABORT_CHILD, root, str(ABORT_ROWS),
+         str(ABORT_TIMEOUT_S), prefix], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    return dict(proc=proc, work=work, prefix=prefix, t0=t0,
+                wall0=time.time())
+
+
+def finish_watchdog_abort(child: dict) -> dict:
+    """(U2)'s checks, once its child has ended (see
+    :func:`phase_watchdog_abort`)."""
+    import shutil
+    from lightgbm_tpu_torch import resilience
+    proc, work, prefix = child["proc"], child["work"], child["prefix"]
+    t0 = time.perf_counter()
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    left = session_processes(proc.pid)
+    art = prefix + ".stall.json"
+    diag = {}
+    if os.path.exists(art):
+        with open(art) as fh:
+            diag = json.load(fh)
+    shutil.rmtree(work, ignore_errors=True)
+    launches = {k: v for k, v in diag.get("launches", {}).items() if v}
+    # from the child's start to its watchdog's artifact, just before the
+    # abort
+    child_s = diag.get("ts", time.time()) - child["wall0"]
+    log("  (U2) child exit code %d, %.1f s from its start to the abort "
+        "(want %d); artifact: "
+        "section %r, stall_s %s of timeout %s, recompiles %s, launches %s, "
+        "kernel build %s s; processes of its session left: %s"
+        % (proc.returncode, child_s, resilience.EXIT_STALLED,
+           diag.get("section"), diag.get("stall_s"), diag.get("timeout_s"),
+           diag.get("recompiles"), launches, diag.get("kernel_build_s"),
+           left))
+    want = {"histogram": 1, "partition": HIGGS_PARAMS["num_leaves"] - 1}
+    if not (proc.returncode == resilience.EXIT_STALLED
+            and "did not abort" not in stdout
+            and diag.get("section") == "stall_probe"
+            and diag.get("stall_s", 0) >= ABORT_TIMEOUT_S
+            and isinstance(diag.get("recompiles"), dict)
+            and launches == want and not left):
+        raise AssertionError("(U2) the watchdog's abort: rc %s, stdout %r, "
+                             "stderr %s, artifact %s"
+                             % (proc.returncode, stdout[-500:],
+                                stderr[-2000:], diag))
+    r = dict(launches=launches, trees=1, rc=proc.returncode,
+             stall_s=diag["stall_s"], child_s=child_s)
+    return finish_path("U2", r, t0)
+
+
+T3_PARAMS = ("objective=binary num_leaves=255 max_bin=255 learning_rate=0.1 "
+             "metric=auc num_iterations=%d verbosity=-1" % CLI_ITERS)
+
+
+def start_capi_host(train_f: str):
+    """(T3)'s C program (``capi_host.c``, built with ``gcc`` against
+    ``lightgbm_tpu_torch_c_api.h`` and linked to
+    ``lib_lightgbm_tpu_torch.so``) started on ``train_f`` with
+    T3_PARAMS: it trains CLI_ITERS iterations on the card through the
+    ``LGBM_*`` calls alone and saves its model."""
+    from lightgbm_tpu_torch import capi_build
+    t = time.perf_counter()
+    exe = capi_build.build_host()
+    build_s = time.perf_counter() - t
+    model = os.path.join(CLI_DIR, "capi_host_model.txt")
+    proc = subprocess.Popen([exe, train_f, T3_PARAMS, str(CLI_ITERS), model],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return dict(exe=exe, proc=proc, model=model, build_s=build_s,
+                data=train_f, t0=time.perf_counter())
+
+
+def finish_capi_host(host: dict, train_ds) -> dict:
+    """(T3)'s end: the C program's exit code, its model text byte-equal to
+    ``lightgbm_tpu_torch.train`` with the same parameters on the same file
+    (``train_ds``, the dataset the port loaded from it)."""
+    import lightgbm_tpu_torch as lgb
+    proc = host["proc"]
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - host["t0"]
+    if proc.returncode != 0:
+        raise AssertionError("(T3) the C program failed (rc %d): %s"
+                             % (proc.returncode, stderr[-3000:]))
+    steps = dict((ln.split()[0] if ln.split()[0] != "iteration"
+                  else "iteration %s" % ln.split()[1], float(ln.split()[-1]))
+                 for ln in stdout.splitlines()
+                 if ln.split()[:1] in (["load"], ["create"], ["iteration"],
+                                       ["save"]))
+    with open(host["model"]) as fh:
+        text = fh.read()
+    params = dict(tok.split("=", 1) for tok in T3_PARAMS.split())
+    train = lgb.Dataset(host["data"])
+    train.handle = train_ds
+    from lightgbm_tpu_torch import device as D
+    D.reset_launches()
+    ref = lgb.train(dict(params), train, num_boost_round=CLI_ITERS,
+                    verbose_eval=False)
+    launches = D.launches()
+    same = text == ref.model_to_string()
+    log("  (T3) the C program %s (gcc, %.2f s to build or find): exit 0 "
+        "after %.1f s, its steps %s; model text %s train()'s on the same "
+        "file (%d bytes)" % (host["exe"], host["build_s"], wall, steps,
+                             "byte-equal to" if same else "DIFFERENT from",
+                             len(text)))
+    if not same:
+        raise AssertionError("(T3) the C program's model differs from "
+                             "train()'s: %s" % first_text_difference(
+                                 text, ref.model_to_string()))
+    return dict(wall_s=wall, steps=steps, build_s=host["build_s"],
+                ref_launches=launches)
+
+
+# ------------------------------------------------------------ phase 5 ----
+
 def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     """Median CUDA-event time of ``fn()`` over ``reps`` runs after
     ``warmup``."""
@@ -7610,6 +8580,11 @@ def main(argv=None) -> int:
                                           args.profile)
     torch.cuda.empty_cache()
     mark()
+    log("  (F2) leaf renewal on (A)'s bins with (F)'s target: %s, "
+        "unweighted, leaf-wise, %d iterations each"
+        % (", ".join(n for n, _ in RENEW_OBJECTIVES), RENEW_ITERS))
+    paths["F2"] = phase_renewal(device, data, ds)
+    mark()
     log("  (G) multiclass softmax (num_class=%d) on (A)'s features, "
         "lightgbm_tpu_torch.train with the held-out rows as a validation set,"
         " %d iterations" % (NUM_CLASS, min(args.iters, MULTICLASS_ITERS)))
@@ -7640,6 +8615,10 @@ def main(argv=None) -> int:
     paths["N"] = phase_forced_cegb(device, data, ds, args.profile)
     torch.cuda.empty_cache()
     mark()
+    log("  (S5) lightgbm_tpu_torch.cv on (A)'s task and bins: nfold=%d, "
+        "stratified, %d rounds" % (CV_FOLDS, CV_ROUNDS))
+    paths["S5"] = phase_cv(device, data, ds)
+    mark()
     log("  (Y) the fused multi-iteration chunk: GBDT.train() with "
         "metric_freq=%d and (A)'s held-out rows as a validation set, each "
         "run against train_one_iter" % CHUNK_METRIC_FREQ)
@@ -7669,10 +8648,11 @@ def main(argv=None) -> int:
     paths["V1"] = phase_parallel_nccl(device, data, ds,
                                       min(args.iters, V1_ITERS),
                                       a_path["text"])
-    paths["V2"] = phase_parallel_gloo(device, args.rows,
-                                      min(args.iters, V2_ITERS), a_path,
-                                      paths["C"]["losses"])
-    log("  (V) took %.1f s" % (time.perf_counter() - t))
+    log("  (V1) took %.1f s; (V2)'s two ranks start now and train beside "
+        "(P)-(R)" % (time.perf_counter() - t))
+    v2_run = start_parallel_gloo(device, args.rows,
+                                 min(args.iters, V2_ITERS))
+    a_v2 = dict(a_path)          # (A)'s booster, kept for (V2)'s checks
     torch.cuda.empty_cache()
     from lightgbm_tpu_torch import device as D
     mark()
@@ -7695,6 +8675,12 @@ def main(argv=None) -> int:
     mark()
     log("  (R) checkpoint and resume on (A)'s bins")
     paths["R"] = phase_checkpoint(device, data, ds)
+    torch.cuda.empty_cache()
+    mark()
+    t = time.perf_counter()
+    paths["V2"] = finish_parallel_gloo(v2_run, a_v2, paths["C"]["losses"])
+    log("  (V2) joined %.1f s after (R) ended" % (time.perf_counter() - t))
+    del a_v2, v2_run
     torch.cuda.empty_cache()
     mark()
     log("  (W) telemetry and the serving tier: (W1) train() of (A)'s task "
@@ -7735,7 +8721,6 @@ def main(argv=None) -> int:
         % PREEMPT_AT)
     paths["U"] = phase_resilience(device, data, args.iters, capi.pop("text"))
     torch.cuda.empty_cache()
-    del data
     mark()
     log("  (D) Epsilon-shaped, lightgbm_tpu_torch.train with a validation "
         "set: %d + %d rows x %d features, max_bin=255, num_leaves=255, %d "
@@ -7747,7 +8732,17 @@ def main(argv=None) -> int:
     log("  (O) histogram pool on (D)'s binned rows: histogram_pool_size=%d, "
         "%d iterations" % (POOL_MB, POOL_ITERS))
     paths["O"] = phase_pool(device, paths["D"], args.profile)
-    del paths["D"]["train"], paths["D"]["models"]
+    torch.cuda.empty_cache()
+    mark()
+    log("  (D2) level growth on (D)'s bins: %d x %d, W = 2048, exact then "
+        "quantized, %d iterations each" % (nw, WIDE_F, LEVEL_WIDE_ITERS))
+    paths["D2"] = phase_epsilon_level(device, paths["D"])
+    mark()
+    log("  (K2) GOSS on (D)'s bins: top_rate=0.2, other_rate=0.1, %d "
+        "iterations at learning_rate=%g (the first %d without sampling)"
+        % (GOSS_WIDE_ITERS, GOSS_WIDE_RATE, int(1 / GOSS_WIDE_RATE)))
+    paths["K2"] = phase_goss_wide(device, paths["D"])
+    del paths["D"]["train"], paths["D"]["models"], paths["D"]["rows"]
     torch.cuda.empty_cache()
     mark()
     log("  (H) lambdarank, MS LTR-shaped: %d rows x %d features, metric=ndcg,"
@@ -7755,6 +8750,20 @@ def main(argv=None) -> int:
         % (args.ltr_rows, LTR_F, args.iters))
     paths["H"] = phase_lambdarank(device, args.ltr_rows, args.iters,
                                   args.profile)
+    ltr = paths["H"].pop("ltr")
+    torch.cuda.empty_cache()
+    mark()
+    log("  (H2) rank_xendcg on (H)'s bins: %d rows x %d features, (H)'s "
+        "settings, %d iterations" % (args.ltr_rows, LTR_F, XENDCG_ITERS))
+    paths["H2"] = phase_xendcg(device, ltr)
+    mark()
+    log("  (S6) the scikit-learn estimators: LGBMClassifier and "
+        "LGBMRegressor on %d of (A)'s rows, LGBMRanker on (H)'s first %g of "
+        "the queries, %d iterations each" % (SKLEARN_ROWS,
+                                              RANKER_QUERY_SHARE,
+                                              SKLEARN_ITERS))
+    paths["S6"] = phase_sklearn(device, data, ltr)
+    del ltr, data
     torch.cuda.empty_cache()
     mark()
     log("  (I) EFB, Allstate-shaped sparse data from CSR, "
@@ -7763,6 +8772,12 @@ def main(argv=None) -> int:
         % (args.allstate_rows, ALLSTATE_TEST_ROWS, ALLSTATE_F, args.iters))
     paths["I"] = phase_allstate(device, args.allstate_rows,
                                 ALLSTATE_TEST_ROWS, args.iters, args.profile)
+    torch.cuda.empty_cache()
+    mark()
+    log("  (I2) level growth, %d iterations, and (L2) DART (drop_rate=%g, "
+        "skip_drop=0) until its first drop, on (I)'s bins"
+        % (BUNDLED_ITERS, DART_BUNDLED["drop_rate"]))
+    paths.update(phase_allstate_variants(device, paths["I"].pop("sets")))
     torch.cuda.empty_cache()
     mark()
     log("  (J) categorical features, Expo-shaped: %d + %d rows x %d columns "
@@ -7787,10 +8802,20 @@ def main(argv=None) -> int:
     paths["E"] = phase_build_histogram(device, 1 << 20)
     torch.cuda.empty_cache()
     mark()
+    log("  (U2) the watchdog's abort: a child process on the card, (A)'s "
+        "task at %d rows, a callback asleep past watchdog_timeout_s=%g in a "
+        "watched section; started now, it runs beside (S)"
+        % (ABORT_ROWS, ABORT_TIMEOUT_S))
+    abort_child = start_watchdog_abort()
     log("  (S) the CLI from text files: %d rows x 28 features, "
         "max_bin=255, num_leaves=255, %d iterations; the reference's "
-        "example configs" % (CLI_ROWS, CLI_ITERS))
-    paths["S"] = phase_cli(device, CLI_ROWS)
+        "example configs; (T3) a C program trains from (S)'s file beside "
+        "(S1)-(S3)" % (CLI_ROWS, CLI_ITERS))
+    try:
+        paths["S"] = phase_cli(device, CLI_ROWS)
+    finally:
+        mark()
+        paths["U2"] = finish_watchdog_abort(abort_child)
     torch.cuda.empty_cache()
     log("  median seconds per iteration: %s" % ", ".join(
         "(%s) %.4f" % (p, float(np.median(r["iter_s"])))
@@ -7817,7 +8842,9 @@ def main(argv=None) -> int:
              replaces="lightgbm_tpu/core/histogram.py:743",
              max_abs_err=hist_err_max,
              **launches("histogram", "ABCGHIJRSTU", ("V1", "V2", "W1",
-                                                     "X", "Y", "Z")),
+                                                     "X", "Y", "Z", "F2",
+                                                     "S5", "U2", "I2", "L2",
+                                                     "H2", "S6")),
              groups_root=paths["I"]["times"]["histogram"],
              cli_root=paths["S"]["times"]["histogram"],
              expo_root=paths["J"]["times"]["histogram"],
@@ -7828,7 +8855,9 @@ def main(argv=None) -> int:
              also_replaces="lightgbm_tpu/core/partition.py:1130",
              max_abs_err=split_err_max,
              **launches("partition", "ABCFGHIJRSTU", ("V1", "V2", "W1",
-                                                      "X", "Y", "Z")),
+                                                      "X", "Y", "Z", "F2",
+                                                      "S5", "U2", "L2",
+                                                      "H2", "S6")),
              feature_window_launches=(
                  paths["V1"]["feature_window_launches"]
                  + paths["V2"]["feature_window_launches"]),
@@ -7884,7 +8913,8 @@ def main(argv=None) -> int:
         dict(name="histogram_widef", route="cuda",
              source="lightgbm_tpu_torch/csrc/histogram.cu",
              replaces="lightgbm_tpu/core/histogram.py:774",
-             max_abs_err=widef_err, **launches("histogram", "D"),
+             max_abs_err=widef_err, **launches("histogram", "D",
+                                               ("D2", "K2")),
              quantized_ms=times["histogram_widef_q"]["ms"],
              quantized_bound_ms=times["histogram_widef_q"]["bound_ms"],
              **times["histogram_widef"]),
@@ -7892,7 +8922,8 @@ def main(argv=None) -> int:
              source="lightgbm_tpu_torch/csrc/partition.cu",
              replaces="lightgbm_tpu/core/partition.py:1090",
              also_replaces="lightgbm_tpu/core/partition.py:281",
-             max_abs_err=widef_split_err, **launches("partition", "D"),
+             max_abs_err=widef_split_err, **launches("partition", "D",
+                                                     ("K2",)),
              **times["partition_widef"]),
         dict(name="histogram_masked", route="cuda",
              source="lightgbm_tpu_torch/csrc/histogram_masked.cu",

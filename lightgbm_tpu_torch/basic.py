@@ -453,7 +453,7 @@ class Booster:
         """Raw scores of the training set ('train') or the i-th valid set:
         [N], or class-major [K * N]."""
         b = self._booster
-        score = (b.train_score if which == "train"
+        score = (b.get_training_score() if which == "train"
                  else b.valid_sets[which]["score"])
         return score.reshape(-1).double().cpu().numpy()
 

@@ -1603,8 +1603,14 @@ class GBDT:
                 for m in metrics
                 for mname, val in zip(m.names, m.eval(host, self.objective))]
 
+    def get_training_score(self) -> torch.Tensor:
+        """The [K, N] scores the gradients of this iteration are computed
+        from (gbdt.py:648-650 of the JAX package): the train score."""
+        return self.train_score
+
     def eval_train(self) -> List[Tuple[str, str, float, bool]]:
-        return self._eval("training", self.train_score, self.train_metrics)
+        return self._eval("training", self.get_training_score(),
+                          self.train_metrics)
 
     def eval_valid(self) -> List[Tuple[str, str, float, bool]]:
         return [r for vs in self.valid_sets

@@ -4,8 +4,11 @@
 fallback entries of the JAX package's ``tools/build_capi.py``) over the
 PyTorch port.
 
-Usage: ``python -m lightgbm_tpu_torch.capi_build [out_dir]`` (default
-``build/capi`` at the repository root); prints the library's path.
+Usage: ``python -m lightgbm_tpu_torch.capi_build [--host] [out_dir]``
+(default ``build/capi`` at the repository root); prints the library's
+path, and with ``--host`` also the path of the C host program
+``lightgbm_tpu_torch_capi_host`` (``capi_host.c``: a file trained through
+the ``LGBM_*`` calls alone, see :func:`build_host`).
 
 The C source is generated from :data:`CDEF`, a copy of the JAX package's
 ABI declaration list, and needs only ``gcc`` and ``Python.h``: no cffi.
@@ -49,6 +52,8 @@ REPO_ROOT = Path(__file__).resolve().parent.parent
 BUILD_DIR = REPO_ROOT / "build" / "capi"
 LIB_NAME = "lib_lightgbm_tpu_torch.so"
 HEADER_NAME = "lightgbm_tpu_torch_c_api.h"
+HOST_NAME = "lightgbm_tpu_torch_capi_host"
+HOST_SOURCE = Path(__file__).resolve().parent / "capi_host.c"
 MODULE = "lightgbm_tpu_torch.c_api"
 
 # the ABI surface (c_api.h:58-1044), spelled with plain C types; a copy of
@@ -557,9 +562,50 @@ def build(out_dir: Optional[str] = None) -> str:
     return str(lib)
 
 
+def build_host(out_dir: Optional[str] = None) -> str:
+    """Build the library (:func:`build`) and the C host program of
+    ``capi_host.c`` beside it, compiled with ``gcc`` against
+    ``lightgbm_tpu_torch_c_api.h`` and linked to the library, which it
+    finds at run time through its rpath; return the program's path.
+    Rebuilt when the library, the source or the flags change.  It needs a
+    Python built shared (``Py_ENABLE_SHARED`` = 1, as on the machines the
+    port runs on): the library then brings ``libpython`` into a process
+    that has no Python of its own."""
+    if str(sysconfig.get_config_var("Py_ENABLE_SHARED")) != "1":
+        raise CapiBuildError("the C host program needs a Python built "
+                             "shared (Py_ENABLE_SHARED = 1)")
+    lib = Path(build(out_dir))
+    out = lib.parent
+    exe = out / HOST_NAME
+    cmd = [os.environ.get("CC", "gcc"), "-O2", "-Wall", "-Werror",
+           "-I" + str(out), "-o", str(exe) + ".tmp%d" % os.getpid(),
+           str(HOST_SOURCE), "-L" + str(out), "-Wl,-rpath," + str(out),
+           "-l:" + LIB_NAME]
+    h = hashlib.sha256(HOST_SOURCE.read_bytes())
+    h.update(repr(cmd[:6] + cmd[7:]).encode())
+    h.update((out / (LIB_NAME + ".sha")).read_bytes())
+    digest = h.hexdigest()[:16]
+    stamp = out / (HOST_NAME + ".sha")
+    if exe.exists() and stamp.exists() and stamp.read_text() == digest:
+        return str(exe)
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise CapiBuildError("building %s failed (rc %d):\n%s%s"
+                             % (HOST_NAME, proc.returncode, proc.stdout,
+                                proc.stderr))
+    os.replace(cmd[6], exe)
+    stamp.write_text(digest)
+    return str(exe)
+
+
 if __name__ == "__main__":
     import argparse
     ap = argparse.ArgumentParser(
         description="build lib_lightgbm_tpu_torch.so (the LGBM_* C ABI)")
+    ap.add_argument("--host", action="store_true",
+                    help="also build the C host program (capi_host.c)")
     ap.add_argument("out_dir", nargs="?", default=None)
-    print(build(ap.parse_args().out_dir))
+    args = ap.parse_args()
+    print(build(args.out_dir))
+    if args.host:
+        print(build_host(args.out_dir))

@@ -2567,12 +2567,19 @@ class SerialTreeLearner:
         (:func:`grows_on_device` of its growth mode)."""
         return grows_on_device(self.effective_grow_mode())
 
+    def level_classes(self) -> int:
+        """Launches a level makes (tree_learner.py:1828-1832): 1.  The
+        JAX package launches one kernel a bucket class of its level's
+        windows; the port's level pass takes every window of a level in
+        one launch, whatever its size."""
+        return 1
+
     def launches_per_tree(self) -> int:
-        """Split-pass launches one tree makes at most: one per level in
+        """Split-pass launches one tree makes at most: levels x classes in
         level mode (whatever the window sizes), L - 1 leaf-wise, exactly
         so in the device build (tree_learner.py:1834-1848)."""
         if self.effective_grow_mode() == "level":
-            return self.level_count()
+            return self.level_count() * self.level_classes()
         return self.num_leaves - 1
 
     def train(self, grad: torch.Tensor, hess: torch.Tensor,
@@ -2679,7 +2686,8 @@ class SerialTreeLearner:
             from ..obs import spans as _spans
             fields = dict(mode=grow_mode, launches=int(passes))
             if grow_mode == "level":
-                fields["levels"] = self.level_count()
+                fields.update(levels=self.level_count(),
+                              classes=self.level_classes())
             _spans.record_span(tele, "tree_build", t0=t0,
                                dur_s=time.perf_counter() - pc0,
                                trace_id=tele.trace_id, **fields)

@@ -25,6 +25,7 @@ Behavioral parity notes (same constants/semantics as the reference):
 """
 from __future__ import annotations
 
+import math
 from enum import IntEnum
 from typing import Dict, List, Optional, Sequence
 
@@ -47,9 +48,6 @@ class BinType(IntEnum):
 
 def _next_up(a):
     return np.nextafter(a, np.inf)
-
-
-_CUT_WINDOW = 4096
 
 
 def greedy_find_bin(distinct_values: np.ndarray, counts: np.ndarray, max_bin: int,
@@ -79,16 +77,24 @@ def greedy_find_bin(distinct_values: np.ndarray, counts: np.ndarray, max_bin: in
     rest_sample_cnt = int(total_cnt - counts[is_big].sum())
     mean_bin_size = rest_sample_cnt / max(rest_bin_cnt, 1)
 
-    # Per-BIN loop instead of per-value (the Python per-value scan was the
-    # hottest part of whole-dataset bin finding): between two cuts the mean
-    # is constant, so each cut is the first index of a vectorized condition.
-    # Bit-identical to the per-value loop: int64 cum counts compare against
-    # the same float thresholds.
+    # One cut at a time, each found by binary searches: the first index i
+    # >= start that is big, or whose count since the last cut (csum[i] -
+    # base, an integer) reaches the mean, or that precedes a big value with
+    # at least half the mean (bin.cpp:115-140).  An integer reaches a float
+    # exactly when it reaches its ceiling, so each comparison is made on
+    # int64 sums and is bit-identical to the per-value loop's.
     counts64 = counts.astype(np.int64)
     csum = np.cumsum(counts64)
     csum_big = np.cumsum(np.where(is_big, counts64, 0))
-    big_next = np.zeros(n, dtype=bool)
-    big_next[:n - 1] = is_big[1:]
+    big_at = np.flatnonzero(is_big[:n - 1])
+    before_big = np.flatnonzero(is_big[1:])      # i with is_big[i + 1]
+    reach = csum.searchsorted
+
+    def first_from(idx: np.ndarray, pos: int) -> int:
+        if not len(idx):
+            return n
+        k = int(idx.searchsorted(pos))
+        return int(idx[k]) if k < len(idx) else n
 
     uppers: List[float] = []
     lowers: List[float] = [float(distinct_values[0])]
@@ -96,22 +102,12 @@ def greedy_find_bin(distinct_values: np.ndarray, counts: np.ndarray, max_bin: in
     base = 0
     base_big = 0
     while start <= n - 2 and len(uppers) < max_bin - 1:
-        # the first index of the condition, searched window by window: a
-        # cut lies about a mean bin past the last one, so this reads a few
-        # thousand values per cut instead of the rest of the range
-        i = -1
-        lo = start
-        while lo < n - 1 and i < 0:
-            hi = min(lo + _CUT_WINDOW, n - 1)
-            cur = csum[lo:hi] - base
-            cond = (is_big[lo:hi] | (cur >= mean_bin_size)
-                    | (big_next[lo:hi]
-                       & (cur >= max(1.0, mean_bin_size * 0.5))))
-            rel = np.flatnonzero(cond)
-            if rel.size:
-                i = lo + int(rel[0])
-            lo = hi
-        if i < 0:
+        i = min(first_from(big_at, start),
+                max(start, int(reach(base + math.ceil(mean_bin_size)))))
+        if len(before_big):
+            half = base + math.ceil(max(1.0, mean_bin_size * 0.5))
+            i = min(i, first_from(before_big, max(start, int(reach(half)))))
+        if i > n - 2:
             break
         uppers.append(float(distinct_values[i]))
         lowers.append(float(distinct_values[i + 1]))
@@ -122,9 +118,11 @@ def greedy_find_bin(distinct_values: np.ndarray, counts: np.ndarray, max_bin: in
         base = int(csum[i])
         base_big = int(csum_big[i])
         start = i + 1
+    # math.nextafter on Python floats: the same double as np.nextafter,
+    # without a numpy call per bound
     for i in range(len(uppers)):
-        val = float(_next_up((uppers[i] + lowers[i + 1]) / 2.0))
-        if not bounds or val > _next_up(bounds[-1]):
+        val = math.nextafter((uppers[i] + lowers[i + 1]) / 2.0, math.inf)
+        if not bounds or val > math.nextafter(bounds[-1], math.inf):
             bounds.append(val)
     bounds.append(np.inf)
     return bounds

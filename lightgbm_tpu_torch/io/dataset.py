@@ -72,6 +72,8 @@ class BinnedDataset:
         self.group_idx: Optional[np.ndarray] = None  # [F_used] -> group column
         self.bin_offset: Optional[np.ndarray] = None  # [F_used] first group code
         self.num_bin_per_group: List[int] = []
+        # (binned, {device: tensor}) of device_view
+        self._device_cache = None
 
     # ---- construction ----
 
@@ -217,8 +219,9 @@ class BinnedDataset:
         total = len(sample)
         cat = set(int(c) for c in categorical_feature)
         self.bin_mappers = []
+        columns = np.ascontiguousarray(sample.T)   # a column a feature
         for f in range(self.num_total_features):
-            col = sample[:, f]
+            col = columns[f]
             # sparse sampling contract: pass non-zero (plus NaN) values only,
             # zeros are implied by total_sample_cnt (dataset_loader.cpp:819)
             nz = col[(col != 0.0) | np.isnan(col)]
@@ -650,6 +653,27 @@ class BinnedDataset:
             nb = self.num_bin_per_feature[j]
             mine = (col >= off) & (col <= off + nb - 2)
             out[mine, j] = (col[mine] - off + 1).astype(dtype)
+        return out
+
+    # ---- device view ----
+
+    def device_view(self, device=None):
+        """The binned matrix [N, C] on ``device`` (``cuda`` unless the
+        caller passes another; dataset.py:639-648 of the JAX package),
+        made once a device and kept while ``binned`` is the same array;
+        u16 bins come as int32, the dtype the port's routes read."""
+        import torch
+        from ..device import resolve_device
+        dev = resolve_device(device)
+        cache = self._device_cache
+        if cache is None or cache[0] is not self.binned:
+            cache = self._device_cache = (self.binned, {})
+        out = cache[1].get(dev)
+        if out is None:
+            bins = np.ascontiguousarray(self.binned)
+            if bins.dtype == np.uint16:
+                bins = bins.astype(np.int32)
+            out = cache[1][dev] = torch.from_numpy(bins).to(dev)
         return out
 
     @property

@@ -7,7 +7,8 @@ with a ``resource.getrusage`` fallback elsewhere.
 
 - :func:`peak_rss_bytes`: the OS-tracked lifetime peak (``VmHWM``);
 - :func:`note` / :func:`high_water`: the process-local observed peak across
-  explicit poll points (every ``/metrics`` scrape).
+  explicit poll points (every ``/metrics`` scrape); :func:`reset_high_water`
+  restarts it.
 """
 from __future__ import annotations
 
@@ -69,3 +70,11 @@ def note() -> int:
 def high_water() -> int:
     """Largest RSS seen across :func:`note` calls this process."""
     return _HIGH
+
+
+def reset_high_water() -> None:
+    """Restart the observed high-water, so that a phase's peak is its own
+    (hostmem.py:86-90 of the JAX package)."""
+    global _HIGH
+    with _LOCK:
+        _HIGH = 0

@@ -78,3 +78,10 @@ def reset() -> None:
     with _lock:
         _counts.clear()
         _trees.clear()
+
+
+def as_flat_dict() -> Dict[str, int]:
+    """{mode: launches}, sorted by mode: the summary JSON's form
+    (launches.py:83-87 of the JAX package)."""
+    with _lock:
+        return dict(sorted(_counts.items()))

@@ -33,7 +33,17 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from ..plan.device_specs import current_device_kind, device_peaks
+from ..plan.device_specs import current_device_kind, device_peaks as \
+    _kind_peaks
+
+
+def device_peaks(device=None) -> Optional[Dict[str, float]]:
+    """{"bw": bytes/s, "ops": adds/s, "kind": str}: the row of
+    ``plan/device_specs.py`` of the card ``device`` runs on (the first
+    CUDA card when None), or None on the CPU and on a card without
+    published peaks (mfu.py:34-51 of the JAX package, which names its
+    compute peak ``macs``; the port's kernels add on the CUDA cores)."""
+    return _kind_peaks(current_device_kind(device))
 
 
 def hist_row_bytes(num_features: int, bpc: int) -> int:
@@ -95,7 +105,7 @@ def training_utilization(trees: List, n_rows: int, iters: int,
     """The cost model and its shares of the card's peaks over ``wall_s``;
     ``device_util``/``mfu`` are None on a kind with no peaks."""
     cost = training_cost_model(trees, n_rows, iters, num_features, max_bin)
-    peaks = device_peaks(device_kind)
+    peaks = _kind_peaks(device_kind)
     out = dict(cost)
     out["wall_s"] = float(wall_s)
     if peaks is not None and wall_s > 0:

@@ -17,6 +17,9 @@ The counterpart of ``lightgbm_tpu/obs/profiling.py`` (:1-228), with
   (:func:`on_incident`); a second incident, or one during a capture, does
   nothing.
 
+- :func:`trace_block`: a profiler around a block of the caller's, its
+  trace into a directory the caller names.
+
 ``torch.profiler`` is process-wide: a capture while another capture runs,
 or while any other ``torch.profiler`` is active in the process (the
 ``--profile`` table of ``chip_smoke.py``), is refused with an error
@@ -28,6 +31,7 @@ Run-owned: state lives on the active :class:`~.registry.Telemetry`
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -127,6 +131,41 @@ def _profile_window(outdir: str, seconds: float) -> None:
     with profile(activities=acts) as prof:
         time.sleep(seconds)
     prof.export_chrome_trace(os.path.join(outdir, TRACE_FILE))
+
+
+@contextlib.contextmanager
+def _trace_into(outdir: str, profile, activities):
+    try:
+        with profile(activities=activities) as prof:
+            yield
+        os.makedirs(outdir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(outdir, TRACE_FILE))
+    finally:
+        _process_lock.release()
+
+
+def trace_block(outdir: str):
+    """A context manager that runs ``torch.profiler.profile`` over its
+    block and exports the Chrome trace (``trace.json``) into ``outdir``
+    (profiling.py:105-114 of the JAX package, over ``jax.profiler``); a
+    null context, still yielding, where no profiler can run: without
+    ``torch.profiler``, or while a capture or another profiler runs in the
+    process (they never nest), so that callers need no guard of their
+    own."""
+    try:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+    except Exception:
+        return contextlib.nullcontext()
+    if not _process_lock.acquire(blocking=False):
+        return contextlib.nullcontext()
+    if profiler_running():
+        _process_lock.release()
+        return contextlib.nullcontext()
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    return _trace_into(outdir, profile, acts)
 
 
 def capture(tele, seconds: float = DEFAULT_SECONDS,

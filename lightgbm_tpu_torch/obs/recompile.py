@@ -73,3 +73,11 @@ def reset() -> None:
     tele = active()
     if tele is not None and hasattr(tele, "recompile_baseline"):
         tele.recompile_baseline = {}
+
+
+def as_flat_dict() -> Dict[str, int]:
+    """{"fn|bucket": n}, sorted: the summary JSON's form (recompile.py:
+    103-106 of the JAX package), and the watchdog artifact's
+    ``recompiles``."""
+    with _lock:
+        return {"%s|%s" % k: n for k, n in sorted(_counts.items())}

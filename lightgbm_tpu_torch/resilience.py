@@ -323,12 +323,14 @@ class Watchdog:
                      info: Dict[str, Any]) -> Dict[str, Any]:
         from . import device as _device
         from .kernels import build_seconds
+        from .obs import recompile
         from .utils.timer import global_timer
         diag: Dict[str, Any] = {
             "v": 1, "kind": "watchdog_stall", "ts": time.time(),
             "section": name, "stall_s": round(elapsed, 3),
             "timeout_s": self.timeout_s, "pid": os.getpid(),
             "info": dict(info),
+            "recompiles": recompile.as_flat_dict(),
             "launches": _device.launches(),
             "kernel_build_s": build_seconds(),
             "host_phases": {k: round(v, 6)

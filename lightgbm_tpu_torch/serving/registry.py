@@ -677,6 +677,49 @@ class ModelRegistry:
             width = int(gbdt.max_feature_idx) + 1
         return width, defaults, allowed
 
+    def request_width(self, name: str, binned: bool = False
+                      ) -> Optional[int]:
+        """Columns a request for ``name`` must carry: the trained feature
+        count for raw rows, the row store's bin-group width for binned
+        ones, wherever the model lives (registry.py:683-706 of the JAX
+        package).  None when unknown (an unknown name, or a binned layout
+        without its bins): the caller skips the check and the dispatch
+        raises instead."""
+        name = str(name)
+        with self._lock:
+            entry = self._resident.get(name)
+            if entry is not None:
+                gbdt, layout = entry.gbdt, entry.layout_ds
+            else:
+                parked = self._parked.get(name) or self._building.get(name)
+                if parked is None:
+                    return None
+                gbdt, layout = parked
+        if not binned:
+            return int(gbdt.max_feature_idx) + 1
+        if layout is None:
+            layout = getattr(gbdt, "train_data", None)
+        store = getattr(layout, "binned", None) if layout is not None \
+            else None
+        return int(store.shape[1]) if store is not None else None
+
+    def early_stop_defaults(self, name: str) -> Tuple[Tuple[float, int],
+                                                      bool]:
+        """(config-default ``(margin, freq)``, explicit early stop
+        allowed) of a model wherever it lives, resident, parked or being
+        built, so that an eviction never changes what a request means
+        (registry.py:708-721 of the JAX package).  An unknown name gets
+        ((-1.0, 10), False); the submit path checks :meth:`knows`."""
+        name = str(name)
+        with self._lock:
+            entry = self._resident.get(name)
+            if entry is not None:
+                return entry.default_early_stop, entry.early_stop_allowed
+            parked = self._parked.get(name) or self._building.get(name)
+        if parked is None:
+            return (-1.0, 10), False
+        return parked[0]._predict_early_stop(), early_stop_allowed(parked[0])
+
     def residency_stats(self) -> Dict[str, Dict[str, int]]:
         """Per-resident-model accounted-vs-actual bytes (one lock
         round-trip; parked models hold no arrays and are omitted) — the
