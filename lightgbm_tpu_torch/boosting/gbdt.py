@@ -36,7 +36,9 @@ prediction early stop and the bf16 tier, ``predict_leaf_index``,
 the iterations for ``average_output`` (RF), ``feature_importance``, the
 host-time scopes of ``utils/timer.py`` (``GBDT::Boosting``,
 ``GBDT::Bagging``, ``TreeLearner::Train``, ``GBDT::UpdateScore``, as the JAX
-package's synchronous path names them; they synchronise nothing) and the
+package's synchronous path names them; they synchronise nothing; the
+first, third and fourth are fed by the ``objective``, ``tree_build`` and
+``score_update`` spans of ``obs/spans.py``) and the
 reference-compatible text model (``save_model_to_string`` /
 ``load_model_from_string``, gbdt_model_text.cpp:271,375).
 
@@ -103,6 +105,9 @@ counts in ``obs.recompile``) and the run gauges
 ``eval`` events, a non-finite guard trip ``nan_trip`` (``rollback_retry``
 for a rolled-back chunk), and the binned predict of an external dataset
 feeds the quality plane (``quality_baseline``, gbdt.py:2230-2310).
+Spans (``obs/spans.py``) mark the loop's layers: ``iteration`` (each
+``watched_iter``), ``objective``, ``score_update``, ``stall_poll``
+(``_poll_stop``) and ``materialize`` (``_materialize_pending``).
 """
 from __future__ import annotations
 
@@ -420,6 +425,7 @@ class GBDT:
             r.arrays = a._replace(leaf_value=a.leaf_value * r.rate,
                                   internal_value=a.internal_value * r.rate)
 
+    @_spans.spanned("materialize")
     def _materialize_pending(self) -> None:
         """Every pending tree to a host tree, in one transfer
         (``_materialize_pending``, gbdt.py:278-309), then the validation
@@ -466,6 +472,7 @@ class GBDT:
         self._resolve_records([r])
         return self._gather_tree_output(r.arrays)
 
+    @_spans.spanned("stall_poll")
     def _poll_stop(self) -> bool:
         """The deferred stall check (``_poll_stop``, gbdt.py:317-380): one
         read of every pending leaf count and isfinite verdict.  A verdict
@@ -787,25 +794,25 @@ class GBDT:
         K = self.num_tree_per_iteration
         self._keep_pre_iter_scores()
         init_scores = [0.0] * K
-        if gradients is None or hessians is None:
-            for k in range(K):
-                init_scores[k] = self._boost_from_average(k)
-            with FunctionTimer("GBDT::Boosting"):
+        with _spans.span("objective", timer="GBDT::Boosting"):
+            if gradients is None or hessians is None:
+                for k in range(K):
+                    init_scores[k] = self._boost_from_average(k)
                 grad, hess = self._get_gradients()
-        else:
-            grad, hess = (np.asarray(a, dtype=np.float32).reshape(
-                K, self.num_data) for a in (gradients, hessians))
-        grad, hess, skip = self._guard_gradients(grad, hess)
+            else:
+                grad, hess = (np.asarray(a, dtype=np.float32).reshape(
+                    K, self.num_data) for a in (gradients, hessians))
+            grad, hess, skip = self._guard_gradients(grad, hess)
+            if not skip and isinstance(grad, np.ndarray):
+                grad, hess = (to_device_async(a, self.device)
+                              for a in (grad, hess))
+            elif not skip and self._nan_policy == "raise":
+                # the verdict rides the device queue to the next poll
+                self._fin_handles.append(
+                    (self.iter_,
+                     torch.isfinite(grad).all() & torch.isfinite(hess).all()))
         if skip:
             return self._skip_iteration(init_scores)
-        if isinstance(grad, np.ndarray):
-            grad, hess = (to_device_async(a, self.device)
-                          for a in (grad, hess))
-        elif self._nan_policy == "raise":
-            # the verdict rides the device queue to the next poll
-            self._fin_handles.append(
-                (self.iter_,
-                 torch.isfinite(grad).all() & torch.isfinite(hess).all()))
         return self._grow_iteration(grad, hess, init_scores, lazy=True)
 
     def _train_one_iter_sync(self, gradients=None, hessians=None) -> bool:
@@ -815,16 +822,17 @@ class GBDT:
         K = self.num_tree_per_iteration
         self._keep_pre_iter_scores()
         init_scores = [0.0] * K
-        if gradients is None or hessians is None:
-            for k in range(K):
-                init_scores[k] = self._boost_from_average(k)
-            with FunctionTimer("GBDT::Boosting"):
+        with _spans.span("objective", timer="GBDT::Boosting"):
+            if gradients is None or hessians is None:
+                for k in range(K):
+                    init_scores[k] = self._boost_from_average(k)
                 grad, hess = self._get_gradients()
-        else:
-            grad, hess = (torch.as_tensor(
-                np.asarray(a, dtype=np.float32).reshape(K, self.num_data),
-                device=self.device) for a in (gradients, hessians))
-        grad, hess, skip = self._guard_gradients(grad, hess, force_check=True)
+            else:
+                grad, hess = (torch.as_tensor(
+                    np.asarray(a, dtype=np.float32).reshape(K, self.num_data),
+                    device=self.device) for a in (gradients, hessians))
+            grad, hess, skip = self._guard_gradients(grad, hess,
+                                                     force_check=True)
         if skip:
             return self._skip_iteration(init_scores)
         return self._grow_iteration(grad, hess, init_scores)
@@ -847,10 +855,9 @@ class GBDT:
             if self.bag_mask is not None:
                 gk = gk * self.bag_mask
                 hk = hk * self.bag_mask
-            with FunctionTimer("TreeLearner::Train"):
-                return self.learner.train(gk, hk, self._bag_data_cnt,
-                                          feature_mask, iteration=self.iter_,
-                                          lazy=lazy)
+            return self.learner.train(gk, hk, self._bag_data_cnt,
+                                      feature_mask, iteration=self.iter_,
+                                      lazy=lazy)
         if lazy:
             return self._commit_lazy(tree_of, init_scores, poll)
         return self._commit_iteration(tree_of, init_scores)
@@ -875,7 +882,7 @@ class GBDT:
                 r = self.last_arrays = _PendingTree(tree_of(k), k,
                                                     init_scores[k], rate)
                 row_leaf = r.row_leaf
-                with FunctionTimer("GBDT::UpdateScore"):
+                with _spans.span("score_update", timer="GBDT::UpdateScore"):
                     if row_leaf is not None and row_leaf.numel():
                         self.train_score[k] += r.leaf_output()[row_leaf]
                     idx = len(self._models)
@@ -923,7 +930,8 @@ class GBDT:
                 arrays = tree_of(k)
                 if arrays.num_leaves > 1:
                     should_continue = True
-                    with FunctionTimer("GBDT::UpdateScore"):
+                    with _spans.span("score_update",
+                                     timer="GBDT::UpdateScore"):
                         new_tree = self._grow_scores(arrays, k,
                                                      init_scores[k])
                 else:
@@ -1350,9 +1358,9 @@ class GBDT:
         def step(it: int) -> None:
             self._pre_iter_scores = None
             init_scores = [self._boost_from_average(k) for k in range(K)]
-            with FunctionTimer("GBDT::Boosting"):
+            with _spans.span("objective", timer="GBDT::Boosting"):
                 grad, hess = self._get_gradients()
-            self._note_grads(grad, hess)
+                self._note_grads(grad, hess)
             self._grow_iteration(grad, hess, init_scores, lazy=True,
                                  poll=False)
         _steps_grouped(step, its, self._trees_per_chunk())
@@ -1384,9 +1392,9 @@ class GBDT:
                 score = store_f32(rows, lay.soff, n)
                 auxv = store_f32(rows, lay.aoff, n)
                 ids = store_order(rows, lay, n) if bag is not None else None
-            with FunctionTimer("GBDT::Boosting"):
+            with _spans.span("objective", timer="GBDT::Boosting"):
                 g, h = obj.pointwise_gradients(score, auxv)
-            self._note_grads(g, h)
+                self._note_grads(g, h)
             count = n
             with FunctionTimer("GBDT::Bagging"):
                 if bag is not None:
@@ -1397,10 +1405,9 @@ class GBDT:
                   else dict(rows_carry=rows))
 
             def tree_of(k: int) -> DeviceTree:
-                with FunctionTimer("TreeLearner::Train"):
-                    tree, store["rows"] = learner.train(
-                        g, h, count, iteration=it, carried=True,
-                        score_rate=rate, lazy=True, **kw)
+                tree, store["rows"] = learner.train(
+                    g, h, count, iteration=it, carried=True,
+                    score_rate=rate, lazy=True, **kw)
                 return tree
             self._commit_lazy(tree_of, init_scores, poll=False)
 
@@ -1545,7 +1552,8 @@ class GBDT:
         """:meth:`train_one_iter` inside a watchdog section (a no-op when
         no watchdog is armed); every entry point's iterations come here."""
         with watch("train_one_iter", builds=self.device.type == "cuda",
-                   iteration=int(self.iter_)):
+                   iteration=int(self.iter_)), \
+                _spans.span("iteration", iteration=int(self.iter_)):
             return self.train_one_iter(gradients, hessians)
 
     def _preempt_exit(self, snapshot_out: Optional[str]) -> None:

@@ -105,7 +105,6 @@ from __future__ import annotations
 
 import json
 import os
-import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -127,8 +126,8 @@ from .split import (K_MIN_SCORE, BestSplit, FeatureBest, FeatureInfo,
                     sync_best)
 from .tree import Tree
 from ..obs import active as _telemetry_active
-from ..obs import annotate as _annotate
 from ..obs import launches as _launches
+from ..obs import spans as _spans
 from ..plan import state as _plan_state
 from ..plan.device_specs import current_device_kind
 from ..utils.log import Log
@@ -551,7 +550,9 @@ class _LeafScan:
         if self.lazy:
             lo = self.layout.bitoff
             rows[:n, lo:lo + self.layout.bitbytes] = self.cegb.paid
-        hist0 = self.reduce(hist_fn(rows, self.B, 0, n, **self.hist_kw))
+        with _spans.step("split_pass"):
+            hist0 = hist_fn(rows, self.B, 0, n, **self.hist_kw)
+        hist0 = self.reduce(hist0)
         if self.qscale is None:
             sums = self.psum_rows(torch.stack([grad.sum(), hess.sum()]).to(
                 torch.float32))
@@ -616,7 +617,12 @@ class _LeafScan:
         (BestSplit, the per-feature candidates with the CEGB penalties, or
         None without CEGB); ``used`` [F] bool holds the features split on
         so far, ``ucnt`` [..., F] the leaves' rows that paid each feature's
-        lazy cost."""
+        lazy cost.  The growth's one door into the scan: a ``split_scan``
+        span."""
+        with _spans.step("split_scan"):
+            return self._best(hist, sg, sh, count, cmin, cmax, used, ucnt)
+
+    def _best(self, hist, sg, sh, count, cmin, cmax, used, ucnt):
         sc, dev = self.scan, self.dev
         sg = torch.as_tensor(sg, dtype=torch.float32, device=dev)
         sh = torch.as_tensor(sh, dtype=torch.float32, device=dev)
@@ -1056,14 +1062,15 @@ class _Growth:
                 # every row of the split leaf pays the feature's lazy cost
                 col = self.layout.bitoff + f // 8
                 self.rows[wb[0]:wb[0] + wc[0], col] |= 1 << (f % 8)
-        if depth is not None:
-            hist_small, nl_t = self.level_fn(
-                self.stores[depth % 2], self.stores[1 - depth % 2], scal,
-                num_bins=self.B, **self.hkw)
-        else:
-            self.rows, hist_small, nl_t = self.part_fn(
-                self.rows, scal[0].tolist(), num_bins=self.B, **self.hkw)
-            hist_small = hist_small[None]
+        with _spans.step("split_pass"):
+            if depth is not None:
+                hist_small, nl_t = self.level_fn(
+                    self.stores[depth % 2], self.stores[1 - depth % 2], scal,
+                    num_bins=self.B, **self.hkw)
+            else:
+                self.rows, hist_small, nl_t = self.part_fn(
+                    self.rows, scal[0].tolist(), num_bins=self.B, **self.hkw)
+                hist_small = hist_small[None]
         # the smaller child is chosen from the replicated global counts, so
         # every rank streams the same child into the collective
         hist_small = self.sx.reduce(hist_small)
@@ -1108,8 +1115,10 @@ class _Growth:
             parent = self.hist[ps:ps + 1]
         else:
             self.misses += 1
-            parent = self.sx.reduce(self.hist_fn(self.rows, self.B, wb, wc,
-                                                 **self.hist_kw))[None]
+            with _spans.step("split_pass"):
+                parent = self.hist_fn(self.rows, self.B, wb, wc,
+                                      **self.hist_kw)
+            parent = self.sx.reduce(parent)[None]
         s_l = ps if ps >= 0 else int(np.argmin(self.stamps))
         stamps = self.stamps.copy()
         stamps[s_l] = 2 ** 30
@@ -1460,8 +1469,9 @@ class _DeviceGrowth:
         if self.fwin is not None:
             parts.append(self.fwin)
         scal = torch.cat(parts).to(torch.int32)
-        hist_small, nl = self.window_fn(self.rows, scal, self.work,
-                                        num_bins=self.B, **sx.hkw)
+        with _spans.step("split_pass"):
+            hist_small, nl = self.window_fn(self.rows, scal, self.work,
+                                            num_bins=self.B, **sx.hkw)
         # the smaller child is chosen from the replicated global counts, so
         # every rank streams the same child into the collective
         hist_small = sx.reduce(hist_small)
@@ -1548,8 +1558,10 @@ class _DeviceGrowth:
         ps = self.slot_of[li]
         hit = (ps >= 0)[0]
         win = torch.stack([w[0], w[1] * ~hit]).to(torch.int32)
-        rebuilt = self.sx.reduce(self.rebuild_fn(
-            self.rows, win, self.work, num_bins=self.B, **self.sx.hist_kw))
+        with _spans.step("split_pass"):
+            rebuilt = self.rebuild_fn(self.rows, win, self.work,
+                                      num_bins=self.B, **self.sx.hist_kw)
+        rebuilt = self.sx.reduce(rebuilt)
         parent = torch.where(hit, self.hist[ps.clamp(min=0)][0], rebuilt)
         self.misses.add_((~hit & ok).long())
         sl = torch.where(hit, ps, torch.argmin(self.stamps).view(1))
@@ -1653,9 +1665,10 @@ class _DeviceGrowth:
         scal = torch.cat([w, head[:, 2:3], b[:, 2:4].long(), head[:, 5:9],
                           left_smaller.long()[:, None], head[:, 10:12], words,
                           self.pad[None].expand(fcap, -1)], 1).to(torch.int32)
-        hist_small, nl = self.level_window_fn(
-            self.stores[d % 2], self.stores[1 - d % 2], scal,
-            self.level_work, num_bins=self.B, **sx.hkw)
+        with _spans.step("split_pass"):
+            hist_small, nl = self.level_window_fn(
+                self.stores[d % 2], self.stores[1 - d % 2], scal,
+                self.level_work, num_bins=self.B, **sx.hkw)
         hist_small = sx.reduce(hist_small)
         parent = self.hist[lsafe]
         hist_larger = parent - hist_small
@@ -2039,7 +2052,8 @@ def build_tree_partitioned(rows: torch.Tensor, grad: torch.Tensor,
                           level_work=level_work,
                           level_window_fn=level_window_fn)
         g.grow()
-        out = g.finish(carried, score_rate)
+        with _spans.span("tree_finish"):
+            out = g.finish(carried, score_rate)
         if lazy:
             return out
         if carried:
@@ -2638,9 +2652,10 @@ class SerialTreeLearner:
             n = grad.shape[0]
             ids = (store_order(rows_carry, layout, n)
                    if rows_carry is not None else self._row_ids(n))
-            grad, hess, qscale = quantize_gradients(
-                grad, hess, ids, int(iteration),
-                self.quant_seed, self.comm.ops if striped else None)
+            with _spans.span("objective"):
+                grad, hess, qscale = quantize_gradients(
+                    grad, hess, ids, int(iteration),
+                    self.quant_seed, self.comm.ops if striped else None)
         if rows_carry is not None:
             rows = rows_carry
             refresh_gradients(rows, layout, grad, hess)
@@ -2660,22 +2675,27 @@ class SerialTreeLearner:
             cegb = CegbState(*self.cegb, self.cegb_used if on_device
                              else self.cegb_used.cpu().numpy(),
                              self._local_rows(self.cegb_paid))
-        tele = _telemetry_active()
-        t0, pc0 = ((time.time(), time.perf_counter()) if tele is not None
-                   else (0.0, 0.0))
-        with _annotate("tree_build"), _plan_state.dispatching(self.plan):
+        with _spans.span("tree_build", timer="TreeLearner::Train",
+                         mode=grow_mode) as sp, \
+                _plan_state.dispatching(self.plan):
             arrays = self._build(rows, grad, hess, num_data_in_bag,
                                  feature_mask, grow_mode, qscale, hist_fn,
                                  part_fn, level_fn, cegb, layout, carried,
                                  score_rate, window_fn, host_loop,
                                  rebuild_fn, level_window_fn)
-        if carried:
-            arrays, rows = arrays
-        # split passes this tree dispatched (obs/launches.py): L - 1 in the
-        # device build, level_count in its level growth, one a split or a
-        # level in the host loop (a host-known count either way)
-        passes = arrays.split_passes
+            if carried:
+                arrays, rows = arrays
+            # split passes this tree dispatched (obs/launches.py): L - 1 in
+            # the device build, level_count in its level growth, one a split
+            # or a level in the host loop (a host-known count either way)
+            passes = arrays.split_passes
+            if isinstance(sp, _spans.Span):
+                sp.fields["launches"] = int(passes)
+                if grow_mode == "level":
+                    sp.fields.update(levels=self.level_count(),
+                                     classes=self.level_classes())
         _launches.record(grow_mode, passes)
+        tele = _telemetry_active()
         if tele is not None:
             # which plan the tree dispatched under (gbdt.py:1130-1139 of
             # the JAX package), once a run per (site, key, provenance)
@@ -2683,14 +2703,6 @@ class SerialTreeLearner:
                               key="n%d_b%d" % (int(self.num_data),
                                                int(self.num_bins)),
                               mode=grow_mode)
-            from ..obs import spans as _spans
-            fields = dict(mode=grow_mode, launches=int(passes))
-            if grow_mode == "level":
-                fields.update(levels=self.level_count(),
-                              classes=self.level_classes())
-            _spans.record_span(tele, "tree_build", t0=t0,
-                               dur_s=time.perf_counter() - pc0,
-                               trace_id=tele.trace_id, **fields)
         if isinstance(arrays, DeviceTree):
             arrays.row_leaf = self._gather_rows(arrays.row_leaf)
             arrays.paid_bits = self._gather_rows(arrays.paid_bits)

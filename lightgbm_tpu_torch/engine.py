@@ -22,10 +22,11 @@ metrics as mean and standard deviation.
 
 Telemetry (``obs``, engine.py:175-325 of the JAX package): ``telemetry_out``
 and/or ``metrics_port`` in the params make ``train`` record its own run
-(an ``iteration`` event every ``telemetry_freq`` iterations, the run
-gauges) and finalize it into ``<telemetry_out>.summary.json``, closing it;
-a run the caller configured (``obs.configure``) is recorded into and left
-open.  :func:`serve` (engine.py:355-400) starts the serving tier over one
+(an ``iteration`` span each iteration, its rate in ``chunk_rows_per_s``
+every ``telemetry_freq`` iterations, the run gauges) and finalize it into
+``<telemetry_out>.summary.json``, closing it; a run the caller
+configured (``obs.configure``) is recorded into and left open.
+:func:`serve` (engine.py:355-400) starts the serving tier over one
 or many models on ``device``; a run it opens for ``telemetry_out`` is
 finalized by ``Server.close``.  :func:`serve_and_train` (engine.py:405-463)
 starts the train-while-serve loop (``online``).  Every entry point engages
@@ -215,13 +216,10 @@ def train(params: Dict[str, Any], train_set: Dataset,
             it_t0 = time.perf_counter() if tele is not None else 0.0
             finished = booster.update(fobj=fobj)
             if tele is not None and (i + 1 - init_iteration) % tele.freq == 0:
+                # the iteration's own timing is its ``iteration`` span
                 dt_it = time.perf_counter() - it_t0
-                n_rows = int(gbdt.num_data)
-                rate = n_rows / dt_it if dt_it > 0 else 0.0
-                tele.histogram("iteration_dispatch_s").observe(dt_it)
-                tele.histogram("chunk_rows_per_s").observe(rate)
-                tele.event("iteration", iteration=int(i), dt_s=dt_it,
-                           rows_per_s=rate)
+                tele.histogram("chunk_rows_per_s").observe(
+                    int(gbdt.num_data) / dt_it if dt_it > 0 else 0.0)
             results = []
             if valid_sets is not None or gbdt.train_metrics:
                 if contains_train:

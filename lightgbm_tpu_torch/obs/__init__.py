@@ -95,6 +95,7 @@ def configure(out: Optional[str] = None, freq: int = 1,
                      summary_base=out)
     with _lock:
         prev, _active = _active, tele
+        spans.set_telemetry(tele)
     if prev is not None:
         # close (and release any exporter port) BEFORE binding the new
         # listener: back-to-back runs may reuse one fixed metrics_port
@@ -146,6 +147,7 @@ def disable() -> None:
     global _active
     with _lock:
         prev, _active = _active, None
+        spans.set_telemetry(None)
     if prev is not None:
         prev.close()
 

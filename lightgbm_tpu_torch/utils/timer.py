@@ -48,14 +48,23 @@ class Timer:
         stack = self._starts().get(name)
         if stack:
             epoch, t0 = stack.pop()
-            dt = time.perf_counter() - t0
-            with self._lock:
-                # epoch compared under the SAME lock reset() bumps it in:
-                # a scope straddling a concurrent reset is discarded, not
-                # added to the freshly-zeroed totals
-                if epoch != self._epoch:
-                    return
-                self._totals[name] = self._totals.get(name, 0.0) + dt
+            self.add(name, time.perf_counter() - t0, epoch)
+
+    @property
+    def epoch(self) -> int:
+        """The reset count a scope opens in (see :meth:`add`)."""
+        return self._epoch
+
+    def add(self, name: str, seconds: float, epoch: int) -> None:
+        """Add a scope timed elsewhere (a span's own stamps) that opened
+        at ``epoch``."""
+        with self._lock:
+            # epoch compared under the SAME lock reset() bumps it in: a
+            # scope straddling a concurrent reset is discarded, not added
+            # to the freshly-zeroed totals
+            if epoch != self._epoch:
+                return
+            self._totals[name] = self._totals.get(name, 0.0) + seconds
 
     def total(self, name: str) -> float:
         with self._lock:

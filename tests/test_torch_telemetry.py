@@ -139,9 +139,15 @@ def test_engine_train_iteration_cadence(tmp_path, freq, expected):
              "telemetry_freq": freq}, P.Dataset(X, y), num_boost_round=10,
             device=CPU)
     events = read_events(out)
-    assert sum(e["kind"] == "iteration" for e in events) == expected
+    # an ``iteration`` span every iteration; its rate every freq-th
+    its = [e for e in events
+           if e["kind"] == "span" and e["name"] == "iteration"]
+    assert [e["iteration"] for e in its] == list(range(10))
+    assert not any(e["kind"] == "iteration" for e in events)
     with open(out + ".summary.json") as fh:
         summary = json.load(fh)
+    assert summary["rows_per_s"]["count"] == expected
+    assert "iteration_dispatch_s" not in summary["histograms"]
     assert summary["iterations"] == 10
     assert summary["value"] is not None and summary["value"] > 0
     assert obs.active() is None
@@ -163,11 +169,15 @@ def test_engine_train_events_equal_jax(tmp_path, one_thread):
             J.Dataset(X, label=y, params={"max_bin": 63}), 6)
     ev, jev = read_events(out), read_events(jout)
     kinds = {e["kind"] for e in ev}
-    # the plan provenance and MFU events included
-    assert kinds == {e["kind"] for e in jev}
-    for k in ("iteration", "run_start", "run_end"):
+    # the plan provenance and MFU events included; the port's iterations
+    # are ``iteration`` spans, one an iteration, the JAX package's
+    # ``iteration`` events, one every telemetry_freq iterations
+    assert kinds == {e["kind"] for e in jev} - {"iteration"}
+    for k in ("run_start", "run_end"):
         assert (sum(e["kind"] == k for e in ev)
                 == sum(e["kind"] == k for e in jev)), k
+    its = sum(e["kind"] == "span" and e["name"] == "iteration" for e in ev)
+    assert its == 2 * sum(e["kind"] == "iteration" for e in jev) == 6
     with open(out + ".summary.json") as a, open(jout + ".summary.json") as b:
         s, js = json.load(a), json.load(b)
     assert s["counters"] == js["counters"]
@@ -328,9 +338,11 @@ def test_resumed_run_iterations_not_inflated(tmp_path):
 # ---- zero telemetry calls when off ----
 
 def test_telemetry_off_hot_loop_makes_zero_calls(monkeypatch, tmp_path):
-    """With telemetry off, training (exact and quantized, GOSS and DART),
-    predicts (raw, binned, contributions), a serving round trip, a span and
-    a retried I/O fault make no telemetry call and start no listener."""
+    """With telemetry off, training (exact and quantized, GOSS and DART,
+    level-wise, and ``engine.train``'s asynchronous loop through a stall
+    poll), predicts (raw, binned, contributions), a serving round trip, a
+    span and a retried I/O fault make no telemetry call, start no listener
+    and, with no span collector either, make no span object."""
     calls = []
 
     def spy(name):
@@ -373,6 +385,12 @@ def test_telemetry_off_hot_loop_makes_zero_calls(monkeypatch, tmp_path):
         b, _, _ = toy_booster(n=512, num_iterations=3, boosting=boosting,
                               learning_rate=0.5)
         b.train()
+    lb, _, _ = toy_booster(n=512, num_iterations=2, max_depth=3,
+                           tree_grow_mode="level", num_leaves=8)
+    lb.train()
+    Xr, yr = regression_data()
+    P.train({"objective": "regression", "num_leaves": 7, "verbosity": -1},
+            P.Dataset(Xr, yr), 17, device=CPU).model_to_string()
     booster.predict(X[:600])
     booster.predict_binned(booster.train_data)
     booster.predict_contrib(X[:64])
@@ -382,7 +400,8 @@ def test_telemetry_off_hot_loop_makes_zero_calls(monkeypatch, tmp_path):
         srv.predict("spy", X[:8])
     assert not any(t.name == "lgbm-tpu-metrics"
                    for t in threading.enumerate())
-    with obs_spans.span("noop"):
+    with obs_spans.span("noop"), obs_spans.step("noop_step"), \
+            obs_spans.span("noop_timed", timer="noop_scope"):
         pass
     import errno
 
